@@ -1,0 +1,248 @@
+"""Batch-native (structure-of-arrays) i2LQR learning simulator in torch.
+
+Port of the base path of ilqr_iterative_tasks_tpu/control/batched_soa.py
+(``simulate_learning_runs_soa`` :237, ``run_lap`` :717, ``lap_loop`` :924).
+The scenario batch B is the trailing axis of every tensor. All B lanes run in
+lockstep; a lane that finishes its lap freezes until every lane finishes or
+the step budget runs out. Each control step's ``calc_input`` is one call of
+a step solver: the K1 kernel (ops/i2lqr_step.py::build_fused_i2lqr_step) or,
+by default, its plain version.
+
+Plant noise is clipped Gaussian (v: N(0, 0.01^2), theta: N(0, 0.005^2),
+both clipped to +-0.05, half of each added), gated per lane by
+``scenarios.noise_on``. The standard-normal draws come from an explicit
+``torch.Generator`` or from an injected ``noise`` tensor (steps, 2, B) that
+is consumed one row per executed simulator step, so a test can feed the
+JAX simulator's own draws.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+
+from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
+from ilqr_iterative_tasks_torch.ops.fused_ilqr import obstacle_to_lanes
+from ilqr_iterative_tasks_torch.ops.i2lqr_step import i2lqr_step_reference
+from ilqr_iterative_tasks_torch.ops.ilqr_soa import step_soa
+from ilqr_iterative_tasks_torch.utils.params import IlqrParams, SystemLimits
+
+GOAL_TOL = 0.8
+
+
+@dataclass(frozen=True)
+class SoaScenarios:
+    """Scenario batch, batch-trailing: x0/goal (4, B); obstacle leaves and
+    noise_on (B,)."""
+
+    x0: torch.Tensor
+    goal: torch.Tensor
+    obstacle: Obstacle
+    noise_on: torch.Tensor
+
+    @classmethod
+    def broadcast(cls, x0, goal, obstacle: Obstacle, batch: int,
+                  noise_on=False, *, dtype=torch.float32, device="cpu"):
+        f = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
+        return cls(
+            x0=f(x0)[:, None].expand(4, batch).contiguous(),
+            goal=f(goal)[:, None].expand(4, batch).contiguous(),
+            obstacle=obstacle.map(lambda a: f(a).expand(batch).contiguous()),
+            noise_on=torch.full((batch,), 1.0 if noise_on else 0.0,
+                                dtype=dtype, device=device))
+
+
+class SoaRunResult(NamedTuple):
+    lap_steps: torch.Tensor  # (num_laps, B) i32
+    lap_done: torch.Tensor  # (num_laps, B) bool
+    final_x: torch.Tensor  # (4, B)
+    safe_set: tuple  # (states, qfun, valid, lap_len), batch-trailing
+    lap_count: int  # laps stored, seed included
+
+
+def _step_solver_inputs(lap_count, nsi, max_laps, inactive, b, device):
+    """Lap ids / validity flags of the last nsi stored laps and the skip
+    mask, as the step kernel takes them."""
+    lap_id = torch.arange(nsi, dtype=torch.int32, device=device) + (
+        lap_count - nsi)
+    lap_ok = (lap_id >= 0).to(torch.int32)
+    lap_ids = torch.clamp(lap_id, 0, max_laps - 1).to(torch.int32)
+    skip = (inactive.to(torch.float32) if inactive is not None
+            else torch.zeros((b,), dtype=torch.float32, device=device))
+    return lap_ids, lap_ok, skip
+
+
+def add_lap(ss, slot, xs_rec, n_valid):
+    """Store a lap in slot ``slot`` of the safe set, in place.
+    xs_rec: (T, 4, B); n_valid: (B,) recorded rows."""
+    states, qfun, valid, lap_len = ss
+    t_idx = torch.arange(states.shape[1], device=states.device)[:, None]
+    states[slot] = xs_rec
+    qfun[slot] = torch.clamp_min(
+        n_valid[None].to(qfun.dtype) - 1.0 - t_idx.to(qfun.dtype), 0.0)
+    valid[slot] = t_idx < n_valid[None]
+    lap_len[slot] = n_valid.to(torch.int32)
+
+
+_UNSUPPORTED = ("retile_frac", "tail_shrink", "stall_reseed", "resume_from",
+                "dedup_passes", "pallas_solver", "pallas_step_solver",
+                "precision_islands")
+
+
+def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
+                               scenarios: SoaScenarios, seed_xs, seed_us,
+                               seed_len: int, dt, *, num_laps: int,
+                               max_steps: int = 128, max_laps: int = 16,
+                               goal_append: bool = True,
+                               sim_step_budget: int = 121,
+                               solver_max_iter: int | None = None,
+                               step_solver=None,
+                               noise: torch.Tensor | None = None,
+                               generator: torch.Generator | None = None,
+                               **unsupported) -> SoaRunResult:
+    """Seed lap + ``num_laps`` learning laps for B scenarios.
+
+    seed_xs: (max_steps, 4) seed lap, padded; seed_us is unused (kept for
+    the JAX signature); seed_len: count of seed states. ``solver_max_iter``
+    caps the LM iterations (None = the reference's 150). ``step_solver``:
+    a K1 built by ``build_fused_i2lqr_step`` for the same sizes, or None
+    for the plain version. ``noise`` (steps, 2, B) standard-normal draws or
+    ``generator``: the plant-noise source (needed where noise_on is set).
+    """
+    if unsupported:
+        bad = sorted(unsupported)
+        raise TypeError(f"{bad} not supported by the torch port "
+                        f"(left out: {', '.join(_UNSUPPORTED)})")
+    n = params.num_horizon
+    k = params.num_ss_points
+    nsi = params.num_ss_iter
+    cap = 150 if solver_max_iter is None else solver_max_iter
+    if step_solver is not None:
+        s = step_solver
+        if ((s.k, s.nsi, s.num_horizon, s.max_steps, s.max_laps, s.max_iter)
+                != (k, nsi, n, max_steps, max_laps, cap)):
+            raise ValueError(
+                "step_solver was built for (k, nsi, n, max_steps, max_laps, "
+                f"max_iter)=({s.k}, {s.nsi}, {s.num_horizon}, {s.max_steps}, "
+                f"{s.max_laps}, {s.max_iter}); the simulator was called with "
+                f"({k}, {nsi}, {n}, {max_steps}, {max_laps}, {cap})")
+        solver = s
+    else:
+        def solver(*args):
+            return i2lqr_step_reference(params, limits, dt, *args,
+                                        max_iter=cap)
+    # the record write reaches row sim_step_budget, goal_append one more
+    if max_steps < sim_step_budget + (2 if goal_append else 1):
+        raise ValueError(
+            f"max_steps={max_steps} too small for sim_step_budget="
+            f"{sim_step_budget} (+{2 if goal_append else 1} recorded rows)")
+    if 1 + num_laps > max_laps:
+        raise ValueError(f"max_laps={max_laps} cannot hold the seed lap and "
+                         f"{num_laps} learned laps")
+    x0 = scenarios.x0
+    dtype, dev = x0.dtype, x0.device
+    b = x0.shape[-1]
+    if noise is None and generator is None and bool(
+            (scenarios.noise_on != 0).any()):
+        raise ValueError("noise_on is set: pass a generator or noise draws")
+    lanes = torch.arange(b, device=dev)
+
+    states = torch.zeros((max_laps, max_steps, 4, b), dtype=dtype, device=dev)
+    qfun = torch.zeros((max_laps, max_steps, b), dtype=dtype, device=dev)
+    valid = torch.zeros((max_laps, max_steps, b), dtype=torch.bool,
+                        device=dev)
+    lap_len = torch.zeros((max_laps, b), dtype=torch.int32, device=dev)
+    ss = (states, qfun, valid, lap_len)
+    add_lap(ss, 0, torch.as_tensor(seed_xs, dtype=dtype, device=dev)[:, :, None]
+            .expand(max_steps, 4, b),
+            torch.full((b,), int(seed_len), dtype=torch.int32, device=dev))
+    goal = scenarios.goal
+    noise_on = scenarios.noise_on
+    zero_u = torch.zeros((1, 2, b), dtype=dtype, device=dev)
+    lap_steps = torch.zeros((num_laps, b), dtype=torch.int32, device=dev)
+    lap_done = torch.zeros((num_laps, b), dtype=torch.bool, device=dev)
+    sim_step = 0  # executed steps over the run: the noise row
+
+    for lap_i in range(num_laps):
+        lap_count = 1 + lap_i  # laps stored so far (seed + learned)
+        x = x0
+        t = torch.zeros((b,), dtype=torch.int32, device=dev)
+        done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        obstacle = scenarios.obstacle
+        horizon_left = torch.full((b,), n, dtype=torch.int32, device=dev)
+        replay_pos = torch.zeros((b,), dtype=torch.int32, device=dev)
+        u_old = torch.zeros((n, 2, b), dtype=dtype, device=dev)
+        xs_rec = torch.zeros((max_steps, 4, b), dtype=dtype, device=dev)
+        xs_rec[0] = x0
+        while bool(((t < sim_step_budget) & ~done).any()):
+            in_replay = horizon_left < n
+            lap_ids, lap_ok, skip = _step_solver_inputs(
+                lap_count, nsi, max_laps, done | in_replay, b, dev)
+            if bool((skip < 0.5).any()):
+                us_sel, shrink_f, _idx, _row = solver(
+                    x, x, states, qfun, lap_len, lap_ids, lap_ok,
+                    obstacle_to_lanes(obstacle, b), skip)
+            else:  # every lane done or replaying: outputs would be discarded
+                us_sel = torch.zeros((n, 2, b), dtype=dtype, device=dev)
+                shrink_f = torch.zeros((b,), dtype=dtype, device=dev)
+            u_solve = us_sel[0]
+            u_old_new = torch.cat([us_sel[1:], zero_u])
+            shrink = shrink_f > 0.5
+            # replay: the stored input at replay_pos, clipped to the plan
+            p = torch.clamp(replay_pos, 0, n - 1).to(torch.int64)
+            u_replay = u_old.gather(0, p[None, None].expand(1, 2, b))[0]
+            u = torch.where(in_replay[None], u_replay, u_solve)
+            u_old_next = torch.where(in_replay[None, None], u_old, u_old_new)
+            horizon_next = torch.where(
+                in_replay | shrink, horizon_left - 1, horizon_left)
+            replay_next = torch.where(in_replay, replay_pos + 1, replay_pos)
+            # plant step + noise
+            x_next = torch.stack(step_soa(tuple(x[i] for i in range(4)),
+                                          (u[0], u[1]), dt))
+            if noise is not None:
+                if sim_step >= noise.shape[0]:
+                    raise ValueError(f"noise has {noise.shape[0]} rows; the "
+                                     f"run needs more")
+                z = noise[sim_step].to(dtype=dtype, device=dev)
+            elif generator is not None:
+                z = torch.randn((2, b), generator=generator, dtype=dtype,
+                                device=dev)
+            else:
+                z = torch.zeros((2, b), dtype=dtype, device=dev)
+            sim_step += 1
+            noise_v = torch.clamp(z[0] * 0.01, -0.05, 0.05)
+            noise_th = torch.clamp(z[1] * 0.005, -0.05, 0.05)
+            x_next[2] = x_next[2] + 0.5 * noise_v * noise_on
+            x_next[3] = x_next[3] + 0.5 * noise_th * noise_on
+            obstacle_next = obstacle.advance(dt)
+            # freeze finished lanes
+            x_next = torch.where(done[None], x, x_next)
+            obstacle = Obstacle(**{
+                f: torch.where(done, getattr(obstacle, f),
+                               getattr(obstacle_next, f))
+                for f in obstacle.__dataclass_fields__})
+            t = torch.where(done, t, t + 1)
+            horizon_left = torch.where(done, horizon_left, horizon_next)
+            replay_pos = torch.where(done, replay_pos, replay_next)
+            u_old = torch.where(done[None, None], u_old, u_old_next)
+            # record row t of each lane (a done lane rewrites its frozen row)
+            xs_rec[t.to(torch.int64), :, lanes] = x_next.T
+            dg = [x_next[i] - goal[i] for i in range(4)]
+            reach = torch.sqrt(dg[0] * dg[0] + dg[1] * dg[1] + dg[2] * dg[2]
+                               + dg[3] * dg[3]) <= GOAL_TOL
+            done = done | reach
+            x = x_next
+        if goal_append:  # goal as an extra recorded row
+            xs_rec[(t + 1).to(torch.int64), :, lanes] = goal.T
+            n_valid = t + 2
+        else:  # goal snapped onto the final row
+            xs_rec[t.to(torch.int64), :, lanes] = goal.T
+            n_valid = t + 1
+        add_lap(ss, lap_count, xs_rec, n_valid)
+        lap_steps[lap_i] = t
+        lap_done[lap_i] = done
+    return SoaRunResult(lap_steps=lap_steps, lap_done=lap_done,
+                        final_x=goal, safe_set=ss,
+                        lap_count=1 + num_laps)

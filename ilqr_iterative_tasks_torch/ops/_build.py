@@ -1,0 +1,118 @@
+"""Build the CUDA kernels of csrc/ into one shared library, on first use.
+
+The sources are compiled with nvcc into a shared library with a plain C
+interface and loaded with ctypes. The library's file name carries a hash of
+the sources and flags, so an edited source builds anew and an unchanged one
+is reused. Output goes to ``build/torch_kernels/`` beside the package (git
+ignores ``build/``). Nothing is built at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
+SOURCES = ("lm_core.cuh", "fused_ilqr.cu", "i2lqr_step.cu")
+# Precise sin/cos/exp, IEEE division and sqrt (no --use_fast_math), and no
+# FMA contraction (-fmad=false): the kernels then round operation by
+# operation as the plain torch version does, which the LM accept/reject
+# tests need to take the same decisions. -Xptxas -v reports registers and
+# spills into the build log.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = {
+    # dtype, n, consts, max_iter, B, x0, x_term, u_init, obs, skip,
+    # us, x_last, cost, dist, stream
+    "fused_ilqr_launch": [_I, _I, _P, _I, _I] + [_P] * 10,
+    # dtype, n, k, nsi, consts, max_iter, B, T, max_laps, x, g0, states,
+    # qfun, lap_len, lap_ids, lap_ok, obs, skip, us, shrink, idx, row,
+    # stream
+    "i2lqr_step_launch": [_I] * 4 + [_P] + [_I] * 4 + [_P] * 14,
+}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR,
+                        f"libilqr_torch_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> tuple[str, float]:
+    """Compile the library unless it exists. Returns (path, seconds spent)."""
+    path = library_path()
+    if os.path.exists(path):
+        return path, 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               *(os.path.join(CSRC_DIR, s) for s in SOURCES if s.endswith(".cu"))]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        with open(path[:-3] + ".log", "w") as f:
+            f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, path)  # atomic: concurrent builders never see a partial .so
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path, time.perf_counter() - t0
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The built library with argument types declared (built on first call)."""
+    lib = ctypes.CDLL(build()[0])
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def consts_array(C) -> ctypes.Array:
+    """Pack utils.params.solver_consts into the 50 doubles ``make_consts``
+    of csrc/lm_core.cuh reads: qt (4x4), q (4x4), r (2x2) row-major, then
+    q1c, q2c, q1o, q2o, margin, eps, lamb0, lamb_factor, max_lamb,
+    max_relax_iter, a_max, d_max, param_horizon, dt."""
+    vals = ([C.qt_m[i, j] for i in range(4) for j in range(4)]
+            + [C.q_m[i, j] for i in range(4) for j in range(4)]
+            + [C.r_m[i, j] for i in range(2) for j in range(2)]
+            + [C.q1c, C.q2c, C.q1o, C.q2o, C.margin, C.eps, C.lamb0,
+               C.lamb_factor, C.max_lamb, C.max_relax_iter, C.a_max, C.d_max,
+               C.param_horizon, C.dt])
+    return (ctypes.c_double * len(vals))(*vals)
+
+
+def check_launch(rc: int, name: str) -> None:
+    """Raise unless a launcher returned cudaSuccess (0)."""
+    if rc == -1:
+        raise ValueError(f"{name}: no kernel instantiated for these sizes")
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")

@@ -1,0 +1,169 @@
+"""The port's control step against the JAX package.
+
+- the selection helpers (_topk_select, _lex_argmin_rows,
+  _step_solver_inputs) against the JAX helpers on rows with ties, +-inf
+  and ragged prefixes;
+- one whole control step in f64: the JAX simulator resumed on a given safe
+  set for one step (noise off) records x_1 = step(x_0, u_0); the port's
+  ``i2lqr_step_reference`` on the same safe set, followed by ``step_soa``
+  on its first input, must land on the same state;
+- the K1 wrapper's CPU route is the plain version, and other devices raise.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ilqr_iterative_tasks_tpu.control import batched_soa as jbs
+from ilqr_iterative_tasks_tpu.models.obstacle import Obstacle as JObstacle
+from ilqr_iterative_tasks_tpu.sim.seed import seed_trajectory as j_seed
+from ilqr_iterative_tasks_tpu.utils.params import (
+    IlqrParams as JParams, SystemLimits as JLimits)
+from ilqr_iterative_tasks_torch.control import batched_soa as tbs
+from ilqr_iterative_tasks_torch.ops.fused_ilqr import obstacle_to_lanes
+from ilqr_iterative_tasks_torch.ops import i2lqr_step as tstep
+from ilqr_iterative_tasks_torch.ops.i2lqr_step import (
+    build_fused_i2lqr_step, i2lqr_step_reference)
+from ilqr_iterative_tasks_torch.ops.ilqr_soa import step_soa
+from ilqr_iterative_tasks_torch.utils import convert
+
+torch.set_num_threads(1)
+INF = np.inf
+
+
+def _rows_with_ties(rng, t_rows, b):
+    """(T, B) distances: small integers (many ties), invalid rows +inf,
+    and per-lane valid prefixes, some shorter than k."""
+    d = rng.integers(0, 6, (t_rows, b)).astype(np.float64)
+    lens = rng.integers(1, t_rows + 1, b)
+    lens[:4] = [1, 2, 3, 5]  # fewer valid rows than k
+    d[np.arange(t_rows)[:, None] >= lens[None]] = INF
+    return d
+
+
+def test_topk_select_matches_jax():
+    rng = np.random.default_rng(0)
+    t_rows, b, k = 20, 32, 8
+    d = _rows_with_ties(rng, t_rows, b)
+    arrs = [rng.normal(size=(t_rows, b)) for _ in range(3)]
+    ji, jd, js = jbs._topk_select(jnp.asarray(d), k,
+                                  [jnp.asarray(a) for a in arrs])
+    ti, td, ts = tstep._topk_select(torch.from_numpy(d), k,
+                                  [torch.from_numpy(a) for a in arrs])
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    for a, b_ in zip(ts, js):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b_))
+
+
+def test_lex_argmin_rows_matches_jax():
+    rng = np.random.default_rng(1)
+    rows, k, b = 3, 6, 256
+    c = rng.integers(0, 3, (rows, k, b)).astype(np.float64)
+    c[rng.random((rows, k, b)) < 0.2] = INF
+    # ragged tails ranked -inf (absent slots) and whole rows +inf (laps
+    # not stored), as the simulator builds them
+    tail = rng.integers(1, k + 1, (rows, b))
+    c[np.arange(k)[None, :, None] >= tail[:, None, :]] = -INF
+    c[0, :, :16] = INF
+    c[:, :, 16:32] = c[:1, :, 16:32]  # identical rows: the first wins
+    want = np.asarray(jbs._lex_argmin_rows(jnp.asarray(c)))
+    got = tstep._lex_argmin_rows(torch.from_numpy(c)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("lap_count,nsi", [(1, 1), (1, 2), (3, 2), (2, 3)])
+def test_step_solver_inputs_match_jax(lap_count, nsi):
+    inactive = np.arange(10) % 3 == 0
+    want = jbs._step_solver_inputs(jnp.asarray(lap_count, jnp.int32), nsi, 8,
+                                   jnp.asarray(inactive), 10)
+    got = tbs._step_solver_inputs(lap_count, nsi, 8,
+                                  torch.from_numpy(inactive), 10, "cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+B, T_ROWS, MAX_LAPS, CAP = 64, 128, 8, 16
+
+
+def _safe_set(rng, xcl):
+    """Seed lap in slot 0 and a perturbed, every-other-row copy in slot 1
+    whose length varies per lane; a few lanes store only 5 rows, fewer than
+    k = 8 (the ragged rows)."""
+    states = np.zeros((MAX_LAPS, T_ROWS, 4, B))
+    lap_len = np.zeros((MAX_LAPS, B), np.int32)
+    states[0, :121] = xcl[:, :, None]
+    lap_len[0] = 121
+    n1 = rng.integers(55, 62, B)
+    n1[:3] = 5
+    lap1 = xcl[::2][:, :, None] + rng.normal(size=(61, 4, B)) * [
+        [0.3], [0.3], [0.05], [0.01]]
+    for b in range(B):
+        states[1, :n1[b], :, b] = lap1[:n1[b], :, b]
+    lap_len[1] = n1
+    t = np.arange(T_ROWS)[:, None]
+    qfun = np.maximum(lap_len[:, None, :] - 1.0 - t[None], 0.0)
+    valid = t[None] < lap_len[:, None, :]
+    return states, qfun, valid, lap_len
+
+
+@pytest.mark.parametrize("nsi", [1, 2])
+def test_control_step_matches_jax_f64(nsi):
+    rng = np.random.default_rng(10 + nsi)
+    xcl, _ = j_seed(1.0)
+    ss = _safe_set(rng, xcl)
+    # lanes 0-2 sit at the start of the lap, where the short stored laps
+    # hold candidates; the rest anywhere along the seed lap
+    rows = rng.integers(0, 100, B)
+    rows[:3] = 1
+    x0 = (xcl[rows] + rng.normal(size=(B, 4)) * [0.5, 0.5, 0.1, 0.02]).T
+    opt = np.arange(B) % 3
+    jo = JObstacle(x=jnp.asarray(31.0 + rng.normal(size=B) * 3),
+                   y=jnp.asarray(-2.0 + rng.normal(size=B) * 3),
+                   width=jnp.full((B,), 8.0), height=jnp.full((B,), 6.0),
+                   spd=jnp.asarray(np.where(opt == 0, 0.0, 0.5)),
+                   moving_option=jnp.asarray(opt, jnp.float64),
+                   present=jnp.asarray((np.arange(B) % 8 != 7) * 1.0))
+    jp = JParams.make(dtype=jnp.float64, num_ss_iter=nsi)
+    jl = JLimits.make(dtype=jnp.float64)
+    scen = jbs.SoaScenarios(
+        x0=jnp.asarray(x0), goal=jnp.broadcast_to(jnp.asarray(xcl[-1])[:, None],
+                                                  (4, B)),
+        obstacle=jo, noise_on=jnp.zeros((B,)))
+    seed_xs = jnp.zeros((T_ROWS, 4))
+    res = jbs.simulate_learning_runs_soa(
+        jp, jl, scen, seed_xs, jnp.zeros((T_ROWS, 2)), 121, 1.0,
+        jax.random.PRNGKey(0), num_laps=1, max_steps=T_ROWS,
+        max_laps=MAX_LAPS, sim_step_budget=1, solver_max_iter=CAP,
+        resume_from=(tuple(jnp.asarray(a) for a in ss), 2,
+                     jax.random.PRNGKey(0)))
+    want = np.asarray(res.safe_set[0][2][1])  # recorded x_1 (4, B)
+
+    tp, tl = convert.ilqr_params(jp), convert.system_limits(jl)
+    states, qfun, _valid, lap_len = convert.safe_set(ss)
+    x = convert.tensor(x0, dtype=torch.float64).contiguous()
+    lap_ids, lap_ok, skip = tbs._step_solver_inputs(2, nsi, MAX_LAPS, None,
+                                                    B, "cpu")
+    obs = obstacle_to_lanes(convert.obstacle(jo), B)
+    us, shrink, idx, row = i2lqr_step_reference(
+        tp, tl, 1.0, x, x, states, qfun, lap_len, lap_ids, lap_ok, obs, skip,
+        max_iter=CAP)
+    got = torch.stack(step_soa(tuple(x), (us[0, 0], us[0, 1]), 1.0)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
+    assert idx.dtype == row.dtype == torch.int32
+    assert set(row.tolist()) <= set(range(nsi))
+
+    # the K1 wrapper's CPU route is this plain version, exactly
+    k1 = build_fused_i2lqr_step(tp, tl, 1.0, num_horizon=6, max_steps=T_ROWS,
+                                max_laps=MAX_LAPS, max_iter=CAP)
+    skip = (torch.arange(B) % 5 == 0).to(torch.float32)
+    a = (x, x, states, qfun, lap_len, lap_ids, lap_ok, obs, skip)
+    for g, w in zip(k1(*a), i2lqr_step_reference(tp, tl, 1.0, *a,
+                                                 max_iter=CAP)):
+        assert torch.equal(g, w)
+    assert float(k1(*a)[0][:, :, ::5].abs().max()) == 0.0  # skip lanes: zeros
+    assert k1.launches == 0
+    with pytest.raises(ValueError, match="unsupported device"):
+        k1(*(t.to("meta") for t in a))
