@@ -1,0 +1,228 @@
+"""Batch-native (structure-of-arrays) NLMPC learning simulator in torch.
+
+Port of the base path of ilqr_iterative_tasks_tpu/control/batched_nlmpc_soa.py
+(``simulate_nlmpc_runs_soa`` :94, ``_advance_tail`` :254, ``run_lap`` :607,
+``lap_loop`` :827), safe-set mode spaceVarying. The scenario batch B is the
+trailing axis of every tensor; all B lanes run in lockstep and a lane that
+finishes its lap freezes. Each control step's ``calc_input`` is one call of
+a step solver: the K2 kernel (ops/nlmpc_step.py::build_fused_nlmpc_step)
+or, by default, its plain version. Per lane the simulator keeps the
+terminal guess, the warm start and the shrinking horizon: each lap starts
+at horizon n with the newest stored lap's row n as guess and its first n
+stored inputs as warm start; choosing a lap's last point shrinks the
+horizon by one (to 1 at least), and an all-infeasible step holds the
+previous input and freezes every advance.
+
+Plant noise and its sources are as in control/batched_soa.py: one (2, B)
+standard-normal row per executed simulator step, from a
+``torch.Generator`` or an injected ``noise`` tensor.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ilqr_iterative_tasks_torch.control import batched_soa
+from ilqr_iterative_tasks_torch.control.batched_soa import (
+    SoaScenarios, _step_solver_inputs, draw_noise, plant_step)
+from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
+    obstacle_to_lanes_nlmpc)
+from ilqr_iterative_tasks_torch.ops.nlmpc_step import nlmpc_step_reference
+from ilqr_iterative_tasks_torch.utils.params import LmpcParams, SystemLimits
+
+
+class NlmpcSoaRunResult(NamedTuple):
+    lap_steps: torch.Tensor  # (num_laps, B) i32
+    lap_done: torch.Tensor  # (num_laps, B) bool
+    final_x: torch.Tensor  # (4, B): the lanes' state at the end of the run
+    safe_set: tuple  # (states, inputs, qfun, valid, lap_len), batch-trailing
+    lap_count: int  # laps stored, seed included
+
+
+def add_lap(ss, slot, xs_rec, us_rec, n_valid):
+    """Store a lap with its inputs in slot ``slot`` of the safe set, in
+    place. xs_rec: (T, 4, B); us_rec: (T, 2, B); n_valid: (B,)."""
+    states, inputs, qfun, valid, lap_len = ss
+    inputs[slot] = us_rec
+    batched_soa.add_lap((states, qfun, valid, lap_len), slot, xs_rec,
+                        n_valid)
+
+
+def advance_tail(us_w, u_app, new_guess0, succ, h1, hzn, feasible_any,
+                 guess, u_warm):
+    """Post-selection bookkeeping (batched_nlmpc_soa.py:254-287): the
+    applied input, the warm-start shift with the chosen point's stored
+    input at slot hzn-1 when a successor exists, the horizon decrement,
+    and the all-infeasible freeze. Returns (u_sel, guess, u_warm, hzn)."""
+    n = us_w.shape[0]
+    u_sel = torch.where(h1[None], u_warm[0], us_w[0])
+    u_shift = torch.cat([us_w[1:], us_w[-1:]])
+    pos = torch.clamp(hzn - 1, 0, n - 1)
+    oh_pos = torch.arange(n, device=hzn.device)[:, None] == pos[None]
+    u_warm_a = torch.where(oh_pos[:, None], u_app[None], u_shift)
+    u_warm_new = torch.where(succ[None, None], u_warm_a, u_shift)
+    # horizon-1 floor without a successor keeps the warm vector
+    u_warm_new = torch.where((h1 & ~succ)[None, None], u_warm, u_warm_new)
+    hzn_next = torch.where(succ, hzn, torch.clamp_min(hzn - 1, 1))
+    new_guess = torch.where(feasible_any[None], new_guess0, guess)
+    u_warm_new = torch.where(feasible_any[None, None], u_warm_new, u_warm)
+    hzn_next = torch.where(feasible_any, hzn_next, hzn)
+    return u_sel, new_guess, u_warm_new, hzn_next
+
+
+_UNSUPPORTED = ("retile_frac", "tail_shrink", "resume_from", "pallas_solver",
+                "pallas_step_solver", "with_streak_stats")
+
+
+def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
+                            scenarios: SoaScenarios, seed_xs, seed_us,
+                            seed_len: int, dt, *, num_laps: int,
+                            max_steps: int = 128, max_laps: int = 16,
+                            goal_append: bool = False,
+                            sim_step_budget: int = 121,
+                            max_lm_iters: int = 60,
+                            infeasible_retire: int | None = None,
+                            step_solver=None,
+                            noise: torch.Tensor | None = None,
+                            generator: torch.Generator | None = None,
+                            **unsupported) -> NlmpcSoaRunResult:
+    """Seed lap + ``num_laps`` NLMPC learning laps for B scenarios.
+
+    seed_xs: (max_steps, 4) and seed_us: (max_steps, 2) seed lap, padded;
+    seed_len: count of seed states. ``max_lm_iters`` caps the LM
+    iterations of every solve. ``infeasible_retire=S`` retires a lane from
+    the solver after S consecutive all-infeasible steps (it keeps
+    integrating its held input). ``step_solver``: a K2 built by
+    ``build_fused_nlmpc_step`` for the same sizes, or None for the plain
+    version. ``noise`` (steps, 2, B) standard-normal draws or
+    ``generator``: the plant-noise source (needed where noise_on is set).
+    """
+    if unsupported:
+        raise TypeError(f"{sorted(unsupported)} not supported by the torch "
+                        f"port (left out: {', '.join(_UNSUPPORTED)})")
+    params.check_ported()
+    n, k, nsi = params.num_horizon, params.num_ss_points, params.num_ss_iter
+    if step_solver is not None:
+        s = step_solver
+        if ((s.k, s.nsi, s.num_horizon, s.max_steps, s.max_laps, s.max_iters)
+                != (k, nsi, n, max_steps, max_laps, max_lm_iters)):
+            raise ValueError(
+                "step_solver was built for (k, nsi, n, max_steps, max_laps, "
+                f"max_iters)=({s.k}, {s.nsi}, {s.num_horizon}, "
+                f"{s.max_steps}, {s.max_laps}, {s.max_iters}); the simulator "
+                f"was called with ({k}, {nsi}, {n}, {max_steps}, {max_laps}, "
+                f"{max_lm_iters})")
+        solver = s
+    else:
+        def solver(*args):
+            return nlmpc_step_reference(params, limits, dt, *args,
+                                        max_iters=max_lm_iters)
+    if max_steps < sim_step_budget + (2 if goal_append else 1):
+        raise ValueError(
+            f"max_steps={max_steps} too small for sim_step_budget="
+            f"{sim_step_budget} (+{2 if goal_append else 1} recorded rows)")
+    if 1 + num_laps > max_laps:
+        raise ValueError(f"max_laps={max_laps} cannot hold the seed lap and "
+                         f"{num_laps} learned laps")
+    x0 = scenarios.x0
+    dtype, dev = x0.dtype, x0.device
+    b = x0.shape[-1]
+    if noise is None and generator is None and bool(
+            (scenarios.noise_on != 0).any()):
+        raise ValueError("noise_on is set: pass a generator or noise draws")
+    lanes = torch.arange(b, device=dev)
+    t_rows = torch.arange(max_steps, device=dev)[:, None]
+
+    states = torch.zeros((max_laps, max_steps, 4, b), dtype=dtype, device=dev)
+    inputs = torch.zeros((max_laps, max_steps, 2, b), dtype=dtype, device=dev)
+    qfun = torch.zeros((max_laps, max_steps, b), dtype=dtype, device=dev)
+    valid = torch.zeros((max_laps, max_steps, b), dtype=torch.bool,
+                        device=dev)
+    lap_len = torch.zeros((max_laps, b), dtype=torch.int32, device=dev)
+    ss = (states, inputs, qfun, valid, lap_len)
+    seed = lambda a, c: torch.as_tensor(a, dtype=dtype, device=dev)[
+        :, :, None].expand(max_steps, c, b)
+    add_lap(ss, 0, seed(seed_xs, 4), seed(seed_us, 2),
+            torch.full((b,), int(seed_len), dtype=torch.int32, device=dev))
+    goal, noise_on = scenarios.goal, scenarios.noise_on
+    lap_steps = torch.zeros((num_laps, b), dtype=torch.int32, device=dev)
+    lap_done = torch.zeros((num_laps, b), dtype=torch.bool, device=dev)
+    sim_step = 0  # executed steps over the run: the noise row
+    x = x0
+
+    for lap_i in range(num_laps):
+        lap_count = 1 + lap_i  # laps stored so far (seed + learned)
+        guess = states[lap_count - 1, n]  # warm start from the newest lap
+        u_warm = inputs[lap_count - 1, :n]
+        lap_ids, lap_ok, _ = _step_solver_inputs(lap_count, nsi, max_laps,
+                                                 None, b, dev)
+        x = x0
+        t = torch.zeros((b,), dtype=torch.int32, device=dev)
+        done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        retired = torch.zeros((b,), dtype=torch.bool, device=dev)
+        streak = torch.zeros((b,), dtype=torch.int32, device=dev)
+        hzn = torch.full((b,), n, dtype=torch.int32, device=dev)
+        u_prev = torch.zeros((2, b), dtype=dtype, device=dev)
+        obstacle = scenarios.obstacle
+        xs_rec = torch.zeros((max_steps, 4, b), dtype=dtype, device=dev)
+        us_rec = torch.zeros((max_steps, 2, b), dtype=dtype, device=dev)
+        xs_rec[0] = x0
+        while bool(((t < sim_step_budget) & ~done).any()):
+            skip = (done | retired).to(torch.float32)
+            if bool((skip < 0.5).any()):
+                us_w, feas_f, new_guess0, idx_sel, row_sel, succ_f = solver(
+                    x, guess, u_warm, states, qfun, lap_len, lap_ids, lap_ok,
+                    obstacle_to_lanes_nlmpc(obstacle, b), skip, hzn)
+            else:  # every lane done or retired: outputs would be zeros
+                us_w = torch.zeros((n, 2, b), dtype=dtype, device=dev)
+                feas_f = succ_f = torch.zeros((b,), dtype=dtype, device=dev)
+                new_guess0 = torch.zeros((4, b), dtype=dtype, device=dev)
+                idx_sel = row_sel = torch.zeros((b,), dtype=torch.int32,
+                                                device=dev)
+            feas = feas_f > 0.5
+            # the chosen point's stored input
+            lap_sel = lap_ids.to(torch.int64)[row_sel.to(torch.int64)]
+            u_app = inputs[lap_sel, idx_sel.to(torch.int64), :, lanes].T
+            u_solve, guess_new, u_warm_new, hzn_new = advance_tail(
+                us_w, u_app, new_guess0, succ_f > 0.5, hzn <= 1, hzn, feas,
+                guess, u_warm)
+            # retired lanes: the solver's outputs are skip-lane zeros
+            feas = feas & ~retired
+            guess_new = torch.where(retired[None], guess, guess_new)
+            u_warm_new = torch.where(retired[None, None], u_warm, u_warm_new)
+            hzn_new = torch.where(retired, hzn, hzn_new)
+            streak_next = torch.where(done, streak,
+                                      torch.where(feas, 0, streak + 1))
+            if infeasible_retire is not None:
+                retired = retired | ((streak_next >= infeasible_retire)
+                                     & ~done)
+            u = torch.where(feas[None], u_solve, u_prev)
+            z = draw_noise(noise, generator, sim_step, b, dtype, dev)
+            sim_step += 1
+            x_next, obstacle, reach = plant_step(x, u, dt, z, noise_on, done,
+                                                 obstacle, goal)
+            # freeze finished lanes
+            t_next = torch.where(done, t, t + 1)
+            guess = torch.where(done[None], guess, guess_new)
+            u_warm = torch.where(done[None, None], u_warm, u_warm_new)
+            hzn = torch.where(done, hzn, hzn_new)
+            u_prev = torch.where(done[None], u_prev, u)
+            streak = streak_next
+            # record writes: input row t (zeros for done lanes, whose row t
+            # was never written) and state row t_next
+            us_rec = torch.where((t_rows == t[None])[:, None],
+                                 torch.where(done[None], 0.0, u)[None],
+                                 us_rec)
+            xs_rec = torch.where((t_rows == t_next[None])[:, None],
+                                 x_next[None], xs_rec)
+            done = done | reach
+            x, t = x_next, t_next
+        pos, n_valid = (t + 1, t + 2) if goal_append else (t, t + 1)
+        xs_rec[pos.to(torch.int64), :, lanes] = goal.T
+        add_lap(ss, lap_count, xs_rec, us_rec, n_valid)
+        lap_steps[lap_i] = t
+        lap_done[lap_i] = done
+    return NlmpcSoaRunResult(lap_steps=lap_steps, lap_done=lap_done,
+                             final_x=x, safe_set=ss, lap_count=1 + num_laps)

@@ -74,6 +74,43 @@ def _step_solver_inputs(lap_count, nsi, max_laps, inactive, b, device):
     return lap_ids, lap_ok, skip
 
 
+def draw_noise(noise, generator, row, b, dtype, device):
+    """The (2, B) standard-normal plant-noise draws of executed step
+    ``row``: from the injected ``noise`` (steps, 2, B), else from
+    ``generator``, else zeros."""
+    if noise is not None:
+        if row >= noise.shape[0]:
+            raise ValueError(f"noise has {noise.shape[0]} rows; the run "
+                             f"needs more")
+        return noise[row].to(dtype=dtype, device=device)
+    if generator is not None:
+        return torch.randn((2, b), generator=generator, dtype=dtype,
+                           device=device)
+    return torch.zeros((2, b), dtype=dtype, device=device)
+
+
+def plant_step(x, u, dt, z, noise_on, done, obstacle: Obstacle, goal):
+    """One closed-loop plant step of every lane: the bicycle step under
+    input u (2, B), the clipped noise of draws z where noise_on, and the
+    obstacle's motion; finished lanes stay frozen. Returns (x_next,
+    obstacle_next, reach), reach = |x_next - goal| <= GOAL_TOL."""
+    x_next = torch.stack(step_soa(tuple(x[i] for i in range(4)),
+                                  (u[0], u[1]), dt))
+    noise_v = torch.clamp(z[0] * 0.01, -0.05, 0.05)
+    noise_th = torch.clamp(z[1] * 0.005, -0.05, 0.05)
+    x_next[2] = x_next[2] + 0.5 * noise_v * noise_on
+    x_next[3] = x_next[3] + 0.5 * noise_th * noise_on
+    x_next = torch.where(done[None], x, x_next)
+    moved = obstacle.advance(dt)
+    obstacle_next = Obstacle(**{
+        f: torch.where(done, getattr(obstacle, f), getattr(moved, f))
+        for f in obstacle.__dataclass_fields__})
+    dg = [x_next[i] - goal[i] for i in range(4)]
+    reach = torch.sqrt(dg[0] * dg[0] + dg[1] * dg[1] + dg[2] * dg[2]
+                       + dg[3] * dg[3]) <= GOAL_TOL
+    return x_next, obstacle_next, reach
+
+
 def add_lap(ss, slot, xs_rec, n_valid):
     """Store a lap in slot ``slot`` of the safe set, in place.
     xs_rec: (T, 4, B); n_valid: (B,) recorded rows."""
@@ -198,40 +235,17 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
             horizon_next = torch.where(
                 in_replay | shrink, horizon_left - 1, horizon_left)
             replay_next = torch.where(in_replay, replay_pos + 1, replay_pos)
-            # plant step + noise
-            x_next = torch.stack(step_soa(tuple(x[i] for i in range(4)),
-                                          (u[0], u[1]), dt))
-            if noise is not None:
-                if sim_step >= noise.shape[0]:
-                    raise ValueError(f"noise has {noise.shape[0]} rows; the "
-                                     f"run needs more")
-                z = noise[sim_step].to(dtype=dtype, device=dev)
-            elif generator is not None:
-                z = torch.randn((2, b), generator=generator, dtype=dtype,
-                                device=dev)
-            else:
-                z = torch.zeros((2, b), dtype=dtype, device=dev)
+            z = draw_noise(noise, generator, sim_step, b, dtype, dev)
             sim_step += 1
-            noise_v = torch.clamp(z[0] * 0.01, -0.05, 0.05)
-            noise_th = torch.clamp(z[1] * 0.005, -0.05, 0.05)
-            x_next[2] = x_next[2] + 0.5 * noise_v * noise_on
-            x_next[3] = x_next[3] + 0.5 * noise_th * noise_on
-            obstacle_next = obstacle.advance(dt)
+            x_next, obstacle, reach = plant_step(x, u, dt, z, noise_on, done,
+                                                 obstacle, goal)
             # freeze finished lanes
-            x_next = torch.where(done[None], x, x_next)
-            obstacle = Obstacle(**{
-                f: torch.where(done, getattr(obstacle, f),
-                               getattr(obstacle_next, f))
-                for f in obstacle.__dataclass_fields__})
             t = torch.where(done, t, t + 1)
             horizon_left = torch.where(done, horizon_left, horizon_next)
             replay_pos = torch.where(done, replay_pos, replay_next)
             u_old = torch.where(done[None, None], u_old, u_old_next)
             # record row t of each lane (a done lane rewrites its frozen row)
             xs_rec[t.to(torch.int64), :, lanes] = x_next.T
-            dg = [x_next[i] - goal[i] for i in range(4)]
-            reach = torch.sqrt(dg[0] * dg[0] + dg[1] * dg[1] + dg[2] * dg[2]
-                               + dg[3] * dg[3]) <= GOAL_TOL
             done = done | reach
             x = x_next
         if goal_append:  # goal as an extra recorded row

@@ -90,34 +90,9 @@ __global__ void __launch_bounds__(128) i2lqr_step_kernel(
     for (int r = 0; r < NSI; ++r) {
       T dk[K];
       int ik[K];
-#pragma unroll
-      for (int s = 0; s < K; ++s) {
-        dk[s] = inf;
-        ik[s] = 0;
-      }
       const T* st = states + (size_t)lap[r] * T_rows * row_stride + b;
-      const int rows = len[r] < T_rows ? len[r] : T_rows;
-      for (int t = 0; t < rows; ++t) {
-        const T* p = st + t * row_stride;
-        const T d = fabs(p[0] - xg[0]) + fabs(p[B] - xg[1]) +
-                    fabs(p[2 * B] - xg[2]) + fabs(p[3 * B] - xg[3]);
-        if (d < dk[K - 1]) {
-          // insert and bubble down; strict < keeps earlier rows first
-          dk[K - 1] = d;
-          ik[K - 1] = t;
-#pragma unroll
-          for (int s = K - 1; s > 0; --s) {
-            if (dk[s] < dk[s - 1]) {
-              const T td = dk[s];
-              dk[s] = dk[s - 1];
-              dk[s - 1] = td;
-              const int ti = ik[s];
-              ik[s] = ik[s - 1];
-              ik[s - 1] = ti;
-            }
-          }
-        }
-      }
+      knn_rows<T, K>(st, row_stride, B, len[r] < T_rows ? len[r] : T_rows,
+                     xg, dk, ik);
 #pragma unroll
       for (int s = 0; s < K; ++s) {
         const int c = r * K + s;
@@ -135,36 +110,14 @@ __global__ void __launch_bounds__(128) i2lqr_step_kernel(
     int win = 0;
     for (int c = 0; c <= NC; ++c) {
       if (c == NC) {
-        // lexicographic row-min over laps (ragged list compare), then the
-        // first-min argmin over the winning row
-        int best = 0;
+        // lexicographic row-min over laps (ragged list compare: absent
+        // slots -inf, laps not yet stored +inf), then the first-min argmin
+        // over the winning row
+        T cmp[NC];
 #pragma unroll
-        for (int r = 1; r < NSI; ++r) {
-          bool decided = false, less = false;
-#pragma unroll
-          for (int s = 0; s < K; ++s) {
-            const T a = lok[r] ? (cok[r * K + s] ? ccost[r * K + s] : -inf)
-                               : inf;
-            const T bb = lok[best]
-                             ? (cok[best * K + s] ? ccost[best * K + s] : -inf)
-                             : inf;
-            if (!decided && a != bb) {
-              decided = true;
-              less = a < bb;
-            }
-          }
-          if (less) best = r;
-        }
-        int col = 0;
-        T bc = ccost[best * K];
-#pragma unroll
-        for (int s = 1; s < K; ++s)
-          if (ccost[best * K + s] < bc) {
-            bc = ccost[best * K + s];
-            col = s;
-          }
-        win = best * K + col;
-        row_sel = best;
+        for (int q = 0; q < NC; ++q)
+          cmp[q] = lok[q / K] ? (cok[q] ? ccost[q] : -inf) : inf;
+        win = lex_select<T, NSI, K>(cmp, ccost, row_sel);
         idx_sel = cidx[win];
       }
       const int cc = c < NC ? c : win;

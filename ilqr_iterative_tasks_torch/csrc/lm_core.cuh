@@ -1,5 +1,7 @@
 // Per-lane LM-iLQR solve shared by the K1 (i2lqr_step.cu) and K3
-// (fused_ilqr.cu) kernels: one CUDA thread owns one lane.
+// (fused_ilqr.cu) kernels: one CUDA thread owns one lane. Also the safe-set
+// kNN scan and the candidate selection that both whole-step kernels, K1 and
+// K2 (nlmpc_step.cu), run per lane.
 //
 // Replaces the tile math of ilqr_iterative_tasks_tpu/ops/_pallas_lm_core.py
 // (make_tile_funcs: rollout :155, cost_of :161, obs_terms :168, backward
@@ -130,14 +132,20 @@ __device__ __forceinline__ T lin4(const T (&two_m)[4][4],
   return acc;
 }
 
+// One bicycle step, as ops/ilqr_soa.py::step_soa computes it.
+template <typename T>
+__device__ __forceinline__ void step_dt(T dt, const T* x, T ua, T ud, T* y) {
+  const T arc = x[2] * dt + (T)0.5 * ua * dt * dt;
+  y[0] = x[0] + dcos(x[3]) * arc;
+  y[1] = x[1] + dsin(x[3]) * arc;
+  y[2] = x[2] + ua * dt;
+  y[3] = x[3] + ud * dt;
+}
+
 template <typename T>
 __device__ __forceinline__ void step(const Consts<T>& C, const T* x, T ua,
                                      T ud, T* y) {
-  const T arc = x[2] * C.dt + (T)0.5 * ua * C.dt * C.dt;
-  y[0] = x[0] + dcos(x[3]) * arc;
-  y[1] = x[1] + dsin(x[3]) * arc;
-  y[2] = x[2] + ua * C.dt;
-  y[3] = x[3] + ud * C.dt;
+  step_dt(C.dt, x, ua, ud, y);
 }
 
 // One lane's obstacle: the 6 packed rows of ops/fused_ilqr.py
@@ -440,6 +448,78 @@ __device__ __forceinline__ Obs<T> load_obs(const T* obs, int B, int b) {
   o.spd_left = obs[5 * B + b];
   o.present = o.inv_a2 > (T)0.0 ? (T)1.0 : (T)0.0;
   return o;
+}
+
+// The K nearest rows, by L1 distance to `xg`, among rows [0, rows) of one
+// stored lap of a batch-trailing safe set: `st` points at row 0 of this
+// lane, rows lie `row_stride` apart and components B apart, so a warp's
+// reads of one row are coalesced. Ascending distance with ties to the lower
+// row (insertion with a strict <); a slot left empty is row 0 at +inf.
+template <typename T, int K>
+__device__ __forceinline__ void knn_rows(const T* st, size_t row_stride,
+                                         int B, int rows, const T* xg,
+                                         T (&dk)[K], int (&ik)[K]) {
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    dk[s] = (T)INFINITY;
+    ik[s] = 0;
+  }
+  for (int t = 0; t < rows; ++t) {
+    const T* p = st + t * row_stride;
+    const T d = fabs(p[0] - xg[0]) + fabs(p[B] - xg[1]) +
+                fabs(p[2 * B] - xg[2]) + fabs(p[3 * B] - xg[3]);
+    if (d < dk[K - 1]) {
+      // insert and bubble down; strict < keeps earlier rows first
+      dk[K - 1] = d;
+      ik[K - 1] = t;
+#pragma unroll
+      for (int s = K - 1; s > 0; --s) {
+        if (dk[s] < dk[s - 1]) {
+          const T td = dk[s];
+          dk[s] = dk[s - 1];
+          dk[s - 1] = td;
+          const int ti = ik[s];
+          ik[s] = ik[s - 1];
+          ik[s - 1] = ti;
+        }
+      }
+    }
+  }
+}
+
+// Candidate selection of a whole step: the lexicographic row-min over NSI
+// rows of K compare values (Python's min() over per-lap cost lists, with
+// the ragged -inf / +inf ranks already in `cmp`), then the first-min
+// argmin over the winning row's costs. Returns row * K + col.
+template <typename T, int NSI, int K>
+__device__ __forceinline__ int lex_select(const T (&cmp)[NSI * K],
+                                          const T (&cost)[NSI * K],
+                                          int& row) {
+  int best = 0;
+#pragma unroll
+  for (int r = 1; r < NSI; ++r) {
+    bool decided = false, less = false;
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      const T a = cmp[r * K + s];
+      const T bb = cmp[best * K + s];
+      if (!decided && a != bb) {
+        decided = true;
+        less = a < bb;
+      }
+    }
+    if (less) best = r;
+  }
+  int col = 0;
+  T bc = cost[best * K];
+#pragma unroll
+  for (int s = 1; s < K; ++s)
+    if (cost[best * K + s] < bc) {
+      bc = cost[best * K + s];
+      col = s;
+    }
+  row = best;
+  return best * K + col;
 }
 
 }  // namespace ilqr

@@ -1,9 +1,10 @@
 """Build the CUDA kernels of csrc/ into one shared library, on first use.
 
-The sources are compiled with nvcc into a shared library with a plain C
-interface and loaded with ctypes. The library's file name carries a hash of
-the sources and flags, so an edited source builds anew and an unchanged one
-is reused. Output goes to ``build/torch_kernels/`` beside the package (git
+Each ``.cu`` source is compiled by its own nvcc process, all started
+together, and the objects are linked into one shared library with a plain C
+interface, loaded with ctypes. The library's file name carries a hash of
+every source (headers included) and the flags, so an edited source builds
+anew and an unchanged one is reused. Output goes to ``build/torch_kernels/`` beside the package (git
 ignores ``build/``). Nothing is built at import time.
 """
 
@@ -21,14 +22,15 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-SOURCES = ("lm_core.cuh", "fused_ilqr.cu", "i2lqr_step.cu")
+SOURCES = ("lm_core.cuh", "nlmpc_core.cuh", "fused_ilqr.cu",
+           "i2lqr_step.cu", "fused_lm_shooting.cu", "nlmpc_step.cu")
 # Precise sin/cos/exp, IEEE division and sqrt (no --use_fast_math), and no
 # FMA contraction (-fmad=false): the kernels then round operation by
 # operation as the plain torch version does, which the LM accept/reject
 # tests need to take the same decisions. -Xptxas -v reports registers and
 # spills into the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +42,13 @@ _ARGTYPES = {
     # qfun, lap_len, lap_ids, lap_ok, obs, skip, us, shrink, idx, row,
     # stream
     "i2lqr_step_launch": [_I] * 4 + [_P] + [_I] * 4 + [_P] * 14,
+    # dtype, n, consts, max_iters, B, x0, x_term, u_warm, obs, skip, hzn,
+    # us, x_last, term_err, feasible, stream
+    "fused_lm_shooting_launch": [_I, _I, _P, _I, _I] + [_P] * 11,
+    # dtype, n, k, nsi, consts, max_iters, B, T, x, guess, u_warm, states,
+    # qfun, lap_len, lap_ids, lap_ok, obs, skip, hzn, us, feasible_any,
+    # new_guess, idx, row, succ, stream
+    "nlmpc_step_launch": [_I] * 4 + [_P] + [_I] * 3 + [_P] * 18,
 }
 
 
@@ -68,20 +77,28 @@ def build() -> tuple[str, float]:
         return path, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *(os.path.join(CSRC_DIR, s) for s in SOURCES if s.endswith(".cu"))]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", os.path.join(tmp, s + ".o"),
+                 os.path.join(CSRC_DIR, s)]
+                for s in SOURCES if s.endswith(".cu")]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]  # one nvcc per source, all at once
+        outs = [p.communicate()[0] for p in procs]
+        lib = os.path.join(tmp, "lib.so")
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib,
+                *(c[c.index("-o") + 1] for c in cmds)]
+        if all(p.returncode == 0 for p in procs):
+            outs.append(subprocess.run(link, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT,
+                                       text=True).stdout)
         with open(path[:-3] + ".log", "w") as f:
-            f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, path)  # atomic: concurrent builders never see a partial .so
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            for c, o in zip(cmds + [link], outs):
+                f.write(" ".join(c) + "\n" + o)
+        if not os.path.exists(lib):
+            raise RuntimeError("nvcc failed:\n" + "\n".join(outs)[-8000:])
+        os.replace(lib, path)  # atomic: a concurrent build never sees a partial .so
     return path, time.perf_counter() - t0
 
 
@@ -107,6 +124,15 @@ def consts_array(C) -> ctypes.Array:
             + [C.q1c, C.q2c, C.q1o, C.q2o, C.margin, C.eps, C.lamb0,
                C.lamb_factor, C.max_lamb, C.max_relax_iter, C.a_max, C.d_max,
                C.param_horizon, C.dt])
+    return (ctypes.c_double * len(vals))(*vals)
+
+
+def nlmpc_consts_array(C) -> ctypes.Array:
+    """Pack utils.params.nlmpc_consts into the 7 doubles
+    ``make_nlmpc_consts`` of csrc/nlmpc_core.cuh reads: dt, a_max, d_max
+    (raw delta_max), sqrt_w, margin, term_tol, viol_tol."""
+    vals = [C.dt, C.a_max, C.d_max, C.sqrt_w, C.margin, C.term_tol,
+            C.viol_tol]
     return (ctypes.c_double * len(vals))(*vals)
 
 

@@ -15,7 +15,8 @@ import torch
 
 from ilqr_iterative_tasks_torch.control.batched_soa import SoaScenarios
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
-from ilqr_iterative_tasks_torch.utils.params import IlqrParams, SystemLimits
+from ilqr_iterative_tasks_torch.utils.params import (
+    IlqrParams, LmpcParams, SystemLimits)
 
 
 def tensor(a, *, dtype=None, device="cpu") -> torch.Tensor:
@@ -33,6 +34,13 @@ def ilqr_params(src, *, dtype=torch.float64, device="cpu") -> IlqrParams:
     static = {f.name: int(getattr(src, f.name)) for f in fields(IlqrParams)
               if f.type == "int"}
     return IlqrParams(**_leaves(src, IlqrParams, dtype=dtype, device=device),
+                      **static)
+
+
+def lmpc_params(src, *, dtype=torch.float64, device="cpu") -> LmpcParams:
+    static = {f.name: getattr(src, f.name) for f in fields(LmpcParams)
+              if f.type != "torch.Tensor"}
+    return LmpcParams(**_leaves(src, LmpcParams, dtype=dtype, device=device),
                       **static)
 
 
@@ -54,9 +62,9 @@ def scenarios(src, *, dtype=torch.float64, device="cpu") -> SoaScenarios:
 
 
 def safe_set(src, *, dtype=torch.float64, device="cpu") -> tuple:
-    """(states, qfun, valid, lap_len) -> tensors (valid bool, lap_len i32)."""
-    states, qfun, valid, lap_len = src
-    return (tensor(states, dtype=dtype, device=device),
-            tensor(qfun, dtype=dtype, device=device),
+    """i2LQR (states, qfun, valid, lap_len) or NLMPC (states, inputs, qfun,
+    valid, lap_len) -> tensors (valid bool, lap_len i32)."""
+    *real, valid, lap_len = src
+    return (*(tensor(a, dtype=dtype, device=device) for a in real),
             tensor(valid, dtype=torch.bool, device=device),
             tensor(lap_len, dtype=torch.int32, device=device))

@@ -1,11 +1,13 @@
-"""i2LQR hyperparameters and plant limits as small dataclasses of tensors.
+"""i2LQR / NLMPC hyperparameters and plant limits as small dataclasses of
+tensors.
 
 Port of ilqr_iterative_tasks_tpu/utils/params.py (``IlqrParams``,
-``SystemLimits``). Numeric weights are 0-d (or 4x4 / 2x2) tensors of the
-requested dtype on the requested device; the structural fields (horizon,
-candidate counts, iteration caps) are plain ints. ``delta_max_r`` keeps the
-reference's ``round(delta_max, 2)`` quirk: clipping and the input barriers
-use the rounded value (params.py:42).
+``LmpcParams``, ``SystemLimits``). Numeric weights are 0-d (or 4x4 / 2x2)
+tensors of the requested dtype on the requested device; the structural
+fields (horizon, candidate counts, iteration caps) are plain ints. i2LQR's
+``delta_max_r`` keeps the reference's ``round(delta_max, 2)`` quirk:
+clipping and the input barriers use the rounded value (params.py:42). The
+NLMPC solve clips at the raw ``delta_max`` (``nlmpc_consts``).
 """
 
 from __future__ import annotations
@@ -91,6 +93,57 @@ class IlqrParams:
             safety_margin=f(safety_margin), eps=f(eps), lamb=f(lamb),
             lamb_factor=f(lamb_factor), max_lamb=f(max_lamb),
             reach_error=f(reach_error), **static)
+
+
+@dataclass(frozen=True)
+class LmpcParams:
+    """NLMPC hyperparameters (same fields and defaults as the JAX package).
+    The weight matrices are carried for API parity; the reference's solve
+    is a pure min-time feasibility solve and does not read them."""
+
+    matrix_Q: torch.Tensor  # (6,6)
+    matrix_R: torch.Tensor  # (2,2)
+    matrix_Qslack: torch.Tensor  # (6,6)
+    matrix_dR: torch.Tensor  # (2,2)
+
+    num_ss_points: int = 8
+    num_ss_iter: int = 1
+    num_horizon: int = 6
+    all_ss_point: bool = False
+    all_ss_iter: bool = False
+    ss_option: str = "spaceVarying"
+
+    @classmethod
+    def make(cls, *, dtype=torch.float32, device="cpu", **static):
+        f = lambda v: torch.as_tensor(np.asarray(v), dtype=dtype,
+                                      device=device)
+        return cls(matrix_Q=f(np.zeros((6, 6))),
+                   matrix_R=f(np.diag([1.0, 0.25])),
+                   matrix_Qslack=f(5.0 * np.diag([10, 0, 0, 1, 10, 0])),
+                   matrix_dR=f(5.0 * np.diag([0.8, 0.0])), **static)
+
+    def check_ported(self) -> None:
+        """Raise unless these are the safe-set options the port runs:
+        spaceVarying kNN over the last num_ss_iter laps."""
+        if (self.ss_option != "spaceVarying" or self.all_ss_point
+                or self.all_ss_iter):
+            raise NotImplementedError(
+                f"the torch port runs ss_option='spaceVarying' with "
+                f"all_ss_point=False and all_ss_iter=False only (got "
+                f"{self.ss_option!r}, {self.all_ss_point}, "
+                f"{self.all_ss_iter})")
+
+
+def nlmpc_consts(limits: SystemLimits, dt) -> SimpleNamespace:
+    """The NLMPC solve's constants as Python floats (port of
+    ``bake_nlmpc_consts``, ops/_pallas_nlmpc_core.py:25, at its defaults:
+    obstacle weight 10, margin 1e-3, tolerances 1e-4). ``d_max`` is the raw
+    ``delta_max``, not the rounded ``delta_max_r`` of i2LQR."""
+    f = lambda v: float(v.detach().cpu().double())
+    return SimpleNamespace(dt=float(dt), a_max=f(limits.a_max),
+                           d_max=f(limits.delta_max),
+                           sqrt_w=float(np.sqrt(10.0)), margin=1e-3,
+                           term_tol=1e-4, viol_tol=1e-4)
 
 
 def solver_consts(params: IlqrParams, limits: SystemLimits, dt) -> SimpleNamespace:

@@ -1,0 +1,180 @@
+"""The port's NLMPC learning run (spaceVarying, f64).
+
+- Zero noise, B = 2, seed lap + 3 learning laps, LM cap 60: the lap steps
+  are the host controller's pinned sequence [32, 23, 23]
+  (tests/test_batched_nlmpc_soa.py:163-173, docs/PARITY.md:80), without JAX.
+- Against the JAX simulator: B = 4, 1 learning lap, cap 12; lanes 0-1 run
+  without noise, lanes 2-3 with the JAX run's own draws
+  (``jax.random.split(key, 3)`` per executed step, batched_nlmpc_soa.py:715).
+- ``infeasible_retire`` and the all-infeasible input hold.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ilqr_iterative_tasks_tpu.control import batched_nlmpc_soa as jns
+from ilqr_iterative_tasks_tpu.control.batched_soa import (
+    SoaScenarios as JScenarios)
+from ilqr_iterative_tasks_tpu.models.obstacle import Obstacle as JObstacle
+from ilqr_iterative_tasks_tpu.utils.params import (
+    LmpcParams as JParams, SystemLimits as JLimits)
+from ilqr_iterative_tasks_torch.control.batched_nlmpc_soa import (
+    simulate_nlmpc_runs_soa)
+from ilqr_iterative_tasks_torch.control.batched_soa import SoaScenarios
+from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
+from ilqr_iterative_tasks_torch.ops.nlmpc_step import nlmpc_step_reference
+from ilqr_iterative_tasks_torch.sim.seed import seed_trajectory
+from ilqr_iterative_tasks_torch.utils import convert
+from ilqr_iterative_tasks_torch.utils.params import LmpcParams, SystemLimits
+
+torch.set_num_threads(1)
+F64 = torch.float64
+T_ROWS, MAX_LAPS = 128, 8
+HOST_LAPS = [32, 23, 23]  # host controller, f64 zero noise, cap 60
+
+
+def _seed():
+    xcl, ucl = seed_trajectory(1.0)
+    seed_xs, seed_us = np.zeros((T_ROWS, 4)), np.zeros((T_ROWS, 2))
+    seed_xs[:121], seed_us[:120] = xcl, ucl
+    return xcl, seed_xs, seed_us
+
+
+def _scenarios(b, **kw):
+    xcl, _, _ = _seed()
+    return SoaScenarios.broadcast(
+        np.zeros(4), xcl[-1], Obstacle.make(31.0, -2.0, 8.0, 6.0, dtype=F64),
+        b, dtype=F64, **kw)
+
+
+def test_zero_noise_laps_equal_the_host_sequence():
+    _, seed_xs, seed_us = _seed()
+    res = simulate_nlmpc_runs_soa(
+        LmpcParams.make(dtype=F64), SystemLimits.make(dtype=F64),
+        _scenarios(2), seed_xs, seed_us, 121, 1.0, num_laps=3,
+        max_steps=T_ROWS, max_laps=MAX_LAPS)
+    assert res.lap_steps.T.tolist() == [HOST_LAPS, HOST_LAPS]
+    assert bool(res.lap_done.all())
+    assert res.lap_count == 4
+    assert torch.equal(res.safe_set[4][1:4, 0],
+                       torch.tensor(HOST_LAPS, dtype=torch.int32) + 1)
+
+
+def _jax_draws(key, steps, b):
+    """The (v, theta) standard-normal draws the JAX NLMPC simulator takes at
+    each executed step, in order: (steps, 2, b)."""
+    def body(k, _):
+        k, k1, k2 = jax.random.split(k, 3)
+        return k, jnp.stack([jax.random.normal(k1, (b,), jnp.float64),
+                             jax.random.normal(k2, (b,), jnp.float64)])
+    return np.array(jax.jit(lambda k: jax.lax.scan(
+        body, k, None, length=steps)[1])(key))
+
+
+def test_closed_loop_lap1_matches_jax_f64():
+    b, cap, budget = 4, 12, 121
+    xcl, seed_xs, seed_us = _seed()
+    jp, jl = JParams.make(dtype=jnp.float64), JLimits.make(dtype=jnp.float64)
+    scen = JScenarios.broadcast(
+        np.zeros(4), xcl[-1],
+        JObstacle.make(31.0, -2.0, 8.0, 6.0, dtype=jnp.float64), b,
+        noise_on=True, dtype=jnp.float64)
+    scen = scen.replace(noise_on=jnp.asarray([0.0, 0.0, 1.0, 1.0]))
+    key = jax.random.PRNGKey(5)
+    kw = dict(num_laps=1, max_steps=T_ROWS, max_laps=MAX_LAPS,
+              sim_step_budget=budget, max_lm_iters=cap)
+    jr = jns.simulate_nlmpc_runs_soa(
+        jp, jl, scen, jnp.asarray(seed_xs), jnp.asarray(seed_us), 121, 1.0,
+        key, **kw)
+    tr = simulate_nlmpc_runs_soa(
+        convert.lmpc_params(jp), convert.system_limits(jl),
+        convert.scenarios(scen), seed_xs, seed_us, 121, 1.0,
+        noise=torch.from_numpy(_jax_draws(key, budget, b)), **kw)
+    np.testing.assert_array_equal(tr.lap_steps.numpy(),
+                                  np.asarray(jr.lap_steps))
+    np.testing.assert_array_equal(tr.lap_done.numpy(),
+                                  np.asarray(jr.lap_done))
+    assert tr.lap_steps[0, 0] == tr.lap_steps[0, 1]  # zero-noise lanes
+    for i in (0, 1):  # lap-1 states and inputs
+        np.testing.assert_allclose(tr.safe_set[i][1].numpy(),
+                                   np.asarray(jr.safe_set[i][1]), rtol=0,
+                                   atol=1e-9)
+    np.testing.assert_array_equal(tr.safe_set[4].numpy(),
+                                  np.asarray(jr.safe_set[4]))
+    np.testing.assert_allclose(tr.final_x.numpy(), np.asarray(jr.final_x),
+                               rtol=0, atol=1e-9)
+
+
+class _InfeasibleFrom:
+    """Plain step solver that reports lane ``lane`` all-infeasible from
+    control step ``start`` on, and records each call's skip mask."""
+
+    def __init__(self, params, limits, lane, start, cap):
+        self.params, self.limits, self.lane, self.start = (params, limits,
+                                                           lane, start)
+        self.k, self.nsi = params.num_ss_points, params.num_ss_iter
+        self.num_horizon, self.max_steps, self.max_laps = 6, T_ROWS, MAX_LAPS
+        self.max_iters = cap
+        self.skips = []
+
+    def __call__(self, *args):
+        out = list(nlmpc_step_reference(self.params, self.limits, 1.0, *args,
+                                        max_iters=self.max_iters))
+        if len(self.skips) >= self.start:
+            out[1] = out[1].clone()
+            out[1][self.lane] = 0.0
+        self.skips.append(args[9].clone())
+        return tuple(out)
+
+
+def test_infeasible_retire_holds_the_input_and_skips_the_lane():
+    retire, start, budget = 3, 2, 9
+    _, seed_xs, seed_us = _seed()
+    params, limits = LmpcParams.make(dtype=F64), SystemLimits.make(dtype=F64)
+    solver = _InfeasibleFrom(params, limits, 1, start, 12)
+    res = simulate_nlmpc_runs_soa(
+        params, limits, _scenarios(2), seed_xs, seed_us, 121, 1.0,
+        num_laps=1, max_steps=T_ROWS, max_laps=MAX_LAPS,
+        sim_step_budget=budget, max_lm_iters=12, infeasible_retire=retire,
+        step_solver=solver)
+    u1 = res.safe_set[1][1, :budget, :, 1]  # lane 1's applied inputs
+    assert bool((u1[start - 1] != 0).all())
+    assert torch.equal(u1[start:], u1[start - 1].expand(budget - start, 2))
+    # solved while the streak is short, skipped from the retiring step on
+    skips = torch.stack(solver.skips)[:, 1]
+    assert skips.tolist() == [0.0] * (start + retire) + [1.0] * (
+        budget - start - retire)
+    assert res.lap_steps.tolist() == [[budget, budget]]
+    # lane 0 is unaffected: its inputs equal a run without the fault (run
+    # with the goal appended as an extra row: one more stored state)
+    ref = simulate_nlmpc_runs_soa(
+        params, limits, _scenarios(2), seed_xs, seed_us, 121, 1.0,
+        num_laps=1, max_steps=T_ROWS, max_laps=MAX_LAPS,
+        sim_step_budget=budget, max_lm_iters=12, infeasible_retire=retire,
+        goal_append=True)
+    assert torch.equal(res.safe_set[1][1, :, :, 0], ref.safe_set[1][1, :, :, 0])
+    assert res.safe_set[4][1].tolist() == [budget + 1] * 2
+    assert ref.safe_set[4][1].tolist() == [budget + 2] * 2
+    goal = _scenarios(2).goal
+    assert torch.equal(res.safe_set[0][1, budget], goal)
+    assert torch.equal(ref.safe_set[0][1, budget + 1], goal)
+    assert torch.equal(ref.safe_set[0][1, budget], ref.final_x)
+
+
+def test_unported_options_raise():
+    _, seed_xs, seed_us = _seed()
+    limits = SystemLimits.make(dtype=F64)
+    kw = dict(num_laps=1, max_steps=T_ROWS, max_laps=MAX_LAPS)
+    with pytest.raises(TypeError, match="retile_frac"):
+        simulate_nlmpc_runs_soa(LmpcParams.make(dtype=F64), limits,
+                                _scenarios(2), seed_xs, seed_us, 121, 1.0,
+                                retile_frac=0.25, **kw)
+    for bad in (dict(ss_option="timeVarying"), dict(all_ss_point=True),
+                dict(all_ss_iter=True)):
+        with pytest.raises(NotImplementedError):
+            simulate_nlmpc_runs_soa(LmpcParams.make(dtype=F64, **bad),
+                                    limits, _scenarios(2), seed_xs, seed_us,
+                                    121, 1.0, **kw)

@@ -1,4 +1,5 @@
-"""The CUDA kernels K1 and K3 against their plain torch versions on the card.
+"""The CUDA kernels K1, K3 (i2LQR) and K2, K4 (NLMPC) against their plain
+torch versions on the card.
 
 Marked ``cuda``: each test skips without a CUDA device. On a machine with
 one, run ``python -m pytest tests/test_torch_cuda.py -q --noconftest``
@@ -9,15 +10,23 @@ import numpy as np
 import pytest
 import torch
 
+from ilqr_iterative_tasks_torch.control.batched_nlmpc_soa import (
+    simulate_nlmpc_runs_soa)
 from ilqr_iterative_tasks_torch.control.batched_soa import (
     SoaScenarios, _step_solver_inputs, simulate_learning_runs_soa)
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
 from ilqr_iterative_tasks_torch.ops.fused_ilqr import (
     build_fused_ilqr, fused_ilqr_reference, obstacle_to_lanes)
+from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
+    build_fused_lm_shooting, fused_lm_shooting_reference,
+    obstacle_to_lanes_nlmpc)
 from ilqr_iterative_tasks_torch.ops.i2lqr_step import (
     build_fused_i2lqr_step, i2lqr_step_reference)
+from ilqr_iterative_tasks_torch.ops.nlmpc_step import (
+    build_fused_nlmpc_step, nlmpc_step_reference)
 from ilqr_iterative_tasks_torch.sim.seed import seed_trajectory
-from ilqr_iterative_tasks_torch.utils.params import IlqrParams, SystemLimits
+from ilqr_iterative_tasks_torch.utils.params import (
+    IlqrParams, LmpcParams, SystemLimits)
 
 pytestmark = pytest.mark.cuda
 N, CAP, T_ROWS, MAX_LAPS = 6, 16, 128, 8
@@ -116,3 +125,137 @@ def test_closed_loop_through_k1_matches_plain(dev):
     assert torch.equal(got.lap_steps, want.lap_steps)
     torch.testing.assert_close(got.safe_set[0], want.safe_set[0], rtol=0,
                                atol=1e-9)
+
+
+# ---- NLMPC: K4 and K2 (mirroring chip_smoke.py phases 7 and 8) ----
+NL_CAP, NL_B = 12, 4096
+
+
+def _nl_obs(rng, b, dtype, dev):
+    opt = np.arange(b) % 3
+    return obstacle_to_lanes_nlmpc(Obstacle(
+        x=31.0 + rng.normal(size=b) * 4, y=-2.0 + rng.normal(size=b) * 4,
+        width=np.full(b, 8.0), height=np.full(b, 6.0),
+        spd=np.where(opt == 0, 0.0, 0.5 + rng.random(b)),
+        moving_option=opt.astype(float),
+        present=(np.arange(b) % 8 != 7).astype(float)).map(
+            lambda a: torch.tensor(a, dtype=dtype, device=dev)), b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k4_matches_plain(dev, dtype):
+    rng = np.random.default_rng(1)
+    xcl, _ = seed_trajectory(1.0)
+    b = NL_B + 77  # not a multiple of the 128-thread block
+    hzn = rng.integers(1, N + 1, b)
+    rows = rng.integers(0, 100, b)
+    x0 = xcl[rows] + rng.normal(size=(b, 4)) * [0.5, 0.5, 0.2, 0.05]
+    xt = (xcl[rows + hzn + rng.integers(0, 3, b)]
+          + rng.normal(size=(b, 4)) * [0.3, 0.3, 0.1, 0.02])
+    warm = rng.normal(size=(N, 2, b)) * np.array([1.5, 1.0])[None, :, None]
+    f = lambda a: torch.tensor(a, dtype=dtype, device=dev).contiguous()
+    lim = SystemLimits.make(dtype=torch.float64)
+    a = (f(x0.T), f(xt.T), f(warm), _nl_obs(rng, b, dtype, dev).contiguous(),
+         (torch.arange(b, device=dev) % 16 == 5).float(),
+         torch.tensor(hzn, dtype=torch.int32, device=dev))
+    k4 = build_fused_lm_shooting(lim, 1.0, num_horizon=N, max_iters=NL_CAP)
+    got = k4(*a)
+    want = fused_lm_shooting_reference(lim, 1.0, *a, num_horizon=N,
+                                       max_iters=NL_CAP)
+    torch.cuda.synchronize()
+    assert k4.launches == 1
+    live = a[4] < 0.5
+    same = (got[3] == want[3])[live]
+    dus = (got[0] - want[0]).abs().amax(dim=(0, 1))[live]
+    if dtype == torch.float64:
+        assert float((same & (dus <= 1e-6)).double().mean()) >= 0.999
+    else:
+        assert float(same.double().mean()) >= 0.99
+        assert float(dus[same].max()) <= 1e-5
+    with pytest.raises(TypeError):
+        k4(*(t.to(torch.float16) for t in a[:4]), *a[4:])
+    with pytest.raises(ValueError):
+        k4(a[0][:, :10], *a[1:])
+
+
+def _nl_step_inputs(dtype, dev, b=NL_B, t_rows=64, max_laps=4, seed=2):
+    """Two stored laps per lane (the newest a slice of the seed lap from the
+    lane's start, some shorter than k), x near that start, per-lane
+    obstacles, every horizon 1..N, 1/9 of lanes skipped."""
+    rng = np.random.default_rng(seed)
+    xcl, ucl = seed_trajectory(1.0)
+    start = rng.integers(0, 80, b)
+    length = np.minimum(rng.integers(4, t_rows + 1, b), 121 - start)
+    rows = np.minimum(start[:, None] + np.arange(t_rows)[None], 120)
+    on = np.arange(t_rows)[None] < length[:, None]  # (b, T)
+    states = np.zeros((max_laps, t_rows, 4, b))
+    inputs = np.zeros((max_laps, t_rows, 2, b))
+    states[0] = xcl[:t_rows, :, None]
+    inputs[0] = ucl[:t_rows, :, None]
+    states[1] = np.where(on[..., None], xcl[rows], 0.0).transpose(1, 2, 0)
+    inputs[1] = np.where(on[..., None], ucl[np.minimum(rows, 119)],
+                         0.0).transpose(1, 2, 0)
+    lap_len = np.zeros((max_laps, b), np.int32)
+    lap_len[0], lap_len[1] = t_rows, length
+    t = np.arange(t_rows)[None, :, None]
+    qfun = np.maximum(lap_len[:, None, :] - 1.0 - t, 0.0)
+    x = xcl[start] + rng.normal(size=(b, 4)) * [0.2, 0.2, 0.05, 0.02]
+    f = lambda a: torch.tensor(a, dtype=dtype, device=dev).contiguous()
+    lap_ids, lap_ok, _ = _step_solver_inputs(2, 1, max_laps, None, b, dev)
+    hzn = torch.tensor(1 + np.arange(b) % N, dtype=torch.int32, device=dev)
+    skip = (torch.arange(b, device=dev) % 9 == 4).float()
+    st = f(states)
+    return (f(x.T), st[1, N].contiguous(), f(inputs)[1, :N].contiguous(), st,
+            f(qfun), torch.tensor(lap_len, device=dev), lap_ids, lap_ok,
+            _nl_obs(rng, b, dtype, dev).contiguous(), skip, hzn)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k2_matches_plain(dev, dtype):
+    p, lim = LmpcParams.make(), SystemLimits.make(dtype=torch.float64)
+    a = _nl_step_inputs(dtype, dev)
+    k2 = build_fused_nlmpc_step(p, lim, 1.0, num_horizon=N,
+                                max_steps=a[3].shape[1],
+                                max_laps=a[3].shape[0], max_iters=NL_CAP)
+    got = k2(*a)
+    want = nlmpc_step_reference(p, lim, 1.0, *a, max_iters=NL_CAP)
+    torch.cuda.synchronize()
+    assert k2.launches == 1
+    live = a[9] < 0.5
+    for g in got:
+        assert not bool(g[..., ~live].any())  # skip lanes are zeros
+    agree = ((got[1] == want[1]) & (got[3] == want[3]) & (got[4] == want[4])
+             & (got[5] == want[5]))[live]
+    share = float(agree.double().mean())
+    assert share >= (0.999 if dtype == torch.float64 else 0.99), share
+    assert 0.2 < float(want[1][live].mean()) < 1.0  # both verdicts occur
+    # the winner's solution and guess on the lanes whose decisions agree
+    tol = 1e-6 if dtype == torch.float64 else 1e-5
+    dus = (got[0] - want[0]).abs().amax(dim=(0, 1))[live][agree]
+    dng = (got[2] - want[2]).abs().amax(dim=0)[live][agree]
+    assert float(dus.max()) <= tol and float(dng.max()) <= tol
+
+
+def test_closed_loop_through_k2_matches_plain(dev):
+    p, lim = LmpcParams.make(), SystemLimits.make(dtype=torch.float64)
+    xcl, ucl = seed_trajectory(1.0)
+    seed_xs, seed_us = np.zeros((T_ROWS, 4)), np.zeros((T_ROWS, 2))
+    seed_xs[:121], seed_us[:120] = xcl, ucl
+    scen = SoaScenarios.broadcast(
+        np.zeros(4), xcl[-1], Obstacle.make(31.0, -2.0, 8.0, 6.0), 8,
+        noise_on=True, dtype=torch.float64, device=dev)
+    noise = torch.randn((40, 2, 8), dtype=torch.float64, device=dev)
+    kw = dict(num_laps=1, max_steps=T_ROWS, max_laps=MAX_LAPS,
+              sim_step_budget=40, max_lm_iters=NL_CAP, noise=noise,
+              infeasible_retire=8)
+    k2 = build_fused_nlmpc_step(p, lim, 1.0, num_horizon=N, max_steps=T_ROWS,
+                                max_laps=MAX_LAPS, max_iters=NL_CAP)
+    got = simulate_nlmpc_runs_soa(p, lim, scen, seed_xs, seed_us, 121, 1.0,
+                                  step_solver=k2, **kw)
+    want = simulate_nlmpc_runs_soa(p, lim, scen, seed_xs, seed_us, 121, 1.0,
+                                   **kw)
+    assert k2.launches > 0
+    assert torch.equal(got.lap_steps, want.lap_steps)
+    for i in (0, 1):
+        torch.testing.assert_close(got.safe_set[i], want.safe_set[i], rtol=0,
+                                   atol=1e-9)

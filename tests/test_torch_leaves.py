@@ -1,6 +1,7 @@
 """Port leaves against the JAX package in f64: params (with the
-delta_max_r rounding), the bicycle step and Jacobians, the obstacle's
-extrapolation and motion, the obstacle lane packing and the seed lap."""
+delta_max_r rounding), the NLMPC params and constants (raw delta_max), the
+bicycle step and Jacobians, the obstacle's extrapolation and motion, both
+obstacle lane packings and the seed lap."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,17 +10,23 @@ import torch
 
 from ilqr_iterative_tasks_tpu.models import kinetic_bicycle as jdyn
 from ilqr_iterative_tasks_tpu.models.obstacle import Obstacle as JObstacle
+from ilqr_iterative_tasks_tpu.ops._pallas_nlmpc_core import bake_nlmpc_consts
 from ilqr_iterative_tasks_tpu.ops.pallas_ilqr import (
     obstacle_to_lanes as j_obstacle_to_lanes)
+from ilqr_iterative_tasks_tpu.ops.pallas_lm_shooting import (
+    obstacle_to_lanes_nlmpc as j_obstacle_to_lanes_nlmpc)
 from ilqr_iterative_tasks_tpu.sim.seed import seed_trajectory as j_seed
 from ilqr_iterative_tasks_tpu.utils.params import (
-    IlqrParams as JParams, SystemLimits as JLimits)
+    IlqrParams as JParams, LmpcParams as JLmpcParams, SystemLimits as JLimits)
 from ilqr_iterative_tasks_torch.models import kinetic_bicycle as tdyn
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
 from ilqr_iterative_tasks_torch.ops.fused_ilqr import obstacle_to_lanes
+from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
+    obstacle_to_lanes_nlmpc)
 from ilqr_iterative_tasks_torch.sim.seed import seed_trajectory
 from ilqr_iterative_tasks_torch.utils import convert
-from ilqr_iterative_tasks_torch.utils.params import IlqrParams, SystemLimits
+from ilqr_iterative_tasks_torch.utils.params import (
+    IlqrParams, LmpcParams, SystemLimits, nlmpc_consts)
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-12, atol=1e-12)
@@ -42,6 +49,33 @@ def test_params_match_jax():
     _close(conv.delta_max_r, jl.delta_max_r)
     cp = convert.ilqr_params(JParams.make(dtype=jnp.float64, num_ss_iter=2))
     assert cp.num_ss_iter == 2 and cp.num_horizon == 6
+
+
+def test_lmpc_params_and_nlmpc_consts_match_jax():
+    jp, tp = JLmpcParams.make(dtype=jnp.float64), LmpcParams.make(dtype=F64)
+    for f in tp.__dataclass_fields__:
+        a, b = getattr(tp, f), getattr(jp, f)
+        if isinstance(a, torch.Tensor):
+            _close(a, b)
+        else:
+            assert a == b, f
+    assert (tp.num_ss_points, tp.num_ss_iter, tp.num_horizon) == (8, 1, 6)
+    assert (tp.ss_option, tp.all_ss_point, tp.all_ss_iter) == (
+        "spaceVarying", False, False)
+    cp = convert.lmpc_params(JLmpcParams.make(dtype=jnp.float64,
+                                              num_ss_points=4))
+    assert cp.num_ss_points == 4 and cp.ss_option == "spaceVarying"
+    cp.check_ported()
+    with pytest.raises(NotImplementedError):
+        LmpcParams.make(ss_option="timeVarying").check_ported()
+    jc = bake_nlmpc_consts(JLimits.make(dtype=jnp.float64), 1.0)
+    tc = nlmpc_consts(SystemLimits.make(dtype=F64), 1.0)
+    for t_name, j_name in (("dt", "dtf"), ("a_max", "a_max"),
+                           ("d_max", "d_max"), ("sqrt_w", "sqrt_w"),
+                           ("margin", "margin"), ("term_tol", "term_tol"),
+                           ("viol_tol", "viol_tol")):
+        _close(getattr(tc, t_name), getattr(jc, j_name))
+    assert tc.d_max == np.pi / 2  # the raw bound, not round(pi/2, 2)
 
 
 def test_bicycle_step_and_jacobians_match_jax():
@@ -80,6 +114,21 @@ def test_obstacle_center_advance_and_lanes_match_jax(option, spd):
     np.testing.assert_array_equal(tl, jl)
     absent = obstacle_to_lanes(Obstacle.absent(dtype=F64), 3)
     assert float(absent[2].abs().max()) == 0.0  # present masks the barrier
+    # the NLMPC packing: the JAX packer casts to f32 (equal there); in f64
+    # each row equals the quantity the JAX plain solve computes
+    jn = np.asarray(j_obstacle_to_lanes_nlmpc(jo, 5))
+    tn = obstacle_to_lanes_nlmpc(to, 5)
+    np.testing.assert_array_equal(tn.to(torch.float32).numpy(), jn)
+    up = jo.spd * (jo.moving_option == 1)
+    left = jo.spd * (jo.moving_option == 2)
+    for row, want in zip(tn, (jo.x, jo.y, 1.0 / jo.width ** 2,
+                              1.0 / jo.height ** 2, up, left, jo.present)):
+        _close(row, np.broadcast_to(np.asarray(want), (5,)))
+    cx, cy = jo.center_at(3.0)
+    _close(tn[0] - tn[5] * 3.0, np.broadcast_to(np.asarray(cx), (5,)))
+    _close(tn[1] + tn[4] * 3.0, np.broadcast_to(np.asarray(cy), (5,)))
+    assert float(obstacle_to_lanes_nlmpc(Obstacle.absent(dtype=F64),
+                                         3)[6].max()) == 0.0
 
 
 def test_seed_trajectory_matches_jax():

@@ -1,7 +1,7 @@
 """The torch port runs without JAX: in a fresh interpreter, import the port,
-run a tiny learning run on the CPU, and check that no jax module was
-loaded (the port imports only the jax-free leaf ``constants.py`` of the
-JAX package)."""
+run a tiny i2LQR and a tiny NLMPC learning run on the CPU, and check that
+no jax module was loaded (the port imports only the jax-free leaf
+``constants.py`` of the JAX package)."""
 
 import os
 import subprocess
@@ -13,16 +13,20 @@ CODE = """
 import sys
 import numpy as np
 import torch
+import ilqr_iterative_tasks_torch.control.batched_nlmpc_soa as bns
 import ilqr_iterative_tasks_torch.control.batched_soa as bs
 import ilqr_iterative_tasks_torch.ops.fused_ilqr
+import ilqr_iterative_tasks_torch.ops.fused_lm_shooting
 import ilqr_iterative_tasks_torch.ops.i2lqr_step
+import ilqr_iterative_tasks_torch.ops.nlmpc_step
 import ilqr_iterative_tasks_torch.utils.convert
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
 from ilqr_iterative_tasks_torch.sim.seed import seed_trajectory
-from ilqr_iterative_tasks_torch.utils.params import IlqrParams, SystemLimits
+from ilqr_iterative_tasks_torch.utils.params import (
+    IlqrParams, LmpcParams, SystemLimits)
 
 torch.set_num_threads(1)
-xcl, _ = seed_trajectory(1.0)
+xcl, ucl = seed_trajectory(1.0)
 seed = np.zeros((128, 4))
 seed[:121] = xcl
 sc = bs.SoaScenarios.broadcast(np.zeros(4), xcl[-1],
@@ -34,6 +38,14 @@ res = bs.simulate_learning_runs_soa(
     generator=torch.Generator().manual_seed(0))
 assert res.lap_steps.tolist() == [[20, 20]], res.lap_steps
 assert torch.isfinite(res.safe_set[0][1]).all()
+seed_u = np.zeros((128, 2))
+seed_u[:120] = ucl
+res = bns.simulate_nlmpc_runs_soa(
+    LmpcParams.make(), SystemLimits.make(), sc, seed, seed_u, 121, 1.0,
+    num_laps=1, max_laps=4, sim_step_budget=20, max_lm_iters=12,
+    infeasible_retire=8, generator=torch.Generator().manual_seed(0))
+assert res.lap_steps.tolist() == [[20, 20]], res.lap_steps
+assert torch.isfinite(res.safe_set[1][1]).all()
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                 or m.startswith("jaxlib") or m.startswith("flax"))
 assert not loaded, loaded
