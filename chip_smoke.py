@@ -4,15 +4,16 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ilqr_iterative_tasks_torch/csrc/, checks
-each against its plain torch version on the card, and drives the port's two
-main paths, each a seed lap + 3 learning laps with plant noise on in f32:
-the batched i2LQR learning run through the whole-step kernel K1, and the
-batched NLMPC learning run (spaceVarying) through the whole-step kernel K2.
-Phases:
+each against its plain torch version on the card, and drives the port's
+three main paths: the batched i2LQR learning run through the whole-step
+kernel K1 and the batched NLMPC learning run (spaceVarying) through the
+whole-step kernel K2, each a seed lap + 3 learning laps with plant noise on
+in f32, and the generic-system tier's benchmarks through the generic
+LM-iLQR kernel K5. Phases:
 
 1. device: the card's name and power limit;
-2. build: nvcc of the four kernels (one process per source), with seconds,
-   registers and spills;
+2. build: nvcc of the five kernel sources (one process per source), with
+   seconds, registers and spills;
 3. K3 (i2LQR per-candidate solve) against the plain solve on 393 216 random
    candidate lanes, f64 and f32;
 4. K1 (whole i2LQR step) against the plain step on safe sets captured from
@@ -31,21 +32,43 @@ Phases:
 9. a zero-noise NLMPC closed loop through K2 (1024 identical lanes, cap 60):
    f64 must give the host controller's laps exactly, f32 within 2;
 10. the NLMPC headline through K2 (B = 49 152, cap 12, infeasible_retire 8):
-   one warm run, whose K2 launches are counted, and two timed runs.
+   one warm run, whose K2 launches are counted, and two timed runs;
+11. K5 (generic LM-iLQR) against its plain version, f64 (first 32 768
+   lanes) and f32, for each instantiated model: the double integrator on
+   the ``--throughput`` lanes, the unicycle reach task of
+   tests/test_generic_ilqr.py:277-296 (every lane within 0.05), and the
+   bicycle and the double integrator on the ``--kernel`` lanes, with kernel
+   and plain times; then K3 as ``--kernel`` runs it (cap 150, absent
+   obstacle) against its plain solve on those lanes, f64 (first 32 768)
+   and f32, with phase 3's agreement gates;
+12. the generic headline: experiments/generic_bench.py ``--throughput``
+   (the double integrator through K5, B = 32 768) and ``--kernel`` (K5 on
+   the bicycle and the double integrator against K3, B = 131 072), whose
+   K5 and K3 launches are counted.
 
 Every phase raises on failure, so the script exits non-zero. It prints the
 card line and a JSON line of the kernels before its last line, which is
-{"ok": true, "device": {...}}. It needs a CUDA device and the repository.
+{"ok": true, "device": {...}}. Each kernel's ``bound_ms`` is the larger of
+its bytes (inputs read once, outputs written once; of the safe set, K1 and
+K2 read only the stored laps) over 3.35 TB/s and its
+operations over 67 TFLOP/s (H100 SXM, f32 without tensor cores). The
+operations are the elementwise ops of the plain version, counted on a few
+lanes on the host: one pass plus one LM iteration per iteration the run's
+data needed, from the trip counts the plain solves (K3-K5) and the plain
+steps' candidate solves (K1, K2) report. Each kernel's figures come from
+the inputs of the run whose launches they sit beside (K3: phase 11's
+``--kernel`` lanes). It needs a CUDA device and the repository.
 """
 
 import json
 import os
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH, LAPS, MAX_STEPS, MAX_LAPS, CAP, N = 49152, 3, 128, 8, 16, 6
@@ -70,18 +93,96 @@ NL_CAPTURES = {1: 5, 2: 14, 3: None}
 # agree with the plain version (-fmad=false: so far bitwise)
 F32_TOL = 1e-5
 HOST_NLMPC_LAPS = [32, 23, 23]  # host controller, f64, tests/test_batched_nlmpc_soa.py:171
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+G_LANES = 32768  # generic_bench --throughput (bench.py:229)
+G_KERNEL_LANES = 131072  # generic_bench --kernel (generic_bench.py:164)
+G_F64_LANES = 32768  # lanes of the f64 plain solve in phase 11
+G_CAP = 150  # the generic benches' max_iter
+PEAK_F32_OPS = 67e12  # H100 SXM, f32 outside the tensor cores
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+ELEMENTWISE = frozenset(
+    "abs add ceil clamp clamp_max clamp_min cos div eq exp floor ge gt le "
+    "logical_and logical_not logical_or lt maximum minimum mul ne neg pow "
+    "reciprocal rsqrt rsub sign sin sqrt sub where".split())
 
 
 def require(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+class OpCounter(TorchDispatchMode):
+    """Counts the elements that elementwise aten ops produce."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if (func.namespace == "aten"
+                and func.overloadpacket.__name__.rstrip("_") in ELEMENTWISE):
+            self.ops += sum(t.numel() for t in tree_leaves(out)
+                            if isinstance(t, torch.Tensor)
+                            and not t._is_zerotensor())
+        return out
+
+
+def count_ops(fn) -> int:
+    with OpCounter() as c:
+        fn()
+    return c.ops
+
+
+def lanes_of(args, idx, b):
+    """The lanes ``idx`` of every tensor whose last axis is the batch b,
+    on the host."""
+    return [t[..., idx].cpu() if t.dim() and t.shape[-1] == b else t.cpu()
+            for t in args]
+
+
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def step_bytes(args, out, slots, nsi) -> float:
+    """Bytes a whole-step kernel must move: every input once, but of the
+    safe-set tensors at positions ``slots`` ((max_laps, ...) each) only the
+    nsi stored laps that lap_ids names; every output once."""
+    return sum(nbytes([t]) * (nsi / t.shape[0] if i in slots else 1.0)
+               for i, t in enumerate(args)) + nbytes(out)
+
+
+def bound(ops, bytes_moved) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    f32 operations over the peak rate, whichever is longer."""
+    by_ops, by_bytes = ops / PEAK_F32_OPS, bytes_moved / PEAK_BYTES
+    return dict(bound_ms=1e3 * max(by_ops, by_bytes),
+                bound_by="operations" if by_ops >= by_bytes else "bytes",
+                ops=int(ops), bytes=int(bytes_moved), library_ms=None)
+
+
+def solve_ops(plain, cap_kw, sample_lanes, lanes, iters) -> float:
+    """Operations of ``lanes`` lanes of a per-lane LM solve or step:
+    ``plain(**{cap_kw: c})`` runs the plain version on ``sample_lanes``
+    host lanes; one LM iteration of every solve of a lane costs the
+    difference of caps 2 and 1, the rest cap 1 minus one iteration. Total:
+    (lanes x rest + per_iter x iters) / sample_lanes, where ``iters`` sums
+    the run's per-lane iterations in those units."""
+    c1 = count_ops(lambda: plain(**{cap_kw: 1}))
+    c2 = count_ops(lambda: plain(**{cap_kw: 2}))
+    per_iter, rest = (c2 - c1), c1 - (c2 - c1)
+    return (lanes * rest + per_iter * iters) / sample_lanes
+
+
+def step_iters(trips, active) -> tuple[float, float]:
+    """(per-lane iterations in solve_ops' units, mean trips of a candidate
+    solve) of a whole step: ``trips`` is the plain step's list of (C, B)
+    trip counts, one per batched solve; only ``active`` lanes count."""
+    t = torch.stack(trips)[..., active].double()
+    return float(t.sum()) / (t.shape[0] * t.shape[1]), float(t.mean())
+
+
+SAMPLE_LANES = 64  # host lanes of an operation count
 
 
 def cuda_ms(fn, reps):
@@ -157,8 +258,15 @@ def main():
         simulate_nlmpc_runs_soa)
     from ilqr_iterative_tasks_torch.control.batched_soa import (
         SoaScenarios, simulate_learning_runs_soa)
+    from ilqr_iterative_tasks_torch.experiments.generic_bench import (
+        bench_kernel, bench_throughput, candidates, card_line,
+        generic_kwargs, throughput_inputs)
+    from ilqr_iterative_tasks_torch.models import (
+        double_integrator, kinetic_bicycle, unicycle)
     from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
     from ilqr_iterative_tasks_torch.ops import _build
+    from ilqr_iterative_tasks_torch.ops.fused_generic_ilqr import (
+        build_fused_generic_ilqr, fused_generic_ilqr_reference)
     from ilqr_iterative_tasks_torch.ops.fused_ilqr import (
         build_fused_ilqr, fused_ilqr_reference, obstacle_to_lanes)
     from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
@@ -166,6 +274,9 @@ def main():
         obstacle_to_lanes_nlmpc)
     from ilqr_iterative_tasks_torch.ops.i2lqr_step import (
         build_fused_i2lqr_step, i2lqr_step_reference)
+    from ilqr_iterative_tasks_torch.ops.ilqr_soa import ilqr_solve_soa
+    from ilqr_iterative_tasks_torch.ops.lm_shooting_soa import (
+        lm_feasibility_solve_soa)
     from ilqr_iterative_tasks_torch.ops.nlmpc_step import (
         build_fused_nlmpc_step, nlmpc_step_reference)
     from ilqr_iterative_tasks_torch.sim.seed import seed_trajectory
@@ -175,7 +286,7 @@ def main():
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
     # ---- 1. device ----
-    card = card_line()
+    card = card_line(dev)
     kind = torch.cuda.get_device_name(0)
     print(f"[1 device] {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
@@ -192,6 +303,11 @@ def main():
     _build.library()
 
     params, limits = IlqrParams.make(), SystemLimits.make()
+    # the same values on the host, for the operation counts
+    host_params = IlqrParams.make(device="cpu")
+    host_limits = SystemLimits.make(device="cpu")
+    host_nl_params = LmpcParams.make(device="cpu")
+    host_nl_limits = SystemLimits.make(dtype=torch.float64, device="cpu")
     xcl, ucl = seed_trajectory(1.0)
     rng = np.random.default_rng(0)
 
@@ -200,7 +316,7 @@ def main():
     x0, xt = seed_lanes(rng, xcl, b, 1, 9)
     obs = obstacle_to_lanes(lane_obstacle(rng, b, dev), b).contiguous()
     k3 = build_fused_ilqr(params, limits, 1.0, num_horizon=N, max_iter=CAP)
-    k3_stats = {}
+    p3 = {}
     for dtype in (torch.float64, torch.float32):
         a = (torch.tensor(x0, dtype=dtype, device=dev),
              torch.tensor(xt, dtype=dtype, device=dev),
@@ -225,13 +341,12 @@ def main():
             require(us_share >= 0.999, "K3 f64: < 99.9 % of lanes agree")
         else:
             require(cost_share >= 0.99, "K3 f32: < 99 % of lanes agree")
-            k3_stats = dict(
-                max_abs_err=float(dus.max()),
-                ms=cuda_ms(lambda: k3(*a), 5),
-                plain_ms=cuda_ms(lambda: fused_ilqr_reference(
-                    params, limits, 1.0, *a, num_horizon=N, max_iter=CAP), 2))
-    print(f"[3 K3 f32] kernel {k3_stats['ms']:.3f} ms, plain "
-          f"{k3_stats['plain_ms']:.3f} ms per call of {b} lanes", flush=True)
+            p3 = dict(ms=cuda_ms(lambda: k3(*a), 5),
+                      plain_ms=cuda_ms(lambda: fused_ilqr_reference(
+                          params, limits, 1.0, *a, num_horizon=N,
+                          max_iter=CAP), 2))
+    print(f"[3 K3 f32] kernel {p3['ms']:.3f} ms, plain {p3['plain_ms']:.3f} "
+          f"ms per call of {b} lanes", flush=True)
 
     # ---- 7. K4 against the plain solve ----
     # the NLMPC solve clips at the raw delta_max: keep it exact in f64
@@ -279,8 +394,25 @@ def main():
                 ms=cuda_ms(lambda: k4(*a), 5),
                 plain_ms=cuda_ms(lambda: fused_lm_shooting_reference(
                     nl_limits, 1.0, *a, num_horizon=N, max_iters=NL_CAP), 2))
+            # per-lane iterations summed over the two starts
+            trips = lm_feasibility_solve_soa(
+                nl_limits, a[3], a[0], a[1], a[2], 1.0, num_horizon=N,
+                max_iters=NL_CAP, m_lanes=torch.clamp(hzn_t.long(), 2, N),
+                done0=skip > 0.5).n_iters
+            sample_idx = torch.nonzero(live).flatten()[:SAMPLE_LANES].cpu()
+            sample = lanes_of(a, sample_idx, b)
+            k4_stats.update(bound(solve_ops(
+                lambda max_iters: fused_lm_shooting_reference(
+                    host_nl_limits, 1.0, *sample, num_horizon=N,
+                    max_iters=max_iters), "max_iters", len(sample_idx),
+                int(live.sum()), float(trips[live].double().sum()) / 2),
+                nbytes(a) + nbytes(out)))
+            k4_stats["mean_iters"] = float(trips[live].double().mean())
     print(f"[7 K4 f32] kernel {k4_stats['ms']:.3f} ms, plain "
-          f"{k4_stats['plain_ms']:.3f} ms per call of {b} lanes", flush=True)
+          f"{k4_stats['plain_ms']:.3f} ms per call of {b} lanes; bound "
+          f"{k4_stats['bound_ms']:.4f} ms by {k4_stats['bound_by']} "
+          f"({k4_stats['mean_iters']:.2f} LM iterations a lane, both "
+          f"starts)", flush=True)
 
     # ---- 6a. i2LQR headline warm run through K1 (captures phase 4) ----
     seed_xs = np.zeros((MAX_STEPS, 4))
@@ -312,7 +444,7 @@ def main():
     t0 = time.perf_counter()
     warm_run = headline(0, cap)
     warm_s = time.perf_counter() - t0
-    k1_launches, k3_launches = k1.launches, k3.launches  # K3: off the path
+    k1_launches = k1.launches
     require(k1_launches > 0, "K1 was not launched by the main path")
     completion = float(warm_run.lap_done.float().mean())
     mean_steps = warm_run.lap_steps.float().mean(dim=1).tolist()
@@ -327,7 +459,7 @@ def main():
     # ---- 4. K1 against the plain step on the captured safe sets ----
     require(sorted(cap.captured) == sorted(CAPTURES),
             f"captured {sorted(cap.captured)}")
-    k1_err, k1_ms, k1_plain_ms = 0.0, None, None
+    k1_err, k1_ms, k1_plain_ms, k1_bound = 0.0, None, None, {}
     for lap, (step, args) in sorted(cap.captured.items()):
         active = args[8] < 0.5
         n_act = int(active.sum())
@@ -335,7 +467,9 @@ def main():
         for dtype in (torch.float32, torch.float64):
             a = cast(args, dtype, keep=(8,))
             out = k1(*a)
-            ref = i2lqr_step_reference(params, limits, 1.0, *a, max_iter=CAP)
+            trips = []
+            ref = i2lqr_step_reference(params, limits, 1.0, *a, max_iter=CAP,
+                                       trips=trips)
             torch.cuda.synchronize()
             require(bool(torch.isfinite(out[0]).all()), "K1: non-finite us")
             agree = ((out[1] == ref[1]) & (out[2] == ref[2])
@@ -358,6 +492,19 @@ def main():
                 line += f"; kernel {ms:.3f} ms, plain {plain:.3f} ms per step"
                 if lap == 2:
                     k1_ms, k1_plain_ms = ms, plain
+                    b_all = args[0].shape[-1]
+                    idx = torch.nonzero(active).flatten()[:SAMPLE_LANES]
+                    sample = lanes_of(a, idx.cpu(), b_all)
+                    iters, mean_trips = step_iters(trips, active)
+                    k1_bound = bound(solve_ops(
+                        lambda max_iter: i2lqr_step_reference(
+                            host_params, host_limits, 1.0, *sample,
+                            max_iter=max_iter), "max_iter", len(idx), n_act,
+                        iters), step_bytes(a, out, (2, 3), k1.nsi))
+                    k1_bound["mean_iters"] = mean_trips
+                    line += (f"; bound {k1_bound['bound_ms']:.4f} ms by "
+                             f"{k1_bound['bound_by']} ({mean_trips:.2f} LM "
+                             f"iterations a candidate solve)")
             print(line, flush=True)
     del cap
 
@@ -445,7 +592,7 @@ def main():
     # ---- 8. K2 against the plain step on the captured inputs ----
     require(sorted(cap2.captured) == sorted(NL_CAPTURES),
             f"captured {sorted(cap2.captured)}")
-    k2_err, k2_ms, k2_plain_ms = 0.0, None, None
+    k2_err, k2_ms, k2_plain_ms, k2_bound = 0.0, None, None, {}
     for lap, (step, args) in sorted(cap2.captured.items()):
         active = args[9] < 0.5
         n_act = int(active.sum())
@@ -455,8 +602,9 @@ def main():
         for dtype in (torch.float32, torch.float64):
             a = cast(args, dtype, keep=(9,))
             out = k2(*a)
+            trips = []
             ref = nlmpc_step_reference(nl_params, nl_limits, 1.0, *a,
-                                       max_iters=NL_CAP)
+                                       max_iters=NL_CAP, trips=trips)
             torch.cuda.synchronize()
             for t in out:
                 require(bool(torch.isfinite(t.double()).all()),
@@ -487,6 +635,20 @@ def main():
                 line += f"; kernel {ms:.3f} ms, plain {plain:.3f} ms per step"
                 if lap == 2:
                     k2_ms, k2_plain_ms = ms, plain
+                    b_all = args[0].shape[-1]
+                    idx = torch.nonzero(active).flatten()[:SAMPLE_LANES]
+                    sample = lanes_of(a, idx.cpu(), b_all)
+                    # both starts run one more iteration per cap step
+                    iters, mean_trips = step_iters(trips, active)
+                    k2_bound = bound(solve_ops(
+                        lambda max_iters: nlmpc_step_reference(
+                            host_nl_params, host_nl_limits, 1.0, *sample,
+                            max_iters=max_iters), "max_iters", len(idx),
+                        n_act, iters / 2), step_bytes(a, out, (3, 4), k2.nsi))
+                    k2_bound["mean_iters"] = mean_trips
+                    line += (f"; bound {k2_bound['bound_ms']:.4f} ms by "
+                             f"{k2_bound['bound_by']} ({mean_trips:.2f} LM "
+                             f"iterations a candidate solve, both starts)")
             print(line, flush=True)
     del cap2
 
@@ -531,6 +693,161 @@ def main():
           f"{nl_completion:.4f}, mean lap steps "
           f"{[round(v, 2) for v in nl_steps]}, K2 launches {k2_launches}, "
           f"card {card}", flush=True)
+    # ---- 11. K5 against its plain version ----
+    di_kw = generic_kwargs(params, limits, max_iter=G_CAP,
+                           matrix_Q=np.zeros((4, 4)))
+    uni_kw = dict(n=3, m=2, matrix_Q=np.zeros((3, 3)),
+                  matrix_R=0.01 * np.eye(2), matrix_Qterminal=30.0 * np.eye(3),
+                  u_lower=-1.5 * np.ones(2), u_upper=1.5 * np.ones(2), dt=0.5,
+                  num_horizon=8, max_iter=60)
+    uni_xt = torch.tensor([2.0, 1.0, 0.5], device=dev)[:, None]
+    x0_bike = torch.tensor([0.0, 0.0, 1.0, 0.0], device=dev)[:, None]
+    # the lanes of generic_bench --kernel, for K5 and for K3
+    kernel_lanes = (x0_bike.expand(4, G_KERNEL_LANES).contiguous(),
+                    candidates(G_KERNEL_LANES, np.random.default_rng(0), dev),
+                    torch.zeros((6, 2, G_KERNEL_LANES), device=dev))
+    bench_kw = generic_kwargs(params, limits, max_iter=G_CAP)
+    cases = [
+        ("double_integrator", double_integrator, di_kw,
+         throughput_inputs(G_LANES, dev)),
+        ("unicycle", unicycle, uni_kw,
+         (torch.zeros((3, G_LANES), device=dev),
+          uni_xt.expand(3, G_LANES).contiguous(),
+          torch.full((8, 2, G_LANES), 0.1, device=dev))),
+        ("bicycle", kinetic_bicycle, bench_kw, kernel_lanes),
+        ("double_integrator --kernel", double_integrator, bench_kw,
+         kernel_lanes),
+    ]
+    k5_stats = {}
+    for name, model, kw, inputs in cases:
+        k5 = build_fused_generic_ilqr(model, **kw)
+        for dtype in (torch.float64, torch.float32):
+            a = tuple(t.to(dtype) for t in inputs)
+            if dtype == torch.float64:
+                a = tuple(t[..., :G_F64_LANES].contiguous() for t in a)
+            b = a[1].shape[-1]
+            out = k5(*a)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            ref = fused_generic_ilqr_reference(model, *a, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            for t in out:
+                require(bool(torch.isfinite(t.double()).all()),
+                        f"K5 {name}: non-finite output")
+            dus = (out[0] - ref[0]).abs().amax(dim=(0, 1))
+            same_it = out[3] == ref[3]
+            tol = 1e-8 if dtype == torch.float64 else 1e-4
+            share = float((same_it & (dus <= tol)).double().mean())
+            bitwise = float(((dus == 0) & (out[2] == ref[2])
+                             & same_it).double().mean())
+            err = torch.linalg.norm((out[1] - a[1]).double(), dim=0)
+            line = (f"[11 K5 {name} {str(dtype)[6:]}] lanes {b}: equal "
+                    f"n_iters and max|dus|<={tol:g} {share:.6f}, equal "
+                    f"n_iters {float(same_it.double().mean()):.6f}, bitwise "
+                    f"{bitwise:.6f}, max|dus| {float(dus.max()):.3e}, mean "
+                    f"n_iters {float(out[3].double().mean()):.2f} (max "
+                    f"{int(out[3].max())}), max|x_N - x_term| "
+                    f"{float(err.max()):.3e}; plain {plain_ms:.1f} ms")
+            require(share >= (0.999 if dtype == torch.float64 else 0.99),
+                    f"K5 {name} {dtype}: agreement {share}")
+            if name == "unicycle":
+                require(float(err.max()) < 0.05,
+                        f"K5 unicycle: a lane ends {float(err.max())} away")
+            ms = cuda_ms(lambda: k5(*a), 5)
+            line += f", kernel {ms:.3f} ms per call"
+            # the --throughput shapes give the kernels line its K5 entry
+            if dtype == torch.float32 and name == "double_integrator":
+                sample = lanes_of(a, torch.arange(SAMPLE_LANES), b)
+                k5_stats = dict(
+                    max_abs_err=float(dus[same_it].max()), ms=ms,
+                    plain_ms=plain_ms,
+                    mean_iters=float(out[3].double().mean()),
+                    **bound(solve_ops(
+                        lambda max_iter: fused_generic_ilqr_reference(
+                            model, *sample, **{**kw, "max_iter": max_iter}),
+                        "max_iter", SAMPLE_LANES, b,
+                        float(out[3].double().sum())),
+                        nbytes(a) + nbytes(out)))
+                line += (f"; bound {k5_stats['bound_ms']:.4f} ms by "
+                         f"{k5_stats['bound_by']}")
+            print(line, flush=True)
+            del out, ref
+
+    # K3 as generic_bench --kernel runs it (cap 150, absent obstacle), on
+    # its lanes: the kernels line takes K3's figures from here
+    k3g = build_fused_ilqr(params, limits, 1.0, num_horizon=N,
+                           max_iter=G_CAP)
+    obs_absent = obstacle_to_lanes(Obstacle.absent(device=dev),
+                                   G_KERNEL_LANES).contiguous()
+    k3_stats = {}
+    for dtype in (torch.float64, torch.float32):
+        a = tuple(t.to(dtype) for t in (*kernel_lanes, obs_absent))
+        if dtype == torch.float64:
+            a = tuple(t[..., :G_F64_LANES].contiguous() for t in a)
+        b = a[1].shape[-1]
+        out = k3g(*a)
+        ref = fused_ilqr_reference(params, limits, 1.0, *a, num_horizon=N,
+                                   max_iter=G_CAP)
+        torch.cuda.synchronize()
+        for t in out:
+            require(bool(torch.isfinite(t).all()), "K3 --kernel: non-finite")
+        dus = (out[0] - ref[0]).abs().amax(dim=(0, 1))
+        dcost = (out[2] - ref[2]).abs()
+        us_share = float((dus <= 1e-6).double().mean())
+        cost_share = float((dcost <= 1e-3 * ref[2].abs()).double().mean())
+        line = (f"[11 K3 --kernel {str(dtype)[6:]}] lanes {b}: "
+                f"max|dus|<=1e-6 {us_share:.6f}, |dcost|<=1e-3|cost| "
+                f"{cost_share:.6f}, bitwise us "
+                f"{float((dus == 0).double().mean()):.6f}, max|dus| "
+                f"{float(dus.max()):.3e}")
+        if dtype == torch.float64:
+            require(us_share >= 0.999, "K3 --kernel f64: < 99.9 % agree")
+        else:
+            require(cost_share >= 0.99, "K3 --kernel f32: < 99 % agree")
+            trips = ilqr_solve_soa(params, limits, a[3], a[0], a[1], a[2],
+                                   float(params.lamb), 1.0, num_horizon=N,
+                                   max_iter=G_CAP).lane_iters
+            sample = lanes_of(a, torch.arange(SAMPLE_LANES), b)
+            k3_stats = dict(
+                max_abs_err=float(dus.max()), ms=cuda_ms(lambda: k3g(*a), 5),
+                plain_ms=cuda_ms(lambda: fused_ilqr_reference(
+                    params, limits, 1.0, *a, num_horizon=N, max_iter=G_CAP),
+                    1),
+                mean_iters=float(trips.double().mean()),
+                **bound(solve_ops(
+                    lambda max_iter: fused_ilqr_reference(
+                        host_params, host_limits, 1.0, *sample,
+                        num_horizon=N, max_iter=max_iter), "max_iter",
+                    SAMPLE_LANES, b, float(trips.double().sum())),
+                    nbytes(a) + nbytes(out)))
+            line += (f"; kernel {k3_stats['ms']:.3f} ms, plain "
+                     f"{k3_stats['plain_ms']:.3f} ms per call; bound "
+                     f"{k3_stats['bound_ms']:.4f} ms by "
+                     f"{k3_stats['bound_by']} ({k3_stats['mean_iters']:.2f} "
+                     f"LM iterations a lane, max {int(trips.max())})")
+        print(line, flush=True)
+        del out, ref
+
+    # ---- 12. the generic headline through K5 ----
+    # each bench builds its own wrappers: their counts start at 0
+    thr = bench_throughput(G_LANES, G_CAP, device=dev)
+    ker = bench_kernel(G_KERNEL_LANES, G_CAP, device=dev)
+    k5_launches = thr["k5_launches"] + ker["k5_launches"]
+    k3_path_launches = ker["k3_launches"]
+    require(k5_launches > 0, "K5 was not launched by the generic benches")
+    print(f"[12 generic --throughput] {json.dumps(thr)}", flush=True)
+    print(f"[12 generic --kernel] {json.dumps(ker)}", flush=True)
+    print(f"[12 generic headline] double integrator "
+          f"{thr['double_integrator_k5_solves_per_s']:.1f} solves/s "
+          f"(B={G_LANES}); --kernel: bicycle K5 "
+          f"{ker['bicycle_k5_solves_per_s']:.1f}, double integrator K5 "
+          f"{ker['double_integrator_k5_solves_per_s']:.1f}, bicycle K3 "
+          f"{ker['bicycle_k3_solves_per_s']:.1f} solves/s (B="
+          f"{G_KERNEL_LANES}, K5/K3 time {ker['k5_vs_k3_time_ratio']}); K5 "
+          f"launches {k5_launches}, card {card}", flush=True)
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
 
     csrc, tpu = "ilqr_iterative_tasks_torch/csrc/", "ilqr_iterative_tasks_tpu/ops/"
@@ -539,20 +856,26 @@ def main():
              source=csrc + "i2lqr_step.cu",
              replaces=tpu + "pallas_i2lqr_step.py:221",
              launches=k1_launches, max_abs_err=k1_err, ms=k1_ms,
-             plain_ms=k1_plain_ms),
+             plain_ms=k1_plain_ms, **k1_bound),
         dict(name="nlmpc_step (K2)", route="cuda",
              source=csrc + "nlmpc_step.cu",
              replaces=tpu + "pallas_nlmpc_step.py:245",
              launches=k2_launches, max_abs_err=k2_err, ms=k2_ms,
-             plain_ms=k2_plain_ms),
+             plain_ms=k2_plain_ms, **k2_bound),
+        # K3 runs on the generic tier's --kernel path as its yardstick; its
+        # figures are phase 11's on those lanes
         dict(name="fused_ilqr (K3)", route="cuda",
              source=csrc + "fused_ilqr.cu",
              replaces=tpu + "pallas_ilqr.py:87",
-             launches=k3_launches, on_main_path=False, **k3_stats),
+             launches=k3_path_launches, **k3_stats),
         dict(name="fused_lm_shooting (K4)", route="cuda",
              source=csrc + "fused_lm_shooting.cu",
              replaces=tpu + "pallas_lm_shooting.py:97",
              launches=k4_launches, on_main_path=False, **k4_stats),
+        dict(name="generic_ilqr (K5)", route="cuda",
+             source=csrc + "generic_ilqr.cu",
+             replaces=tpu + "pallas_generic_ilqr.py:64",
+             launches=k5_launches, **k5_stats),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

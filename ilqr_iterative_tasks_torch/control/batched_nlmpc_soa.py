@@ -5,8 +5,9 @@ Port of the base path of ilqr_iterative_tasks_tpu/control/batched_nlmpc_soa.py
 ``lap_loop`` :827), safe-set mode spaceVarying. The scenario batch B is the
 trailing axis of every tensor; all B lanes run in lockstep and a lane that
 finishes its lap freezes. Each control step's ``calc_input`` is one call of
-a step solver: the K2 kernel (ops/nlmpc_step.py::build_fused_nlmpc_step)
-or, by default, its plain version. Per lane the simulator keeps the
+a step solver: the K2 kernel (ops/nlmpc_step.py::build_fused_nlmpc_step),
+which the simulator builds itself for CUDA scenarios when the caller passes
+none. The plain step runs only for scenarios on the CPU. Per lane the simulator keeps the
 terminal guess, the warm start and the shrinking horizon: each lap starts
 at horizon n with the newest stored lap's row n as guess and its first n
 stored inputs as warm start; choosing a lap's last point shrinks the
@@ -27,10 +28,13 @@ import torch
 from ilqr_iterative_tasks_torch.control import batched_soa
 from ilqr_iterative_tasks_torch.control.batched_soa import (
     SoaScenarios, _step_solver_inputs, draw_noise, plant_step)
+from ilqr_iterative_tasks_torch.ops import _build
 from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
     obstacle_to_lanes_nlmpc)
-from ilqr_iterative_tasks_torch.ops.nlmpc_step import nlmpc_step_reference
-from ilqr_iterative_tasks_torch.utils.params import LmpcParams, SystemLimits
+from ilqr_iterative_tasks_torch.ops.nlmpc_step import (
+    FusedNlmpcStep, build_fused_nlmpc_step, nlmpc_step_reference)
+from ilqr_iterative_tasks_torch.utils.params import (
+    LmpcParams, SystemLimits, nlmpc_consts)
 
 
 class NlmpcSoaRunResult(NamedTuple):
@@ -72,6 +76,25 @@ def advance_tail(us_w, u_app, new_guess0, succ, h1, hzn, feasible_any,
     return u_sel, new_guess, u_warm_new, hzn_next
 
 
+_K2_CACHE: dict = {}
+
+
+def default_step_solver(params: LmpcParams, limits: SystemLimits, dt, *,
+                        max_steps: int, max_laps: int,
+                        max_iters: int) -> FusedNlmpcStep:
+    """The K2 that ``simulate_nlmpc_runs_soa`` launches on CUDA scenarios
+    when no step_solver is passed: built once per constants and sizes,
+    then reused (its ``launches`` keeps counting)."""
+    key = (tuple(_build.nlmpc_consts_array(nlmpc_consts(limits, dt))),
+           params.num_ss_points, params.num_ss_iter, params.num_horizon,
+           max_steps, max_laps, max_iters)
+    if key not in _K2_CACHE:
+        _K2_CACHE[key] = build_fused_nlmpc_step(
+            params, limits, dt, num_horizon=params.num_horizon,
+            max_steps=max_steps, max_laps=max_laps, max_iters=max_iters)
+    return _K2_CACHE[key]
+
+
 _UNSUPPORTED = ("retile_frac", "tail_shrink", "resume_from", "pallas_solver",
                 "pallas_step_solver", "with_streak_stats")
 
@@ -95,8 +118,9 @@ def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
     iterations of every solve. ``infeasible_retire=S`` retires a lane from
     the solver after S consecutive all-infeasible steps (it keeps
     integrating its held input). ``step_solver``: a K2 built by
-    ``build_fused_nlmpc_step`` for the same sizes, or None for the plain
-    version. ``noise`` (steps, 2, B) standard-normal draws or
+    ``build_fused_nlmpc_step`` for the same sizes, or None: then
+    ``default_step_solver``'s K2 on CUDA scenarios and the plain step on
+    CPU ones. ``noise`` (steps, 2, B) standard-normal draws or
     ``generator``: the plant-noise source (needed where noise_on is set).
     """
     if unsupported:
@@ -104,6 +128,11 @@ def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
                         f"port (left out: {', '.join(_UNSUPPORTED)})")
     params.check_ported()
     n, k, nsi = params.num_horizon, params.num_ss_points, params.num_ss_iter
+    if step_solver is None and scenarios.x0.device.type != "cpu":
+        step_solver = default_step_solver(params, limits, dt,
+                                          max_steps=max_steps,
+                                          max_laps=max_laps,
+                                          max_iters=max_lm_iters)
     if step_solver is not None:
         s = step_solver
         if ((s.k, s.nsi, s.num_horizon, s.max_steps, s.max_laps, s.max_iters)

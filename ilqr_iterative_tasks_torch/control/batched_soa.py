@@ -5,8 +5,9 @@ Port of the base path of ilqr_iterative_tasks_tpu/control/batched_soa.py
 The scenario batch B is the trailing axis of every tensor. All B lanes run in
 lockstep; a lane that finishes its lap freezes until every lane finishes or
 the step budget runs out. Each control step's ``calc_input`` is one call of
-a step solver: the K1 kernel (ops/i2lqr_step.py::build_fused_i2lqr_step) or,
-by default, its plain version.
+a step solver: the K1 kernel (ops/i2lqr_step.py::build_fused_i2lqr_step),
+which the simulator builds itself for CUDA scenarios when the caller passes
+none. The plain step runs only for scenarios on the CPU.
 
 Plant noise is clipped Gaussian (v: N(0, 0.01^2), theta: N(0, 0.005^2),
 both clipped to +-0.05, half of each added), gated per lane by
@@ -24,10 +25,14 @@ from typing import NamedTuple
 import torch
 
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
+from ilqr_iterative_tasks_torch.ops import _build
 from ilqr_iterative_tasks_torch.ops.fused_ilqr import obstacle_to_lanes
-from ilqr_iterative_tasks_torch.ops.i2lqr_step import i2lqr_step_reference
+from ilqr_iterative_tasks_torch.ops.i2lqr_step import (
+    FusedI2lqrStep, build_fused_i2lqr_step, i2lqr_step_reference)
 from ilqr_iterative_tasks_torch.ops.ilqr_soa import step_soa
-from ilqr_iterative_tasks_torch.utils.params import IlqrParams, SystemLimits
+from ilqr_iterative_tasks_torch.utils.device import resolve
+from ilqr_iterative_tasks_torch.utils.params import (
+    IlqrParams, SystemLimits, solver_consts)
 
 GOAL_TOL = 0.8
 
@@ -44,7 +49,8 @@ class SoaScenarios:
 
     @classmethod
     def broadcast(cls, x0, goal, obstacle: Obstacle, batch: int,
-                  noise_on=False, *, dtype=torch.float32, device="cpu"):
+                  noise_on=False, *, dtype=torch.float32, device=None):
+        device = resolve(device)
         f = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
         return cls(
             x0=f(x0)[:, None].expand(4, batch).contiguous(),
@@ -123,6 +129,25 @@ def add_lap(ss, slot, xs_rec, n_valid):
     lap_len[slot] = n_valid.to(torch.int32)
 
 
+_K1_CACHE: dict = {}
+
+
+def default_step_solver(params: IlqrParams, limits: SystemLimits, dt, *,
+                        max_steps: int, max_laps: int,
+                        max_iter: int) -> FusedI2lqrStep:
+    """The K1 that ``simulate_learning_runs_soa`` launches on CUDA
+    scenarios when no step_solver is passed: built once per constants and
+    sizes, then reused (its ``launches`` keeps counting)."""
+    key = (tuple(_build.consts_array(solver_consts(params, limits, dt))),
+           params.num_ss_points, params.num_ss_iter, params.num_horizon,
+           max_steps, max_laps, max_iter)
+    if key not in _K1_CACHE:
+        _K1_CACHE[key] = build_fused_i2lqr_step(
+            params, limits, dt, num_horizon=params.num_horizon,
+            max_steps=max_steps, max_laps=max_laps, max_iter=max_iter)
+    return _K1_CACHE[key]
+
+
 _UNSUPPORTED = ("retile_frac", "tail_shrink", "stall_reseed", "resume_from",
                 "dedup_passes", "pallas_solver", "pallas_step_solver",
                 "precision_islands")
@@ -144,8 +169,9 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
     seed_xs: (max_steps, 4) seed lap, padded; seed_us is unused (kept for
     the JAX signature); seed_len: count of seed states. ``solver_max_iter``
     caps the LM iterations (None = the reference's 150). ``step_solver``:
-    a K1 built by ``build_fused_i2lqr_step`` for the same sizes, or None
-    for the plain version. ``noise`` (steps, 2, B) standard-normal draws or
+    a K1 built by ``build_fused_i2lqr_step`` for the same sizes, or None:
+    then ``default_step_solver``'s K1 on CUDA scenarios and the plain step
+    on CPU ones. ``noise`` (steps, 2, B) standard-normal draws or
     ``generator``: the plant-noise source (needed where noise_on is set).
     """
     if unsupported:
@@ -156,6 +182,10 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
     k = params.num_ss_points
     nsi = params.num_ss_iter
     cap = 150 if solver_max_iter is None else solver_max_iter
+    if step_solver is None and scenarios.x0.device.type != "cpu":
+        step_solver = default_step_solver(params, limits, dt,
+                                          max_steps=max_steps,
+                                          max_laps=max_laps, max_iter=cap)
     if step_solver is not None:
         s = step_solver
         if ((s.k, s.nsi, s.num_horizon, s.max_steps, s.max_laps, s.max_iter)

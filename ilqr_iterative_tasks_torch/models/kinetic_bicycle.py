@@ -7,15 +7,31 @@ Port of ilqr_iterative_tasks_tpu/models/kinetic_bicycle.py:
     v'     = v + a*dt
     theta' = theta + delta*dt
 
-All functions broadcast over leading batch dimensions (state last, as in the
-JAX module). The solvers evaluate the Jacobians at the SUCCESSOR state's
-(v, theta) with the current input's accel (reference quirk); these functions
-are evaluation-point agnostic.
+``step`` and the Jacobians broadcast over leading batch dimensions (state
+last, as in the JAX module). The solvers evaluate the Jacobians at the
+SUCCESSOR state's (v, theta) with the current input's accel (reference
+quirk); these functions are evaluation-point agnostic. ``step_comps`` takes
+tuples of per-component tensors (ops/ilqr_soa.py's ``step_soa``), the form
+of the generic SoA solver and of the K5 kernel, whose CUDA instantiation of
+this model is ``CUDA_MODEL``.
 """
 
 from __future__ import annotations
 
 import torch
+
+X_DIM = 4
+U_DIM = 2
+CUDA_MODEL = "bicycle"  # csrc/generic_ilqr.cu Bicycle
+
+
+def step_comps(x, u, dt):
+    """x: tuple of 4 (*S) tensors, u: tuple of 2 -> tuple of 4."""
+    px, py, v, th = x
+    ua, ud = u
+    arc = v * dt + 0.5 * ua * dt * dt
+    return (px + torch.cos(th) * arc, py + torch.sin(th) * arc,
+            v + ua * dt, th + ud * dt)
 
 
 def step(x: torch.Tensor, u: torch.Tensor, dt) -> torch.Tensor:

@@ -3,7 +3,8 @@
 Port of ilqr_iterative_tasks_tpu/models/obstacle.py. An obstacle is always
 present as data; ``present`` (0.0 or 1.0) masks its cost contribution.
 ``moving_option``: 0 static, 1 moving +y, 2 moving -x (used arithmetically).
-Leaves are scalars or per-lane (B,) tensors.
+Leaves are scalars or per-lane (B,) tensors; ``make`` puts them on the
+current CUDA device unless the caller names a device.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 from dataclasses import dataclass, fields, replace
 
 import torch
+
+from ilqr_iterative_tasks_torch.utils.device import resolve
 
 
 @dataclass(frozen=True)
@@ -26,7 +29,8 @@ class Obstacle:
     @classmethod
     def make(cls, x=0.0, y=0.0, width=1.0, height=1.0, spd=0.0,
              moving_option=0, present=True, *, dtype=torch.float32,
-             device="cpu"):
+             device=None):
+        device = resolve(device)
         f = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
         return cls(x=f(x), y=f(y), width=f(width), height=f(height),
                    spd=f(0.0 if spd is None else spd),
@@ -35,7 +39,7 @@ class Obstacle:
                    present=f(1.0 if present else 0.0))
 
     @classmethod
-    def absent(cls, *, dtype=torch.float32, device="cpu"):
+    def absent(cls, *, dtype=torch.float32, device=None):
         return cls.make(present=False, dtype=dtype, device=device)
 
     def map(self, fn) -> "Obstacle":

@@ -22,8 +22,9 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-SOURCES = ("lm_core.cuh", "nlmpc_core.cuh", "fused_ilqr.cu",
-           "i2lqr_step.cu", "fused_lm_shooting.cu", "nlmpc_step.cu")
+SOURCES = ("lm_core.cuh", "nlmpc_core.cuh", "dual.cuh", "fused_ilqr.cu",
+           "i2lqr_step.cu", "fused_lm_shooting.cu", "nlmpc_step.cu",
+           "generic_ilqr.cu")
 # Precise sin/cos/exp, IEEE division and sqrt (no --use_fast_math), and no
 # FMA contraction (-fmad=false): the kernels then round operation by
 # operation as the plain torch version does, which the LM accept/reject
@@ -49,6 +50,9 @@ _ARGTYPES = {
     # qfun, lap_len, lap_ids, lap_ok, obs, skip, hzn, us, feasible_any,
     # new_guess, idx, row, succ, stream
     "nlmpc_step_launch": [_I] * 4 + [_P] + [_I] * 3 + [_P] * 18,
+    # dtype, model, n, consts, max_iter, B, x0, x_term, u_init, us, x_last,
+    # cost, n_iters, stream
+    "generic_ilqr_launch": [_I, _I, _I, _P, _I, _I] + [_P] * 8,
 }
 
 
@@ -133,6 +137,18 @@ def nlmpc_consts_array(C) -> ctypes.Array:
     (raw delta_max), sqrt_w, margin, term_tol, viol_tol."""
     vals = [C.dt, C.a_max, C.d_max, C.sqrt_w, C.margin, C.term_tol,
             C.viol_tol]
+    return (ctypes.c_double * len(vals))(*vals)
+
+
+def generic_consts_array(q, r, qt, u_lo, u_hi, dt, eps, lamb0, lamb_factor,
+                         max_lamb) -> ctypes.Array:
+    """Pack the generic solver's constants into the doubles
+    ``make_generic_consts`` of csrc/generic_ilqr.cu reads: the symmetrized
+    q (n x n), r (m x m) and qt (n x n) row-major, u_lo (m), u_hi (m), then
+    dt, eps, lamb0, lamb_factor, max_lamb."""
+    vals = [float(v) for a in (q, r, qt, u_lo, u_hi) for v in a.reshape(-1)]
+    vals += [float(dt), float(eps), float(lamb0), float(lamb_factor),
+             float(max_lamb)]
     return (ctypes.c_double * len(vals))(*vals)
 
 

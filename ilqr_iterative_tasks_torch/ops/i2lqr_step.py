@@ -74,10 +74,12 @@ def _lex_argmin_rows(cost_rows):
 
 def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
                          states, qfun, lap_len, lap_ids, lap_ok, obs, skip, *,
-                         max_iter: int):
+                         max_iter: int, trips: list | None = None):
     """Plain version of K1 (module docstring). The candidate solves of all
     nsi laps run as one batched ``ilqr_solve_soa`` per pass (per-lane
-    results do not depend on the batching: done lanes freeze)."""
+    results do not depend on the batching: done lanes freeze). If
+    ``trips`` is a list, each pass appends its solves' trip counts to it:
+    (nsi*k, B) i32, 0 on skipped lanes."""
     n = params.num_horizon
     k = params.num_ss_points
     nsi = params.num_ss_iter
@@ -114,6 +116,8 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
         sol = ilqr_solve_soa(params, limits, obs_kb, x0b, x_terms, zeros_ws,
                              float(params.lamb), dt, num_horizon=n,
                              max_iter=max_iter, done0=frozen)
+        if trips is not None:
+            trips.append(sol.lane_iters)
         x_last = sol.xs[-1]
         dd = [x_last[i] - x_terms[i] for i in range(4)]
         d = torch.sqrt(dd[0] * dd[0] + dd[1] * dd[1] + dd[2] * dd[2]

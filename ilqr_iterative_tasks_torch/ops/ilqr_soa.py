@@ -26,17 +26,10 @@ from typing import NamedTuple
 
 import torch
 
+from ilqr_iterative_tasks_torch.models.kinetic_bicycle import (
+    step_comps as step_soa)
 from ilqr_iterative_tasks_torch.utils.params import (
     IlqrParams, SystemLimits, solver_consts)
-
-
-def step_soa(x, u, dt):
-    """x: tuple of 4 (*S) tensors, u: tuple of 2 -> tuple of 4."""
-    px, py, v, th = x
-    ua, ud = u
-    arc = v * dt + 0.5 * ua * dt * dt
-    return (px + torch.cos(th) * arc, py + torch.sin(th) * arc,
-            v + ua * dt, th + ud * dt)
 
 
 def _quu_inv_comps(q00, q01, q11, lamb):
@@ -65,6 +58,7 @@ class IlqrSoaSolution(NamedTuple):
     lamb: torch.Tensor  # (*S)
     n_iters: int  # lockstep iterations run
     cost: torch.Tensor  # (*S)
+    lane_iters: torch.Tensor  # (*S) i32: iterations each lane ran undone
 
 
 def _quad(m, d):
@@ -301,6 +295,7 @@ def ilqr_solve_soa(params: IlqrParams, limits: SystemLimits, obs, x0,
         bshape).clone()
     done = (torch.zeros(bshape, dtype=torch.bool, device=dev) if done0 is None
             else done0.expand(bshape).clone())
+    lane_iters = torch.zeros(bshape, dtype=torch.int32, device=dev)
     it = 0
     while it < max_iter and not bool(done.all()):
         us = [clip_u((us_arr[i, 0], us_arr[i, 1])) for i in range(n)]
@@ -318,6 +313,7 @@ def ilqr_solve_soa(params: IlqrParams, limits: SystemLimits, obs, x0,
                                     lamb * C.lamb_factor))
         converged = accept & (torch.abs((cost_new - cost) / cost) < C.eps)
         diverged = (~accept) & (lamb_next > C.max_lamb)
+        lane_iters = torch.where(done, lane_iters, it + 1)
         done = done | converged | diverged
         lamb = lamb_next
         it += 1
@@ -327,4 +323,4 @@ def ilqr_solve_soa(params: IlqrParams, limits: SystemLimits, obs, x0,
     return IlqrSoaSolution(
         us=torch.stack([torch.stack(u) for u in us]),
         xs=torch.stack([torch.stack(x) for x in xs]),
-        lamb=lamb, n_iters=it, cost=cost)
+        lamb=lamb, n_iters=it, cost=cost, lane_iters=lane_iters)

@@ -45,11 +45,14 @@ from ilqr_iterative_tasks_torch.utils.params import (
 
 def nlmpc_step_reference(params: LmpcParams, limits: SystemLimits, dt, x,
                          guess, u_warm, states, qfun, lap_len, lap_ids,
-                         lap_ok, obs, skip, hzn, *, max_iters: int):
+                         lap_ok, obs, skip, hzn, *, max_iters: int,
+                         trips: list | None = None):
     """Plain version of K2 (module docstring). The candidate solves of all
     nsi laps run as one batched solve; the winner's solution is read from
     it (a candidate solve is a pure per-lane function, so this is the
-    solution a re-solve would give)."""
+    solution a re-solve would give). If ``trips`` is a list, the solves'
+    trip counts are appended to it: (nsi*k, B) i32, summed over the two
+    starts, 0 on skipped and horizon-1 lanes."""
     params.check_ported()
     n, k, nsi = params.num_horizon, params.num_ss_points, params.num_ss_iter
     t_rows = states.shape[1]
@@ -86,6 +89,8 @@ def nlmpc_step_reference(params: LmpcParams, limits: SystemLimits, dt, x,
     sol = lm_feasibility_solve_soa(
         limits, obs, x, x_terms, u_warm, dt, num_horizon=n,
         max_iters=max_iters, m_lanes=m2, done0=~active | h1)
+    if trips is not None:
+        trips.append(sol.n_iters)
     dr = [x1[i][None] - x_terms[i] for i in range(4)]
     reach = torch.sqrt(dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2]
                        + dr[3] * dr[3]) <= 1e-3

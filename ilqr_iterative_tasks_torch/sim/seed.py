@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ilqr_iterative_tasks_tpu.constants import U_DIM, X_DIM
+from ilqr_iterative_tasks_torch.constants import U_DIM, X_DIM
 from ilqr_iterative_tasks_torch.models import kinetic_bicycle as dyn
 
 

@@ -3,7 +3,8 @@ tensors.
 
 Port of ilqr_iterative_tasks_tpu/utils/params.py (``IlqrParams``,
 ``LmpcParams``, ``SystemLimits``). Numeric weights are 0-d (or 4x4 / 2x2)
-tensors of the requested dtype on the requested device; the structural
+tensors of the requested dtype on the requested device (the current CUDA
+device when none is named, utils/device.py); the structural
 fields (horizon, candidate counts, iteration caps) are plain ints. i2LQR's
 ``delta_max_r`` keeps the reference's ``round(delta_max, 2)`` quirk:
 clipping and the input barriers use the rounded value (params.py:42). The
@@ -17,6 +18,8 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+
+from ilqr_iterative_tasks_torch.utils.device import resolve
 
 
 def _diag4(a, b, c, d):
@@ -35,7 +38,8 @@ class SystemLimits:
 
     @classmethod
     def make(cls, a_max=2.0, delta_max=np.pi / 2, v_max=10.0, v_min=0.0, *,
-             dtype=torch.float32, device="cpu"):
+             dtype=torch.float32, device=None):
+        device = resolve(device)
         f = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
         return cls(a_max=f(a_max), delta_max=f(delta_max),
                    delta_max_r=f(round(float(delta_max), 2)),
@@ -74,7 +78,8 @@ class IlqrParams:
              tuning_ctrl_q1=1.0, tuning_ctrl_q2=1.0,
              tuning_obs_q1=2.74, tuning_obs_q2=2.74, safety_margin=0.0,
              eps=1e-2, lamb=1.0, lamb_factor=10.0, max_lamb=1000.0,
-             reach_error=1.0, dtype=torch.float32, device="cpu", **static):
+             reach_error=1.0, dtype=torch.float32, device=None, **static):
+        device = resolve(device)
         f = lambda v: torch.as_tensor(np.asarray(v), dtype=dtype,
                                       device=device)
         if matrix_Q is None:
@@ -114,7 +119,8 @@ class LmpcParams:
     ss_option: str = "spaceVarying"
 
     @classmethod
-    def make(cls, *, dtype=torch.float32, device="cpu", **static):
+    def make(cls, *, dtype=torch.float32, device=None, **static):
+        device = resolve(device)
         f = lambda v: torch.as_tensor(np.asarray(v), dtype=dtype,
                                       device=device)
         return cls(matrix_Q=f(np.zeros((6, 6))),

@@ -46,14 +46,14 @@ def _seed():
 def _scenarios(b, **kw):
     xcl, _, _ = _seed()
     return SoaScenarios.broadcast(
-        np.zeros(4), xcl[-1], Obstacle.make(31.0, -2.0, 8.0, 6.0, dtype=F64),
-        b, dtype=F64, **kw)
+        np.zeros(4), xcl[-1], Obstacle.make(31.0, -2.0, 8.0, 6.0, dtype=F64, device="cpu"),
+        b, dtype=F64, **kw, device="cpu")
 
 
 def test_zero_noise_laps_equal_the_host_sequence():
     _, seed_xs, seed_us = _seed()
     res = simulate_nlmpc_runs_soa(
-        LmpcParams.make(dtype=F64), SystemLimits.make(dtype=F64),
+        LmpcParams.make(dtype=F64, device="cpu"), SystemLimits.make(dtype=F64, device="cpu"),
         _scenarios(2), seed_xs, seed_us, 121, 1.0, num_laps=3,
         max_steps=T_ROWS, max_laps=MAX_LAPS)
     assert res.lap_steps.T.tolist() == [HOST_LAPS, HOST_LAPS]
@@ -90,8 +90,8 @@ def test_closed_loop_lap1_matches_jax_f64():
         jp, jl, scen, jnp.asarray(seed_xs), jnp.asarray(seed_us), 121, 1.0,
         key, **kw)
     tr = simulate_nlmpc_runs_soa(
-        convert.lmpc_params(jp), convert.system_limits(jl),
-        convert.scenarios(scen), seed_xs, seed_us, 121, 1.0,
+        convert.lmpc_params(jp, device="cpu"), convert.system_limits(jl, device="cpu"),
+        convert.scenarios(scen, device="cpu"), seed_xs, seed_us, 121, 1.0,
         noise=torch.from_numpy(_jax_draws(key, budget, b)), **kw)
     np.testing.assert_array_equal(tr.lap_steps.numpy(),
                                   np.asarray(jr.lap_steps))
@@ -133,7 +133,7 @@ class _InfeasibleFrom:
 def test_infeasible_retire_holds_the_input_and_skips_the_lane():
     retire, start, budget = 3, 2, 9
     _, seed_xs, seed_us = _seed()
-    params, limits = LmpcParams.make(dtype=F64), SystemLimits.make(dtype=F64)
+    params, limits = LmpcParams.make(dtype=F64, device="cpu"), SystemLimits.make(dtype=F64, device="cpu")
     solver = _InfeasibleFrom(params, limits, 1, start, 12)
     res = simulate_nlmpc_runs_soa(
         params, limits, _scenarios(2), seed_xs, seed_us, 121, 1.0,
@@ -166,15 +166,15 @@ def test_infeasible_retire_holds_the_input_and_skips_the_lane():
 
 def test_unported_options_raise():
     _, seed_xs, seed_us = _seed()
-    limits = SystemLimits.make(dtype=F64)
+    limits = SystemLimits.make(dtype=F64, device="cpu")
     kw = dict(num_laps=1, max_steps=T_ROWS, max_laps=MAX_LAPS)
     with pytest.raises(TypeError, match="retile_frac"):
-        simulate_nlmpc_runs_soa(LmpcParams.make(dtype=F64), limits,
+        simulate_nlmpc_runs_soa(LmpcParams.make(dtype=F64, device="cpu"), limits,
                                 _scenarios(2), seed_xs, seed_us, 121, 1.0,
                                 retile_frac=0.25, **kw)
     for bad in (dict(ss_option="timeVarying"), dict(all_ss_point=True),
                 dict(all_ss_iter=True)):
         with pytest.raises(NotImplementedError):
-            simulate_nlmpc_runs_soa(LmpcParams.make(dtype=F64, **bad),
+            simulate_nlmpc_runs_soa(LmpcParams.make(dtype=F64, **bad, device="cpu"),
                                     limits, _scenarios(2), seed_xs, seed_us,
                                     121, 1.0, **kw)

@@ -55,8 +55,8 @@ def test_closed_loop_matches_jax_f64(record_property):
         jp, jl, scen, jnp.asarray(seed_xs), jnp.zeros((T_ROWS, 2)), 121, 1.0,
         key, **kw)
     tr = simulate_learning_runs_soa(
-        convert.ilqr_params(jp), convert.system_limits(jl),
-        convert.scenarios(scen), seed_xs, None, 121, 1.0,
+        convert.ilqr_params(jp, device="cpu"), convert.system_limits(jl, device="cpu"),
+        convert.scenarios(scen, device="cpu"), seed_xs, None, 121, 1.0,
         noise=torch.from_numpy(_jax_draws(key, LAPS * BUDGET, B)), **kw)
 
     j_steps, j_done = np.asarray(jr.lap_steps), np.asarray(jr.lap_done)

@@ -1,5 +1,6 @@
-"""The CUDA kernels K1, K3 (i2LQR) and K2, K4 (NLMPC) against their plain
-torch versions on the card.
+"""The CUDA kernels K1, K3 (i2LQR), K2, K4 (NLMPC) and K5 (generic LM-iLQR)
+against their plain torch versions on the card, and the simulators'
+own K1 / K2 when they are given no step solver.
 
 Marked ``cuda``: each test skips without a CUDA device. On a machine with
 one, run ``python -m pytest tests/test_torch_cuda.py -q --noconftest``
@@ -10,11 +11,16 @@ import numpy as np
 import pytest
 import torch
 
+from ilqr_iterative_tasks_torch.control import batched_nlmpc_soa, batched_soa
 from ilqr_iterative_tasks_torch.control.batched_nlmpc_soa import (
     simulate_nlmpc_runs_soa)
 from ilqr_iterative_tasks_torch.control.batched_soa import (
     SoaScenarios, _step_solver_inputs, simulate_learning_runs_soa)
+from ilqr_iterative_tasks_torch.models import (
+    double_integrator, kinetic_bicycle, unicycle)
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
+from ilqr_iterative_tasks_torch.ops.fused_generic_ilqr import (
+    build_fused_generic_ilqr, fused_generic_ilqr_reference)
 from ilqr_iterative_tasks_torch.ops.fused_ilqr import (
     build_fused_ilqr, fused_ilqr_reference, obstacle_to_lanes)
 from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
@@ -30,6 +36,19 @@ from ilqr_iterative_tasks_torch.utils.params import (
 
 pytestmark = pytest.mark.cuda
 N, CAP, T_ROWS, MAX_LAPS = 6, 16, 128, 8
+
+
+class PlainStep:
+    """A step solver that runs a kernel's plain version on the card: the
+    simulators launch the kernel itself when passed no step_solver."""
+
+    def __init__(self, kernel, attrs, plain):
+        for a in attrs:
+            setattr(self, a, getattr(kernel, a))
+        self.plain = plain
+
+    def __call__(self, *args):
+        return self.plain(*args)
 
 
 @pytest.fixture
@@ -119,8 +138,12 @@ def test_closed_loop_through_k1_matches_plain(dev):
                                 max_laps=MAX_LAPS, max_iter=CAP)
     got = simulate_learning_runs_soa(p, l, scen, seed_xs, None, 121, 1.0,
                                      step_solver=k1, **kw)
+    plain = PlainStep(k1, ("k", "nsi", "num_horizon", "max_steps",
+                           "max_laps", "max_iter"),
+                      lambda *a: i2lqr_step_reference(p, l, 1.0, *a,
+                                                      max_iter=CAP))
     want = simulate_learning_runs_soa(p, l, scen, seed_xs, None, 121, 1.0,
-                                      **kw)
+                                      step_solver=plain, **kw)
     assert k1.launches > 0
     assert torch.equal(got.lap_steps, want.lap_steps)
     torch.testing.assert_close(got.safe_set[0], want.safe_set[0], rtol=0,
@@ -252,10 +275,122 @@ def test_closed_loop_through_k2_matches_plain(dev):
                                 max_laps=MAX_LAPS, max_iters=NL_CAP)
     got = simulate_nlmpc_runs_soa(p, lim, scen, seed_xs, seed_us, 121, 1.0,
                                   step_solver=k2, **kw)
+    plain = PlainStep(k2, ("k", "nsi", "num_horizon", "max_steps",
+                           "max_laps", "max_iters"),
+                      lambda *a: nlmpc_step_reference(p, lim, 1.0, *a,
+                                                      max_iters=NL_CAP))
     want = simulate_nlmpc_runs_soa(p, lim, scen, seed_xs, seed_us, 121, 1.0,
-                                   **kw)
+                                   step_solver=plain, **kw)
     assert k2.launches > 0
     assert torch.equal(got.lap_steps, want.lap_steps)
     for i in (0, 1):
         torch.testing.assert_close(got.safe_set[i], want.safe_set[i], rtol=0,
                                    atol=1e-9)
+
+
+def test_simulators_launch_their_own_kernels_without_a_step_solver(dev):
+    xcl, ucl = seed_trajectory(1.0)
+    seed_xs, seed_us = np.zeros((T_ROWS, 4)), np.zeros((T_ROWS, 2))
+    seed_xs[:121], seed_us[:120] = xcl, ucl
+    scen = SoaScenarios.broadcast(
+        np.zeros(4), xcl[-1], Obstacle.make(31.0, -2.0, 8.0, 6.0), 8,
+        noise_on=True)
+    kw = dict(num_laps=1, max_steps=T_ROWS, max_laps=MAX_LAPS,
+              sim_step_budget=10)
+    p, l = IlqrParams.make(), SystemLimits.make()
+    k1 = batched_soa.default_step_solver(p, l, 1.0, max_steps=T_ROWS,
+                                         max_laps=MAX_LAPS, max_iter=CAP)
+    before = k1.launches
+    simulate_learning_runs_soa(p, l, scen, seed_xs, None, 121, 1.0,
+                               solver_max_iter=CAP, **kw,
+                               generator=torch.Generator(dev).manual_seed(0))
+    assert k1.launches > before
+    lp, lim = LmpcParams.make(), SystemLimits.make(dtype=torch.float64)
+    k2 = batched_nlmpc_soa.default_step_solver(
+        lp, lim, 1.0, max_steps=T_ROWS, max_laps=MAX_LAPS, max_iters=NL_CAP)
+    before = k2.launches
+    simulate_nlmpc_runs_soa(lp, lim, scen, seed_xs, seed_us, 121, 1.0,
+                            max_lm_iters=NL_CAP, **kw,
+                            generator=torch.Generator(dev).manual_seed(0))
+    assert k2.launches > before
+
+
+# ---- the generic tier: K5 (mirroring chip_smoke.py phase 11) ----
+G_MODELS = {"double_integrator": double_integrator, "unicycle": unicycle,
+            "bicycle": kinetic_bicycle}
+# (model, horizon) of the ILQR_GENERIC_CASE lines of csrc/generic_ilqr.cu
+INSTANTIATIONS = [("bicycle", 6), ("double_integrator", 6),
+                  ("double_integrator", 10), ("unicycle", 6), ("unicycle", 8)]
+
+
+def _k5_problem(name, nh, b, dev):
+    """(model, K5 settings, f64 (x0, x_term, u_init)): the
+    tests/test_generic_ilqr.py tasks with jittered targets, and the bicycle
+    with IlqrParams costs."""
+    rng = np.random.default_rng(nh)
+    model = G_MODELS[name]
+    n, m = model.X_DIM, model.U_DIM
+    x0, u0 = np.zeros((n, b)), np.zeros((nh, m, b))
+    if name == "double_integrator":
+        kw = dict(matrix_Q=np.zeros((n, n)), matrix_R=0.05 * np.eye(m),
+                  matrix_Qterminal=20.0 * np.eye(n), u_lower=-2.0 * np.ones(m),
+                  u_upper=2.0 * np.ones(m), dt=0.5)
+        xt = rng.uniform(-4, 4, (n, b))
+    elif name == "unicycle":
+        kw = dict(matrix_Q=np.zeros((n, n)), matrix_R=0.01 * np.eye(m),
+                  matrix_Qterminal=30.0 * np.eye(n),
+                  u_lower=-1.5 * np.ones(m), u_upper=1.5 * np.ones(m), dt=0.5)
+        xt = np.array([2.0, 1.0, 0.5])[:, None] + 0.5 * rng.normal(
+            size=(n, b))
+        u0 = u0 + 0.1
+    else:
+        p, l = IlqrParams.make(device="cpu"), SystemLimits.make(device="cpu")
+        f64 = lambda t: t.double().numpy()
+        kw = dict(matrix_Q=f64(p.matrix_Q), matrix_R=f64(p.matrix_R),
+                  matrix_Qterminal=f64(p.matrix_Qterminal),
+                  u_lower=[-float(l.a_max), -float(l.delta_max_r)],
+                  u_upper=[float(l.a_max), float(l.delta_max_r)], dt=1.0)
+        x0[2] = 1.0
+        xt = (np.array([20.0, 2.0, 3.0, 0.2])[:, None]
+              + np.array([8.0, 8.0, 2.0, 0.3])[:, None] * rng.normal(
+                  size=(n, b)))
+    kw.update(n=n, m=m, num_horizon=nh, max_iter=60)
+    f = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)
+    return model, kw, (f(x0), f(xt), f(u0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,nh", INSTANTIATIONS)
+def test_k5_matches_plain(dev, name, nh, dtype):
+    b = 1000  # not a multiple of the 128-thread block
+    model, kw, inputs = _k5_problem(name, nh, b, dev)
+    a = tuple(t.to(dtype) for t in inputs)
+    k5 = build_fused_generic_ilqr(model, **kw)
+    got = k5(*a)
+    want = fused_generic_ilqr_reference(model, *a, **kw)
+    torch.cuda.synchronize()
+    assert k5.launches == 1
+    for g in got:
+        assert bool(torch.isfinite(g.double()).all())
+    assert got[3].dtype == torch.int32 and int(got[3].min()) >= 1
+    same = got[3] == want[3]
+    dus = (got[0] - want[0]).abs().amax(dim=(0, 1))
+    tol, need = (1e-8, 0.999) if dtype == torch.float64 else (1e-4, 0.99)
+    share = float((same & (dus <= tol)).double().mean())
+    assert share >= need, share
+    # one (n,) start state for every lane is the same as x0 spread out
+    for g, h in zip(k5(a[0][:, 0].clone(), a[1], a[2]), got):
+        assert torch.equal(g, h)
+    with pytest.raises(TypeError):
+        k5(*(t.to(torch.float16) for t in a))
+    with pytest.raises(ValueError):
+        k5(a[0][:, :10], *a[1:])
+
+
+def test_k5_raises_where_nothing_is_instantiated(dev):
+    model, kw, a = _k5_problem("bicycle", 6, 256, dev)
+    k5 = build_fused_generic_ilqr(model, **{**kw, "num_horizon": 7})
+    with pytest.raises(ValueError, match="no kernel instantiated"):
+        k5(a[0], a[1], torch.zeros((7, 2, 256), dtype=torch.float64,
+                                   device=dev))
+    assert k5.launches == 0

@@ -141,12 +141,12 @@ def test_control_step_matches_jax_f64(nsi):
                      jax.random.PRNGKey(0)))
     want = np.asarray(res.safe_set[0][2][1])  # recorded x_1 (4, B)
 
-    tp, tl = convert.ilqr_params(jp), convert.system_limits(jl)
-    states, qfun, _valid, lap_len = convert.safe_set(ss)
-    x = convert.tensor(x0, dtype=torch.float64).contiguous()
+    tp, tl = convert.ilqr_params(jp, device="cpu"), convert.system_limits(jl, device="cpu")
+    states, qfun, _valid, lap_len = convert.safe_set(ss, device="cpu")
+    x = convert.tensor(x0, dtype=torch.float64, device="cpu").contiguous()
     lap_ids, lap_ok, skip = tbs._step_solver_inputs(2, nsi, MAX_LAPS, None,
                                                     B, "cpu")
-    obs = obstacle_to_lanes(convert.obstacle(jo), B)
+    obs = obstacle_to_lanes(convert.obstacle(jo, device="cpu"), B)
     us, shrink, idx, row = i2lqr_step_reference(
         tp, tl, 1.0, x, x, states, qfun, lap_len, lap_ids, lap_ok, obs, skip,
         max_iter=CAP)
@@ -165,5 +165,16 @@ def test_control_step_matches_jax_f64(nsi):
         assert torch.equal(g, w)
     assert float(k1(*a)[0][:, :, ::5].abs().max()) == 0.0  # skip lanes: zeros
     assert k1.launches == 0
+    # trip counts: one (nsi*k, B) tensor per relaxation pass, 0 on skip lanes
+    trips = []
+    for g, w in zip(i2lqr_step_reference(tp, tl, 1.0, *a, max_iter=CAP,
+                                         trips=trips), k1(*a)):
+        assert torch.equal(g, w)
+    live = skip < 0.5
+    assert len(trips) == 3
+    for t in trips:
+        assert t.shape == (nsi * tp.num_ss_points, B)
+        assert int(t[:, ~live].abs().max()) == 0
+        assert 1 <= int(t[:, live].min()) and int(t.max()) <= CAP
     with pytest.raises(ValueError, match="unsupported device"):
         k1(*(t.to("meta") for t in a))

@@ -47,11 +47,11 @@ def _both(dtype_j, dtype_t):
     js = j_solve(jp, jl, jo, jnp.asarray(x0, dtype_j), jnp.asarray(xt, dtype_j),
                  jnp.zeros((N, 2, B), dtype_j), 1.0, 1.0, num_horizon=N,
                  max_iter=CAP)
-    tp, tl = (convert.ilqr_params(jp, dtype=dtype_t),
-              convert.system_limits(jl, dtype=dtype_t))
-    obs_l = obstacle_to_lanes(convert.obstacle(jo, dtype=dtype_t), B)
-    ts = ilqr_solve_soa(tp, tl, obs_l, convert.tensor(x0, dtype=dtype_t),
-                        convert.tensor(xt, dtype=dtype_t),
+    tp, tl = (convert.ilqr_params(jp, dtype=dtype_t, device="cpu"),
+              convert.system_limits(jl, dtype=dtype_t, device="cpu"))
+    obs_l = obstacle_to_lanes(convert.obstacle(jo, dtype=dtype_t, device="cpu"), B)
+    ts = ilqr_solve_soa(tp, tl, obs_l, convert.tensor(x0, dtype=dtype_t, device="cpu"),
+                        convert.tensor(xt, dtype=dtype_t, device="cpu"),
                         torch.zeros((N, 2, B), dtype=dtype_t), 1.0, 1.0,
                         num_horizon=N, max_iter=CAP)
     return js, ts, (tp, tl, obs_l, x0, xt)

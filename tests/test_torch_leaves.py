@@ -38,21 +38,21 @@ def _close(a, b):
 
 
 def test_params_match_jax():
-    jp, tp = JParams.make(dtype=jnp.float64), IlqrParams.make(dtype=F64)
+    jp, tp = JParams.make(dtype=jnp.float64), IlqrParams.make(dtype=F64, device="cpu")
     for name in tp.__dataclass_fields__:
         _close(getattr(tp, name), getattr(jp, name))
-    jl, tl = JLimits.make(dtype=jnp.float64), SystemLimits.make(dtype=F64)
+    jl, tl = JLimits.make(dtype=jnp.float64), SystemLimits.make(dtype=F64, device="cpu")
     for name in tl.__dataclass_fields__:
         _close(getattr(tl, name), getattr(jl, name))
     assert float(tl.delta_max_r) == 1.57  # round(pi/2, 2), not pi/2
-    conv = convert.system_limits(jl)
+    conv = convert.system_limits(jl, device="cpu")
     _close(conv.delta_max_r, jl.delta_max_r)
-    cp = convert.ilqr_params(JParams.make(dtype=jnp.float64, num_ss_iter=2))
+    cp = convert.ilqr_params(JParams.make(dtype=jnp.float64, num_ss_iter=2), device="cpu")
     assert cp.num_ss_iter == 2 and cp.num_horizon == 6
 
 
 def test_lmpc_params_and_nlmpc_consts_match_jax():
-    jp, tp = JLmpcParams.make(dtype=jnp.float64), LmpcParams.make(dtype=F64)
+    jp, tp = JLmpcParams.make(dtype=jnp.float64), LmpcParams.make(dtype=F64, device="cpu")
     for f in tp.__dataclass_fields__:
         a, b = getattr(tp, f), getattr(jp, f)
         if isinstance(a, torch.Tensor):
@@ -63,13 +63,13 @@ def test_lmpc_params_and_nlmpc_consts_match_jax():
     assert (tp.ss_option, tp.all_ss_point, tp.all_ss_iter) == (
         "spaceVarying", False, False)
     cp = convert.lmpc_params(JLmpcParams.make(dtype=jnp.float64,
-                                              num_ss_points=4))
+                                              num_ss_points=4), device="cpu")
     assert cp.num_ss_points == 4 and cp.ss_option == "spaceVarying"
     cp.check_ported()
     with pytest.raises(NotImplementedError):
-        LmpcParams.make(ss_option="timeVarying").check_ported()
+        LmpcParams.make(ss_option="timeVarying", device="cpu").check_ported()
     jc = bake_nlmpc_consts(JLimits.make(dtype=jnp.float64), 1.0)
-    tc = nlmpc_consts(SystemLimits.make(dtype=F64), 1.0)
+    tc = nlmpc_consts(SystemLimits.make(dtype=F64, device="cpu"), 1.0)
     for t_name, j_name in (("dt", "dtf"), ("a_max", "a_max"),
                            ("d_max", "d_max"), ("sqrt_w", "sqrt_w"),
                            ("margin", "margin"), ("term_tol", "term_tol"),
@@ -99,7 +99,7 @@ def test_obstacle_center_advance_and_lanes_match_jax(option, spd):
     jo = JObstacle.make(31.0, -2.0, 8.0, 6.0, spd=spd, moving_option=option,
                         dtype=jnp.float64)
     to = Obstacle.make(31.0, -2.0, 8.0, 6.0, spd=spd, moving_option=option,
-                       dtype=F64)
+                       dtype=F64, device="cpu")
     offs = np.arange(7.0)
     for a, b in zip(to.center_at(torch.from_numpy(offs)),
                     jo.center_at(jnp.asarray(offs))):
@@ -107,12 +107,12 @@ def test_obstacle_center_advance_and_lanes_match_jax(option, spd):
     ta, ja = to.advance(1.0), jo.advance(1.0)
     _close(ta.x, ja.x)
     _close(ta.y, ja.y)
-    _close(convert.obstacle(jo).y, jo.y)
+    _close(convert.obstacle(jo, device="cpu").y, jo.y)
     # lane packing: the JAX packer casts to f32; compare at f32 exactly
     jl = np.asarray(j_obstacle_to_lanes(jo, 5))
     tl = obstacle_to_lanes(to, 5).to(torch.float32).numpy()
     np.testing.assert_array_equal(tl, jl)
-    absent = obstacle_to_lanes(Obstacle.absent(dtype=F64), 3)
+    absent = obstacle_to_lanes(Obstacle.absent(dtype=F64, device="cpu"), 3)
     assert float(absent[2].abs().max()) == 0.0  # present masks the barrier
     # the NLMPC packing: the JAX packer casts to f32 (equal there); in f64
     # each row equals the quantity the JAX plain solve computes
@@ -127,7 +127,7 @@ def test_obstacle_center_advance_and_lanes_match_jax(option, spd):
     cx, cy = jo.center_at(3.0)
     _close(tn[0] - tn[5] * 3.0, np.broadcast_to(np.asarray(cx), (5,)))
     _close(tn[1] + tn[4] * 3.0, np.broadcast_to(np.asarray(cy), (5,)))
-    assert float(obstacle_to_lanes_nlmpc(Obstacle.absent(dtype=F64),
+    assert float(obstacle_to_lanes_nlmpc(Obstacle.absent(dtype=F64, device="cpu"),
                                          3)[6].max()) == 0.0
 
 

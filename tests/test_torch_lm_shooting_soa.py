@@ -62,9 +62,9 @@ def _both(dtype_j, dtype_t):
     js = j_solve(jl, jo, jnp.asarray(x0, dtype_j), jnp.asarray(xt, dtype_j),
                  jnp.asarray(u0, dtype_j), 1.0, num_horizon=N,
                  max_iters=CAP, m_lanes=jnp.asarray(m, jnp.int32))
-    tl = convert.system_limits(jl, dtype=dtype_t)
-    f = lambda a: convert.tensor(a, dtype=dtype_t)
-    obs_l = obstacle_to_lanes_nlmpc(convert.obstacle(jo, dtype=dtype_t), B)
+    tl = convert.system_limits(jl, dtype=dtype_t, device="cpu")
+    f = lambda a: convert.tensor(a, dtype=dtype_t, device="cpu")
+    obs_l = obstacle_to_lanes_nlmpc(convert.obstacle(jo, dtype=dtype_t, device="cpu"), B)
     ts = lm_feasibility_solve_soa(tl, obs_l, f(x0), f(xt), f(u0), 1.0,
                                   num_horizon=N, max_iters=CAP,
                                   m_lanes=torch.from_numpy(m),

@@ -88,14 +88,14 @@ def test_one_step_matches_jax_f64():
     j_x1 = np.asarray(jr.safe_set[0])[LAPS, 1]  # recorded next state
     j_u = np.asarray(jr.safe_set[1])[LAPS, 0]  # recorded input
 
-    tp, tl = convert.lmpc_params(jp), convert.system_limits(jl)
-    states, inputs, qfun, _valid, lap_len = convert.safe_set(ss)
-    x = convert.tensor(x0, dtype=torch.float64)
+    tp, tl = convert.lmpc_params(jp, device="cpu"), convert.system_limits(jl, device="cpu")
+    states, inputs, qfun, _valid, lap_len = convert.safe_set(ss, device="cpu")
+    x = convert.tensor(x0, dtype=torch.float64, device="cpu")
     guess, u_warm = states[LAPS - 1, N], inputs[LAPS - 1, :N]
     lap_ids, lap_ok, skip = _step_solver_inputs(LAPS, tp.num_ss_iter,
                                                 MAX_LAPS, None, B, "cpu")
     hzn = torch.full((B,), N, dtype=torch.int32)
-    obs_l = obstacle_to_lanes_nlmpc(convert.obstacle(jo), B)
+    obs_l = obstacle_to_lanes_nlmpc(convert.obstacle(jo, device="cpu"), B)
     us_w, feas, new_guess, idx, row, succ = nlmpc_step_reference(
         tp, tl, 1.0, x, guess, u_warm, states, qfun, lap_len, lap_ids,
         lap_ok, obs_l, skip, hzn, max_iters=CAP)
@@ -116,18 +116,18 @@ def test_one_step_matches_jax_f64():
 
 def test_k2_cpu_route_is_the_plain_step():
     ss, x0, obs, _ = _problem(1)
-    tp = convert.lmpc_params(JParams.make(dtype=jnp.float64))
-    tl = convert.system_limits(JLimits.make(dtype=jnp.float64))
-    states, inputs, qfun, _valid, lap_len = convert.safe_set(ss)
+    tp = convert.lmpc_params(JParams.make(dtype=jnp.float64), device="cpu")
+    tl = convert.system_limits(JLimits.make(dtype=jnp.float64), device="cpu")
+    states, inputs, qfun, _valid, lap_len = convert.safe_set(ss, device="cpu")
     lap_ids, lap_ok, _ = _step_solver_inputs(LAPS, 1, MAX_LAPS, None, B,
                                              "cpu")
     skip = (torch.arange(B) % 9 == 0).to(torch.float32)
     hzn = (1 + torch.arange(B) % N).to(torch.int32)  # every horizon 1..n
-    a = (convert.tensor(x0, dtype=torch.float64), states[LAPS - 1, N],
+    a = (convert.tensor(x0, dtype=torch.float64, device="cpu"), states[LAPS - 1, N],
          inputs[LAPS - 1, :N], states, qfun, lap_len, lap_ids, lap_ok,
          obstacle_to_lanes_nlmpc(
              convert.obstacle(JObstacle(**{k: jnp.asarray(v)
-                                           for k, v in obs.items()})), B),
+                                           for k, v in obs.items()}), device="cpu"), B),
          skip, hzn)
     k2 = build_fused_nlmpc_step(tp, tl, 1.0, num_horizon=N,
                                 max_steps=T_ROWS, max_laps=MAX_LAPS,
@@ -141,3 +141,14 @@ def test_k2_cpu_route_is_the_plain_step():
     for g in got:
         assert not bool(g[..., s].any())  # skip lanes are zeros
     assert 0.0 < float((got[1][~s] > 0.5).double().mean()) < 1.0
+    # trip counts of the candidate solves, summed over the two starts: 0 on
+    # skipped and horizon-1 lanes
+    trips = []
+    for g, w in zip(nlmpc_step_reference(tp, tl, 1.0, *a, max_iters=CAP,
+                                         trips=trips), got):
+        assert torch.equal(g, w)
+    (t,) = trips
+    run = ~s & (hzn > 1)
+    assert t.shape == (tp.num_ss_iter * tp.num_ss_points, B)
+    assert int(t[:, ~run].abs().max()) == 0
+    assert 1 <= int(t[:, run].min()) and int(t.max()) <= 2 * CAP
