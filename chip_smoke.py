@@ -5,14 +5,14 @@
 
 Builds the port's CUDA kernels from ilqr_iterative_tasks_torch/csrc/, checks
 each against its plain torch version on the card, and drives the port's
-three main paths: the batched i2LQR learning run through the whole-step
-kernel K1 and the batched NLMPC learning run (spaceVarying) through the
-whole-step kernel K2, each a seed lap + 3 learning laps with plant noise on
-in f32, and the generic-system tier's benchmarks through the generic
-LM-iLQR kernel K5. Phases:
+main paths: the batched i2LQR learning run through the whole-step kernel K1,
+the batched NLMPC learning run through the whole-step kernel K2 in each
+safe-set mode (spaceVarying, timeVarying, all), each a seed lap + 3
+learning laps with plant noise on in f32, and the generic-system tier's
+benchmarks through the generic LM-iLQR kernel K5. Phases:
 
 1. device: the card's name and power limit;
-2. build: nvcc of the five kernel sources (one process per source), with
+2. build: nvcc of the six kernel sources (one process per source), with
    seconds, registers and spills;
 3. K3 (i2LQR per-candidate solve) against the plain solve on 393 216 random
    candidate lanes, f64 and f32;
@@ -28,11 +28,14 @@ LM-iLQR kernel K5. Phases:
 8. K2 (whole NLMPC step) against the plain step on inputs captured from the
    NLMPC headline run (lap 1 early, lap 2 mid, lap 3 once shrunk horizons,
    horizon 1 among them, are active), f32 as captured and f64 cast up,
-   with both per-step times;
+   with both per-step times; 8b. on the same inputs K2 with qsort_skip
+   (the headline's) equals K2 without it bit for bit, with both times;
 9. a zero-noise NLMPC closed loop through K2 (1024 identical lanes, cap 60):
    f64 must give the host controller's laps exactly, f32 within 2;
-10. the NLMPC headline through K2 (B = 49 152, cap 12, infeasible_retire 8):
-   one warm run, whose K2 launches are counted, and two timed runs;
+10. the NLMPC headline through K2 with qsort_skip, as the simulator builds
+   it (bench.py:145-148; B = 49 152, cap 12, infeasible_retire 8): one warm
+   run, whose K2 launches are counted, and timed runs with and without
+   qsort_skip in turns, whose lap records must be equal;
 11. K5 (generic LM-iLQR) against its plain version, f64 (first 32 768
    lanes) and f32, for each instantiated model: the double integrator on
    the ``--throughput`` lanes, the unicycle reach task of
@@ -44,7 +47,23 @@ LM-iLQR kernel K5. Phases:
 12. the generic headline: experiments/generic_bench.py ``--throughput``
    (the double integrator through K5, B = 32 768) and ``--kernel`` (K5 on
    the bicycle and the double integrator against K3, B = 131 072), whose
-   K5 and K3 launches are counted.
+   K5 and K3 launches are counted;
+13. K2 in timeVarying mode against the plain step on inputs captured from
+   the timeVarying headline run (as phase 8), with and without qsort_skip,
+   which must be bitwise equal;
+14. a zero-noise timeVarying closed loop through K2 (1024 identical lanes,
+   cap 60): f64 must give the host controller's laps exactly;
+15. the timeVarying headline through K2 with qsort_skip (bench.py:207-211:
+   B = 49 152, cap 12, infeasible_retire 8): a warm run, whose K2 launches
+   are counted, and five timed runs back to back (best, median, lowest);
+16. K2 in mode all against the plain step on inputs captured from the all
+   headline run, all_rev_skip bitwise equal to the forward scan, and K2
+   with all_iter on inputs captured from an all_iter run;
+17. a zero-noise all + all_iter closed loop through K2 (1024 lanes, cap
+   60): f64 must give the host controller's laps exactly;
+18. the all headline through K2 with all_rev_skip (bench.py:218-221 without
+   retile_frac: B = 8 192, nsi 1, cap 12, infeasible_retire 8): a warm run,
+   whose K2 launches are counted, and two timed runs.
 
 Every phase raises on failure, so the script exits non-zero. It prints the
 card line and a JSON line of the kernels before its last line, which is
@@ -55,9 +74,14 @@ operations over 67 TFLOP/s (H100 SXM, f32 without tensor cores). The
 operations are the elementwise ops of the plain version, counted on a few
 lanes on the host: one pass plus one LM iteration per iteration the run's
 data needed, from the trip counts the plain solves (K3-K5) and the plain
-steps' candidate solves (K1, K2) report. Each kernel's figures come from
-the inputs of the run whose launches they sit beside (K3: phase 11's
-``--kernel`` lanes). It needs a CUDA device and the repository.
+steps' candidate solves (K1, K2) report. Of K2 only the candidates its own
+solve schedule solves count (``solved_by``: qsort_skip stops a lane at its
+first feasible candidate in Qfun order, all_rev_skip at its last feasible
+position within the reach bound, the forward all scan a row at its first
+difference with the best row). K2 has one entry a mode. Each kernel's
+figures come from the inputs of the run whose launches they sit beside
+(K3: phase 11's ``--kernel`` lanes). It needs a CUDA device and the
+repository.
 """
 
 import json
@@ -89,6 +113,18 @@ NL_COMPLETION_MIN = 0.914
 # taken at its first step with shrunk horizons on >= 1 % of active lanes
 # and at least one active lane at horizon 1 (the reach check)
 NL_CAPTURES = {1: 5, 2: 14, 3: None}
+# host controller, f64: timeVarying and all + all_iter
+# (tests/test_batched_nlmpc_soa.py:149, :159)
+HOST_TV_LAPS = [111, 104, 97]
+HOST_ALL_LAPS = [26, 22, 22]
+ALL_BATCH = 8192  # the all tier's batch (bench.py:218-221)
+# timeVarying and all headline lap completion bounds, 3 standard errors of
+# one run under the card's seed-0 figure: timeVarying 0.9846 (standard
+# error 0.00032; on identical draws at B = 1024 the card and the CPU port
+# complete 0.9844 and 0.9837, differing on 92 of 3 072 lane-laps both ways,
+# experiments/nlmpc_lane_laps.py), all 0.9446 (0.00146); PERF.md
+TV_COMPLETION_MIN = 0.9836
+ALL_COMPLETION_MIN = 0.940
 # max|dus| and max|dguess| of K2 and K4 in f32 on the lanes whose decisions
 # agree with the plain version (-fmad=false: so far bitwise)
 F32_TOL = 1e-5
@@ -146,8 +182,9 @@ def nbytes(tensors) -> int:
 
 def step_bytes(args, out, slots, nsi) -> float:
     """Bytes a whole-step kernel must move: every input once, but of the
-    safe-set tensors at positions ``slots`` ((max_laps, ...) each) only the
-    nsi stored laps that lap_ids names; every output once."""
+    safe-set tensors at positions ``slots`` ((max_laps, ...) each) only
+    ``nsi`` laps' worth (the stored laps that lap_ids names, or the share
+    of them the kernel reads); every output once."""
     return sum(nbytes([t]) * (nsi / t.shape[0] if i in slots else 1.0)
                for i, t in enumerate(args)) + nbytes(out)
 
@@ -161,25 +198,109 @@ def bound(ops, bytes_moved) -> dict:
                 ops=int(ops), bytes=int(bytes_moved), library_ms=None)
 
 
-def solve_ops(plain, cap_kw, sample_lanes, lanes, iters) -> float:
+def solve_ops(plain, cap_kw, sample_lanes, lanes, iters,
+              rest_share=1.0) -> float:
     """Operations of ``lanes`` lanes of a per-lane LM solve or step:
     ``plain(**{cap_kw: c})`` runs the plain version on ``sample_lanes``
     host lanes; one LM iteration of every solve of a lane costs the
     difference of caps 2 and 1, the rest cap 1 minus one iteration. Total:
-    (lanes x rest + per_iter x iters) / sample_lanes, where ``iters`` sums
-    the run's per-lane iterations in those units."""
+    (lanes x rest x rest_share + per_iter x iters) / sample_lanes, where
+    ``iters`` sums the run's per-lane iterations in those units and
+    ``rest_share`` is the share of the plain version's candidates that the
+    run's data needs."""
     c1 = count_ops(lambda: plain(**{cap_kw: 1}))
     c2 = count_ops(lambda: plain(**{cap_kw: 2}))
     per_iter, rest = (c2 - c1), c1 - (c2 - c1)
-    return (lanes * rest + per_iter * iters) / sample_lanes
+    return (lanes * rest * rest_share + per_iter * iters) / sample_lanes
 
 
-def step_iters(trips, active) -> tuple[float, float]:
-    """(per-lane iterations in solve_ops' units, mean trips of a candidate
-    solve) of a whole step: ``trips`` is the plain step's list of (C, B)
-    trip counts, one per batched solve; only ``active`` lanes count."""
-    t = torch.stack(trips)[..., active].double()
-    return float(t.sum()) / (t.shape[0] * t.shape[1]), float(t.mean())
+def step_iters(trips, active, solved=None) -> tuple[float, float, float]:
+    """(per-lane iterations in solve_ops' units, mean trips of a solved
+    candidate, share of the candidates solved) of a whole step: ``trips``
+    is the plain step's list of (C, B) trip counts, one per batched solve;
+    ``solved`` (masks of the same shapes, default all) the candidates the
+    kernel solves; only ``active`` lanes count."""
+    t = torch.stack(trips).double()
+    s = torch.ones_like(t) if solved is None else torch.stack(solved).double()
+    t, s = (t * s)[..., active], s[..., active]
+    return (float(t.sum()) / (t.shape[0] * t.shape[1]),
+            float(t.sum() / s.sum()), float(s.mean()))
+
+
+def solved_by(k2, a, cands, ref):
+    """Which candidates of the plain step's batched solves the kernel
+    ``k2`` solves on the inputs ``a``, one bool mask a solve (the shapes of
+    its trips), from the plain step's ``cands`` (each candidate's Qfun and
+    whether its cost is finite) and outputs ``ref``. qsort_skip: the
+    candidates in (Qfun, slot) order up to the first feasible one, the
+    first always, no invalid one after it; all_rev_skip: the positions
+    below the lap's length within the reach bound, from the last down to
+    the first feasible one; the forward all scan: each stored row's
+    positions below its length up to its first difference with the best
+    row's compare list where it ranks above it (nlmpc_step_all.cu);
+    otherwise every candidate. Checks the schedule's winner against the
+    plain step's where it names one."""
+    active = a[9] < 0.5
+    if k2.qsort_skip:  # nsi = 1: one (k, B) solve
+        (key, ok), = cands
+        order = torch.sort(key, dim=0, stable=True).indices
+        ok_s, key_s = ok.gather(0, order).int(), key.gather(0, order)
+        p = torch.arange(key.shape[0], device=key.device)[:, None]
+        first = (p == 0) | ((torch.cumsum(ok_s, 0) - ok_s == 0)
+                            & torch.isfinite(key_s))
+        return [torch.zeros_like(ok).scatter(0, order, first)]
+    if k2.mode != "all":
+        return [torch.ones_like(ok) for _, ok in cands]
+    t_rows = a[3].shape[1]
+    t = torch.arange(t_rows, device=a[0].device)[:, None]
+    if k2.all_rev_skip:  # one (T, B) row
+        (key, ok), = cands
+        lap, x = int(a[6][0]), a[0]
+        dt, a_max, n = k2._consts[0], k2._consts[1], k2.num_horizon
+        rb = (torch.tensor(n * dt, dtype=x.dtype, device=x.device)
+              * x[2].abs()
+              + torch.tensor(a_max * dt * dt * n * n / 2.0 + 1.0,
+                             dtype=x.dtype, device=x.device))
+        dx, dy = a[3][lap, :, 0] - x[0], a[3][lap, :, 1] - x[1]
+        near = ((t < torch.clamp(a[5][lap], max=t_rows))
+                & ~(dx * dx + dy * dy > rb * rb))
+        last = torch.where(ok & near, t, -1).amax(dim=0)
+        feas = active & (ref[1] > 0.5)
+        require(bool((last[feas] == ref[3].long()[feas]).all()),
+                "all_rev_skip schedule: winner differs from the plain step")
+        return [near & (t >= last)]
+    # forward scan over the stored rows (all_iter: several)
+    inf = float("inf")
+    b = a[0].shape[-1]
+    virt = torch.ones(b, dtype=torch.bool, device=t.device)
+    best_cmp = torch.full((t_rows, b), inf, dtype=a[0].dtype, device=t.device)
+    best_len = torch.zeros(b, dtype=torch.long, device=t.device)
+    best_row = torch.zeros(b, dtype=torch.long, device=t.device)
+    solved, it = [], iter(cands)
+    for r, (lap, stored) in enumerate(zip(a[6].tolist(), a[7].tolist())):
+        if not stored:
+            continue
+        key, ok = next(it)
+        ln = torch.clamp(a[5][lap].long(), max=t_rows)
+        struct = t < ln
+        cmp = torch.where(struct, torch.where(ok, a[10].to(key.dtype) + key,
+                                              inf), -inf)
+        tmax = torch.where(virt, t_rows, torch.maximum(ln, best_len))
+        bv = torch.where(virt, inf, torch.where(t < best_len, best_cmp, -inf))
+        diff = (cmp != bv) & (t < tmax)
+        d = torch.where(diff.any(dim=0), diff.int().argmax(dim=0), t_rows)
+        dc = torch.clamp(d, max=t_rows - 1)[None]
+        dec = torch.where(d < t_rows, torch.where(
+            cmp.gather(0, dc)[0] < bv.gather(0, dc)[0], -1, 1), 0)
+        solved.append(struct & ((dec != 1) | (t <= d)))
+        take = dec < 0
+        best_cmp = torch.where(take, cmp, best_cmp)
+        best_len = torch.where(take, ln, best_len)
+        best_row = torch.where(take, r, best_row)
+        virt = virt & ~take
+    require(bool((best_row[active] == ref[4].long()[active]).all()),
+            "forward all schedule: winning row differs from the plain step")
+    return solved
 
 
 SAMPLE_LANES = 64  # host lanes of an operation count
@@ -201,23 +322,141 @@ def cuda_ms(fn, reps):
 class Capture:
     """Step solver that delegates to a whole-step kernel and keeps a copy of
     its inputs where ``want(lap, step, args)`` says so (the simulators only
-    see the kernel's attributes). ``lap_arg`` is the position of lap_ids."""
+    see the kernel's attributes). ``lap_arg`` is the position of lap_ids;
+    ``all_iter``: lap_ids names every slot, and lap_ok the stored ones."""
 
-    def __init__(self, kernel, attrs, lap_arg, want):
+    def __init__(self, kernel, attrs, lap_arg, want, all_iter=False):
         self.kernel = kernel
         for a in attrs:
             setattr(self, a, getattr(kernel, a))
-        self.lap_arg, self.want = lap_arg, want
+        self.lap_arg, self.want, self.iter_rows = lap_arg, want, all_iter
         self.calls = {}
         self.captured = {}
 
     def __call__(self, *args):
-        lap = int(args[self.lap_arg][-1]) + 1  # lap_ids[-1] = laps stored - 1
+        if self.iter_rows:  # laps stored - 1
+            lap = int(args[self.lap_arg + 1].sum())
+        else:
+            lap = int(args[self.lap_arg][-1]) + 1  # lap_ids[-1] = laps stored - 1
         i = self.calls.get(lap, 0)
         self.calls[lap] = i + 1
         if lap not in self.captured and self.want(lap, i, args):
             self.captured[lap] = (i, [a.clone() for a in args])
         return self.kernel(*args)
+
+
+K2_ATTRS = ("k", "nsi", "num_horizon", "max_steps", "max_laps", "max_iters",
+            "mode", "all_iter")
+
+
+def want_capture(sched):
+    """The capture rule of phases 8, 13 and 16: at control step
+    ``sched[lap]`` of a lap, or, where that is None, at the lap's first step
+    with shrunk horizons on >= 1 % of active lanes and at least one active
+    lane at horizon 1 (the reach check)."""
+    def want(lap, i, args):
+        if sched[lap] is not None:
+            return sched[lap] == i
+        act = args[9] < 0.5
+        shrunk = int((act & (args[10] < N)).sum())
+        return (shrunk >= 0.01 * int(act.sum())
+                and bool((act & (args[10] <= 1)).any()))
+    return want
+
+
+def check_k2(tag, k2, alts, captured, plain, host_plain):
+    """K2 against its plain step on captured inputs, f32 as captured and
+    f64 cast up, at phase 8's gates: >= 99.9 % equal decisions with
+    max|dus| and max|dguess| <= 1e-6 in f64, >= 99 % and <= 1e-5 on the
+    agreeing lanes in f32; each kernel of ``alts`` (K2 with a
+    bitwise-neutral option switched) equal to K2 bit for bit on every lane.
+    ``plain(*a, trips=..., cands=...)`` runs the plain step on the card,
+    ``host_plain(*a, max_iters=...)`` on the host. Returns the kernels-line
+    figures: max_abs_err over the f32 captures; ms, plain_ms, each alt's
+    ms and the bound of the lap-2 capture in f32."""
+    stats = dict(max_abs_err=0.0)
+    for lap, (step, args) in sorted(captured.items()):
+        active = args[9] < 0.5
+        n_act = int(active.sum())
+        n_shrunk = int((active & (args[10] < N)).sum())
+        n_h1 = int((active & (args[10] <= 1)).sum())
+        require(n_act > 0, f"{tag} capture lap {lap}: no active lane")
+        for dtype in (torch.float32, torch.float64):
+            a = cast(args, dtype, keep=(9,))
+            out = k2(*a)
+            trips, cands = [], []
+            ref = plain(*a, trips=trips, cands=cands)
+            solved = solved_by(k2, a, cands, ref)
+            torch.cuda.synchronize()
+            for t in out:
+                require(bool(torch.isfinite(t.double()).all()),
+                        f"{tag}: non-finite output")
+            agree = ((out[1] == ref[1]) & (out[3] == ref[3])
+                     & (out[4] == ref[4]) & (out[5] == ref[5]))[active]
+            dus = (out[0] - ref[0]).abs().amax(dim=(0, 1))[active][agree]
+            dng = (out[2] - ref[2]).abs().amax(dim=0)[active][agree]
+            share = float(agree.double().mean())
+            maxd = float(dus.max()) if dus.numel() else 0.0
+            maxg = float(dng.max()) if dng.numel() else 0.0
+            line = (f"[{tag} lap {lap} step {step} {str(dtype)[6:]}] active "
+                    f"{n_act} (hzn<{N}: {n_shrunk}, hzn<=1: {n_h1}, feasible "
+                    f"{float(ref[1][active].mean()):.4f}): decisions agree "
+                    f"{share:.6f}, max|dus| {maxd:.3e}, max|dguess| "
+                    f"{maxg:.3e} on them")
+            if dtype == torch.float64:
+                require(share >= 0.999 and maxd <= 1e-6 and maxg <= 1e-6,
+                        f"{tag} f64 lap {lap}: {share}, {maxd}, {maxg}")
+            else:
+                require(share >= 0.99 and maxd <= F32_TOL
+                        and maxg <= F32_TOL,
+                        f"{tag} f32 lap {lap}: {share}, {maxd}, {maxg}")
+            for name, alt in alts.items():
+                same = all(torch.equal(g, w) for g, w in zip(out, alt(*a)))
+                line += f"; {name} bitwise equal {same}"
+                require(same, f"{tag} {name} lap {lap} {dtype}: not bitwise "
+                        f"equal to K2")
+            if dtype == torch.float32:
+                stats["max_abs_err"] = max(stats["max_abs_err"], maxd)
+                ms = cuda_ms(lambda: k2(*a), 5)
+                alt_ms = {name: cuda_ms(lambda alt=alt: alt(*a), 5)
+                          for name, alt in alts.items()}
+                plain_ms = cuda_ms(lambda: plain(*a), 1)
+                line += (f"; kernel {ms:.3f} ms"
+                         + "".join(f", {name} {v:.3f} ms"
+                                   for name, v in alt_ms.items())
+                         + f", plain {plain_ms:.3f} ms per step")
+                if lap == 2:
+                    stats.update(ms=ms, plain_ms=plain_ms, **{
+                        f"{name}_ms": v for name, v in alt_ms.items()})
+                    b_all = args[0].shape[-1]
+                    idx = torch.nonzero(active).flatten()[:SAMPLE_LANES]
+                    sample = lanes_of(a, idx.cpu(), b_all)
+                    stored = [lap_id for lap_id, ok in zip(
+                        a[6].tolist(), a[7].tolist()) if ok]
+                    # the timeVarying window reads k rows of a stored lap
+                    rows_read = max(1, len(stored)) * (
+                        k2.k / a[3].shape[1] if k2.mode == "timeVarying"
+                        else 1.0)
+                    # both starts run one more iteration per cap step; the
+                    # one-pass part counts the candidates the kernel solves
+                    iters, mean_trips, solved_share = step_iters(
+                        trips, active, solved)
+                    stats.update(bound(solve_ops(
+                        lambda max_iters: host_plain(*sample,
+                                                     max_iters=max_iters),
+                        "max_iters", len(idx), n_act, iters / 2,
+                        solved_share), step_bytes(a, out, (3, 4), rows_read)))
+                    stats.update(mean_iters=mean_trips,
+                                 solved_share=solved_share)
+                    n_cand = torch.stack(trips).shape[0] * trips[0].shape[0]
+                    line += (f"; bound {stats['bound_ms']:.4f} ms by "
+                             f"{stats['bound_by']} "
+                             f"({solved_share * n_cand:.2f} of "
+                             f"{n_cand} candidates a lane solved, "
+                             f"{mean_trips:.2f} LM iterations each, both "
+                             f"starts)")
+            print(line, flush=True)
+    return stats
 
 
 def cast(args, dtype, keep=()):
@@ -254,6 +493,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     sys.path.insert(0, HERE)
+    from ilqr_iterative_tasks_torch.control import batched_nlmpc_soa
     from ilqr_iterative_tasks_torch.control.batched_nlmpc_soa import (
         simulate_nlmpc_runs_soa)
     from ilqr_iterative_tasks_torch.control.batched_soa import (
@@ -495,7 +735,7 @@ def main():
                     b_all = args[0].shape[-1]
                     idx = torch.nonzero(active).flatten()[:SAMPLE_LANES]
                     sample = lanes_of(a, idx.cpu(), b_all)
-                    iters, mean_trips = step_iters(trips, active)
+                    iters, mean_trips, _ = step_iters(trips, active)
                     k1_bound = bound(solve_ops(
                         lambda max_iter: i2lqr_step_reference(
                             host_params, host_limits, 1.0, *sample,
@@ -544,42 +784,81 @@ def main():
 
     # ---- 10a. NLMPC headline warm run through K2 (captures phase 8) ----
     nl_params = LmpcParams.make()
-    k2 = build_fused_nlmpc_step(nl_params, nl_limits, 1.0, num_horizon=N,
-                                max_steps=MAX_STEPS, max_laps=MAX_LAPS,
-                                max_iters=NL_CAP)
+    nl_sizes = dict(num_horizon=N, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+                    max_iters=NL_CAP)
+    k2 = build_fused_nlmpc_step(nl_params, nl_limits, 1.0, **nl_sizes)
+    k2q = batched_nlmpc_soa.default_step_solver(
+        nl_params, nl_limits, 1.0, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+        max_iters=NL_CAP)
+    require(k2q.qsort_skip, "spaceVarying K2 without qsort_skip")
     nl_kw = dict(num_laps=LAPS, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
                  max_lm_iters=NL_CAP, infeasible_retire=NL_RETIRE)
+    scen_all = SoaScenarios.broadcast(np.zeros(4), xcl[-1],
+                                      Obstacle.make(31.0, -2.0, 8.0, 6.0),
+                                      ALL_BATCH, noise_on=True, device=dev)
 
-    def nl_headline(seed, solver):
+    def nl_headline(seed, solver, lp=nl_params, sc=scen):
         g = torch.Generator(device=dev).manual_seed(seed)
-        res = simulate_nlmpc_runs_soa(nl_params, nl_limits, scen, seed_xs,
-                                      seed_us, 121, 1.0, step_solver=solver,
+        res = simulate_nlmpc_runs_soa(lp, nl_limits, sc, seed_xs, seed_us,
+                                      121, 1.0, step_solver=solver,
                                       generator=g, **nl_kw)
         torch.cuda.synchronize()
         return res
 
-    def want_nl(lap, i, args):
-        if NL_CAPTURES[lap] is not None:
-            return NL_CAPTURES[lap] == i
-        act = args[9] < 0.5
-        shrunk = int((act & (args[10] < N)).sum())
-        return (shrunk >= 0.01 * int(act.sum())
-                and bool((act & (args[10] <= 1)).any()))
+    def plain_of(lp):
+        return (lambda *a, trips=None, cands=None: nlmpc_step_reference(
+                    lp, nl_limits, 1.0, *a, max_iters=NL_CAP, trips=trips,
+                    cands=cands),
+                lambda *a, max_iters: nlmpc_step_reference(
+                    LmpcParams.make(device="cpu", ss_option=lp.ss_option,
+                                    all_ss_point=lp.all_ss_point,
+                                    all_ss_iter=lp.all_ss_iter),
+                    host_nl_limits, 1.0, *a, max_iters=max_iters))
 
-    cap2 = Capture(k2, ("k", "nsi", "num_horizon", "max_steps", "max_laps",
-                        "max_iters"), 6, want_nl)
-    for k in (k1, k2, k3, k4):
-        k.launches = 0
-    t0 = time.perf_counter()
-    nl_warm = nl_headline(0, cap2)
-    nl_warm_s = time.perf_counter() - t0
-    k2_launches, k4_launches = k2.launches, k4.launches  # K4: off the path
-    require(k2_launches > 0, "K2 was not launched by the main path")
+    def warm_run(tag, lp, sc, solver, counted):
+        """The headline's warm run: every kernel count set to 0 before it
+        and read after; returns (result, seconds, the K2's launches)."""
+        for k in (k1, k2, k2q, k3, k4, *counted):
+            k.launches = 0
+        t0 = time.perf_counter()
+        res = nl_headline(0, solver, lp, sc)
+        sec = time.perf_counter() - t0
+        k2_count = counted[0].launches
+        require(k2_count > 0, f"{tag}: K2 was not launched by the main path")
+        require(bool(torch.isfinite(res.safe_set[0]).all())
+                and bool(torch.isfinite(res.safe_set[1]).all()),
+                f"{tag}: non-finite NLMPC safe set")
+        return res, sec, k2_count
+
+    def completion_of(res):
+        p_done = float(res.lap_done.float().mean())
+        n_lane_laps = res.lap_done.numel()
+        return p_done, (p_done * (1 - p_done) / n_lane_laps) ** 0.5
+
+    def timed(tag, lp, sc, solver, b, completion, steps, launches,
+              seeds=(1, 2)):
+        """Timed runs back to back, one a seed; returns the best rate and
+        the rates of all runs."""
+        times = []
+        for seed in seeds:
+            t0 = time.perf_counter()
+            nl_headline(seed, solver, lp, sc)
+            times.append(time.perf_counter() - t0)
+        rates = [b * LAPS / t for t in times]
+        print(f"[{tag}] {max(rates):.1f} lap-sims/s, {min(times):.3f} s per "
+              f"batch (runs {[round(t, 3) for t in times]}: median "
+              f"{float(np.median(rates)):.1f}, lowest {min(rates):.1f} "
+              f"lap-sims/s), completion {completion:.4f}, mean lap steps "
+              f"{[round(v, 2) for v in steps]}, K2 launches {launches}, "
+              f"card {card}", flush=True)
+        return max(rates), rates
+
+    cap2 = Capture(k2q, K2_ATTRS, 6, want_capture(NL_CAPTURES))
+    nl_warm, nl_warm_s, k2_launches = warm_run("NLMPC headline", nl_params,
+                                               scen, cap2, (k2q, k2))
+    k4_launches = k4.launches  # K4: off the path
     nl_completion = float(nl_warm.lap_done.float().mean())
     nl_steps = nl_warm.lap_steps.float().mean(dim=1).tolist()
-    require(bool(torch.isfinite(nl_warm.safe_set[0]).all())
-            and bool(torch.isfinite(nl_warm.safe_set[1]).all()),
-            "non-finite NLMPC safe set")
     print(f"[10 NLMPC headline warm] B={BATCH} {nl_warm_s:.2f} s, K2 "
           f"launches {k2_launches}, completion {nl_completion:.4f}, mean lap "
           f"steps {[round(v, 2) for v in nl_steps]}, max lap steps "
@@ -589,110 +868,177 @@ def main():
             f"{NL_COMPLETION_MIN}")
     del nl_warm
 
-    # ---- 8. K2 against the plain step on the captured inputs ----
+    # ---- 8. K2 against the plain step on the captured inputs; 8b. K2 with
+    # qsort_skip against K2 bit for bit ----
     require(sorted(cap2.captured) == sorted(NL_CAPTURES),
             f"captured {sorted(cap2.captured)}")
-    k2_err, k2_ms, k2_plain_ms, k2_bound = 0.0, None, None, {}
-    for lap, (step, args) in sorted(cap2.captured.items()):
-        active = args[9] < 0.5
-        n_act = int(active.sum())
-        n_shrunk = int((active & (args[10] < N)).sum())
-        n_h1 = int((active & (args[10] <= 1)).sum())
-        require(n_act > 0, f"capture lap {lap}: no active lane")
-        for dtype in (torch.float32, torch.float64):
-            a = cast(args, dtype, keep=(9,))
-            out = k2(*a)
-            trips = []
-            ref = nlmpc_step_reference(nl_params, nl_limits, 1.0, *a,
-                                       max_iters=NL_CAP, trips=trips)
-            torch.cuda.synchronize()
-            for t in out:
-                require(bool(torch.isfinite(t.double()).all()),
-                        "K2: non-finite output")
-            agree = ((out[1] == ref[1]) & (out[3] == ref[3])
-                     & (out[4] == ref[4]) & (out[5] == ref[5]))[active]
-            dus = (out[0] - ref[0]).abs().amax(dim=(0, 1))[active][agree]
-            dng = (out[2] - ref[2]).abs().amax(dim=0)[active][agree]
-            share = float(agree.double().mean())
-            maxd = float(dus.max()) if dus.numel() else 0.0
-            maxg = float(dng.max()) if dng.numel() else 0.0
-            line = (f"[8 K2 lap {lap} step {step} {str(dtype)[6:]}] active "
-                    f"{n_act} (hzn<{N}: {n_shrunk}, hzn<=1: {n_h1}, feasible "
-                    f"{float(ref[1][active].mean()):.4f}): decisions agree "
-                    f"{share:.6f}, max|dus| {maxd:.3e}, max|dguess| "
-                    f"{maxg:.3e} on them")
-            if dtype == torch.float64:
-                require(share >= 0.999 and maxd <= 1e-6 and maxg <= 1e-6,
-                        f"K2 f64 lap {lap}: {share}, {maxd}, {maxg}")
-            else:
-                require(share >= 0.99 and maxd <= F32_TOL
-                        and maxg <= F32_TOL,
-                        f"K2 f32 lap {lap}: {share}, {maxd}, {maxg}")
-                k2_err = max(k2_err, maxd)
-                ms = cuda_ms(lambda: k2(*a), 5)
-                plain = cuda_ms(lambda: nlmpc_step_reference(
-                    nl_params, nl_limits, 1.0, *a, max_iters=NL_CAP), 1)
-                line += f"; kernel {ms:.3f} ms, plain {plain:.3f} ms per step"
-                if lap == 2:
-                    k2_ms, k2_plain_ms = ms, plain
-                    b_all = args[0].shape[-1]
-                    idx = torch.nonzero(active).flatten()[:SAMPLE_LANES]
-                    sample = lanes_of(a, idx.cpu(), b_all)
-                    # both starts run one more iteration per cap step
-                    iters, mean_trips = step_iters(trips, active)
-                    k2_bound = bound(solve_ops(
-                        lambda max_iters: nlmpc_step_reference(
-                            host_nl_params, host_nl_limits, 1.0, *sample,
-                            max_iters=max_iters), "max_iters", len(idx),
-                        n_act, iters / 2), step_bytes(a, out, (3, 4), k2.nsi))
-                    k2_bound["mean_iters"] = mean_trips
-                    line += (f"; bound {k2_bound['bound_ms']:.4f} ms by "
-                             f"{k2_bound['bound_by']} ({mean_trips:.2f} LM "
-                             f"iterations a candidate solve, both starts)")
-            print(line, flush=True)
+    nl_plain, nl_host_plain = plain_of(nl_params)
+    k2_stats = check_k2("8 K2", k2q, {"no_qsort_skip": k2}, cap2.captured,
+                        nl_plain, nl_host_plain)
     del cap2
 
     # ---- 9. zero-noise NLMPC closed loop through K2 ----
-    k2_zero = build_fused_nlmpc_step(nl_params, nl_limits, 1.0,
-                                     num_horizon=N, max_steps=MAX_STEPS,
-                                     max_laps=MAX_LAPS, max_iters=60)
-    for dtype in (torch.float64, torch.float32):
-        scen_z = SoaScenarios.broadcast(
-            np.zeros(4), xcl[-1], Obstacle.make(31.0, -2.0, 8.0, 6.0), 1024,
-            noise_on=False, dtype=dtype, device=dev)
-        res_z = simulate_nlmpc_runs_soa(
-            nl_params, nl_limits, scen_z, seed_xs, seed_us, 121, 1.0,
-            step_solver=k2_zero, num_laps=LAPS, max_steps=MAX_STEPS,
-            max_laps=MAX_LAPS, max_lm_iters=60)
-        steps_z = res_z.lap_steps.cpu().numpy()
-        laps_z = steps_z[:, 0].tolist()
-        same = bool((steps_z == steps_z[:, :1]).all())
-        print(f"[9 NLMPC zero-noise {str(dtype)[6:]}] B=1024 cap 60 lap "
-              f"steps {laps_z}, all lanes identical {same}, all done "
-              f"{bool(res_z.lap_done.all())}", flush=True)
-        require(bool(res_z.lap_done.all()), "zero-noise lanes not done")
-        require(same, "zero-noise NLMPC lanes differ")
-        if dtype == torch.float64:
-            require(laps_z == HOST_NLMPC_LAPS,
-                    f"f64 laps {laps_z} != host {HOST_NLMPC_LAPS}")
-        else:
-            require(all(abs(a - b) <= 2
-                        for a, b in zip(laps_z, HOST_NLMPC_LAPS)),
-                    f"f32 laps {laps_z} not within 2 of {HOST_NLMPC_LAPS}")
+    def zero_noise(tag, lp, solver, host_laps, f32_within=None):
+        for dtype in (torch.float64, torch.float32):
+            scen_z = SoaScenarios.broadcast(
+                np.zeros(4), xcl[-1], Obstacle.make(31.0, -2.0, 8.0, 6.0),
+                1024, noise_on=False, dtype=dtype, device=dev)
+            res_z = simulate_nlmpc_runs_soa(
+                lp, nl_limits, scen_z, seed_xs, seed_us, 121, 1.0,
+                step_solver=solver, num_laps=LAPS, max_steps=MAX_STEPS,
+                max_laps=MAX_LAPS, max_lm_iters=60)
+            steps_z = res_z.lap_steps.cpu().numpy()
+            laps_z = steps_z[:, 0].tolist()
+            same = bool((steps_z == steps_z[:, :1]).all())
+            print(f"[{tag} {str(dtype)[6:]}] B=1024 cap 60 lap steps "
+                  f"{laps_z}, all lanes identical {same}, all done "
+                  f"{bool(res_z.lap_done.all())}", flush=True)
+            require(bool(res_z.lap_done.all()), f"{tag}: lanes not done")
+            require(same, f"{tag}: zero-noise lanes differ")
+            if dtype == torch.float64:
+                require(laps_z == host_laps,
+                        f"{tag} f64 laps {laps_z} != host {host_laps}")
+            elif f32_within is not None:
+                require(all(abs(a - b) <= f32_within
+                            for a, b in zip(laps_z, host_laps)),
+                        f"{tag} f32 laps {laps_z} not within {f32_within} "
+                        f"of {host_laps}")
 
-    # ---- 10b. NLMPC headline timed runs ----
-    nl_times = []
-    for seed in (1, 2):
+    zero_noise("9 NLMPC zero-noise", nl_params, build_fused_nlmpc_step(
+        nl_params, nl_limits, 1.0, **{**nl_sizes, "max_iters": 60}),
+        HOST_NLMPC_LAPS, f32_within=2)
+
+    # ---- 10b. NLMPC headline timed runs, with and without qsort_skip in
+    # turns; the option must leave every lap record as it was ----
+    nl_times = {"plain": [], "qsort_skip": []}
+    runs, nl_launches = {}, {}
+    for seed, name in ((1, "plain"), (1, "qsort_skip"), (2, "qsort_skip"),
+                       (2, "plain")):
+        solver = k2q if name == "qsort_skip" else k2
+        solver.launches = 0
         t0 = time.perf_counter()
-        nl_headline(seed, k2)
-        nl_times.append(time.perf_counter() - t0)
-    nl_best = min(nl_times)
-    nl_rate = BATCH * LAPS / nl_best
-    print(f"[10 NLMPC headline] {nl_rate:.1f} lap-sims/s, {nl_best:.3f} s "
-          f"per batch (runs {[round(t, 3) for t in nl_times]}), completion "
-          f"{nl_completion:.4f}, mean lap steps "
-          f"{[round(v, 2) for v in nl_steps]}, K2 launches {k2_launches}, "
-          f"card {card}", flush=True)
+        res = nl_headline(seed, solver)
+        nl_times[name].append(time.perf_counter() - t0)
+        nl_launches.setdefault(name, solver.launches)  # its seed-1 run
+        if seed in runs:
+            require(torch.equal(res.lap_steps, runs[seed].lap_steps)
+                    and torch.equal(res.lap_done, runs[seed].lap_done),
+                    f"NLMPC headline seed {seed}: qsort_skip changed the run")
+        runs[seed] = res
+    del runs, res
+    nl_rate = {name: BATCH * LAPS / min(t) for name, t in nl_times.items()}
+    for name, label in (("qsort_skip", ""), ("plain", " without qsort_skip")):
+        print(f"[10 NLMPC headline{label}] {nl_rate[name]:.1f} lap-sims/s, "
+              f"{min(nl_times[name]):.3f} s per batch (runs "
+              f"{[round(t, 3) for t in nl_times[name]]}), warm-run "
+              f"completion {nl_completion:.4f}, mean lap steps "
+              f"{[round(v, 2) for v in nl_steps]}, K2 launches in its "
+              f"seed-1 run {nl_launches[name]}, card {card}", flush=True)
+
+    # ---- 15a. timeVarying headline warm run through K2 (captures 13) ----
+    tv_params = LmpcParams.make(ss_option="timeVarying")
+    k2_tv = batched_nlmpc_soa.default_step_solver(
+        tv_params, nl_limits, 1.0, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+        max_iters=NL_CAP)
+    require(k2_tv.qsort_skip, "timeVarying K2 without qsort_skip")
+    k2_tv_plain = build_fused_nlmpc_step(tv_params, nl_limits, 1.0,
+                                         **nl_sizes)
+    cap_tv = Capture(k2_tv, K2_ATTRS, 6, want_capture(NL_CAPTURES))
+    tv_warm, tv_warm_s, tv_launches = warm_run(
+        "timeVarying headline", tv_params, scen, cap_tv,
+        (k2_tv, k2_tv_plain))
+    tv_completion, tv_se = completion_of(tv_warm)
+    tv_steps = tv_warm.lap_steps.float().mean(dim=1).tolist()
+    print(f"[15 timeVarying headline warm] B={BATCH} {tv_warm_s:.2f} s, K2 "
+          f"launches {tv_launches}, completion {tv_completion:.4f} (standard "
+          f"error {tv_se:.5f}), mean lap steps "
+          f"{[round(v, 2) for v in tv_steps]}, max lap steps "
+          f"{tv_warm.lap_steps.amax(dim=1).tolist()}", flush=True)
+    require(tv_completion >= TV_COMPLETION_MIN,
+            f"timeVarying lap completion {tv_completion} < "
+            f"{TV_COMPLETION_MIN}")
+    del tv_warm
+
+    # ---- 13. timeVarying K2 against the plain step, with and without
+    # qsort_skip ----
+    require(sorted(cap_tv.captured) == sorted(NL_CAPTURES),
+            f"captured {sorted(cap_tv.captured)}")
+    tv_stats = check_k2("13 K2 timeVarying", k2_tv,
+                        {"no_qsort_skip": k2_tv_plain}, cap_tv.captured,
+                        *plain_of(tv_params))
+    del cap_tv
+
+    # ---- 14. zero-noise timeVarying closed loop through K2 ----
+    zero_noise("14 timeVarying zero-noise", tv_params, build_fused_nlmpc_step(
+        tv_params, nl_limits, 1.0, qsort_skip=True,
+        **{**nl_sizes, "max_iters": 60}), HOST_TV_LAPS)
+
+    # ---- 15b. timeVarying headline timed runs ----
+    # five runs: the rate of this host-bound run spreads with the host
+    tv_rate, tv_rates = timed("15 timeVarying headline", tv_params, scen,
+                              k2_tv, BATCH, tv_completion, tv_steps,
+                              tv_launches, seeds=(1, 2, 3, 4, 5))
+
+    # ---- 18a. all headline warm run through K2 (captures phase 16) ----
+    all_params = LmpcParams.make(all_ss_point=True)
+    k2_all = batched_nlmpc_soa.default_step_solver(
+        all_params, nl_limits, 1.0, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+        max_iters=NL_CAP)
+    require(k2_all.all_rev_skip, "all-mode K2 without all_rev_skip")
+    k2_all_fwd = build_fused_nlmpc_step(all_params, nl_limits, 1.0,
+                                        **nl_sizes)
+    cap_all = Capture(k2_all, K2_ATTRS, 6, want_capture(NL_CAPTURES))
+    all_warm, all_warm_s, all_launches = warm_run(
+        "all headline", all_params, scen_all, cap_all, (k2_all, k2_all_fwd))
+    all_completion, all_se = completion_of(all_warm)
+    all_steps = all_warm.lap_steps.float().mean(dim=1).tolist()
+    print(f"[18 all headline warm] B={ALL_BATCH} {all_warm_s:.2f} s, K2 "
+          f"launches {all_launches}, completion {all_completion:.4f} "
+          f"(standard error {all_se:.5f}), mean lap steps "
+          f"{[round(v, 2) for v in all_steps]}, max lap steps "
+          f"{all_warm.lap_steps.amax(dim=1).tolist()}", flush=True)
+    require(all_completion >= ALL_COMPLETION_MIN,
+            f"all lap completion {all_completion} < {ALL_COMPLETION_MIN}")
+    del all_warm
+
+    # ---- 16. K2 all against the plain step; all_rev_skip against the
+    # forward scan; then all + all_iter on an all_iter run's inputs ----
+    require(sorted(cap_all.captured) == sorted(NL_CAPTURES),
+            f"captured {sorted(cap_all.captured)}")
+    all_stats = check_k2("16 K2 all", k2_all, {"forward_scan": k2_all_fwd},
+                         cap_all.captured, *plain_of(all_params))
+    del cap_all
+    iter_params = LmpcParams.make(all_ss_point=True, all_ss_iter=True)
+    k2_iter = batched_nlmpc_soa.default_step_solver(
+        iter_params, nl_limits, 1.0, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+        max_iters=NL_CAP)
+    cap_iter = Capture(k2_iter, K2_ATTRS, 6, want_capture(NL_CAPTURES),
+                       all_iter=True)
+    iter_run, iter_s, iter_launches = warm_run(
+        "all_iter run", iter_params, scen_all, cap_iter, (k2_iter,))
+    iter_completion, iter_se = completion_of(iter_run)
+    iter_steps = iter_run.lap_steps.float().mean(dim=1).tolist()
+    print(f"[16 all_iter run] B={ALL_BATCH} {iter_s:.2f} s "
+          f"({ALL_BATCH * LAPS / iter_s:.1f} lap-sims/s), K2 launches "
+          f"{iter_launches}, completion {iter_completion:.4f} (standard "
+          f"error {iter_se:.5f}), mean lap steps "
+          f"{[round(v, 2) for v in iter_steps]}", flush=True)
+    del iter_run
+    require(sorted(cap_iter.captured) == sorted(NL_CAPTURES),
+            f"captured {sorted(cap_iter.captured)}")
+    iter_stats = check_k2("16 K2 all_iter", k2_iter, {}, cap_iter.captured,
+                          *plain_of(iter_params))
+    del cap_iter
+
+    # ---- 17. zero-noise all + all_iter closed loop through K2 ----
+    zero_noise("17 all_iter zero-noise", iter_params, build_fused_nlmpc_step(
+        iter_params, nl_limits, 1.0, **{**nl_sizes, "max_iters": 60}),
+        HOST_ALL_LAPS)
+
+    # ---- 18b. all headline timed runs ----
+    all_rate, _ = timed("18 all headline", all_params, scen_all, k2_all,
+                        ALL_BATCH, all_completion, all_steps, all_launches)
+
     # ---- 11. K5 against its plain version ----
     di_kw = generic_kwargs(params, limits, max_iter=G_CAP,
                            matrix_Q=np.zeros((4, 4)))
@@ -860,8 +1206,21 @@ def main():
         dict(name="nlmpc_step (K2)", route="cuda",
              source=csrc + "nlmpc_step.cu",
              replaces=tpu + "pallas_nlmpc_step.py:245",
-             launches=k2_launches, max_abs_err=k2_err, ms=k2_ms,
-             plain_ms=k2_plain_ms, **k2_bound),
+             launches=k2_launches, **k2_stats,
+             lap_sims_per_s=nl_rate["qsort_skip"],
+             no_qsort_skip_lap_sims_per_s=nl_rate["plain"]),
+        dict(name="nlmpc_step (K2, timeVarying)", route="cuda",
+             source=csrc + "nlmpc_step.cu",
+             replaces=tpu + "pallas_nlmpc_step.py:245",
+             launches=tv_launches, **tv_stats, lap_sims_per_s=tv_rate,
+             lap_sims_per_s_runs=tv_rates),
+        dict(name="nlmpc_step (K2, all)", route="cuda",
+             source=csrc + "nlmpc_step_all.cu",
+             replaces=tpu + "pallas_nlmpc_step.py:245",
+             launches=all_launches, **all_stats, lap_sims_per_s=all_rate,
+             all_iter={kk: iter_stats[kk] for kk in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+             | dict(launches=iter_launches)),
         # K3 runs on the generic tier's --kernel path as its yardstick; its
         # figures are phase 11's on those lanes
         dict(name="fused_ilqr (K3)", route="cuda",

@@ -2,12 +2,15 @@
 
 Port of the base path of ilqr_iterative_tasks_tpu/control/batched_nlmpc_soa.py
 (``simulate_nlmpc_runs_soa`` :94, ``_advance_tail`` :254, ``run_lap`` :607,
-``lap_loop`` :827), safe-set mode spaceVarying. The scenario batch B is the
-trailing axis of every tensor; all B lanes run in lockstep and a lane that
-finishes its lap freezes. Each control step's ``calc_input`` is one call of
-a step solver: the K2 kernel (ops/nlmpc_step.py::build_fused_nlmpc_step),
-which the simulator builds itself for CUDA scenarios when the caller passes
-none. The plain step runs only for scenarios on the CPU. Per lane the simulator keeps the
+``lap_loop`` :827), in the safe-set modes spaceVarying, timeVarying and all
+(``LmpcParams.ss_mode``), the last num_ss_iter laps a step or, with
+``all_ss_iter`` (mode all only), every stored lap. The scenario batch B is
+the trailing axis of every tensor; all B lanes run in lockstep and a lane
+that finishes its lap freezes. Each control step's ``calc_input`` is one
+call of a step solver: the K2 kernel (ops/nlmpc_step.py::
+build_fused_nlmpc_step), which the simulator builds itself for CUDA
+scenarios when the caller passes none. The plain step runs only for
+scenarios on the CPU. Per lane the simulator keeps the
 terminal guess, the warm start and the shrinking horizon: each lap starts
 at horizon n with the newest stored lap's row n as guess and its first n
 stored inputs as warm start; choosing a lap's last point shrinks the
@@ -79,20 +82,49 @@ def advance_tail(us_w, u_app, new_guess0, succ, h1, hzn, feasible_any,
 _K2_CACHE: dict = {}
 
 
+def default_options(params: LmpcParams) -> dict:
+    """The K2 options ``default_step_solver`` builds with, as the JAX bench
+    rows ship them: ``qsort_skip`` for timeVarying (bench.py:207-211) and
+    spaceVarying (bench.py:145-148; its headline runs 1.25-1.28x faster with it
+    on the card, PERF.md), and ``all_rev_skip`` for all with one lap row
+    (bench.py:218-221); all with ``all_ss_iter`` scans forward. Each is
+    bitwise-neutral."""
+    one_row = params.num_ss_iter == 1
+    if params.ss_mode == "all":
+        return dict(all_rev_skip=one_row and not params.all_ss_iter)
+    return dict(qsort_skip=one_row)
+
+
 def default_step_solver(params: LmpcParams, limits: SystemLimits, dt, *,
                         max_steps: int, max_laps: int,
                         max_iters: int) -> FusedNlmpcStep:
     """The K2 that ``simulate_nlmpc_runs_soa`` launches on CUDA scenarios
-    when no step_solver is passed: built once per constants and sizes,
-    then reused (its ``launches`` keeps counting)."""
+    when no step_solver is passed, with ``default_options``: built once per
+    constants, sizes and safe-set mode, then reused (its ``launches`` keeps
+    counting)."""
     key = (tuple(_build.nlmpc_consts_array(nlmpc_consts(limits, dt))),
            params.num_ss_points, params.num_ss_iter, params.num_horizon,
-           max_steps, max_laps, max_iters)
+           params.ss_mode, params.all_ss_iter, max_steps, max_laps,
+           max_iters)
     if key not in _K2_CACHE:
         _K2_CACHE[key] = build_fused_nlmpc_step(
             params, limits, dt, num_horizon=params.num_horizon,
-            max_steps=max_steps, max_laps=max_laps, max_iters=max_iters)
+            max_steps=max_steps, max_laps=max_laps, max_iters=max_iters,
+            **default_options(params))
     return _K2_CACHE[key]
+
+
+def lap_window(lap_count: int, nsi: int, max_laps: int, all_iter: bool, b,
+               device):
+    """(lap_ids, lap_ok) of a step: the last nsi stored laps, or with
+    ``all_iter`` every slot, flagged stored or not (JAX ``_lap_window``,
+    batched_nlmpc_soa.py:244-252)."""
+    if all_iter:
+        lap_ids = torch.arange(max_laps, dtype=torch.int32, device=device)
+        return lap_ids, (lap_ids < lap_count).to(torch.int32)
+    lap_ids, lap_ok, _ = _step_solver_inputs(lap_count, nsi, max_laps, None,
+                                             b, device)
+    return lap_ids, lap_ok
 
 
 _UNSUPPORTED = ("retile_frac", "tail_shrink", "resume_from", "pallas_solver",
@@ -118,7 +150,9 @@ def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
     iterations of every solve. ``infeasible_retire=S`` retires a lane from
     the solver after S consecutive all-infeasible steps (it keeps
     integrating its held input). ``step_solver``: a K2 built by
-    ``build_fused_nlmpc_step`` for the same sizes, or None: then
+    ``build_fused_nlmpc_step`` for the same sizes and safe-set mode (in
+    timeVarying it also takes each lane's step t and the least stored lap
+    cost), or None: then
     ``default_step_solver``'s K2 on CUDA scenarios and the plain step on
     CPU ones. ``noise`` (steps, 2, B) standard-normal draws or
     ``generator``: the plant-noise source (needed where noise_on is set).
@@ -128,6 +162,7 @@ def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
                         f"port (left out: {', '.join(_UNSUPPORTED)})")
     params.check_ported()
     n, k, nsi = params.num_horizon, params.num_ss_points, params.num_ss_iter
+    mode, all_iter = params.ss_mode, bool(params.all_ss_iter)
     if step_solver is None and scenarios.x0.device.type != "cpu":
         step_solver = default_step_solver(params, limits, dt,
                                           max_steps=max_steps,
@@ -135,6 +170,15 @@ def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
                                           max_iters=max_lm_iters)
     if step_solver is not None:
         s = step_solver
+        # a solver without these attributes is taken for spaceVarying over
+        # the last nsi laps, as the JAX simulator takes it (:182-187)
+        s_mode = getattr(s, "mode", "spaceVarying")
+        s_iter = bool(getattr(s, "all_iter", False))
+        if (s_mode, s_iter) != (mode, all_iter):
+            raise ValueError(
+                f"step_solver was built for mode={s_mode!r} (all_iter="
+                f"{s_iter}); the simulator was called with ss mode "
+                f"{mode!r} (all_ss_iter={all_iter})")
         if ((s.k, s.nsi, s.num_horizon, s.max_steps, s.max_laps, s.max_iters)
                 != (k, nsi, n, max_steps, max_laps, max_lm_iters)):
             raise ValueError(
@@ -185,8 +229,11 @@ def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
         lap_count = 1 + lap_i  # laps stored so far (seed + learned)
         guess = states[lap_count - 1, n]  # warm start from the newest lap
         u_warm = inputs[lap_count - 1, :n]
-        lap_ids, lap_ok, _ = _step_solver_inputs(lap_count, nsi, max_laps,
-                                                 None, b, dev)
+        lap_ids, lap_ok = lap_window(lap_count, nsi, max_laps, all_iter, b,
+                                     dev)
+        # timeVarying: the least stored lap cost over every stored lap
+        # (batched_nlmpc_soa.py:529-533), fixed within a lap
+        min_cost = (lap_len[:lap_count] - 1).amin(dim=0).to(torch.int32)
         x = x0
         t = torch.zeros((b,), dtype=torch.int32, device=dev)
         done = torch.zeros((b,), dtype=torch.bool, device=dev)
@@ -201,9 +248,10 @@ def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
         while bool(((t < sim_step_budget) & ~done).any()):
             skip = (done | retired).to(torch.float32)
             if bool((skip < 0.5).any()):
+                extra = (t, min_cost) if mode == "timeVarying" else ()
                 us_w, feas_f, new_guess0, idx_sel, row_sel, succ_f = solver(
                     x, guess, u_warm, states, qfun, lap_len, lap_ids, lap_ok,
-                    obstacle_to_lanes_nlmpc(obstacle, b), skip, hzn)
+                    obstacle_to_lanes_nlmpc(obstacle, b), skip, hzn, *extra)
             else:  # every lane done or retired: outputs would be zeros
                 us_w = torch.zeros((n, 2, b), dtype=dtype, device=dev)
                 feas_f = succ_f = torch.zeros((b,), dtype=dtype, device=dev)

@@ -388,4 +388,57 @@ __device__ __forceinline__ void load_warm(const NlmpcConsts<T>& C,
   }
 }
 
+// The outputs of one whole NLMPC step (K2) for lane b.
+template <typename T, int N>
+struct StepOut {
+  T* us;    // (N, 2, B)
+  T* fe;    // (B,) feasible_any
+  T* ng;    // (4, B) new guess
+  int* idx;  // (B,) chosen point
+  int* row;  // (B,) chosen lap row
+  T* succ;  // (B,)
+
+  __device__ __forceinline__ void skip_lane(int B, int b) const {
+#pragma unroll
+    for (int i = 0; i < 2 * N; ++i) us[i * B + b] = (T)0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) ng[c * B + b] = (T)0;
+    fe[b] = (T)0;
+    idx[b] = 0;
+    row[b] = 0;
+    succ[b] = (T)0;
+  }
+
+  // The winner's solution and the pre-freeze guess advance: the successor
+  // point `nx` (rows B apart) when succ, else x_m (x_term for h1 lanes).
+  __device__ __forceinline__ void write(int B, int b, const T (&u)[N][2],
+                                        const T (&xm)[4], const T (&xt)[4],
+                                        const T* nx, bool h1, bool feasible,
+                                        int idx_sel, int row_sel,
+                                        bool succ_sel) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      us[(2 * i) * B + b] = u[i][0];
+      us[(2 * i + 1) * B + b] = u[i][1];
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      ng[q * B + b] = succ_sel ? nx[q * B] : (h1 ? xt[q] : xm[q]);
+    fe[b] = feasible ? (T)1 : (T)0;
+    idx[b] = idx_sel;
+    row[b] = row_sel;
+    succ[b] = succ_sel ? (T)1 : (T)0;
+  }
+};
+
+// The horizon-1 reach check: |x1 - x_term| <= 1e-3.
+template <typename T>
+__device__ __forceinline__ bool reaches(const T (&x1)[4], const T (&xt)[4]) {
+  T dr[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) dr[q] = x1[q] - xt[q];
+  return sqrt(dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2] + dr[3] * dr[3]) <=
+         (T)1e-3;
+}
+
 }  // namespace ilqr

@@ -24,7 +24,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 SOURCES = ("lm_core.cuh", "nlmpc_core.cuh", "dual.cuh", "fused_ilqr.cu",
            "i2lqr_step.cu", "fused_lm_shooting.cu", "nlmpc_step.cu",
-           "generic_ilqr.cu")
+           "nlmpc_step_all.cu", "generic_ilqr.cu")
 # Precise sin/cos/exp, IEEE division and sqrt (no --use_fast_math), and no
 # FMA contraction (-fmad=false): the kernels then round operation by
 # operation as the plain torch version does, which the LM accept/reject
@@ -46,10 +46,14 @@ _ARGTYPES = {
     # dtype, n, consts, max_iters, B, x0, x_term, u_warm, obs, skip, hzn,
     # us, x_last, term_err, feasible, stream
     "fused_lm_shooting_launch": [_I, _I, _P, _I, _I] + [_P] * 11,
-    # dtype, n, k, nsi, consts, max_iters, B, T, x, guess, u_warm, states,
-    # qfun, lap_len, lap_ids, lap_ok, obs, skip, hzn, us, feasible_any,
+    # dtype, n, k, nsi, time_varying, qsort, consts, max_iters, B, T, x,
+    # guess, u_warm, states, qfun, lap_len, lap_ids, lap_ok, obs, skip, hzn,
+    # t, min_cost, us, feasible_any, new_guess, idx, row, succ, stream
+    "nlmpc_step_launch": [_I] * 6 + [_P] + [_I] * 3 + [_P] * 20,
+    # dtype, n, rows, rev, consts, max_iters, B, T, x, u_warm, states, qfun,
+    # lap_len, lap_ids, lap_ok, obs, skip, hzn, scratch, us, feasible_any,
     # new_guess, idx, row, succ, stream
-    "nlmpc_step_launch": [_I] * 4 + [_P] + [_I] * 3 + [_P] * 18,
+    "nlmpc_step_all_launch": [_I] * 4 + [_P] + [_I] * 3 + [_P] * 18,
     # dtype, model, n, consts, max_iter, B, x0, x_term, u_init, us, x_last,
     # cost, n_iters, stream
     "generic_ilqr_launch": [_I, _I, _I, _P, _I, _I] + [_P] * 8,

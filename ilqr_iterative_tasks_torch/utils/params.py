@@ -128,16 +128,26 @@ class LmpcParams:
                    matrix_Qslack=f(5.0 * np.diag([10, 0, 0, 1, 10, 0])),
                    matrix_dR=f(5.0 * np.diag([0.8, 0.0])), **static)
 
+    @property
+    def ss_mode(self) -> str:
+        """The safe-set candidate mode: ``all_ss_point`` overrides
+        ``ss_option`` (control/batched_nlmpc_soa.py:157-164)."""
+        mode = "all" if self.all_ss_point else str(self.ss_option)
+        if mode not in ("all", "timeVarying", "spaceVarying"):
+            raise ValueError(f"unknown ss_option {mode!r}")
+        return mode
+
     def check_ported(self) -> None:
-        """Raise unless these are the safe-set options the port runs:
-        spaceVarying kNN over the last num_ss_iter laps."""
-        if (self.ss_option != "spaceVarying" or self.all_ss_point
-                or self.all_ss_iter):
+        """Raise unless the port runs these safe-set options: spaceVarying
+        kNN or the timeVarying window over the last num_ss_iter laps, or
+        every stored point (``all_ss_point``) of the last num_ss_iter laps
+        or, with ``all_ss_iter``, of every stored lap. The kNN or window
+        over every stored lap (``all_ss_iter`` without ``all_ss_point``)
+        is not ported."""
+        if self.ss_mode != "all" and self.all_ss_iter:
             raise NotImplementedError(
-                f"the torch port runs ss_option='spaceVarying' with "
-                f"all_ss_point=False and all_ss_iter=False only (got "
-                f"{self.ss_option!r}, {self.all_ss_point}, "
-                f"{self.all_ss_iter})")
+                f"the torch port runs all_ss_iter=True only with "
+                f"all_ss_point=True (got ss_option={self.ss_option!r})")
 
 
 def nlmpc_consts(limits: SystemLimits, dt) -> SimpleNamespace:

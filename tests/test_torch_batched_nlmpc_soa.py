@@ -1,12 +1,16 @@
-"""The port's NLMPC learning run (spaceVarying, f64).
+"""The port's NLMPC learning run (f64), in its safe-set modes.
 
 - Zero noise, B = 2, seed lap + 3 learning laps, LM cap 60: the lap steps
-  are the host controller's pinned sequence [32, 23, 23]
-  (tests/test_batched_nlmpc_soa.py:163-173, docs/PARITY.md:80), without JAX.
+  are the host controller's pinned sequences, without JAX: spaceVarying
+  [32, 23, 23], timeVarying [111, 104, 97] and all with all_ss_iter
+  [26, 22, 22] (tests/test_batched_nlmpc_soa.py:141-173,
+  docs/PARITY.md:80).
 - Against the JAX simulator: B = 4, 1 learning lap, cap 12; lanes 0-1 run
   without noise, lanes 2-3 with the JAX run's own draws
-  (``jax.random.split(key, 3)`` per executed step, batched_nlmpc_soa.py:715).
-- ``infeasible_retire`` and the all-infeasible input hold.
+  (``jax.random.split(key, 3)`` per executed step, batched_nlmpc_soa.py:715);
+  spaceVarying and timeVarying.
+- ``infeasible_retire`` and the all-infeasible input hold; a step solver
+  built for another mode is refused.
 """
 
 import jax
@@ -25,7 +29,8 @@ from ilqr_iterative_tasks_torch.control.batched_nlmpc_soa import (
     simulate_nlmpc_runs_soa)
 from ilqr_iterative_tasks_torch.control.batched_soa import SoaScenarios
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
-from ilqr_iterative_tasks_torch.ops.nlmpc_step import nlmpc_step_reference
+from ilqr_iterative_tasks_torch.ops.nlmpc_step import (
+    build_fused_nlmpc_step, nlmpc_step_reference)
 from ilqr_iterative_tasks_torch.sim.seed import seed_trajectory
 from ilqr_iterative_tasks_torch.utils import convert
 from ilqr_iterative_tasks_torch.utils.params import LmpcParams, SystemLimits
@@ -50,17 +55,31 @@ def _scenarios(b, **kw):
         b, dtype=F64, **kw, device="cpu")
 
 
-def test_zero_noise_laps_equal_the_host_sequence():
+def _zero_noise_laps(host_laps, **mode):
     _, seed_xs, seed_us = _seed()
     res = simulate_nlmpc_runs_soa(
-        LmpcParams.make(dtype=F64, device="cpu"), SystemLimits.make(dtype=F64, device="cpu"),
+        LmpcParams.make(dtype=F64, device="cpu", **mode),
+        SystemLimits.make(dtype=F64, device="cpu"),
         _scenarios(2), seed_xs, seed_us, 121, 1.0, num_laps=3,
         max_steps=T_ROWS, max_laps=MAX_LAPS)
-    assert res.lap_steps.T.tolist() == [HOST_LAPS, HOST_LAPS]
+    assert res.lap_steps.T.tolist() == [host_laps, host_laps]
     assert bool(res.lap_done.all())
     assert res.lap_count == 4
     assert torch.equal(res.safe_set[4][1:4, 0],
-                       torch.tensor(HOST_LAPS, dtype=torch.int32) + 1)
+                       torch.tensor(host_laps, dtype=torch.int32) + 1)
+
+
+def test_zero_noise_laps_equal_the_host_sequence():
+    _zero_noise_laps(HOST_LAPS)
+
+
+def test_time_varying_zero_noise_laps_equal_the_host_sequence():
+    _zero_noise_laps([111, 104, 97], ss_option="timeVarying")
+
+
+def test_all_points_all_laps_zero_noise_laps_equal_the_host_sequence():
+    # every stored point of every stored lap: ~40 s on one CPU thread
+    _zero_noise_laps([26, 22, 22], all_ss_point=True, all_ss_iter=True)
 
 
 def _jax_draws(key, steps, b):
@@ -74,10 +93,11 @@ def _jax_draws(key, steps, b):
         body, k, None, length=steps)[1])(key))
 
 
-def test_closed_loop_lap1_matches_jax_f64():
+def _lap1_against_jax(**mode):
     b, cap, budget = 4, 12, 121
     xcl, seed_xs, seed_us = _seed()
-    jp, jl = JParams.make(dtype=jnp.float64), JLimits.make(dtype=jnp.float64)
+    jp = JParams.make(dtype=jnp.float64, **mode)
+    jl = JLimits.make(dtype=jnp.float64)
     scen = JScenarios.broadcast(
         np.zeros(4), xcl[-1],
         JObstacle.make(31.0, -2.0, 8.0, 6.0, dtype=jnp.float64), b,
@@ -106,6 +126,16 @@ def test_closed_loop_lap1_matches_jax_f64():
                                   np.asarray(jr.safe_set[4]))
     np.testing.assert_allclose(tr.final_x.numpy(), np.asarray(jr.final_x),
                                rtol=0, atol=1e-9)
+    return tr
+
+
+def test_closed_loop_lap1_matches_jax_f64():
+    _lap1_against_jax()
+
+
+def test_time_varying_closed_loop_lap1_matches_jax_f64():
+    tr = _lap1_against_jax(ss_option="timeVarying")
+    assert bool(tr.lap_done.all())
 
 
 class _InfeasibleFrom:
@@ -172,9 +202,31 @@ def test_unported_options_raise():
         simulate_nlmpc_runs_soa(LmpcParams.make(dtype=F64, device="cpu"), limits,
                                 _scenarios(2), seed_xs, seed_us, 121, 1.0,
                                 retile_frac=0.25, **kw)
-    for bad in (dict(ss_option="timeVarying"), dict(all_ss_point=True),
-                dict(all_ss_iter=True)):
+    # the kNN or window over every stored lap is not ported
+    for bad in (dict(all_ss_iter=True),
+                dict(ss_option="timeVarying", all_ss_iter=True)):
         with pytest.raises(NotImplementedError):
             simulate_nlmpc_runs_soa(LmpcParams.make(dtype=F64, **bad, device="cpu"),
                                     limits, _scenarios(2), seed_xs, seed_us,
                                     121, 1.0, **kw)
+
+
+def test_step_solver_of_another_mode_is_refused():
+    _, seed_xs, seed_us = _seed()
+    limits = SystemLimits.make(dtype=F64, device="cpu")
+    kw = dict(num_laps=1, max_steps=T_ROWS, max_laps=MAX_LAPS,
+              max_lm_iters=12)
+    sizes = dict(num_horizon=6, max_steps=T_ROWS, max_laps=MAX_LAPS,
+                 max_iters=12)
+    space = LmpcParams.make(dtype=F64, device="cpu")
+    every = LmpcParams.make(dtype=F64, all_ss_point=True, all_ss_iter=True,
+                            device="cpu")
+    last = LmpcParams.make(dtype=F64, all_ss_point=True, device="cpu")
+    for built, run in ((space, LmpcParams.make(
+            dtype=F64, ss_option="timeVarying", device="cpu")),
+                       (every, last), (last, every), (last, space)):
+        k2 = build_fused_nlmpc_step(built, limits, 1.0, **sizes)
+        with pytest.raises(ValueError, match="mode"):
+            simulate_nlmpc_runs_soa(run, limits, _scenarios(2), seed_xs,
+                                    seed_us, 121, 1.0, step_solver=k2, **kw)
+        assert k2.launches == 0

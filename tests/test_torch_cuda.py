@@ -13,7 +13,7 @@ import torch
 
 from ilqr_iterative_tasks_torch.control import batched_nlmpc_soa, batched_soa
 from ilqr_iterative_tasks_torch.control.batched_nlmpc_soa import (
-    simulate_nlmpc_runs_soa)
+    default_options, lap_window, simulate_nlmpc_runs_soa)
 from ilqr_iterative_tasks_torch.control.batched_soa import (
     SoaScenarios, _step_solver_inputs, simulate_learning_runs_soa)
 from ilqr_iterative_tasks_torch.models import (
@@ -282,6 +282,86 @@ def test_closed_loop_through_k2_matches_plain(dev):
     want = simulate_nlmpc_runs_soa(p, lim, scen, seed_xs, seed_us, 121, 1.0,
                                    step_solver=plain, **kw)
     assert k2.launches > 0
+    assert torch.equal(got.lap_steps, want.lap_steps)
+    for i in (0, 1):
+        torch.testing.assert_close(got.safe_set[i], want.safe_set[i], rtol=0,
+                                   atol=1e-9)
+
+
+NL_MODES = {"spaceVarying": {}, "timeVarying": dict(ss_option="timeVarying"),
+            "all": dict(all_ss_point=True),
+            "all_iter": dict(all_ss_point=True, all_ss_iter=True)}
+# (mode, option): the option is bitwise-neutral against K2 without it
+K2_OPTIONS = [("spaceVarying", "qsort_skip"), ("timeVarying", None),
+              ("timeVarying", "qsort_skip"), ("all", None),
+              ("all", "all_rev_skip"), ("all_iter", None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode,option", K2_OPTIONS)
+def test_k2_modes_match_plain(dev, dtype, mode, option):
+    p, lim = LmpcParams.make(**NL_MODES[mode]), SystemLimits.make(
+        dtype=torch.float64)
+    b = NL_B if mode in ("spaceVarying", "timeVarying") else 1024
+    a = list(_nl_step_inputs(dtype, dev, b=b))
+    a[6], a[7] = lap_window(2, 1, a[3].shape[0], p.all_ss_iter, b, dev)
+    extra = ((torch.arange(b, device=dev) % 9).to(torch.int32),
+             (a[5][:2] - 1).amin(dim=0)) if mode == "timeVarying" else ()
+    sizes = dict(num_horizon=N, max_steps=a[3].shape[1],
+                 max_laps=a[3].shape[0], max_iters=NL_CAP)
+    k2 = build_fused_nlmpc_step(p, lim, 1.0, **sizes,
+                                **({option: True} if option else {}))
+    got = k2(*a, *extra)
+    want = nlmpc_step_reference(p, lim, 1.0, *a, *extra, max_iters=NL_CAP)
+    torch.cuda.synchronize()
+    assert k2.launches == 1
+    live = a[9] < 0.5
+    for g in got:
+        assert not bool(g[..., ~live].any())  # skip lanes are zeros
+    agree = ((got[1] == want[1]) & (got[3] == want[3]) & (got[4] == want[4])
+             & (got[5] == want[5]))[live]
+    share = float(agree.double().mean())
+    assert share >= (0.999 if dtype == torch.float64 else 0.99), share
+    assert 0.05 < float(want[1][live].mean()) < 1.0  # both verdicts occur
+    tol = 1e-6 if dtype == torch.float64 else 1e-5
+    dus = (got[0] - want[0]).abs().amax(dim=(0, 1))[live][agree]
+    dng = (got[2] - want[2]).abs().amax(dim=0)[live][agree]
+    assert float(dus.max()) <= tol and float(dng.max()) <= tol
+    if option:  # the same kernel without the option, bit for bit
+        base = build_fused_nlmpc_step(p, lim, 1.0, **sizes)(*a, *extra)
+        for g, w in zip(got, base):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("mode", ["timeVarying", "all", "all_iter"])
+def test_closed_loop_through_default_k2_matches_plain(dev, mode):
+    p, lim = LmpcParams.make(**NL_MODES[mode]), SystemLimits.make(
+        dtype=torch.float64)
+    xcl, ucl = seed_trajectory(1.0)
+    seed_xs, seed_us = np.zeros((T_ROWS, 4)), np.zeros((T_ROWS, 2))
+    seed_xs[:121], seed_us[:120] = xcl, ucl
+    scen = SoaScenarios.broadcast(
+        np.zeros(4), xcl[-1], Obstacle.make(31.0, -2.0, 8.0, 6.0), 8,
+        noise_on=True, dtype=torch.float64, device=dev)
+    noise = torch.randn((80, 2, 8), dtype=torch.float64, device=dev)
+    kw = dict(num_laps=2, max_steps=T_ROWS, max_laps=MAX_LAPS,
+              sim_step_budget=40, max_lm_iters=NL_CAP, noise=noise,
+              infeasible_retire=8)
+    k2 = batched_nlmpc_soa.default_step_solver(
+        p, lim, 1.0, max_steps=T_ROWS, max_laps=MAX_LAPS, max_iters=NL_CAP)
+    assert (k2.mode, k2.qsort_skip, k2.all_rev_skip) == (
+        p.ss_mode, *(default_options(p).get(o, False)
+                     for o in ("qsort_skip", "all_rev_skip")))
+    before = k2.launches
+    got = simulate_nlmpc_runs_soa(p, lim, scen, seed_xs, seed_us, 121, 1.0,
+                                  **kw)
+    assert k2.launches > before
+    plain = PlainStep(k2, ("k", "nsi", "num_horizon", "max_steps",
+                           "max_laps", "max_iters", "mode", "all_iter"),
+                      lambda *a: nlmpc_step_reference(p, lim, 1.0, *a,
+                                                      max_iters=NL_CAP))
+    want = simulate_nlmpc_runs_soa(p, lim, scen, seed_xs, seed_us, 121, 1.0,
+                                   step_solver=plain, **kw)
     assert torch.equal(got.lap_steps, want.lap_steps)
     for i in (0, 1):
         torch.testing.assert_close(got.safe_set[i], want.safe_set[i], rtol=0,

@@ -66,8 +66,15 @@ def test_lmpc_params_and_nlmpc_consts_match_jax():
                                               num_ss_points=4), device="cpu")
     assert cp.num_ss_points == 4 and cp.ss_option == "spaceVarying"
     cp.check_ported()
+    for ported in (dict(ss_option="timeVarying"), dict(all_ss_point=True),
+                   dict(all_ss_point=True, all_ss_iter=True)):
+        LmpcParams.make(**ported, device="cpu").check_ported()
+    # the kNN or window over every stored lap is the one combination left
     with pytest.raises(NotImplementedError):
-        LmpcParams.make(ss_option="timeVarying", device="cpu").check_ported()
+        LmpcParams.make(all_ss_iter=True, device="cpu").check_ported()
+    with pytest.raises(NotImplementedError):
+        LmpcParams.make(ss_option="timeVarying", all_ss_iter=True,
+                        device="cpu").check_ported()
     jc = bake_nlmpc_consts(JLimits.make(dtype=jnp.float64), 1.0)
     tc = nlmpc_consts(SystemLimits.make(dtype=F64, device="cpu"), 1.0)
     for t_name, j_name in (("dt", "dtf"), ("a_max", "a_max"),
