@@ -13,16 +13,21 @@ benchmarks through the generic LM-iLQR kernel K5. Phases:
 
 1. device: the card's name and power limit;
 2. build: nvcc of the six kernel sources (one process per source), with
-   seconds, registers and spills;
+   seconds, registers and spills, and the registers, local memory and
+   resident warps an SM of the loaded f32 K1 and K2 all as the CUDA runtime
+   reports them;
 3. K3 (i2LQR per-candidate solve) against the plain solve on 393 216 random
    candidate lanes, f64 and f32;
 4. K1 (whole i2LQR step) against the plain step on safe sets captured from
    the i2LQR headline run (early lap 1, mid lap 2, late lap 3), f32 as
-   captured and f64 cast up, with both per-step times;
+   captured and f64 cast up, with both per-step times beside phase 2's
+   registers and warps per SM;
 5. a zero-noise i2LQR closed loop through K1 (f32, 1024 identical lanes,
    cap 150) against the known lap sequence;
 6. the i2LQR headline through K1 (B = 49 152, cap 16): one warm run, whose
    K1 launches are counted, and two timed runs; lap-sims/s = B * laps / s;
+   every run prints a hash of its lap records (lap steps, done flags,
+   final states, safe set), so two commits can be shown to run alike;
 7. K4 (NLMPC per-candidate solve) against the plain solve on 393 216 random
    candidate lanes (horizons 1-6, 1/16 skipped), f64 and f32;
 8. K2 (whole NLMPC step) against the plain step on inputs captured from the
@@ -35,7 +40,7 @@ benchmarks through the generic LM-iLQR kernel K5. Phases:
 10. the NLMPC headline through K2 with qsort_skip, as the simulator builds
    it (bench.py:145-148; B = 49 152, cap 12, infeasible_retire 8): one warm
    run, whose K2 launches are counted, and timed runs with and without
-   qsort_skip in turns, whose lap records must be equal;
+   qsort_skip in turns, whose lap records must be equal (hashes printed);
 11. K5 (generic LM-iLQR) against its plain version, f64 (first 32 768
    lanes) and f32, for each instantiated model: the double integrator on
    the ``--throughput`` lanes, the unicycle reach task of
@@ -55,15 +60,17 @@ benchmarks through the generic LM-iLQR kernel K5. Phases:
    cap 60): f64 must give the host controller's laps exactly;
 15. the timeVarying headline through K2 with qsort_skip (bench.py:207-211:
    B = 49 152, cap 12, infeasible_retire 8): a warm run, whose K2 launches
-   are counted, and five timed runs back to back (best, median, lowest);
+   are counted, and five timed runs back to back (best, median, lowest),
+   each with K2's device seconds by CUDA events and its lap-records hash;
 16. K2 in mode all against the plain step on inputs captured from the all
    headline run, all_rev_skip bitwise equal to the forward scan, and K2
-   with all_iter on inputs captured from an all_iter run;
+   with all_iter on inputs captured from an all_iter run; the lap-2 times
+   beside phase 2's registers and warps per SM;
 17. a zero-noise all + all_iter closed loop through K2 (1024 lanes, cap
    60): f64 must give the host controller's laps exactly;
 18. the all headline through K2 with all_rev_skip (bench.py:218-221 without
    retile_frac: B = 8 192, nsi 1, cap 12, infeasible_retire 8): a warm run,
-   whose K2 launches are counted, and two timed runs.
+   whose K2 launches are counted, and two timed runs, as phase 15's.
 
 Every phase raises on failure, so the script exits non-zero. It prints the
 card line and a JSON line of the kernels before its last line, which is
@@ -95,13 +102,16 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-BATCH, LAPS, MAX_STEPS, MAX_LAPS, CAP, N = 49152, 3, 128, 8, 16, 6
+sys.path.insert(0, HERE)
+# the headlines, capture rule, timing and lap-records hash that
+# experiments/kernel_ab.py shares
+from ilqr_iterative_tasks_torch.experiments.headlines import (  # noqa: E402
+    ALL_BATCH, BATCH, CAP, CAPTURES, LAPS, MAX_LAPS, MAX_STEPS, N, NL_CAP,
+    NL_CAPTURES, Headlines, cuda_ms, k1_capture, k2_capture,
+    lap_records_hash, require)
+
 K3_LANES = 8 * BATCH
-# (learning lap, control step within it) where phase 4 captures K1's inputs
-CAPTURES = {1: 5, 2: 14, 3: 18}
 ZERO_NOISE_LAPS = [55, 28, 24]  # CPU XLA f32 family, docs/PARITY.md:146
-NL_CAP = 12  # the NLMPC headline's LM cap (bench.py:131)
-NL_RETIRE = 8  # infeasible_retire of the NLMPC headline (bench.py:132)
 # NLMPC headline lap completion bound. Completion follows the f32 arithmetic
 # (the horizon-1 reach check at 1e-3 under noise): the port completes 0.9169
 # on the H100 (seed 0; seeds 1-2 0.9172, 0.9181) and, on the same noise
@@ -109,15 +119,10 @@ NL_RETIRE = 8  # infeasible_retire of the NLMPC headline (bench.py:132)
 # TPU's 0.9492 is its own f32 behaviour. The bound sits 3 standard errors of
 # one B = 49 152 run (~0.0009) under the card's seed-0 figure.
 NL_COMPLETION_MIN = 0.914
-# (learning lap, control step) where phase 8 captures K2's inputs; lap 3 is
-# taken at its first step with shrunk horizons on >= 1 % of active lanes
-# and at least one active lane at horizon 1 (the reach check)
-NL_CAPTURES = {1: 5, 2: 14, 3: None}
 # host controller, f64: timeVarying and all + all_iter
 # (tests/test_batched_nlmpc_soa.py:149, :159)
 HOST_TV_LAPS = [111, 104, 97]
 HOST_ALL_LAPS = [26, 22, 22]
-ALL_BATCH = 8192  # the all tier's batch (bench.py:218-221)
 # timeVarying and all headline lap completion bounds, 3 standard errors of
 # one run under the card's seed-0 figure: timeVarying 0.9846 (standard
 # error 0.00032; on identical draws at B = 1024 the card and the CPU port
@@ -139,11 +144,6 @@ ELEMENTWISE = frozenset(
     "abs add ceil clamp clamp_max clamp_min cos div eq exp floor ge gt le "
     "logical_and logical_not logical_or lt maximum minimum mul ne neg pow "
     "reciprocal rsqrt rsub sign sin sqrt sub where".split())
-
-
-def require(cond, msg):
-    if not cond:
-        raise AssertionError(msg)
 
 
 class OpCounter(TorchDispatchMode):
@@ -306,62 +306,15 @@ def solved_by(k2, a, cands, ref):
 SAMPLE_LANES = 64  # host lanes of an operation count
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds per call on the card's clock, after one warm call."""
-    fn()
+def timed_call(fn):
+    """(fn(), milliseconds of that one call on the card's clock): the
+    plain versions' comparison call doubles as their timing."""
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
     start.record()
-    for _ in range(reps):
-        fn()
+    out = fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-class Capture:
-    """Step solver that delegates to a whole-step kernel and keeps a copy of
-    its inputs where ``want(lap, step, args)`` says so (the simulators only
-    see the kernel's attributes). ``lap_arg`` is the position of lap_ids;
-    ``all_iter``: lap_ids names every slot, and lap_ok the stored ones."""
-
-    def __init__(self, kernel, attrs, lap_arg, want, all_iter=False):
-        self.kernel = kernel
-        for a in attrs:
-            setattr(self, a, getattr(kernel, a))
-        self.lap_arg, self.want, self.iter_rows = lap_arg, want, all_iter
-        self.calls = {}
-        self.captured = {}
-
-    def __call__(self, *args):
-        if self.iter_rows:  # laps stored - 1
-            lap = int(args[self.lap_arg + 1].sum())
-        else:
-            lap = int(args[self.lap_arg][-1]) + 1  # lap_ids[-1] = laps stored - 1
-        i = self.calls.get(lap, 0)
-        self.calls[lap] = i + 1
-        if lap not in self.captured and self.want(lap, i, args):
-            self.captured[lap] = (i, [a.clone() for a in args])
-        return self.kernel(*args)
-
-
-K2_ATTRS = ("k", "nsi", "num_horizon", "max_steps", "max_laps", "max_iters",
-            "mode", "all_iter")
-
-
-def want_capture(sched):
-    """The capture rule of phases 8, 13 and 16: at control step
-    ``sched[lap]`` of a lap, or, where that is None, at the lap's first step
-    with shrunk horizons on >= 1 % of active lanes and at least one active
-    lane at horizon 1 (the reach check)."""
-    def want(lap, i, args):
-        if sched[lap] is not None:
-            return sched[lap] == i
-        act = args[9] < 0.5
-        shrunk = int((act & (args[10] < N)).sum())
-        return (shrunk >= 0.01 * int(act.sum())
-                and bool((act & (args[10] <= 1)).any()))
-    return want
+    return out, start.elapsed_time(end)
 
 
 def check_k2(tag, k2, alts, captured, plain, host_plain):
@@ -385,7 +338,8 @@ def check_k2(tag, k2, alts, captured, plain, host_plain):
             a = cast(args, dtype, keep=(9,))
             out = k2(*a)
             trips, cands = [], []
-            ref = plain(*a, trips=trips, cands=cands)
+            ref, plain_ms = timed_call(
+                lambda: plain(*a, trips=trips, cands=cands))
             solved = solved_by(k2, a, cands, ref)
             torch.cuda.synchronize()
             for t in out:
@@ -420,7 +374,6 @@ def check_k2(tag, k2, alts, captured, plain, host_plain):
                 ms = cuda_ms(lambda: k2(*a), 5)
                 alt_ms = {name: cuda_ms(lambda alt=alt: alt(*a), 5)
                           for name, alt in alts.items()}
-                plain_ms = cuda_ms(lambda: plain(*a), 1)
                 line += (f"; kernel {ms:.3f} ms"
                          + "".join(f", {name} {v:.3f} ms"
                                    for name, v in alt_ms.items())
@@ -492,7 +445,6 @@ def lane_obstacle(rng, b, dev):
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
-    sys.path.insert(0, HERE)
     from ilqr_iterative_tasks_torch.control import batched_nlmpc_soa
     from ilqr_iterative_tasks_torch.control.batched_nlmpc_soa import (
         simulate_nlmpc_runs_soa)
@@ -501,6 +453,8 @@ def main():
     from ilqr_iterative_tasks_torch.experiments.generic_bench import (
         bench_kernel, bench_throughput, candidates, card_line,
         generic_kwargs, throughput_inputs)
+    from ilqr_iterative_tasks_torch.experiments.nlmpc_profile import (
+        EventTimed)
     from ilqr_iterative_tasks_torch.models import (
         double_integrator, kinetic_bicycle, unicycle)
     from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
@@ -540,7 +494,15 @@ def main():
             if ("registers" in line or "spill" in line
                     or "Compiling entry" in line):
                 print("   ", line.strip())
-    _build.library()
+    lib = _build.library()
+    # the loaded f32 K1 (nsi 1) and K2 all, as the CUDA runtime reports them
+    occupancy = dict(
+        k1=_build.attributes(lib, "i2lqr_step_attributes", 0, N, 8, 1),
+        k2_all=_build.attributes(lib, "nlmpc_step_all_attributes", 0, N))
+    for key, occ in occupancy.items():
+        print(f"[2 {key} f32] {occ['registers']} registers, "
+              f"{occ['local_bytes']} bytes of local memory a thread, "
+              f"{occ['warps_per_sm']} resident warps an SM", flush=True)
 
     params, limits = IlqrParams.make(), SystemLimits.make()
     # the same values on the host, for the operation counts
@@ -548,7 +510,7 @@ def main():
     host_limits = SystemLimits.make(device="cpu")
     host_nl_params = LmpcParams.make(device="cpu")
     host_nl_limits = SystemLimits.make(dtype=torch.float64, device="cpu")
-    xcl, ucl = seed_trajectory(1.0)
+    xcl = seed_trajectory(1.0)[0]
     rng = np.random.default_rng(0)
 
     # ---- 3. K3 against the plain solve ----
@@ -655,30 +617,13 @@ def main():
           f"starts)", flush=True)
 
     # ---- 6a. i2LQR headline warm run through K1 (captures phase 4) ----
-    seed_xs = np.zeros((MAX_STEPS, 4))
-    seed_xs[:121] = xcl
-    seed_us = np.zeros((MAX_STEPS, 2))
-    seed_us[:120] = ucl
-    scen = SoaScenarios.broadcast(np.zeros(4), xcl[-1],
-                                  Obstacle.make(31.0, -2.0, 8.0, 6.0),
-                                  BATCH, noise_on=True, device=dev)
+    hl = Headlines(dev)
+    seed_xs, seed_us, scen = hl.seed_xs, hl.seed_us, hl.scen
     k1 = build_fused_i2lqr_step(params, limits, 1.0, num_horizon=N,
                                 max_steps=MAX_STEPS, max_laps=MAX_LAPS,
                                 max_iter=CAP)
-    kw = dict(num_laps=LAPS, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
-              solver_max_iter=CAP)
-
-    def headline(seed, solver):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        res = simulate_learning_runs_soa(params, limits, scen, seed_xs, None,
-                                         121, 1.0, step_solver=solver,
-                                         generator=g, **kw)
-        torch.cuda.synchronize()
-        return res
-
-    cap = Capture(k1, ("k", "nsi", "num_horizon", "max_steps", "max_laps",
-                       "max_iter"), 5,
-                  lambda lap, i, args: CAPTURES.get(lap) == i)
+    headline = hl.i2lqr
+    cap = k1_capture(k1)
     for k in (k1, k3, k4):
         k.launches = 0
     t0 = time.perf_counter()
@@ -692,7 +637,8 @@ def main():
             "non-finite safe set")
     print(f"[6 headline warm] B={BATCH} {warm_s:.2f} s, K1 launches "
           f"{k1_launches}, completion {completion:.4f}, mean lap steps "
-          f"{[round(v, 2) for v in mean_steps]}", flush=True)
+          f"{[round(v, 2) for v in mean_steps]}, lap records "
+          f"{lap_records_hash(warm_run)}", flush=True)
     require(completion >= 0.99, "headline lap completion < 0.99")
     del warm_run
 
@@ -708,9 +654,8 @@ def main():
             a = cast(args, dtype, keep=(8,))
             out = k1(*a)
             trips = []
-            ref = i2lqr_step_reference(params, limits, 1.0, *a, max_iter=CAP,
-                                       trips=trips)
-            torch.cuda.synchronize()
+            ref, plain = timed_call(lambda: i2lqr_step_reference(
+                params, limits, 1.0, *a, max_iter=CAP, trips=trips))
             require(bool(torch.isfinite(out[0]).all()), "K1: non-finite us")
             agree = ((out[1] == ref[1]) & (out[2] == ref[2])
                      & (out[3] == ref[3]))[active]
@@ -727,8 +672,6 @@ def main():
                 require(share >= 0.99, f"K1 f32 lap {lap}: {share}")
                 k1_err = max(k1_err, maxd)
                 ms = cuda_ms(lambda: k1(*a), 10)
-                plain = cuda_ms(lambda: i2lqr_step_reference(
-                    params, limits, 1.0, *a, max_iter=CAP), 2)
                 line += f"; kernel {ms:.3f} ms, plain {plain:.3f} ms per step"
                 if lap == 2:
                     k1_ms, k1_plain_ms = ms, plain
@@ -747,6 +690,10 @@ def main():
                              f"iterations a candidate solve)")
             print(line, flush=True)
     del cap
+    print(f"[4 K1] lap-2 capture {k1_ms:.3f} ms a step (f32), "
+          f"{occupancy['k1']['registers']} registers, "
+          f"{occupancy['k1']['warps_per_sm']} warps per SM, "
+          f"{k1.nsi * k1.k} threads a lane", flush=True)
 
     # ---- 5. zero-noise closed loop through K1 ----
     k1_zero = build_fused_i2lqr_step(params, limits, 1.0, num_horizon=N,
@@ -770,17 +717,19 @@ def main():
             f"zero-noise laps {laps0} not within 2 of {ZERO_NOISE_LAPS}")
 
     # ---- 6b. i2LQR headline timed runs ----
-    times = []
+    times, hashes = [], []
     for seed in (1, 2):
         t0 = time.perf_counter()
-        headline(seed, k1)
+        res = headline(seed, k1)
         times.append(time.perf_counter() - t0)
+        hashes.append(lap_records_hash(res))
+        del res
     best = min(times)
     rate = BATCH * LAPS / best
     print(f"[6 headline] {rate:.1f} lap-sims/s, {best:.3f} s per batch "
-          f"(runs {[round(t, 3) for t in times]}), completion "
-          f"{completion:.4f}, K1 launches {k1_launches}, card {card}",
-          flush=True)
+          f"(runs {[round(t, 3) for t in times]}, lap records {hashes}), "
+          f"completion {completion:.4f}, K1 launches {k1_launches}, card "
+          f"{card}", flush=True)
 
     # ---- 10a. NLMPC headline warm run through K2 (captures phase 8) ----
     nl_params = LmpcParams.make()
@@ -791,19 +740,10 @@ def main():
         nl_params, nl_limits, 1.0, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
         max_iters=NL_CAP)
     require(k2q.qsort_skip, "spaceVarying K2 without qsort_skip")
-    nl_kw = dict(num_laps=LAPS, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
-                 max_lm_iters=NL_CAP, infeasible_retire=NL_RETIRE)
-    scen_all = SoaScenarios.broadcast(np.zeros(4), xcl[-1],
-                                      Obstacle.make(31.0, -2.0, 8.0, 6.0),
-                                      ALL_BATCH, noise_on=True, device=dev)
+    scen_all = hl.scen_all
 
     def nl_headline(seed, solver, lp=nl_params, sc=scen):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        res = simulate_nlmpc_runs_soa(lp, nl_limits, sc, seed_xs, seed_us,
-                                      121, 1.0, step_solver=solver,
-                                      generator=g, **nl_kw)
-        torch.cuda.synchronize()
-        return res
+        return hl.nlmpc(seed, lp, sc, solver)
 
     def plain_of(lp):
         return (lambda *a, trips=None, cands=None: nlmpc_step_reference(
@@ -839,21 +779,27 @@ def main():
               seeds=(1, 2)):
         """Timed runs back to back, one a seed; returns the best rate and
         the rates of all runs."""
-        times = []
+        times, k2_s, hashes = [], [], []
         for seed in seeds:
+            timed_k2 = EventTimed(solver)
             t0 = time.perf_counter()
-            nl_headline(seed, solver, lp, sc)
+            res = nl_headline(seed, timed_k2, lp, sc)
             times.append(time.perf_counter() - t0)
+            k2_s.append(timed_k2.seconds())
+            hashes.append(lap_records_hash(res))
+            del res
         rates = [b * LAPS / t for t in times]
         print(f"[{tag}] {max(rates):.1f} lap-sims/s, {min(times):.3f} s per "
               f"batch (runs {[round(t, 3) for t in times]}: median "
               f"{float(np.median(rates)):.1f}, lowest {min(rates):.1f} "
-              f"lap-sims/s), completion {completion:.4f}, mean lap steps "
+              f"lap-sims/s; K2 device s {[round(t, 3) for t in k2_s]} by "
+              f"CUDA events; lap records {hashes}), completion "
+              f"{completion:.4f}, mean lap steps "
               f"{[round(v, 2) for v in steps]}, K2 launches {launches}, "
               f"card {card}", flush=True)
         return max(rates), rates
 
-    cap2 = Capture(k2q, K2_ATTRS, 6, want_capture(NL_CAPTURES))
+    cap2 = k2_capture(k2q)
     nl_warm, nl_warm_s, k2_launches = warm_run("NLMPC headline", nl_params,
                                                scen, cap2, (k2q, k2))
     k4_launches = k4.launches  # K4: off the path
@@ -862,7 +808,8 @@ def main():
     print(f"[10 NLMPC headline warm] B={BATCH} {nl_warm_s:.2f} s, K2 "
           f"launches {k2_launches}, completion {nl_completion:.4f}, mean lap "
           f"steps {[round(v, 2) for v in nl_steps]}, max lap steps "
-          f"{nl_warm.lap_steps.amax(dim=1).tolist()}", flush=True)
+          f"{nl_warm.lap_steps.amax(dim=1).tolist()}, lap records "
+          f"{lap_records_hash(nl_warm)}", flush=True)
     require(nl_completion >= NL_COMPLETION_MIN,
             f"NLMPC headline lap completion {nl_completion} < "
             f"{NL_COMPLETION_MIN}")
@@ -920,6 +867,8 @@ def main():
         res = nl_headline(seed, solver)
         nl_times[name].append(time.perf_counter() - t0)
         nl_launches.setdefault(name, solver.launches)  # its seed-1 run
+        print(f"[10 NLMPC headline {name} seed {seed}] lap records "
+              f"{lap_records_hash(res)}", flush=True)
         if seed in runs:
             require(torch.equal(res.lap_steps, runs[seed].lap_steps)
                     and torch.equal(res.lap_done, runs[seed].lap_done),
@@ -943,7 +892,7 @@ def main():
     require(k2_tv.qsort_skip, "timeVarying K2 without qsort_skip")
     k2_tv_plain = build_fused_nlmpc_step(tv_params, nl_limits, 1.0,
                                          **nl_sizes)
-    cap_tv = Capture(k2_tv, K2_ATTRS, 6, want_capture(NL_CAPTURES))
+    cap_tv = k2_capture(k2_tv)
     tv_warm, tv_warm_s, tv_launches = warm_run(
         "timeVarying headline", tv_params, scen, cap_tv,
         (k2_tv, k2_tv_plain))
@@ -953,7 +902,8 @@ def main():
           f"launches {tv_launches}, completion {tv_completion:.4f} (standard "
           f"error {tv_se:.5f}), mean lap steps "
           f"{[round(v, 2) for v in tv_steps]}, max lap steps "
-          f"{tv_warm.lap_steps.amax(dim=1).tolist()}", flush=True)
+          f"{tv_warm.lap_steps.amax(dim=1).tolist()}, lap records "
+          f"{lap_records_hash(tv_warm)}", flush=True)
     require(tv_completion >= TV_COMPLETION_MIN,
             f"timeVarying lap completion {tv_completion} < "
             f"{TV_COMPLETION_MIN}")
@@ -987,7 +937,7 @@ def main():
     require(k2_all.all_rev_skip, "all-mode K2 without all_rev_skip")
     k2_all_fwd = build_fused_nlmpc_step(all_params, nl_limits, 1.0,
                                         **nl_sizes)
-    cap_all = Capture(k2_all, K2_ATTRS, 6, want_capture(NL_CAPTURES))
+    cap_all = k2_capture(k2_all)
     all_warm, all_warm_s, all_launches = warm_run(
         "all headline", all_params, scen_all, cap_all, (k2_all, k2_all_fwd))
     all_completion, all_se = completion_of(all_warm)
@@ -996,7 +946,8 @@ def main():
           f"launches {all_launches}, completion {all_completion:.4f} "
           f"(standard error {all_se:.5f}), mean lap steps "
           f"{[round(v, 2) for v in all_steps]}, max lap steps "
-          f"{all_warm.lap_steps.amax(dim=1).tolist()}", flush=True)
+          f"{all_warm.lap_steps.amax(dim=1).tolist()}, lap records "
+          f"{lap_records_hash(all_warm)}", flush=True)
     require(all_completion >= ALL_COMPLETION_MIN,
             f"all lap completion {all_completion} < {ALL_COMPLETION_MIN}")
     del all_warm
@@ -1008,12 +959,15 @@ def main():
     all_stats = check_k2("16 K2 all", k2_all, {"forward_scan": k2_all_fwd},
                          cap_all.captured, *plain_of(all_params))
     del cap_all
+    print(f"[16 K2 all] lap-2 capture {all_stats['ms']:.3f} ms a step with "
+          f"all_rev_skip, {all_stats['forward_scan_ms']:.3f} ms forward "
+          f"(f32), {occupancy['k2_all']['registers']} registers, "
+          f"{occupancy['k2_all']['warps_per_sm']} warps per SM", flush=True)
     iter_params = LmpcParams.make(all_ss_point=True, all_ss_iter=True)
     k2_iter = batched_nlmpc_soa.default_step_solver(
         iter_params, nl_limits, 1.0, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
         max_iters=NL_CAP)
-    cap_iter = Capture(k2_iter, K2_ATTRS, 6, want_capture(NL_CAPTURES),
-                       all_iter=True)
+    cap_iter = k2_capture(k2_iter, all_iter=True)
     iter_run, iter_s, iter_launches = warm_run(
         "all_iter run", iter_params, scen_all, cap_iter, (k2_iter,))
     iter_completion, iter_se = completion_of(iter_run)
@@ -1135,9 +1089,8 @@ def main():
             a = tuple(t[..., :G_F64_LANES].contiguous() for t in a)
         b = a[1].shape[-1]
         out = k3g(*a)
-        ref = fused_ilqr_reference(params, limits, 1.0, *a, num_horizon=N,
-                                   max_iter=G_CAP)
-        torch.cuda.synchronize()
+        ref, k3_plain_ms = timed_call(lambda: fused_ilqr_reference(
+            params, limits, 1.0, *a, num_horizon=N, max_iter=G_CAP))
         for t in out:
             require(bool(torch.isfinite(t).all()), "K3 --kernel: non-finite")
         dus = (out[0] - ref[0]).abs().amax(dim=(0, 1))
@@ -1159,9 +1112,7 @@ def main():
             sample = lanes_of(a, torch.arange(SAMPLE_LANES), b)
             k3_stats = dict(
                 max_abs_err=float(dus.max()), ms=cuda_ms(lambda: k3g(*a), 5),
-                plain_ms=cuda_ms(lambda: fused_ilqr_reference(
-                    params, limits, 1.0, *a, num_horizon=N, max_iter=G_CAP),
-                    1),
+                plain_ms=k3_plain_ms,
                 mean_iters=float(trips.double().mean()),
                 **bound(solve_ops(
                     lambda max_iter: fused_ilqr_reference(
@@ -1202,7 +1153,7 @@ def main():
              source=csrc + "i2lqr_step.cu",
              replaces=tpu + "pallas_i2lqr_step.py:221",
              launches=k1_launches, max_abs_err=k1_err, ms=k1_ms,
-             plain_ms=k1_plain_ms, **k1_bound),
+             plain_ms=k1_plain_ms, **k1_bound, **occupancy["k1"]),
         dict(name="nlmpc_step (K2)", route="cuda",
              source=csrc + "nlmpc_step.cu",
              replaces=tpu + "pallas_nlmpc_step.py:245",
@@ -1217,7 +1168,8 @@ def main():
         dict(name="nlmpc_step (K2, all)", route="cuda",
              source=csrc + "nlmpc_step_all.cu",
              replaces=tpu + "pallas_nlmpc_step.py:245",
-             launches=all_launches, **all_stats, lap_sims_per_s=all_rate,
+             launches=all_launches, **all_stats, **occupancy["k2_all"],
+             lap_sims_per_s=all_rate,
              all_iter={kk: iter_stats[kk] for kk in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
              | dict(launches=iter_launches)),

@@ -21,27 +21,43 @@
 // reuse_extract) is ported: the shipped dedup and qsort_skip are
 // bitwise-neutral, so this plain kernel computes what the bench's does.
 //
-// Design: one thread per lane, blocks of 128, the ragged edge masked; skip
-// lanes write zeros and exit. The TPU tile's lockstep LM loop becomes each
-// thread's own loop. The safe set is read straight from global memory in
-// its batch-trailing layout, so a warp's reads of one row are coalesced;
-// only rows below the lap's length are scanned (the others are never
-// selectable). The k best rows are kept sorted in registers by insertion.
-// The winning solution is not stored: after selection the winner is solved
-// again through the same call site as the candidates (the solve is a pure
-// function of x0, x_term and the obstacle, so this is bitwise the stored
-// solution, as the TPU kernel's store_solutions=False does).
+// Design: a tile of G = nsi * k threads per lane, one thread per
+// candidate (Tile, lm_core.cuh); blocks of 128 threads hold 128 / G lanes,
+// the ragged edge is masked and skip lanes write zeros and exit, each a
+// whole tile. Per pass, the k threads of lap row r run the kNN of that lap
+// together (knn_rows_group: thread s scans rows s, s + k, ... and a merge
+// by (distance, row) gives knn_rows' rows in its order), thread c = r*k + s
+// solves candidate s of row r (zeros-initialised lm_solve) and its reach
+// cost, and every thread runs the unchanged lex_select over the tile's
+// costs, gathered by shuffles. The winner's thread holds its solution: the
+// new guess is its terminal state, broadcast by shuffles, and after the
+// last pass it writes us, so the winner is never solved again (the solve
+// is a pure function of x0, x_term and the obstacle; this is bitwise what
+// the one-thread design's re-solve gave). A thread keeps only its own
+// candidate in registers. The safe set is read from global memory in its
+// batch-trailing layout; only rows below the lap's length are scanned.
 //
-// What bounds it on the card: the per-lane LM dependency chain with its
-// transcendentals (3 passes x (nsi*k + 1) solves of up to max_iter
-// iterations each) and warp divergence from the lanes' different trip
-// counts. The kNN reads 3 passes x nsi x lap_len x 5 values per lane.
+// What bounds it on the card: the per-candidate LM dependency chain with
+// its transcendentals (3 passes x one solve of up to max_iter iterations a
+// thread) and warp divergence between the trip counts of the 32 / G lanes'
+// candidates a warp holds; the solve's registers set the resident warps
+// (K1_MIN_BLOCKS). The earlier one-thread-a-lane design ran
+// 3 x (nsi*k + 1) solves in series a thread and kept the lane's candidate
+// table in registers. The kNN reads 3 passes x nsi x lap_len x 5 values a
+// lane.
 #include "lm_core.cuh"
 
 namespace ilqr {
 
+// The least blocks of 128 threads an SM must hold (__launch_bounds__),
+// which caps the registers a thread may use: 4 blocks, 128 registers and
+// 16 warps an SM, against 233 registers and 8 warps uncapped (f32, nsi 1).
+// The capped build spills a little and was the fastest of 1, 3, 4 and 5
+// at every capture on an H100 (PERF.md, experiments/kernel_ab.py).
+constexpr int K1_MIN_BLOCKS = 4;
+
 template <typename T, int N, int K, int NSI>
-__global__ void __launch_bounds__(128) i2lqr_step_kernel(
+__global__ void __launch_bounds__(128, K1_MIN_BLOCKS) i2lqr_step_kernel(
     const Consts<T> C, int B, int T_rows, const T* __restrict__ x,
     const T* __restrict__ g0, const T* __restrict__ states,
     const T* __restrict__ qfun, const int* __restrict__ lap_len,
@@ -49,110 +65,91 @@ __global__ void __launch_bounds__(128) i2lqr_step_kernel(
     const T* __restrict__ obs, const float* __restrict__ skip,
     T* __restrict__ us_out, T* __restrict__ shrink_out,
     int* __restrict__ idx_out, int* __restrict__ row_out) {
-  constexpr int NC = NSI * K;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  constexpr int G = NSI * K;  // threads a lane, one a candidate
+  static_assert(128 % G == 0, "a block holds whole lanes");
+  const Tile<G> tl;
+  const int b = (blockIdx.x * blockDim.x + threadIdx.x) / G;
   if (b >= B) return;
+  const int c = tl.rank;  // candidate s = c % K of lap row r = c / K
+  const int r = c / K, s = c % K;
   if (skip[b] > 0.5f) {
-#pragma unroll
-    for (int i = 0; i < 2 * N; ++i) us_out[i * B + b] = (T)0;
-    shrink_out[b] = (T)0;
-    idx_out[b] = 0;
-    row_out[b] = 0;
+    for (int i = c; i < 2 * N; i += G) us_out[i * B + b] = (T)0;
+    if (c == 0) {
+      shrink_out[b] = (T)0;
+      idx_out[b] = 0;
+      row_out[b] = 0;
+    }
     return;
   }
   const T inf = (T)INFINITY;
   T x0[4], xg[4];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    x0[c] = x[c * B + b];
-    xg[c] = g0[c * B + b];
+  for (int q = 0; q < 4; ++q) {
+    x0[q] = x[q * B + b];
+    xg[q] = g0[q * B + b];
   }
   const Obs<T> o = load_obs(obs, B, b);
-  int lap[NSI], len[NSI];
   bool lok[NSI];
 #pragma unroll
-  for (int r = 0; r < NSI; ++r) {
-    lap[r] = lap_ids[r];
-    lok[r] = lap_ok[r] != 0;
-    len[r] = lap_len[(size_t)lap[r] * B + b];
-  }
+  for (int rr = 0; rr < NSI; ++rr) lok[rr] = lap_ok[rr] != 0;
+  const int lap = lap_ids[r];
+  const bool lap_stored = lap_ok[r] != 0;
+  const int len = lap_len[(size_t)lap * B + b];
+  const int rows = len < T_rows ? len : T_rows;
   const size_t row_stride = (size_t)4 * B;  // one safe-set row (4, B)
+  const T* st = states + (size_t)lap * T_rows * row_stride + b;
 
-  T cxt[NC][4], cq[NC], ccost[NC];
-  int cidx[NC];
-  bool cok[NC];
-  T us_sel[N][2];
-  int idx_sel = 0, row_sel = 0;
-
+  T us[N][2];
+  int win = 0, idx_sel = 0, row_sel = 0;
   for (int pass = 0; pass < 3; ++pass) {
-    // ---- kNN + candidate extraction, one stored lap per row ----
+    // ---- kNN of this thread's lap row, then its candidate ----
+    T dk;
+    int ik;
+    knn_rows_group<T, K, G>(tl, s, st, row_stride, B, rows, xg, dk, ik);
+    const bool cok = dk < inf && lap_stored;
+    T xt[4];
+    const T* p = st + ik * row_stride;
 #pragma unroll
-    for (int r = 0; r < NSI; ++r) {
-      T dk[K];
-      int ik[K];
-      const T* st = states + (size_t)lap[r] * T_rows * row_stride + b;
-      knn_rows<T, K>(st, row_stride, B, len[r] < T_rows ? len[r] : T_rows,
-                     xg, dk, ik);
+    for (int q = 0; q < 4; ++q) xt[q] = p[q * B];
+    const T cq = qfun[((size_t)lap * T_rows + ik) * B + b];
+    // ---- its zeros-initialised solve and relaxed reach cost ----
 #pragma unroll
-      for (int s = 0; s < K; ++s) {
-        const int c = r * K + s;
-        const T* p = st + ik[s] * row_stride;
-        cidx[c] = ik[s];
-        cok[c] = dk[s] < inf && lok[r];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) cxt[c][q] = p[q * B];
-        cq[c] = qfun[((size_t)lap[r] * T_rows + ik[s]) * B + b];
-      }
-    }
-    // ---- candidate solves, then the winner's re-solve (c == NC) ----
+    for (int i = 0; i < N; ++i) us[i][0] = us[i][1] = (T)0;
+    const Solve<T, N> S{C, x0, xt, o};
+    T xl[4], cost, dist;
+    S.lm_solve(us, false, xl, cost, dist);
     const T unit = C.unit[pass];
-    const T cutoff = C.cutoff[pass];
-    int win = 0;
-    for (int c = 0; c <= NC; ++c) {
-      if (c == NC) {
-        // lexicographic row-min over laps (ragged list compare: absent
-        // slots -inf, laps not yet stored +inf), then the first-min argmin
-        // over the winning row
-        T cmp[NC];
+    const T i_rel = fmax(ceil(dist / unit - (T)1e-12), (T)1.0);
+    const T rc = dist <= C.cutoff[pass] ? cq + (T)N + (T)100.0 * i_rel : inf;
+    const T ccost = cok ? rc : inf;
+    // ---- selection over the tile's candidates, in every thread:
+    // lexicographic row-min over laps (ragged list compare: absent slots
+    // -inf, laps not yet stored +inf), then the first-min argmin over the
+    // winning row ----
+    T cmp[G], cst[G];
 #pragma unroll
-        for (int q = 0; q < NC; ++q)
-          cmp[q] = lok[q / K] ? (cok[q] ? ccost[q] : -inf) : inf;
-        win = lex_select<T, NSI, K>(cmp, ccost, row_sel);
-        idx_sel = cidx[win];
-      }
-      const int cc = c < NC ? c : win;
-      T xt[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) xt[q] = cxt[cc][q];
-      T us[N][2];
-#pragma unroll
-      for (int i = 0; i < N; ++i) us[i][0] = us[i][1] = (T)0;
-      const Solve<T, N> S{C, x0, xt, o};
-      T xl[4], cost, dist;
-      S.lm_solve(us, false, xl, cost, dist);
-      if (c < NC) {
-        const T i_rel = fmax(ceil(dist / unit - (T)1e-12), (T)1.0);
-        T rc = dist <= cutoff ? cq[c] + (T)N + (T)100.0 * i_rel : inf;
-        ccost[c] = cok[c] ? rc : inf;
-      } else {
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-          us_sel[i][0] = us[i][0];
-          us_sel[i][1] = us[i][1];
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) xg[q] = xl[q];
-      }
+    for (int q = 0; q < G; ++q) {
+      cst[q] = tl.shfl(ccost, q);
+      const bool okq = tl.shfl((int)cok, q) != 0;
+      cmp[q] = lok[q / K] ? (okq ? cst[q] : -inf) : inf;
     }
-  }
+    win = lex_select<T, NSI, K>(cmp, cst, row_sel);
+    idx_sel = tl.shfl(ik, win);
+    // the guess re-centres on the winner's terminal state
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    us_out[(2 * i) * B + b] = us_sel[i][0];
-    us_out[(2 * i + 1) * B + b] = us_sel[i][1];
+    for (int q = 0; q < 4; ++q) xg[q] = tl.shfl(xl[q], win);
   }
-  shrink_out[b] = (idx_sel + 1) > (len[row_sel] - 1) ? (T)1 : (T)0;
-  idx_out[b] = idx_sel;
-  row_out[b] = row_sel;
+  if (c == win) {  // the winner's thread holds its solution
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      us_out[(2 * i) * B + b] = us[i][0];
+      us_out[(2 * i + 1) * B + b] = us[i][1];
+    }
+    const int len_sel = lap_len[(size_t)lap_ids[row_sel] * B + b];
+    shrink_out[b] = (idx_sel + 1) > (len_sel - 1) ? (T)1 : (T)0;
+    idx_out[b] = idx_sel;
+    row_out[b] = row_sel;
+  }
 }
 
 template <typename T, int N, int K, int NSI>
@@ -164,7 +161,9 @@ int launch_i2lqr_step(const double* consts, int max_iter, int B, int T_rows,
                       void* shrink, void* idx, void* row,
                       cudaStream_t stream) {
   const Consts<T> C = make_consts<T>(consts, max_iter);
-  i2lqr_step_kernel<T, N, K, NSI><<<(B + 127) / 128, 128, 0, stream>>>(
+  constexpr int lanes_per_block = 128 / (NSI * K);
+  i2lqr_step_kernel<T, N, K, NSI>
+      <<<(B + lanes_per_block - 1) / lanes_per_block, 128, 0, stream>>>(
       C, B, T_rows, (const T*)x, (const T*)g0, (const T*)states,
       (const T*)qfun, (const int*)lap_len, (const int*)lap_ids,
       (const int*)lap_ok, (const T*)obs, (const float*)skip, (T*)us,
@@ -200,5 +199,22 @@ extern "C" int i2lqr_step_launch(int dtype, int n, int k, int nsi,
   I2LQR_CASE(double, 1, 6, 8, 1)
   I2LQR_CASE(float, 0, 6, 8, 2)
   I2LQR_CASE(double, 1, 6, 8, 2)
+  return -1;
+}
+
+#define I2LQR_ATTRIBUTES(TYPE, CODE, N_, K_, NSI_)                           \
+  if (dtype == CODE && n == N_ && k == K_ && nsi == NSI_)                    \
+    return ilqr::kernel_attributes(                                          \
+        ilqr::i2lqr_step_kernel<TYPE, N_, K_, NSI_>, 128, out);
+
+// The loaded kernel's resources for (dtype, n, k, nsi), as the runtime
+// reports them (kernel_attributes, lm_core.cuh); -1 when no kernel is
+// instantiated.
+extern "C" int i2lqr_step_attributes(int dtype, int n, int k, int nsi,
+                                     int* out) {
+  I2LQR_ATTRIBUTES(float, 0, 6, 8, 1)
+  I2LQR_ATTRIBUTES(double, 1, 6, 8, 1)
+  I2LQR_ATTRIBUTES(float, 0, 6, 8, 2)
+  I2LQR_ATTRIBUTES(double, 1, 6, 8, 2)
   return -1;
 }

@@ -1,7 +1,8 @@
 // Per-lane LM-iLQR solve shared by the K1 (i2lqr_step.cu) and K3
-// (fused_ilqr.cu) kernels: one CUDA thread owns one lane. Also the safe-set
+// (fused_ilqr.cu) kernels: one CUDA thread runs one solve. Also the safe-set
 // kNN scan and the candidate selection that both whole-step kernels, K1 and
-// K2 (nlmpc_step.cu), run per lane.
+// K2 (nlmpc_step.cu), run per lane, and the thread-tile helpers of the
+// kernels that spread one lane over several threads (K1, nlmpc_step_all.cu).
 //
 // Replaces the tile math of ilqr_iterative_tasks_tpu/ops/_pallas_lm_core.py
 // (make_tile_funcs: rollout :155, cost_of :161, obs_terms :168, backward
@@ -483,6 +484,134 @@ __device__ __forceinline__ void knn_rows(const T* st, size_t row_stride,
           ik[s - 1] = ti;
         }
       }
+    }
+  }
+}
+
+// The resources of a loaded kernel as the CUDA runtime reports them, for
+// blocks of `threads` threads: out[0] registers a thread, out[1] bytes of
+// local memory a thread (its stack frame, register spills included),
+// out[2] resident warps an SM. Returns the first failing query's
+// cudaError_t, else 0.
+template <typename F>
+int kernel_attributes(F* kernel, int threads, int* out) {
+  cudaFuncAttributes a;
+  int blocks = 0;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      threads, 0);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = blocks * threads / 32;
+  return 0;
+}
+
+// A tile of G consecutive threads of a warp (G a power of two <= 32) that
+// owns one lane. Blocks are whole warps and a lane's tile starts at a
+// multiple of G, so a tile never straddles a warp; its shuffles and ballots
+// name only its own threads, so the tiles of a warp may diverge or exit.
+template <int G>
+struct Tile {
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G: 1, 2, ..., 32");
+  static constexpr unsigned LOW = G == 32 ? 0xffffffffu : (1u << (G & 31)) - 1u;
+  unsigned mask;  // the tile's threads within the warp
+  int base;       // the tile's first thread within the warp
+  int rank;       // this thread's index within the tile
+
+  __device__ __forceinline__ Tile() {
+    const int wl = threadIdx.x & 31;
+    base = wl & ~(G - 1);
+    rank = wl & (G - 1);
+    mask = LOW << base;
+  }
+  // v of the tile's thread src
+  template <typename V>
+  __device__ __forceinline__ V shfl(V v, int src) const {
+    return __shfl_sync(mask, v, src, G);
+  }
+  template <typename V>
+  __device__ __forceinline__ V shfl_xor(V v, int lane_mask) const {
+    return __shfl_xor_sync(mask, v, lane_mask, G);
+  }
+  // bit q set iff the predicate holds on the tile's thread q
+  __device__ __forceinline__ unsigned ballot(bool p) const {
+    return (__ballot_sync(mask, p) >> base) & LOW;
+  }
+};
+
+// The rows knn_rows finds, by a group of K threads of a tile (K divides G,
+// the group starts at a multiple of K; s: this thread's rank in it): thread
+// s scans rows s, s + K, ... into its own list, kept as knn_rows keeps its
+// list, then K rounds of a min-reduction over the lists' heads by the key
+// (distance, row) take the K smallest in ascending order. Rows are unique,
+// so the key orders ties to the lower row, as knn_rows' strict < does, and
+// the K nearest rows of a lap are the K smallest keys. Round q's row and
+// distance go to thread q; a slot left empty is row 0 at +inf. Every
+// thread of the group must call it.
+template <typename T, int K, int G>
+__device__ __forceinline__ void knn_rows_group(const Tile<G>& tl, int s,
+                                               const T* st, size_t row_stride,
+                                               int B, int rows, const T* xg,
+                                               T& d_out, int& i_out) {
+  static_assert(G % K == 0 && (K & (K - 1)) == 0, "K: a power of two");
+  T dk[K];
+  int ik[K];
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    dk[q] = (T)INFINITY;
+    ik[q] = 0;
+  }
+  for (int t = s; t < rows; t += K) {
+    const T* p = st + t * row_stride;
+    const T d = fabs(p[0] - xg[0]) + fabs(p[B] - xg[1]) +
+                fabs(p[2 * B] - xg[2]) + fabs(p[3 * B] - xg[3]);
+    if (d < dk[K - 1]) {
+      dk[K - 1] = d;
+      ik[K - 1] = t;
+#pragma unroll
+      for (int q = K - 1; q > 0; --q) {
+        if (dk[q] < dk[q - 1]) {
+          const T td = dk[q];
+          dk[q] = dk[q - 1];
+          dk[q - 1] = td;
+          const int ti = ik[q];
+          ik[q] = ik[q - 1];
+          ik[q - 1] = ti;
+        }
+      }
+    }
+  }
+  d_out = (T)INFINITY;
+  i_out = 0;
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    T md = dk[0];
+    int mi = ik[0];
+#pragma unroll
+    for (int off = K / 2; off > 0; off >>= 1) {
+      const T od = tl.shfl_xor(md, off);
+      const int oi = tl.shfl_xor(mi, off);
+      if (od < md || (od == md && oi < mi)) {
+        md = od;
+        mi = oi;
+      }
+    }
+    // an empty head is (+inf, 0): once the minimum is +inf every list is
+    // empty and the slot is row 0 at +inf; otherwise one thread owns it
+    if (md < (T)INFINITY && dk[0] == md && ik[0] == mi) {
+#pragma unroll
+      for (int u = 0; u < K - 1; ++u) {
+        dk[u] = dk[u + 1];
+        ik[u] = ik[u + 1];
+      }
+      dk[K - 1] = (T)INFINITY;
+      ik[K - 1] = 0;
+    }
+    if (q == s) {
+      d_out = md;
+      i_out = mi;
     }
   }
 }

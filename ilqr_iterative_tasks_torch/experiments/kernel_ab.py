@@ -1,0 +1,345 @@
+"""K1 and K2 `all` of this checkout against those of another checkout (an
+earlier commit) and of edited copies of this checkout's sources, in turns
+on one card.
+
+    python -m ilqr_iterative_tasks_torch.experiments.kernel_ab \\
+        --other DIR [--variant NAME FILE OLD NEW ...] \\
+        [--out chiprun_out/kernel_ab.json]
+
+DIR holds the other checkout (``DIR/ilqr_iterative_tasks_torch/csrc``, whose
+launchers keep the same C interface). A variant is a copy of this
+checkout's csrc/ in which the text OLD of FILE is replaced by NEW (it must
+occur once), for instance K2 `all` at another tile width:
+
+    --variant G16 nlmpc_step_all.cu "K2_ALL_G = 32;" "K2_ALL_G = 16;"
+
+A variant of ``i2lqr_step.cu`` is timed as K1, one of
+``nlmpc_step_all.cu`` as K2 `all`, one of any other file as both. Every
+library is built at once (one nvcc a source); the simulators and the plain
+steps are this checkout's, and only the library the wrappers launch from
+changes between turns.
+
+On the inputs ``chip_smoke.py`` captures (its rule, experiments/headlines.py)
+from the i2LQR headline (K1), the `all` headline (K2 `all_rev_skip` and the
+forward scan), an `all_iter` run and the NLMPC headlines (K2 spaceVarying
+and timeVarying with qsort_skip, compared with the other checkout only),
+every library's outputs must equal this checkout's bit for bit; then each
+kernel's ms a step by CUDA events over repeated launches, in turns (A B ...
+B A). Then the i2LQR and `all` headlines through each library in turns,
+two runs each, one seed a pair: host seconds, lap-sims/s, the lap records'
+hash (which must agree between libraries for the same seed) and, of
+`all`, K2's CUDA-event spans (which hold the wrapper's host time where the
+card waits for it); then one more run each under ``torch.profiler``,
+whose trace gives the kernel's own device seconds. Registers, local memory
+and resident warps an SM come from the CUDA runtime for the libraries that
+export ``*_attributes`` (this checkout, its variants); for a library
+without them, registers and spill stores from the ``-Xptxas -v`` log of its
+build, when this process built it. The kernels both checkouts build besides
+K1 and K2 `all` are compared by their SASS (``cuobjdump -sass``). Printed as
+lines and one JSON object (also written to ``--out``), with the card's name
+and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import contextlib
+import json
+import os
+import re
+import shutil
+import subprocess
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from ilqr_iterative_tasks_torch.control import batched_nlmpc_soa, batched_soa
+from ilqr_iterative_tasks_torch.experiments.generic_bench import card_line
+from ilqr_iterative_tasks_torch.experiments.headlines import (
+    ALL_BATCH, BATCH, CAP, LAPS, MAX_LAPS, MAX_STEPS, N, NL_CAP, Headlines,
+    cuda_ms, k1_capture, k2_capture, lap_records_hash, require)
+from ilqr_iterative_tasks_torch.experiments.nlmpc_profile import EventTimed
+from ilqr_iterative_tasks_torch.ops import _build
+from ilqr_iterative_tasks_torch.ops.nlmpc_step import build_fused_nlmpc_step
+from ilqr_iterative_tasks_torch.utils.params import LmpcParams
+
+K1_FILE, ALL_FILE = "i2lqr_step.cu", "nlmpc_step_all.cu"
+# the f32 kernels whose resources are reported, by their attributes entry
+# and, in a build log, by their name's prefix
+K1_F32 = ("i2lqr_step_attributes", (0, N, 8, 1),
+          f"i2lqr_step_kernel<float,{N},8,1>")
+ALL_F32 = ("nlmpc_step_all_attributes", (0, N),
+           f"nlmpc_step_all_kernel<float,{N}")
+
+
+def variant_csrc(name: str, file: str, old: str, new: str) -> str:
+    """A copy of this checkout's csrc/ with ``old`` replaced by ``new`` in
+    ``file``, under build/; returns its directory."""
+    out = os.path.join(os.path.dirname(_build.BUILD_DIR), "kernel_ab", name)
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(_build.CSRC_DIR, out)
+    path = os.path.join(out, file)
+    with open(path) as f:
+        text = f.read()
+    require(text.count(old) == 1, f"variant {name}: {old!r} is not in "
+                                  f"{file} exactly once")
+    with open(path, "w") as f:
+        f.write(text.replace(old, new))
+    return out
+
+
+def log_registers(log_path: str) -> dict:
+    """{kernel<type,sizes>: (registers, spill-store bytes)} from the
+    ``-Xptxas -v`` lines of a build log."""
+    out, name, spill = {}, None, 0
+    with open(log_path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '_ZN4ilqr\d+(\w+?)I"
+                          r"([fd])((?:Li\d+E)+)E", line)
+            if m:
+                sizes = re.findall(r"Li(\d+)E", m.group(3))
+                dtype = "float" if m.group(2) == "f" else "double"
+                name = f"{m.group(1)}<{dtype},{','.join(sizes)}>"
+                continue
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                spill = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                out[name] = (int(m.group(1)), spill)
+                name, spill = None, 0
+    return out
+
+
+def resources(lib, path: str, built_here: bool) -> dict:
+    """K1's and K2 all's f32 resources in one library (module docstring)."""
+    out = {}
+    for key, (entry, sizes, prefix) in (("k1", K1_F32), ("k2_all", ALL_F32)):
+        if hasattr(lib, entry):
+            out[key] = dict(_build.attributes(lib, entry, *sizes),
+                            source="CUDA runtime")
+        elif built_here:
+            regs = log_registers(path[:-3] + ".log")
+            name = next(k for k in regs if k.startswith(prefix))
+            out[key] = dict(registers=regs[name][0],
+                            spill_stores=regs[name][1],
+                            source="-Xptxas -v of this build")
+    return out
+
+
+def sass(path: str) -> dict | None:
+    """{kernel: its SASS} of a built library (``cuobjdump -sass``), or
+    None without cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", path], capture_output=True,
+                         text=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif "....." in line:
+            name = None
+        elif name:
+            funcs[name].append(line.strip())
+    return {k: "\n".join(v) for k, v in funcs.items()}
+
+
+def device_seconds(fn, key: str) -> float:
+    """Seconds the card spent in kernels whose name holds ``key`` during
+    one call of ``fn``, from a ``torch.profiler`` trace."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    return sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and key in e.key) / 1e6
+
+
+@contextlib.contextmanager
+def launching(lib):
+    """The wrappers launch from ``lib`` inside the block."""
+    keep = _build.library
+    _build.library = lambda: lib
+    try:
+        yield
+    finally:
+        _build.library = keep
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", required=True)
+    ap.add_argument("--variant", nargs=4, action="append", default=[],
+                    metavar=("NAME", "FILE", "OLD", "NEW"))
+    ap.add_argument("--out", default=os.path.join("chiprun_out",
+                                                  "kernel_ab.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: no CUDA device")
+    dev = torch.device("cuda", 0)
+    card = card_line(dev)
+
+    # ---- every library, built at once ----
+    dirs = {"this": _build.CSRC_DIR,
+            "other": os.path.join(args.other, "ilqr_iterative_tasks_torch",
+                                  "csrc")}
+    k1_names, all_names = ["other", "this"], ["other", "this"]
+    for name, file, old, new in args.variant:
+        dirs[name] = variant_csrc(name, file, old, new)
+        if file != ALL_FILE:
+            k1_names.append(name)
+        if file != K1_FILE:
+            all_names.append(name)
+    t0 = time.perf_counter()
+    # four libraries at a time, each one nvcc a source: enough to keep the
+    # host's cores busy without holding every compiler's memory at once
+    with concurrent.futures.ThreadPoolExecutor(min(len(dirs), 4)) as ex:
+        built = {name: f.result() for name, f in
+                 {n: ex.submit(_build.build, d) for n, d in dirs.items()}
+                 .items()}
+    build_s = time.perf_counter() - t0
+    libs = {name: _build.load(path) for name, (path, _) in built.items()}
+    report = dict(card=card, build_s=build_s, resources={
+        name: resources(libs[name], path, sec > 0)
+        for name, (path, sec) in built.items()})
+    print(f"[kernel_ab] {card}; build {build_s:.1f} s", flush=True)
+    for name, res in report["resources"].items():
+        print(f"[resources {name}] {json.dumps(res)}", flush=True)
+    # the kernels both checkouts build besides K1 and K2 all: same SASS?
+    this_sass, other_sass = sass(built["this"][0]), sass(built["other"][0])
+    if this_sass is not None:
+        report["same_sass"] = {
+            k: this_sass[k] == other_sass[k] for k in sorted(other_sass)
+            if k in this_sass and "i2lqr_step_kernel" not in k
+            and "nlmpc_step_all_kernel" not in k}
+        print(f"[same SASS as the other checkout] "
+              f"{json.dumps(report['same_sass'])}", flush=True)
+
+    # ---- captures, through this checkout's kernels ----
+    hl = Headlines(dev)
+    sizes = dict(max_steps=MAX_STEPS, max_laps=MAX_LAPS)
+    k1 = batched_soa.default_step_solver(hl.params, hl.limits, 1.0, **sizes,
+                                         max_iter=CAP)
+
+    def k2_of(lp, **opts):
+        return build_fused_nlmpc_step(lp, hl.nl_limits, 1.0, num_horizon=N,
+                                      max_iters=NL_CAP, **sizes, **opts)
+
+    all_p = LmpcParams.make(all_ss_point=True)
+    iter_p = LmpcParams.make(all_ss_point=True, all_ss_iter=True)
+    sv_p, tv_p = LmpcParams.make(), LmpcParams.make(ss_option="timeVarying")
+    # the all headline's K2 as the simulator builds it (all_rev_skip)
+    k2_all = batched_nlmpc_soa.default_step_solver(
+        all_p, hl.nl_limits, 1.0, **sizes, max_iters=NL_CAP)
+    k2_fwd, k2_iter = k2_of(all_p), k2_of(iter_p)
+    k2_sv, k2_tv = (k2_of(sv_p, qsort_skip=True),
+                    k2_of(tv_p, qsort_skip=True))
+    cap1 = k1_capture(k1)
+    hl.i2lqr(0, cap1)
+    caps = {}
+    for tag, lp, sc, kern, it in (
+            ("all", all_p, hl.scen_all, k2_all, False),
+            ("all_iter", iter_p, hl.scen_all, k2_iter, True),
+            ("spaceVarying", sv_p, hl.scen, k2_sv, False),
+            ("timeVarying", tv_p, hl.scen, k2_tv, False)):
+        cap = k2_capture(kern, all_iter=it)
+        hl.nlmpc(0, lp, sc, cap)
+        caps[tag] = cap.captured
+
+    # ---- steps at every capture, every library in turns ----
+    def steps(tag, kern, captured, names, reps):
+        """ms a step of ``kern`` launched from each library of ``names``
+        (turns A B ... B A), after checking each library's outputs equal
+        this checkout's bit for bit."""
+        rows = {}
+        for lap, (step, a) in sorted(captured.items()):
+            with launching(libs["this"]):
+                ref = kern(*a)
+            for name in names:
+                with launching(libs[name]):
+                    got = kern(*a)
+                require(all(torch.equal(g, w) for g, w in zip(got, ref)),
+                        f"{tag} lap {lap}: {name} differs from this "
+                        f"checkout's kernel")
+            ms = {name: [] for name in names}
+            for name in names + names[::-1]:
+                with launching(libs[name]):
+                    ms[name].append(cuda_ms(lambda: kern(*a), reps))
+            rows[f"lap{lap}_step{step}"] = ms
+            print(f"[{tag} lap {lap} step {step}] bitwise equal; ms a step "
+                  + ", ".join(f"{n} {v[0]:.3f}/{v[1]:.3f}"
+                              for n, v in ms.items()), flush=True)
+        return rows
+
+    report["steps"] = dict(
+        k1=steps("K1", k1, cap1.captured, k1_names, 10),
+        all_rev_skip=steps("K2 all_rev_skip", k2_all, caps["all"],
+                           all_names, 5),
+        all_forward=steps("K2 all forward", k2_fwd, caps["all"], all_names,
+                          3),
+        all_iter=steps("K2 all_iter", k2_iter, caps["all_iter"], all_names,
+                       3),
+        spaceVarying=steps("K2 spaceVarying", k2_sv, caps["spaceVarying"],
+                           ["other", "this"], 10),
+        timeVarying=steps("K2 timeVarying", k2_tv, caps["timeVarying"],
+                          ["other", "this"], 10))
+
+    # ---- headlines in turns, one seed a pair, then one profiled run ----
+    def headlines(tag, run, kern, kernel_name, names, b):
+        out = {name: dict(s=[], lap_sims_per_s=[], hash=[], event_k2_s=[])
+               for name in names}
+        order = [(n, 1) for n in names] + [(n, 2) for n in names[::-1]]
+        for name, seed in order:
+            timed = EventTimed(kern) if tag == "all" else kern
+            with launching(libs[name]):
+                t0 = time.perf_counter()
+                res = run(seed, timed)
+                sec = time.perf_counter() - t0
+            r = out[name]
+            r["s"].append(sec)
+            r["lap_sims_per_s"].append(b * LAPS / sec)
+            r["hash"].append(lap_records_hash(res))
+            if tag == "all":
+                r["event_k2_s"].append(timed.seconds())
+            print(f"[{tag} headline {name} seed {seed}] {sec:.3f} s, "
+                  f"{b * LAPS / sec:.1f} lap-sims/s, hash "
+                  f"{r['hash'][-1]}"
+                  + (f", K2 event spans {r['event_k2_s'][-1]:.3f} s"
+                     if tag == "all" else ""), flush=True)
+            del res
+        for seed in (0, 1):
+            require(len({out[n]["hash"][seed] for n in names}) == 1,
+                    f"{tag} headline: lap records differ between "
+                    f"libraries")
+        for name in names:
+            with launching(libs[name]):
+                out[name]["device_s"] = device_seconds(
+                    lambda: run(1, kern), kernel_name)
+            print(f"[{tag} headline {name} profiled] {kernel_name} "
+                  f"{out[name]['device_s']:.4f} s of the card a run",
+                  flush=True)
+        return out
+
+    report["headlines"] = dict(
+        i2lqr=headlines("i2lqr", lambda s, k: hl.i2lqr(s, k), k1,
+                        "i2lqr_step_kernel", k1_names, BATCH),
+        all=headlines("all",
+                      lambda s, k: hl.nlmpc(s, all_p, hl.scen_all, k),
+                      k2_all, "nlmpc_step_all_kernel", all_names, ALL_BATCH))
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(report, f, indent=1)
+    print(json.dumps(report))
+
+
+if __name__ == "__main__":
+    main()

@@ -30,6 +30,7 @@ from torch.profiler import ProfilerActivity, profile
 from ilqr_iterative_tasks_torch.control import batched_nlmpc_soa
 from ilqr_iterative_tasks_torch.control.batched_soa import SoaScenarios
 from ilqr_iterative_tasks_torch.experiments.generic_bench import card_line
+from ilqr_iterative_tasks_torch.experiments.headlines import K2_ATTRS
 from ilqr_iterative_tasks_torch.experiments.nlmpc_lane_laps import (
     CAP, LAPS, MAX_LAPS, MAX_STEPS, MODES, RETIRE)
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
@@ -38,8 +39,6 @@ from ilqr_iterative_tasks_torch.utils.params import LmpcParams, SystemLimits
 
 
 RUNS = 5  # timed runs before the profiled one
-K2_ATTRS = ("k", "nsi", "num_horizon", "max_steps", "max_laps", "max_iters",
-            "mode", "all_iter")
 
 
 class EventTimed:

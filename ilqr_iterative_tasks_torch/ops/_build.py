@@ -69,18 +69,20 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path() -> str:
+def library_path(csrc_dir: str = CSRC_DIR) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
-        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+        with open(os.path.join(csrc_dir, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR,
                         f"libilqr_torch_kernels_{h.hexdigest()[:16]}.so")
 
 
-def build() -> tuple[str, float]:
-    """Compile the library unless it exists. Returns (path, seconds spent)."""
-    path = library_path()
+def build(csrc_dir: str = CSRC_DIR) -> tuple[str, float]:
+    """Compile the library unless it exists. Returns (path, seconds spent).
+    The package's kernels by default; a measurement may build another
+    checkout's ``csrc_dir`` into a library of its own."""
+    path = library_path(csrc_dir)
     if os.path.exists(path):
         return path, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -88,7 +90,7 @@ def build() -> tuple[str, float]:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", os.path.join(tmp, s + ".o"),
-                 os.path.join(CSRC_DIR, s)]
+                 os.path.join(csrc_dir, s)]
                 for s in SOURCES if s.endswith(".cu")]
         procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
@@ -113,12 +115,29 @@ def build() -> tuple[str, float]:
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The built library with argument types declared (built on first call)."""
-    lib = ctypes.CDLL(build()[0])
+    return load(build()[0])
+
+
+def load(path: str) -> ctypes.CDLL:
+    """A built library with its launchers' argument types declared."""
+    lib = ctypes.CDLL(path)
     for name, argtypes in _ARGTYPES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def attributes(lib: ctypes.CDLL, entry: str, *sizes: int) -> dict:
+    """Registers a thread, local memory bytes a thread and resident warps an
+    SM of a loaded kernel, as the CUDA runtime reports them: ``entry`` is
+    the library's ``*_attributes`` function (i2lqr_step_attributes: dtype,
+    n, k, nsi; nlmpc_step_all_attributes: dtype, n), ``sizes`` its
+    arguments before the output."""
+    out = (ctypes.c_int * 3)()
+    check_launch(getattr(lib, entry)(*(ctypes.c_int(s) for s in sizes), out),
+                 entry)
+    return dict(registers=out[0], local_bytes=out[1], warps_per_sm=out[2])
 
 
 def consts_array(C) -> ctypes.Array:

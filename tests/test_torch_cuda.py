@@ -123,6 +123,51 @@ def test_k1_matches_plain(dev, nsi):
     assert k1.launches == 2
 
 
+def _k1_tile_inputs(nsi, lap_count, dev, b=1003):
+    """Safe sets that hit K1's kNN merge: lap 0 the seed lap and lap 1 its
+    first 60 rows each stored twice (equal distances at different rows),
+    all on a 0.5 grid with x on it too (more ties), some lanes with fewer
+    stored rows than k; with lap_count < nsi a lap not yet stored. b is not
+    a multiple of the lanes a block holds."""
+    rng = np.random.default_rng(5 + nsi)
+    xcl, _ = seed_trajectory(1.0)
+    states = np.zeros((MAX_LAPS, T_ROWS, 4, b))
+    states[0, :121] = xcl[:, :, None]
+    states[1, :120] = np.repeat(xcl[:60], 2, axis=0)[:, :, None]
+    states = np.round(states * 2) / 2
+    lap_len = np.zeros((MAX_LAPS, b), np.int32)
+    lap_len[0], lap_len[1] = 121, 120
+    lap_len[1, ::11] = rng.integers(1, 8, lap_len[1, ::11].shape)
+    t = np.arange(T_ROWS)[None, :, None]
+    qfun = np.maximum(lap_len[:, None, :] - 1.0 - t, 0.0)
+    x = np.round((xcl[rng.integers(0, 100, b)]
+                  + rng.normal(size=(b, 4)) * [1.0, 1.0, 0.3, 0.05]) * 2) / 2
+    f = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)
+    lap_ids, lap_ok, _ = _step_solver_inputs(lap_count, nsi, MAX_LAPS, None,
+                                             b, dev)
+    skip = (torch.arange(b, device=dev) % 7 == 0).float()
+    obs = _lanes(b, torch.float64, dev)[3]
+    return (f(x.T).contiguous(), f(x.T).contiguous(), f(states), f(qfun),
+            torch.tensor(lap_len, device=dev), lap_ids, lap_ok, obs, skip)
+
+
+@pytest.mark.parametrize("nsi,lap_count", [(1, 2), (2, 2), (2, 1)])
+def test_k1_thread_tiles_match_plain_bitwise(dev, nsi, lap_count):
+    p, l = IlqrParams.make(num_ss_iter=nsi), SystemLimits.make()
+    args = _k1_tile_inputs(nsi, lap_count, dev)
+    k1 = build_fused_i2lqr_step(p, l, 1.0, num_horizon=N, max_steps=T_ROWS,
+                                max_laps=MAX_LAPS, max_iter=CAP)
+    for dtype in (torch.float32, torch.float64):
+        a = [t.to(dtype) if t.is_floating_point() and i != 8 else t
+             for i, t in enumerate(args)]
+        got = k1(*a)
+        want = i2lqr_step_reference(p, l, 1.0, *a, max_iter=CAP)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert k1.launches == 2
+
+
 def test_closed_loop_through_k1_matches_plain(dev):
     p, l = IlqrParams.make(dtype=torch.float64), SystemLimits.make()
     xcl, _ = seed_trajectory(1.0)
@@ -329,6 +374,61 @@ def test_k2_modes_match_plain(dev, dtype, mode, option):
     assert float(dus.max()) <= tol and float(dng.max()) <= tol
     if option:  # the same kernel without the option, bit for bit
         base = build_fused_nlmpc_step(p, lim, 1.0, **sizes)(*a, *extra)
+        for g, w in zip(got, base):
+            assert torch.equal(g, w)
+
+
+def _all_tile_inputs(dtype, dev, b=1007):
+    """``_nl_step_inputs`` edited to hit K2 all's thread tiles: lanes 1
+    mod 5 end their newest lap with 24 rows at x's position and 12 m/s
+    faster (in reach, infeasible: the descending scan crosses several
+    chunks before a feasible row), lanes 2 mod 5 store only such rows (in
+    reach, nothing feasible), lanes 3 mod 5 start 60 m off the lap (nothing
+    in reach); every horizon 1..n. b is not a multiple of the lanes a
+    block holds."""
+    a = list(_nl_step_inputs(dtype, dev, b=b))
+    x, st, ln = a[0].clone(), a[3].clone(), a[5][1].long()
+    lane = torch.arange(b, device=dev)
+    t = torch.arange(st.shape[1], device=dev)[:, None]
+    stall = x.clone()
+    stall[2] += 12.0
+    rows = (((lane % 5 == 1) & (ln >= 30) & (t >= ln - 24))
+            | ((lane % 5 == 2) & (t < ln))) & (t < ln)
+    st[1] = torch.where(rows[:, None, :], stall[None], st[1])
+    x[1] = torch.where(lane % 5 == 3, x[1] + 60.0, x[1])
+    a[0], a[3] = x.contiguous(), st.contiguous()
+    return a
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode,option", [("all", "all_rev_skip"),
+                                         ("all", None), ("all_iter", None)])
+def test_k2_all_thread_tiles_match_plain_bitwise(dev, dtype, mode, option):
+    p, lim = LmpcParams.make(**NL_MODES[mode]), SystemLimits.make(
+        dtype=torch.float64)
+    a = _all_tile_inputs(dtype, dev)
+    b = a[0].shape[-1]
+    a[6], a[7] = lap_window(2, 1, a[3].shape[0], p.all_ss_iter, b, dev)
+    sizes = dict(num_horizon=N, max_steps=a[3].shape[1],
+                 max_laps=a[3].shape[0], max_iters=NL_CAP)
+    k2 = build_fused_nlmpc_step(p, lim, 1.0, **sizes,
+                                **({option: True} if option else {}))
+    got = k2(*a)
+    want = nlmpc_step_reference(p, lim, 1.0, *a, max_iters=NL_CAP)
+    torch.cuda.synchronize()
+    assert k2.launches == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    live = a[9] < 0.5
+    lane = torch.arange(b, device=dev)
+    # the edited lanes: none feasible where nothing is (all_iter also
+    # reads the seed lap), some elsewhere
+    none = (lane % 5 == 3) | ((lane % 5 == 2) & (mode == "all"))
+    assert not bool(want[1][live & none].any())
+    assert bool(want[1][live & (lane % 5 == 1)].any())
+    assert bool((live & (a[10] <= 1)).any())  # horizon-1 lanes
+    if option:  # the forward scan, bit for bit
+        base = build_fused_nlmpc_step(p, lim, 1.0, **sizes)(*a)
         for g, w in zip(got, base):
             assert torch.equal(g, w)
 

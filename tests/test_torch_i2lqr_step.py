@@ -109,16 +109,30 @@ def _safe_set(rng, xcl):
     return states, qfun, valid, lap_len
 
 
-@pytest.mark.parametrize("nsi", [1, 2])
-def test_control_step_matches_jax_f64(nsi):
-    rng = np.random.default_rng(10 + nsi)
-    xcl, _ = j_seed(1.0)
-    ss = _safe_set(rng, xcl)
-    # lanes 0-2 sit at the start of the lap, where the short stored laps
-    # hold candidates; the rest anywhere along the seed lap
-    rows = rng.integers(0, 100, B)
-    rows[:3] = 1
-    x0 = (xcl[rows] + rng.normal(size=(B, 4)) * [0.5, 0.5, 0.1, 0.02]).T
+def _tied_safe_set(rng, xcl):
+    """Ties for the kNN: the seed lap in slot 0 and its first 60 rows each
+    stored twice in slot 1 (equal distances at different rows), all on a
+    0.5 grid; a third of the lanes store only 1-7 rows in slot 1, fewer
+    than k = 8."""
+    states = np.zeros((MAX_LAPS, T_ROWS, 4, B))
+    lap_len = np.zeros((MAX_LAPS, B), np.int32)
+    states[0, :121] = xcl[:, :, None]
+    states[1, :120] = np.repeat(xcl[:60], 2, axis=0)[:, :, None]
+    states = np.round(states * 2) / 2
+    lap_len[0], lap_len[1] = 121, 120
+    short = np.arange(B) % 3 == 0
+    lap_len[1, short] = rng.integers(1, 8, int(short.sum()))
+    t = np.arange(T_ROWS)[:, None]
+    states[1] *= (t < lap_len[1][None])[:, None, :]
+    qfun = np.maximum(lap_len[:, None, :] - 1.0 - t[None], 0.0)
+    valid = t[None] < lap_len[:, None, :]
+    return states, qfun, valid, lap_len
+
+
+def _step_against_jax(nsi, ss, x0, rng):
+    """(port's x_1, JAX's x_1, port inputs): one control step on the safe
+    set ``ss`` from x0 (4, B), f64; the JAX simulator resumed on ss for
+    one step (noise off) records x_1 = step(x_0, u_0)."""
     opt = np.arange(B) % 3
     jo = JObstacle(x=jnp.asarray(31.0 + rng.normal(size=B) * 3),
                    y=jnp.asarray(-2.0 + rng.normal(size=B) * 3),
@@ -126,6 +140,7 @@ def test_control_step_matches_jax_f64(nsi):
                    spd=jnp.asarray(np.where(opt == 0, 0.0, 0.5)),
                    moving_option=jnp.asarray(opt, jnp.float64),
                    present=jnp.asarray((np.arange(B) % 8 != 7) * 1.0))
+    xcl, _ = j_seed(1.0)
     jp = JParams.make(dtype=jnp.float64, num_ss_iter=nsi)
     jl = JLimits.make(dtype=jnp.float64)
     scen = jbs.SoaScenarios(
@@ -147,19 +162,33 @@ def test_control_step_matches_jax_f64(nsi):
     lap_ids, lap_ok, skip = tbs._step_solver_inputs(2, nsi, MAX_LAPS, None,
                                                     B, "cpu")
     obs = obstacle_to_lanes(convert.obstacle(jo, device="cpu"), B)
-    us, shrink, idx, row = i2lqr_step_reference(
-        tp, tl, 1.0, x, x, states, qfun, lap_len, lap_ids, lap_ok, obs, skip,
-        max_iter=CAP)
+    a = (x, x, states, qfun, lap_len, lap_ids, lap_ok, obs, skip)
+    us, shrink, idx, row = i2lqr_step_reference(tp, tl, 1.0, *a,
+                                                max_iter=CAP)
     got = torch.stack(step_soa(tuple(x), (us[0, 0], us[0, 1]), 1.0)).numpy()
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
     assert idx.dtype == row.dtype == torch.int32
     assert set(row.tolist()) <= set(range(nsi))
+    return got, want, tp, tl, a
+
+
+@pytest.mark.parametrize("nsi", [1, 2])
+def test_control_step_matches_jax_f64(nsi):
+    rng = np.random.default_rng(10 + nsi)
+    xcl, _ = j_seed(1.0)
+    ss = _safe_set(rng, xcl)
+    # lanes 0-2 sit at the start of the lap, where the short stored laps
+    # hold candidates; the rest anywhere along the seed lap
+    rows = rng.integers(0, 100, B)
+    rows[:3] = 1
+    x0 = (xcl[rows] + rng.normal(size=(B, 4)) * [0.5, 0.5, 0.1, 0.02]).T
+    got, want, tp, tl, a = _step_against_jax(nsi, ss, x0, rng)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
 
     # the K1 wrapper's CPU route is this plain version, exactly
     k1 = build_fused_i2lqr_step(tp, tl, 1.0, num_horizon=6, max_steps=T_ROWS,
                                 max_laps=MAX_LAPS, max_iter=CAP)
     skip = (torch.arange(B) % 5 == 0).to(torch.float32)
-    a = (x, x, states, qfun, lap_len, lap_ids, lap_ok, obs, skip)
+    a = (*a[:8], skip)
     for g, w in zip(k1(*a), i2lqr_step_reference(tp, tl, 1.0, *a,
                                                  max_iter=CAP)):
         assert torch.equal(g, w)
@@ -178,3 +207,24 @@ def test_control_step_matches_jax_f64(nsi):
         assert 1 <= int(t[:, live].min()) and int(t.max()) <= CAP
     with pytest.raises(ValueError, match="unsupported device"):
         k1(*(t.to("meta") for t in a))
+
+
+@pytest.mark.parametrize("nsi", [1, 2])
+def test_control_step_with_tied_distances_matches_jax_f64(nsi):
+    """The plain step on a safe set full of equal kNN distances and short
+    laps, where K1's kNN merge has to order ties as the plain step does."""
+    rng = np.random.default_rng(20 + nsi)
+    xcl, _ = j_seed(1.0)
+    ss = _tied_safe_set(rng, xcl)
+    rows = rng.integers(0, 100, B)
+    rows[:8] = rng.integers(0, 4, 8)  # where the short laps hold rows
+    x0 = np.round((xcl[rows] + rng.normal(size=(B, 4))
+                   * [0.5, 0.5, 0.1, 0.02]) * 2).T / 2
+    # the inputs do hold ties among each lane's nearest rows
+    d = np.abs(ss[0][1] - x0[None]).sum(axis=1)  # (T, B), lap 1
+    d = np.where(ss[2][1], d, np.inf)
+    near = np.sort(d, axis=0)[:8]
+    tied = (np.isfinite(near[1:]) & (near[1:] == near[:-1])).any(axis=0)
+    assert tied.mean() > 0.5
+    got, want, *_ = _step_against_jax(nsi, ss, x0, rng)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)

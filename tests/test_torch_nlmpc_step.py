@@ -47,8 +47,12 @@ torch.set_num_threads(1)
 B, N, T_ROWS, MAX_LAPS, LAPS, CAP = 64, 6, 40, 4, 2, 12
 
 
-def _problem(seed=0):
-    """Numpy safe set with LAPS stored laps, scenarios and obstacles."""
+def _problem(seed=0, stall=False):
+    """Numpy safe set with LAPS stored laps, scenarios and obstacles. With
+    ``stall``, lanes 1 mod 5 end their newest lap with up to 24 rows at
+    their own x0 and 12 m/s faster (in reach, infeasible: a long in-reach
+    window before the feasible rows), and lanes 2 mod 5 store only such
+    rows (in reach, nothing feasible)."""
     rng = np.random.default_rng(seed)
     xcl, ucl = j_seed(1.0)
     start = rng.integers(0, 80, B)
@@ -68,6 +72,15 @@ def _problem(seed=0):
     valid = t < lap_len[:, None, :]
     x0 = (xcl[start] + rng.normal(size=(B, 4)) * [0.2, 0.2, 0.05, 0.02]).T
     x0[1, -8:] += 60.0  # far off the stored lap: all candidates infeasible
+    if stall:
+        lane = np.arange(B)
+        n = lap_len[LAPS - 1]
+        t = np.arange(T_ROWS)[:, None]
+        rows = (t < n) & (((lane % 5 == 1) & (t >= n - 24))
+                          | (lane % 5 == 2))
+        fast = x0 + np.array([0.0, 0.0, 12.0, 0.0])[:, None]
+        states[LAPS - 1] = np.where(rows[:, None, :], fast[None],
+                                    states[LAPS - 1])
     opt = np.arange(B) % 3
     centre = xcl[start + 3]
     obs = dict(x=centre[:, 0] + rng.normal(size=B) * 4,
@@ -84,12 +97,12 @@ MODES = {"spaceVarying": {}, "timeVarying": dict(ss_option="timeVarying"),
          "all_iter": dict(all_ss_point=True, all_ss_iter=True)}
 
 
-def _steps_against_jax(mode, steps):
+def _steps_against_jax(mode, steps, stall=False):
     """The recorded states (steps, 4, B) and inputs (steps, 2, B) of the
     port and of the JAX simulator, and the port's per-step feasible_any
     (steps, B) and succ (steps, B), after ``steps`` steps from the
-    stored laps of ``_problem``."""
-    ss, x0, obs, goal = _problem()
+    stored laps of ``_problem(stall=stall)``."""
+    ss, x0, obs, goal = _problem(stall=stall)
     jp = JParams.make(dtype=jnp.float64, **MODES[mode])
     jl = JLimits.make(dtype=jnp.float64)
     jo = JObstacle(**{k: jnp.asarray(v) for k, v in obs.items()})
@@ -162,6 +175,20 @@ def test_steps_match_jax_f64(mode):
     (xs, us), (j_xs, j_us), f, succ = _steps_against_jax(mode, 5)
     assert 0.1 < f.mean() < 1.0 and not f[:, -8:].any(), f.mean(axis=1)
     assert 0.0 < succ.mean() < 1.0  # both guess advances
+    np.testing.assert_allclose(us, j_us, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(xs, j_xs, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("mode", ["all", "all_iter"])
+def test_all_steps_with_long_reach_windows_match_jax_f64(mode):
+    """mode all on lanes whose newest lap holds long runs of in-reach,
+    infeasible rows and on lanes with nothing feasible in it, where K2
+    all's descending scan crosses several of its chunks."""
+    (xs, us), (j_xs, j_us), f, _ = _steps_against_jax(mode, 2, stall=True)
+    lane = np.arange(B)
+    assert f[0, lane % 5 == 1].any()  # a feasible row below the stalled ones
+    if mode == "all":  # the newest lap only: nothing feasible on 2 mod 5
+        assert not f[0, lane % 5 == 2].any()
     np.testing.assert_allclose(us, j_us, rtol=0, atol=1e-9)
     np.testing.assert_allclose(xs, j_xs, rtol=0, atol=1e-9)
 
