@@ -14,8 +14,8 @@ benchmarks through the generic LM-iLQR kernel K5. Phases:
 1. device: the card's name and power limit;
 2. build: nvcc of the six kernel sources (one process per source), with
    seconds, registers and spills, and the registers, local memory and
-   resident warps an SM of the loaded f32 K1 and K2 all as the CUDA runtime
-   reports them;
+   resident warps an SM of the loaded f32 K1, K2 all and K2 spaceVarying /
+   timeVarying (with qsort_skip) as the CUDA runtime reports them;
 3. K3 (i2LQR per-candidate solve) against the plain solve on 393 216 random
    candidate lanes, f64 and f32;
 4. K1 (whole i2LQR step) against the plain step on safe sets captured from
@@ -34,7 +34,9 @@ benchmarks through the generic LM-iLQR kernel K5. Phases:
    NLMPC headline run (lap 1 early, lap 2 mid, lap 3 once shrunk horizons,
    horizon 1 among them, are active), f32 as captured and f64 cast up,
    with both per-step times; 8b. on the same inputs K2 with qsort_skip
-   (the headline's) equals K2 without it bit for bit, with both times;
+   (the headline's) equals K2 without it bit for bit, with both times; and
+   K2 at nsi = 2 (the last two stored laps of each capture, a tile of 16
+   threads a lane) against its plain step, at phase 8's gates;
 9. a zero-noise NLMPC closed loop through K2 (1024 identical lanes, cap 60):
    f64 must give the host controller's laps exactly, f32 within 2;
 10. the NLMPC headline through K2 with qsort_skip, as the simulator builds
@@ -55,7 +57,7 @@ benchmarks through the generic LM-iLQR kernel K5. Phases:
    K5 and K3 launches are counted;
 13. K2 in timeVarying mode against the plain step on inputs captured from
    the timeVarying headline run (as phase 8), with and without qsort_skip,
-   which must be bitwise equal;
+   which must be bitwise equal, and at nsi = 2 as phase 8's;
 14. a zero-noise timeVarying closed loop through K2 (1024 identical lanes,
    cap 60): f64 must give the host controller's laps exactly;
 15. the timeVarying headline through K2 with qsort_skip (bench.py:207-211:
@@ -103,6 +105,8 @@ from torch.utils._pytree import tree_leaves
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
+from ilqr_iterative_tasks_torch.control.batched_nlmpc_soa import (  # noqa: E402
+    lap_window)
 # the headlines, capture rule, timing and lap-records hash that
 # experiments/kernel_ab.py shares
 from ilqr_iterative_tasks_torch.experiments.headlines import (  # noqa: E402
@@ -317,16 +321,44 @@ def timed_call(fn):
     return out, start.elapsed_time(end)
 
 
-def check_k2(tag, k2, alts, captured, plain, host_plain):
+def k2_gate(tag, out, ref, active, dtype):
+    """Phase 8's gates of a K2 output against its plain step's: >= 99.9 %
+    equal decisions with max|dus| and max|dguess| <= 1e-6 in f64, >= 99 %
+    and <= 1e-5 on the agreeing lanes in f32. Returns the check's line and
+    max|dus|."""
+    for t in out:
+        require(bool(torch.isfinite(t.double()).all()),
+                f"{tag}: non-finite output")
+    agree = ((out[1] == ref[1]) & (out[3] == ref[3])
+             & (out[4] == ref[4]) & (out[5] == ref[5]))[active]
+    dus = (out[0] - ref[0]).abs().amax(dim=(0, 1))[active][agree]
+    dng = (out[2] - ref[2]).abs().amax(dim=0)[active][agree]
+    share = float(agree.double().mean())
+    maxd = float(dus.max()) if dus.numel() else 0.0
+    maxg = float(dng.max()) if dng.numel() else 0.0
+    bitwise = all(torch.equal(g, w) for g, w in zip(out, ref))
+    line = (f"feasible {float(ref[1][active].mean()):.4f}): decisions agree "
+            f"{share:.6f}, max|dus| {maxd:.3e}, max|dguess| {maxg:.3e} on "
+            f"them, bitwise {bitwise}")
+    if dtype == torch.float64:
+        require(share >= 0.999 and maxd <= 1e-6 and maxg <= 1e-6,
+                f"{tag} f64: {share}, {maxd}, {maxg}")
+    else:
+        require(share >= 0.99 and maxd <= F32_TOL and maxg <= F32_TOL,
+                f"{tag} f32: {share}, {maxd}, {maxg}")
+    return line, maxd
+
+
+def check_k2(tag, k2, alts, captured, plain, host_plain, nsi2=None):
     """K2 against its plain step on captured inputs, f32 as captured and
-    f64 cast up, at phase 8's gates: >= 99.9 % equal decisions with
-    max|dus| and max|dguess| <= 1e-6 in f64, >= 99 % and <= 1e-5 on the
-    agreeing lanes in f32; each kernel of ``alts`` (K2 with a
-    bitwise-neutral option switched) equal to K2 bit for bit on every lane.
-    ``plain(*a, trips=..., cands=...)`` runs the plain step on the card,
-    ``host_plain(*a, max_iters=...)`` on the host. Returns the kernels-line
-    figures: max_abs_err over the f32 captures; ms, plain_ms, each alt's
-    ms and the bound of the lap-2 capture in f32."""
+    f64 cast up, at phase 8's gates (k2_gate); each kernel of ``alts`` (K2
+    with a bitwise-neutral option switched) equal to K2 bit for bit on
+    every lane. ``plain(*a, trips=..., cands=...)`` runs the plain step on
+    the card, ``host_plain(*a, max_iters=...)`` on the host. ``nsi2``: (K2
+    at nsi = 2, its plain step), held to the same gates on each capture
+    with the last two stored laps. Returns the kernels-line figures:
+    max_abs_err over the f32 captures; ms, plain_ms, each alt's ms and the
+    bound of the lap-2 capture in f32."""
     stats = dict(max_abs_err=0.0)
     for lap, (step, args) in sorted(captured.items()):
         active = args[9] < 0.5
@@ -342,28 +374,17 @@ def check_k2(tag, k2, alts, captured, plain, host_plain):
                 lambda: plain(*a, trips=trips, cands=cands))
             solved = solved_by(k2, a, cands, ref)
             torch.cuda.synchronize()
-            for t in out:
-                require(bool(torch.isfinite(t.double()).all()),
-                        f"{tag}: non-finite output")
-            agree = ((out[1] == ref[1]) & (out[3] == ref[3])
-                     & (out[4] == ref[4]) & (out[5] == ref[5]))[active]
-            dus = (out[0] - ref[0]).abs().amax(dim=(0, 1))[active][agree]
-            dng = (out[2] - ref[2]).abs().amax(dim=0)[active][agree]
-            share = float(agree.double().mean())
-            maxd = float(dus.max()) if dus.numel() else 0.0
-            maxg = float(dng.max()) if dng.numel() else 0.0
+            gate, maxd = k2_gate(f"{tag} lap {lap}", out, ref, active, dtype)
             line = (f"[{tag} lap {lap} step {step} {str(dtype)[6:]}] active "
-                    f"{n_act} (hzn<{N}: {n_shrunk}, hzn<=1: {n_h1}, feasible "
-                    f"{float(ref[1][active].mean()):.4f}): decisions agree "
-                    f"{share:.6f}, max|dus| {maxd:.3e}, max|dguess| "
-                    f"{maxg:.3e} on them")
-            if dtype == torch.float64:
-                require(share >= 0.999 and maxd <= 1e-6 and maxg <= 1e-6,
-                        f"{tag} f64 lap {lap}: {share}, {maxd}, {maxg}")
-            else:
-                require(share >= 0.99 and maxd <= F32_TOL
-                        and maxg <= F32_TOL,
-                        f"{tag} f32 lap {lap}: {share}, {maxd}, {maxg}")
+                    f"{n_act} (hzn<{N}: {n_shrunk}, hzn<=1: {n_h1}, {gate}")
+            if nsi2 is not None:
+                k2_2, plain_2 = nsi2
+                a2 = list(a)
+                a2[6], a2[7] = lap_window(int(a[6][-1]) + 1, 2, a[3].shape[0],
+                                          False, a[0].shape[-1], a[0].device)
+                gate2, _ = k2_gate(f"{tag} nsi 2 lap {lap}", k2_2(*a2),
+                                   plain_2(*a2), active, dtype)
+                line += f"; nsi 2 (lap_ok {a2[7].tolist()}: {gate2}"
             for name, alt in alts.items():
                 same = all(torch.equal(g, w) for g, w in zip(out, alt(*a)))
                 line += f"; {name} bitwise equal {same}"
@@ -495,10 +516,15 @@ def main():
                     or "Compiling entry" in line):
                 print("   ", line.strip())
     lib = _build.library()
-    # the loaded f32 K1 (nsi 1) and K2 all, as the CUDA runtime reports them
+    # the loaded f32 K1 (nsi 1), K2 all and K2 spaceVarying / timeVarying
+    # (qsort_skip, nsi 1), as the CUDA runtime reports them
     occupancy = dict(
         k1=_build.attributes(lib, "i2lqr_step_attributes", 0, N, 8, 1),
-        k2_all=_build.attributes(lib, "nlmpc_step_all_attributes", 0, N))
+        k2_all=_build.attributes(lib, "nlmpc_step_all_attributes", 0, N),
+        k2_sv=_build.attributes(lib, "nlmpc_step_attributes", 0, N, 8, 1, 0,
+                                1),
+        k2_tv=_build.attributes(lib, "nlmpc_step_attributes", 0, N, 8, 1, 1,
+                                1))
     for key, occ in occupancy.items():
         print(f"[2 {key} f32] {occ['registers']} registers, "
               f"{occ['local_bytes']} bytes of local memory a thread, "
@@ -819,10 +845,21 @@ def main():
     # qsort_skip against K2 bit for bit ----
     require(sorted(cap2.captured) == sorted(NL_CAPTURES),
             f"captured {sorted(cap2.captured)}")
+    def nsi2_of(lp):
+        """K2 at nsi = 2 in the mode of ``lp`` and its plain step."""
+        lp2 = LmpcParams.make(ss_option=lp.ss_option, num_ss_iter=2)
+        return (build_fused_nlmpc_step(lp2, nl_limits, 1.0, **nl_sizes),
+                plain_of(lp2)[0])
+
     nl_plain, nl_host_plain = plain_of(nl_params)
     k2_stats = check_k2("8 K2", k2q, {"no_qsort_skip": k2}, cap2.captured,
-                        nl_plain, nl_host_plain)
+                        nl_plain, nl_host_plain, nsi2=nsi2_of(nl_params))
     del cap2
+    print(f"[8 K2] lap-2 capture {k2_stats['ms']:.3f} ms a step with "
+          f"qsort_skip, {k2_stats['no_qsort_skip_ms']:.3f} ms without (f32), "
+          f"{occupancy['k2_sv']['registers']} registers, "
+          f"{occupancy['k2_sv']['local_bytes']} bytes of local memory, "
+          f"{occupancy['k2_sv']['warps_per_sm']} warps per SM", flush=True)
 
     # ---- 9. zero-noise NLMPC closed loop through K2 ----
     def zero_noise(tag, lp, solver, host_laps, f32_within=None):
@@ -915,8 +952,13 @@ def main():
             f"captured {sorted(cap_tv.captured)}")
     tv_stats = check_k2("13 K2 timeVarying", k2_tv,
                         {"no_qsort_skip": k2_tv_plain}, cap_tv.captured,
-                        *plain_of(tv_params))
+                        *plain_of(tv_params), nsi2=nsi2_of(tv_params))
     del cap_tv
+    print(f"[13 K2 timeVarying] lap-2 capture {tv_stats['ms']:.3f} ms a step "
+          f"with qsort_skip, {tv_stats['no_qsort_skip_ms']:.3f} ms without "
+          f"(f32), {occupancy['k2_tv']['registers']} registers, "
+          f"{occupancy['k2_tv']['local_bytes']} bytes of local memory, "
+          f"{occupancy['k2_tv']['warps_per_sm']} warps per SM", flush=True)
 
     # ---- 14. zero-noise timeVarying closed loop through K2 ----
     zero_noise("14 timeVarying zero-noise", tv_params, build_fused_nlmpc_step(
@@ -1157,13 +1199,14 @@ def main():
         dict(name="nlmpc_step (K2)", route="cuda",
              source=csrc + "nlmpc_step.cu",
              replaces=tpu + "pallas_nlmpc_step.py:245",
-             launches=k2_launches, **k2_stats,
+             launches=k2_launches, **k2_stats, **occupancy["k2_sv"],
              lap_sims_per_s=nl_rate["qsort_skip"],
              no_qsort_skip_lap_sims_per_s=nl_rate["plain"]),
         dict(name="nlmpc_step (K2, timeVarying)", route="cuda",
              source=csrc + "nlmpc_step.cu",
              replaces=tpu + "pallas_nlmpc_step.py:245",
-             launches=tv_launches, **tv_stats, lap_sims_per_s=tv_rate,
+             launches=tv_launches, **tv_stats, **occupancy["k2_tv"],
+             lap_sims_per_s=tv_rate,
              lap_sims_per_s_runs=tv_rates),
         dict(name="nlmpc_step (K2, all)", route="cuda",
              source=csrc + "nlmpc_step_all.cu",

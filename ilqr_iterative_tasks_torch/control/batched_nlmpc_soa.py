@@ -84,11 +84,12 @@ _K2_CACHE: dict = {}
 
 def default_options(params: LmpcParams) -> dict:
     """The K2 options ``default_step_solver`` builds with, as the JAX bench
-    rows ship them: ``qsort_skip`` for timeVarying (bench.py:207-211) and
-    spaceVarying (bench.py:145-148; its headline runs 1.25-1.28x faster with it
-    on the card, PERF.md), and ``all_rev_skip`` for all with one lap row
-    (bench.py:218-221); all with ``all_ss_iter`` scans forward. Each is
-    bitwise-neutral."""
+    rows ship them: ``qsort_skip`` for timeVarying (bench.py:207-211; on the
+    card its step takes an eighth of the plain order's, PERF.md) and
+    spaceVarying (bench.py:145-148; on the card it launches the plain-order
+    kernel, so it costs nothing there), and ``all_rev_skip``
+    for all with one lap row (bench.py:218-221); all with ``all_ss_iter``
+    scans forward. Each is bitwise-neutral."""
     one_row = params.num_ss_iter == 1
     if params.ss_mode == "all":
         return dict(all_rev_skip=one_row and not params.all_ss_iter)

@@ -1,6 +1,6 @@
-"""K1 and K2 `all` of this checkout against those of another checkout (an
-earlier commit) and of edited copies of this checkout's sources, in turns
-on one card.
+"""K1, K2 `all` and K2 spaceVarying / timeVarying of this checkout against
+those of another checkout (an earlier commit) and of edited copies of this
+checkout's sources, in turns on one card.
 
     python -m ilqr_iterative_tasks_torch.experiments.kernel_ab \\
         --other DIR [--variant NAME FILE OLD NEW ...] \\
@@ -9,35 +9,39 @@ on one card.
 DIR holds the other checkout (``DIR/ilqr_iterative_tasks_torch/csrc``, whose
 launchers keep the same C interface). A variant is a copy of this
 checkout's csrc/ in which the text OLD of FILE is replaced by NEW (it must
-occur once), for instance K2 `all` at another tile width:
+occur once), for instance K2 timeVarying at another tile width:
 
-    --variant G16 nlmpc_step_all.cu "K2_ALL_G = 32;" "K2_ALL_G = 16;"
+    --variant TV_G2 nlmpc_step.cu "K2_TV_G = 1;" "K2_TV_G = 2;"
 
-A variant of ``i2lqr_step.cu`` is timed as K1, one of
-``nlmpc_step_all.cu`` as K2 `all`, one of any other file as both. Every
-library is built at once (one nvcc a source); the simulators and the plain
-steps are this checkout's, and only the library the wrappers launch from
-changes between turns.
+A variant of ``i2lqr_step.cu`` is timed as K1, one of ``nlmpc_step_all.cu``
+as K2 `all`, one of ``nlmpc_step.cu`` as K2 spaceVarying and timeVarying,
+one of any other file as all of them. Every library is built at once (one
+nvcc a source); the simulators and the plain steps are this checkout's, and
+only the library the wrappers launch from changes between turns.
 
 On the inputs ``chip_smoke.py`` captures (its rule, experiments/headlines.py)
 from the i2LQR headline (K1), the `all` headline (K2 `all_rev_skip` and the
 forward scan), an `all_iter` run and the NLMPC headlines (K2 spaceVarying
-and timeVarying with qsort_skip, compared with the other checkout only),
-every library's outputs must equal this checkout's bit for bit; then each
-kernel's ms a step by CUDA events over repeated launches, in turns (A B ...
-B A). Then the i2LQR and `all` headlines through each library in turns,
-two runs each, one seed a pair: host seconds, lap-sims/s, the lap records'
-hash (which must agree between libraries for the same seed) and, of
-`all`, K2's CUDA-event spans (which hold the wrapper's host time where the
-card waits for it); then one more run each under ``torch.profiler``,
-whose trace gives the kernel's own device seconds. Registers, local memory
-and resident warps an SM come from the CUDA runtime for the libraries that
-export ``*_attributes`` (this checkout, its variants); for a library
-without them, registers and spill stores from the ``-Xptxas -v`` log of its
-build, when this process built it. The kernels both checkouts build besides
-K1 and K2 `all` are compared by their SASS (``cuobjdump -sass``). Printed as
-lines and one JSON object (also written to ``--out``), with the card's name
-and power limit.
+and timeVarying with qsort_skip, as the simulator builds them, and without
+it), every library's outputs must equal this checkout's bit for bit; then
+each kernel's ms a step by CUDA events over repeated launches, in turns (A
+B ... B A). Then the i2LQR, `all`, NLMPC (spaceVarying) and timeVarying
+headlines through each library in turns, one seed a turn (two seeds, five
+for timeVarying as chip_smoke.py's phase 15; spaceVarying also in the
+plain order, whose lap records must equal qsort_skip's, through the two
+checkouts only): host seconds, lap-sims/s, the
+lap records' hash (which must agree between libraries for the same seed)
+and, of the NLMPC ones, K2's CUDA-event spans (which hold the wrapper's
+host time where the card waits for it); then one more run each under
+``torch.profiler``, whose trace gives the kernel's own device seconds, the
+card's busy seconds (every kernel and copy) and the run's host seconds
+under the profiler. Registers, local memory and resident warps an SM come
+from the CUDA runtime for the libraries that export ``*_attributes``; for a
+library without them, registers and spill stores from the ``-Xptxas -v``
+log of its build, when this process built it. The kernels both checkouts
+build under the same name are compared by their SASS (``cuobjdump
+-sass``). Printed as lines and one JSON object (also written to
+``--out``), with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -66,13 +70,22 @@ from ilqr_iterative_tasks_torch.ops import _build
 from ilqr_iterative_tasks_torch.ops.nlmpc_step import build_fused_nlmpc_step
 from ilqr_iterative_tasks_torch.utils.params import LmpcParams
 
-K1_FILE, ALL_FILE = "i2lqr_step.cu", "nlmpc_step_all.cu"
+# the kernels a variant of each file is timed as (any other file: all)
+GROUPS = {"i2lqr_step.cu": ("k1",), "nlmpc_step_all.cu": ("all",),
+          "nlmpc_step.cu": ("k2",)}
 # the f32 kernels whose resources are reported, by their attributes entry
-# and, in a build log, by their name's prefix
-K1_F32 = ("i2lqr_step_attributes", (0, N, 8, 1),
-          f"i2lqr_step_kernel<float,{N},8,1>")
-ALL_F32 = ("nlmpc_step_all_attributes", (0, N),
-           f"nlmpc_step_all_kernel<float,{N}")
+# and its arguments and, in a build log, by their name's prefix (K2
+# spaceVarying and timeVarying: qsort_skip, nsi 1)
+RESOURCES = {
+    "k1": ("i2lqr_step_attributes", (0, N, 8, 1),
+           f"i2lqr_step_kernel<float,{N},8,1>"),
+    "k2_all": ("nlmpc_step_all_attributes", (0, N),
+               f"nlmpc_step_all_kernel<float,{N}"),
+    "k2_sv": ("nlmpc_step_attributes", (0, N, 8, 1, 0, 1),
+              f"nlmpc_step_kernel<float,{N},8,1>"),
+    "k2_tv": ("nlmpc_step_attributes", (0, N, 8, 1, 1, 1),
+              f"nlmpc_step_kernel<float,{N},8,1>"),
+}
 
 
 def variant_csrc(name: str, file: str, old: str, new: str) -> str:
@@ -115,9 +128,10 @@ def log_registers(log_path: str) -> dict:
 
 
 def resources(lib, path: str, built_here: bool) -> dict:
-    """K1's and K2 all's f32 resources in one library (module docstring)."""
+    """The f32 resources of RESOURCES' kernels in one library (module
+    docstring)."""
     out = {}
-    for key, (entry, sizes, prefix) in (("k1", K1_F32), ("k2_all", ALL_F32)):
+    for key, (entry, sizes, prefix) in RESOURCES.items():
         if hasattr(lib, entry):
             out[key] = dict(_build.attributes(lib, entry, *sizes),
                             source="CUDA runtime")
@@ -152,16 +166,20 @@ def sass(path: str) -> dict | None:
     return {k: "\n".join(v) for k, v in funcs.items()}
 
 
-def device_seconds(fn, key: str) -> float:
-    """Seconds the card spent in kernels whose name holds ``key`` during
-    one call of ``fn``, from a ``torch.profiler`` trace."""
+def device_seconds(fn, key: str) -> tuple[float, float, float]:
+    """(seconds the card spent in kernels whose name holds ``key``, in
+    every kernel and copy, host seconds) of one call of ``fn`` under
+    ``torch.profiler``, from its trace."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
-    return sum(getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and key in e.key) / 1e6
+        host = time.perf_counter() - t0
+    dev = [(e.key, getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0)))
+           for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (sum(t for k, t in dev if key in k) / 1e6,
+            sum(t for _, t in dev) / 1e6, host)
 
 
 @contextlib.contextmanager
@@ -192,13 +210,11 @@ def main():
     dirs = {"this": _build.CSRC_DIR,
             "other": os.path.join(args.other, "ilqr_iterative_tasks_torch",
                                   "csrc")}
-    k1_names, all_names = ["other", "this"], ["other", "this"]
+    names = {g: ["other", "this"] for g in ("k1", "all", "k2")}
     for name, file, old, new in args.variant:
         dirs[name] = variant_csrc(name, file, old, new)
-        if file != ALL_FILE:
-            k1_names.append(name)
-        if file != K1_FILE:
-            all_names.append(name)
+        for g in GROUPS.get(file, names):
+            names[g].append(name)
     t0 = time.perf_counter()
     # four libraries at a time, each one nvcc a source: enough to keep the
     # host's cores busy without holding every compiler's memory at once
@@ -214,13 +230,11 @@ def main():
     print(f"[kernel_ab] {card}; build {build_s:.1f} s", flush=True)
     for name, res in report["resources"].items():
         print(f"[resources {name}] {json.dumps(res)}", flush=True)
-    # the kernels both checkouts build besides K1 and K2 all: same SASS?
+    # the kernels both checkouts build under one name: same SASS?
     this_sass, other_sass = sass(built["this"][0]), sass(built["other"][0])
     if this_sass is not None:
-        report["same_sass"] = {
-            k: this_sass[k] == other_sass[k] for k in sorted(other_sass)
-            if k in this_sass and "i2lqr_step_kernel" not in k
-            and "nlmpc_step_all_kernel" not in k}
+        report["same_sass"] = {k: this_sass[k] == other_sass[k]
+                               for k in sorted(other_sass) if k in this_sass}
         print(f"[same SASS as the other checkout] "
               f"{json.dumps(report['same_sass'])}", flush=True)
 
@@ -241,8 +255,14 @@ def main():
     k2_all = batched_nlmpc_soa.default_step_solver(
         all_p, hl.nl_limits, 1.0, **sizes, max_iters=NL_CAP)
     k2_fwd, k2_iter = k2_of(all_p), k2_of(iter_p)
-    k2_sv, k2_tv = (k2_of(sv_p, qsort_skip=True),
-                    k2_of(tv_p, qsort_skip=True))
+    # spaceVarying and timeVarying as the simulator builds them
+    # (qsort_skip), and in the plain order
+    k2_sv, k2_tv = (batched_nlmpc_soa.default_step_solver(
+        lp, hl.nl_limits, 1.0, **sizes, max_iters=NL_CAP)
+        for lp in (sv_p, tv_p))
+    require(k2_sv.qsort_skip and k2_tv.qsort_skip,
+            "the simulator's K2 without qsort_skip")
+    k2_sv_plain, k2_tv_plain = k2_of(sv_p), k2_of(tv_p)
     cap1 = k1_capture(k1)
     hl.i2lqr(0, cap1)
     caps = {}
@@ -281,25 +301,31 @@ def main():
         return rows
 
     report["steps"] = dict(
-        k1=steps("K1", k1, cap1.captured, k1_names, 10),
+        k1=steps("K1", k1, cap1.captured, names["k1"], 10),
         all_rev_skip=steps("K2 all_rev_skip", k2_all, caps["all"],
-                           all_names, 5),
-        all_forward=steps("K2 all forward", k2_fwd, caps["all"], all_names,
-                          3),
-        all_iter=steps("K2 all_iter", k2_iter, caps["all_iter"], all_names,
-                       3),
+                           names["all"], 5),
+        all_forward=steps("K2 all forward", k2_fwd, caps["all"],
+                          names["all"], 3),
+        all_iter=steps("K2 all_iter", k2_iter, caps["all_iter"],
+                       names["all"], 3),
         spaceVarying=steps("K2 spaceVarying", k2_sv, caps["spaceVarying"],
-                           ["other", "this"], 10),
+                           names["k2"], 10),
+        spaceVarying_plain=steps("K2 spaceVarying plain order", k2_sv_plain,
+                                 caps["spaceVarying"], ["other", "this"], 5),
         timeVarying=steps("K2 timeVarying", k2_tv, caps["timeVarying"],
-                          ["other", "this"], 10))
+                          names["k2"], 10),
+        timeVarying_plain=steps("K2 timeVarying plain order", k2_tv_plain,
+                                caps["timeVarying"], ["other", "this"], 5))
 
-    # ---- headlines in turns, one seed a pair, then one profiled run ----
-    def headlines(tag, run, kern, kernel_name, names, b):
+    # ---- headlines in turns, one seed a turn, then one profiled run ----
+    def headlines(tag, run, kern, kernel_name, names, b, seeds=(1, 2)):
+        spans = kern is not k1  # K2: CUDA-event spans around each call
         out = {name: dict(s=[], lap_sims_per_s=[], hash=[], event_k2_s=[])
                for name in names}
-        order = [(n, 1) for n in names] + [(n, 2) for n in names[::-1]]
+        order = [(n, seed) for i, seed in enumerate(seeds)
+                 for n in (names if i % 2 == 0 else names[::-1])]
         for name, seed in order:
-            timed = EventTimed(kern) if tag == "all" else kern
+            timed = EventTimed(kern) if spans else kern
             with launching(libs[name]):
                 t0 = time.perf_counter()
                 res = run(seed, timed)
@@ -308,33 +334,50 @@ def main():
             r["s"].append(sec)
             r["lap_sims_per_s"].append(b * LAPS / sec)
             r["hash"].append(lap_records_hash(res))
-            if tag == "all":
+            if spans:
                 r["event_k2_s"].append(timed.seconds())
             print(f"[{tag} headline {name} seed {seed}] {sec:.3f} s, "
                   f"{b * LAPS / sec:.1f} lap-sims/s, hash "
                   f"{r['hash'][-1]}"
                   + (f", K2 event spans {r['event_k2_s'][-1]:.3f} s"
-                     if tag == "all" else ""), flush=True)
+                     if spans else ""), flush=True)
             del res
-        for seed in (0, 1):
-            require(len({out[n]["hash"][seed] for n in names}) == 1,
+        for i in range(len(seeds)):
+            require(len({out[n]["hash"][i] for n in names}) == 1,
                     f"{tag} headline: lap records differ between "
                     f"libraries")
         for name in names:
             with launching(libs[name]):
-                out[name]["device_s"] = device_seconds(
-                    lambda: run(1, kern), kernel_name)
+                k_s, busy_s, host_s = device_seconds(lambda: run(1, kern),
+                                                     kernel_name)
+            out[name].update(device_s=k_s, busy_s=busy_s,
+                             profiled_host_s=host_s)
             print(f"[{tag} headline {name} profiled] {kernel_name} "
-                  f"{out[name]['device_s']:.4f} s of the card a run",
+                  f"{k_s:.4f} s of the card a run; the card busy "
+                  f"{busy_s:.4f} s of {host_s:.3f} s under the profiler",
                   flush=True)
         return out
 
+    def nlmpc(lp, sc):
+        return lambda s, k: hl.nlmpc(s, lp, sc, k)
+
     report["headlines"] = dict(
         i2lqr=headlines("i2lqr", lambda s, k: hl.i2lqr(s, k), k1,
-                        "i2lqr_step_kernel", k1_names, BATCH),
-        all=headlines("all",
-                      lambda s, k: hl.nlmpc(s, all_p, hl.scen_all, k),
-                      k2_all, "nlmpc_step_all_kernel", all_names, ALL_BATCH))
+                        "i2lqr_step_kernel", names["k1"], BATCH),
+        all=headlines("all", nlmpc(all_p, hl.scen_all), k2_all,
+                      "nlmpc_step_all_kernel", names["all"], ALL_BATCH),
+        spaceVarying=headlines("spaceVarying", nlmpc(sv_p, hl.scen), k2_sv,
+                               "nlmpc_step_kernel", names["k2"], BATCH),
+        spaceVarying_plain=headlines(
+            "spaceVarying plain order", nlmpc(sv_p, hl.scen), k2_sv_plain,
+            "nlmpc_step_kernel", ["other", "this"], BATCH),
+        timeVarying=headlines("timeVarying", nlmpc(tv_p, hl.scen), k2_tv,
+                              "nlmpc_step_kernel", names["k2"], BATCH,
+                              seeds=(1, 2, 3, 4, 5)))
+    hl_sv = report["headlines"]
+    require(hl_sv["spaceVarying_plain"]["this"]["hash"]
+            == hl_sv["spaceVarying"]["this"]["hash"],
+            "spaceVarying headline: qsort_skip changed the lap records")
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)

@@ -132,8 +132,9 @@ def attributes(lib: ctypes.CDLL, entry: str, *sizes: int) -> dict:
     """Registers a thread, local memory bytes a thread and resident warps an
     SM of a loaded kernel, as the CUDA runtime reports them: ``entry`` is
     the library's ``*_attributes`` function (i2lqr_step_attributes: dtype,
-    n, k, nsi; nlmpc_step_all_attributes: dtype, n), ``sizes`` its
-    arguments before the output."""
+    n, k, nsi; nlmpc_step_all_attributes: dtype, n; nlmpc_step_attributes:
+    dtype, n, k, nsi, time_varying, qsort), ``sizes`` its arguments before
+    the output."""
     out = (ctypes.c_int * 3)()
     check_launch(getattr(lib, entry)(*(ctypes.c_int(s) for s in sizes), out),
                  entry)

@@ -219,8 +219,8 @@ _UNPORTED = {
     "zeros_skip": "retired from the bench (bench.py:140-144)",
     "prox_skip": "on the roadmap's not-to-port list",
     "with_stats": "not ported yet",
-    "store_solutions": "the port's K2 never stores solutions (the winner "
-                       "is re-solved)",
+    "store_solutions": "the port's K2 keeps no candidate's solution but "
+                       "the winner's (held by its thread, or solved again)",
     "stream_safe_set": "the port's K2 always reads the safe set from "
                        "global memory",
 }

@@ -433,6 +433,104 @@ def test_k2_all_thread_tiles_match_plain_bitwise(dev, dtype, mode, option):
             assert torch.equal(g, w)
 
 
+def _k2_tile_inputs(dtype, dev, mode, nsi, lap_count, b=1003):
+    """``_nl_step_inputs`` edited to hit K2's thread tiles in spaceVarying
+    and timeVarying: Qfun tied in threes along each lap (equal keys in
+    qsort_skip's rank order), lanes 1 mod 7 storing 1-3 rows of the newest
+    lap (fewer than k) and lanes 2 mod 7 none (every slot invalid, so rank 0
+    is), lanes 3 mod 7 60 m off the laps (nothing feasible: the slot-0
+    fallback); every horizon 1..n, 1/9 of lanes skipped; the last nsi of
+    ``lap_count`` stored laps, so a lap not yet stored where lap_count <
+    nsi. In timeVarying the simulator's (t, min_cost) are appended. b is
+    not a multiple of the lanes a block holds."""
+    a = list(_nl_step_inputs(dtype, dev, b=b))
+    lane = torch.arange(b, device=dev)
+    ln = a[5].clone()
+    ln[1] = torch.where(lane % 7 == 1, 1 + lane % 3, ln[1])
+    ln[1] = torch.where(lane % 7 == 2, 0, ln[1])
+    x = a[0].clone()
+    x[1] = torch.where(lane % 7 == 3, x[1] + 60.0, x[1])
+    t = torch.arange(a[3].shape[1], device=dev)[None, :, None]
+    a[4] = torch.floor(torch.clamp_min(ln[:, None, :] - 1.0 - t, 0.0)
+                       / 3).to(dtype).contiguous()
+    a[0], a[5] = x.contiguous(), ln.contiguous()
+    a[6], a[7] = lap_window(lap_count, nsi, a[3].shape[0], False, b, dev)
+    if mode == "timeVarying":
+        a += [(lane % 9).to(torch.int32), (ln[:lap_count] - 1).amin(dim=0)]
+    return a
+
+
+# (mode, qsort_skip, nsi, laps stored)
+K2_TILE_CASES = [(mode, qsort, nsi, laps)
+                 for mode in ("spaceVarying", "timeVarying")
+                 for qsort, nsi, laps in ((False, 1, 2), (True, 1, 2),
+                                          (False, 2, 2), (False, 2, 1))]
+
+
+@pytest.mark.parametrize("mode,qsort,nsi,laps", K2_TILE_CASES)
+def test_k2_thread_tiles_match_plain_bitwise(dev, mode, qsort, nsi, laps):
+    """K2 spaceVarying / timeVarying on ``_k2_tile_inputs`` equals the plain
+    step bit for bit, and with qsort_skip K2 without it; at nsi = 1 also
+    with the lap flagged not stored (every slot invalid)."""
+    p = LmpcParams.make(num_ss_iter=nsi, **NL_MODES[mode])
+    lim = SystemLimits.make(dtype=torch.float64)
+    for dtype in (torch.float32, torch.float64):
+        a = _k2_tile_inputs(dtype, dev, mode, nsi, laps)
+        b = a[0].shape[-1]
+        sizes = dict(num_horizon=N, max_steps=a[3].shape[1],
+                     max_laps=a[3].shape[0], max_iters=NL_CAP)
+        k2 = build_fused_nlmpc_step(p, lim, 1.0, qsort_skip=qsort, **sizes)
+        base = build_fused_nlmpc_step(p, lim, 1.0, **sizes)
+        for lap_ok in [a[7]] + [torch.zeros_like(a[7])] * (nsi == 1):
+            a[7] = lap_ok
+            got = k2(*a)
+            want = nlmpc_step_reference(p, lim, 1.0, *a, max_iters=NL_CAP)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+            if qsort:
+                for g, w in zip(got, base(*a)):
+                    assert torch.equal(g, w)
+            live = a[9] < 0.5
+            lane = torch.arange(b, device=dev)
+            assert not bool(want[1][live & (lane % 7 == 3)].any())
+            assert bool(want[1][live].any()) == bool(lap_ok.any())
+            assert bool((live & (a[10] <= 1)).any())  # horizon-1 lanes
+        assert k2.launches == 1 + (nsi == 1)
+
+
+@pytest.mark.parametrize("mode", ["spaceVarying", "timeVarying"])
+def test_closed_loop_at_nsi_2_through_k2_matches_plain(dev, mode):
+    p = LmpcParams.make(num_ss_iter=2, **NL_MODES[mode])
+    lim = SystemLimits.make(dtype=torch.float64)
+    xcl, ucl = seed_trajectory(1.0)
+    seed_xs, seed_us = np.zeros((T_ROWS, 4)), np.zeros((T_ROWS, 2))
+    seed_xs[:121], seed_us[:120] = xcl, ucl
+    scen = SoaScenarios.broadcast(
+        np.zeros(4), xcl[-1], Obstacle.make(31.0, -2.0, 8.0, 6.0), 8,
+        noise_on=True, dtype=torch.float64, device=dev)
+    noise = torch.randn((80, 2, 8), dtype=torch.float64, device=dev)
+    kw = dict(num_laps=2, max_steps=T_ROWS, max_laps=MAX_LAPS,
+              sim_step_budget=40, max_lm_iters=NL_CAP, noise=noise,
+              infeasible_retire=8)
+    k2 = batched_nlmpc_soa.default_step_solver(
+        p, lim, 1.0, max_steps=T_ROWS, max_laps=MAX_LAPS, max_iters=NL_CAP)
+    assert (k2.nsi, k2.qsort_skip) == (2, False)
+    before = k2.launches
+    got = simulate_nlmpc_runs_soa(p, lim, scen, seed_xs, seed_us, 121, 1.0,
+                                  **kw)
+    assert k2.launches > before
+    plain = PlainStep(k2, ("k", "nsi", "num_horizon", "max_steps",
+                           "max_laps", "max_iters", "mode", "all_iter"),
+                      lambda *a: nlmpc_step_reference(p, lim, 1.0, *a,
+                                                      max_iters=NL_CAP))
+    want = simulate_nlmpc_runs_soa(p, lim, scen, seed_xs, seed_us, 121, 1.0,
+                                   step_solver=plain, **kw)
+    assert torch.equal(got.lap_steps, want.lap_steps)
+    for i in (0, 1):
+        assert torch.equal(got.safe_set[i], want.safe_set[i])
+
+
 @pytest.mark.parametrize("mode", ["timeVarying", "all", "all_iter"])
 def test_closed_loop_through_default_k2_matches_plain(dev, mode):
     p, lim = LmpcParams.make(**NL_MODES[mode]), SystemLimits.make(

@@ -12,7 +12,8 @@ a slice of the seed lap that starts near its own x0, some shorter than k,
 with its own obstacle; a few lanes start far off and have no feasible
 candidate. The recorded states and inputs agree to 1e-9: one step in
 spaceVarying, five in timeVarying (the window at t = 0..4), all and all
-with all_iter (two stored laps and two empty slots). Shrunk horizons are
+with all_iter (two stored laps and two empty slots), and three at
+num_ss_iter = 2 in spaceVarying and timeVarying. Shrunk horizons are
 held by tests/test_torch_lm_shooting_soa.py (``m_lanes``) and the closed
 loops of tests/test_torch_batched_nlmpc_soa.py. Also: the K2 wrapper's CPU
 route is the plain step, at every horizon and in every mode, and the
@@ -97,13 +98,14 @@ MODES = {"spaceVarying": {}, "timeVarying": dict(ss_option="timeVarying"),
          "all_iter": dict(all_ss_point=True, all_ss_iter=True)}
 
 
-def _steps_against_jax(mode, steps, stall=False):
+def _steps_against_jax(mode, steps, stall=False, nsi=1):
     """The recorded states (steps, 4, B) and inputs (steps, 2, B) of the
     port and of the JAX simulator, and the port's per-step feasible_any
     (steps, B) and succ (steps, B), after ``steps`` steps from the
-    stored laps of ``_problem(stall=stall)``."""
+    stored laps of ``_problem(stall=stall)``, with the last ``nsi`` of
+    them in each step's window."""
     ss, x0, obs, goal = _problem(stall=stall)
-    jp = JParams.make(dtype=jnp.float64, **MODES[mode])
+    jp = JParams.make(dtype=jnp.float64, num_ss_iter=nsi, **MODES[mode])
     jl = JLimits.make(dtype=jnp.float64)
     jo = JObstacle(**{k: jnp.asarray(v) for k, v in obs.items()})
     scen = JScenarios(x0=jnp.asarray(x0),
@@ -173,6 +175,17 @@ def test_one_step_matches_jax_f64():
 @pytest.mark.parametrize("mode", ["timeVarying", "all", "all_iter"])
 def test_steps_match_jax_f64(mode):
     (xs, us), (j_xs, j_us), f, succ = _steps_against_jax(mode, 5)
+    assert 0.1 < f.mean() < 1.0 and not f[:, -8:].any(), f.mean(axis=1)
+    assert 0.0 < succ.mean() < 1.0  # both guess advances
+    np.testing.assert_allclose(us, j_us, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(xs, j_xs, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("mode", ["spaceVarying", "timeVarying"])
+def test_steps_at_nsi_2_match_jax_f64(mode):
+    """num_ss_iter = 2: both stored laps' candidates each step and the
+    lexicographic row-min over them, three steps."""
+    (xs, us), (j_xs, j_us), f, succ = _steps_against_jax(mode, 3, nsi=2)
     assert 0.1 < f.mean() < 1.0 and not f[:, -8:].any(), f.mean(axis=1)
     assert 0.0 < succ.mean() < 1.0  # both guess advances
     np.testing.assert_allclose(us, j_us, rtol=0, atol=1e-9)
