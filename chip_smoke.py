@@ -14,8 +14,9 @@ benchmarks through the generic LM-iLQR kernel K5. Phases:
 1. device: the card's name and power limit;
 2. build: nvcc of the six kernel sources (one process per source), with
    seconds, registers and spills, and the registers, local memory and
-   resident warps an SM of the loaded f32 K1, K2 all and K2 spaceVarying /
-   timeVarying (with qsort_skip) as the CUDA runtime reports them;
+   resident warps an SM of the loaded f32 K1, K2 all, K2 spaceVarying /
+   timeVarying (with qsort_skip), K3 and K5 (the double integrator and the
+   bicycle at N = 6) as the CUDA runtime reports them;
 3. K3 (i2LQR per-candidate solve) against the plain solve on 393 216 random
    candidate lanes, f64 and f32;
 4. K1 (whole i2LQR step) against the plain step on safe sets captured from
@@ -48,9 +49,12 @@ benchmarks through the generic LM-iLQR kernel K5. Phases:
    the ``--throughput`` lanes, the unicycle reach task of
    tests/test_generic_ilqr.py:277-296 (every lane within 0.05), and the
    bicycle and the double integrator on the ``--kernel`` lanes, with kernel
-   and plain times; then K3 as ``--kernel`` runs it (cap 150, absent
-   obstacle) against its plain solve on those lanes, f64 (first 32 768)
-   and f32, with phase 3's agreement gates;
+   and plain times, and the trips the lanes take (each lane's n_iters,
+   and what a warp of 32 lanes run to its slowest one would execute,
+   generic_bench.warp_trips); then K3 as ``--kernel`` runs it (cap 150,
+   absent obstacle) against its plain solve on those lanes, f64 (first
+   32 768) and f32, with phase 3's agreement gates and the plain solve's
+   trips;
 12. the generic headline: experiments/generic_bench.py ``--throughput``
    (the double integrator through K5, B = 32 768) and ``--kernel`` (K5 on
    the bicycle and the double integrator against K3, B = 131 072), whose
@@ -473,7 +477,7 @@ def main():
         SoaScenarios, simulate_learning_runs_soa)
     from ilqr_iterative_tasks_torch.experiments.generic_bench import (
         bench_kernel, bench_throughput, candidates, card_line,
-        generic_kwargs, throughput_inputs)
+        generic_kwargs, throughput_inputs, warp_trips)
     from ilqr_iterative_tasks_torch.experiments.nlmpc_profile import (
         EventTimed)
     from ilqr_iterative_tasks_torch.models import (
@@ -481,7 +485,7 @@ def main():
     from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
     from ilqr_iterative_tasks_torch.ops import _build
     from ilqr_iterative_tasks_torch.ops.fused_generic_ilqr import (
-        build_fused_generic_ilqr, fused_generic_ilqr_reference)
+        MODEL_CODES, build_fused_generic_ilqr, fused_generic_ilqr_reference)
     from ilqr_iterative_tasks_torch.ops.fused_ilqr import (
         build_fused_ilqr, fused_ilqr_reference, obstacle_to_lanes)
     from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
@@ -516,15 +520,21 @@ def main():
                     or "Compiling entry" in line):
                 print("   ", line.strip())
     lib = _build.library()
-    # the loaded f32 K1 (nsi 1), K2 all and K2 spaceVarying / timeVarying
-    # (qsort_skip, nsi 1), as the CUDA runtime reports them
+    # the loaded f32 K1 (nsi 1), K2 all, K2 spaceVarying / timeVarying
+    # (qsort_skip, nsi 1), K3 and K5 (N = 6), as the CUDA runtime reports
+    # them
     occupancy = dict(
         k1=_build.attributes(lib, "i2lqr_step_attributes", 0, N, 8, 1),
         k2_all=_build.attributes(lib, "nlmpc_step_all_attributes", 0, N),
         k2_sv=_build.attributes(lib, "nlmpc_step_attributes", 0, N, 8, 1, 0,
                                 1),
         k2_tv=_build.attributes(lib, "nlmpc_step_attributes", 0, N, 8, 1, 1,
-                                1))
+                                1),
+        k3=_build.attributes(lib, "fused_ilqr_attributes", 0, N),
+        k5=_build.attributes(lib, "generic_ilqr_attributes", 0,
+                             MODEL_CODES["double_integrator"], N),
+        k5_bicycle=_build.attributes(lib, "generic_ilqr_attributes", 0,
+                                     MODEL_CODES["bicycle"], N))
     for key, occ in occupancy.items():
         print(f"[2 {key} f32] {occ['registers']} registers, "
               f"{occ['local_bytes']} bytes of local memory a thread, "
@@ -565,6 +575,10 @@ def main():
               f"{us_share:.6f}, |dcost|<=1e-3|cost| {cost_share:.6f}, "
               f"bitwise us {bitwise:.6f}, max|dus| {float(dus.max()):.3e}",
               flush=True)
+        # the kernel keeps the plain version's arithmetic: every output
+        # equal bit for bit
+        require(all(torch.equal(g, w) for g, w in zip(out, ref)),
+                f"K3 {dtype}: not bitwise equal to the plain solve")
         if dtype == torch.float64:
             require(us_share >= 0.999, "K3 f64: < 99.9 % of lanes agree")
         else:
@@ -1095,11 +1109,15 @@ def main():
                     f"{float(err.max()):.3e}; plain {plain_ms:.1f} ms")
             require(share >= (0.999 if dtype == torch.float64 else 0.99),
                     f"K5 {name} {dtype}: agreement {share}")
+            require(all(torch.equal(g, w) for g, w in zip(out, ref)),
+                    f"K5 {name} {dtype}: not bitwise equal to the plain "
+                    f"version")
             if name == "unicycle":
                 require(float(err.max()) < 0.05,
                         f"K5 unicycle: a lane ends {float(err.max())} away")
             ms = cuda_ms(lambda: k5(*a), 5)
-            line += f", kernel {ms:.3f} ms per call"
+            line += (f", kernel {ms:.3f} ms per call; trips "
+                     f"{json.dumps(warp_trips(out[3], kw['max_iter']))}")
             # the --throughput shapes give the kernels line its K5 entry
             if dtype == torch.float32 and name == "double_integrator":
                 sample = lanes_of(a, torch.arange(SAMPLE_LANES), b)
@@ -1107,6 +1125,7 @@ def main():
                     max_abs_err=float(dus[same_it].max()), ms=ms,
                     plain_ms=plain_ms,
                     mean_iters=float(out[3].double().mean()),
+                    warp_trips=warp_trips(out[3], G_CAP),
                     **bound(solve_ops(
                         lambda max_iter: fused_generic_ilqr_reference(
                             model, *sample, **{**kw, "max_iter": max_iter}),
@@ -1144,6 +1163,8 @@ def main():
                 f"{cost_share:.6f}, bitwise us "
                 f"{float((dus == 0).double().mean()):.6f}, max|dus| "
                 f"{float(dus.max()):.3e}")
+        require(all(torch.equal(g, w) for g, w in zip(out, ref)),
+                f"K3 --kernel {dtype}: not bitwise equal to the plain solve")
         if dtype == torch.float64:
             require(us_share >= 0.999, "K3 --kernel f64: < 99.9 % agree")
         else:
@@ -1156,6 +1177,7 @@ def main():
                 max_abs_err=float(dus.max()), ms=cuda_ms(lambda: k3g(*a), 5),
                 plain_ms=k3_plain_ms,
                 mean_iters=float(trips.double().mean()),
+                warp_trips=warp_trips(trips, G_CAP),
                 **bound(solve_ops(
                     lambda max_iter: fused_ilqr_reference(
                         host_params, host_limits, 1.0, *sample,
@@ -1166,7 +1188,8 @@ def main():
                      f"{k3_stats['plain_ms']:.3f} ms per call; bound "
                      f"{k3_stats['bound_ms']:.4f} ms by "
                      f"{k3_stats['bound_by']} ({k3_stats['mean_iters']:.2f} "
-                     f"LM iterations a lane, max {int(trips.max())})")
+                     f"LM iterations a lane, max {int(trips.max())}; "
+                     f"trips {json.dumps(k3_stats['warp_trips'])})")
         print(line, flush=True)
         del out, ref
 
@@ -1221,7 +1244,7 @@ def main():
         dict(name="fused_ilqr (K3)", route="cuda",
              source=csrc + "fused_ilqr.cu",
              replaces=tpu + "pallas_ilqr.py:87",
-             launches=k3_path_launches, **k3_stats),
+             launches=k3_path_launches, **k3_stats, **occupancy["k3"]),
         dict(name="fused_lm_shooting (K4)", route="cuda",
              source=csrc + "fused_lm_shooting.cu",
              replaces=tpu + "pallas_lm_shooting.py:97",
@@ -1229,7 +1252,8 @@ def main():
         dict(name="generic_ilqr (K5)", route="cuda",
              source=csrc + "generic_ilqr.cu",
              replaces=tpu + "pallas_generic_ilqr.py:64",
-             launches=k5_launches, **k5_stats),
+             launches=k5_launches, **k5_stats, **occupancy["k5"],
+             bicycle=occupancy["k5_bicycle"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

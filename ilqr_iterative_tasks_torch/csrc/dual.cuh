@@ -1,6 +1,7 @@
 // Forward-mode dual numbers for the K5 kernel (generic_ilqr.cu): a model's
 // step, written once as a template over its scalar type, gives a Jacobian
-// column when it runs on Dual<T> with a one-hot tangent.
+// column when it runs on Dual<T> with a one-hot tangent. The step takes
+// the sin and cos of its angle's value from its caller.
 //
 // Each operation applies the tangent rule that torch's forward-mode AD
 // (torch.func.jvp in ops/generic_ilqr_soa.py) applies, with the same
@@ -53,13 +54,24 @@ template <typename T>
 ILQR_HD Dual<T> operator*(T s, Dual<T> a) {
   return {s * a.v, a.t * s};
 }
+// sin(a) and cos(a) given sn = sin(a's value) and cs = cos(a's value), so
+// that the step's passes for the columns of one stage share one evaluation
+// of the two (the same values: the functions are pure)
 template <typename T>
-ILQR_HD Dual<T> msin(Dual<T> a) {
-  return {msin(a.v), a.t * mcos(a.v)};
+ILQR_HD T msin(T, T sn, T) {
+  return sn;
 }
 template <typename T>
-ILQR_HD Dual<T> mcos(Dual<T> a) {
-  return {mcos(a.v), a.t * -msin(a.v)};
+ILQR_HD T mcos(T, T, T cs) {
+  return cs;
+}
+template <typename T>
+ILQR_HD Dual<T> msin(Dual<T> a, T sn, T cs) {
+  return {sn, a.t * cs};
+}
+template <typename T>
+ILQR_HD Dual<T> mcos(Dual<T> a, T sn, T cs) {
+  return {cs, a.t * -sn};
 }
 
 }  // namespace ilqr

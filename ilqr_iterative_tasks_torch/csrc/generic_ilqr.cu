@@ -6,19 +6,20 @@
 // Contract: (x0 (n,B), x_term (n,B), u_init (N,m,B)) -> (us (N,m,B),
 // x_last (n,B), cost (B,), n_iters (B,) i32) for a quadratic cost about
 // x_term, box bounds on u, full-step clipped forward passes and the LM
-// accept/reject ladder; n_iters is the lane's own trip count.
-//
-// One thread per lane, blocks of 128, the ragged edge masked. The TPU
+// accept/reject ladder; n_iters is the lane's own trip count. The TPU
 // kernel runs a tile of lanes in lockstep until all are done; here each
-// thread runs its own loop, which gives every lane the same result because
+// lane runs its own trips, which gives every lane the same result because
 // done lanes freeze in the lockstep loop.
 //
-// Dynamics: a model is a struct with NX, NU and a step templated over its
-// scalar type (Model::step below). Jacobian columns come from running the
-// step on forward-mode dual numbers (dual.cuh) with one-hot tangents, one
-// pass per state or input component, as the plain version's one-hot
-// torch.func.jvp columns do. A new model is one templated step and a line
-// in the launcher's table.
+// Dynamics: a model is a struct with NX, NU, the state whose sin and cos
+// its step takes (ANGLE, -1 for none) and a step templated over its scalar
+// type that takes them (Model::step below). Jacobian columns come from
+// running the step on forward-mode dual numbers (dual.cuh) with a one-hot
+// tangent, one pass per state or input component, as the plain version's
+// one-hot torch.func.jvp columns do; the sin and cos of the stage's angle
+// are those of the rollout's step from the same state, so the dual passes
+// evaluate none. A new model is one templated step and a line in the
+// launcher's table.
 //
 // Arithmetic follows the plain torch version (ops/generic_ilqr_soa.py)
 // operation by operation, in its order, with constants folded in double on
@@ -27,23 +28,31 @@
 // plain version skips them in Python). Built with -fmad=false and without
 // fast math, the float kernel rounds as the torch ops do.
 //
-// What bounds it on the card: the per-lane dependency chain of the LM loop
-// (per iteration (n+m)*N dual step passes, the N-step Riccati recursion
-// and two rollouts) and warp divergence from the lanes' different trip
-// counts; a lane reads (2n + N*m) values and writes (N*m + n + 2), so
+// One thread a lane, blocks of 128. Lanes are refilled as they finish: the
+// grid holds as many blocks as the card keeps resident (launch_lanes,
+// tile.cuh), a thread takes its first lane by its index and, when that
+// lane's LM loop ends, writes its outputs and takes the next lane from a
+// counter (next_lane). A warp reconverges where its lanes' LM loops end, so
+// it takes new lanes when its slowest lane is done. What bounds it on the
+// card: the per-lane dependency chain of the LM loop (per iteration
+// (n+m)*N dual step passes, the N-step Riccati recursion and two rollouts)
+// times the trips of each warp's slowest lane, summed over the lanes a warp
+// takes; a lane reads (2n + N*m) values and writes (N*m + n + 2), so
 // memory traffic is negligible.
 #include <cuda_runtime.h>
 
 #include "dual.cuh"
+#include "tile.cuh"
 
 namespace ilqr {
 
-// ---- the models (models/*.py step_comps, same expressions and order) ----
+// ---- the models (models/*.py step_comps, same expressions and order);
+// sn, cs: the sin and cos of x[ANGLE]'s value ----
 
 struct DoubleIntegrator {
-  static constexpr int NX = 4, NU = 2;
+  static constexpr int NX = 4, NU = 2, ANGLE = -1;
   template <typename S, typename T>
-  ILQR_HD static void step(const S* x, const S* u, T dt, S* y) {
+  ILQR_HD static void step(const S* x, const S* u, T dt, T, T, S* y) {
     y[0] = x[0] + x[2] * dt + (T)0.5 * u[0] * dt * dt;
     y[1] = x[1] + x[3] * dt + (T)0.5 * u[1] * dt * dt;
     y[2] = x[2] + u[0] * dt;
@@ -52,22 +61,22 @@ struct DoubleIntegrator {
 };
 
 struct Unicycle {
-  static constexpr int NX = 3, NU = 2;
+  static constexpr int NX = 3, NU = 2, ANGLE = 2;
   template <typename S, typename T>
-  ILQR_HD static void step(const S* x, const S* u, T dt, S* y) {
-    y[0] = x[0] + u[0] * mcos(x[2]) * dt;
-    y[1] = x[1] + u[0] * msin(x[2]) * dt;
+  ILQR_HD static void step(const S* x, const S* u, T dt, T sn, T cs, S* y) {
+    y[0] = x[0] + u[0] * mcos(x[2], sn, cs) * dt;
+    y[1] = x[1] + u[0] * msin(x[2], sn, cs) * dt;
     y[2] = x[2] + u[1] * dt;
   }
 };
 
 struct Bicycle {  // ops/ilqr_soa.py::step_soa
-  static constexpr int NX = 4, NU = 2;
+  static constexpr int NX = 4, NU = 2, ANGLE = 3;
   template <typename S, typename T>
-  ILQR_HD static void step(const S* x, const S* u, T dt, S* y) {
+  ILQR_HD static void step(const S* x, const S* u, T dt, T sn, T cs, S* y) {
     const S arc = x[2] * dt + (T)0.5 * u[0] * dt * dt;
-    y[0] = x[0] + mcos(x[3]) * arc;
-    y[1] = x[1] + msin(x[3]) * arc;
+    y[0] = x[0] + mcos(x[3], sn, cs) * arc;
+    y[1] = x[1] + msin(x[3], sn, cs) * arc;
     y[2] = x[2] + u[0] * dt;
     y[3] = x[3] + u[1] * dt;
   }
@@ -165,8 +174,20 @@ struct GenericSolve {
   const T* x0;  // (NX)
   const T* xt;  // (NX)
 
+  // the sin and cos of x[ANGLE] (zeros, unused, for a model without one)
+  ILQR_HD void trig(const T* x, T& sn, T& cs) const {
+    if constexpr (Model::ANGLE >= 0) {
+      sn = msin(x[Model::ANGLE]);
+      cs = mcos(x[Model::ANGLE]);
+    } else {
+      sn = cs = (T)0;
+    }
+  }
+
   ILQR_HD void step(const T* x, const T* u, T* y) const {
-    Model::step(x, u, C.dt, y);
+    T sn, cs;
+    trig(x, sn, cs);
+    Model::step(x, u, C.dt, sn, cs, y);
   }
 
   ILQR_HD void clip_u(T* u) const {
@@ -174,11 +195,16 @@ struct GenericSolve {
     for (int a = 0; a < NU; ++a) u[a] = clip(u[a], C.u_lo[a], C.u_hi[a]);
   }
 
-  ILQR_HD void rollout(const T (&us)[N][NU], T (&xs)[N + 1][NX]) const {
+  // the rollout of us, with the sin and cos of each step's angle
+  ILQR_HD void rollout(const T (&us)[N][NU], T (&xs)[N + 1][NX],
+                       T (&sn)[N], T (&cs)[N]) const {
 #pragma unroll
     for (int c = 0; c < NX; ++c) xs[0][c] = x0[c];
 #pragma unroll
-    for (int i = 0; i < N; ++i) step(xs[i], us[i], xs[i + 1]);
+    for (int i = 0; i < N; ++i) {
+      trig(xs[i], sn[i], cs[i]);
+      Model::step(xs[i], us[i], C.dt, sn[i], cs[i], xs[i + 1]);
+    }
   }
 
   ILQR_HD T cost_of(const T (&xs)[N + 1][NX], const T (&us)[N][NU]) const {
@@ -198,8 +224,9 @@ struct GenericSolve {
   }
 
   // A[i][j] = d x'_i / d x_j, Bm[i][a] = d x'_i / d u_a: one dual pass of
-  // the step per column, the tangent one-hot on that component
-  ILQR_HD void jacobians(const T* x, const T* u, T (&A)[NX][NX],
+  // the step per column, the tangent one-hot on that component; sn, cs:
+  // the sin and cos of x[ANGLE]
+  ILQR_HD void jacobians(const T* x, const T* u, T sn, T cs, T (&A)[NX][NX],
                          T (&Bm)[NX][NU]) const {
 #pragma unroll
     for (int j = 0; j < NX + NU; ++j) {
@@ -208,7 +235,7 @@ struct GenericSolve {
       for (int c = 0; c < NX; ++c) xd[c] = {x[c], (T)(c == j ? 1 : 0)};
 #pragma unroll
       for (int a = 0; a < NU; ++a) ud[a] = {u[a], (T)(NX + a == j ? 1 : 0)};
-      Model::step(xd, ud, C.dt, yd);
+      Model::step(xd, ud, C.dt, sn, cs, yd);
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
         if (j < NX)
@@ -254,9 +281,10 @@ struct GenericSolve {
 
   // Backward Riccati pass, Jacobians at the pre-step state
   // (generic_ilqr_soa.py make_generic_core.backward). Symmetric matrices
-  // are updated on the upper triangle and mirrored.
-  ILQR_HD void backward(const T (&xs)[N + 1][NX], const T (&us)[N][NU],
-                        T lamb, T (&ks)[N][NU], T (&Ks)[N][NU][NX]) const {
+  // are updated on the upper triangle and mirrored. sn, cs: the rollout's.
+  ILQR_HD void backward(const T (&xs)[N + 1][NX], const T (&sn)[N],
+                        const T (&cs)[N], const T (&us)[N][NU], T lamb,
+                        T (&ks)[N][NU], T (&Ks)[N][NU][NX]) const {
     T dterm[NX];
 #pragma unroll
     for (int c = 0; c < NX; ++c) dterm[c] = xs[N][c] - xt[c];
@@ -270,7 +298,7 @@ struct GenericSolve {
 #pragma unroll
     for (int i = N - 1; i >= 0; --i) {
       T A[NX][NX], Bm[NX][NU];
-      jacobians(xs[i], us[i], A, Bm);
+      jacobians(xs[i], us[i], sn[i], cs[i], A, Bm);
       T dx[NX];
 #pragma unroll
       for (int c = 0; c < NX; ++c) dx[c] = xs[i][c] - xt[c];
@@ -440,17 +468,17 @@ struct GenericSolve {
   // the terminal state of the solution's rollout and its cost; returns the
   // lane's trip count.
   ILQR_HD int lm_solve(T (&us)[N][NU], T* x_last, T& cost_out) const {
-    T xs[N + 1][NX];
+    T xs[N + 1][NX], sn[N], cs[N];
     T lamb = C.lamb0;
     bool done = false;
     int it = 0;
     for (; it < C.max_iter && !done; ++it) {
 #pragma unroll
       for (int i = 0; i < N; ++i) clip_u(us[i]);
-      rollout(us, xs);
+      rollout(us, xs, sn, cs);
       const T cost = cost_of(xs, us);
       T ks[N][NU], Ks[N][NU][NX], us_new[N][NU];
-      backward(xs, us, lamb, ks, Ks);
+      backward(xs, sn, cs, us, lamb, ks, Ks);
       const T cost_new = forward(xs, us, ks, Ks, us_new);
       const bool accept = cost_new < cost;
       if (accept) {
@@ -466,7 +494,7 @@ struct GenericSolve {
     }
 #pragma unroll
     for (int i = 0; i < N; ++i) clip_u(us[i]);
-    rollout(us, xs);
+    rollout(us, xs, sn, cs);
     cost_out = cost_of(xs, us);
 #pragma unroll
     for (int c = 0; c < NX; ++c) x_last[c] = xs[N][c];
@@ -480,85 +508,117 @@ __global__ void __launch_bounds__(128)
                         const T* __restrict__ x0, const T* __restrict__ xt,
                         const T* __restrict__ u_init, T* __restrict__ us_out,
                         T* __restrict__ xl_out, T* __restrict__ cost_out,
-                        int* __restrict__ iters_out) {
+                        int* __restrict__ iters_out, int* __restrict__ counter,
+                        int n_threads) {
   constexpr int NX = Model::NX, NU = Model::NU;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  T x0l[NX], xtl[NX];
+  for (int b = blockIdx.x * blockDim.x + threadIdx.x; b < B;
+       b = next_lane(counter, n_threads)) {
+    T x0l[NX], xtl[NX];
 #pragma unroll
-  for (int c = 0; c < NX; ++c) {
-    x0l[c] = x0[c * B + b];
-    xtl[c] = xt[c * B + b];
+    for (int c = 0; c < NX; ++c) {
+      x0l[c] = x0[c * B + b];
+      xtl[c] = xt[c * B + b];
+    }
+    T us[N][NU];
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int a = 0; a < NU; ++a) us[i][a] = u_init[(NU * i + a) * B + b];
+    const GenericSolve<T, Model, N> S{C, x0l, xtl};
+    T xl[NX], cost;
+    const int iters = S.lm_solve(us, xl, cost);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int a = 0; a < NU; ++a) us_out[(NU * i + a) * B + b] = us[i][a];
+#pragma unroll
+    for (int c = 0; c < NX; ++c) xl_out[c * B + b] = xl[c];
+    cost_out[b] = cost;
+    iters_out[b] = iters;
   }
-  T us[N][NU];
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int a = 0; a < NU; ++a) us[i][a] = u_init[(NU * i + a) * B + b];
-  const GenericSolve<T, Model, N> S{C, x0l, xtl};
-  T xl[NX], cost;
-  const int iters = S.lm_solve(us, xl, cost);
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int a = 0; a < NU; ++a) us_out[(NU * i + a) * B + b] = us[i][a];
-#pragma unroll
-  for (int c = 0; c < NX; ++c) xl_out[c * B + b] = xl[c];
-  cost_out[b] = cost;
-  iters_out[b] = iters;
 }
 
 template <typename T, class Model, int N>
 int launch_generic_ilqr(const double* consts, int max_iter, int B,
                         const void* x0, const void* xt, const void* u_init,
                         void* us, void* xl, void* cost, void* iters,
-                        cudaStream_t stream) {
+                        void* counter, cudaStream_t stream) {
   const GConsts<T, Model::NX, Model::NU> C =
       make_generic_consts<T, Model::NX, Model::NU>(consts, max_iter);
-  generic_ilqr_kernel<T, Model, N><<<(B + 127) / 128, 128, 0, stream>>>(
-      C, B, (const T*)x0, (const T*)xt, (const T*)u_init, (T*)us, (T*)xl,
-      (T*)cost, (int*)iters);
-  return (int)cudaGetLastError();
+  return launch_lanes<generic_ilqr_kernel<T, Model, N>>(
+      B, (int*)counter, stream, C, B, (const T*)x0, (const T*)xt,
+      (const T*)u_init, (T*)us, (T*)xl, (T*)cost, (int*)iters);
 }
 
 template <class Model, int N>
 int launch_dtype(int dtype, const double* consts, int max_iter, int B,
                  const void* x0, const void* xt, const void* u_init, void* us,
-                 void* xl, void* cost, void* iters, cudaStream_t s) {
+                 void* xl, void* cost, void* iters, void* counter,
+                 cudaStream_t s) {
   if (dtype == 0)
     return launch_generic_ilqr<float, Model, N>(consts, max_iter, B, x0, xt,
                                                 u_init, us, xl, cost, iters,
-                                                s);
+                                                counter, s);
   if (dtype == 1)
     return launch_generic_ilqr<double, Model, N>(consts, max_iter, B, x0, xt,
                                                  u_init, us, xl, cost, iters,
-                                                 s);
+                                                 counter, s);
+  return -1;
+}
+
+template <class Model, int N>
+int attributes_dtype(int dtype, int* out) {
+  if (dtype == 0)
+    return kernel_attributes(generic_ilqr_kernel<float, Model, N>, 128, out);
+  if (dtype == 1)
+    return kernel_attributes(generic_ilqr_kernel<double, Model, N>, 128,
+                             out);
   return -1;
 }
 
 }  // namespace ilqr
 
-// dtype: 0 float32, 1 float64; model: 0 double integrator, 1 unicycle,
-// 2 bicycle (ops/fused_generic_ilqr.py MODEL_CODES); n: the horizon.
-// Returns the cudaError_t of the launch, or -1 when no kernel is
-// instantiated for (dtype, model, n).
+// (model code, model, horizon) of every instantiation: model 0 double
+// integrator, 1 unicycle, 2 bicycle (ops/fused_generic_ilqr.py MODEL_CODES)
+#define ILQR_GENERIC_CASES(CASE)  \
+  CASE(0, DoubleIntegrator, 6)    \
+  CASE(0, DoubleIntegrator, 10)   \
+  CASE(1, Unicycle, 6)            \
+  CASE(1, Unicycle, 8)            \
+  CASE(2, Bicycle, 6)
+
+// dtype: 0 float32, 1 float64; n: the horizon; counter: one int of device
+// memory the launch takes its lanes from (launch_lanes, tile.cuh). Returns
+// the cudaError_t of the launch, or -1 when no kernel is instantiated for
+// (dtype, model, n).
 extern "C" int generic_ilqr_launch(int dtype, int model, int n,
                                    const double* consts, int max_iter, int B,
                                    const void* x0, const void* xt,
                                    const void* u_init, void* us, void* xl,
-                                   void* cost, void* iters, void* stream) {
+                                   void* cost, void* iters, void* stream,
+                                   void* counter) {
   using namespace ilqr;
   if (B <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-#define ILQR_GENERIC_CASE(CODE, MODEL, HORIZON)                             \
+#define ILQR_LAUNCH_CASE(CODE, MODEL, HORIZON)                              \
   if (model == CODE && n == HORIZON)                                        \
     return launch_dtype<MODEL, HORIZON>(dtype, consts, max_iter, B, x0, xt, \
-                                        u_init, us, xl, cost, iters, s);
-  ILQR_GENERIC_CASE(0, DoubleIntegrator, 6)
-  ILQR_GENERIC_CASE(0, DoubleIntegrator, 10)
-  ILQR_GENERIC_CASE(1, Unicycle, 6)
-  ILQR_GENERIC_CASE(1, Unicycle, 8)
-  ILQR_GENERIC_CASE(2, Bicycle, 6)
-#undef ILQR_GENERIC_CASE
+                                        u_init, us, xl, cost, iters,      \
+                                        counter, s);
+  ILQR_GENERIC_CASES(ILQR_LAUNCH_CASE)
+#undef ILQR_LAUNCH_CASE
+  return -1;
+}
+
+// The loaded kernel's resources for (dtype, model, n), as the runtime
+// reports them (kernel_attributes, tile.cuh); -1 when no kernel is
+// instantiated.
+extern "C" int generic_ilqr_attributes(int dtype, int model, int n,
+                                       int* out) {
+  using namespace ilqr;
+#define ILQR_ATTRIBUTES_CASE(CODE, MODEL, HORIZON) \
+  if (model == CODE && n == HORIZON) return attributes_dtype<MODEL, HORIZON>(dtype, out);
+  ILQR_GENERIC_CASES(ILQR_ATTRIBUTES_CASE)
+#undef ILQR_ATTRIBUTES_CASE
   return -1;
 }

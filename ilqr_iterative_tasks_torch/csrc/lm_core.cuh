@@ -1,8 +1,8 @@
 // Per-lane LM-iLQR solve shared by the K1 (i2lqr_step.cu) and K3
 // (fused_ilqr.cu) kernels: one CUDA thread runs one solve. Also the safe-set
 // kNN scan and the candidate selection that both whole-step kernels, K1 and
-// K2 (nlmpc_step.cu), run per lane, and the thread-tile helpers of the
-// kernels that spread one lane over several threads (K1, nlmpc_step_all.cu).
+// K2 (nlmpc_step.cu), run per lane, and the kNN of a thread group of the
+// kernels that spread one lane over a tile of threads (tile.cuh).
 //
 // Replaces the tile math of ilqr_iterative_tasks_tpu/ops/_pallas_lm_core.py
 // (make_tile_funcs: rollout :155, cost_of :161, obs_terms :168, backward
@@ -21,6 +21,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "tile.cuh"
 
 namespace ilqr {
 
@@ -487,59 +489,6 @@ __device__ __forceinline__ void knn_rows(const T* st, size_t row_stride,
     }
   }
 }
-
-// The resources of a loaded kernel as the CUDA runtime reports them, for
-// blocks of `threads` threads: out[0] registers a thread, out[1] bytes of
-// local memory a thread (its stack frame, register spills included),
-// out[2] resident warps an SM. Returns the first failing query's
-// cudaError_t, else 0.
-template <typename F>
-int kernel_attributes(F* kernel, int threads, int* out) {
-  cudaFuncAttributes a;
-  int blocks = 0;
-  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                      threads, 0);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = blocks * threads / 32;
-  return 0;
-}
-
-// A tile of G consecutive threads of a warp (G a power of two <= 32) that
-// owns one lane. Blocks are whole warps and a lane's tile starts at a
-// multiple of G, so a tile never straddles a warp; its shuffles and ballots
-// name only its own threads, so the tiles of a warp may diverge or exit.
-template <int G>
-struct Tile {
-  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G: 1, 2, ..., 32");
-  static constexpr unsigned LOW = G == 32 ? 0xffffffffu : (1u << (G & 31)) - 1u;
-  unsigned mask;  // the tile's threads within the warp
-  int base;       // the tile's first thread within the warp
-  int rank;       // this thread's index within the tile
-
-  __device__ __forceinline__ Tile() {
-    const int wl = threadIdx.x & 31;
-    base = wl & ~(G - 1);
-    rank = wl & (G - 1);
-    mask = LOW << base;
-  }
-  // v of the tile's thread src
-  template <typename V>
-  __device__ __forceinline__ V shfl(V v, int src) const {
-    return __shfl_sync(mask, v, src, G);
-  }
-  template <typename V>
-  __device__ __forceinline__ V shfl_xor(V v, int lane_mask) const {
-    return __shfl_xor_sync(mask, v, lane_mask, G);
-  }
-  // bit q set iff the predicate holds on the tile's thread q
-  __device__ __forceinline__ unsigned ballot(bool p) const {
-    return (__ballot_sync(mask, p) >> base) & LOW;
-  }
-};
 
 // The rows knn_rows finds, by a group of K threads of a tile (K divides G,
 // the group starts at a multiple of K; s: this thread's rank in it): thread

@@ -19,7 +19,10 @@ Port of ilqr_iterative_tasks_tpu/experiments/generic_bench.py:
    the sequential and the parallel backward pass, at horizons 16-1024.
 
 Times are host-clock seconds around calls that end in a synchronize, best
-of 3 after a warm call. The runs go to the current CUDA device unless
+of 3 after a warm call. The K5 rows carry ``warp_trips`` of the call's
+``n_iters``: the LM trips a kernel that runs 32 consecutive lanes in
+lockstep, each warp to its slowest lane, would execute against those the
+lanes need. The runs go to the current CUDA device unless
 ``--device`` names another.
 
     python -m ilqr_iterative_tasks_torch.experiments.generic_bench --throughput
@@ -38,7 +41,7 @@ import numpy as np
 import torch
 
 from ilqr_iterative_tasks_torch.models import (
-    double_integrator, kinetic_bicycle)
+    double_integrator, kinetic_bicycle, unicycle)
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
 from ilqr_iterative_tasks_torch.ops.fused_generic_ilqr import (
     build_fused_generic_ilqr)
@@ -81,17 +84,35 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def best_seconds(fn, device, reps=3) -> float:
-    """Best host-clock time of ``reps`` synchronized calls after a warm one."""
+def best_seconds(fn, device, reps=3):
+    """(best host-clock time of ``reps`` synchronized calls after a warm
+    one, the last call's result)."""
     fn()
     _sync(device)
     best = np.inf
     for _ in range(reps):
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         _sync(device)
         best = min(best, time.perf_counter() - t0)
-    return best
+    return best, out
+
+
+def warp_trips(n_iters: torch.Tensor, max_iter: int, warp: int = 32) -> dict:
+    """LM trips of lanes run ``warp`` consecutive lanes at a time, each
+    group to its slowest lane, from each lane's own trip count
+    ``n_iters``: the mean trips a lane, the lanes at ``max_iter``, the mean
+    of a group's slowest lane, and executed over useful trips, where a
+    group executes its lanes' count times its slowest lane's trips (the
+    ragged last group has fewer lanes)."""
+    t = n_iters.detach().to("cpu", torch.float64).flatten()
+    groups = torch.split(t, warp)
+    slowest = torch.stack([g.max() for g in groups])
+    executed = sum(float(g.numel() * m) for g, m in zip(groups, slowest))
+    return {"mean_trips": float(t.mean()),
+            "lanes_at_cap": int((t >= max_iter).sum()),
+            "mean_warp_max": float(slowest.mean()),
+            "executed_over_useful": executed / float(t.sum())}
 
 
 def candidates(batch: int, rng, device) -> torch.Tensor:
@@ -117,6 +138,44 @@ def generic_kwargs(params: IlqrParams, limits: SystemLimits, *, max_iter,
                 dt=1.0, max_iter=max_iter, num_horizon=6)
 
 
+K5_MODELS = {"double_integrator": double_integrator, "unicycle": unicycle,
+             "bicycle": kinetic_bicycle}
+
+
+def k5_task(name: str, nh: int, b: int, device):
+    """(model, K5 settings, f64 (x0, x_term, u_init)) of a small task for
+    each model at horizon ``nh``, ``b`` lanes drawn from
+    ``np.random.default_rng(nh)``: the reach tasks of the JAX package's
+    tests/test_generic_ilqr.py with jittered targets (double integrator,
+    unicycle), and the bicycle with IlqrParams costs, cap 60."""
+    rng = np.random.default_rng(nh)
+    model = K5_MODELS[name]
+    n, m = model.X_DIM, model.U_DIM
+    x0, u0 = np.zeros((n, b)), np.zeros((nh, m, b))
+    if name == "double_integrator":
+        kw = dict(matrix_Q=np.zeros((n, n)), matrix_R=0.05 * np.eye(m),
+                  matrix_Qterminal=20.0 * np.eye(n), u_lower=-2.0 * np.ones(m),
+                  u_upper=2.0 * np.ones(m), dt=0.5)
+        xt = rng.uniform(-4, 4, (n, b))
+    elif name == "unicycle":
+        kw = dict(matrix_Q=np.zeros((n, n)), matrix_R=0.01 * np.eye(m),
+                  matrix_Qterminal=30.0 * np.eye(n),
+                  u_lower=-1.5 * np.ones(m), u_upper=1.5 * np.ones(m), dt=0.5)
+        xt = np.array([2.0, 1.0, 0.5])[:, None] + 0.5 * rng.normal(
+            size=(n, b))
+        u0 = u0 + 0.1
+    else:
+        p, lim = IlqrParams.make(device="cpu"), SystemLimits.make(device="cpu")
+        kw = generic_kwargs(p, lim, max_iter=60)
+        x0[2] = 1.0
+        xt = (np.array([20.0, 2.0, 3.0, 0.2])[:, None]
+              + np.array([8.0, 8.0, 2.0, 0.3])[:, None] * rng.normal(
+                  size=(n, b)))
+    kw.update(n=n, m=m, num_horizon=nh, max_iter=60)
+    f = lambda a: torch.tensor(a, dtype=torch.float64, device=device)
+    return model, kw, (f(x0), f(xt), f(u0))
+
+
 def throughput_inputs(batch: int, device):
     """(x0, x_terminal, u_init) of the bench.py:237-241 row."""
     rng = np.random.default_rng(0)
@@ -137,13 +196,14 @@ def bench_throughput(batch: int = 32768, max_iter: int = 150,
         double_integrator, **generic_kwargs(params, limits, max_iter=max_iter,
                                             matrix_Q=np.zeros((4, 4))))
     args = throughput_inputs(batch, device)
-    t = best_seconds(lambda: g_di(*args), device)
-    iters = g_di(*args)[3]
+    t, (_, _, _, iters) = best_seconds(lambda: g_di(*args), device)
     return {"bench": "generic_throughput", "card": card_line(device),
             "device": str(device), "batch": batch, "max_iter": max_iter,
             "double_integrator_k5_solves_per_s": round(batch / t, 1),
             "seconds": t, "mean_iters": float(iters.double().mean()),
-            "max_iters": int(iters.max()), "k5_launches": g_di.launches}
+            "max_iters": int(iters.max()),
+            "warp_trips": warp_trips(iters, max_iter),
+            "k5_launches": g_di.launches}
 
 
 def bench_kernel(batch: int = 131072, max_iter: int = 150,
@@ -162,11 +222,11 @@ def bench_kernel(batch: int = 131072, max_iter: int = 150,
     k3 = build_fused_ilqr(params, limits, 1.0, num_horizon=6,
                           max_iter=max_iter)
     obs = obstacle_to_lanes(Obstacle.absent(device=device), batch)
-    t_bike = best_seconds(lambda: k3(x0, xts, u_init, obs), device)
+    t_bike, _ = best_seconds(lambda: k3(x0, xts, u_init, obs), device)
     g_bike = build_fused_generic_ilqr(kinetic_bicycle, **gkw)
-    t_gb = best_seconds(lambda: g_bike(x0, xts, u_init), device)
+    t_gb, out_gb = best_seconds(lambda: g_bike(x0, xts, u_init), device)
     g_di = build_fused_generic_ilqr(double_integrator, **gkw)
-    t_di = best_seconds(lambda: g_di(x0, xts, u_init), device)
+    t_di, out_di = best_seconds(lambda: g_di(x0, xts, u_init), device)
     return {"bench": "generic_k5_vs_bicycle_kernel",
             "card": card_line(device), "device": str(device),
             "batch": batch, "max_iter": max_iter,
@@ -174,6 +234,9 @@ def bench_kernel(batch: int = 131072, max_iter: int = 150,
             "bicycle_k5_solves_per_s": round(batch / t_gb, 1),
             "double_integrator_k5_solves_per_s": round(batch / t_di, 1),
             "k5_vs_k3_time_ratio": round(t_gb / t_bike, 3),
+            "bicycle_k5_warp_trips": warp_trips(out_gb[3], max_iter),
+            "double_integrator_k5_warp_trips": warp_trips(out_di[3],
+                                                          max_iter),
             "k5_launches": g_bike.launches + g_di.launches,
             "k3_launches": k3.launches}
 
@@ -196,7 +259,7 @@ def bench_crossover(batch: int = 256, horizons=(16, 64, 256, 1024),
         times = {mode: best_seconds(
             lambda mode=mode: generic_ilqr_solve_candidates(
                 double_integrator.step, cfg, x0, xts, u_init, 1.0, 0.1,
-                mode), device, reps=2)
+                mode), device, reps=2)[0]
             for mode in ("sequential", "parallel")}
         rows[nh] = {m: round(v * 1e3, 2) for m, v in times.items()}
         rows[nh]["speedup"] = round(times["sequential"] / times["parallel"],

@@ -1,23 +1,38 @@
-"""K1, K2 `all` and K2 spaceVarying / timeVarying of this checkout against
-those of another checkout (an earlier commit) and of edited copies of this
-checkout's sources, in turns on one card.
+"""K1, K2 `all`, K2 spaceVarying / timeVarying, K3 and K5 of this checkout
+against those of another checkout (an earlier commit) and of edited copies
+of this checkout's sources, in turns on one card.
 
     python -m ilqr_iterative_tasks_torch.experiments.kernel_ab \\
-        --other DIR [--variant NAME FILE OLD NEW ...] \\
-        [--out chiprun_out/kernel_ab.json]
+        --other DIR [--generic] [--also NAME DIR ...] \\
+        [--variant NAME FILE OLD NEW ...] [--out chiprun_out/kernel_ab.json]
 
 DIR holds the other checkout (``DIR/ilqr_iterative_tasks_torch/csrc``, whose
-launchers keep the same C interface). A variant is a copy of this
+launchers keep the same C interface); ``--also`` names more checkouts, timed
+as every kernel beside it (the SASS is compared with the first). A variant
+is a copy of this
 checkout's csrc/ in which the text OLD of FILE is replaced by NEW (it must
 occur once), for instance K2 timeVarying at another tile width:
 
     --variant TV_G2 nlmpc_step.cu "K2_TV_G = 1;" "K2_TV_G = 2;"
 
-A variant of ``i2lqr_step.cu`` is timed as K1, one of ``nlmpc_step_all.cu``
-as K2 `all`, one of ``nlmpc_step.cu`` as K2 spaceVarying and timeVarying,
+Edits given under one NAME make one copy. A variant of ``i2lqr_step.cu`` is
+timed as K1, one of ``nlmpc_step_all.cu`` as K2 `all`, one of
+``nlmpc_step.cu`` as K2 spaceVarying and timeVarying, one of
+``fused_ilqr.cu`` as K3, one of ``generic_ilqr.cu`` or ``dual.cuh`` as K5,
 one of any other file as all of them. Every library is built at once (one
 nvcc a source); the simulators and the plain steps are this checkout's, and
 only the library the wrappers launch from changes between turns.
+
+K3 and K5 (all of it with ``--generic``, which leaves out K1 and K2): on the
+lanes of ``generic_bench.py --throughput`` (K5, the double integrator) and
+``--kernel`` (K5 on the bicycle and the double integrator, K3 with an absent
+obstacle), and on the tasks of ``generic_bench.k5_task`` (every K5
+instantiation, f32 and f64, 1 000 lanes), every library's outputs must
+equal this checkout's bit for bit; then each kernel's ms a call by CUDA
+events in turns, and the generic headline (``bench_throughput`` and
+``bench_kernel``) through each library in turns. The trips the lanes take
+(``generic_bench.warp_trips``) come from K5's ``n_iters`` and, for K3, from
+the plain solve on the first 32 768 ``--kernel`` lanes.
 
 On the inputs ``chip_smoke.py`` captures (its rule, experiments/headlines.py)
 from the i2LQR headline (K1), the `all` headline (K2 `all_rev_skip` and the
@@ -40,7 +55,8 @@ from the CUDA runtime for the libraries that export ``*_attributes``; for a
 library without them, registers and spill stores from the ``-Xptxas -v``
 log of its build, when this process built it. The kernels both checkouts
 build under the same name are compared by their SASS (``cuobjdump
--sass``). Printed as lines and one JSON object (also written to
+-sass``), and the f32 K3 and K5 kernels of every library counted
+(instructions, local loads and stores). Printed as lines and one JSON object (also written to
 ``--out``), with the card's name and power limit.
 """
 
@@ -56,23 +72,35 @@ import shutil
 import subprocess
 import time
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ilqr_iterative_tasks_torch.control import batched_nlmpc_soa, batched_soa
-from ilqr_iterative_tasks_torch.experiments.generic_bench import card_line
+from ilqr_iterative_tasks_torch.experiments.generic_bench import (
+    bench_kernel, bench_throughput, candidates, card_line, generic_kwargs,
+    k5_task, throughput_inputs, warp_trips)
 from ilqr_iterative_tasks_torch.experiments.headlines import (
     ALL_BATCH, BATCH, CAP, LAPS, MAX_LAPS, MAX_STEPS, N, NL_CAP, Headlines,
     cuda_ms, k1_capture, k2_capture, lap_records_hash, require)
 from ilqr_iterative_tasks_torch.experiments.nlmpc_profile import EventTimed
+from ilqr_iterative_tasks_torch.models import double_integrator, kinetic_bicycle
+from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
 from ilqr_iterative_tasks_torch.ops import _build
+from ilqr_iterative_tasks_torch.ops.fused_generic_ilqr import (
+    MODEL_CODES, build_fused_generic_ilqr)
+from ilqr_iterative_tasks_torch.ops.fused_ilqr import (
+    build_fused_ilqr, obstacle_to_lanes)
+from ilqr_iterative_tasks_torch.ops.ilqr_soa import ilqr_solve_soa
 from ilqr_iterative_tasks_torch.ops.nlmpc_step import build_fused_nlmpc_step
-from ilqr_iterative_tasks_torch.utils.params import LmpcParams
+from ilqr_iterative_tasks_torch.utils.params import (
+    IlqrParams, LmpcParams, SystemLimits)
 
 # the kernels a variant of each file is timed as (any other file: all)
 GROUPS = {"i2lqr_step.cu": ("k1",), "nlmpc_step_all.cu": ("all",),
-          "nlmpc_step.cu": ("k2",)}
+          "nlmpc_step.cu": ("k2",), "fused_ilqr.cu": ("k3",),
+          "generic_ilqr.cu": ("k5",), "dual.cuh": ("k5",)}
 # the f32 kernels whose resources are reported, by their attributes entry
 # and its arguments and, in a build log, by their name's prefix (K2
 # spaceVarying and timeVarying: qsort_skip, nsi 1)
@@ -85,22 +113,35 @@ RESOURCES = {
               f"nlmpc_step_kernel<float,{N},8,1>"),
     "k2_tv": ("nlmpc_step_attributes", (0, N, 8, 1, 1, 1),
               f"nlmpc_step_kernel<float,{N},8,1>"),
+    "k3": ("fused_ilqr_attributes", (0, N), f"fused_ilqr_kernel<float,{N}"),
+    "k5_double_integrator": (
+        "generic_ilqr_attributes", (0, MODEL_CODES["double_integrator"], N),
+        f"generic_ilqr_kernel<float,DoubleIntegrator,{N}"),
+    "k5_bicycle": ("generic_ilqr_attributes", (0, MODEL_CODES["bicycle"], N),
+                   f"generic_ilqr_kernel<float,Bicycle,{N}"),
 }
+# the (model, horizon) K5 instantiations, as csrc/generic_ilqr.cu's table
+K5_INSTANTIATIONS = (("bicycle", 6), ("double_integrator", 6),
+                     ("double_integrator", 10), ("unicycle", 6),
+                     ("unicycle", 8))
+G_LANES, G_KERNEL_LANES, G_CAP = 32768, 131072, 150
 
 
-def variant_csrc(name: str, file: str, old: str, new: str) -> str:
-    """A copy of this checkout's csrc/ with ``old`` replaced by ``new`` in
-    ``file``, under build/; returns its directory."""
+def variant_csrc(name: str, edits) -> str:
+    """A copy of this checkout's csrc/ with, for each (file, old, new) of
+    ``edits``, ``old`` replaced by ``new`` in ``file``, under build/;
+    returns its directory."""
     out = os.path.join(os.path.dirname(_build.BUILD_DIR), "kernel_ab", name)
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(_build.CSRC_DIR, out)
-    path = os.path.join(out, file)
-    with open(path) as f:
-        text = f.read()
-    require(text.count(old) == 1, f"variant {name}: {old!r} is not in "
-                                  f"{file} exactly once")
-    with open(path, "w") as f:
-        f.write(text.replace(old, new))
+    for file, old, new in edits:
+        path = os.path.join(out, file)
+        with open(path) as f:
+            text = f.read()
+        require(text.count(old) == 1, f"variant {name}: {old!r} is not in "
+                                      f"{file} exactly once")
+        with open(path, "w") as f:
+            f.write(text.replace(old, new))
     return out
 
 
@@ -111,11 +152,13 @@ def log_registers(log_path: str) -> dict:
     with open(log_path) as f:
         for line in f:
             m = re.search(r"Compiling entry function '_ZN4ilqr\d+(\w+?)I"
-                          r"([fd])((?:Li\d+E)+)E", line)
+                          r"([fd])(?:NS_\d+([A-Za-z]+)E)?((?:Li\d+E)+)E",
+                          line)
             if m:
-                sizes = re.findall(r"Li(\d+)E", m.group(3))
+                sizes = re.findall(r"Li(\d+)E", m.group(4))
                 dtype = "float" if m.group(2) == "f" else "double"
-                name = f"{m.group(1)}<{dtype},{','.join(sizes)}>"
+                model = [m.group(3)] if m.group(3) else []
+                name = f"{m.group(1)}<{','.join([dtype, *model, *sizes])}>"
                 continue
             m = re.search(r"(\d+) bytes spill stores", line)
             if m:
@@ -139,7 +182,7 @@ def resources(lib, path: str, built_here: bool) -> dict:
             regs = log_registers(path[:-3] + ".log")
             name = next(k for k in regs if k.startswith(prefix))
             out[key] = dict(registers=regs[name][0],
-                            spill_stores=regs[name][1],
+                            spill_stores=regs[name][1], kernel=name,
                             source="-Xptxas -v of this build")
     return out
 
@@ -164,6 +207,18 @@ def sass(path: str) -> dict | None:
         elif name:
             funcs[name].append(line.strip())
     return {k: "\n".join(v) for k, v in funcs.items()}
+
+
+def sass_counts(funcs: dict, prefixes=("_ZN4ilqr17fused_ilqr_kernelIf",
+                                        "_ZN4ilqr19generic_ilqr_kernelIf")):
+    """{kernel: (instructions, local loads, local stores)} of the f32 K3 and
+    K5 kernels in a library's SASS (``sass``)."""
+    out = {}
+    for name, text in funcs.items():
+        if name.startswith(prefixes):
+            ops = re.findall(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", text)
+            out[name] = (len(ops), ops.count("LDL"), ops.count("STL"))
+    return out
 
 
 def device_seconds(fn, key: str) -> tuple[float, float, float]:
@@ -193,51 +248,87 @@ def launching(lib):
         _build.library = keep
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", required=True)
-    ap.add_argument("--variant", nargs=4, action="append", default=[],
-                    metavar=("NAME", "FILE", "OLD", "NEW"))
-    ap.add_argument("--out", default=os.path.join("chiprun_out",
-                                                  "kernel_ab.json"))
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("kernel_ab: no CUDA device")
-    dev = torch.device("cuda", 0)
-    card = card_line(dev)
+def generic_ab(dev, libs, names_k3, names_k5) -> dict:
+    """K3 and K5 of each library on the generic benches' lanes and on
+    ``k5_task``'s tasks, then the generic headline, in turns (module
+    docstring)."""
+    params, limits = IlqrParams.make(device=dev), SystemLimits.make(device=dev)
+    bench_kw = generic_kwargs(params, limits, max_iter=G_CAP)
+    kernel_in = (torch.tensor([0.0, 0.0, 1.0, 0.0], device=dev)[:, None]
+                 .expand(4, G_KERNEL_LANES).contiguous(),
+                 candidates(G_KERNEL_LANES, np.random.default_rng(0), dev),
+                 torch.zeros((N, 2, G_KERNEL_LANES), device=dev))
+    obs = obstacle_to_lanes(Obstacle.absent(device=dev),
+                            G_KERNEL_LANES).contiguous()
+    k3 = build_fused_ilqr(params, limits, 1.0, num_horizon=N,
+                          max_iter=G_CAP)
+    cases = [
+        ("K5 --throughput double_integrator", "k5", 20,
+         build_fused_generic_ilqr(double_integrator, **generic_kwargs(
+             params, limits, max_iter=G_CAP, matrix_Q=np.zeros((4, 4)))),
+         throughput_inputs(G_LANES, dev)),
+        ("K5 --kernel bicycle", "k5", 3,
+         build_fused_generic_ilqr(kinetic_bicycle, **bench_kw), kernel_in),
+        ("K5 --kernel double_integrator", "k5", 5,
+         build_fused_generic_ilqr(double_integrator, **bench_kw), kernel_in),
+        ("K3 --kernel", "k3", 5, k3, (*kernel_in, obs)),
+    ]
+    for name, nh in K5_INSTANTIATIONS:
+        model, kw, inputs = k5_task(name, nh, 1000, dev)
+        k5 = build_fused_generic_ilqr(model, **kw)
+        for dtype in (torch.float32, torch.float64):
+            cases.append((f"K5 task {name} N{nh} {str(dtype)[6:]}", "k5", 5,
+                          k5, tuple(t.to(dtype) for t in inputs)))
+    out = {"calls": {}, "trips": {}}
+    for tag, kind, reps, kern, a in cases:
+        names = names_k3 if kind == "k3" else names_k5
+        with launching(libs["this"]):
+            ref = kern(*a)
+        for name in names:
+            with launching(libs[name]):
+                got = kern(*a)
+            require(all(torch.equal(g, w) for g, w in zip(got, ref)),
+                    f"{tag}: {name} differs from this checkout's kernel")
+        ms = {name: [] for name in names}
+        for name in names + names[::-1]:
+            with launching(libs[name]):
+                ms[name].append(cuda_ms(lambda: kern(*a), reps))
+        out["calls"][tag] = ms
+        if kind == "k5" and "task" not in tag:
+            out["trips"][tag] = warp_trips(ref[3], G_CAP)
+        print(f"[{tag}] bitwise equal; ms a call "
+              + ", ".join(f"{n} {v[0]:.3f}/{v[1]:.3f}" for n, v in ms.items())
+              + (f"; trips {json.dumps(out['trips'][tag])}"
+                 if tag in out["trips"] else ""), flush=True)
+    # K3's trips: the plain solve's own counts on the first 32 768 lanes
+    a = tuple(t[..., :G_LANES].contiguous() for t in (*kernel_in, obs))
+    trips = ilqr_solve_soa(params, limits, a[3], a[0], a[1], a[2],
+                           float(params.lamb), 1.0, num_horizon=N,
+                           max_iter=G_CAP).lane_iters
+    out["trips"]["K3 --kernel (plain, first 32 768 lanes)"] = warp_trips(
+        trips, G_CAP)
+    print(f"[K3 --kernel trips, plain solve, {G_LANES} lanes] "
+          f"{json.dumps(warp_trips(trips, G_CAP))}", flush=True)
+    # the generic headline in turns
+    heads = {name: [] for name in names_k5}
+    for name in names_k5 + names_k5[::-1]:
+        with launching(libs[name]):
+            thr = bench_throughput(G_LANES, G_CAP, device=dev)
+            ker = bench_kernel(G_KERNEL_LANES, G_CAP, device=dev)
+        keys = ("double_integrator_k5_solves_per_s",
+                "bicycle_k5_solves_per_s", "bicycle_k3_solves_per_s")
+        row = {"throughput_" + keys[0]: thr[keys[0]],
+               **{"kernel_" + k: ker[k] for k in keys}}
+        heads[name].append(row)
+        print(f"[generic headline {name}] {json.dumps(row)}", flush=True)
+    out["headline"] = heads
+    return out
 
-    # ---- every library, built at once ----
-    dirs = {"this": _build.CSRC_DIR,
-            "other": os.path.join(args.other, "ilqr_iterative_tasks_torch",
-                                  "csrc")}
-    names = {g: ["other", "this"] for g in ("k1", "all", "k2")}
-    for name, file, old, new in args.variant:
-        dirs[name] = variant_csrc(name, file, old, new)
-        for g in GROUPS.get(file, names):
-            names[g].append(name)
-    t0 = time.perf_counter()
-    # four libraries at a time, each one nvcc a source: enough to keep the
-    # host's cores busy without holding every compiler's memory at once
-    with concurrent.futures.ThreadPoolExecutor(min(len(dirs), 4)) as ex:
-        built = {name: f.result() for name, f in
-                 {n: ex.submit(_build.build, d) for n, d in dirs.items()}
-                 .items()}
-    build_s = time.perf_counter() - t0
-    libs = {name: _build.load(path) for name, (path, _) in built.items()}
-    report = dict(card=card, build_s=build_s, resources={
-        name: resources(libs[name], path, sec > 0)
-        for name, (path, sec) in built.items()})
-    print(f"[kernel_ab] {card}; build {build_s:.1f} s", flush=True)
-    for name, res in report["resources"].items():
-        print(f"[resources {name}] {json.dumps(res)}", flush=True)
-    # the kernels both checkouts build under one name: same SASS?
-    this_sass, other_sass = sass(built["this"][0]), sass(built["other"][0])
-    if this_sass is not None:
-        report["same_sass"] = {k: this_sass[k] == other_sass[k]
-                               for k in sorted(other_sass) if k in this_sass}
-        print(f"[same SASS as the other checkout] "
-              f"{json.dumps(report['same_sass'])}", flush=True)
 
+def k1_k2_ab(dev, libs, names) -> dict:
+    """K1 and K2 of each library at the headlines' captures, then their
+    headlines, in turns (module docstring)."""
+    report = {}
     # ---- captures, through this checkout's kernels ----
     hl = Headlines(dev)
     sizes = dict(max_steps=MAX_STEPS, max_laps=MAX_LAPS)
@@ -378,6 +469,75 @@ def main():
     require(hl_sv["spaceVarying_plain"]["this"]["hash"]
             == hl_sv["spaceVarying"]["this"]["hash"],
             "spaceVarying headline: qsort_skip changed the lap records")
+    return report
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", required=True)
+    ap.add_argument("--generic", action="store_true",
+                    help="K3 and K5 only (no K1, no K2)")
+    ap.add_argument("--also", nargs=2, action="append", default=[],
+                    metavar=("NAME", "DIR"))
+    ap.add_argument("--variant", nargs=4, action="append", default=[],
+                    metavar=("NAME", "FILE", "OLD", "NEW"))
+    ap.add_argument("--out", default=os.path.join("chiprun_out",
+                                                  "kernel_ab.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: no CUDA device")
+    dev = torch.device("cuda", 0)
+    card = card_line(dev)
+
+    # ---- every library, built at once ----
+    dirs = {"this": _build.CSRC_DIR,
+            "other": os.path.join(args.other, "ilqr_iterative_tasks_torch",
+                                  "csrc")}
+    names = {g: ["other", "this"] for g in ("k1", "all", "k2", "k3", "k5")}
+    for name, d in args.also:
+        dirs[name] = os.path.join(d, "ilqr_iterative_tasks_torch", "csrc")
+        for g in names:
+            names[g].append(name)
+    edits = {}
+    for name, file, old, new in args.variant:
+        edits.setdefault(name, []).append((file, old, new))
+    for name, ed in edits.items():
+        dirs[name] = variant_csrc(name, ed)
+        for g in sorted({g for file, _, _ in ed
+                         for g in GROUPS.get(file, names)}):
+            names[g].append(name)
+    t0 = time.perf_counter()
+    # four libraries at a time, each one nvcc a source: enough to keep the
+    # host's cores busy without holding every compiler's memory at once
+    with concurrent.futures.ThreadPoolExecutor(min(len(dirs), 4)) as ex:
+        built = {name: f.result() for name, f in
+                 {n: ex.submit(_build.build, d) for n, d in dirs.items()}
+                 .items()}
+    build_s = time.perf_counter() - t0
+    libs = {name: _build.load(path) for name, (path, _) in built.items()}
+    report = dict(card=card, build_s=build_s, resources={
+        name: resources(libs[name], path, sec > 0)
+        for name, (path, sec) in built.items()})
+    print(f"[kernel_ab] {card}; build {build_s:.1f} s", flush=True)
+    for name, res in report["resources"].items():
+        print(f"[resources {name}] {json.dumps(res)}", flush=True)
+    # the kernels both checkouts build under one name: same SASS?
+    this_sass, other_sass = sass(built["this"][0]), sass(built["other"][0])
+    if this_sass is not None:
+        report["same_sass"] = {k: this_sass[k] == other_sass[k]
+                               for k in sorted(other_sass) if k in this_sass}
+        print(f"[same SASS as the other checkout] "
+              f"{json.dumps(report['same_sass'])}", flush=True)
+        report["sass_counts"] = {
+            name: sass_counts({"this": this_sass, "other": other_sass}.get(
+                name) or sass(path)) for name, (path, _) in built.items()}
+        for name, counts in report["sass_counts"].items():
+            print(f"[SASS instructions, local loads, local stores {name}] "
+                  f"{json.dumps(counts)}", flush=True)
+
+    report["generic"] = generic_ab(dev, libs, names["k3"], names["k5"])
+    if not args.generic:
+        report.update(k1_k2_ab(dev, libs, names))
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)

@@ -22,9 +22,9 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-SOURCES = ("lm_core.cuh", "nlmpc_core.cuh", "dual.cuh", "fused_ilqr.cu",
-           "i2lqr_step.cu", "fused_lm_shooting.cu", "nlmpc_step.cu",
-           "nlmpc_step_all.cu", "generic_ilqr.cu")
+SOURCES = ("tile.cuh", "lm_core.cuh", "nlmpc_core.cuh", "dual.cuh",
+           "fused_ilqr.cu", "i2lqr_step.cu", "fused_lm_shooting.cu",
+           "nlmpc_step.cu", "nlmpc_step_all.cu", "generic_ilqr.cu")
 # Precise sin/cos/exp, IEEE division and sqrt (no --use_fast_math), and no
 # FMA contraction (-fmad=false): the kernels then round operation by
 # operation as the plain torch version does, which the LM accept/reject
@@ -37,8 +37,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     # dtype, n, consts, max_iter, B, x0, x_term, u_init, obs, skip,
-    # us, x_last, cost, dist, stream
-    "fused_ilqr_launch": [_I, _I, _P, _I, _I] + [_P] * 10,
+    # us, x_last, cost, dist, stream, counter (one int32 the launch takes
+    # its lanes from)
+    "fused_ilqr_launch": [_I, _I, _P, _I, _I] + [_P] * 11,
     # dtype, n, k, nsi, consts, max_iter, B, T, max_laps, x, g0, states,
     # qfun, lap_len, lap_ids, lap_ok, obs, skip, us, shrink, idx, row,
     # stream
@@ -55,8 +56,8 @@ _ARGTYPES = {
     # new_guess, idx, row, succ, stream
     "nlmpc_step_all_launch": [_I] * 4 + [_P] + [_I] * 3 + [_P] * 18,
     # dtype, model, n, consts, max_iter, B, x0, x_term, u_init, us, x_last,
-    # cost, n_iters, stream
-    "generic_ilqr_launch": [_I, _I, _I, _P, _I, _I] + [_P] * 8,
+    # cost, n_iters, stream, counter
+    "generic_ilqr_launch": [_I, _I, _I, _P, _I, _I] + [_P] * 9,
 }
 
 
@@ -72,6 +73,8 @@ def _nvcc() -> str:
 def library_path(csrc_dir: str = CSRC_DIR) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
+        if not os.path.exists(os.path.join(csrc_dir, name)):
+            continue  # a header an earlier checkout does not have
         with open(os.path.join(csrc_dir, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR,
@@ -133,8 +136,9 @@ def attributes(lib: ctypes.CDLL, entry: str, *sizes: int) -> dict:
     SM of a loaded kernel, as the CUDA runtime reports them: ``entry`` is
     the library's ``*_attributes`` function (i2lqr_step_attributes: dtype,
     n, k, nsi; nlmpc_step_all_attributes: dtype, n; nlmpc_step_attributes:
-    dtype, n, k, nsi, time_varying, qsort), ``sizes`` its arguments before
-    the output."""
+    dtype, n, k, nsi, time_varying, qsort; fused_ilqr_attributes: dtype, n;
+    generic_ilqr_attributes: dtype, model, n), ``sizes`` its arguments
+    before the output."""
     out = (ctypes.c_int * 3)()
     check_launch(getattr(lib, entry)(*(ctypes.c_int(s) for s in sizes), out),
                  entry)

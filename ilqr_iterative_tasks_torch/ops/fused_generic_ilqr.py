@@ -101,6 +101,7 @@ class FusedGenericIlqr:
         x_last = torch.empty((n, b), dtype=dtype, device=dev)
         cost = torch.empty((b,), dtype=dtype, device=dev)
         n_iters = torch.empty((b,), dtype=torch.int32, device=dev)
+        counter = torch.empty((1,), dtype=torch.int32, device=dev)
         lib = _build.library()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -108,7 +109,7 @@ class FusedGenericIlqr:
                 DTYPE_CODES[dtype], code, nh, self._consts, self.max_iter, b,
                 x0.data_ptr(), x_terminal.data_ptr(), u_init.data_ptr(),
                 us.data_ptr(), x_last.data_ptr(), cost.data_ptr(),
-                n_iters.data_ptr(), stream)
+                n_iters.data_ptr(), stream, counter.data_ptr())
         _build.check_launch(rc, "generic_ilqr")
         self.launches += 1
         return us, x_last, cost, n_iters

@@ -97,6 +97,7 @@ class FusedIlqr:
         x_last = torch.empty((4, b), dtype=dtype, device=dev)
         cost = torch.empty((b,), dtype=dtype, device=dev)
         dist = torch.empty((b,), dtype=dtype, device=dev)
+        counter = torch.empty((1,), dtype=torch.int32, device=dev)
         lib = _build.library()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -105,7 +106,7 @@ class FusedIlqr:
                 x0.data_ptr(), x_term.data_ptr(), u_init.data_ptr(),
                 obs.data_ptr(), None if skip is None else skip.data_ptr(),
                 us.data_ptr(), x_last.data_ptr(), cost.data_ptr(),
-                dist.data_ptr(), stream)
+                dist.data_ptr(), stream, counter.data_ptr())
         _build.check_launch(rc, "fused_ilqr")
         self.launches += 1
         return us, x_last, cost, dist

@@ -16,9 +16,11 @@ from ilqr_iterative_tasks_torch.control.batched_nlmpc_soa import (
     default_options, lap_window, simulate_nlmpc_runs_soa)
 from ilqr_iterative_tasks_torch.control.batched_soa import (
     SoaScenarios, _step_solver_inputs, simulate_learning_runs_soa)
-from ilqr_iterative_tasks_torch.models import (
-    double_integrator, kinetic_bicycle, unicycle)
+from ilqr_iterative_tasks_torch.experiments.generic_bench import (
+    candidates, generic_kwargs, k5_task, throughput_inputs)
+from ilqr_iterative_tasks_torch.models import double_integrator
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
+from ilqr_iterative_tasks_torch.ops import _build
 from ilqr_iterative_tasks_torch.ops.fused_generic_ilqr import (
     build_fused_generic_ilqr, fused_generic_ilqr_reference)
 from ilqr_iterative_tasks_torch.ops.fused_ilqr import (
@@ -28,6 +30,7 @@ from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
     obstacle_to_lanes_nlmpc)
 from ilqr_iterative_tasks_torch.ops.i2lqr_step import (
     build_fused_i2lqr_step, i2lqr_step_reference)
+from ilqr_iterative_tasks_torch.ops.ilqr_soa import ilqr_solve_soa
 from ilqr_iterative_tasks_torch.ops.nlmpc_step import (
     build_fused_nlmpc_step, nlmpc_step_reference)
 from ilqr_iterative_tasks_torch.sim.seed import seed_trajectory
@@ -594,8 +597,6 @@ def test_simulators_launch_their_own_kernels_without_a_step_solver(dev):
 
 
 # ---- the generic tier: K5 (mirroring chip_smoke.py phase 11) ----
-G_MODELS = {"double_integrator": double_integrator, "unicycle": unicycle,
-            "bicycle": kinetic_bicycle}
 # (model, horizon) of the ILQR_GENERIC_CASE lines of csrc/generic_ilqr.cu
 INSTANTIATIONS = [("bicycle", 6), ("double_integrator", 6),
                   ("double_integrator", 10), ("unicycle", 6), ("unicycle", 8)]
@@ -604,37 +605,9 @@ INSTANTIATIONS = [("bicycle", 6), ("double_integrator", 6),
 def _k5_problem(name, nh, b, dev):
     """(model, K5 settings, f64 (x0, x_term, u_init)): the
     tests/test_generic_ilqr.py tasks with jittered targets, and the bicycle
-    with IlqrParams costs."""
-    rng = np.random.default_rng(nh)
-    model = G_MODELS[name]
-    n, m = model.X_DIM, model.U_DIM
-    x0, u0 = np.zeros((n, b)), np.zeros((nh, m, b))
-    if name == "double_integrator":
-        kw = dict(matrix_Q=np.zeros((n, n)), matrix_R=0.05 * np.eye(m),
-                  matrix_Qterminal=20.0 * np.eye(n), u_lower=-2.0 * np.ones(m),
-                  u_upper=2.0 * np.ones(m), dt=0.5)
-        xt = rng.uniform(-4, 4, (n, b))
-    elif name == "unicycle":
-        kw = dict(matrix_Q=np.zeros((n, n)), matrix_R=0.01 * np.eye(m),
-                  matrix_Qterminal=30.0 * np.eye(n),
-                  u_lower=-1.5 * np.ones(m), u_upper=1.5 * np.ones(m), dt=0.5)
-        xt = np.array([2.0, 1.0, 0.5])[:, None] + 0.5 * rng.normal(
-            size=(n, b))
-        u0 = u0 + 0.1
-    else:
-        p, l = IlqrParams.make(device="cpu"), SystemLimits.make(device="cpu")
-        f64 = lambda t: t.double().numpy()
-        kw = dict(matrix_Q=f64(p.matrix_Q), matrix_R=f64(p.matrix_R),
-                  matrix_Qterminal=f64(p.matrix_Qterminal),
-                  u_lower=[-float(l.a_max), -float(l.delta_max_r)],
-                  u_upper=[float(l.a_max), float(l.delta_max_r)], dt=1.0)
-        x0[2] = 1.0
-        xt = (np.array([20.0, 2.0, 3.0, 0.2])[:, None]
-              + np.array([8.0, 8.0, 2.0, 0.3])[:, None] * rng.normal(
-                  size=(n, b)))
-    kw.update(n=n, m=m, num_horizon=nh, max_iter=60)
-    f = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)
-    return model, kw, (f(x0), f(xt), f(u0))
+    with IlqrParams costs (generic_bench.k5_task, which kernel_ab.py runs
+    too)."""
+    return k5_task(name, nh, b, dev)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -672,3 +645,127 @@ def test_k5_raises_where_nothing_is_instantiated(dev):
         k5(a[0], a[1], torch.zeros((7, 2, 256), dtype=torch.float64,
                                    device=dev))
     assert k5.launches == 0
+
+
+# ---- K3 and K5 bitwise against their plain versions at the edges of the
+# lane queue: lanes refilled as they finish (tile.cuh launch_lanes), a grid
+# of what the card holds, warps whose lanes take 1 trip or the cap ----
+def _equal(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def _resident_threads(entry, *sizes):
+    """Threads of a kernel the card holds at once: its resident warps an SM
+    (from the CUDA runtime) x 32 x the SMs; no grid holds more
+    lanes."""
+    att = _build.attributes(_build.library(), entry, *sizes)
+    return (att["warps_per_sm"] * 32
+            * torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def _k3_kernel_lanes(b, dtype, dev):
+    """generic_bench --kernel's first b lanes (absent obstacle)."""
+    x0 = torch.tensor([0.0, 0.0, 1.0, 0.0], device=dev)[:, None].expand(
+        4, b).contiguous()
+    xts = candidates(b, np.random.default_rng(0), dev)
+    obs = obstacle_to_lanes(Obstacle.absent(device=dev), b).contiguous()
+    return tuple(t.to(dtype) for t in (x0, xts, torch.zeros((N, 2, b),
+                                                            device=dev), obs))
+
+
+def _cap_among_one_trip(trips, b):
+    """Indices of b lanes: the first lane that takes the cap, 150 trips, at
+    b // 2 among lanes that take 1 trip (repeated as needed)."""
+    slow = torch.nonzero(trips == 150).flatten()[:1]
+    fast = torch.nonzero(trips == 1).flatten()
+    assert len(slow) == 1 and len(fast) > 0
+    idx = fast[torch.arange(b - 1, device=fast.device) % len(fast)]
+    return torch.cat([idx[:b // 2], slow, idx[b // 2:]])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k3_lane_at_the_cap_among_one_trip_lanes_is_bitwise(dev, dtype):
+    p, l = IlqrParams.make(), SystemLimits.make()
+    a = _k3_kernel_lanes(4096, dtype, dev)
+    trips = ilqr_solve_soa(p, l, a[3], a[0], a[1], a[2], float(p.lamb), 1.0,
+                           num_horizon=N, max_iter=150).lane_iters
+    idx = _cap_among_one_trip(trips, 1000)
+    a = tuple(t[..., idx].contiguous() for t in a)
+    want_trips = ilqr_solve_soa(p, l, a[3], a[0], a[1], a[2],
+                                float(p.lamb), 1.0, num_horizon=N,
+                                max_iter=150).lane_iters
+    assert sorted(want_trips.tolist()) == [1] * 999 + [150]
+    k3 = build_fused_ilqr(p, l, 1.0, num_horizon=N, max_iter=150)
+    got = k3(*a)
+    _equal(got, fused_ilqr_reference(p, l, 1.0, *a, num_horizon=N,
+                                     max_iter=150))
+    assert k3.launches == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k5_lane_at_the_cap_among_one_trip_lanes_is_bitwise(dev, dtype):
+    p, l = IlqrParams.make(), SystemLimits.make()
+    k5 = build_fused_generic_ilqr(double_integrator, **generic_kwargs(
+        p, l, max_iter=150, matrix_Q=np.zeros((4, 4))))
+    a = tuple(t.to(dtype) for t in throughput_inputs(4096, dev))
+    idx = _cap_among_one_trip(k5.plain(*a)[3], 1000)
+    a = tuple(t[..., idx].contiguous() for t in a)
+    got, want = k5(*a), k5.plain(*a)
+    assert sorted(want[3].tolist()) == [1] * 999 + [150]
+    _equal(got, want)
+    assert k5.launches == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k3_every_lane_skipped_is_the_rollout(dev, dtype):
+    p, l = IlqrParams.make(), SystemLimits.make()
+    k3 = build_fused_ilqr(p, l, 1.0, num_horizon=N, max_iter=CAP)
+    a = _lanes(257, dtype, dev)
+    a = (a[0], a[1], torch.full_like(a[2], 0.3), a[3])
+    skip = torch.ones(257, device=dev)
+    got = k3(*a, skip)
+    want = fused_ilqr_reference(p, l, 1.0, *a, skip, num_horizon=N,
+                                max_iter=CAP)
+    _equal(got, want)
+    # no LM trip: the initial inputs (inside the bounds) come back
+    assert torch.equal(got[0], a[2])
+
+
+# B = 1, 33 (not a multiple of a warp), 1000 (all below the resident grid)
+# and twice the threads the card holds (every thread refilled)
+LANE_COUNTS = ["1", "33", "1000", "beyond_the_grid"]
+
+
+def _lane_count(b, entry, *sizes):
+    return (2 * _resident_threads(entry, *sizes) if b == "beyond_the_grid"
+            else int(b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b", LANE_COUNTS)
+def test_k3_lane_counts_are_bitwise(dev, b, dtype):
+    code = 0 if dtype == torch.float32 else 1
+    b = _lane_count(b, "fused_ilqr_attributes", code, N)
+    p, l = IlqrParams.make(), SystemLimits.make()
+    k3 = build_fused_ilqr(p, l, 1.0, num_horizon=N, max_iter=CAP)
+    a = _lanes(b, dtype, dev, seed=b)
+    skip = (torch.arange(b, device=dev) % 7 == 3).float()
+    _equal(k3(*a, skip), fused_ilqr_reference(p, l, 1.0, *a, skip,
+                                              num_horizon=N, max_iter=CAP))
+    _equal(k3(*a), fused_ilqr_reference(p, l, 1.0, *a, num_horizon=N,
+                                        max_iter=CAP))
+    assert k3.launches == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b", LANE_COUNTS)
+def test_k5_lane_counts_are_bitwise(dev, b, dtype):
+    code = 0 if dtype == torch.float32 else 1
+    b = _lane_count(b, "generic_ilqr_attributes", code, 0, N)
+    p, l = IlqrParams.make(), SystemLimits.make()
+    k5 = build_fused_generic_ilqr(double_integrator, **generic_kwargs(
+        p, l, max_iter=150, matrix_Q=np.zeros((4, 4))))
+    a = tuple(t.to(dtype) for t in throughput_inputs(b, dev))
+    _equal(k5(*a), k5.plain(*a))
+    assert k5.launches == 1

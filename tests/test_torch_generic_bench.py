@@ -5,6 +5,7 @@ are contiguous, as the kernels on the card require."""
 import json
 
 import numpy as np
+import pytest
 import torch
 
 from ilqr_iterative_tasks_torch.experiments import generic_bench as gb
@@ -64,3 +65,24 @@ def test_card_line_picks_the_device_by_pci_address_or_uuid(monkeypatch):
                                  "(nvidia-smi hides the cards' PCI "
                                  "addresses)")
     assert gb.card_line(CPU) == "cpu"
+
+
+def test_warp_trips_counts_each_group_to_its_slowest_lane():
+    # the plain K5's own trip counts on 70 --throughput lanes: two whole
+    # groups of 32 and a ragged one of 6
+    p = gb.IlqrParams.make(device="cpu")
+    lim = gb.SystemLimits.make(device="cpu")
+    k5 = gb.build_fused_generic_ilqr(gb.double_integrator, **gb.generic_kwargs(
+        p, lim, max_iter=40, matrix_Q=np.zeros((4, 4))))
+    trips = k5.plain(*gb.throughput_inputs(70, CPU))[3]
+    t = [int(v) for v in trips]
+    assert max(t) > min(t)  # the lanes differ, so the groups waste trips
+    executed = sum(len(t[i:i + 32]) * max(t[i:i + 32]) for i in (0, 32, 64))
+    got = gb.warp_trips(trips, 40)
+    assert got["lanes_at_cap"] == sum(v == 40 for v in t)
+    assert got["mean_trips"] == pytest.approx(sum(t) / 70)
+    assert got["mean_warp_max"] == pytest.approx(
+        (max(t[:32]) + max(t[32:64]) + max(t[64:])) / 3)
+    assert got["executed_over_useful"] == pytest.approx(executed / sum(t))
+    # one group of one lane each wastes nothing
+    assert gb.warp_trips(trips, 40, warp=1)["executed_over_useful"] == 1.0
