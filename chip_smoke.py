@@ -8,8 +8,10 @@ each against its plain torch version on the card, and drives the port's
 main paths: the batched i2LQR learning run through the whole-step kernel K1,
 the batched NLMPC learning run through the whole-step kernel K2 in each
 safe-set mode (spaceVarying, timeVarying, all), each a seed lap + 3
-learning laps with plant noise on in f32, and the generic-system tier's
-benchmarks through the generic LM-iLQR kernel K5. Phases:
+learning laps with plant noise on in f32, the randomized moving-obstacle
+sweep through K1 (k = 8, with and without the stall_reseed guard, and
+k = 32 over 4 stored laps), and the generic-system tier's benchmarks
+through the generic LM-iLQR kernel K5. Phases:
 
 1. device: the card's name and power limit;
 2. build: nvcc of the six kernel sources (one process per source), with
@@ -76,7 +78,28 @@ benchmarks through the generic LM-iLQR kernel K5. Phases:
    60): f64 must give the host controller's laps exactly;
 18. the all headline through K2 with all_rev_skip (bench.py:218-221 without
    retile_frac: B = 8 192, nsi 1, cap 12, infeasible_retire 8): a warm run,
-   whose K2 launches are counted, and two timed runs, as phase 15's.
+   whose K2 launches are counted, and two timed runs, as phase 15's;
+19. K1 at k = 32 (a block of nsi x 32 threads a lane) against its plain
+   step on inputs captured from phase 21's k32_nsi4 run (lap 1 early, lap 2
+   mid, lap 4, where most lanes' stored laps are shorter than 32 rows), at
+   nsi = 4 and at nsi = 2 on the captures' last two stored laps: f32 bit
+   for bit, f64 cast up at phase 4's gates, with both per-step times and
+   phase 2's registers and warps; and the k = 8 K1 on inputs captured
+   from the k8_nsi1_sr3 run at the first step of each lap where some
+   active lane's pass-0 guess is the goal;
+20. a zero-noise i2LQR closed loop through K1 at k = 32 / nsi = 2 (f64,
+   1024 identical lanes, cap 150, 4 laps): the host controller's laps
+   exactly;
+21. the robustness sweep (bench.py:250-270): experiments/scenario_sweep.py
+   ``run_sweep`` at B = 4 096, 4 laps, moving obstacle, seed 0, in the
+   canary's three configurations (k8_nsi1, k8_nsi1_sr3, k32_nsi4), each
+   through K1, whose launches are counted and must equal the simulator's
+   steps with active lanes; completion, final-lap mean, lap-step p50s,
+   wall seconds and lap-records hash of each; the guard and the larger
+   candidate set must complete more and finish the last lap sooner than
+   k8_nsi1, and each completion stay at or above its bound; then the
+   i2LQR headline scenario at B = 4 096 with and without stall_reseed=3,
+   which must lie within utils/envelope.py's behaviour envelope.
 
 Every phase raises on failure, so the script exits non-zero. It prints the
 card line and a JSON line of the kernels before its last line, which is
@@ -114,9 +137,10 @@ from ilqr_iterative_tasks_torch.control.batched_nlmpc_soa import (  # noqa: E402
 # the headlines, capture rule, timing and lap-records hash that
 # experiments/kernel_ab.py shares
 from ilqr_iterative_tasks_torch.experiments.headlines import (  # noqa: E402
-    ALL_BATCH, BATCH, CAP, CAPTURES, LAPS, MAX_LAPS, MAX_STEPS, N, NL_CAP,
-    NL_CAPTURES, Headlines, cuda_ms, k1_capture, k2_capture,
-    lap_records_hash, require)
+    ALL_BATCH, BATCH, CAP, CAPTURES, K1_ATTRS, LAPS, MAX_LAPS, MAX_STEPS, N,
+    NL_CAP, NL_CAPTURES, SWEEP_BATCH, SWEEP_CAP, SWEEP_CAPTURES,
+    SWEEP_CONFIGS, SWEEP_LAPS, Capture, Headlines, cuda_ms, k1_capture,
+    k2_capture, lap_records_hash, require, sweep_capture, sweep_step_solver)
 
 K3_LANES = 8 * BATCH
 ZERO_NOISE_LAPS = [55, 28, 24]  # CPU XLA f32 family, docs/PARITY.md:146
@@ -142,6 +166,16 @@ ALL_COMPLETION_MIN = 0.940
 # agree with the plain version (-fmad=false: so far bitwise)
 F32_TOL = 1e-5
 HOST_NLMPC_LAPS = [32, 23, 23]  # host controller, f64, tests/test_batched_nlmpc_soa.py:171
+# host controller, f64, k = 32 / nsi = 2, 4 laps: the JAX package's
+# I2LqrController run as tests/test_ragged_selection.py:107-146 runs it
+# (computed once on the CPU; the port's plain f64 loop gives the same)
+HOST_K32_LAPS = [26, 23, 23, 23]
+# robustness sweep lap completion bounds (B = 4 096, 4 laps, seed 0): 3
+# standard errors of one run under the card's seed-0 figure, 0.9500
+# (standard error 0.0017), 0.9802 (0.0011) and 0.9943 (0.0006); the TPU's
+# 0.9531 / 0.98 / 0.9957 are its own f32 (PERF.md)
+SWEEP_COMPLETION_MIN = {"k8_nsi1": 0.944, "k8_nsi1_sr3": 0.976,
+                        "k32_nsi4": 0.992}
 G_LANES = 32768  # generic_bench --throughput (bench.py:229)
 G_KERNEL_LANES = 131072  # generic_bench --kernel (generic_bench.py:164)
 G_F64_LANES = 32768  # lanes of the f64 plain solve in phase 11
@@ -467,6 +501,28 @@ def lane_obstacle(rng, b, dev):
             lambda a: torch.tensor(a, dtype=torch.float64, device=dev))
 
 
+def k1_gate(tag, out, ref, active, dtype):
+    """Phase 4's gates of a K1 output against its plain step's (>= 99.9 %
+    equal decisions and max|dus| <= 1e-6 on them in f64, >= 99 % in f32),
+    and in f32 every output equal bit for bit. Returns the check's line
+    and max|dus| on the agreeing lanes."""
+    require(bool(torch.isfinite(out[0]).all()), f"{tag}: non-finite us")
+    agree = ((out[1] == ref[1]) & (out[2] == ref[2])
+             & (out[3] == ref[3]))[active]
+    dus = (out[0] - ref[0]).abs().amax(dim=(0, 1))[active][agree]
+    share = float(agree.double().mean())
+    maxd = float(dus.max()) if dus.numel() else 0.0
+    bitwise = all(torch.equal(g, w) for g, w in zip(out, ref))
+    if dtype == torch.float64:
+        require(share >= 0.999 and maxd <= 1e-6,
+                f"{tag} f64: agreement {share}, {maxd}")
+    else:
+        require(share >= 0.99 and bitwise,
+                f"{tag} f32: agreement {share}, bitwise {bitwise}")
+    return (f"decisions agree {share:.6f}, max|dus| on them {maxd:.3e}, "
+            f"bitwise {bitwise}"), maxd
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -520,11 +576,12 @@ def main():
                     or "Compiling entry" in line):
                 print("   ", line.strip())
     lib = _build.library()
-    # the loaded f32 K1 (nsi 1), K2 all, K2 spaceVarying / timeVarying
-    # (qsort_skip, nsi 1), K3 and K5 (N = 6), as the CUDA runtime reports
-    # them
+    # the loaded f32 K1 (k 8 / nsi 1 and k 32 / nsi 4), K2 all, K2
+    # spaceVarying / timeVarying (qsort_skip, nsi 1), K3 and K5 (N = 6), as
+    # the CUDA runtime reports them
     occupancy = dict(
         k1=_build.attributes(lib, "i2lqr_step_attributes", 0, N, 8, 1),
+        k1_k32=_build.attributes(lib, "i2lqr_step_attributes", 0, N, 32, 4),
         k2_all=_build.attributes(lib, "nlmpc_step_all_attributes", 0, N),
         k2_sv=_build.attributes(lib, "nlmpc_step_attributes", 0, N, 8, 1, 0,
                                 1),
@@ -1049,6 +1106,190 @@ def main():
     all_rate, _ = timed("18 all headline", all_params, scen_all, k2_all,
                         ALL_BATCH, all_completion, all_steps, all_launches)
 
+    # ---- 21a. the robustness sweep through K1 (captures phases 19) ----
+    from ilqr_iterative_tasks_torch.experiments.scenario_sweep import (
+        run_sweep)
+    from ilqr_iterative_tasks_torch.utils.envelope import (
+        assert_behavior_envelope)
+
+    def goal_guess(lap, i, a):
+        """some active lane's pass-0 guess is not its state: the goal"""
+        return bool(((a[1] != a[0]).any(dim=0) & (a[8] < 0.5)).any())
+
+    wants = {"k8_nsi1": lambda lap, i, a: False, "k8_nsi1_sr3": goal_guess}
+    sweep, sweep_caps, sweep_k1 = {}, {}, {}
+    for tag, k, nsi, sr in SWEEP_CONFIGS:
+        wrap = (sweep_capture if tag == "k32_nsi4"
+                else lambda kk, w=wants[tag]: Capture(kk, K1_ATTRS, 5, w))
+        with sweep_step_solver(k, nsi, wrap, device=dev) as (k1s, cap_s):
+            for kk in (k1, k1s, k3, k4):
+                kk.launches = 0
+            runs = []
+            rep = run_sweep(SWEEP_BATCH, SWEEP_LAPS, moving=True,
+                            num_ss_points=k, num_ss_iter=nsi,
+                            stall_reseed=sr, quiet=True, device=dev,
+                            result=runs)
+            launches = k1s.launches
+        calls = sum(cap_s.calls.values())
+        require(launches > 0 and launches == calls,
+                f"sweep {tag}: K1 launched {launches} times on {calls} "
+                f"steps with active lanes")
+        res = runs[0]
+        require(bool(torch.isfinite(res.safe_set[0]).all()),
+                f"sweep {tag}: non-finite safe set")
+        p_done = float(res.lap_done.float().mean())
+        se = (p_done * (1 - p_done) / res.lap_done.numel()) ** 0.5
+        rep.update(launches=launches, hash=lap_records_hash(res),
+                   completion=p_done, completion_se=se)
+        sweep[tag], sweep_caps[tag], sweep_k1[tag] = rep, cap_s, k1s
+        print(f"[21 sweep {tag}] B={SWEEP_BATCH} completion "
+              f"{rep['completion_rate']:.4f} (standard error {se:.5f}), "
+              f"final-lap mean {rep['final_lap_mean']}, lap-step p50s "
+              f"{rep['lap_steps_p50']}, p95s {rep['lap_steps_p95']}, wall "
+              f"{rep['wall_s']} s ({rep['lap_sims_per_s']} lap-sims/s), K1 "
+              f"launches {launches}, lap records {rep['hash']}", flush=True)
+        del res, runs
+    base = sweep["k8_nsi1"]
+    for tag in ("k8_nsi1_sr3", "k32_nsi4"):
+        require(sweep[tag]["completion"] > base["completion"]
+                and sweep[tag]["final_lap_mean"] < base["final_lap_mean"],
+                f"sweep {tag}: completion {sweep[tag]['completion']} / "
+                f"final-lap mean {sweep[tag]['final_lap_mean']} against "
+                f"k8_nsi1's {base['completion']} / {base['final_lap_mean']}")
+    for tag, rep in sweep.items():
+        require(rep["completion"] >= SWEEP_COMPLETION_MIN[tag],
+                f"sweep {tag}: completion {rep['completion']} < "
+                f"{SWEEP_COMPLETION_MIN[tag]}")
+
+    # ---- 19. K1 at k = 32 against its plain step on the k32_nsi4 run's
+    # captures, at nsi 4 and 2; the k = 8 K1 where the guard re-seeds ----
+    k32 = sweep_k1["k32_nsi4"]
+    p32 = IlqrParams.make(num_ss_points=32, num_ss_iter=4)
+    p32_2 = IlqrParams.make(num_ss_points=32, num_ss_iter=2)
+    host_p32 = IlqrParams.make(num_ss_points=32, num_ss_iter=4, device="cpu")
+    k32_2 = build_fused_i2lqr_step(p32_2, limits, 1.0, num_horizon=N,
+                                   max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+                                   max_iter=SWEEP_CAP)
+    captured = sweep_caps["k32_nsi4"].captured
+    require(sorted(captured) == sorted(SWEEP_CAPTURES),
+            f"k32 sweep captured {sorted(captured)}")
+    k32_stats = dict(max_abs_err=0.0)
+    for lap, (step, args) in sorted(captured.items()):
+        active = args[8] < 0.5
+        n_act = int(active.sum())
+        require(n_act > 0, f"k32 capture lap {lap}: no active lane")
+        last = args[4][int(args[5][-1])]
+        short = float((last[active] < 32).double().mean())
+        for dtype in (torch.float32, torch.float64):
+            a = cast(args, dtype, keep=(8,))
+            out = k32(*a)
+            trips = []
+            ref, plain = timed_call(lambda: i2lqr_step_reference(
+                p32, limits, 1.0, *a, max_iter=SWEEP_CAP, trips=trips))
+            gate, maxd = k1_gate(f"19 K1 k32 lap {lap}", out, ref, active,
+                                 dtype)
+            a2 = list(a)
+            a2[5], a2[6] = a[5][-2:].contiguous(), a[6][-2:].contiguous()
+            out2 = k32_2(*a2)
+            ref2, plain2 = timed_call(lambda: i2lqr_step_reference(
+                p32_2, limits, 1.0, *a2, max_iter=SWEEP_CAP))
+            gate2, maxd2 = k1_gate(f"19 K1 k32 nsi 2 lap {lap}", out2, ref2,
+                                   active, dtype)
+            line = (f"[19 K1 k32 lap {lap} step {step} {str(dtype)[6:]}] "
+                    f"active {n_act} (last stored lap under 32 rows on "
+                    f"{short:.3f} of them), lap_ok {a[6].tolist()}: nsi 4 "
+                    f"{gate}; nsi 2 {gate2}")
+            if dtype == torch.float32:
+                k32_stats["max_abs_err"] = max(k32_stats["max_abs_err"],
+                                               maxd, maxd2)
+                ms = cuda_ms(lambda: k32(*a), 10)
+                ms2 = cuda_ms(lambda: k32_2(*a2), 10)
+                line += (f"; kernel {ms:.3f} ms (nsi 2 {ms2:.3f}), plain "
+                         f"{plain:.3f} ms (nsi 2 {plain2:.3f}) per step")
+                if lap == 2:
+                    b_all = args[0].shape[-1]
+                    idx = torch.nonzero(active).flatten()[:SAMPLE_LANES]
+                    sample = lanes_of(a, idx.cpu(), b_all)
+                    iters, mean_trips, _ = step_iters(trips, active)
+                    k32_stats.update(ms=ms, plain_ms=plain, nsi2_ms=ms2,
+                                     nsi2_plain_ms=plain2,
+                                     mean_iters=mean_trips, **bound(
+                        solve_ops(lambda max_iter: i2lqr_step_reference(
+                            host_p32, host_limits, 1.0, *sample,
+                            max_iter=max_iter), "max_iter", len(idx), n_act,
+                            iters), step_bytes(a, out, (2, 3), k32.nsi)))
+                    line += (f"; bound {k32_stats['bound_ms']:.4f} ms by "
+                             f"{k32_stats['bound_by']} ({mean_trips:.2f} LM "
+                             f"iterations a candidate solve)")
+            print(line, flush=True)
+    del captured
+    print(f"[19 K1 k32] lap-2 capture {k32_stats['ms']:.3f} ms a step at nsi "
+          f"4, {k32_stats['nsi2_ms']:.3f} at nsi 2 (f32), "
+          f"{occupancy['k1_k32']['registers']} registers, "
+          f"{occupancy['k1_k32']['local_bytes']} bytes of local memory, "
+          f"{occupancy['k1_k32']['warps_per_sm']} warps per SM, "
+          f"{k32.nsi * k32.k} threads a lane", flush=True)
+    sr_caps = sweep_caps["k8_nsi1_sr3"].captured
+    require(len(sr_caps) > 0, "k8_nsi1_sr3: the guard never re-seeded")
+    k8s = sweep_k1["k8_nsi1_sr3"]
+    for lap, (step, args) in sorted(sr_caps.items()):
+        active = args[8] < 0.5
+        reseeded = int(((args[1] != args[0]).any(dim=0) & active).sum())
+        for dtype in (torch.float32, torch.float64):
+            a = cast(args, dtype, keep=(8,))
+            gate, _ = k1_gate(f"19 K1 k8 re-seeded lap {lap}", k8s(*a),
+                              i2lqr_step_reference(params, limits, 1.0, *a,
+                                                   max_iter=SWEEP_CAP),
+                              active, dtype)
+            print(f"[19 K1 k8 sr3 lap {lap} step {step} {str(dtype)[6:]}] "
+                  f"active {int(active.sum())}, guess at the goal "
+                  f"{reseeded}: {gate}", flush=True)
+    del sr_caps
+
+    # ---- 20. zero-noise closed loop through K1 at k = 32 / nsi = 2 ----
+    p20 = IlqrParams.make(num_ss_points=32, num_ss_iter=2,
+                          dtype=torch.float64)
+    lim20 = SystemLimits.make(dtype=torch.float64)
+    scen20 = SoaScenarios.broadcast(
+        np.zeros(4), xcl[-1], Obstacle.make(31.0, -2.0, 8.0, 6.0,
+                                            dtype=torch.float64), 1024,
+        noise_on=False, dtype=torch.float64, device=dev)
+    k1_20 = build_fused_i2lqr_step(p20, lim20, 1.0, num_horizon=N,
+                                   max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+                                   max_iter=150)
+    res20 = simulate_learning_runs_soa(
+        p20, lim20, scen20, seed_xs, None, 121, 1.0, step_solver=k1_20,
+        num_laps=4, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+        solver_max_iter=150)
+    steps20 = res20.lap_steps.cpu().numpy()
+    laps20 = steps20[:, 0].tolist()
+    same20 = bool((steps20 == steps20[:, :1]).all())
+    print(f"[20 zero-noise k32 nsi2 f64] B=1024 cap 150 lap steps {laps20}, "
+          f"all lanes identical {same20}, all done "
+          f"{bool(res20.lap_done.all())}, K1 launches {k1_20.launches}",
+          flush=True)
+    require(same20 and bool(res20.lap_done.all()),
+            "k32 zero-noise lanes differ or not done")
+    require(laps20 == HOST_K32_LAPS,
+            f"k32 zero-noise laps {laps20} != host {HOST_K32_LAPS}")
+    del res20
+
+    # ---- 21b. the guard on the nominal i2LQR headline scenario ----
+    scen_nom = SoaScenarios.broadcast(
+        np.zeros(4), xcl[-1], Obstacle.make(31.0, -2.0, 8.0, 6.0),
+        SWEEP_BATCH, noise_on=True, device=dev)
+    nominal = {}
+    for sr in (None, 3):
+        nominal[sr] = simulate_learning_runs_soa(
+            params, limits, scen_nom, seed_xs, None, 121, 1.0,
+            generator=torch.Generator(dev).manual_seed(0), num_laps=LAPS,
+            max_steps=MAX_STEPS, max_laps=MAX_LAPS, solver_max_iter=CAP,
+            stall_reseed=sr)
+    env = assert_behavior_envelope(nominal[None], nominal[3])
+    print(f"[21 nominal stall_reseed=3] B={SWEEP_BATCH} within the behaviour "
+          f"envelope of the run without it: {json.dumps(env)}", flush=True)
+    del nominal
+
     # ---- 11. K5 against its plain version ----
     di_kw = generic_kwargs(params, limits, max_iter=G_CAP,
                            matrix_Q=np.zeros((4, 4)))
@@ -1219,6 +1460,15 @@ def main():
              replaces=tpu + "pallas_i2lqr_step.py:221",
              launches=k1_launches, max_abs_err=k1_err, ms=k1_ms,
              plain_ms=k1_plain_ms, **k1_bound, **occupancy["k1"]),
+        dict(name="i2lqr_step (K1, k32 nsi4)", route="cuda",
+             source=csrc + "i2lqr_step.cu",
+             replaces=tpu + "pallas_i2lqr_step.py:221",
+             launches=sweep["k32_nsi4"]["launches"], **k32_stats,
+             **occupancy["k1_k32"],
+             sweep={tag: {kk: r[kk] for kk in (
+                 "completion", "completion_se", "final_lap_mean",
+                 "lap_steps_p50", "wall_s", "launches", "hash")}
+                 for tag, r in sweep.items()}),
         dict(name="nlmpc_step (K2)", route="cuda",
              source=csrc + "nlmpc_step.cu",
              replaces=tpu + "pallas_nlmpc_step.py:245",

@@ -1,7 +1,8 @@
 """Batch-native (structure-of-arrays) i2LQR learning simulator in torch.
 
 Port of the base path of ilqr_iterative_tasks_tpu/control/batched_soa.py
-(``simulate_learning_runs_soa`` :237, ``run_lap`` :717, ``lap_loop`` :924).
+(``SoaScenarios.randomized`` :56, ``simulate_learning_runs_soa`` :237 with
+its ``stall_reseed`` guard, ``run_lap`` :717, ``lap_loop`` :924).
 The scenario batch B is the trailing axis of every tensor. All B lanes run in
 lockstep; a lane that finishes its lap freezes until every lane finishes or
 the step budget runs out. Each control step's ``calc_input`` is one call of
@@ -14,12 +15,13 @@ both clipped to +-0.05, half of each added), gated per lane by
 ``scenarios.noise_on``. The standard-normal draws come from an explicit
 ``torch.Generator`` or from an injected ``noise`` tensor (steps, 2, B) that
 is consumed one row per executed simulator step, so a test can feed the
-JAX simulator's own draws.
+JAX simulator's own draws. ``SoaScenarios.randomized`` takes its jitter
+draws the same way: from a generator, or injected.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import NamedTuple
 
 import torch
@@ -58,6 +60,48 @@ class SoaScenarios:
             obstacle=obstacle.map(lambda a: f(a).expand(batch).contiguous()),
             noise_on=torch.full((batch,), 1.0 if noise_on else 0.0,
                                 dtype=dtype, device=device))
+
+    @classmethod
+    def randomized(cls, base_x0, goal, obstacle: Obstacle, batch: int,
+                   generator: torch.Generator | None = None, *,
+                   x0_jitter=0.5, obs_pos_jitter: float = 4.0,
+                   obs_spd_jitter: float = 0.0, noise_on=True,
+                   dtype=torch.float32, device=None, draws=None):
+        """Per-lane randomized scenarios (BASELINE config 4): jittered
+        initial states and per-lane obstacle positions and speeds (the
+        speed clamped at 0). ``x0_jitter``: a scalar or per-component (4,)
+        scale. The standard-normal draws (z_x0 (4, B), z_ox (B,), z_oy (B,),
+        z_spd (B,)) come from ``generator``, in that order, or are injected
+        as ``draws``. On the current CUDA device unless ``device`` is named.
+
+        i2LQR is brittle to initial heading / velocity offsets: at sigma 0.5
+        on theta_0 some lanes park at a stationary point off the track
+        (the simulator's ``stall_reseed`` guard is for them); position-only
+        jitter is robust."""
+        device = resolve(device)
+        base = cls.broadcast(base_x0, goal, obstacle, batch,
+                             noise_on=noise_on, dtype=dtype, device=device)
+        if draws is None:
+            if generator is None:
+                raise ValueError("pass a generator or the draws")
+            draws = (torch.randn((4, batch), generator=generator,
+                                 dtype=dtype, device=device),
+                     *(torch.randn((batch,), generator=generator,
+                                   dtype=dtype, device=device)
+                       for _ in range(3)))
+        z_x0, z_ox, z_oy, z_spd = (torch.as_tensor(z, dtype=dtype,
+                                                   device=device)
+                                   for z in draws)
+        scale = torch.as_tensor(x0_jitter, dtype=dtype,
+                                device=device).reshape(-1, 1).expand(4, batch)
+        o = base.obstacle
+        return cls(
+            x0=base.x0 + scale * z_x0, goal=base.goal,
+            obstacle=replace(
+                o, x=o.x + obs_pos_jitter * z_ox,
+                y=o.y + obs_pos_jitter * z_oy,
+                spd=torch.clamp_min(o.spd + obs_spd_jitter * z_spd, 0.0)),
+            noise_on=base.noise_on)
 
 
 class SoaRunResult(NamedTuple):
@@ -148,7 +192,7 @@ def default_step_solver(params: IlqrParams, limits: SystemLimits, dt, *,
     return _K1_CACHE[key]
 
 
-_UNSUPPORTED = ("retile_frac", "tail_shrink", "stall_reseed", "resume_from",
+_UNSUPPORTED = ("retile_frac", "tail_shrink", "resume_from",
                 "dedup_passes", "pallas_solver", "pallas_step_solver",
                 "precision_islands")
 
@@ -160,6 +204,7 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
                                goal_append: bool = True,
                                sim_step_budget: int = 121,
                                solver_max_iter: int | None = None,
+                               stall_reseed: int | None = None,
                                step_solver=None,
                                noise: torch.Tensor | None = None,
                                generator: torch.Generator | None = None,
@@ -173,6 +218,13 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
     then ``default_step_solver``'s K1 on CUDA scenarios and the plain step
     on CPU ones. ``noise`` (steps, 2, B) standard-normal draws or
     ``generator``: the plant-noise source (needed where noise_on is set).
+
+    ``stall_reseed=S`` (default None: the reference's behaviour, and no
+    extra work a step): a lane whose chosen candidate's Qfun has not
+    strictly decreased for S consecutive active control steps gets its
+    pass-0 kNN guess re-seeded to the goal instead of its current state,
+    which pulls its candidates toward goal-ward safe-set points and out of
+    a parking orbit. The count and the last Qfun restart at each lap.
     """
     if unsupported:
         bad = sorted(unsupported)
@@ -243,14 +295,30 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
         u_old = torch.zeros((n, 2, b), dtype=dtype, device=dev)
         xs_rec = torch.zeros((max_steps, 4, b), dtype=dtype, device=dev)
         xs_rec[0] = x0
+        if stall_reseed is not None:  # steps without progress, last Qfun
+            stall = torch.zeros((b,), dtype=torch.int32, device=dev)
+            q_prev = torch.full((b,), float("inf"), dtype=dtype, device=dev)
         while bool(((t < sim_step_budget) & ~done).any()):
             in_replay = horizon_left < n
             lap_ids, lap_ok, skip = _step_solver_inputs(
                 lap_count, nsi, max_laps, done | in_replay, b, dev)
+            g0 = x if stall_reseed is None else torch.where(
+                (stall >= stall_reseed)[None], goal, x)
             if bool((skip < 0.5).any()):
-                us_sel, shrink_f, _idx, _row = solver(
-                    x, x, states, qfun, lap_len, lap_ids, lap_ok,
+                us_sel, shrink_f, idx_sel, row_sel = solver(
+                    x, g0, states, qfun, lap_len, lap_ids, lap_ok,
                     obstacle_to_lanes(obstacle, b), skip)
+                if stall_reseed is not None:
+                    # the winner's time-to-go, Qfun at (its lap, its kNN
+                    # row); active lanes count the steps it did not
+                    # strictly decrease
+                    q_win = qfun[lap_ids[row_sel.long()].long(),
+                                 torch.clamp(idx_sel.long(), 0,
+                                             max_steps - 1), lanes]
+                    active = skip < 0.5  # not done, not replaying
+                    stall = torch.where(active, torch.where(
+                        q_win < q_prev, 0, stall + 1), stall)
+                    q_prev = torch.where(active, q_win, q_prev)
             else:  # every lane done or replaying: outputs would be discarded
                 us_sel = torch.zeros((n, 2, b), dtype=dtype, device=dev)
                 shrink_f = torch.zeros((b,), dtype=dtype, device=dev)

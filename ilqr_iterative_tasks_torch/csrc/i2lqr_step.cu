@@ -45,6 +45,21 @@
 // 3 x (nsi*k + 1) solves in series a thread and kept the lane's candidate
 // table in registers. The kNN reads 3 passes x nsi x lap_len x 5 values a
 // lane.
+//
+// More candidates than a warp holds (k = 32, nsi 2 and 4: the robustness
+// sweep's k32 / nsi4 candidate set, experiments/scenario_sweep.py) run in
+// i2lqr_step_block_kernel: a lane is a block of nsi * 32 threads, warp r
+// lap row r and its thread s candidate s. The kNN is the warp's
+// (knn_rows_group over the lap with lists of depth ceil(T / 32): a thread
+// sees at most that many rows, so deeper lists would hold only +inf); the
+// candidates' compare values and costs go to shared memory, and after a
+// barrier every thread runs lex_select over that table; the winner's
+// thread writes its terminal state and kNN row there, and after a second
+// barrier every thread reads the new guess. A skip lane is a whole block
+// and exits before any barrier. What bounds it is the tile's: the
+// candidates' LM chains (on an H100 a candidate solve costs the step as
+// much as in the tile kernel), plus a block's wait at each pass's barriers
+// for the slowest of its nsi * 32 solves.
 #include "lm_core.cuh"
 
 namespace ilqr {
@@ -152,6 +167,131 @@ __global__ void __launch_bounds__(128, K1_MIN_BLOCKS) i2lqr_step_kernel(
   }
 }
 
+// The resident warps an SM that __launch_bounds__ asks of the block
+// kernel (NSI * 32 threads a block: 16 / NSI blocks), which caps its
+// registers as K1_MIN_BLOCKS caps the tile kernel's: 128 a thread. It
+// spills a little and was the fastest of 8 (uncapped), 16 and 24 warps
+// at every capture on an H100 (PERF.md, experiments/kernel_ab.py).
+constexpr int K1_BLOCK_MIN_WARPS = 16;
+constexpr int K1_BLOCK_K = 32;  // candidates a lap row: a warp
+
+// One lane a block of NSI * 32 threads (header). D: the depth of a
+// thread's kNN list; the launcher runs it only for T_rows <= 32 * D.
+template <typename T, int N, int NSI, int D>
+__global__ void __launch_bounds__(NSI * K1_BLOCK_K,
+                                  K1_BLOCK_MIN_WARPS / NSI)
+    i2lqr_step_block_kernel(
+        const Consts<T> C, int B, int T_rows, const T* __restrict__ x,
+        const T* __restrict__ g0, const T* __restrict__ states,
+        const T* __restrict__ qfun, const int* __restrict__ lap_len,
+        const int* __restrict__ lap_ids, const int* __restrict__ lap_ok,
+        const T* __restrict__ obs, const float* __restrict__ skip,
+        T* __restrict__ us_out, T* __restrict__ shrink_out,
+        int* __restrict__ idx_out, int* __restrict__ row_out) {
+  constexpr int K = K1_BLOCK_K, G = NSI * K;
+  __shared__ T s_cmp[G], s_cost[G];  // the lane's selection table
+  __shared__ T s_xg[4];              // the winner's terminal state
+  __shared__ int s_idx;              // and its kNN row
+  const int b = blockIdx.x;
+  const int c = threadIdx.x;  // candidate s = c % K of lap row r = c / K
+  const int r = c / K, s = c % K;
+  if (skip[b] > 0.5f) {  // the whole block: no barrier is reached
+    for (int i = c; i < 2 * N; i += G) us_out[i * B + b] = (T)0;
+    if (c == 0) {
+      shrink_out[b] = (T)0;
+      idx_out[b] = 0;
+      row_out[b] = 0;
+    }
+    return;
+  }
+  const Tile<K> warp;
+  const T inf = (T)INFINITY;
+  T x0[4], xg[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    x0[q] = x[q * B + b];
+    xg[q] = g0[q * B + b];
+  }
+  const Obs<T> o = load_obs(obs, B, b);
+  const int lap = lap_ids[r];
+  const bool lap_stored = lap_ok[r] != 0;
+  const int len = lap_len[(size_t)lap * B + b];
+  const int rows = len < T_rows ? len : T_rows;
+  const size_t row_stride = (size_t)4 * B;  // one safe-set row (4, B)
+  const T* st = states + (size_t)lap * T_rows * row_stride + b;
+
+  T us[N][2];
+  int win = 0, idx_sel = 0, row_sel = 0;
+  for (int pass = 0; pass < 3; ++pass) {
+    // ---- kNN of this warp's lap row, then this thread's candidate ----
+    T dk;
+    int ik;
+    knn_rows_group<T, K, K, D>(warp, s, st, row_stride, B, rows, xg, dk,
+                               ik);
+    const bool cok = dk < inf && lap_stored;
+    T xt[4];
+    const T* p = st + ik * row_stride;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) xt[q] = p[q * B];
+    const T cq = qfun[((size_t)lap * T_rows + ik) * B + b];
+#pragma unroll
+    for (int i = 0; i < N; ++i) us[i][0] = us[i][1] = (T)0;
+    const Solve<T, N> S{C, x0, xt, o};
+    T xl[4], cost, dist;
+    S.lm_solve(us, false, xl, cost, dist);
+    const T unit = C.unit[pass];
+    const T i_rel = fmax(ceil(dist / unit - (T)1e-12), (T)1.0);
+    const T rc = dist <= C.cutoff[pass] ? cq + (T)N + (T)100.0 * i_rel : inf;
+    const T ccost = cok ? rc : inf;
+    // ---- the selection table in shared memory (ragged list compare:
+    // absent slots -inf, laps not yet stored +inf), read by every thread
+    s_cmp[c] = lap_stored ? (cok ? ccost : -inf) : inf;
+    s_cost[c] = ccost;
+    __syncthreads();
+    const T* cmp_t = s_cmp;
+    const T* cost_t = s_cost;
+    win = lex_select<T, NSI, K>(cmp_t, cost_t, row_sel);
+    if (c == win) {  // the guess re-centres on the winner's terminal state
+#pragma unroll
+      for (int q = 0; q < 4; ++q) s_xg[q] = xl[q];
+      s_idx = ik;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < 4; ++q) xg[q] = s_xg[q];
+    idx_sel = s_idx;
+  }
+  if (c == win) {  // the winner's thread holds its solution
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      us_out[(2 * i) * B + b] = us[i][0];
+      us_out[(2 * i + 1) * B + b] = us[i][1];
+    }
+    const int len_sel = lap_len[(size_t)lap_ids[row_sel] * B + b];
+    shrink_out[b] = (idx_sel + 1) > (len_sel - 1) ? (T)1 : (T)0;
+    idx_out[b] = idx_sel;
+    row_out[b] = row_sel;
+  }
+}
+
+template <typename T, int N, int NSI, int D>
+int launch_i2lqr_step_block(const double* consts, int max_iter, int B,
+                            int T_rows, const void* x, const void* g0,
+                            const void* states, const void* qfun,
+                            const void* lap_len, const void* lap_ids,
+                            const void* lap_ok, const void* obs,
+                            const void* skip, void* us, void* shrink,
+                            void* idx, void* row, cudaStream_t stream) {
+  if (T_rows > K1_BLOCK_K * D) return -1;  // a thread would drop rows
+  const Consts<T> C = make_consts<T>(consts, max_iter);
+  i2lqr_step_block_kernel<T, N, NSI, D><<<B, NSI * K1_BLOCK_K, 0, stream>>>(
+      C, B, T_rows, (const T*)x, (const T*)g0, (const T*)states,
+      (const T*)qfun, (const int*)lap_len, (const int*)lap_ids,
+      (const int*)lap_ok, (const T*)obs, (const float*)skip, (T*)us,
+      (T*)shrink, (int*)idx, (int*)row);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int N, int K, int NSI>
 int launch_i2lqr_step(const double* consts, int max_iter, int B, int T_rows,
                       const void* x, const void* g0, const void* states,
@@ -179,10 +319,17 @@ int launch_i2lqr_step(const double* consts, int max_iter, int B, int T_rows,
         consts, max_iter, B, T_rows, x, g0, states, qfun, lap_len, lap_ids,  \
         lap_ok, obs, skip, us, shrink, idx, row, s);
 
+// k = 32: one lane a block, kNN lists of depth 4 (T <= 128 rows).
+#define I2LQR_BLOCK_CASE(TYPE, CODE, N_, NSI_)                              \
+  if (dtype == CODE && n == N_ && k == 32 && nsi == NSI_)                    \
+    return ilqr::launch_i2lqr_step_block<TYPE, N_, NSI_, 4>(                 \
+        consts, max_iter, B, T_rows, x, g0, states, qfun, lap_len, lap_ids,  \
+        lap_ok, obs, skip, us, shrink, idx, row, s);
+
 // dtype: 0 float32, 1 float64. max_laps is the safe set's leading size
 // (the kernel reads only the laps named by lap_ids). Returns the
 // cudaError_t of the launch, or -1 when no kernel is instantiated for
-// (dtype, n, k, nsi).
+// (dtype, n, k, nsi) or, at k = 32, for more than 128 rows T.
 extern "C" int i2lqr_step_launch(int dtype, int n, int k, int nsi,
                                  const double* consts, int max_iter, int B,
                                  int T_rows, int max_laps, const void* x,
@@ -199,6 +346,10 @@ extern "C" int i2lqr_step_launch(int dtype, int n, int k, int nsi,
   I2LQR_CASE(double, 1, 6, 8, 1)
   I2LQR_CASE(float, 0, 6, 8, 2)
   I2LQR_CASE(double, 1, 6, 8, 2)
+  I2LQR_BLOCK_CASE(float, 0, 6, 2)
+  I2LQR_BLOCK_CASE(double, 1, 6, 2)
+  I2LQR_BLOCK_CASE(float, 0, 6, 4)
+  I2LQR_BLOCK_CASE(double, 1, 6, 4)
   return -1;
 }
 
@@ -207,8 +358,14 @@ extern "C" int i2lqr_step_launch(int dtype, int n, int k, int nsi,
     return ilqr::kernel_attributes(                                          \
         ilqr::i2lqr_step_kernel<TYPE, N_, K_, NSI_>, 128, out);
 
+#define I2LQR_BLOCK_ATTRIBUTES(TYPE, CODE, N_, NSI_)                        \
+  if (dtype == CODE && n == N_ && k == 32 && nsi == NSI_)                    \
+    return ilqr::kernel_attributes(                                          \
+        ilqr::i2lqr_step_block_kernel<TYPE, N_, NSI_, 4>,                    \
+        NSI_ * ilqr::K1_BLOCK_K, out);
+
 // The loaded kernel's resources for (dtype, n, k, nsi), as the runtime
-// reports them (kernel_attributes, lm_core.cuh); -1 when no kernel is
+// reports them (kernel_attributes, tile.cuh); -1 when no kernel is
 // instantiated.
 extern "C" int i2lqr_step_attributes(int dtype, int n, int k, int nsi,
                                      int* out) {
@@ -216,5 +373,9 @@ extern "C" int i2lqr_step_attributes(int dtype, int n, int k, int nsi,
   I2LQR_ATTRIBUTES(double, 1, 6, 8, 1)
   I2LQR_ATTRIBUTES(float, 0, 6, 8, 2)
   I2LQR_ATTRIBUTES(double, 1, 6, 8, 2)
+  I2LQR_BLOCK_ATTRIBUTES(float, 0, 6, 2)
+  I2LQR_BLOCK_ATTRIBUTES(double, 1, 6, 2)
+  I2LQR_BLOCK_ATTRIBUTES(float, 0, 6, 4)
+  I2LQR_BLOCK_ATTRIBUTES(double, 1, 6, 4)
   return -1;
 }

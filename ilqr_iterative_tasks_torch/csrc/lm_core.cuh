@@ -492,23 +492,27 @@ __device__ __forceinline__ void knn_rows(const T* st, size_t row_stride,
 
 // The rows knn_rows finds, by a group of K threads of a tile (K divides G,
 // the group starts at a multiple of K; s: this thread's rank in it): thread
-// s scans rows s, s + K, ... into its own list, kept as knn_rows keeps its
-// list, then K rounds of a min-reduction over the lists' heads by the key
-// (distance, row) take the K smallest in ascending order. Rows are unique,
-// so the key orders ties to the lower row, as knn_rows' strict < does, and
-// the K nearest rows of a lap are the K smallest keys. Round q's row and
-// distance go to thread q; a slot left empty is row 0 at +inf. Every
-// thread of the group must call it.
-template <typename T, int K, int G>
+// s scans rows s, s + K, ... into its own list of depth D, kept as
+// knn_rows keeps its list, then K rounds of a min-reduction over the lists'
+// heads by the key (distance, row) take the K smallest in ascending order.
+// Rows are unique, so the key orders ties to the lower row, as knn_rows'
+// strict < does, and the K nearest rows of a lap are the K smallest keys.
+// Round q's row and distance go to thread q; a slot left empty is row 0 at
+// +inf. Every thread of the group must call it. A list of depth D = K
+// holds every row a thread could contribute; a shallower one is exact only
+// while a thread scans at most D rows (rows <= K * D), which the caller
+// guarantees: it spares the registers of rows a thread never sees.
+template <typename T, int K, int G, int D = K>
 __device__ __forceinline__ void knn_rows_group(const Tile<G>& tl, int s,
                                                const T* st, size_t row_stride,
                                                int B, int rows, const T* xg,
                                                T& d_out, int& i_out) {
   static_assert(G % K == 0 && (K & (K - 1)) == 0, "K: a power of two");
-  T dk[K];
-  int ik[K];
+  static_assert(D >= 1 && D <= K, "D: 1 .. K");
+  T dk[D];
+  int ik[D];
 #pragma unroll
-  for (int q = 0; q < K; ++q) {
+  for (int q = 0; q < D; ++q) {
     dk[q] = (T)INFINITY;
     ik[q] = 0;
   }
@@ -516,11 +520,11 @@ __device__ __forceinline__ void knn_rows_group(const Tile<G>& tl, int s,
     const T* p = st + t * row_stride;
     const T d = fabs(p[0] - xg[0]) + fabs(p[B] - xg[1]) +
                 fabs(p[2 * B] - xg[2]) + fabs(p[3 * B] - xg[3]);
-    if (d < dk[K - 1]) {
-      dk[K - 1] = d;
-      ik[K - 1] = t;
+    if (d < dk[D - 1]) {
+      dk[D - 1] = d;
+      ik[D - 1] = t;
 #pragma unroll
-      for (int q = K - 1; q > 0; --q) {
+      for (int q = D - 1; q > 0; --q) {
         if (dk[q] < dk[q - 1]) {
           const T td = dk[q];
           dk[q] = dk[q - 1];
@@ -551,12 +555,12 @@ __device__ __forceinline__ void knn_rows_group(const Tile<G>& tl, int s,
     // empty and the slot is row 0 at +inf; otherwise one thread owns it
     if (md < (T)INFINITY && dk[0] == md && ik[0] == mi) {
 #pragma unroll
-      for (int u = 0; u < K - 1; ++u) {
+      for (int u = 0; u < D - 1; ++u) {
         dk[u] = dk[u + 1];
         ik[u] = ik[u + 1];
       }
-      dk[K - 1] = (T)INFINITY;
-      ik[K - 1] = 0;
+      dk[D - 1] = (T)INFINITY;
+      ik[D - 1] = 0;
     }
     if (q == s) {
       d_out = md;
@@ -568,10 +572,11 @@ __device__ __forceinline__ void knn_rows_group(const Tile<G>& tl, int s,
 // Candidate selection of a whole step: the lexicographic row-min over NSI
 // rows of K compare values (Python's min() over per-lap cost lists, with
 // the ragged -inf / +inf ranks already in `cmp`), then the first-min
-// argmin over the winning row's costs. Returns row * K + col.
-template <typename T, int NSI, int K>
-__device__ __forceinline__ int lex_select(const T (&cmp)[NSI * K],
-                                          const T (&cost)[NSI * K],
+// argmin over the winning row's costs. Returns row * K + col. The tables
+// are NSI * K values each: arrays in registers, or pointers (to shared
+// memory).
+template <typename T, int NSI, int K, typename Table>
+__device__ __forceinline__ int lex_select(const Table& cmp, const Table& cost,
                                           int& row) {
   int best = 0;
 #pragma unroll

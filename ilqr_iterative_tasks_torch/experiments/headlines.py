@@ -6,16 +6,20 @@ CUDA-event timing and a hash of a run's lap records.
 The i2LQR headline is bench.py:44-62 (B = 49 152, seed lap + 3 learning
 laps, f32, plant noise on, LM cap 16); the NLMPC headlines are
 bench.py:109-148 and 207-221 (LM cap 12, ``infeasible_retire`` 8; the
-`all` tier at B = 8 192). Nothing touches the card at import.
+`all` tier at B = 8 192); the robustness sweep is bench.py:250-270 (its
+canary's three configurations at B = 4 096, 4 laps, moving obstacle).
+Nothing touches the card at import.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 
 import numpy as np
 import torch
 
+from ilqr_iterative_tasks_torch.control import batched_soa
 from ilqr_iterative_tasks_torch.control.batched_nlmpc_soa import (
     simulate_nlmpc_runs_soa)
 from ilqr_iterative_tasks_torch.control.batched_soa import (
@@ -34,6 +38,14 @@ NL_RETIRE = 8  # infeasible_retire of the NLMPC headline (bench.py:132)
 # and at least one active lane at horizon 1 (the reach check)
 NL_CAPTURES = {1: 5, 2: 14, 3: None}
 ALL_BATCH = 8192  # the all tier's batch (bench.py:218-221)
+# the robustness canary (bench.py:250-270): batch, laps, LM cap and its
+# (tag, k, nsi, stall_reseed) configurations
+SWEEP_BATCH, SWEEP_LAPS, SWEEP_CAP = 4096, 4, 16
+SWEEP_CONFIGS = (("k8_nsi1", 8, 1, None), ("k8_nsi1_sr3", 8, 1, 3),
+                 ("k32_nsi4", 32, 4, None))
+# (learning lap, control step) where the k32_nsi4 sweep's K1 inputs are
+# captured: by lap 4 most lanes' stored laps are shorter than 32 rows
+SWEEP_CAPTURES = {1: 5, 2: 14, 4: 10}
 K1_ATTRS = ("k", "nsi", "num_horizon", "max_steps", "max_laps", "max_iter")
 K2_ATTRS = ("k", "nsi", "num_horizon", "max_steps", "max_laps", "max_iters",
             "mode", "all_iter")
@@ -124,6 +136,32 @@ def k2_capture(k2, all_iter=False) -> Capture:
     """K2 capturing its inputs by the rule of NL_CAPTURES."""
     return Capture(k2, K2_ATTRS, 6, want_capture(NL_CAPTURES),
                    all_iter=all_iter)
+
+
+def sweep_capture(k1) -> Capture:
+    """K1 capturing its inputs at the steps of SWEEP_CAPTURES."""
+    return Capture(k1, K1_ATTRS, 5,
+                   lambda lap, i, args: SWEEP_CAPTURES.get(lap) == i)
+
+
+@contextlib.contextmanager
+def sweep_step_solver(k, nsi, wrap, device=None):
+    """Inside the block, the K1 that ``run_sweep``'s simulator takes for
+    (k, nsi) (``default_step_solver``'s) is ``wrap(k1)``, a step solver
+    that delegates to it (a Capture); yields (k1, the wrapper)."""
+    from ilqr_iterative_tasks_torch.experiments.scenario_sweep import (
+        MAX_LAPS as S_LAPS, MAX_STEPS as S_STEPS)
+    params = IlqrParams.make(num_ss_points=k, num_ss_iter=nsi, device=device)
+    k1 = batched_soa.default_step_solver(
+        params, SystemLimits.make(device=device), 1.0, max_steps=S_STEPS,
+        max_laps=S_LAPS, max_iter=SWEEP_CAP)
+    key = next(kk for kk, v in batched_soa._K1_CACHE.items() if v is k1)
+    wrapper = wrap(k1)
+    batched_soa._K1_CACHE[key] = wrapper
+    try:
+        yield k1, wrapper
+    finally:
+        batched_soa._K1_CACHE[key] = k1
 
 
 class Headlines:

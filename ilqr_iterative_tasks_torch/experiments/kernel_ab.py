@@ -35,10 +35,12 @@ events in turns, and the generic headline (``bench_throughput`` and
 the plain solve on the first 32 768 ``--kernel`` lanes.
 
 On the inputs ``chip_smoke.py`` captures (its rule, experiments/headlines.py)
-from the i2LQR headline (K1), the `all` headline (K2 `all_rev_skip` and the
-forward scan), an `all_iter` run and the NLMPC headlines (K2 spaceVarying
-and timeVarying with qsort_skip, as the simulator builds them, and without
-it), every library's outputs must equal this checkout's bit for bit; then
+from the i2LQR headline (K1), the robustness sweep's k32_nsi4 run (K1 at
+k = 32, timed only for the libraries that instantiate it), the `all`
+headline (K2 `all_rev_skip` and the forward scan), an `all_iter` run and
+the NLMPC headlines (K2 spaceVarying and timeVarying with qsort_skip, as
+the simulator builds them, and without it), every library's outputs must
+equal this checkout's bit for bit; then
 each kernel's ms a step by CUDA events over repeated launches, in turns (A
 B ... B A). Then the i2LQR, `all`, NLMPC (spaceVarying) and timeVarying
 headlines through each library in turns, one seed a turn (two seeds, five
@@ -65,6 +67,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import ctypes
 import json
 import os
 import re
@@ -82,9 +85,11 @@ from ilqr_iterative_tasks_torch.experiments.generic_bench import (
     bench_kernel, bench_throughput, candidates, card_line, generic_kwargs,
     k5_task, throughput_inputs, warp_trips)
 from ilqr_iterative_tasks_torch.experiments.headlines import (
-    ALL_BATCH, BATCH, CAP, LAPS, MAX_LAPS, MAX_STEPS, N, NL_CAP, Headlines,
-    cuda_ms, k1_capture, k2_capture, lap_records_hash, require)
+    ALL_BATCH, BATCH, CAP, LAPS, MAX_LAPS, MAX_STEPS, N, NL_CAP, SWEEP_BATCH,
+    SWEEP_LAPS, Headlines, cuda_ms, k1_capture, k2_capture, lap_records_hash,
+    require, sweep_capture, sweep_step_solver)
 from ilqr_iterative_tasks_torch.experiments.nlmpc_profile import EventTimed
+from ilqr_iterative_tasks_torch.experiments.scenario_sweep import run_sweep
 from ilqr_iterative_tasks_torch.models import double_integrator, kinetic_bicycle
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
 from ilqr_iterative_tasks_torch.ops import _build
@@ -107,6 +112,8 @@ GROUPS = {"i2lqr_step.cu": ("k1",), "nlmpc_step_all.cu": ("all",),
 RESOURCES = {
     "k1": ("i2lqr_step_attributes", (0, N, 8, 1),
            f"i2lqr_step_kernel<float,{N},8,1>"),
+    "k1_k32": ("i2lqr_step_attributes", (0, N, 32, 4),
+               f"i2lqr_step_block_kernel<float,{N},4,4>"),
     "k2_all": ("nlmpc_step_all_attributes", (0, N),
                f"nlmpc_step_all_kernel<float,{N}"),
     "k2_sv": ("nlmpc_step_attributes", (0, N, 8, 1, 0, 1),
@@ -176,14 +183,18 @@ def resources(lib, path: str, built_here: bool) -> dict:
     out = {}
     for key, (entry, sizes, prefix) in RESOURCES.items():
         if hasattr(lib, entry):
-            out[key] = dict(_build.attributes(lib, entry, *sizes),
-                            source="CUDA runtime")
+            try:
+                out[key] = dict(_build.attributes(lib, entry, *sizes),
+                                source="CUDA runtime")
+            except ValueError:  # not instantiated in this library
+                pass
         elif built_here:
             regs = log_registers(path[:-3] + ".log")
-            name = next(k for k in regs if k.startswith(prefix))
-            out[key] = dict(registers=regs[name][0],
-                            spill_stores=regs[name][1], kernel=name,
-                            source="-Xptxas -v of this build")
+            name = next((k for k in regs if k.startswith(prefix)), None)
+            if name is not None:
+                out[key] = dict(registers=regs[name][0],
+                                spill_stores=regs[name][1], kernel=name,
+                                source="-Xptxas -v of this build")
     return out
 
 
@@ -356,6 +367,12 @@ def k1_k2_ab(dev, libs, names) -> dict:
     k2_sv_plain, k2_tv_plain = k2_of(sv_p), k2_of(tv_p)
     cap1 = k1_capture(k1)
     hl.i2lqr(0, cap1)
+    with sweep_step_solver(32, 4, sweep_capture, device=dev) as (k32, cap32):
+        run_sweep(SWEEP_BATCH, SWEEP_LAPS, moving=True, num_ss_points=32,
+                  num_ss_iter=4, quiet=True, device=dev)
+    out3 = (ctypes.c_int * 3)()
+    names_k32 = [n for n in names["k1"] if libs[n].i2lqr_step_attributes(
+        0, N, 32, 4, out3) == 0]
     caps = {}
     for tag, lp, sc, kern, it in (
             ("all", all_p, hl.scen_all, k2_all, False),
@@ -393,6 +410,7 @@ def k1_k2_ab(dev, libs, names) -> dict:
 
     report["steps"] = dict(
         k1=steps("K1", k1, cap1.captured, names["k1"], 10),
+        k1_k32=steps("K1 k32 nsi4", k32, cap32.captured, names_k32, 10),
         all_rev_skip=steps("K2 all_rev_skip", k2_all, caps["all"],
                            names["all"], 5),
         all_forward=steps("K2 all forward", k2_fwd, caps["all"],

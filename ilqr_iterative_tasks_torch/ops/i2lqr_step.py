@@ -14,10 +14,16 @@ the horizon-shrink flag. Signature (batch trailing):
      obs (6,B), skip (B,) f32)
     -> (us (n,2,B), shrink (B,), idx_sel (B,) i32, row_sel (B,) i32)
 
-``g0`` is the pass-0 kNN guess (the current state). Lanes with skip=1
-return zeros. ``i2lqr_step_reference`` is the plain version: the JAX
-package's composed XLA path (control/batched_soa.py ``solve_step`` /
-``one_pass``, :513-712), the bitwise oracle of the TPU kernel.
+``g0`` is the pass-0 kNN guess (the current state, or the goal where the
+simulator's ``stall_reseed`` guard fires). Lanes with skip=1 return zeros.
+``i2lqr_step_reference`` is the plain version: the JAX package's composed
+XLA path (control/batched_soa.py ``solve_step`` / ``one_pass``, :513-712),
+the bitwise oracle of the TPU kernel.
+
+The kernel is instantiated at horizon 6 for k = 8 (nsi 1 and 2: a tile of
+nsi*k threads a lane) and for k = 32 (nsi 2 and 4, the robustness sweep's
+candidate sets: a block of nsi*32 threads a lane, max_steps <= 128), in
+f32 and f64; any other size raises on a CUDA tensor.
 """
 
 from __future__ import annotations

@@ -198,6 +198,135 @@ def test_closed_loop_through_k1_matches_plain(dev):
                                atol=1e-9)
 
 
+# ---- K1 at k = 32: one lane a block of nsi * 32 threads ----
+def _k1_block_inputs(nsi, lap_count, dev, b=517):
+    """Four stored laps on a 0.5 grid, x on it too: lap 0 the seed lap,
+    lap 1 its first 60 rows each stored twice (tied distances), lap 2 every
+    other row, lap 3 a lap shorter than k = 32 (the last 24-30 rows of the
+    seed lap; every 11th lane 1-7 rows); with lap_count < nsi laps not yet
+    stored (lap_ok = 0). Every 7th lane skipped; b is not a multiple of
+    anything the kernel holds."""
+    rng = np.random.default_rng(40 + nsi + lap_count)
+    xcl, _ = seed_trajectory(1.0)
+    states = np.zeros((MAX_LAPS, T_ROWS, 4, b))
+    states[0, :121] = xcl[:, :, None]
+    states[1, :120] = np.repeat(xcl[:60], 2, axis=0)[:, :, None]
+    states[2, :61] = xcl[::2, :, None]
+    lap_len = np.zeros((MAX_LAPS, b), np.int32)
+    lap_len[0], lap_len[1], lap_len[2] = 121, 120, 61
+    lap_len[3] = rng.integers(24, 31, b)
+    lap_len[3, ::11] = rng.integers(1, 8, lap_len[3, ::11].shape)
+    for lane in range(b):
+        n3 = lap_len[3, lane]
+        states[3, :n3, :, lane] = xcl[121 - n3:]
+    states = np.round(states * 2) / 2
+    t = np.arange(T_ROWS)[None, :, None]
+    qfun = np.maximum(lap_len[:, None, :] - 1.0 - t, 0.0)
+    rows = rng.integers(0, 121, b)
+    x = np.round((xcl[rows] + rng.normal(size=(b, 4))
+                  * [1.0, 1.0, 0.3, 0.05]) * 2) / 2
+    f = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)
+    lap_ids, lap_ok, _ = _step_solver_inputs(lap_count, nsi, MAX_LAPS, None,
+                                             b, dev)
+    skip = (torch.arange(b, device=dev) % 7 == 0).float()
+    obs = _lanes(b, torch.float64, dev)[3]
+    return (f(x.T).contiguous(), f(x.T).contiguous(), f(states), f(qfun),
+            torch.tensor(lap_len, device=dev), lap_ids, lap_ok, obs, skip)
+
+
+@pytest.mark.parametrize("nsi,lap_count", [(2, 4), (4, 4), (4, 2)])
+def test_k1_blocks_of_32_candidates_match_plain_bitwise(dev, nsi, lap_count):
+    p, l = IlqrParams.make(num_ss_points=32, num_ss_iter=nsi), \
+        SystemLimits.make()
+    args = _k1_block_inputs(nsi, lap_count, dev)
+    k1 = build_fused_i2lqr_step(p, l, 1.0, num_horizon=N, max_steps=T_ROWS,
+                                max_laps=MAX_LAPS, max_iter=CAP)
+    for dtype in (torch.float32, torch.float64):
+        a = [t.to(dtype) if t.is_floating_point() and i != 8 else t
+             for i, t in enumerate(args)]
+        got = k1(*a)
+        want = i2lqr_step_reference(p, l, 1.0, *a, max_iter=CAP)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert float(got[0][:, :, ::7].abs().max()) == 0.0  # skipped lanes
+        assert int(got[3].max()) <= nsi - 1
+    assert k1.launches == 2
+
+
+def test_closed_loop_through_k1_at_32_candidates_matches_plain(dev):
+    """Two laps of a 30-step budget, so lap 2 selects among 32 candidates
+    of a stored lap of 31 rows (ragged rows, slots of laps not yet
+    stored)."""
+    p = IlqrParams.make(dtype=torch.float64, num_ss_points=32, num_ss_iter=4)
+    l = SystemLimits.make()
+    xcl, _ = seed_trajectory(1.0)
+    seed_xs = np.zeros((T_ROWS, 4))
+    seed_xs[:121] = xcl
+    scen = SoaScenarios.randomized(
+        np.zeros(4), xcl[-1], Obstacle.make(35.0, -16.0, 20.0, 20.0, spd=1.0,
+                                            moving_option=1), 8,
+        torch.Generator(dev).manual_seed(0), x0_jitter=(0.5, 0.5, 0.0, 0.5),
+        obs_spd_jitter=0.3, dtype=torch.float64, device=dev)
+    noise = torch.randn((60, 2, 8), dtype=torch.float64, device=dev)
+    kw = dict(num_laps=2, max_steps=T_ROWS, max_laps=MAX_LAPS,
+              sim_step_budget=30, solver_max_iter=CAP, noise=noise,
+              stall_reseed=3)
+    k1 = build_fused_i2lqr_step(p, l, 1.0, num_horizon=N, max_steps=T_ROWS,
+                                max_laps=MAX_LAPS, max_iter=CAP)
+    got = simulate_learning_runs_soa(p, l, scen, seed_xs, None, 121, 1.0,
+                                     step_solver=k1, **kw)
+    plain = PlainStep(k1, ("k", "nsi", "num_horizon", "max_steps",
+                           "max_laps", "max_iter"),
+                      lambda *a: i2lqr_step_reference(p, l, 1.0, *a,
+                                                      max_iter=CAP))
+    want = simulate_learning_runs_soa(p, l, scen, seed_xs, None, 121, 1.0,
+                                      step_solver=plain, **kw)
+    assert k1.launches > 0
+    assert torch.equal(got.lap_steps, want.lap_steps)
+    for g, w in zip(got.safe_set, want.safe_set):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("k,nsi", [(8, 1), (32, 4)])
+def test_sweep_on_the_card_launches_k1(dev, k, nsi):
+    from ilqr_iterative_tasks_torch.experiments.scenario_sweep import (
+        MAX_LAPS as SW_LAPS, MAX_STEPS as SW_STEPS, run_sweep)
+    p = IlqrParams.make(num_ss_points=k, num_ss_iter=nsi)
+    k1 = batched_soa.default_step_solver(p, SystemLimits.make(), 1.0,
+                                         max_steps=SW_STEPS,
+                                         max_laps=SW_LAPS, max_iter=16)
+    before = k1.launches
+    rep = run_sweep(256, 1, moving=True, num_ss_points=k, num_ss_iter=nsi,
+                    stall_reseed=3, quiet=True)
+    assert rep["backend"] == "cuda"
+    assert k1.launches - before >= rep["lap_steps_p95"][0]
+    assert 0.0 <= rep["completion_rate"] <= 1.0
+
+
+@pytest.mark.parametrize("k,nsi,max_steps", [(32, 1, T_ROWS), (16, 2, T_ROWS),
+                                             (32, 4, 160)])
+def test_k1_raises_where_nothing_is_instantiated(dev, k, nsi, max_steps):
+    p, l = IlqrParams.make(num_ss_points=k, num_ss_iter=nsi), \
+        SystemLimits.make()
+    a = list(_k1_block_inputs(4, 4, dev, b=64))
+    a[2] = torch.zeros((MAX_LAPS, max_steps, 4, 64), dtype=torch.float64,
+                       device=dev)
+    a[3] = torch.zeros((MAX_LAPS, max_steps, 64), dtype=torch.float64,
+                       device=dev)
+    a[5], a[6], _ = _step_solver_inputs(4, nsi, MAX_LAPS, None, 64, dev)
+    k1 = build_fused_i2lqr_step(p, l, 1.0, num_horizon=N,
+                                max_steps=max_steps, max_laps=MAX_LAPS,
+                                max_iter=CAP)
+    with pytest.raises(ValueError, match="no kernel instantiated"):
+        k1(*a)
+    assert k1.launches == 0
+    if max_steps == T_ROWS:  # no kernel of these (k, nsi) at all
+        with pytest.raises(ValueError, match="no kernel instantiated"):
+            _build.attributes(_build.library(), "i2lqr_step_attributes", 0,
+                              N, k, nsi)
+
+
 # ---- NLMPC: K4 and K2 (mirroring chip_smoke.py phases 7 and 8) ----
 NL_CAP, NL_B = 12, 4096
 

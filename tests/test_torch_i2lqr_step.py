@@ -6,7 +6,9 @@
 - one whole control step in f64: the JAX simulator resumed on a given safe
   set for one step (noise off) records x_1 = step(x_0, u_0); the port's
   ``i2lqr_step_reference`` on the same safe set, followed by ``step_soa``
-  on its first input, must land on the same state;
+  on its first input, must land on the same state; at k = 8 (nsi 1, 2) and
+  at the robustness sweep's k = 32 (nsi 2, 4), on four stored laps of
+  which the last is shorter than 32 rows (ragged rows);
 - the K1 wrapper's CPU route is the plain version, and other devices raise.
 """
 
@@ -89,20 +91,24 @@ B, T_ROWS, MAX_LAPS, CAP = 64, 128, 8, 16
 
 
 def _safe_set(rng, xcl):
-    """Seed lap in slot 0 and a perturbed, every-other-row copy in slot 1
-    whose length varies per lane; a few lanes store only 5 rows, fewer than
-    k = 8 (the ragged rows)."""
+    """Four stored laps: the seed lap in slot 0 and perturbed copies of
+    every 2nd, 3rd and 4th row in slots 1-3, whose lengths vary per lane;
+    slot 3 holds 20-31 rows, fewer than k = 32, and a few lanes store only
+    5 rows in slots 1 and 3, fewer than k = 8 (the ragged rows)."""
     states = np.zeros((MAX_LAPS, T_ROWS, 4, B))
     lap_len = np.zeros((MAX_LAPS, B), np.int32)
     states[0, :121] = xcl[:, :, None]
     lap_len[0] = 121
-    n1 = rng.integers(55, 62, B)
-    n1[:3] = 5
-    lap1 = xcl[::2][:, :, None] + rng.normal(size=(61, 4, B)) * [
-        [0.3], [0.3], [0.05], [0.01]]
-    for b in range(B):
-        states[1, :n1[b], :, b] = lap1[:n1[b], :, b]
-    lap_len[1] = n1
+    for slot, every, lo in ((1, 2, 55), (2, 3, 35), (3, 4, 20)):
+        rows = xcl[::every]
+        n = rng.integers(lo, len(rows) + 1, B)
+        if slot != 2:
+            n[:3] = 5
+        lap = rows[:, :, None] + rng.normal(size=(len(rows), 4, B)) * [
+            [0.3], [0.3], [0.05], [0.01]]
+        for b in range(B):
+            states[slot, :n[b], :, b] = lap[:n[b], :, b]
+        lap_len[slot] = n
     t = np.arange(T_ROWS)[:, None]
     qfun = np.maximum(lap_len[:, None, :] - 1.0 - t[None], 0.0)
     valid = t[None] < lap_len[:, None, :]
@@ -129,8 +135,9 @@ def _tied_safe_set(rng, xcl):
     return states, qfun, valid, lap_len
 
 
-def _step_against_jax(nsi, ss, x0, rng):
-    """(port's x_1, JAX's x_1, port inputs): one control step on the safe
+def _step_against_jax(nsi, ss, x0, rng, k=8, lap_count=2):
+    """(port's x_1, JAX's x_1, port inputs): one control step with k
+    candidates over the last nsi of ``lap_count`` laps stored in the safe
     set ``ss`` from x0 (4, B), f64; the JAX simulator resumed on ss for
     one step (noise off) records x_1 = step(x_0, u_0)."""
     opt = np.arange(B) % 3
@@ -141,7 +148,7 @@ def _step_against_jax(nsi, ss, x0, rng):
                    moving_option=jnp.asarray(opt, jnp.float64),
                    present=jnp.asarray((np.arange(B) % 8 != 7) * 1.0))
     xcl, _ = j_seed(1.0)
-    jp = JParams.make(dtype=jnp.float64, num_ss_iter=nsi)
+    jp = JParams.make(dtype=jnp.float64, num_ss_iter=nsi, num_ss_points=k)
     jl = JLimits.make(dtype=jnp.float64)
     scen = jbs.SoaScenarios(
         x0=jnp.asarray(x0), goal=jnp.broadcast_to(jnp.asarray(xcl[-1])[:, None],
@@ -152,15 +159,15 @@ def _step_against_jax(nsi, ss, x0, rng):
         jp, jl, scen, seed_xs, jnp.zeros((T_ROWS, 2)), 121, 1.0,
         jax.random.PRNGKey(0), num_laps=1, max_steps=T_ROWS,
         max_laps=MAX_LAPS, sim_step_budget=1, solver_max_iter=CAP,
-        resume_from=(tuple(jnp.asarray(a) for a in ss), 2,
+        resume_from=(tuple(jnp.asarray(a) for a in ss), lap_count,
                      jax.random.PRNGKey(0)))
-    want = np.asarray(res.safe_set[0][2][1])  # recorded x_1 (4, B)
+    want = np.asarray(res.safe_set[0][lap_count][1])  # recorded x_1 (4, B)
 
     tp, tl = convert.ilqr_params(jp, device="cpu"), convert.system_limits(jl, device="cpu")
     states, qfun, _valid, lap_len = convert.safe_set(ss, device="cpu")
     x = convert.tensor(x0, dtype=torch.float64, device="cpu").contiguous()
-    lap_ids, lap_ok, skip = tbs._step_solver_inputs(2, nsi, MAX_LAPS, None,
-                                                    B, "cpu")
+    lap_ids, lap_ok, skip = tbs._step_solver_inputs(lap_count, nsi, MAX_LAPS,
+                                                    None, B, "cpu")
     obs = obstacle_to_lanes(convert.obstacle(jo, device="cpu"), B)
     a = (x, x, states, qfun, lap_len, lap_ids, lap_ok, obs, skip)
     us, shrink, idx, row = i2lqr_step_reference(tp, tl, 1.0, *a,
@@ -171,9 +178,10 @@ def _step_against_jax(nsi, ss, x0, rng):
     return got, want, tp, tl, a
 
 
-@pytest.mark.parametrize("nsi", [1, 2])
-def test_control_step_matches_jax_f64(nsi):
-    rng = np.random.default_rng(10 + nsi)
+@pytest.mark.parametrize("k,nsi", [(8, 1), (8, 2), (32, 2), (32, 4)],
+                         ids=["1", "2", "k32-nsi2", "k32-nsi4"])
+def test_control_step_matches_jax_f64(k, nsi):
+    rng = np.random.default_rng(10 + nsi + (k - 8))
     xcl, _ = j_seed(1.0)
     ss = _safe_set(rng, xcl)
     # lanes 0-2 sit at the start of the lap, where the short stored laps
@@ -181,7 +189,8 @@ def test_control_step_matches_jax_f64(nsi):
     rows = rng.integers(0, 100, B)
     rows[:3] = 1
     x0 = (xcl[rows] + rng.normal(size=(B, 4)) * [0.5, 0.5, 0.1, 0.02]).T
-    got, want, tp, tl, a = _step_against_jax(nsi, ss, x0, rng)
+    got, want, tp, tl, a = _step_against_jax(nsi, ss, x0, rng, k=k,
+                                             lap_count=4)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
 
     # the K1 wrapper's CPU route is this plain version, exactly
@@ -202,7 +211,7 @@ def test_control_step_matches_jax_f64(nsi):
     live = skip < 0.5
     assert len(trips) == 3
     for t in trips:
-        assert t.shape == (nsi * tp.num_ss_points, B)
+        assert t.shape == (nsi * k, B)
         assert int(t[:, ~live].abs().max()) == 0
         assert 1 <= int(t[:, live].min()) and int(t.max()) <= CAP
     with pytest.raises(ValueError, match="unsupported device"):
