@@ -8,17 +8,20 @@ each against its plain torch version on the card, and drives the port's
 main paths: the batched i2LQR learning run through the whole-step kernel K1,
 the batched NLMPC learning run through the whole-step kernel K2 in each
 safe-set mode (spaceVarying, timeVarying, all), each a seed lap + 3
-learning laps with plant noise on in f32, the randomized moving-obstacle
-sweep through K1 (k = 8, with and without the stall_reseed guard, and
-k = 32 over 4 stored laps), and the generic-system tier's benchmarks
-through the generic LM-iLQR kernel K5. Phases:
+learning laps with plant noise on in f32, the same i2LQR and NLMPC
+headlines through the per-candidate path (the plain step's glue as torch
+ops on the card around the candidate kernels K3 and K4), the NLMPC safe
+set over every stored lap through K4, exact resume from a checkpoint, the
+randomized moving-obstacle sweep through K1 (k = 8, with and without the
+stall_reseed guard, and k = 32 over 4 stored laps), and the generic-system
+tier's benchmarks through the generic LM-iLQR kernel K5. Phases:
 
 1. device: the card's name and power limit;
 2. build: nvcc of the six kernel sources (one process per source), with
    seconds, registers and spills, and the registers, local memory and
    resident warps an SM of the loaded f32 K1, K2 all, K2 spaceVarying /
-   timeVarying (with qsort_skip), K3 and K5 (the double integrator and the
-   bicycle at N = 6) as the CUDA runtime reports them;
+   timeVarying (with qsort_skip), K3, K4 and K5 (the double integrator and
+   the bicycle at N = 6) as the CUDA runtime reports them;
 3. K3 (i2LQR per-candidate solve) against the plain solve on 393 216 random
    candidate lanes, f64 and f32;
 4. K1 (whole i2LQR step) against the plain step on safe sets captured from
@@ -32,7 +35,8 @@ through the generic LM-iLQR kernel K5. Phases:
    every run prints a hash of its lap records (lap steps, done flags,
    final states, safe set), so two commits can be shown to run alike;
 7. K4 (NLMPC per-candidate solve) against the plain solve on 393 216 random
-   candidate lanes (horizons 1-6, 1/16 skipped), f64 and f32;
+   candidate lanes (horizons 1-6, 1/16 skipped), f64 and f32 (the kernels
+   line keeps these figures beside phase 23's);
 8. K2 (whole NLMPC step) against the plain step on inputs captured from the
    NLMPC headline run (lap 1 early, lap 2 mid, lap 3 once shrunk horizons,
    horizon 1 among them, are active), f32 as captured and f64 cast up,
@@ -99,7 +103,41 @@ through the generic LM-iLQR kernel K5. Phases:
    candidate set must complete more and finish the last lap sooner than
    k8_nsi1, and each completion stay at or above its bound; then the
    i2LQR headline scenario at B = 4 096 with and without stall_reseed=3,
-   which must lie within utils/envelope.py's behaviour envelope.
+   which must lie within utils/envelope.py's behaviour envelope;
+22. the i2LQR headline through K3 (``candidate_solver``: the plain step's
+   glue around one K3 launch a relaxation pass; seed 0 as phase 6): K3's
+   launches must be three a step with active lanes (steps counted by a tap
+   on the plain step, experiments/headlines.py ``tap_step``) and K1 must
+   not launch; the lap-records hash should equal phase 6's K1 run (where it
+   differs, the run must lie within the behaviour envelope of K1's and
+   complete >= 0.99); on the run's inputs captured as phase 4's, the step
+   with K3 equals the plain step bit for bit (f32, and f64 cast up); on the
+   lap-2 capture's pass-0 lanes K3 equals its plain solve bit for bit, with
+   its ms, the plain solve's, its bound and the step's ms; two timed runs
+   with K3's device seconds by CUDA events;
+23. the NLMPC headline through K4 (spaceVarying, cap 12, infeasible_retire
+   8, seed 0 as phase 10; one K4 launch a step with active lanes), as
+   phase 22: the hash should equal phase 10's K2 run (else the envelope
+   and completion >= 0.914), the per-candidate step equals the plain step
+   bit for bit on phase 8's capture rule, K4 on the lap-2 capture's lanes
+   equals its plain solve, two timed runs;
+24. the safe set over every stored lap (all_ss_iter without all_ss_point)
+   in spaceVarying and timeVarying at B = 8 192 (cap 12, infeasible_retire
+   8), through the simulator's default K4: one launch a step, completion
+   with its standard error, final-lap mean, wall seconds of a second
+   seed-0 run (whose hash must be the first's), the per-candidate step bit
+   for bit against the plain step on the card on inputs captured at lap 1
+   (step 5), lap 2 (step 14) and lap 3 (step 10, three stored laps), f32
+   and f64 cast up; a zero-noise closed loop (1024 lanes, cap 60): f64 must
+   give the JAX package's laps exactly ([32, 23, 23], [111, 102, 93]);
+25. exact resume on the card: the i2LQR run through K1 and the NLMPC
+   spaceVarying run through K2 at B = 4 096 (seed 0): 2 laps, a checkpoint
+   (utils/checkpoint.py) to a temporary file, loaded and resumed for 2
+   more laps on a generator of another seed, must hash as the 4-lap run.
+
+Every simulator run of the headlines (experiments/headlines.py) and of
+phases 24-25 runs inside ``no_plain_solve_on_card``: a plain candidate
+solve that sees a CUDA tensor raises.
 
 Every phase raises on failure, so the script exits non-zero. It prints the
 card line and a JSON line of the kernels before its last line, which is
@@ -116,14 +154,17 @@ first feasible candidate in Qfun order, all_rev_skip at its last feasible
 position within the reach bound, the forward all scan a row at its first
 difference with the best row). K2 has one entry a mode. Each kernel's
 figures come from the inputs of the run whose launches they sit beside
-(K3: phase 11's ``--kernel`` lanes). It needs a CUDA device and the
-repository.
+(K3: phase 11's ``--kernel`` lanes, and phase 22's in its ``i2lqr_path``;
+K4: phase 23's, phase 7's in its ``random_lanes``). It needs a CUDA device
+and the repository.
 """
 
 import json
 import os
 import sys
+import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -138,9 +179,10 @@ from ilqr_iterative_tasks_torch.control.batched_nlmpc_soa import (  # noqa: E402
 # experiments/kernel_ab.py shares
 from ilqr_iterative_tasks_torch.experiments.headlines import (  # noqa: E402
     ALL_BATCH, BATCH, CAP, CAPTURES, K1_ATTRS, LAPS, MAX_LAPS, MAX_STEPS, N,
-    NL_CAP, NL_CAPTURES, SWEEP_BATCH, SWEEP_CAP, SWEEP_CAPTURES,
+    NL_CAP, NL_CAPTURES, NL_RETIRE, SWEEP_BATCH, SWEEP_CAP, SWEEP_CAPTURES,
     SWEEP_CONFIGS, SWEEP_LAPS, Capture, Headlines, cuda_ms, k1_capture,
-    k2_capture, lap_records_hash, require, sweep_capture, sweep_step_solver)
+    k2_capture, lap_records_hash, no_plain_solve_on_card, require,
+    sweep_capture, sweep_step_solver, tap_step, want_capture)
 
 K3_LANES = 8 * BATCH
 ZERO_NOISE_LAPS = [55, 28, 24]  # CPU XLA f32 family, docs/PARITY.md:146
@@ -166,6 +208,14 @@ ALL_COMPLETION_MIN = 0.940
 # agree with the plain version (-fmad=false: so far bitwise)
 F32_TOL = 1e-5
 HOST_NLMPC_LAPS = [32, 23, 23]  # host controller, f64, tests/test_batched_nlmpc_soa.py:171
+# timeVarying over every stored lap (all_ss_iter), f64: the JAX simulator's
+# and host controller's laps, pinned by tests/test_torch_batched_nlmpc_soa.py
+# (spaceVarying over every stored lap gives HOST_NLMPC_LAPS)
+HOST_EVERY_TV_LAPS = [111, 102, 93]
+# (learning lap, control step) where phase 24 captures the every-lap step's
+# inputs: lap 1 early, lap 2 mid, lap 3 (three stored laps)
+EVERY_CAPTURES = {1: 5, 2: 14, 3: 10}
+RESUME_BATCH = 4096  # phase 25
 # host controller, f64, k = 32 / nsi = 2, 4 laps: the JAX package's
 # I2LqrController run as tests/test_ragged_selection.py:107-146 runs it
 # (computed once on the CPU; the port's plain f64 loop gives the same)
@@ -523,10 +573,109 @@ def k1_gate(tag, out, ref, active, dtype):
             f"bitwise {bitwise}"), maxd
 
 
+K3_ATTRS = ("max_iter", "with_skip")  # what the i2LQR simulator reads
+K4_ATTRS = ("max_iters", "with_skip", "with_hzn")  # and the NLMPC one
+
+
+class Recorder:
+    """A candidate solver that delegates to ``kernel`` and keeps the inputs
+    of each call."""
+
+    def __init__(self, kernel, attrs):
+        self.kernel, self.calls = kernel, []
+        for a in attrs:
+            setattr(self, a, getattr(kernel, a))
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.kernel(*args)
+
+
+class SkipLog(Recorder):
+    """A Recorder that keeps only each call's skip mask (its input 4)."""
+
+    def __call__(self, *args):
+        self.calls.append(args[4] > 0.5)
+        return self.kernel(*args)
+
+
+def compaction_replay(kernel, a, masks, rows):
+    """The JAX path's compaction of active lanes to the batch front
+    (batched_soa.py:514-522), measured: ``kernel`` on the inputs ``a``
+    (rows x B candidate lanes) under each skip mask of ``masks`` (a run's,
+    in order), as the lanes lie and with each candidate row's active lanes
+    first (bitwise the same outputs, checked on the first mask). Returns
+    the summed ms of both and the run's mean active share."""
+    b = a[1].shape[-1] // rows
+    lanes = torch.arange(rows, device=a[1].device)[:, None] * b
+    as_is = compacted = 0.0
+    for n, m in enumerate(masks):
+        skip = m.to(torch.float32).expand(rows * b // m.numel(), -1) \
+            .reshape(-1).contiguous()
+        order = torch.argsort(m[:b].to(torch.int8), stable=True)
+        perm = (lanes + order[None]).flatten()
+        x = (*a[:4], skip, *a[5:])
+        xc = tuple(t[..., perm].contiguous() for t in x)
+        if n == 0:
+            require(all(torch.equal(g[..., perm], w)
+                        for g, w in zip(kernel(*x), kernel(*xc))),
+                    "compacted lanes differ")
+        as_is += cuda_ms(lambda: kernel(*x), 1)
+        compacted += cuda_ms(lambda: kernel(*xc), 1)
+    share = float(torch.stack([~m for m in masks]).double().mean())
+    return dict(steps=len(masks), mean_active_share=share, ms=as_is,
+                compacted_ms=compacted)
+
+
+def zero_counts(*kernels):
+    for k in kernels:
+        k.launches = 0
+
+
+def check_candidate_steps(tag, captured, step, kernel, skip_at):
+    """The per-candidate step (the plain step's glue around ``kernel``)
+    against the plain step (glue and plain solve) on captured inputs, on
+    the card, f32 as captured and f64 cast up: every output bit for bit.
+    ``step(*a, candidate_solver=...)`` is the plain step; ``skip_at`` the
+    skip mask's position in the inputs. Returns the f32 lap-2 capture's
+    per-candidate step ms, plain step ms and the kernel's inputs there
+    (a Recorder's calls)."""
+    stats = {}
+    for lap, (i, args) in sorted(captured.items()):
+        active = args[skip_at] < 0.5
+        require(bool(active.any()), f"{tag} capture lap {lap}: no active lane")
+        line = f"[{tag} lap {lap} step {i}] active {int(active.sum())}"
+        for dtype in (torch.float32, torch.float64):
+            a = cast(args, dtype, keep=(skip_at,))
+            rec = Recorder(kernel, ())
+            got = step(*a, candidate_solver=rec)
+            want, plain_ms = timed_call(lambda: step(*a))
+            for t in got:
+                require(bool(torch.isfinite(t.double()).all()),
+                        f"{tag} lap {lap}: non-finite output")
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            line += (f"; {str(dtype)[6:]}: {len(rec.calls)} kernel calls of "
+                     f"{[c[1].shape[-1] for c in rec.calls]} lanes, "
+                     f"bitwise equal to the plain step {same}")
+            require(same, f"{tag} lap {lap} {dtype}: the per-candidate step "
+                    f"differs from the plain step")
+            if dtype == torch.float32:
+                step_ms = cuda_ms(lambda: step(*a, candidate_solver=kernel),
+                                  3)
+                line += (f" ({step_ms:.3f} ms a step with the kernel, "
+                         f"{plain_ms:.3f} ms plain)")
+                if lap == 2:
+                    stats = dict(step_ms=step_ms, plain_step_ms=plain_ms,
+                                 calls=rec.calls)
+        print(line, flush=True)
+    return stats
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
-    from ilqr_iterative_tasks_torch.control import batched_nlmpc_soa
+    from ilqr_iterative_tasks_torch.control import (
+        batched_nlmpc_soa, batched_soa)
     from ilqr_iterative_tasks_torch.control.batched_nlmpc_soa import (
         simulate_nlmpc_runs_soa)
     from ilqr_iterative_tasks_torch.control.batched_soa import (
@@ -555,6 +704,10 @@ def main():
     from ilqr_iterative_tasks_torch.ops.nlmpc_step import (
         build_fused_nlmpc_step, nlmpc_step_reference)
     from ilqr_iterative_tasks_torch.sim.seed import seed_trajectory
+    from ilqr_iterative_tasks_torch.utils.checkpoint import (
+        load_soa_run, save_soa_run)
+    from ilqr_iterative_tasks_torch.utils.envelope import (
+        assert_behavior_envelope)
     from ilqr_iterative_tasks_torch.utils.params import (
         IlqrParams, LmpcParams, SystemLimits)
 
@@ -588,6 +741,7 @@ def main():
         k2_tv=_build.attributes(lib, "nlmpc_step_attributes", 0, N, 8, 1, 1,
                                 1),
         k3=_build.attributes(lib, "fused_ilqr_attributes", 0, N),
+        k4=_build.attributes(lib, "fused_lm_shooting_attributes", 0, N),
         k5=_build.attributes(lib, "generic_ilqr_attributes", 0,
                              MODEL_CODES["double_integrator"], N),
         k5_bicycle=_build.attributes(lib, "generic_ilqr_attributes", 0,
@@ -730,14 +884,15 @@ def main():
     require(k1_launches > 0, "K1 was not launched by the main path")
     completion = float(warm_run.lap_done.float().mean())
     mean_steps = warm_run.lap_steps.float().mean(dim=1).tolist()
+    k1_hash = lap_records_hash(warm_run)
     require(bool(torch.isfinite(warm_run.safe_set[0]).all()),
             "non-finite safe set")
     print(f"[6 headline warm] B={BATCH} {warm_s:.2f} s, K1 launches "
           f"{k1_launches}, completion {completion:.4f}, mean lap steps "
           f"{[round(v, 2) for v in mean_steps]}, lap records "
-          f"{lap_records_hash(warm_run)}", flush=True)
+          f"{k1_hash}", flush=True)
     require(completion >= 0.99, "headline lap completion < 0.99")
-    del warm_run
+    k1_warm = warm_run  # phase 22's yardstick
 
     # ---- 4. K1 against the plain step on the captured safe sets ----
     require(sorted(cap.captured) == sorted(CAPTURES),
@@ -828,6 +983,90 @@ def main():
           f"completion {completion:.4f}, K1 launches {k1_launches}, card "
           f"{card}", flush=True)
 
+    # ---- 22. the i2LQR headline through K3, the per-candidate path ----
+    k3p = build_fused_ilqr(params, limits, 1.0, num_horizon=N, max_iter=CAP)
+    k3_log = SkipLog(k3p, K3_ATTRS)  # each launch's skip mask
+    with tap_step(batched_soa, "i2lqr_step_reference", 5,
+                  lambda lap, i, a: CAPTURES.get(lap) == i) as tap3:
+        zero_counts(k1, k3, k4, k3p)
+        t0 = time.perf_counter()
+        k3_run = headline(0, None, k3_log)
+        k3_warm_s = time.perf_counter() - t0
+        k3_launches = k3p.launches
+    k3_steps = sum(tap3.calls.values())
+    require(k1.launches == 0 and k3_steps > 0
+            and k3_launches == 3 * k3_steps,
+            f"K3 launched {k3_launches} times on {k3_steps} steps with "
+            f"active lanes (3 passes a step); K1 {k1.launches}")
+    k3_hash = lap_records_hash(k3_run)
+    k3_completion = float(k3_run.lap_done.float().mean())
+    line = (f"[22 i2LQR through K3 warm] B={BATCH} {k3_warm_s:.2f} s, K3 "
+            f"launches {k3_launches} ({k3_steps} steps with active lanes), "
+            f"completion {k3_completion:.4f}, lap records {k3_hash}, phase "
+            f"6's K1 run {k1_hash}")
+    if k3_hash != k1_hash:  # the gate the issue of this path sets
+        env = assert_behavior_envelope(k1_warm, k3_run)
+        require(k3_completion >= 0.99, "K3 path completion < 0.99")
+        line += f": differ, within the envelope {json.dumps(env)}"
+    print(line, flush=True)
+    del k1_warm, k3_run
+    k3_caps = check_candidate_steps(
+        "22 K3 step", tap3.captured,
+        lambda *a, **kw: i2lqr_step_reference(params, limits, 1.0, *a,
+                                              max_iter=CAP, **kw), k3p, 8)
+    # K3 on the lap-2 capture's pass-0 lanes against its plain version
+    a = k3_caps["calls"][0]
+    out = k3p(*a)
+    ref, plain_ms = timed_call(lambda: fused_ilqr_reference(
+        params, limits, 1.0, *a, num_horizon=N, max_iter=CAP))
+    require(all(torch.equal(g, w) for g, w in zip(out, ref)),
+            "K3 on the path's inputs: not bitwise equal to the plain solve")
+    live = a[4] < 0.5
+    trips = ilqr_solve_soa(params, limits, a[3], a[0], a[1], a[2],
+                           float(params.lamb), 1.0, num_horizon=N,
+                           max_iter=CAP, done0=~live).lane_iters
+    idx = torch.nonzero(live).flatten()[:SAMPLE_LANES]
+    sample = lanes_of(a, idx.cpu(), a[1].shape[-1])
+    k3_path = dict(
+        launches=k3_launches, ms=cuda_ms(lambda: k3p(*a), 5),
+        plain_ms=plain_ms,
+        max_abs_err=float((out[0] - ref[0]).abs().max()),
+        lanes=a[1].shape[-1], live_lanes=int(live.sum()),
+        mean_iters=float(trips[live].double().mean()),
+        step_ms=k3_caps["step_ms"], plain_step_ms=k3_caps["plain_step_ms"],
+        **bound(solve_ops(lambda max_iter: fused_ilqr_reference(
+            host_params, host_limits, 1.0, *sample, num_horizon=N,
+            max_iter=max_iter), "max_iter", len(idx), int(live.sum()),
+            float(trips[live].double().sum())), nbytes(a) + nbytes(out)))
+    # K3 under every launch's skip mask of the run, on the lap-2 capture's
+    # pass-0 lanes, as the lanes lie and compacted (the JAX path's)
+    k3_path["compaction"] = compaction_replay(
+        k3p, a, [m[:BATCH] for m in k3_log.calls], 8)
+    del k3_log
+    print(f"[22 K3 compaction] {json.dumps(k3_path['compaction'])}",
+          flush=True)
+    del out, ref, k3_caps
+    times, hashes, k3_dev = [], [], []
+    for seed in (1, 2):
+        timed_k3 = EventTimed(k3p, K3_ATTRS)
+        t0 = time.perf_counter()
+        res = headline(seed, None, timed_k3)
+        times.append(time.perf_counter() - t0)
+        k3_dev.append(timed_k3.seconds())
+        hashes.append(lap_records_hash(res))
+        del res
+    k3_path.update(wall_s=min(times), lap_sims_per_s=BATCH * LAPS / min(times),
+                   device_s=k3_dev, hash=k3_hash)
+    print(f"[22 i2LQR through K3] {k3_path['lap_sims_per_s']:.1f} lap-sims/s, "
+          f"{min(times):.3f} s per batch (runs {[round(t, 3) for t in times]},"
+          f" K3 device s {[round(t, 3) for t in k3_dev]} by CUDA events, lap "
+          f"records {hashes}); lap-2 capture: K3 {k3_path['ms']:.3f} ms a "
+          f"call of {k3_path['lanes']} lanes ({k3_path['live_lanes']} live), "
+          f"plain {plain_ms:.3f} ms, bound {k3_path['bound_ms']:.4f} ms by "
+          f"{k3_path['bound_by']} ({k3_path['mean_iters']:.2f} LM iterations "
+          f"a live lane), the step with K3 {k3_path['step_ms']:.3f} ms; card "
+          f"{card}", flush=True)
+
     # ---- 10a. NLMPC headline warm run through K2 (captures phase 8) ----
     nl_params = LmpcParams.make()
     nl_sizes = dict(num_horizon=N, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
@@ -839,8 +1078,8 @@ def main():
     require(k2q.qsort_skip, "spaceVarying K2 without qsort_skip")
     scen_all = hl.scen_all
 
-    def nl_headline(seed, solver, lp=nl_params, sc=scen):
-        return hl.nlmpc(seed, lp, sc, solver)
+    def nl_headline(seed, solver, lp=nl_params, sc=scen, cand=None):
+        return hl.nlmpc(seed, lp, sc, solver, cand)
 
     def plain_of(lp):
         return (lambda *a, trips=None, cands=None: nlmpc_step_reference(
@@ -899,17 +1138,18 @@ def main():
     cap2 = k2_capture(k2q)
     nl_warm, nl_warm_s, k2_launches = warm_run("NLMPC headline", nl_params,
                                                scen, cap2, (k2q, k2))
-    k4_launches = k4.launches  # K4: off the path
     nl_completion = float(nl_warm.lap_done.float().mean())
+    k2_hash = lap_records_hash(nl_warm)
     nl_steps = nl_warm.lap_steps.float().mean(dim=1).tolist()
     print(f"[10 NLMPC headline warm] B={BATCH} {nl_warm_s:.2f} s, K2 "
           f"launches {k2_launches}, completion {nl_completion:.4f}, mean lap "
           f"steps {[round(v, 2) for v in nl_steps]}, max lap steps "
           f"{nl_warm.lap_steps.amax(dim=1).tolist()}, lap records "
-          f"{lap_records_hash(nl_warm)}", flush=True)
+          f"{k2_hash}", flush=True)
     require(nl_completion >= NL_COMPLETION_MIN,
             f"NLMPC headline lap completion {nl_completion} < "
             f"{NL_COMPLETION_MIN}")
+    k2_warm = nl_warm  # phase 23's yardstick
     del nl_warm
 
     # ---- 8. K2 against the plain step on the captured inputs; 8b. K2 with
@@ -991,6 +1231,110 @@ def main():
               f"completion {nl_completion:.4f}, mean lap steps "
               f"{[round(v, 2) for v in nl_steps]}, K2 launches in its "
               f"seed-1 run {nl_launches[name]}, card {card}", flush=True)
+
+    # ---- 23. the NLMPC headline through K4, the per-candidate path ----
+    def nl_path_run(tag, lp, sc, solver, counted, want, all_iter=False):
+        """A warm run of the per-candidate path through the candidate
+        solver ``solver`` (None: the simulator's default, ``counted``),
+        every kernel count set to 0 before it and read after; returns
+        (result, seconds, the kernel's launches, steps with active lanes,
+        the tap's captures)."""
+        with tap_step(batched_nlmpc_soa, "nlmpc_step_reference", 6, want,
+                      all_iter=all_iter) as tap:
+            zero_counts(k1, k2, k2q, k3, k4, k3p, counted)
+            t0 = time.perf_counter()
+            res = nl_headline(0, None, lp, sc, solver)
+            sec = time.perf_counter() - t0
+            launches = counted.launches
+        steps = sum(tap.calls.values())
+        require(k2.launches == k2q.launches == 0 and steps > 0
+                and launches == steps,
+                f"{tag}: K4 launched {launches} times on {steps} steps with "
+                f"active lanes (one a step)")
+        require(bool(torch.isfinite(res.safe_set[0]).all())
+                and bool(torch.isfinite(res.safe_set[1]).all()),
+                f"{tag}: non-finite NLMPC safe set")
+        return res, sec, launches, steps, tap.captured
+
+    k4p = build_fused_lm_shooting(nl_limits, 1.0, num_horizon=N,
+                                  max_iters=NL_CAP)
+    k4_log = SkipLog(k4p, K4_ATTRS)  # each launch's skip mask
+    k4_run, k4_warm_s, k4_launches, k4_steps, k4_captured = nl_path_run(
+        "23 NLMPC through K4", nl_params, scen, k4_log, k4p,
+        want_capture(NL_CAPTURES))
+    k4_hash = lap_records_hash(k4_run)
+    k4_completion, k4_se = completion_of(k4_run)
+    line = (f"[23 NLMPC through K4 warm] B={BATCH} {k4_warm_s:.2f} s, K4 "
+            f"launches {k4_launches} ({k4_steps} steps with active lanes), "
+            f"completion {k4_completion:.4f} (standard error {k4_se:.5f}), "
+            f"lap records {k4_hash}, phase 10's K2 run {k2_hash}")
+    if k4_hash != k2_hash:
+        env = assert_behavior_envelope(k2_warm, k4_run)
+        require(k4_completion >= NL_COMPLETION_MIN,
+                f"K4 path completion {k4_completion} < {NL_COMPLETION_MIN}")
+        line += f": differ, within the envelope {json.dumps(env)}"
+    print(line, flush=True)
+    del k2_warm, k4_run
+    require(sorted(k4_captured) == sorted(NL_CAPTURES),
+            f"captured {sorted(k4_captured)}")
+    k4_caps = check_candidate_steps(
+        "23 K4 step", k4_captured,
+        lambda *a, **kw: nlmpc_step_reference(nl_params, nl_limits, 1.0, *a,
+                                              max_iters=NL_CAP, **kw),
+        k4p, 9)
+    del k4_captured
+    # K4 on the lap-2 capture's candidate lanes against its plain version
+    a = k4_caps["calls"][0]
+    out = k4p(*a)
+    ref, plain_ms = timed_call(lambda: fused_lm_shooting_reference(
+        nl_limits, 1.0, *a, num_horizon=N, max_iters=NL_CAP))
+    require(all(torch.equal(g, w) for g, w in zip(out, ref)),
+            "K4 on the path's inputs: not bitwise equal to the plain solve")
+    live = a[4] < 0.5
+    trips = lm_feasibility_solve_soa(
+        nl_limits, a[3], a[0], a[1], a[2], 1.0, num_horizon=N,
+        max_iters=NL_CAP, m_lanes=torch.clamp(a[5].long(), 2, N),
+        done0=~live).n_iters
+    idx = torch.nonzero(live).flatten()[:SAMPLE_LANES]
+    sample = lanes_of(a, idx.cpu(), a[1].shape[-1])
+    k4_path = dict(
+        launches=k4_launches, ms=cuda_ms(lambda: k4p(*a), 5),
+        plain_ms=plain_ms,
+        max_abs_err=float((out[0] - ref[0]).abs().max()),
+        lanes=a[1].shape[-1], live_lanes=int(live.sum()),
+        mean_iters=float(trips[live].double().mean()),
+        step_ms=k4_caps["step_ms"], plain_step_ms=k4_caps["plain_step_ms"],
+        **bound(solve_ops(lambda max_iters: fused_lm_shooting_reference(
+            host_nl_limits, 1.0, *sample, num_horizon=N,
+            max_iters=max_iters), "max_iters", len(idx), int(live.sum()),
+            float(trips[live].double().sum()) / 2), nbytes(a) + nbytes(out)))
+    k4_path["compaction"] = compaction_replay(k4p, a, k4_log.calls, 8)
+    del out, ref, k4_caps, k4_log
+    print(f"[23 K4 compaction] {json.dumps(k4_path['compaction'])}",
+          flush=True)
+    times, hashes, k4_dev = [], [], []
+    for seed in (1, 2):
+        timed_k4 = EventTimed(k4p, K4_ATTRS)
+        t0 = time.perf_counter()
+        res = nl_headline(seed, None, nl_params, scen, timed_k4)
+        times.append(time.perf_counter() - t0)
+        k4_dev.append(timed_k4.seconds())
+        hashes.append(lap_records_hash(res))
+        del res
+    k4_path.update(wall_s=min(times), lap_sims_per_s=BATCH * LAPS / min(times),
+                   device_s=k4_dev, hash=k4_hash, completion=k4_completion)
+    print(f"[23 NLMPC through K4] {k4_path['lap_sims_per_s']:.1f} lap-sims/s, "
+          f"{min(times):.3f} s per batch (runs {[round(t, 3) for t in times]},"
+          f" K4 device s {[round(t, 3) for t in k4_dev]} by CUDA events, lap "
+          f"records {hashes}); lap-2 capture: K4 {k4_path['ms']:.3f} ms a "
+          f"call of {k4_path['lanes']} lanes ({k4_path['live_lanes']} live), "
+          f"plain {plain_ms:.3f} ms, bound {k4_path['bound_ms']:.4f} ms by "
+          f"{k4_path['bound_by']} ({k4_path['mean_iters']:.2f} LM iterations "
+          f"a live lane, both starts), the step with K4 "
+          f"{k4_path['step_ms']:.3f} ms; {occupancy['k4']['registers']} "
+          f"registers, {occupancy['k4']['local_bytes']} bytes of local "
+          f"memory, {occupancy['k4']['warps_per_sm']} warps per SM; card "
+          f"{card}", flush=True)
 
     # ---- 15a. timeVarying headline warm run through K2 (captures 13) ----
     tv_params = LmpcParams.make(ss_option="timeVarying")
@@ -1106,11 +1450,55 @@ def main():
     all_rate, _ = timed("18 all headline", all_params, scen_all, k2_all,
                         ALL_BATCH, all_completion, all_steps, all_launches)
 
+    # ---- 24. the safe set over every stored lap (all_ss_iter without
+    # all_ss_point) through K4, the simulator's default backend for it ----
+    k4d = batched_nlmpc_soa.default_candidate_solver(
+        nl_limits, 1.0, num_horizon=N, max_iters=NL_CAP)
+    every = {}
+    for mode, host_laps in (("spaceVarying", HOST_NLMPC_LAPS),
+                            ("timeVarying", HOST_EVERY_TV_LAPS)):
+        tag = f"24 every stored lap {mode}"
+        lp = LmpcParams.make(ss_option=mode, all_ss_iter=True)
+        res, sec, launches, steps, captured = nl_path_run(
+            tag, lp, scen_all, None, k4d,
+            lambda lap, i, a: EVERY_CAPTURES.get(lap) == i, all_iter=True)
+        p_done, se = completion_of(res)
+        rec = dict(launches=launches, steps=steps, warm_s=sec,
+                   completion=p_done, completion_se=se,
+                   final_lap_mean=float(res.lap_steps[-1].float().mean()),
+                   hash=lap_records_hash(res))
+        del res
+        t0 = time.perf_counter()
+        again = nl_headline(0, None, lp, scen_all)
+        rec["wall_s"] = time.perf_counter() - t0
+        require(lap_records_hash(again) == rec["hash"],
+                f"{tag}: a second seed-0 run differs")
+        del again
+        print(f"[{tag}] B={ALL_BATCH} completion {p_done:.4f} (standard "
+              f"error {se:.5f}), final-lap mean {rec['final_lap_mean']:.2f}, "
+              f"wall {rec['wall_s']:.3f} s (warm {sec:.3f} s), K4 launches "
+              f"{launches} ({steps} steps with active lanes), lap records "
+              f"{rec['hash']}", flush=True)
+        require(sorted(captured) == sorted(EVERY_CAPTURES),
+                f"{tag}: captured {sorted(captured)}")
+        require(int(captured[3][1][7].sum()) >= 3,
+                f"{tag}: lap 3 capture with fewer than 3 stored laps")
+        caps = check_candidate_steps(
+            f"{tag} step", captured,
+            lambda *a, lp=lp, **kw: nlmpc_step_reference(
+                lp, nl_limits, 1.0, *a, max_iters=NL_CAP, **kw), k4d, 9)
+        rec.update(step_ms=caps["step_ms"],
+                   plain_step_ms=caps["plain_step_ms"],
+                   k4_ms=cuda_ms(lambda: k4d(*caps["calls"][0]), 5),
+                   k4_lanes=caps["calls"][0][1].shape[-1])
+        del captured, caps
+        with no_plain_solve_on_card():
+            zero_noise(f"{tag} zero-noise", lp, None, host_laps)
+        every[mode] = rec
+
     # ---- 21a. the robustness sweep through K1 (captures phases 19) ----
     from ilqr_iterative_tasks_torch.experiments.scenario_sweep import (
         run_sweep)
-    from ilqr_iterative_tasks_torch.utils.envelope import (
-        assert_behavior_envelope)
 
     def goal_guess(lap, i, a):
         """some active lane's pass-0 guess is not its state: the goal"""
@@ -1289,6 +1677,48 @@ def main():
     print(f"[21 nominal stall_reseed=3] B={SWEEP_BATCH} within the behaviour "
           f"envelope of the run without it: {json.dumps(env)}", flush=True)
     del nominal
+
+    # ---- 25. exact resume on the card: 2 laps, a checkpoint, 2 more ----
+    def records(a, b):
+        """The lap records of run ``a`` continued by run ``b``."""
+        return SimpleNamespace(
+            lap_steps=torch.cat([torch.as_tensor(a[0], device=dev),
+                                 b.lap_steps]),
+            lap_done=torch.cat([torch.as_tensor(a[1], device=dev),
+                                b.lap_done]),
+            final_x=b.final_x, safe_set=b.safe_set)
+
+    scen_r = SoaScenarios.broadcast(
+        np.zeros(4), xcl[-1], Obstacle.make(31.0, -2.0, 8.0, 6.0),
+        RESUME_BATCH, noise_on=True, device=dev)
+    runs_r = {
+        "i2LQR through K1": lambda laps, **kw: simulate_learning_runs_soa(
+            params, limits, scen_r, seed_xs, None, 121, 1.0, num_laps=laps,
+            max_steps=MAX_STEPS, max_laps=MAX_LAPS, solver_max_iter=CAP,
+            **kw),
+        "NLMPC through K2": lambda laps, **kw: simulate_nlmpc_runs_soa(
+            nl_params, nl_limits, scen_r, seed_xs, seed_us, 121, 1.0,
+            num_laps=laps, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+            max_lm_iters=NL_CAP, infeasible_retire=NL_RETIRE, **kw)}
+    with tempfile.TemporaryDirectory() as tmp, no_plain_solve_on_card():
+        for name, run in runs_r.items():
+            gen = lambda seed: torch.Generator(dev).manual_seed(seed)
+            whole = run(4, generator=gen(0))
+            part = run(2, generator=gen(0))
+            path = os.path.join(tmp, "run.npz")
+            save_soa_run(path, part)
+            ck, steps_r, done_r = load_soa_run(path, device=dev)
+            rest = run(2, generator=gen(7), resume_from=ck)
+            h_whole = lap_records_hash(whole)
+            h_resumed = lap_records_hash(records((steps_r, done_r), rest))
+            print(f"[25 resume {name}] B={RESUME_BATCH}: 4 laps "
+                  f"{h_whole}, 2 + 2 from a checkpoint {h_resumed}, lap "
+                  f"steps {whole.lap_steps.float().mean(dim=1).tolist()}",
+                  flush=True)
+            require(h_whole == h_resumed and torch.equal(
+                rest.final_key, whole.final_key),
+                f"resume {name}: the resumed run differs")
+            del whole, part, rest
 
     # ---- 11. K5 against its plain version ----
     di_kw = generic_kwargs(params, limits, max_iter=G_CAP,
@@ -1489,16 +1919,23 @@ def main():
              all_iter={kk: iter_stats[kk] for kk in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
              | dict(launches=iter_launches)),
-        # K3 runs on the generic tier's --kernel path as its yardstick; its
-        # figures are phase 11's on those lanes
+        # K3 runs on the generic tier's --kernel path as its yardstick (its
+        # figures phase 11's on those lanes) and on the i2LQR simulator's
+        # per-candidate path (phase 22: the launches of its run, the rest
+        # on the lap-2 capture's pass-0 lanes)
         dict(name="fused_ilqr (K3)", route="cuda",
              source=csrc + "fused_ilqr.cu",
              replaces=tpu + "pallas_ilqr.py:87",
-             launches=k3_path_launches, **k3_stats, **occupancy["k3"]),
+             launches=k3_path_launches, **k3_stats, **occupancy["k3"],
+             i2lqr_path=k3_path),
+        # K4's figures are the NLMPC headline's through it (phase 23: the
+        # launches of its run, the rest on the lap-2 capture's lanes);
+        # phase 7's random lanes and phase 24's every-lap runs beside them
         dict(name="fused_lm_shooting (K4)", route="cuda",
              source=csrc + "fused_lm_shooting.cu",
              replaces=tpu + "pallas_lm_shooting.py:97",
-             launches=k4_launches, on_main_path=False, **k4_stats),
+             on_main_path=True, **k4_path, **occupancy["k4"],
+             random_lanes=k4_stats, every_stored_lap=every),
         dict(name="generic_ilqr (K5)", route="cuda",
              source=csrc + "generic_ilqr.cu",
              replaces=tpu + "pallas_generic_ilqr.py:64",

@@ -1,16 +1,20 @@
 """Batch-native (structure-of-arrays) NLMPC learning simulator in torch.
 
 Port of the base path of ilqr_iterative_tasks_tpu/control/batched_nlmpc_soa.py
-(``simulate_nlmpc_runs_soa`` :94, ``_advance_tail`` :254, ``run_lap`` :607,
+(``simulate_nlmpc_runs_soa`` :94 with ``resume_from``, ``pallas_solver``
+and ``with_streak_stats``, ``_advance_tail`` :254, ``run_lap`` :607,
 ``lap_loop`` :827), in the safe-set modes spaceVarying, timeVarying and all
 (``LmpcParams.ss_mode``), the last num_ss_iter laps a step or, with
-``all_ss_iter`` (mode all only), every stored lap. The scenario batch B is
-the trailing axis of every tensor; all B lanes run in lockstep and a lane
-that finishes its lap freezes. Each control step's ``calc_input`` is one
-call of a step solver: the K2 kernel (ops/nlmpc_step.py::
-build_fused_nlmpc_step), which the simulator builds itself for CUDA
-scenarios when the caller passes none. The plain step runs only for
-scenarios on the CPU. Per lane the simulator keeps the
+``all_ss_iter``, every stored lap. The scenario batch B is the trailing
+axis of every tensor; all B lanes run in lockstep and a lane that finishes
+its lap freezes. Each control step's ``calc_input`` is one call of a step
+solver: the K2 kernel (ops/nlmpc_step.py::build_fused_nlmpc_step), or the
+plain step's glue around a per-candidate solver, the K4 kernel
+(``candidate_solver``, ops/fused_lm_shooting.py::build_fused_lm_shooting).
+On CUDA scenarios with neither given the simulator builds K2 itself, or K4
+for the kNN or window over every stored lap, which no K2 serves. The plain
+step with its plain solve runs only for scenarios on the CPU. Per lane
+the simulator keeps the
 terminal guess, the warm start and the shrinking horizon: each lap starts
 at horizon n with the newest stored lap's row n as guess and its first n
 stored inputs as warm start; choosing a lap's last point shrinks the
@@ -19,7 +23,8 @@ previous input and freezes every advance.
 
 Plant noise and its sources are as in control/batched_soa.py: one (2, B)
 standard-normal row per executed simulator step, from a
-``torch.Generator`` or an injected ``noise`` tensor.
+``torch.Generator`` or an injected ``noise`` tensor; ``final_key`` and
+``resume_from`` continue it as there.
 """
 
 from __future__ import annotations
@@ -30,10 +35,11 @@ import torch
 
 from ilqr_iterative_tasks_torch.control import batched_soa
 from ilqr_iterative_tasks_torch.control.batched_soa import (
-    SoaScenarios, _step_solver_inputs, draw_noise, plant_step)
+    SoaScenarios, _step_solver_inputs, draw_noise, noise_key, plant_step,
+    refuse, resume_noise, resumed_safe_set, solver_of)
 from ilqr_iterative_tasks_torch.ops import _build
 from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
-    obstacle_to_lanes_nlmpc)
+    FusedLmShooting, build_fused_lm_shooting, obstacle_to_lanes_nlmpc)
 from ilqr_iterative_tasks_torch.ops.nlmpc_step import (
     FusedNlmpcStep, build_fused_nlmpc_step, nlmpc_step_reference)
 from ilqr_iterative_tasks_torch.utils.params import (
@@ -46,6 +52,13 @@ class NlmpcSoaRunResult(NamedTuple):
     final_x: torch.Tensor  # (4, B): the lanes' state at the end of the run
     safe_set: tuple  # (states, inputs, qfun, valid, lap_len), batch-trailing
     lap_count: int  # laps stored, seed included
+    # the noise position after the run (batched_soa.noise_key): pass
+    # (safe_set, lap_count, final_key) back as ``resume_from``
+    final_key: object = None
+    # with_streak_stats: (recovered (num_laps, B), terminal (num_laps, B))
+    # i32, each lane-lap's longest all-infeasible streak that feasibility
+    # ended and its streak at the lap's end
+    streaks: tuple = ()
 
 
 def add_lap(ss, slot, xs_rec, us_rec, n_valid):
@@ -115,6 +128,29 @@ def default_step_solver(params: LmpcParams, limits: SystemLimits, dt, *,
     return _K2_CACHE[key]
 
 
+_K4_CACHE: dict = {}
+
+
+def default_candidate_solver(limits: SystemLimits, dt, *, num_horizon: int,
+                             max_iters: int) -> FusedLmShooting:
+    """The K4 that ``simulate_nlmpc_runs_soa`` launches on CUDA scenarios
+    for the options no K2 serves (``all_ss_iter`` outside mode all) when no
+    solver is passed: built once per constants, horizon and cap, then
+    reused (its ``launches`` keeps counting)."""
+    key = (tuple(_build.nlmpc_consts_array(nlmpc_consts(limits, dt))),
+           num_horizon, max_iters)
+    if key not in _K4_CACHE:
+        _K4_CACHE[key] = build_fused_lm_shooting(
+            limits, dt, num_horizon=num_horizon, max_iters=max_iters)
+    return _K4_CACHE[key]
+
+
+def k2_serves(params: LmpcParams) -> bool:
+    """Whether a K2 runs these safe-set options: all but the kNN or window
+    over every stored lap (build_fused_nlmpc_step)."""
+    return params.ss_mode == "all" or not params.all_ss_iter
+
+
 def lap_window(lap_count: int, nsi: int, max_laps: int, all_iter: bool, b,
                device):
     """(lap_ids, lap_ok) of a step: the last nsi stored laps, or with
@@ -128,8 +164,7 @@ def lap_window(lap_count: int, nsi: int, max_laps: int, all_iter: bool, b,
     return lap_ids, lap_ok
 
 
-_UNSUPPORTED = ("retile_frac", "tail_shrink", "resume_from", "pallas_solver",
-                "pallas_step_solver", "with_streak_stats")
+_UNSUPPORTED = ("retile_frac", "tail_shrink")
 
 
 def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
@@ -140,9 +175,12 @@ def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
                             sim_step_budget: int = 121,
                             max_lm_iters: int = 60,
                             infeasible_retire: int | None = None,
+                            with_streak_stats: bool = False,
                             step_solver=None,
+                            candidate_solver=None,
                             noise: torch.Tensor | None = None,
                             generator: torch.Generator | None = None,
+                            resume_from=None,
                             **unsupported) -> NlmpcSoaRunResult:
     """Seed lap + ``num_laps`` NLMPC learning laps for B scenarios.
 
@@ -150,25 +188,37 @@ def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
     seed_len: count of seed states. ``max_lm_iters`` caps the LM
     iterations of every solve. ``infeasible_retire=S`` retires a lane from
     the solver after S consecutive all-infeasible steps (it keeps
-    integrating its held input). ``step_solver``: a K2 built by
-    ``build_fused_nlmpc_step`` for the same sizes and safe-set mode (in
+    integrating its held input); ``with_streak_stats`` fills the result's
+    ``streaks``, the measurement that sizes S. ``step_solver``: a K2 built
+    by ``build_fused_nlmpc_step`` for the same sizes and safe-set mode (in
     timeVarying it also takes each lane's step t and the least stored lap
-    cost), or None: then
-    ``default_step_solver``'s K2 on CUDA scenarios and the plain step on
-    CPU ones. ``noise`` (steps, 2, B) standard-normal draws or
-    ``generator``: the plant-noise source (needed where noise_on is set).
+    cost). ``candidate_solver`` (the JAX ``pallas_solver``): a K4 built by
+    ``build_fused_lm_shooting`` for the same limits and horizon with
+    ``max_iters`` equal to the cap; the plain step's glue then calls it for
+    every candidate solve (``nlmpc_step_reference``). With neither: on
+    CUDA scenarios ``default_step_solver``'s K2, or
+    ``default_candidate_solver``'s K4 where no K2 serves the options
+    (``k2_serves``), and on CPU ones the plain step. ``noise`` (steps, 2, B)
+    standard-normal draws or ``generator``: the plant-noise source (needed
+    where noise_on is set). ``resume_from``: (safe_set, lap_count, key),
+    as for ``batched_soa.simulate_learning_runs_soa``.
     """
-    if unsupported:
-        raise TypeError(f"{sorted(unsupported)} not supported by the torch "
-                        f"port (left out: {', '.join(_UNSUPPORTED)})")
-    params.check_ported()
+    refuse(unsupported, _UNSUPPORTED)
     n, k, nsi = params.num_horizon, params.num_ss_points, params.num_ss_iter
     mode, all_iter = params.ss_mode, bool(params.all_ss_iter)
-    if step_solver is None and scenarios.x0.device.type != "cpu":
-        step_solver = default_step_solver(params, limits, dt,
-                                          max_steps=max_steps,
-                                          max_laps=max_laps,
-                                          max_iters=max_lm_iters)
+
+    def default():
+        if k2_serves(params):
+            return default_step_solver(
+                params, limits, dt, max_steps=max_steps, max_laps=max_laps,
+                max_iters=max_lm_iters), None
+        return None, default_candidate_solver(
+            limits, dt, num_horizon=n, max_iters=max_lm_iters)
+
+    step_solver, candidate_solver = solver_of(
+        step_solver, candidate_solver, "max_iters", max_lm_iters,
+        ("with_skip", "with_hzn"), scenarios.x0.device.type != "cpu",
+        default)
     if step_solver is not None:
         s = step_solver
         # a solver without these attributes is taken for spaceVarying over
@@ -192,14 +242,12 @@ def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
     else:
         def solver(*args):
             return nlmpc_step_reference(params, limits, dt, *args,
-                                        max_iters=max_lm_iters)
+                                        max_iters=max_lm_iters,
+                                        candidate_solver=candidate_solver)
     if max_steps < sim_step_budget + (2 if goal_append else 1):
         raise ValueError(
             f"max_steps={max_steps} too small for sim_step_budget="
             f"{sim_step_budget} (+{2 if goal_append else 1} recorded rows)")
-    if 1 + num_laps > max_laps:
-        raise ValueError(f"max_laps={max_laps} cannot hold the seed lap and "
-                         f"{num_laps} learned laps")
     x0 = scenarios.x0
     dtype, dev = x0.dtype, x0.device
     b = x0.shape[-1]
@@ -209,25 +257,43 @@ def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
     lanes = torch.arange(b, device=dev)
     t_rows = torch.arange(max_steps, device=dev)[:, None]
 
-    states = torch.zeros((max_laps, max_steps, 4, b), dtype=dtype, device=dev)
-    inputs = torch.zeros((max_laps, max_steps, 2, b), dtype=dtype, device=dev)
-    qfun = torch.zeros((max_laps, max_steps, b), dtype=dtype, device=dev)
-    valid = torch.zeros((max_laps, max_steps, b), dtype=torch.bool,
-                        device=dev)
-    lap_len = torch.zeros((max_laps, b), dtype=torch.int32, device=dev)
-    ss = (states, inputs, qfun, valid, lap_len)
-    seed = lambda a, c: torch.as_tensor(a, dtype=dtype, device=dev)[
-        :, :, None].expand(max_steps, c, b)
-    add_lap(ss, 0, seed(seed_xs, 4), seed(seed_us, 2),
-            torch.full((b,), int(seed_len), dtype=torch.int32, device=dev))
+    if resume_from is None:
+        states = torch.zeros((max_laps, max_steps, 4, b), dtype=dtype,
+                             device=dev)
+        inputs = torch.zeros((max_laps, max_steps, 2, b), dtype=dtype,
+                             device=dev)
+        qfun = torch.zeros((max_laps, max_steps, b), dtype=dtype, device=dev)
+        valid = torch.zeros((max_laps, max_steps, b), dtype=torch.bool,
+                            device=dev)
+        lap_len = torch.zeros((max_laps, b), dtype=torch.int32, device=dev)
+        ss = (states, inputs, qfun, valid, lap_len)
+        seed = lambda a, c: torch.as_tensor(a, dtype=dtype, device=dev)[
+            :, :, None].expand(max_steps, c, b)
+        add_lap(ss, 0, seed(seed_xs, 4), seed(seed_us, 2),
+                torch.full((b,), int(seed_len), dtype=torch.int32,
+                           device=dev))
+        lap0, sim_step = 1, 0
+    else:
+        ss, lap0, key = resume_from
+        ss, lap0 = resumed_safe_set(ss, (dtype, dtype, dtype, torch.bool,
+                                         torch.int32), dev), int(lap0)
+        states, inputs, qfun, valid, lap_len = ss
+        sim_step = resume_noise(key, noise, generator)
+    if lap0 + num_laps > max_laps:
+        raise ValueError(f"max_laps={max_laps} cannot hold {lap0} stored "
+                         f"and {num_laps} more laps")
     goal, noise_on = scenarios.goal, scenarios.noise_on
     lap_steps = torch.zeros((num_laps, b), dtype=torch.int32, device=dev)
     lap_done = torch.zeros((num_laps, b), dtype=torch.bool, device=dev)
-    sim_step = 0  # executed steps over the run: the noise row
+    if with_streak_stats:
+        streaks = (torch.zeros((num_laps, b), dtype=torch.int32, device=dev),
+                   torch.zeros((num_laps, b), dtype=torch.int32, device=dev))
+    # sim_step: executed steps over the run (and the run it resumes), the
+    # noise row
     x = x0
 
     for lap_i in range(num_laps):
-        lap_count = 1 + lap_i  # laps stored so far (seed + learned)
+        lap_count = lap0 + lap_i  # laps stored so far (seed + learned)
         guess = states[lap_count - 1, n]  # warm start from the newest lap
         u_warm = inputs[lap_count - 1, :n]
         lap_ids, lap_ok = lap_window(lap_count, nsi, max_laps, all_iter, b,
@@ -240,6 +306,7 @@ def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
         done = torch.zeros((b,), dtype=torch.bool, device=dev)
         retired = torch.zeros((b,), dtype=torch.bool, device=dev)
         streak = torch.zeros((b,), dtype=torch.int32, device=dev)
+        rec_max = torch.zeros((b,), dtype=torch.int32, device=dev)
         hzn = torch.full((b,), n, dtype=torch.int32, device=dev)
         u_prev = torch.zeros((2, b), dtype=dtype, device=dev)
         obstacle = scenarios.obstacle
@@ -273,6 +340,10 @@ def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
             hzn_new = torch.where(retired, hzn, hzn_new)
             streak_next = torch.where(done, streak,
                                       torch.where(feas, 0, streak + 1))
+            if with_streak_stats:  # a streak that feasibility ended
+                rec_max = torch.where(~done & feas & (streak > 0),
+                                      torch.maximum(rec_max, streak),
+                                      rec_max)
             if infeasible_retire is not None:
                 retired = retired | ((streak_next >= infeasible_retire)
                                      & ~done)
@@ -302,5 +373,11 @@ def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
         add_lap(ss, lap_count, xs_rec, us_rec, n_valid)
         lap_steps[lap_i] = t
         lap_done[lap_i] = done
-    return NlmpcSoaRunResult(lap_steps=lap_steps, lap_done=lap_done,
-                             final_x=x, safe_set=ss, lap_count=1 + num_laps)
+        if with_streak_stats:
+            streaks[0][lap_i] = rec_max
+            streaks[1][lap_i] = streak
+    return NlmpcSoaRunResult(
+        lap_steps=lap_steps, lap_done=lap_done, final_x=x, safe_set=ss,
+        lap_count=lap0 + num_laps,
+        final_key=noise_key(noise, generator, sim_step),
+        streaks=streaks if with_streak_stats else ())

@@ -2,13 +2,16 @@
 
 Port of the base path of ilqr_iterative_tasks_tpu/control/batched_soa.py
 (``SoaScenarios.randomized`` :56, ``simulate_learning_runs_soa`` :237 with
-its ``stall_reseed`` guard, ``run_lap`` :717, ``lap_loop`` :924).
+its ``stall_reseed`` guard, ``resume_from`` and ``pallas_solver``,
+``run_lap`` :717, ``lap_loop`` :924).
 The scenario batch B is the trailing axis of every tensor. All B lanes run in
 lockstep; a lane that finishes its lap freezes until every lane finishes or
 the step budget runs out. Each control step's ``calc_input`` is one call of
 a step solver: the K1 kernel (ops/i2lqr_step.py::build_fused_i2lqr_step),
 which the simulator builds itself for CUDA scenarios when the caller passes
-none. The plain step runs only for scenarios on the CPU.
+none, or the plain step's glue around a per-candidate solver, the K3 kernel
+(``candidate_solver``, ops/fused_ilqr.py::build_fused_ilqr). The plain
+step with its plain solve runs only for scenarios on the CPU.
 
 Plant noise is clipped Gaussian (v: N(0, 0.01^2), theta: N(0, 0.005^2),
 both clipped to +-0.05, half of each added), gated per lane by
@@ -16,7 +19,9 @@ both clipped to +-0.05, half of each added), gated per lane by
 ``torch.Generator`` or from an injected ``noise`` tensor (steps, 2, B) that
 is consumed one row per executed simulator step, so a test can feed the
 JAX simulator's own draws. ``SoaScenarios.randomized`` takes its jitter
-draws the same way: from a generator, or injected.
+draws the same way: from a generator, or injected. A run's ``final_key``
+is what continues its noise in a resumed run (``resume_from``): the
+generator's state, or the count of injected rows consumed.
 """
 
 from __future__ import annotations
@@ -110,6 +115,38 @@ class SoaRunResult(NamedTuple):
     final_x: torch.Tensor  # (4, B)
     safe_set: tuple  # (states, qfun, valid, lap_len), batch-trailing
     lap_count: int  # laps stored, seed included
+    # the noise position after the run (noise_key): pass (safe_set,
+    # lap_count, final_key) back as ``resume_from`` to continue the run
+    final_key: object = None
+
+
+def noise_key(noise, generator, rows):
+    """What a resumed run needs to continue the noise after ``rows``
+    executed steps: the count of injected rows consumed, else the
+    generator's state (a CPU uint8 tensor), else None."""
+    if noise is not None:
+        return rows
+    if generator is not None:
+        return generator.get_state()
+    return None
+
+
+def resume_noise(key, noise, generator) -> int:
+    """The first noise row of a run resumed at ``key`` (noise_key's value):
+    the rows consumed for injected draws; a generator is set to its saved
+    state. Returns 0 where the key does not name a position."""
+    if isinstance(key, torch.Tensor) and key.dtype == torch.uint8:
+        if generator is None:
+            raise ValueError("resume_from holds a generator state: pass the "
+                             "generator to set it on")
+        generator.set_state(key)
+        return 0
+    if key is None:
+        return 0
+    if noise is None:
+        raise ValueError("resume_from holds a count of noise rows: pass the "
+                         "injected noise it counts")
+    return int(key)
 
 
 def _step_solver_inputs(lap_count, nsi, max_laps, inactive, b, device):
@@ -173,6 +210,18 @@ def add_lap(ss, slot, xs_rec, n_valid):
     lap_len[slot] = n_valid.to(torch.int32)
 
 
+def resumed_safe_set(ss, dtypes, device) -> tuple:
+    """The safe set of ``resume_from`` as the simulator's own tensors: each
+    of ``ss`` (tensors or numpy arrays, batch-trailing) copied to
+    ``device`` in its dtype of ``dtypes``, so the resumed run does not
+    write into the caller's."""
+    if len(ss) != len(dtypes):
+        raise ValueError(f"resume_from holds {len(ss)} safe-set tensors; "
+                         f"the simulator keeps {len(dtypes)}")
+    return tuple(torch.as_tensor(t).to(device=device, dtype=d, copy=True)
+                 for t, d in zip(ss, dtypes))
+
+
 _K1_CACHE: dict = {}
 
 
@@ -192,9 +241,41 @@ def default_step_solver(params: IlqrParams, limits: SystemLimits, dt, *,
     return _K1_CACHE[key]
 
 
-_UNSUPPORTED = ("retile_frac", "tail_shrink", "resume_from",
-                "dedup_passes", "pallas_solver", "pallas_step_solver",
+_UNSUPPORTED = ("retile_frac", "tail_shrink", "dedup_passes",
                 "precision_islands")
+
+
+def refuse(unsupported: dict, left_out) -> None:
+    """Raise TypeError on options the port does not take."""
+    if unsupported:
+        raise TypeError(f"{sorted(unsupported)} not supported by the torch "
+                        f"port (left out: {', '.join(left_out)})")
+
+
+def solver_of(step_solver, candidate_solver, cap_attr, cap, flags, on_card,
+              default):
+    """The backend a simulator runs, checked as the JAX simulators check
+    ``pallas_step_solver`` and ``pallas_solver``: at most one of the step
+    solver and the candidate solver, the latter built with the simulator's
+    LM cap ``cap`` (its attribute ``cap_attr``) and with each of ``flags``
+    set; where neither is given, ``default()`` on the card. Returns
+    (step_solver, candidate_solver)."""
+    if step_solver is not None and candidate_solver is not None:
+        raise ValueError("step_solver replaces candidate_solver: pass only "
+                         "one backend")
+    if candidate_solver is not None:
+        built = getattr(candidate_solver, cap_attr, cap)
+        if built != cap:
+            raise ValueError(
+                f"candidate_solver was built with {cap_attr}={built}; the "
+                f"simulator's LM cap is {cap}")
+        for flag in flags:
+            if not getattr(candidate_solver, flag, False):
+                raise ValueError(f"candidate_solver must be built with "
+                                 f"{flag}=True")
+    elif step_solver is None and on_card:
+        return default()
+    return step_solver, candidate_solver
 
 
 def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
@@ -206,18 +287,32 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
                                solver_max_iter: int | None = None,
                                stall_reseed: int | None = None,
                                step_solver=None,
+                               candidate_solver=None,
                                noise: torch.Tensor | None = None,
                                generator: torch.Generator | None = None,
+                               resume_from=None,
                                **unsupported) -> SoaRunResult:
     """Seed lap + ``num_laps`` learning laps for B scenarios.
 
     seed_xs: (max_steps, 4) seed lap, padded; seed_us is unused (kept for
     the JAX signature); seed_len: count of seed states. ``solver_max_iter``
     caps the LM iterations (None = the reference's 150). ``step_solver``:
-    a K1 built by ``build_fused_i2lqr_step`` for the same sizes, or None:
-    then ``default_step_solver``'s K1 on CUDA scenarios and the plain step
-    on CPU ones. ``noise`` (steps, 2, B) standard-normal draws or
-    ``generator``: the plant-noise source (needed where noise_on is set).
+    a K1 built by ``build_fused_i2lqr_step`` for the same sizes.
+    ``candidate_solver`` (the JAX ``pallas_solver``): a K3 built by
+    ``build_fused_ilqr`` with the same constants and ``max_iter`` equal to
+    the cap; the plain step's glue then calls it once a relaxation pass
+    (``i2lqr_step_reference``). With neither: ``default_step_solver``'s K1
+    on CUDA scenarios and the plain step on CPU ones. ``noise`` (steps, 2,
+    B) standard-normal draws or ``generator``: the plant-noise source
+    (needed where noise_on is set).
+
+    ``resume_from``: (safe_set, lap_count, key) of an earlier run (its
+    result's fields, or ``utils.checkpoint.load_soa_run``): the run goes on
+    from that safe set (the seed arguments are not read) for ``num_laps``
+    more laps, and ``key`` (the result's ``final_key``) continues the noise:
+    a generator state is set on ``generator``, a row count indexes the
+    injected ``noise``, which is then the whole run's. Two laps and a
+    resumed two equal four laps in one run bit for bit.
 
     ``stall_reseed=S`` (default None: the reference's behaviour, and no
     extra work a step): a lane whose chosen candidate's Qfun has not
@@ -226,18 +321,16 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
     which pulls its candidates toward goal-ward safe-set points and out of
     a parking orbit. The count and the last Qfun restart at each lap.
     """
-    if unsupported:
-        bad = sorted(unsupported)
-        raise TypeError(f"{bad} not supported by the torch port "
-                        f"(left out: {', '.join(_UNSUPPORTED)})")
+    refuse(unsupported, _UNSUPPORTED)
     n = params.num_horizon
     k = params.num_ss_points
     nsi = params.num_ss_iter
     cap = 150 if solver_max_iter is None else solver_max_iter
-    if step_solver is None and scenarios.x0.device.type != "cpu":
-        step_solver = default_step_solver(params, limits, dt,
-                                          max_steps=max_steps,
-                                          max_laps=max_laps, max_iter=cap)
+    step_solver, candidate_solver = solver_of(
+        step_solver, candidate_solver, "max_iter", cap, (),
+        scenarios.x0.device.type != "cpu",
+        lambda: (default_step_solver(params, limits, dt, max_steps=max_steps,
+                                     max_laps=max_laps, max_iter=cap), None))
     if step_solver is not None:
         s = step_solver
         if ((s.k, s.nsi, s.num_horizon, s.max_steps, s.max_laps, s.max_iter)
@@ -251,15 +344,13 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
     else:
         def solver(*args):
             return i2lqr_step_reference(params, limits, dt, *args,
-                                        max_iter=cap)
+                                        max_iter=cap,
+                                        candidate_solver=candidate_solver)
     # the record write reaches row sim_step_budget, goal_append one more
     if max_steps < sim_step_budget + (2 if goal_append else 1):
         raise ValueError(
             f"max_steps={max_steps} too small for sim_step_budget="
             f"{sim_step_budget} (+{2 if goal_append else 1} recorded rows)")
-    if 1 + num_laps > max_laps:
-        raise ValueError(f"max_laps={max_laps} cannot hold the seed lap and "
-                         f"{num_laps} learned laps")
     x0 = scenarios.x0
     dtype, dev = x0.dtype, x0.device
     b = x0.shape[-1]
@@ -268,24 +359,39 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
         raise ValueError("noise_on is set: pass a generator or noise draws")
     lanes = torch.arange(b, device=dev)
 
-    states = torch.zeros((max_laps, max_steps, 4, b), dtype=dtype, device=dev)
-    qfun = torch.zeros((max_laps, max_steps, b), dtype=dtype, device=dev)
-    valid = torch.zeros((max_laps, max_steps, b), dtype=torch.bool,
-                        device=dev)
-    lap_len = torch.zeros((max_laps, b), dtype=torch.int32, device=dev)
-    ss = (states, qfun, valid, lap_len)
-    add_lap(ss, 0, torch.as_tensor(seed_xs, dtype=dtype, device=dev)[:, :, None]
-            .expand(max_steps, 4, b),
-            torch.full((b,), int(seed_len), dtype=torch.int32, device=dev))
+    if resume_from is None:
+        states = torch.zeros((max_laps, max_steps, 4, b), dtype=dtype,
+                             device=dev)
+        qfun = torch.zeros((max_laps, max_steps, b), dtype=dtype, device=dev)
+        valid = torch.zeros((max_laps, max_steps, b), dtype=torch.bool,
+                            device=dev)
+        lap_len = torch.zeros((max_laps, b), dtype=torch.int32, device=dev)
+        ss = (states, qfun, valid, lap_len)
+        add_lap(ss, 0, torch.as_tensor(seed_xs, dtype=dtype,
+                                       device=dev)[:, :, None]
+                .expand(max_steps, 4, b),
+                torch.full((b,), int(seed_len), dtype=torch.int32,
+                           device=dev))
+        lap0, sim_step = 1, 0
+    else:
+        ss, lap0, key = resume_from
+        ss, lap0 = resumed_safe_set(ss, (dtype, dtype, torch.bool,
+                                         torch.int32), dev), int(lap0)
+        states, qfun, valid, lap_len = ss
+        sim_step = resume_noise(key, noise, generator)
+    if lap0 + num_laps > max_laps:
+        raise ValueError(f"max_laps={max_laps} cannot hold {lap0} stored "
+                         f"and {num_laps} more laps")
     goal = scenarios.goal
     noise_on = scenarios.noise_on
     zero_u = torch.zeros((1, 2, b), dtype=dtype, device=dev)
     lap_steps = torch.zeros((num_laps, b), dtype=torch.int32, device=dev)
     lap_done = torch.zeros((num_laps, b), dtype=torch.bool, device=dev)
-    sim_step = 0  # executed steps over the run: the noise row
+    # sim_step: executed steps over the run (and the run it resumes), the
+    # noise row
 
     for lap_i in range(num_laps):
-        lap_count = 1 + lap_i  # laps stored so far (seed + learned)
+        lap_count = lap0 + lap_i  # laps stored so far (seed + learned)
         x = x0
         t = torch.zeros((b,), dtype=torch.int32, device=dev)
         done = torch.zeros((b,), dtype=torch.bool, device=dev)
@@ -357,4 +463,5 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
         lap_done[lap_i] = done
     return SoaRunResult(lap_steps=lap_steps, lap_done=lap_done,
                         final_x=goal, safe_set=ss,
-                        lap_count=1 + num_laps)
+                        lap_count=lap0 + num_laps,
+                        final_key=noise_key(noise, generator, sim_step))

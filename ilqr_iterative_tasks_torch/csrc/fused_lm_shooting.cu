@@ -86,3 +86,15 @@ extern "C" int fused_lm_shooting_launch(int dtype, int n, const double* consts,
         consts, max_iters, B, x0, xt, uw, obs, skip, hzn, us, xl, te, fe, s);
   return -1;
 }
+
+// The loaded kernel's resources for (dtype, n), as the runtime reports them
+// (kernel_attributes, tile.cuh); -1 when no kernel is instantiated.
+extern "C" int fused_lm_shooting_attributes(int dtype, int n, int* out) {
+  if (n == 6 && dtype == 0)
+    return ilqr::kernel_attributes(ilqr::fused_lm_shooting_kernel<float, 6>,
+                                   128, out);
+  if (n == 6 && dtype == 1)
+    return ilqr::kernel_attributes(ilqr::fused_lm_shooting_kernel<double, 6>,
+                                   128, out);
+  return -1;
+}

@@ -1,7 +1,11 @@
 """The headline runs of ``chip_smoke.py`` and what its card checks share
 with ``experiments/kernel_ab.py``: the headlines' sizes, the runs
-themselves, the step solver that captures a kernel's inputs and its rule,
-CUDA-event timing and a hash of a run's lap records.
+themselves (through the whole-step kernels K1 / K2 or, with a
+``candidate_solver``, through the per-candidate path of K3 / K4), the step
+solver that captures a kernel's inputs and its rule, the tap that captures
+the plain step's inputs on the per-candidate path, the guard that no plain
+candidate solve sees a CUDA tensor, CUDA-event timing and a hash of a run's
+lap records.
 
 The i2LQR headline is bench.py:44-62 (B = 49 152, seed lap + 3 learning
 laps, f32, plant noise on, LM cap 16); the NLMPC headlines are
@@ -111,6 +115,58 @@ class Capture:
         return self.kernel(*args)
 
 
+@contextlib.contextmanager
+def tap_step(module, name, lap_arg, want, all_iter=False):
+    """Inside the block, the plain step ``module.name`` that a simulator
+    calls (the per-candidate path: ``batched_soa.i2lqr_step_reference``,
+    lap_ids at ``lap_arg`` 5, or ``batched_nlmpc_soa.nlmpc_step_reference``,
+    6) runs through a Capture by the rule ``want``: it counts the steps a
+    lap and keeps a copy of the inputs (without params, limits and dt)
+    where ``want`` says so. Yields the Capture."""
+    step = getattr(module, name)
+    cap = Capture(None, (), lap_arg, want, all_iter=all_iter)
+
+    def tapped(params, limits, dt, *args, **kw):
+        cap.kernel = lambda *a: step(params, limits, dt, *a, **kw)
+        return cap(*args)
+
+    setattr(module, name, tapped)
+    try:
+        yield cap
+    finally:
+        setattr(module, name, step)
+
+
+@contextlib.contextmanager
+def no_plain_solve_on_card():
+    """Inside the block, the plain candidate solves (``ilqr_solve_soa``,
+    ``lm_feasibility_solve_soa``), as the plain steps and the kernels' CPU
+    routes call them, raise on a CUDA tensor: on the card a simulator's
+    candidate solves are K3's or K4's, never the plain version's."""
+    from ilqr_iterative_tasks_torch.ops import (
+        fused_ilqr, fused_lm_shooting, i2lqr_step, nlmpc_step)
+    sites = [(m, "ilqr_solve_soa") for m in (i2lqr_step, fused_ilqr)] + [
+        (m, "lm_feasibility_solve_soa") for m in (nlmpc_step,
+                                                  fused_lm_shooting)]
+    saved = [getattr(m, name) for m, name in sites]
+
+    def guard(fn, name):
+        def guarded(*args, **kw):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda
+                   for a in (*args, *kw.values())):
+                raise AssertionError(f"the plain {name} ran on the card")
+            return fn(*args, **kw)
+        return guarded
+
+    for (m, name), fn in zip(sites, saved):
+        setattr(m, name, guard(fn, name))
+    try:
+        yield
+    finally:
+        for (m, name), fn in zip(sites, saved):
+            setattr(m, name, fn)
+
+
 def k1_capture(k1) -> Capture:
     """K1 capturing its inputs at the steps of CAPTURES."""
     return Capture(k1, K1_ATTRS, 5,
@@ -187,24 +243,33 @@ class Headlines:
                                    b, noise_on=True, device=dev)
             for b in (BATCH, ALL_BATCH))
 
-    def i2lqr(self, seed, solver):
-        """The i2LQR headline through ``solver`` (K1 or one wrapping it)."""
+    def i2lqr(self, seed, solver, candidate_solver=None):
+        """The i2LQR headline through ``solver`` (K1 or one wrapping it) or,
+        with ``candidate_solver`` (K3 built with max_iter CAP) and no
+        solver, through the per-candidate path."""
         g = torch.Generator(device=self.dev).manual_seed(seed)
-        res = simulate_learning_runs_soa(
-            self.params, self.limits, self.scen, self.seed_xs, None, 121, 1.0,
-            step_solver=solver, generator=g, num_laps=LAPS,
-            max_steps=MAX_STEPS, max_laps=MAX_LAPS, solver_max_iter=CAP)
+        with no_plain_solve_on_card():
+            res = simulate_learning_runs_soa(
+                self.params, self.limits, self.scen, self.seed_xs, None, 121,
+                1.0, step_solver=solver, candidate_solver=candidate_solver,
+                generator=g, num_laps=LAPS, max_steps=MAX_STEPS,
+                max_laps=MAX_LAPS, solver_max_iter=CAP)
         torch.cuda.synchronize(self.dev)
         return res
 
-    def nlmpc(self, seed, lp, sc, solver):
+    def nlmpc(self, seed, lp, sc, solver, candidate_solver=None):
         """An NLMPC headline of the parameters ``lp`` on the scenarios
-        ``sc`` through ``solver`` (K2 or one wrapping it)."""
+        ``sc`` through ``solver`` (K2 or one wrapping it) or, with
+        ``candidate_solver`` (K4 built with max_iters NL_CAP) and no solver,
+        through the per-candidate path; with neither, through the
+        simulator's default backend."""
         g = torch.Generator(device=self.dev).manual_seed(seed)
-        res = simulate_nlmpc_runs_soa(
-            lp, self.nl_limits, sc, self.seed_xs, self.seed_us, 121, 1.0,
-            step_solver=solver, generator=g, num_laps=LAPS,
-            max_steps=MAX_STEPS, max_laps=MAX_LAPS, max_lm_iters=NL_CAP,
-            infeasible_retire=NL_RETIRE)
+        with no_plain_solve_on_card():
+            res = simulate_nlmpc_runs_soa(
+                lp, self.nl_limits, sc, self.seed_xs, self.seed_us, 121, 1.0,
+                step_solver=solver, candidate_solver=candidate_solver,
+                generator=g, num_laps=LAPS, max_steps=MAX_STEPS,
+                max_laps=MAX_LAPS, max_lm_iters=NL_CAP,
+                infeasible_retire=NL_RETIRE)
         torch.cuda.synchronize(self.dev)
         return res

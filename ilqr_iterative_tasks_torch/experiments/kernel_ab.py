@@ -1,4 +1,4 @@
-"""K1, K2 `all`, K2 spaceVarying / timeVarying, K3 and K5 of this checkout
+"""K1, K2 `all`, K2 spaceVarying / timeVarying, K3, K4 and K5 of this checkout
 against those of another checkout (an earlier commit) and of edited copies
 of this checkout's sources, in turns on one card.
 
@@ -18,8 +18,9 @@ occur once), for instance K2 timeVarying at another tile width:
 Edits given under one NAME make one copy. A variant of ``i2lqr_step.cu`` is
 timed as K1, one of ``nlmpc_step_all.cu`` as K2 `all`, one of
 ``nlmpc_step.cu`` as K2 spaceVarying and timeVarying, one of
-``fused_ilqr.cu`` as K3, one of ``generic_ilqr.cu`` or ``dual.cuh`` as K5,
-one of any other file as all of them. Every library is built at once (one
+``fused_ilqr.cu`` as K3, one of ``fused_lm_shooting.cu`` as K4, one of
+``generic_ilqr.cu`` or ``dual.cuh`` as K5, one of any other file as all of
+them. Every library is built at once (one
 nvcc a source); the simulators and the plain steps are this checkout's, and
 only the library the wrappers launch from changes between turns.
 
@@ -46,9 +47,11 @@ B ... B A). Then the i2LQR, `all`, NLMPC (spaceVarying) and timeVarying
 headlines through each library in turns, one seed a turn (two seeds, five
 for timeVarying as chip_smoke.py's phase 15; spaceVarying also in the
 plain order, whose lap records must equal qsort_skip's, through the two
-checkouts only): host seconds, lap-sims/s, the
+checkouts only), and the i2LQR and NLMPC spaceVarying headlines through the
+per-candidate path (K3, K4; chip_smoke.py phases 22-23): host seconds,
+lap-sims/s, the
 lap records' hash (which must agree between libraries for the same seed)
-and, of the NLMPC ones, K2's CUDA-event spans (which hold the wrapper's
+and, but for K1's, the kernel's CUDA-event spans (which hold the wrapper's
 host time where the card waits for it); then one more run each under
 ``torch.profiler``, whose trace gives the kernel's own device seconds, the
 card's busy seconds (every kernel and copy) and the run's host seconds
@@ -85,9 +88,9 @@ from ilqr_iterative_tasks_torch.experiments.generic_bench import (
     bench_kernel, bench_throughput, candidates, card_line, generic_kwargs,
     k5_task, throughput_inputs, warp_trips)
 from ilqr_iterative_tasks_torch.experiments.headlines import (
-    ALL_BATCH, BATCH, CAP, LAPS, MAX_LAPS, MAX_STEPS, N, NL_CAP, SWEEP_BATCH,
-    SWEEP_LAPS, Headlines, cuda_ms, k1_capture, k2_capture, lap_records_hash,
-    require, sweep_capture, sweep_step_solver)
+    ALL_BATCH, BATCH, CAP, K2_ATTRS, LAPS, MAX_LAPS, MAX_STEPS, N, NL_CAP,
+    SWEEP_BATCH, SWEEP_LAPS, Headlines, cuda_ms, k1_capture, k2_capture,
+    lap_records_hash, require, sweep_capture, sweep_step_solver)
 from ilqr_iterative_tasks_torch.experiments.nlmpc_profile import EventTimed
 from ilqr_iterative_tasks_torch.experiments.scenario_sweep import run_sweep
 from ilqr_iterative_tasks_torch.models import double_integrator, kinetic_bicycle
@@ -97,6 +100,8 @@ from ilqr_iterative_tasks_torch.ops.fused_generic_ilqr import (
     MODEL_CODES, build_fused_generic_ilqr)
 from ilqr_iterative_tasks_torch.ops.fused_ilqr import (
     build_fused_ilqr, obstacle_to_lanes)
+from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
+    build_fused_lm_shooting)
 from ilqr_iterative_tasks_torch.ops.ilqr_soa import ilqr_solve_soa
 from ilqr_iterative_tasks_torch.ops.nlmpc_step import build_fused_nlmpc_step
 from ilqr_iterative_tasks_torch.utils.params import (
@@ -105,7 +110,8 @@ from ilqr_iterative_tasks_torch.utils.params import (
 # the kernels a variant of each file is timed as (any other file: all)
 GROUPS = {"i2lqr_step.cu": ("k1",), "nlmpc_step_all.cu": ("all",),
           "nlmpc_step.cu": ("k2",), "fused_ilqr.cu": ("k3",),
-          "generic_ilqr.cu": ("k5",), "dual.cuh": ("k5",)}
+          "fused_lm_shooting.cu": ("k4",), "generic_ilqr.cu": ("k5",),
+          "dual.cuh": ("k5",)}
 # the f32 kernels whose resources are reported, by their attributes entry
 # and its arguments and, in a build log, by their name's prefix (K2
 # spaceVarying and timeVarying: qsort_skip, nsi 1)
@@ -121,6 +127,8 @@ RESOURCES = {
     "k2_tv": ("nlmpc_step_attributes", (0, N, 8, 1, 1, 1),
               f"nlmpc_step_kernel<float,{N},8,1>"),
     "k3": ("fused_ilqr_attributes", (0, N), f"fused_ilqr_kernel<float,{N}"),
+    "k4": ("fused_lm_shooting_attributes", (0, N),
+           f"fused_lm_shooting_kernel<float,{N}"),
     "k5_double_integrator": (
         "generic_ilqr_attributes", (0, MODEL_CODES["double_integrator"], N),
         f"generic_ilqr_kernel<float,DoubleIntegrator,{N}"),
@@ -427,14 +435,15 @@ def k1_k2_ab(dev, libs, names) -> dict:
                                 caps["timeVarying"], ["other", "this"], 5))
 
     # ---- headlines in turns, one seed a turn, then one profiled run ----
-    def headlines(tag, run, kern, kernel_name, names, b, seeds=(1, 2)):
-        spans = kern is not k1  # K2: CUDA-event spans around each call
+    def headlines(tag, run, kern, kernel_name, names, b, seeds=(1, 2),
+                  attrs=K2_ATTRS):
+        spans = kern is not k1  # CUDA-event spans around each call
         out = {name: dict(s=[], lap_sims_per_s=[], hash=[], event_k2_s=[])
                for name in names}
         order = [(n, seed) for i, seed in enumerate(seeds)
                  for n in (names if i % 2 == 0 else names[::-1])]
         for name, seed in order:
-            timed = EventTimed(kern) if spans else kern
+            timed = EventTimed(kern, attrs) if spans else kern
             with launching(libs[name]):
                 t0 = time.perf_counter()
                 res = run(seed, timed)
@@ -448,8 +457,9 @@ def k1_k2_ab(dev, libs, names) -> dict:
             print(f"[{tag} headline {name} seed {seed}] {sec:.3f} s, "
                   f"{b * LAPS / sec:.1f} lap-sims/s, hash "
                   f"{r['hash'][-1]}"
-                  + (f", K2 event spans {r['event_k2_s'][-1]:.3f} s"
-                     if spans else ""), flush=True)
+                  + (f", {kernel_name} event spans "
+                     f"{r['event_k2_s'][-1]:.3f} s" if spans else ""),
+                  flush=True)
             del res
         for i in range(len(seeds)):
             require(len({out[n]["hash"][i] for n in names}) == 1,
@@ -470,6 +480,12 @@ def k1_k2_ab(dev, libs, names) -> dict:
     def nlmpc(lp, sc):
         return lambda s, k: hl.nlmpc(s, lp, sc, k)
 
+    # the per-candidate path's kernels, as chip_smoke.py builds them
+    k3p = build_fused_ilqr(hl.params, hl.limits, 1.0, num_horizon=N,
+                           max_iter=CAP)
+    k4p = build_fused_lm_shooting(hl.nl_limits, 1.0, num_horizon=N,
+                                  max_iters=NL_CAP)
+
     report["headlines"] = dict(
         i2lqr=headlines("i2lqr", lambda s, k: hl.i2lqr(s, k), k1,
                         "i2lqr_step_kernel", names["k1"], BATCH),
@@ -482,7 +498,16 @@ def k1_k2_ab(dev, libs, names) -> dict:
             "nlmpc_step_kernel", ["other", "this"], BATCH),
         timeVarying=headlines("timeVarying", nlmpc(tv_p, hl.scen), k2_tv,
                               "nlmpc_step_kernel", names["k2"], BATCH,
-                              seeds=(1, 2, 3, 4, 5)))
+                              seeds=(1, 2, 3, 4, 5)),
+        i2lqr_k3=headlines(
+            "i2lqr through K3", lambda s, k: hl.i2lqr(s, None, k), k3p,
+            "fused_ilqr_kernel", names["k3"], BATCH,
+            attrs=("max_iter", "with_skip")),
+        spaceVarying_k4=headlines(
+            "spaceVarying through K4",
+            lambda s, k: hl.nlmpc(s, sv_p, hl.scen, None, k), k4p,
+            "fused_lm_shooting_kernel", names["k4"], BATCH,
+            attrs=("max_iters", "with_skip", "with_hzn")))
     hl_sv = report["headlines"]
     require(hl_sv["spaceVarying_plain"]["this"]["hash"]
             == hl_sv["spaceVarying"]["this"]["hash"],
@@ -511,7 +536,8 @@ def main():
     dirs = {"this": _build.CSRC_DIR,
             "other": os.path.join(args.other, "ilqr_iterative_tasks_torch",
                                   "csrc")}
-    names = {g: ["other", "this"] for g in ("k1", "all", "k2", "k3", "k5")}
+    names = {g: ["other", "this"]
+             for g in ("k1", "all", "k2", "k3", "k4", "k5")}
     for name, d in args.also:
         dirs[name] = os.path.join(d, "ilqr_iterative_tasks_torch", "csrc")
         for g in names:

@@ -44,11 +44,12 @@ RUNS = 5  # timed runs before the profiled one
 class EventTimed:
     """A step solver that records a pair of CUDA events around each call
     of ``k2``; ``seconds()`` sums their spans (the simulator reads only
-    the attributes of K2_ATTRS)."""
+    the attributes ``attrs``: K2_ATTRS of a step solver, or a candidate
+    solver's, e.g. K3's ``max_iter`` and ``with_skip``)."""
 
-    def __init__(self, k2):
+    def __init__(self, k2, attrs=K2_ATTRS):
         self.k2 = k2
-        for a in K2_ATTRS:
+        for a in attrs:
             setattr(self, a, getattr(k2, a))
         self.events = []
 

@@ -136,7 +136,8 @@ def attributes(lib: ctypes.CDLL, entry: str, *sizes: int) -> dict:
     SM of a loaded kernel, as the CUDA runtime reports them: ``entry`` is
     the library's ``*_attributes`` function (i2lqr_step_attributes: dtype,
     n, k, nsi; nlmpc_step_all_attributes: dtype, n; nlmpc_step_attributes:
-    dtype, n, k, nsi, time_varying, qsort; fused_ilqr_attributes: dtype, n;
+    dtype, n, k, nsi, time_varying, qsort; fused_ilqr_attributes and
+    fused_lm_shooting_attributes: dtype, n;
     generic_ilqr_attributes: dtype, model, n), ``sizes`` its arguments
     before the output."""
     out = (ctypes.c_int * 3)()

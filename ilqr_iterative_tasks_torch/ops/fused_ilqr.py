@@ -64,8 +64,12 @@ def check_lanes(name: str, t: torch.Tensor, shape, dtype, device):
 
 
 class FusedIlqr:
-    """K3: one LM-iLQR candidate solve per lane. ``launches`` counts kernel
-    launches (not plain CPU calls)."""
+    """K3: one LM-iLQR candidate solve per lane. ``max_iter`` is the LM cap
+    it was built with; ``with_skip`` is always true (the JAX factory's flag:
+    ``skip`` is an input); ``launches`` counts kernel launches (not plain
+    CPU calls)."""
+
+    with_skip = True
 
     def __init__(self, params: IlqrParams, limits: SystemLimits, dt, *,
                  num_horizon: int, max_iter: int = 150):

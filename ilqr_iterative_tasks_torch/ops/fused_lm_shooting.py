@@ -56,8 +56,12 @@ def fused_lm_shooting_reference(limits, dt, x0, x_term, u_warm, obs, skip,
 
 
 class FusedLmShooting:
-    """K4: one NLMPC candidate feasibility solve per lane. ``launches``
-    counts kernel launches (not plain CPU calls)."""
+    """K4: one NLMPC candidate feasibility solve per lane. ``max_iters`` is
+    the LM cap it was built with; ``with_skip`` and ``with_hzn`` are always
+    true (the JAX factory's flags: ``skip`` and ``hzn`` are inputs);
+    ``launches`` counts kernel launches (not plain CPU calls)."""
+
+    with_skip = with_hzn = True
 
     def __init__(self, limits: SystemLimits, dt, *, num_horizon: int,
                  max_iters: int = 60):

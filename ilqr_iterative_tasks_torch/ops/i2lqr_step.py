@@ -18,7 +18,9 @@ the horizon-shrink flag. Signature (batch trailing):
 simulator's ``stall_reseed`` guard fires). Lanes with skip=1 return zeros.
 ``i2lqr_step_reference`` is the plain version: the JAX package's composed
 XLA path (control/batched_soa.py ``solve_step`` / ``one_pass``, :513-712),
-the bitwise oracle of the TPU kernel.
+the bitwise oracle of the TPU kernel. Given a ``candidate_solver`` (K3,
+ops/fused_ilqr.py), its candidate solves are that solver's instead: the
+JAX per-candidate path (``pallas_solver``, batched_soa.py:553-620).
 
 The kernel is instantiated at horizon 6 for k = 8 (nsi 1 and 2: a tile of
 nsi*k threads a lane) and for k = 32 (nsi 2 and 4, the robustness sweep's
@@ -80,12 +82,25 @@ def _lex_argmin_rows(cost_rows):
 
 def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
                          states, qfun, lap_len, lap_ids, lap_ok, obs, skip, *,
-                         max_iter: int, trips: list | None = None):
+                         max_iter: int, trips: list | None = None,
+                         candidate_solver=None):
     """Plain version of K1 (module docstring). The candidate solves of all
     nsi laps run as one batched ``ilqr_solve_soa`` per pass (per-lane
     results do not depend on the batching: done lanes freeze). If
     ``trips`` is a list, each pass appends its solves' trip counts to it:
-    (nsi*k, B) i32, 0 on skipped lanes."""
+    (nsi*k, B) i32, 0 on skipped lanes.
+
+    ``candidate_solver``: a K3 built for the same constants and cap
+    (``build_fused_ilqr``), called once a pass on the pass's nsi*k*B
+    lanes: zeros u_init, the lane's obstacle on each of its candidates and
+    the skip mask, so skipped lanes enter done. The JAX path compacts the
+    active lanes to the batch front first (:514-522), which changes no
+    lane's result; this port does not: K3 takes its lanes from a counter
+    as it goes, and compaction saved 10 % of K3's time over an i2LQR
+    headline run on the card, 64 ms of a 2.2-3.0 s run before the gathers
+    it adds (PERF.md). The trip counts are the plain solve's only."""
+    if candidate_solver is not None and trips is not None:
+        raise ValueError("trips counts the plain solve's iterations")
     n = params.num_horizon
     k = params.num_ss_points
     nsi = params.num_ss_iter
@@ -100,6 +115,12 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
     x0b = x[:, None, :].expand(4, nsi * k, b)
     zeros_ws = torch.zeros((n, 2, nsi * k, b), dtype=dtype, device=dev)
     obs_kb = obs[:, None, :]
+    if candidate_solver is not None:  # the candidates as lanes of K3
+        lanes = nsi * k * b
+        flat = lambda t: t.expand(t.shape[0], nsi * k, b).reshape(
+            t.shape[0], lanes).contiguous()
+        cand_args = (flat(x[:, None]), zeros_ws.reshape(n, 2, lanes),
+                     flat(obs_kb), flat(skip[None, None])[0])
 
     def one_pass(outer, xg):
         idx_rows, q_rows, ok_rows, xt_rows = [], [], [], []
@@ -119,15 +140,24 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
             xt_rows.append(torch.stack([x0s, x1s, x2s, x3s]))
         x_terms = torch.cat(xt_rows, dim=1)  # (4, nsi*k, B)
         cand_ok = torch.cat(ok_rows)  # (nsi*k, B): valid row of a stored lap
-        sol = ilqr_solve_soa(params, limits, obs_kb, x0b, x_terms, zeros_ws,
-                             float(params.lamb), dt, num_horizon=n,
-                             max_iter=max_iter, done0=frozen)
-        if trips is not None:
-            trips.append(sol.lane_iters)
-        x_last = sol.xs[-1]
-        dd = [x_last[i] - x_terms[i] for i in range(4)]
-        d = torch.sqrt(dd[0] * dd[0] + dd[1] * dd[1] + dd[2] * dd[2]
-                       + dd[3] * dd[3])
+        if candidate_solver is None:
+            sol = ilqr_solve_soa(params, limits, obs_kb, x0b, x_terms,
+                                 zeros_ws, float(params.lamb), dt,
+                                 num_horizon=n, max_iter=max_iter,
+                                 done0=frozen)
+            if trips is not None:
+                trips.append(sol.lane_iters)
+            sol_us, x_last = sol.us, sol.xs[-1]
+            dd = [x_last[i] - x_terms[i] for i in range(4)]
+            d = torch.sqrt(dd[0] * dd[0] + dd[1] * dd[1] + dd[2] * dd[2]
+                           + dd[3] * dd[3])
+        else:
+            x0_l, u0_l, obs_l, skip_l = cand_args
+            us_l, xl_l, _, d_l = candidate_solver(
+                x0_l, x_terms.reshape(4, lanes), u0_l, obs_l, skip_l)
+            sol_us = us_l.reshape(n, 2, nsi * k, b)
+            x_last = xl_l.reshape(4, nsi * k, b)
+            d = d_l.reshape(nsi * k, b)
         unit = 80.0 / (10 ** outer)
         i_rel = torch.clamp_min(torch.ceil(true_div(d, unit) - 1e-12), 1.0)
         cost = torch.where(d <= unit * params.max_relax_iter,
@@ -142,7 +172,7 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
         row_cost = cost.reshape(nsi, k, b).gather(
             0, best_row[None, None].expand(1, k, b))[0]
         win = best_row * k + torch.argmin(row_cost, dim=0)  # (B,)
-        us_sel = sol.us.gather(2, win[None, None, None].expand(n, 2, 1, b))
+        us_sel = sol_us.gather(2, win[None, None, None].expand(n, 2, 1, b))
         xl_sel = x_last.gather(1, win[None, None].expand(4, 1, b))[:, 0]
         idx_sel = torch.cat(idx_rows).gather(0, win[None])[0]
         return xl_sel, us_sel[:, :, 0], idx_sel, best_row

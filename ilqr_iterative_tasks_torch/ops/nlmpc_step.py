@@ -35,6 +35,12 @@ skip=1 return zeros. ``nlmpc_step_reference`` is the plain version: the
 JAX package's composed XLA path (control/batched_nlmpc_soa.py
 ``solve_step_general``, :289-505), with hzn <= 1 lanes entering their
 solves frozen as the TPU kernel does (their solutions are never read).
+Given a ``candidate_solver`` (K4, ops/fused_lm_shooting.py), its
+candidate solves are that solver's instead: the JAX per-candidate path
+(``pallas_solver``, :313-329, :396-400, :478-484). The plain step also
+runs the kNN or the window over every stored lap (``all_ss_iter`` outside
+mode all), which no K2 serves: the TPU factory refuses it too
+(pallas_nlmpc_step.py:214-215).
 """
 
 from __future__ import annotations
@@ -68,7 +74,7 @@ def nlmpc_step_reference(params: LmpcParams, limits: SystemLimits, dt, x,
                          guess, u_warm, states, qfun, lap_len, lap_ids,
                          lap_ok, obs, skip, hzn, t=None, min_cost=None, *,
                          max_iters: int, trips: list | None = None,
-                         cands: list | None = None):
+                         cands: list | None = None, candidate_solver=None):
     """Plain version of K2 (module docstring). spaceVarying and
     timeVarying: the candidate solves of all rows run as one batched solve
     and the winner's solution is read from it (a candidate solve is a pure
@@ -82,8 +88,24 @@ def nlmpc_step_reference(params: LmpcParams, limits: SystemLimits, dt, x,
     ``cands`` is a list, each candidate solve's candidates are appended to
     it as (Qfun, +inf where no stored point backs the candidate; whether
     its cost is finite), both shaped as its trips: what a kernel's solve
-    schedule (qsort_skip, all_rev_skip, the forward all scan) turns on."""
-    params.check_ported()
+    schedule (qsort_skip, all_rev_skip, the forward all scan) turns on.
+
+    ``candidate_solver``: a K4 built for the same limits, horizon and cap
+    (``build_fused_lm_shooting``), called once for each batched candidate
+    solve on its lanes (rows*k*B, or T*B a stored row in mode all) and
+    once for the winner in mode all: the lane's state, clipped horizon and
+    warm start on each of its candidates, and lanes that enter done
+    (inactive, horizon 1, no stored point behind the candidate) skipped.
+    In spaceVarying and timeVarying the winner's solution is read from the
+    candidates' solve, as without it. The trip counts are the plain
+    solve's only.
+
+    With ``all_ss_iter`` outside mode all, lap_ids names every slot and the
+    rows of laps not yet stored (a suffix: lap_ok is a prefix) are not
+    solved at all: their costs are +inf and they rank above every stored
+    row, so they never win and drop out with no change to the result."""
+    if candidate_solver is not None and trips is not None:
+        raise ValueError("trips counts the plain solve's iterations")
     mode = params.ss_mode
     n, k = params.num_horizon, params.num_ss_points
     if mode == "timeVarying" and (t is None or min_cost is None):
@@ -94,6 +116,11 @@ def nlmpc_step_reference(params: LmpcParams, limits: SystemLimits, dt, x,
     inf = float("inf")
     laps = [int(v) for v in lap_ids.tolist()]
     oks = [bool(v) for v in lap_ok.tolist()]
+    if params.all_ss_iter and mode != "all":
+        stored = sum(oks)
+        if oks != [True] * stored + [False] * (len(oks) - stored):
+            raise ValueError(f"all_ss_iter: lap_ok {oks} is not a prefix")
+        laps, oks = laps[:stored], oks[:stored]
     rows = len(laps)
     active = skip <= 0.5
     hzn = hzn.to(torch.int64)
@@ -105,19 +132,34 @@ def nlmpc_step_reference(params: LmpcParams, limits: SystemLimits, dt, x,
     lanes = torch.arange(b, device=dev)
     lap_t = torch.tensor(laps, device=dev)
 
+    def solve_lanes(x_terms, done0):
+        """The feasibility solves of x_terms (4, C, B) with done0 (C, B):
+        (us (n, 2, C, B), x_m (4, C, B), feasible (C, B))."""
+        c = x_terms.shape[1]
+        if candidate_solver is None:
+            sol = lm_feasibility_solve_soa(
+                limits, obs, x, x_terms, u_warm, dt, num_horizon=n,
+                max_iters=max_iters, m_lanes=m2, done0=done0)
+            x_m = sol.xs.gather(0, m2[None, None, None].expand(1, 4, c, b))
+            return sol.us, x_m[0], sol.feasible, sol.n_iters
+        flat = lambda t: t[..., None, :].expand(*t.shape[:-1], c, b).reshape(
+            *t.shape[:-1], c * b).contiguous()
+        us_l, xm_l, _, fe_l = candidate_solver(
+            flat(x), x_terms.reshape(4, c * b).contiguous(), flat(u_warm),
+            flat(obs),
+            done0.expand(c, b).to(torch.float32).reshape(c * b).contiguous(),
+            flat(m2.to(torch.int32)))
+        return (us_l.reshape(n, 2, c, b), xm_l.reshape(4, c, b),
+                fe_l.reshape(c, b) > 0.5, None)
+
     def solve(x_terms, done0):
-        sol = lm_feasibility_solve_soa(
-            limits, obs, x, x_terms, u_warm, dt, num_horizon=n,
-            max_iters=max_iters, m_lanes=m2, done0=done0)
+        us, x_m, feasible, n_iters = solve_lanes(x_terms, done0)
         if trips is not None:
-            trips.append(sol.n_iters)
+            trips.append(n_iters)
         dr = [x1[i] - x_terms[i] for i in range(4)]
         reach = torch.sqrt(dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2]
                            + dr[3] * dr[3]) <= 1e-3
-        return sol, torch.where(h1, reach, sol.feasible)
-
-    def x_pred_of(xs):  # (n+1, 4, B) -> x_m (4, B)
-        return xs.gather(0, m2[None, None].expand(1, 4, b))[0]
+        return us, x_m, torch.where(h1, reach, feasible)
 
     if mode == "all":
         cost_rows, cmp_rows = [], []
@@ -128,8 +170,8 @@ def nlmpc_step_reference(params: LmpcParams, limits: SystemLimits, dt, x,
                 cmp_rows.append(cost_rows[-1])
                 continue
             struct = t_idx < lap_len[lap][None]  # (T, B)
-            _, feas = solve(states[lap].permute(1, 0, 2),
-                            ~active | h1 | ~struct)
+            _, _, feas = solve(states[lap].permute(1, 0, 2),
+                               ~active | h1 | ~struct)
             cost = torch.where(feas & struct, hzn.to(dtype) + qfun[lap], inf)
             if cands is not None:
                 cands.append((torch.where(struct, qfun[lap], inf),
@@ -144,10 +186,8 @@ def nlmpc_step_reference(params: LmpcParams, limits: SystemLimits, dt, x,
         lap_sel = lap_t[best_row]
         xt_sel = states[lap_sel, idx_sel, :, lanes].T  # (4, B)
         # the winner again: the same pure per-lane solve
-        sol_w = lm_feasibility_solve_soa(
-            limits, obs, x, xt_sel, u_warm, dt, num_horizon=n,
-            max_iters=max_iters, m_lanes=m2, done0=~active | h1)
-        us_w, x_pred = sol_w.us, x_pred_of(sol_w.xs)
+        us_w, x_pred, _, _ = solve_lanes(xt_sel[:, None], (~active | h1)[None])
+        us_w, x_pred = us_w[:, :, 0], x_pred[:, 0]
     else:
         idx_rows, q_rows, struct_rows, xt_rows = [], [], [], []
         for lap in laps:
@@ -178,7 +218,7 @@ def nlmpc_step_reference(params: LmpcParams, limits: SystemLimits, dt, x,
         done0 = ~active | h1
         if mode == "timeVarying":
             done0 = done0 | ~struct
-        sol, feas = solve(x_terms, done0)
+        sol_us, sol_xm, feas = solve(x_terms, done0)
         lap_ok_kb = torch.tensor(oks, device=dev).repeat_interleave(k)[:, None]
         cost = torch.where(feas & struct & lap_ok_kb,
                            hzn.to(dtype)[None] + torch.cat(q_rows), inf)
@@ -194,10 +234,9 @@ def nlmpc_step_reference(params: LmpcParams, limits: SystemLimits, dt, x,
         feasible_any = torch.isfinite(row_cost.gather(0, best_col[None])[0])
         win = best_row * k + best_col  # (B,)
         idx_sel = torch.cat(idx_rows).gather(0, win[None])[0]
-        us_w = sol.us.gather(2, win[None, None, None].expand(n, 2, 1, b))[
+        us_w = sol_us.gather(2, win[None, None, None].expand(n, 2, 1, b))[
             :, :, 0]
-        x_pred = x_pred_of(sol.xs.gather(
-            2, win[None, None, None].expand(n + 1, 4, 1, b))[:, :, 0])
+        x_pred = sol_xm.gather(1, win[None, None].expand(4, 1, b))[:, 0]
         xt_sel = x_terms.gather(1, win[None, None].expand(4, 1, b))[:, 0]
         lap_sel = lap_t[best_row]
     x_pred = torch.where(h1[None], xt_sel, x_pred)
@@ -338,7 +377,6 @@ def build_fused_nlmpc_step(params: LmpcParams, limits: SystemLimits, dt, *,
             raise TypeError(f"unexpected keyword argument {name!r}")
         raise ValueError(f"{name} is not taken by the port: "
                          f"{_UNPORTED[name]}")
-    params.check_ported()
     n, nsi = num_horizon, params.num_ss_iter
     if n != params.num_horizon:
         raise ValueError(f"num_horizon={n} differs from "
@@ -347,6 +385,10 @@ def build_fused_nlmpc_step(params: LmpcParams, limits: SystemLimits, dt, *,
         raise ValueError("horizon-1 is a pure reach check handled by the "
                          "controller (nonlinear_lmpc.py:199-213)")
     mode, all_iter = params.ss_mode, bool(params.all_ss_iter)
+    if all_iter and mode != "all":
+        raise ValueError("all_iter widens the lap window of mode='all' (the "
+                         "kNN or window over every stored lap runs through "
+                         "the plain step's glue and a candidate solver)")
     if mode == "all" and qsort_skip:
         raise ValueError("qsort_skip is not defined for mode='all' (the "
                          "lexicographic row comparison needs every "

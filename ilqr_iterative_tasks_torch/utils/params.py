@@ -137,18 +137,6 @@ class LmpcParams:
             raise ValueError(f"unknown ss_option {mode!r}")
         return mode
 
-    def check_ported(self) -> None:
-        """Raise unless the port runs these safe-set options: spaceVarying
-        kNN or the timeVarying window over the last num_ss_iter laps, or
-        every stored point (``all_ss_point``) of the last num_ss_iter laps
-        or, with ``all_ss_iter``, of every stored lap. The kNN or window
-        over every stored lap (``all_ss_iter`` without ``all_ss_point``)
-        is not ported."""
-        if self.ss_mode != "all" and self.all_ss_iter:
-            raise NotImplementedError(
-                f"the torch port runs all_ss_iter=True only with "
-                f"all_ss_point=True (got ss_option={self.ss_option!r})")
-
 
 def nlmpc_consts(limits: SystemLimits, dt) -> SimpleNamespace:
     """The NLMPC solve's constants as Python floats (port of

@@ -11,6 +11,10 @@
   spaceVarying and timeVarying.
 - ``infeasible_retire`` and the all-infeasible input hold; a step solver
   built for another mode is refused.
+- The kNN or window over every stored lap (``all_ss_iter`` without
+  ``all_ss_point``): zero-noise laps spaceVarying [32, 23, 23] and
+  timeVarying [111, 102, 93] (the JAX simulator's and host controller's,
+  pinned here), and lap 1 against JAX on its draws through K4's CPU route.
 """
 
 import jax
@@ -29,6 +33,8 @@ from ilqr_iterative_tasks_torch.control.batched_nlmpc_soa import (
     simulate_nlmpc_runs_soa)
 from ilqr_iterative_tasks_torch.control.batched_soa import SoaScenarios
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
+from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
+    build_fused_lm_shooting)
 from ilqr_iterative_tasks_torch.ops.nlmpc_step import (
     build_fused_nlmpc_step, nlmpc_step_reference)
 from ilqr_iterative_tasks_torch.sim.seed import seed_trajectory
@@ -93,7 +99,7 @@ def _jax_draws(key, steps, b):
         body, k, None, length=steps)[1])(key))
 
 
-def _lap1_against_jax(**mode):
+def _lap1_against_jax(candidate_solver=False, **mode):
     b, cap, budget = 4, 12, 121
     xcl, seed_xs, seed_us = _seed()
     jp = JParams.make(dtype=jnp.float64, **mode)
@@ -109,10 +115,14 @@ def _lap1_against_jax(**mode):
     jr = jns.simulate_nlmpc_runs_soa(
         jp, jl, scen, jnp.asarray(seed_xs), jnp.asarray(seed_us), 121, 1.0,
         key, **kw)
+    tl = convert.system_limits(jl, device="cpu")
+    k4 = (build_fused_lm_shooting(tl, 1.0, num_horizon=6, max_iters=cap)
+          if candidate_solver else None)
     tr = simulate_nlmpc_runs_soa(
-        convert.lmpc_params(jp, device="cpu"), convert.system_limits(jl, device="cpu"),
+        convert.lmpc_params(jp, device="cpu"), tl,
         convert.scenarios(scen, device="cpu"), seed_xs, seed_us, 121, 1.0,
-        noise=torch.from_numpy(_jax_draws(key, budget, b)), **kw)
+        noise=torch.from_numpy(_jax_draws(key, budget, b)),
+        candidate_solver=k4, **kw)
     np.testing.assert_array_equal(tr.lap_steps.numpy(),
                                   np.asarray(jr.lap_steps))
     np.testing.assert_array_equal(tr.lap_done.numpy(),
@@ -198,17 +208,35 @@ def test_unported_options_raise():
     _, seed_xs, seed_us = _seed()
     limits = SystemLimits.make(dtype=F64, device="cpu")
     kw = dict(num_laps=1, max_steps=T_ROWS, max_laps=MAX_LAPS)
-    with pytest.raises(TypeError, match="retile_frac"):
-        simulate_nlmpc_runs_soa(LmpcParams.make(dtype=F64, device="cpu"), limits,
-                                _scenarios(2), seed_xs, seed_us, 121, 1.0,
-                                retile_frac=0.25, **kw)
-    # the kNN or window over every stored lap is not ported
-    for bad in (dict(all_ss_iter=True),
-                dict(ss_option="timeVarying", all_ss_iter=True)):
-        with pytest.raises(NotImplementedError):
-            simulate_nlmpc_runs_soa(LmpcParams.make(dtype=F64, **bad, device="cpu"),
+    for bad in (dict(retile_frac=0.25), dict(tail_shrink=8)):
+        with pytest.raises(TypeError, match=next(iter(bad))):
+            simulate_nlmpc_runs_soa(LmpcParams.make(dtype=F64, device="cpu"),
                                     limits, _scenarios(2), seed_xs, seed_us,
-                                    121, 1.0, **kw)
+                                    121, 1.0, **bad, **kw)
+    # the kNN or window over every stored lap runs: see the
+    # every_stored_lap tests here and in tests/test_torch_nlmpc_step.py
+
+
+@pytest.mark.parametrize("mode, host_laps", [
+    ("spaceVarying", HOST_LAPS),
+    # the JAX simulator's and host controller's f64 zero-noise laps with
+    # all_ss_iter (tests/test_batched_nlmpc_soa.py helpers), pinned here
+    ("timeVarying", [111, 102, 93])], ids=["spaceVarying", "timeVarying"])
+def test_every_stored_lap_zero_noise_laps_equal_the_host_sequence(
+        mode, host_laps):
+    """The kNN or window over every stored lap (all_ss_iter without
+    all_ss_point): spaceVarying gives the laps of the last lap alone
+    (tests/test_batched_nlmpc_soa.py:176-185), timeVarying its own."""
+    _zero_noise_laps(host_laps, ss_option=mode, all_ss_iter=True)
+
+
+@pytest.mark.parametrize("mode", ["spaceVarying", "timeVarying"])
+def test_every_stored_lap_lap1_matches_jax_f64_through_k4(mode):
+    """Lap 1 of the every-stored-lap option on JAX's noisy draws, the port
+    through K4's CPU route (the default backend on the card)."""
+    tr = _lap1_against_jax(ss_option=mode, all_ss_iter=True,
+                           candidate_solver=True)
+    assert bool(tr.lap_done[:, :2].all())
 
 
 def test_step_solver_of_another_mode_is_refused():

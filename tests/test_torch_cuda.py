@@ -1,11 +1,15 @@
 """The CUDA kernels K1, K3 (i2LQR), K2, K4 (NLMPC) and K5 (generic LM-iLQR)
-against their plain torch versions on the card, and the simulators'
-own K1 / K2 when they are given no step solver.
+against their plain torch versions on the card, the simulators' own K1 /
+K2 / K4 when they are given no solver, the per-candidate path of both
+simulators through K3 / K4 (no plain solve on the card) and exact resume
+from a checkpoint on the card.
 
 Marked ``cuda``: each test skips without a CUDA device. On a machine with
 one, run ``python -m pytest tests/test_torch_cuda.py -q --noconftest``
 (tests/conftest.py sets up JAX, which these tests do not use).
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -898,3 +902,177 @@ def test_k5_lane_counts_are_bitwise(dev, b, dtype):
     a = tuple(t.to(dtype) for t in throughput_inputs(b, dev))
     _equal(k5(*a), k5.plain(*a))
     assert k5.launches == 1
+
+
+# ---- the per-candidate path: K3 under the i2LQR simulator, K4 under the
+# NLMPC one (chip_smoke.py phases 22-24) ----
+CANDIDATE_PATHS = {
+    "i2lqr": None, "spaceVarying": {}, "timeVarying": dict(
+        ss_option="timeVarying"),
+    "spaceVarying_every_lap": dict(all_ss_iter=True),
+    "timeVarying_every_lap": dict(ss_option="timeVarying", all_ss_iter=True)}
+
+
+def _candidate_run(dev, path, dtype, b=64, **kw):
+    """Two learning laps of ``path`` on the card with plant noise from a
+    generator, through the simulator's per-candidate path and K3 / K4
+    (built here), or as ``kw`` says."""
+    xcl, ucl = seed_trajectory(1.0)
+    seed_xs, seed_us = np.zeros((T_ROWS, 4)), np.zeros((T_ROWS, 2))
+    seed_xs[:121], seed_us[:120] = xcl, ucl
+    scen = SoaScenarios.broadcast(
+        np.zeros(4), xcl[-1], Obstacle.make(31.0, -2.0, 8.0, 6.0), b,
+        noise_on=True, dtype=dtype, device=dev)
+    run_kw = dict(num_laps=2, max_steps=T_ROWS, max_laps=MAX_LAPS,
+                  generator=torch.Generator(dev).manual_seed(3))
+    run_kw.update(kw)
+    if path == "i2lqr":
+        p, l = IlqrParams.make(), SystemLimits.make()
+        run_kw.setdefault("candidate_solver", build_fused_ilqr(
+            p, l, 1.0, num_horizon=N, max_iter=CAP))
+        return simulate_learning_runs_soa(p, l, scen, seed_xs, None, 121,
+                                          1.0, solver_max_iter=CAP, **run_kw)
+    p, lim = LmpcParams.make(**CANDIDATE_PATHS[path]), SystemLimits.make(
+        dtype=torch.float64)
+    run_kw.setdefault("candidate_solver", build_fused_lm_shooting(
+        lim, 1.0, num_horizon=N, max_iters=NL_CAP))
+    return simulate_nlmpc_runs_soa(p, lim, scen, seed_xs, seed_us, 121, 1.0,
+                                   max_lm_iters=NL_CAP, infeasible_retire=8,
+                                   **run_kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("path", sorted(CANDIDATE_PATHS))
+def test_candidate_steps_match_the_plain_steps_on_captured_inputs(
+        dev, path, dtype):
+    """On the inputs of a run through K3 / K4 (the plain step's, captured at
+    step 7 of each lap), the per-candidate step equals the plain step with
+    the plain solve on the card, bit for bit."""
+    from ilqr_iterative_tasks_torch.experiments.headlines import tap_step
+    nlmpc = path != "i2lqr"
+    module, name, at = ((batched_nlmpc_soa, "nlmpc_step_reference", 6)
+                        if nlmpc else (batched_soa, "i2lqr_step_reference",
+                                       5))
+    every = "every_lap" in path
+    with tap_step(module, name, at, lambda lap, i, a: i == 7,
+                  all_iter=every) as tap:
+        res = _candidate_run(dev, path, dtype)
+    assert sum(tap.calls.values()) > 0 and bool(res.lap_done.any())
+    p = (LmpcParams.make(**CANDIDATE_PATHS[path]) if nlmpc
+         else IlqrParams.make())
+    lim = SystemLimits.make(dtype=torch.float64) if nlmpc else \
+        SystemLimits.make()
+    kernel = (build_fused_lm_shooting(lim, 1.0, num_horizon=N,
+                                      max_iters=NL_CAP) if nlmpc
+              else build_fused_ilqr(p, lim, 1.0, num_horizon=N, max_iter=CAP))
+    step = (lambda *a, **kw: nlmpc_step_reference(
+        p, lim, 1.0, *a, max_iters=NL_CAP, **kw)) if nlmpc else (
+        lambda *a, **kw: i2lqr_step_reference(p, lim, 1.0, *a, max_iter=CAP,
+                                              **kw))
+    checked = 0
+    for args in tap.captured.values():  # the first capture a lap
+        got = step(*args[1], candidate_solver=kernel)
+        want = step(*args[1])
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        checked += 1
+    assert checked == 2 and kernel.launches > 0
+    if every:  # lap 2's step reads both stored laps, through one launch
+        assert int(tap.captured[2][1][7].sum()) == 2
+
+
+@pytest.mark.parametrize("path", sorted(CANDIDATE_PATHS))
+def test_candidate_path_runs_as_the_plain_path(dev, path):
+    """A run through K3 / K4 equals the same run with the plain step and
+    its plain solve on the card (the yardstick, outside the guard), bit for
+    bit; inside the guard no plain solve sees a card tensor."""
+    from ilqr_iterative_tasks_torch.experiments.headlines import (
+        no_plain_solve_on_card)
+    with no_plain_solve_on_card():
+        got = _candidate_run(dev, path, torch.float32)
+    if path == "i2lqr":
+        p, l = IlqrParams.make(), SystemLimits.make()
+        k1 = build_fused_i2lqr_step(p, l, 1.0, num_horizon=N,
+                                    max_steps=T_ROWS, max_laps=MAX_LAPS,
+                                    max_iter=CAP)
+        plain = PlainStep(k1, ("k", "nsi", "num_horizon", "max_steps",
+                               "max_laps", "max_iter"),
+                          lambda *a: i2lqr_step_reference(p, l, 1.0, *a,
+                                                          max_iter=CAP))
+    else:
+        p = LmpcParams.make(**CANDIDATE_PATHS[path])
+        lim = SystemLimits.make(dtype=torch.float64)
+        plain = PlainStep(SimpleNamespace(
+            k=p.num_ss_points, nsi=p.num_ss_iter, num_horizon=N,
+            max_steps=T_ROWS, max_laps=MAX_LAPS, max_iters=NL_CAP,
+            mode=p.ss_mode, all_iter=p.all_ss_iter), (
+                "k", "nsi", "num_horizon", "max_steps", "max_laps",
+                "max_iters", "mode", "all_iter"),
+            lambda *a: nlmpc_step_reference(p, lim, 1.0, *a,
+                                            max_iters=NL_CAP))
+    want = _candidate_run(dev, path, torch.float32, candidate_solver=None,
+                          step_solver=plain)
+    for name in ("lap_steps", "lap_done", "final_x"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    for a, b in zip(got.safe_set, want.safe_set):
+        assert torch.equal(a, b)
+    # the guard catches a plain solve on the card: the plain step as a
+    # simulator's step solver raises inside it
+    from ilqr_iterative_tasks_torch.experiments.headlines import (
+        no_plain_solve_on_card as guard)
+    with guard(), pytest.raises(AssertionError, match="on the card"):
+        _candidate_run(dev, path, torch.float32, candidate_solver=None,
+                       step_solver=plain, num_laps=1)
+
+
+def test_every_stored_lap_launches_the_default_k4(dev):
+    """With no solver, the NLMPC simulator on the card serves the kNN over
+    every stored lap with its own K4 (no K2 serves it), and never the plain
+    solve."""
+    from ilqr_iterative_tasks_torch.experiments.headlines import (
+        no_plain_solve_on_card)
+    lim = SystemLimits.make(dtype=torch.float64)
+    k4 = batched_nlmpc_soa.default_candidate_solver(
+        lim, 1.0, num_horizon=N, max_iters=NL_CAP)
+    before = k4.launches
+    with no_plain_solve_on_card():
+        _candidate_run(dev, "spaceVarying_every_lap", torch.float32,
+                       candidate_solver=None, num_laps=1)
+    assert k4.launches > before
+    assert batched_nlmpc_soa.default_candidate_solver(
+        lim, 1.0, num_horizon=N, max_iters=NL_CAP) is k4
+
+
+@pytest.mark.parametrize("kind", ["generator", "noise"])
+@pytest.mark.parametrize("path", ["i2lqr", "spaceVarying"])
+def test_resume_is_exact_on_the_card(dev, path, kind, tmp_path):
+    """2 laps, a checkpoint and 2 more equal 4 laps in one run, bit for
+    bit, through the simulators' own K1 / K2."""
+    from ilqr_iterative_tasks_torch.utils.checkpoint import (
+        load_soa_run, save_soa_run)
+
+    def noise_kw():
+        if kind == "generator":
+            return dict(generator=torch.Generator(dev).manual_seed(5))
+        return dict(generator=None, noise=torch.randn(
+            (4 * 121, 2, 256), dtype=torch.float32, device=dev,
+            generator=torch.Generator(dev).manual_seed(5)))
+
+    run = lambda laps, **kw: _candidate_run(
+        dev, path, torch.float32, b=256, candidate_solver=None,
+        num_laps=laps, **kw)
+    whole = run(4, **noise_kw())
+    part = run(2, **noise_kw())
+    save_soa_run(str(tmp_path / "run.npz"), part)
+    ck, steps, done = load_soa_run(str(tmp_path / "run.npz"), device=dev)
+    rest_kw = noise_kw()
+    if kind == "generator":
+        rest_kw["generator"].manual_seed(11)  # the checkpoint sets it
+    rest = run(2, resume_from=ck, **rest_kw)
+    assert torch.equal(torch.cat([torch.as_tensor(steps, device=dev),
+                                  rest.lap_steps]), whole.lap_steps)
+    assert torch.equal(torch.cat([torch.as_tensor(done, device=dev),
+                                  rest.lap_done]), whole.lap_done)
+    assert torch.equal(rest.final_x, whole.final_x)
+    for a, b in zip(rest.safe_set, whole.safe_set):
+        assert torch.equal(a, b)

@@ -70,3 +70,43 @@ def test_k1_capture_keeps_the_named_steps():
     # the capture changes nothing of the run
     assert (headlines.lap_records_hash(res)
             == headlines.lap_records_hash(run(k1)))
+
+
+def test_tap_step_keeps_the_plain_steps_inputs_on_the_candidate_path():
+    """On the per-candidate path the tap sees the plain step's calls (one a
+    step with active lanes) and keeps the named ones, and puts the step
+    back; the guard lets CPU tensors through and puts the solves back."""
+    from ilqr_iterative_tasks_torch.control import batched_soa
+    from ilqr_iterative_tasks_torch.ops import fused_ilqr, i2lqr_step
+    from ilqr_iterative_tasks_torch.ops.fused_ilqr import build_fused_ilqr
+    cpu = "cpu"
+    params, limits = IlqrParams.make(device=cpu), SystemLimits.make(device=cpu)
+    xcl, _ = seed_trajectory(1.0)
+    seed = np.zeros((128, 4))
+    seed[:121] = xcl
+    sc = SoaScenarios.broadcast(np.zeros(4), xcl[-1],
+                                Obstacle.make(31.0, -2.0, 8.0, 6.0,
+                                              device=cpu),
+                                2, noise_on=True, device=cpu)
+    k3 = build_fused_ilqr(params, limits, 1.0, num_horizon=6, max_iter=16)
+    step = batched_soa.i2lqr_step_reference
+    solves = (i2lqr_step.ilqr_solve_soa, fused_ilqr.ilqr_solve_soa)
+
+    def run():
+        return simulate_learning_runs_soa(
+            params, limits, sc, seed, None, 121, 1.0, num_laps=1,
+            max_laps=4, sim_step_budget=12, solver_max_iter=16,
+            candidate_solver=k3, generator=torch.Generator().manual_seed(0))
+
+    with headlines.no_plain_solve_on_card(), headlines.tap_step(
+            batched_soa, "i2lqr_step_reference", 5,
+            lambda lap, i, a: i == 5) as tap:
+        assert i2lqr_step.ilqr_solve_soa is not solves[0]
+        res = run()
+    assert batched_soa.i2lqr_step_reference is step
+    assert (i2lqr_step.ilqr_solve_soa, fused_ilqr.ilqr_solve_soa) == solves
+    assert tap.calls == {1: 12} and sorted(tap.captured) == [1]
+    step_i, args = tap.captured[1]
+    assert step_i == 5 and len(args) == 9 and args[0].shape == (4, 2)
+    assert headlines.lap_records_hash(res) == headlines.lap_records_hash(
+        run())

@@ -18,6 +18,7 @@ from ilqr_iterative_tasks_tpu.ops.pallas_lm_shooting import (
 from ilqr_iterative_tasks_tpu.sim.seed import seed_trajectory as j_seed
 from ilqr_iterative_tasks_tpu.utils.params import (
     IlqrParams as JParams, LmpcParams as JLmpcParams, SystemLimits as JLimits)
+from ilqr_iterative_tasks_torch.control.batched_nlmpc_soa import k2_serves
 from ilqr_iterative_tasks_torch.models import kinetic_bicycle as tdyn
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
 from ilqr_iterative_tasks_torch.ops.fused_ilqr import obstacle_to_lanes
@@ -65,16 +66,19 @@ def test_lmpc_params_and_nlmpc_consts_match_jax():
     cp = convert.lmpc_params(JLmpcParams.make(dtype=jnp.float64,
                                               num_ss_points=4), device="cpu")
     assert cp.num_ss_points == 4 and cp.ss_option == "spaceVarying"
-    cp.check_ported()
-    for ported in (dict(ss_option="timeVarying"), dict(all_ss_point=True),
-                   dict(all_ss_point=True, all_ss_iter=True)):
-        LmpcParams.make(**ported, device="cpu").check_ported()
-    # the kNN or window over every stored lap is the one combination left
-    with pytest.raises(NotImplementedError):
-        LmpcParams.make(all_ss_iter=True, device="cpu").check_ported()
-    with pytest.raises(NotImplementedError):
-        LmpcParams.make(ss_option="timeVarying", all_ss_iter=True,
-                        device="cpu").check_ported()
+    # every safe-set option converts and resolves to the JAX simulator's
+    # mode (batched_nlmpc_soa.py:157-164), the kNN or window over every
+    # stored lap included; only that one runs without a K2
+    for opts in (dict(), dict(ss_option="timeVarying"),
+                 dict(all_ss_point=True),
+                 dict(all_ss_point=True, all_ss_iter=True),
+                 dict(all_ss_iter=True),
+                 dict(ss_option="timeVarying", all_ss_iter=True)):
+        jo = JLmpcParams.make(dtype=jnp.float64, **opts)
+        co = convert.lmpc_params(jo, device="cpu")
+        assert co.ss_mode == ("all" if jo.all_ss_point else jo.ss_option)
+        assert co.all_ss_iter == jo.all_ss_iter
+        assert k2_serves(co) == (co.ss_mode == "all" or not co.all_ss_iter)
     jc = bake_nlmpc_consts(JLimits.make(dtype=jnp.float64), 1.0)
     tc = nlmpc_consts(SystemLimits.make(dtype=F64, device="cpu"), 1.0)
     for t_name, j_name in (("dt", "dtf"), ("a_max", "a_max"),

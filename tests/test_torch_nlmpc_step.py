@@ -39,7 +39,7 @@ from ilqr_iterative_tasks_torch.control.batched_nlmpc_soa import (
     advance_tail, default_options, lap_window)
 from ilqr_iterative_tasks_torch.control.batched_soa import plant_step
 from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
-    obstacle_to_lanes_nlmpc)
+    build_fused_lm_shooting, obstacle_to_lanes_nlmpc)
 from ilqr_iterative_tasks_torch.ops.nlmpc_step import (
     build_fused_nlmpc_step, nlmpc_step_reference)
 from ilqr_iterative_tasks_torch.utils import convert
@@ -95,15 +95,18 @@ def _problem(seed=0, stall=False):
 
 MODES = {"spaceVarying": {}, "timeVarying": dict(ss_option="timeVarying"),
          "all": dict(all_ss_point=True),
-         "all_iter": dict(all_ss_point=True, all_ss_iter=True)}
+         "all_iter": dict(all_ss_point=True, all_ss_iter=True),
+         "spaceVarying_iter": dict(all_ss_iter=True),
+         "timeVarying_iter": dict(ss_option="timeVarying", all_ss_iter=True)}
 
 
-def _steps_against_jax(mode, steps, stall=False, nsi=1):
+def _steps_against_jax(mode, steps, stall=False, nsi=1, k4=False):
     """The recorded states (steps, 4, B) and inputs (steps, 2, B) of the
     port and of the JAX simulator, and the port's per-step feasible_any
     (steps, B) and succ (steps, B), after ``steps`` steps from the
     stored laps of ``_problem(stall=stall)``, with the last ``nsi`` of
-    them in each step's window."""
+    them in each step's window; with ``k4`` the port's candidate solves
+    run through K4's CPU route."""
     ss, x0, obs, goal = _problem(stall=stall)
     jp = JParams.make(dtype=jnp.float64, num_ss_iter=nsi, **MODES[mode])
     jl = JLimits.make(dtype=jnp.float64)
@@ -138,13 +141,15 @@ def _steps_against_jax(mode, steps, stall=False, nsi=1):
     u_prev = torch.zeros((2, B), dtype=torch.float64)
     no_lane = torch.zeros(B, dtype=torch.bool)
     lanes = torch.arange(B)
+    cand = (build_fused_lm_shooting(tl, 1.0, num_horizon=N, max_iters=CAP)
+            if k4 else None)
     xs, us, feas_s, succ_s = [], [], [], []
     for _ in range(steps):
-        extra = (t, min_cost) if mode == "timeVarying" else ()
+        extra = (t, min_cost) if tp.ss_mode == "timeVarying" else ()
         us_w, feas, new_guess, idx, row, succ = nlmpc_step_reference(
             tp, tl, 1.0, x, guess, u_warm, states, qfun, lap_len, lap_ids,
             lap_ok, obstacle_to_lanes_nlmpc(obstacle, B), skip, hzn, *extra,
-            max_iters=CAP)
+            max_iters=CAP, candidate_solver=cand)
         u_app = inputs[lap_ids.long()[row.long()], idx.long(), :, lanes].T
         u_sel, guess_n, u_warm, hzn = advance_tail(
             us_w, u_app, new_guess, succ > 0.5, hzn <= 1, hzn, feas > 0.5,
@@ -175,6 +180,19 @@ def test_one_step_matches_jax_f64():
 @pytest.mark.parametrize("mode", ["timeVarying", "all", "all_iter"])
 def test_steps_match_jax_f64(mode):
     (xs, us), (j_xs, j_us), f, succ = _steps_against_jax(mode, 5)
+    assert 0.1 < f.mean() < 1.0 and not f[:, -8:].any(), f.mean(axis=1)
+    assert 0.0 < succ.mean() < 1.0  # both guess advances
+    np.testing.assert_allclose(us, j_us, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(xs, j_xs, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("mode", ["spaceVarying_iter", "timeVarying_iter"])
+@pytest.mark.parametrize("k4", [False, True], ids=["plain", "k4"])
+def test_every_stored_lap_steps_match_jax_f64(mode, k4):
+    """all_ss_iter without all_ss_point: the kNN or window over both
+    stored laps (two empty slots), three steps, with the plain solve and
+    through K4's CPU route."""
+    (xs, us), (j_xs, j_us), f, succ = _steps_against_jax(mode, 3, k4=k4)
     assert 0.1 < f.mean() < 1.0 and not f[:, -8:].any(), f.mean(axis=1)
     assert 0.0 < succ.mean() < 1.0  # both guess advances
     np.testing.assert_allclose(us, j_us, rtol=0, atol=1e-9)
@@ -225,8 +243,46 @@ def _route_inputs(mode):
                                            for k, v in obs.items()}),
                               device="cpu"), B), skip, hzn)
     extra = ((torch.arange(B) % 7).to(torch.int32),
-             (lap_len[:LAPS] - 1).amin(dim=0)) if mode == "timeVarying" else ()
+             (lap_len[:LAPS] - 1).amin(dim=0)) if tp.ss_mode == "timeVarying" \
+        else ()
     return tp, tl, a, extra
+
+
+class _Counted:
+    """A candidate solver that counts its calls and their lanes."""
+
+    def __init__(self, solver):
+        self.solver, self.lanes = solver, []
+
+    def __call__(self, *args):
+        self.lanes.append(args[1].shape[-1])
+        return self.solver(*args)
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_candidate_step_is_the_plain_step_in_each_mode(mode):
+    """The plain step through K4's CPU route equals it with the plain
+    solve, bit for bit, on lanes at every horizon with 1/9 skipped: one
+    call a step on the rows*k*B candidate lanes, or in mode all one a
+    stored row (T*B) and one for the winner (B)."""
+    tp, tl, a, extra = _route_inputs(mode)
+    k4 = build_fused_lm_shooting(tl, 1.0, num_horizon=N, max_iters=CAP)
+    cand = _Counted(k4)
+    got = nlmpc_step_reference(tp, tl, 1.0, *a, *extra, max_iters=CAP,
+                               candidate_solver=cand)
+    want = nlmpc_step_reference(tp, tl, 1.0, *a, *extra, max_iters=CAP)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert 0.0 < float((got[1] > 0.5).double().mean()) < 1.0
+    assert k4.launches == 0
+    rows = LAPS if tp.all_ss_iter else 1  # stored laps the step reads
+    if tp.ss_mode == "all":
+        assert cand.lanes == [T_ROWS * B] * rows + [B]
+    else:
+        assert cand.lanes == [rows * tp.num_ss_points * B]
+    with pytest.raises(ValueError, match="trips"):
+        nlmpc_step_reference(tp, tl, 1.0, *a, *extra, max_iters=CAP,
+                             candidate_solver=cand, trips=[])
 
 
 def test_k2_cpu_route_is_the_plain_step():
@@ -347,3 +403,21 @@ def test_factory_refuses_options_it_does_not_take():
     k2 = build_fused_nlmpc_step(tp, tl, 1.0, qsort_skip=True, **sizes)
     assert (k2.mode, k2.all_iter, k2.qsort_skip, k2.all_rev_skip) == (
         "spaceVarying", False, True, False)
+
+
+@pytest.mark.parametrize("mode", ["spaceVarying", "timeVarying",
+                                  "spaceVarying_iter", "timeVarying_iter"])
+def test_absent_candidates_are_a_suffix_of_each_row(mode):
+    """The ragged list comparison ranks absent slots -inf in the row
+    compare, which equals Python's list min only while the absent slots of
+    each lap row are a per-lane suffix (batched_nlmpc_soa.py:414-421):
+    held here on two stored laps, many shorter than k, over the window's
+    steps t = 0..6, the last one lap or both (all_ss_iter)."""
+    tp, tl, a, extra = _route_inputs(mode)
+    cands = []
+    nlmpc_step_reference(tp, tl, 1.0, *a, *extra, max_iters=1, cands=cands)
+    (key, _), = cands
+    rows = LAPS if tp.all_ss_iter else 1
+    present = torch.isfinite(key).reshape(rows, tp.num_ss_points, B)
+    assert bool((present[:, 1:] <= present[:, :-1]).all())  # no gap
+    assert bool((~present[:, -1]).any()) and bool(present[:, 0].all())
