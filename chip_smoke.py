@@ -20,8 +20,8 @@ tier's benchmarks through the generic LM-iLQR kernel K5. Phases:
 2. build: nvcc of the six kernel sources (one process per source), with
    seconds, registers and spills, and the registers, local memory and
    resident warps an SM of the loaded f32 K1, K2 all, K2 spaceVarying /
-   timeVarying (with qsort_skip), K3, K4 and K5 (the double integrator and
-   the bicycle at N = 6) as the CUDA runtime reports them;
+   timeVarying (with qsort_skip), K3, K4 (f32 and f64) and K5 (the double
+   integrator and the bicycle at N = 6) as the CUDA runtime reports them;
 3. K3 (i2LQR per-candidate solve) against the plain solve on 393 216 random
    candidate lanes, f64 and f32;
 4. K1 (whole i2LQR step) against the plain step on safe sets captured from
@@ -35,8 +35,9 @@ tier's benchmarks through the generic LM-iLQR kernel K5. Phases:
    every run prints a hash of its lap records (lap steps, done flags,
    final states, safe set), so two commits can be shown to run alike;
 7. K4 (NLMPC per-candidate solve) against the plain solve on 393 216 random
-   candidate lanes (horizons 1-6, 1/16 skipped), f64 and f32 (the kernels
-   line keeps these figures beside phase 23's);
+   candidate lanes (horizons 1-6, 1/16 skipped), f64 and f32, bit for bit,
+   beside the share of lanes whose verdicts and solutions agree (the
+   kernels line keeps these figures beside phase 23's);
 8. K2 (whole NLMPC step) against the plain step on inputs captured from the
    NLMPC headline run (lap 1 early, lap 2 mid, lap 3 once shrunk horizons,
    horizon 1 among them, are active), f32 as captured and f64 cast up,
@@ -103,7 +104,9 @@ tier's benchmarks through the generic LM-iLQR kernel K5. Phases:
    candidate set must complete more and finish the last lap sooner than
    k8_nsi1, and each completion stay at or above its bound; then the
    i2LQR headline scenario at B = 4 096 with and without stall_reseed=3,
-   which must lie within utils/envelope.py's behaviour envelope;
+   which must lie within utils/envelope.py's behaviour envelope; and one
+   more k32_nsi4 run under torch.profiler, whose trace gives K1's device
+   seconds and the card's busy seconds;
 22. the i2LQR headline through K3 (``candidate_solver``: the plain step's
    glue around one K3 launch a relaxation pass; seed 0 as phase 6): K3's
    launches must be three a step with active lanes (steps counted by a tap
@@ -123,13 +126,17 @@ tier's benchmarks through the generic LM-iLQR kernel K5. Phases:
    equals its plain solve, two timed runs;
 24. the safe set over every stored lap (all_ss_iter without all_ss_point)
    in spaceVarying and timeVarying at B = 8 192 (cap 12, infeasible_retire
-   8), through the simulator's default K4: one launch a step, completion
-   with its standard error, final-lap mean, wall seconds of a second
-   seed-0 run (whose hash must be the first's), the per-candidate step bit
-   for bit against the plain step on the card on inputs captured at lap 1
-   (step 5), lap 2 (step 14) and lap 3 (step 10, three stored laps), f32
-   and f64 cast up; a zero-noise closed loop (1024 lanes, cap 60): f64 must
-   give the JAX package's laps exactly ([32, 23, 23], [111, 102, 93]);
+   8), through the simulator's default K4: one launch a step (the warm
+   run's skip masks logged: the share of live lanes over the run),
+   completion with its standard error, final-lap mean, wall seconds of a
+   second seed-0 run (whose hash must be the first's), completion at or
+   above its bound (0.9066 / 0.9827), the per-candidate step bit for bit
+   against the plain step on the card on inputs captured at lap 1 (step
+   5), lap 2 (step 14) and lap 3 (step 10, three stored laps), f32 and f64
+   cast up, and K4 on the lap-2 capture's lanes bit for bit against its
+   plain solve, with its ms a call; a zero-noise closed loop (1024 lanes,
+   cap 60): f64 must give the JAX package's laps exactly ([32, 23, 23],
+   [111, 102, 93]);
 25. exact resume on the card: the i2LQR run through K1 and the NLMPC
    spaceVarying run through K2 at B = 4 096 (seed 0): 2 laps, a checkpoint
    (utils/checkpoint.py) to a temporary file, loaded and resumed for 2
@@ -180,11 +187,12 @@ from ilqr_iterative_tasks_torch.control.batched_nlmpc_soa import (  # noqa: E402
 from ilqr_iterative_tasks_torch.experiments.headlines import (  # noqa: E402
     ALL_BATCH, BATCH, CAP, CAPTURES, K1_ATTRS, LAPS, MAX_LAPS, MAX_STEPS, N,
     NL_CAP, NL_CAPTURES, NL_RETIRE, SWEEP_BATCH, SWEEP_CAP, SWEEP_CAPTURES,
-    SWEEP_CONFIGS, SWEEP_LAPS, Capture, Headlines, cuda_ms, k1_capture,
-    k2_capture, lap_records_hash, no_plain_solve_on_card, require,
-    sweep_capture, sweep_step_solver, tap_step, want_capture)
+    EVERY_CAPTURES, K3_ATTRS, K4_ATTRS, RANDOM_LANES, SWEEP_CONFIGS,
+    SWEEP_LAPS, Capture, Headlines, Recorder, cuda_ms, device_seconds,
+    k1_capture, k2_capture, k4_lanes, lane_obstacle, lap_records_hash,
+    no_plain_solve_on_card, require, seed_lanes, sweep_capture,
+    sweep_step_solver, tap_step, want_capture)
 
-K3_LANES = 8 * BATCH
 ZERO_NOISE_LAPS = [55, 28, 24]  # CPU XLA f32 family, docs/PARITY.md:146
 # NLMPC headline lap completion bound. Completion follows the f32 arithmetic
 # (the horizon-1 reach check at 1e-3 under noise): the port completes 0.9169
@@ -212,9 +220,10 @@ HOST_NLMPC_LAPS = [32, 23, 23]  # host controller, f64, tests/test_batched_nlmpc
 # and host controller's laps, pinned by tests/test_torch_batched_nlmpc_soa.py
 # (spaceVarying over every stored lap gives HOST_NLMPC_LAPS)
 HOST_EVERY_TV_LAPS = [111, 102, 93]
-# (learning lap, control step) where phase 24 captures the every-lap step's
-# inputs: lap 1 early, lap 2 mid, lap 3 (three stored laps)
-EVERY_CAPTURES = {1: 5, 2: 14, 3: 10}
+# lap completion bounds over every stored lap (B = 8 192, seed 0), 3
+# standard errors of one run under the card's seed-0 figures: spaceVarying
+# 0.9120 (standard error 0.0018), timeVarying 0.9851 (0.0008); PERF.md
+EVERY_COMPLETION_MIN = {"spaceVarying": 0.9066, "timeVarying": 0.9827}
 RESUME_BATCH = 4096  # phase 25
 # host controller, f64, k = 32 / nsi = 2, 4 laps: the JAX package's
 # I2LqrController run as tests/test_ragged_selection.py:107-146 runs it
@@ -527,30 +536,6 @@ def cast(args, dtype, keep=()):
             for i, t in enumerate(args)]
 
 
-def seed_lanes(rng, xcl, b, lo, hi, extra=0):
-    """Random candidate lanes near the seed lap: x0 near a seed state and
-    x_term extra + [lo, hi) seed rows further on, both jittered; (4, b)."""
-    rows = rng.integers(0, 100, b)
-    x0 = (xcl[rows] + rng.normal(size=(b, 4)) * [0.5, 0.5, 0.2, 0.05]).T
-    xt = (xcl[rows + extra + rng.integers(lo, hi, b)]
-          + rng.normal(size=(b, 4)) * [0.3, 0.3, 0.1, 0.02]).T
-    return np.ascontiguousarray(x0), np.ascontiguousarray(xt)
-
-
-def lane_obstacle(rng, b, dev):
-    """Per-lane obstacles around (31, -2): static, moving +y, moving -x;
-    every 8th absent."""
-    from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
-    opt = np.arange(b) % 3
-    return Obstacle(
-        x=31.0 + rng.normal(size=b) * 4, y=-2.0 + rng.normal(size=b) * 4,
-        width=np.full(b, 8.0), height=np.full(b, 6.0),
-        spd=np.where(opt == 0, 0.0, 0.5 + rng.random(b)),
-        moving_option=opt.astype(float),
-        present=(np.arange(b) % 8 != 7).astype(float)).map(
-            lambda a: torch.tensor(a, dtype=torch.float64, device=dev))
-
-
 def k1_gate(tag, out, ref, active, dtype):
     """Phase 4's gates of a K1 output against its plain step's (>= 99.9 %
     equal decisions and max|dus| <= 1e-6 on them in f64, >= 99 % in f32),
@@ -571,24 +556,6 @@ def k1_gate(tag, out, ref, active, dtype):
                 f"{tag} f32: agreement {share}, bitwise {bitwise}")
     return (f"decisions agree {share:.6f}, max|dus| on them {maxd:.3e}, "
             f"bitwise {bitwise}"), maxd
-
-
-K3_ATTRS = ("max_iter", "with_skip")  # what the i2LQR simulator reads
-K4_ATTRS = ("max_iters", "with_skip", "with_hzn")  # and the NLMPC one
-
-
-class Recorder:
-    """A candidate solver that delegates to ``kernel`` and keeps the inputs
-    of each call."""
-
-    def __init__(self, kernel, attrs):
-        self.kernel, self.calls = kernel, []
-        for a in attrs:
-            setattr(self, a, getattr(kernel, a))
-
-    def __call__(self, *args):
-        self.calls.append(args)
-        return self.kernel(*args)
 
 
 class SkipLog(Recorder):
@@ -694,8 +661,7 @@ def main():
     from ilqr_iterative_tasks_torch.ops.fused_ilqr import (
         build_fused_ilqr, fused_ilqr_reference, obstacle_to_lanes)
     from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
-        build_fused_lm_shooting, fused_lm_shooting_reference,
-        obstacle_to_lanes_nlmpc)
+        build_fused_lm_shooting, fused_lm_shooting_reference)
     from ilqr_iterative_tasks_torch.ops.i2lqr_step import (
         build_fused_i2lqr_step, i2lqr_step_reference)
     from ilqr_iterative_tasks_torch.ops.ilqr_soa import ilqr_solve_soa
@@ -730,8 +696,8 @@ def main():
                 print("   ", line.strip())
     lib = _build.library()
     # the loaded f32 K1 (k 8 / nsi 1 and k 32 / nsi 4), K2 all, K2
-    # spaceVarying / timeVarying (qsort_skip, nsi 1), K3 and K5 (N = 6), as
-    # the CUDA runtime reports them
+    # spaceVarying / timeVarying (qsort_skip, nsi 1), K3, K4 (and its f64)
+    # and K5 (N = 6), as the CUDA runtime reports them
     occupancy = dict(
         k1=_build.attributes(lib, "i2lqr_step_attributes", 0, N, 8, 1),
         k1_k32=_build.attributes(lib, "i2lqr_step_attributes", 0, N, 32, 4),
@@ -742,12 +708,15 @@ def main():
                                 1),
         k3=_build.attributes(lib, "fused_ilqr_attributes", 0, N),
         k4=_build.attributes(lib, "fused_lm_shooting_attributes", 0, N),
+        k4_f64=_build.attributes(lib, "fused_lm_shooting_attributes", 1, N),
         k5=_build.attributes(lib, "generic_ilqr_attributes", 0,
                              MODEL_CODES["double_integrator"], N),
         k5_bicycle=_build.attributes(lib, "generic_ilqr_attributes", 0,
                                      MODEL_CODES["bicycle"], N))
     for key, occ in occupancy.items():
-        print(f"[2 {key} f32] {occ['registers']} registers, "
+        print(f"[2 {key.removesuffix('_f64')} "
+              f"{'f64' if key.endswith('_f64') else 'f32'}] "
+              f"{occ['registers']} registers, "
               f"{occ['local_bytes']} bytes of local memory a thread, "
               f"{occ['warps_per_sm']} resident warps an SM", flush=True)
 
@@ -761,7 +730,7 @@ def main():
     rng = np.random.default_rng(0)
 
     # ---- 3. K3 against the plain solve ----
-    b = K3_LANES
+    b = RANDOM_LANES
     x0, xt = seed_lanes(rng, xcl, b, 1, 9)
     obs = obstacle_to_lanes(lane_obstacle(rng, b, dev), b).contiguous()
     k3 = build_fused_ilqr(params, limits, 1.0, num_horizon=N, max_iter=CAP)
@@ -804,28 +773,22 @@ def main():
     # ---- 7. K4 against the plain solve ----
     # the NLMPC solve clips at the raw delta_max: keep it exact in f64
     nl_limits = SystemLimits.make(dtype=torch.float64)
-    hzn = rng.integers(1, 7, b)
-    x0, xt = seed_lanes(rng, xcl, b, 0, 3, extra=hzn)
-    obs7 = obstacle_to_lanes_nlmpc(lane_obstacle(rng, b, dev), b).contiguous()
-    warm = rng.normal(size=(N, 2, b)) * np.array([1.5, 1.0])[None, :, None]
-    skip = torch.tensor(np.arange(b) % 16 == 5, dtype=torch.float32,
-                        device=dev)
-    hzn_t = torch.tensor(hzn, dtype=torch.int32, device=dev)
+    lanes7 = k4_lanes(rng, xcl, np.arange(b) % 16 == 5, dev)
+    skip, hzn_t = lanes7[4], lanes7[5]
     k4 = build_fused_lm_shooting(nl_limits, 1.0, num_horizon=N,
                                  max_iters=NL_CAP)
     k4_stats = {}
     live = skip < 0.5
     for dtype in (torch.float64, torch.float32):
-        a = (torch.tensor(x0, dtype=dtype, device=dev),
-             torch.tensor(xt, dtype=dtype, device=dev),
-             torch.tensor(warm, dtype=dtype, device=dev), obs7.to(dtype),
-             skip, hzn_t)
+        a = cast(lanes7, dtype, keep=(4,))
         out = k4(*a)
         ref = fused_lm_shooting_reference(nl_limits, 1.0, *a, num_horizon=N,
                                           max_iters=NL_CAP)
         torch.cuda.synchronize()
         for t in out:
             require(bool(torch.isfinite(t).all()), "K4: non-finite output")
+        require(all(torch.equal(g, w) for g, w in zip(out, ref)),
+                f"K4 {dtype}: not bitwise equal to the plain solve")
         same = (out[3] == ref[3])[live]
         dus = (out[0] - ref[0]).abs().amax(dim=(0, 1))[live]
         agree = same & (dus <= 1e-6)
@@ -1459,11 +1422,14 @@ def main():
                             ("timeVarying", HOST_EVERY_TV_LAPS)):
         tag = f"24 every stored lap {mode}"
         lp = LmpcParams.make(ss_option=mode, all_ss_iter=True)
+        log = SkipLog(k4d, K4_ATTRS)  # each launch's skip mask
         res, sec, launches, steps, captured = nl_path_run(
-            tag, lp, scen_all, None, k4d,
+            tag, lp, scen_all, log, k4d,
             lambda lap, i, a: EVERY_CAPTURES.get(lap) == i, all_iter=True)
         p_done, se = completion_of(res)
+        live = sum(int((~m).sum()) for m in log.calls)
         rec = dict(launches=launches, steps=steps, warm_s=sec,
+                   mean_active_share=live / sum(m.numel() for m in log.calls),
                    completion=p_done, completion_se=se,
                    final_lap_mean=float(res.lap_steps[-1].float().mean()),
                    hash=lap_records_hash(res))
@@ -1477,8 +1443,12 @@ def main():
         print(f"[{tag}] B={ALL_BATCH} completion {p_done:.4f} (standard "
               f"error {se:.5f}), final-lap mean {rec['final_lap_mean']:.2f}, "
               f"wall {rec['wall_s']:.3f} s (warm {sec:.3f} s), K4 launches "
-              f"{launches} ({steps} steps with active lanes), lap records "
-              f"{rec['hash']}", flush=True)
+              f"{launches} ({steps} steps with active lanes, "
+              f"{rec['mean_active_share']:.4f} of their lanes live), lap "
+              f"records {rec['hash']}", flush=True)
+        del log
+        require(p_done >= EVERY_COMPLETION_MIN[mode],
+                f"{tag}: completion {p_done} < {EVERY_COMPLETION_MIN[mode]}")
         require(sorted(captured) == sorted(EVERY_CAPTURES),
                 f"{tag}: captured {sorted(captured)}")
         require(int(captured[3][1][7].sum()) >= 3,
@@ -1487,10 +1457,21 @@ def main():
             f"{tag} step", captured,
             lambda *a, lp=lp, **kw: nlmpc_step_reference(
                 lp, nl_limits, 1.0, *a, max_iters=NL_CAP, **kw), k4d, 9)
+        # K4 on the lap-2 capture's lanes against its plain version
+        a = caps["calls"][0]
+        require(all(torch.equal(g, w) for g, w in zip(
+            k4d(*a), fused_lm_shooting_reference(
+                nl_limits, 1.0, *a, num_horizon=N, max_iters=NL_CAP))),
+                f"{tag}: K4 on the lap-2 capture's lanes is not bitwise "
+                f"equal to the plain solve")
         rec.update(step_ms=caps["step_ms"],
                    plain_step_ms=caps["plain_step_ms"],
-                   k4_ms=cuda_ms(lambda: k4d(*caps["calls"][0]), 5),
-                   k4_lanes=caps["calls"][0][1].shape[-1])
+                   k4_ms=cuda_ms(lambda: k4d(*a), 5),
+                   k4_lanes=a[1].shape[-1],
+                   k4_live_lanes=int((a[4] < 0.5).sum()))
+        print(f"[{tag} K4] lap-2 capture: {rec['k4_ms']:.3f} ms a call of "
+              f"{rec['k4_lanes']} lanes ({rec['k4_live_lanes']} live), "
+              f"bitwise equal to the plain solve", flush=True)
         del captured, caps
         with no_plain_solve_on_card():
             zero_noise(f"{tag} zero-noise", lp, None, host_laps)
@@ -1537,6 +1518,14 @@ def main():
               f"{rep['wall_s']} s ({rep['lap_sims_per_s']} lap-sims/s), K1 "
               f"launches {launches}, lap records {rep['hash']}", flush=True)
         del res, runs
+    # K1 k32's device seconds over a k32_nsi4 run, from a profiler trace
+    k32_prof = dict(zip(("k1_device_s", "busy_s", "host_s"), device_seconds(
+        lambda: run_sweep(SWEEP_BATCH, SWEEP_LAPS, moving=True,
+                          num_ss_points=32, num_ss_iter=4, quiet=True,
+                          device=dev), "i2lqr_step_block_kernel")))
+    print(f"[21 sweep k32_nsi4 profiled] K1 k32 {k32_prof['k1_device_s']:.4f}"
+          f" s of the card a run; the card busy {k32_prof['busy_s']:.4f} s of "
+          f"{k32_prof['host_s']:.3f} s under the profiler", flush=True)
     base = sweep["k8_nsi1"]
     for tag in ("k8_nsi1_sr3", "k32_nsi4"):
         require(sweep[tag]["completion"] > base["completion"]
@@ -1894,7 +1883,7 @@ def main():
              source=csrc + "i2lqr_step.cu",
              replaces=tpu + "pallas_i2lqr_step.py:221",
              launches=sweep["k32_nsi4"]["launches"], **k32_stats,
-             **occupancy["k1_k32"],
+             **occupancy["k1_k32"], profiled_run=k32_prof,
              sweep={tag: {kk: r[kk] for kk in (
                  "completion", "completion_se", "final_lap_mean",
                  "lap_steps_p50", "wall_s", "launches", "hash")}

@@ -4,8 +4,9 @@ themselves (through the whole-step kernels K1 / K2 or, with a
 ``candidate_solver``, through the per-candidate path of K3 / K4), the step
 solver that captures a kernel's inputs and its rule, the tap that captures
 the plain step's inputs on the per-candidate path, the guard that no plain
-candidate solve sees a CUDA tensor, CUDA-event timing and a hash of a run's
-lap records.
+candidate solve sees a CUDA tensor, K4's random lanes and edge cases,
+CUDA-event timing, device seconds from a profiler trace and a hash of a
+run's lap records.
 
 The i2LQR headline is bench.py:44-62 (B = 49 152, seed lap + 3 learning
 laps, f32, plant noise on, LM cap 16); the NLMPC headlines are
@@ -19,9 +20,12 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from ilqr_iterative_tasks_torch.control import batched_soa
 from ilqr_iterative_tasks_torch.control.batched_nlmpc_soa import (
@@ -42,6 +46,10 @@ NL_RETIRE = 8  # infeasible_retire of the NLMPC headline (bench.py:132)
 # and at least one active lane at horizon 1 (the reach check)
 NL_CAPTURES = {1: 5, 2: 14, 3: None}
 ALL_BATCH = 8192  # the all tier's batch (bench.py:218-221)
+# (learning lap, control step) where the per-candidate step over every
+# stored lap (all_ss_iter) is captured: lap 1 early, lap 2 mid, lap 3
+# (three stored laps)
+EVERY_CAPTURES = {1: 5, 2: 14, 3: 10}
 # the robustness canary (bench.py:250-270): batch, laps, LM cap and its
 # (tag, k, nsi, stall_reseed) configurations
 SWEEP_BATCH, SWEEP_LAPS, SWEEP_CAP = 4096, 4, 16
@@ -53,6 +61,24 @@ SWEEP_CAPTURES = {1: 5, 2: 14, 4: 10}
 K1_ATTRS = ("k", "nsi", "num_horizon", "max_steps", "max_laps", "max_iter")
 K2_ATTRS = ("k", "nsi", "num_horizon", "max_steps", "max_laps", "max_iters",
             "mode", "all_iter")
+K3_ATTRS = ("max_iter", "with_skip")  # what the i2LQR simulator reads
+K4_ATTRS = ("max_iters", "with_skip", "with_hzn")  # and the NLMPC one
+# phase 3's K3 and phase 7's K4 random lanes (chip_smoke.py)
+RANDOM_LANES = 8 * BATCH
+# K4's edge cases: lanes, the share of them skipped (scattered), the
+# horizons hzn drawn from [lo, hi) (clipped to [2, N] by the solve), and
+# n: every n-th chunk of 32 lanes all live (0: none), so that a warp's
+# queue of live lanes fills past 32
+K4_EDGE_CASES = {
+    "skip_74": (300, 0.74, (2, N + 1), 0),
+    "all_skipped": (300, 1.0, (2, N + 1), 0),
+    "none_skipped": (300, 0.0, (2, N + 1), 0),
+    "b1": (1, 0.0, (2, N + 1), 0),
+    "b33": (33, 0.74, (2, N + 1), 0),
+    "b4097": (4097, 0.74, (2, N + 1), 0),
+    "hzn_1_to_7": (300, 0.74, (1, N + 2), 0),
+    "live_chunks": (600, 0.74, (2, N + 1), 3),
+}
 
 
 def require(cond, msg):
@@ -73,6 +99,22 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_seconds(fn, key: str) -> tuple[float, float, float]:
+    """(seconds the card spent in kernels whose name holds ``key``, in
+    every kernel and copy, host seconds) of one call of ``fn`` under
+    ``torch.profiler``, from its trace."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        host = time.perf_counter() - t0
+    dev = [(e.key, getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0)))
+           for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (sum(t for k, t in dev if key in k) / 1e6,
+            sum(t for _, t in dev) / 1e6, host)
+
+
 def lap_records_hash(res) -> str:
     """16 hex digits of a sha256 over a run's lap records: lap steps, done
     flags, final states and the safe set, each float tensor by its bit
@@ -87,6 +129,71 @@ def lap_records_hash(res) -> str:
             t = t.sum(dim=1)
         h.update(t.cpu().numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+def seed_lanes(rng, xcl, b, lo, hi, extra=0):
+    """Random candidate lanes near the seed lap: x0 near a seed state and
+    x_term extra + [lo, hi) seed rows further on, both jittered; (4, b)."""
+    rows = rng.integers(0, 100, b)
+    x0 = (xcl[rows] + rng.normal(size=(b, 4)) * [0.5, 0.5, 0.2, 0.05]).T
+    xt = (xcl[rows + extra + rng.integers(lo, hi, b)]
+          + rng.normal(size=(b, 4)) * [0.3, 0.3, 0.1, 0.02]).T
+    return np.ascontiguousarray(x0), np.ascontiguousarray(xt)
+
+
+def lane_obstacle(rng, b, dev):
+    """Per-lane obstacles around (31, -2): static, moving +y, moving -x;
+    every 8th absent."""
+    opt = np.arange(b) % 3
+    return Obstacle(
+        x=31.0 + rng.normal(size=b) * 4, y=-2.0 + rng.normal(size=b) * 4,
+        width=np.full(b, 8.0), height=np.full(b, 6.0),
+        spd=np.where(opt == 0, 0.0, 0.5 + rng.random(b)),
+        moving_option=opt.astype(float),
+        present=(np.arange(b) % 8 != 7).astype(float)).map(
+            lambda a: torch.tensor(a, dtype=torch.float64, device=dev))
+
+
+def k4_lanes(rng, xcl, skip, dev, hzn_range=(1, N + 1)):
+    """K4's inputs (x0, x_term, u_warm, obs, skip, hzn) for the lanes of the
+    0/1 numpy mask ``skip``, drawn from ``rng`` in f64: x0 near a seed
+    state, x_term hzn + 0..2 seed rows on, hzn from ``hzn_range``, warm
+    starts past the input bounds and per-lane obstacles."""
+    from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
+        obstacle_to_lanes_nlmpc)
+    b = len(skip)
+    hzn = rng.integers(*hzn_range, b)
+    x0, xt = seed_lanes(rng, xcl, b, 0, 3, extra=np.clip(hzn, 0, N))
+    obs = obstacle_to_lanes_nlmpc(lane_obstacle(rng, b, dev), b)
+    warm = rng.normal(size=(N, 2, b)) * np.array([1.5, 1.0])[None, :, None]
+    f = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)
+    return (f(x0), f(xt), f(warm), obs.contiguous(),
+            torch.tensor(skip, dtype=torch.float32, device=dev),
+            torch.tensor(hzn, dtype=torch.int32, device=dev))
+
+
+def random_k4_lanes(dev):
+    """Phase 7's K4 lanes (chip_smoke.py): RANDOM_LANES, horizons 1-6, 1/16
+    skipped, drawn from numpy's generator of seed 0 after phase 3's K3
+    lanes."""
+    rng, b = np.random.default_rng(0), RANDOM_LANES
+    xcl = seed_trajectory(1.0)[0]
+    seed_lanes(rng, xcl, b, 1, 9)  # phase 3's draws
+    lane_obstacle(rng, b, dev)
+    return k4_lanes(rng, xcl, np.arange(b) % 16 == 5, dev)
+
+
+def k4_edge_lanes(case, dev, b=None):
+    """K4's inputs for ``K4_EDGE_CASES[case]`` (f64; ``b`` lanes in place
+    of the case's), from numpy's generator of seed 4."""
+    lanes, share, hzn_range, every = K4_EDGE_CASES[case]
+    b = lanes if b is None else b
+    rng = np.random.default_rng(4)
+    skip = np.zeros(b)
+    skip[rng.permutation(b)[:round(share * b)]] = 1.0
+    if every:
+        skip[np.arange(b) // 32 % every == every - 1] = 0.0
+    return k4_lanes(rng, seed_trajectory(1.0)[0], skip, dev, hzn_range)
 
 
 class Capture:
@@ -112,6 +219,20 @@ class Capture:
         self.calls[lap] = i + 1
         if lap not in self.captured and self.want(lap, i, args):
             self.captured[lap] = (i, [a.clone() for a in args])
+        return self.kernel(*args)
+
+
+class Recorder:
+    """A candidate solver that delegates to ``kernel`` and keeps the inputs
+    of each call."""
+
+    def __init__(self, kernel, attrs):
+        self.kernel, self.calls = kernel, []
+        for a in attrs:
+            setattr(self, a, getattr(kernel, a))
+
+    def __call__(self, *args):
+        self.calls.append(args)
         return self.kernel(*args)
 
 

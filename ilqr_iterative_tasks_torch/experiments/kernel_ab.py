@@ -3,7 +3,7 @@ against those of another checkout (an earlier commit) and of edited copies
 of this checkout's sources, in turns on one card.
 
     python -m ilqr_iterative_tasks_torch.experiments.kernel_ab \\
-        --other DIR [--generic] [--also NAME DIR ...] \\
+        --other DIR [--generic | --k4] [--also NAME DIR ...] \\
         [--variant NAME FILE OLD NEW ...] [--out chiprun_out/kernel_ab.json]
 
 DIR holds the other checkout (``DIR/ilqr_iterative_tasks_torch/csrc``, whose
@@ -11,9 +11,12 @@ launchers keep the same C interface); ``--also`` names more checkouts, timed
 as every kernel beside it (the SASS is compared with the first). A variant
 is a copy of this
 checkout's csrc/ in which the text OLD of FILE is replaced by NEW (it must
-occur once), for instance K2 timeVarying at another tile width:
+occur once), for instance K2 timeVarying at another tile width, or K4
+capped at 168 registers:
 
     --variant TV_G2 nlmpc_step.cu "K2_TV_G = 1;" "K2_TV_G = 2;"
+    --variant K4_CAP3 fused_lm_shooting.cu "__launch_bounds__(128)" \\
+        "__launch_bounds__(128, 3)"
 
 Edits given under one NAME make one copy. A variant of ``i2lqr_step.cu`` is
 timed as K1, one of ``nlmpc_step_all.cu`` as K2 `all`, one of
@@ -24,7 +27,8 @@ them. Every library is built at once (one
 nvcc a source); the simulators and the plain steps are this checkout's, and
 only the library the wrappers launch from changes between turns.
 
-K3 and K5 (all of it with ``--generic``, which leaves out K1 and K2): on the
+K3 and K5 (all of it with ``--generic``, which leaves out K1, K2 and K4;
+left out by ``--k4``, which runs only K4's group): on the
 lanes of ``generic_bench.py --throughput`` (K5, the double integrator) and
 ``--kernel`` (K5 on the bicycle and the double integrator, K3 with an absent
 obstacle), and on the tasks of ``generic_bench.k5_task`` (every K5
@@ -47,9 +51,20 @@ B ... B A). Then the i2LQR, `all`, NLMPC (spaceVarying) and timeVarying
 headlines through each library in turns, one seed a turn (two seeds, five
 for timeVarying as chip_smoke.py's phase 15; spaceVarying also in the
 plain order, whose lap records must equal qsort_skip's, through the two
-checkouts only), and the i2LQR and NLMPC spaceVarying headlines through the
-per-candidate path (K3, K4; chip_smoke.py phases 22-23): host seconds,
-lap-sims/s, the
+checkouts only), and the i2LQR headline through the per-candidate path
+(K3, chip_smoke.py phase 22).
+
+K4: on phase 7's random lanes (chip_smoke.py, ``random_k4_lanes``) and on
+the lanes of K4's call at the lap-2 captures (chip_smoke.py's rules) of
+the NLMPC spaceVarying headline through the per-candidate path (phase 23)
+and of the spaceVarying run over every stored lap (``all_ss_iter``,
+B = 8 192, phase 24), in f64 and f32, this checkout's K4 must equal its
+plain version and every library's this checkout's bit for bit; then the
+f32 ms a call in turns, with the lanes and live lanes; then those
+headlines and the timeVarying one over every stored lap through each
+library in turns.
+
+For every headline: host seconds, lap-sims/s, the
 lap records' hash (which must agree between libraries for the same seed)
 and, but for K1's, the kernel's CUDA-event spans (which hold the wrapper's
 host time where the card waits for it); then one more run each under
@@ -60,7 +75,7 @@ from the CUDA runtime for the libraries that export ``*_attributes``; for a
 library without them, registers and spill stores from the ``-Xptxas -v``
 log of its build, when this process built it. The kernels both checkouts
 build under the same name are compared by their SASS (``cuobjdump
--sass``), and the f32 K3 and K5 kernels of every library counted
+-sass``), and the f32 K3, K4 and K5 kernels of every library counted
 (instructions, local loads and stores). Printed as lines and one JSON object (also written to
 ``--out``), with the card's name and power limit.
 """
@@ -80,17 +95,17 @@ import time
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 from ilqr_iterative_tasks_torch.control import batched_nlmpc_soa, batched_soa
 from ilqr_iterative_tasks_torch.experiments.generic_bench import (
     bench_kernel, bench_throughput, candidates, card_line, generic_kwargs,
     k5_task, throughput_inputs, warp_trips)
 from ilqr_iterative_tasks_torch.experiments.headlines import (
-    ALL_BATCH, BATCH, CAP, K2_ATTRS, LAPS, MAX_LAPS, MAX_STEPS, N, NL_CAP,
-    SWEEP_BATCH, SWEEP_LAPS, Headlines, cuda_ms, k1_capture, k2_capture,
-    lap_records_hash, require, sweep_capture, sweep_step_solver)
+    ALL_BATCH, BATCH, CAP, EVERY_CAPTURES, K2_ATTRS, K3_ATTRS, K4_ATTRS, LAPS,
+    MAX_LAPS, MAX_STEPS, N, NL_CAP, NL_CAPTURES, SWEEP_BATCH, SWEEP_LAPS,
+    Headlines, Recorder, cuda_ms, device_seconds, k1_capture, k2_capture,
+    lap_records_hash, random_k4_lanes, require, sweep_capture,
+    sweep_step_solver, tap_step, want_capture)
 from ilqr_iterative_tasks_torch.experiments.nlmpc_profile import EventTimed
 from ilqr_iterative_tasks_torch.experiments.scenario_sweep import run_sweep
 from ilqr_iterative_tasks_torch.models import double_integrator, kinetic_bicycle
@@ -101,9 +116,10 @@ from ilqr_iterative_tasks_torch.ops.fused_generic_ilqr import (
 from ilqr_iterative_tasks_torch.ops.fused_ilqr import (
     build_fused_ilqr, obstacle_to_lanes)
 from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
-    build_fused_lm_shooting)
+    build_fused_lm_shooting, fused_lm_shooting_reference)
 from ilqr_iterative_tasks_torch.ops.ilqr_soa import ilqr_solve_soa
-from ilqr_iterative_tasks_torch.ops.nlmpc_step import build_fused_nlmpc_step
+from ilqr_iterative_tasks_torch.ops.nlmpc_step import (
+    build_fused_nlmpc_step, nlmpc_step_reference)
 from ilqr_iterative_tasks_torch.utils.params import (
     IlqrParams, LmpcParams, SystemLimits)
 
@@ -228,32 +244,17 @@ def sass(path: str) -> dict | None:
     return {k: "\n".join(v) for k, v in funcs.items()}
 
 
-def sass_counts(funcs: dict, prefixes=("_ZN4ilqr17fused_ilqr_kernelIf",
-                                        "_ZN4ilqr19generic_ilqr_kernelIf")):
-    """{kernel: (instructions, local loads, local stores)} of the f32 K3 and
-    K5 kernels in a library's SASS (``sass``)."""
+def sass_counts(funcs: dict, prefixes=(
+        "_ZN4ilqr17fused_ilqr_kernelIf", "_ZN4ilqr24fused_lm_shooting_kernelIf",
+        "_ZN4ilqr19generic_ilqr_kernelIf")):
+    """{kernel: (instructions, local loads, local stores)} of the f32 K3, K4
+    and K5 kernels in a library's SASS (``sass``)."""
     out = {}
     for name, text in funcs.items():
         if name.startswith(prefixes):
             ops = re.findall(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", text)
             out[name] = (len(ops), ops.count("LDL"), ops.count("STL"))
     return out
-
-
-def device_seconds(fn, key: str) -> tuple[float, float, float]:
-    """(seconds the card spent in kernels whose name holds ``key``, in
-    every kernel and copy, host seconds) of one call of ``fn`` under
-    ``torch.profiler``, from its trace."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        host = time.perf_counter() - t0
-    dev = [(e.key, getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0)))
-           for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return (sum(t for k, t in dev if key in k) / 1e6,
-            sum(t for _, t in dev) / 1e6, host)
 
 
 @contextlib.contextmanager
@@ -341,6 +342,52 @@ def generic_ab(dev, libs, names_k3, names_k5) -> dict:
         heads[name].append(row)
         print(f"[generic headline {name}] {json.dumps(row)}", flush=True)
     out["headline"] = heads
+    return out
+
+
+def headlines(libs, tag, run, kern, kernel_name, names, b, seeds=(1, 2),
+              attrs=K2_ATTRS, spans=True):
+    """``run(seed, kernel)`` through each library of ``names`` in turns,
+    one seed a turn, with CUDA-event spans around each call of ``kern``
+    (``spans``), then once more each under the profiler (module
+    docstring); the lap records must agree between libraries."""
+    out = {name: dict(s=[], lap_sims_per_s=[], hash=[], event_k2_s=[])
+           for name in names}
+    order = [(n, seed) for i, seed in enumerate(seeds)
+             for n in (names if i % 2 == 0 else names[::-1])]
+    for name, seed in order:
+        timed = EventTimed(kern, attrs) if spans else kern
+        with launching(libs[name]):
+            t0 = time.perf_counter()
+            res = run(seed, timed)
+            sec = time.perf_counter() - t0
+        r = out[name]
+        r["s"].append(sec)
+        r["lap_sims_per_s"].append(b * LAPS / sec)
+        r["hash"].append(lap_records_hash(res))
+        if spans:
+            r["event_k2_s"].append(timed.seconds())
+        print(f"[{tag} headline {name} seed {seed}] {sec:.3f} s, "
+              f"{b * LAPS / sec:.1f} lap-sims/s, hash "
+              f"{r['hash'][-1]}"
+              + (f", {kernel_name} event spans "
+                 f"{r['event_k2_s'][-1]:.3f} s" if spans else ""),
+              flush=True)
+        del res
+    for i in range(len(seeds)):
+        require(len({out[n]["hash"][i] for n in names}) == 1,
+                f"{tag} headline: lap records differ between "
+                f"libraries")
+    for name in names:
+        with launching(libs[name]):
+            k_s, busy_s, host_s = device_seconds(lambda: run(1, kern),
+                                                 kernel_name)
+        out[name].update(device_s=k_s, busy_s=busy_s,
+                         profiled_host_s=host_s)
+        print(f"[{tag} headline {name} profiled] {kernel_name} "
+              f"{k_s:.4f} s of the card a run; the card busy "
+              f"{busy_s:.4f} s of {host_s:.3f} s under the profiler",
+              flush=True)
     return out
 
 
@@ -435,79 +482,31 @@ def k1_k2_ab(dev, libs, names) -> dict:
                                 caps["timeVarying"], ["other", "this"], 5))
 
     # ---- headlines in turns, one seed a turn, then one profiled run ----
-    def headlines(tag, run, kern, kernel_name, names, b, seeds=(1, 2),
-                  attrs=K2_ATTRS):
-        spans = kern is not k1  # CUDA-event spans around each call
-        out = {name: dict(s=[], lap_sims_per_s=[], hash=[], event_k2_s=[])
-               for name in names}
-        order = [(n, seed) for i, seed in enumerate(seeds)
-                 for n in (names if i % 2 == 0 else names[::-1])]
-        for name, seed in order:
-            timed = EventTimed(kern, attrs) if spans else kern
-            with launching(libs[name]):
-                t0 = time.perf_counter()
-                res = run(seed, timed)
-                sec = time.perf_counter() - t0
-            r = out[name]
-            r["s"].append(sec)
-            r["lap_sims_per_s"].append(b * LAPS / sec)
-            r["hash"].append(lap_records_hash(res))
-            if spans:
-                r["event_k2_s"].append(timed.seconds())
-            print(f"[{tag} headline {name} seed {seed}] {sec:.3f} s, "
-                  f"{b * LAPS / sec:.1f} lap-sims/s, hash "
-                  f"{r['hash'][-1]}"
-                  + (f", {kernel_name} event spans "
-                     f"{r['event_k2_s'][-1]:.3f} s" if spans else ""),
-                  flush=True)
-            del res
-        for i in range(len(seeds)):
-            require(len({out[n]["hash"][i] for n in names}) == 1,
-                    f"{tag} headline: lap records differ between "
-                    f"libraries")
-        for name in names:
-            with launching(libs[name]):
-                k_s, busy_s, host_s = device_seconds(lambda: run(1, kern),
-                                                     kernel_name)
-            out[name].update(device_s=k_s, busy_s=busy_s,
-                             profiled_host_s=host_s)
-            print(f"[{tag} headline {name} profiled] {kernel_name} "
-                  f"{k_s:.4f} s of the card a run; the card busy "
-                  f"{busy_s:.4f} s of {host_s:.3f} s under the profiler",
-                  flush=True)
-        return out
-
     def nlmpc(lp, sc):
         return lambda s, k: hl.nlmpc(s, lp, sc, k)
 
-    # the per-candidate path's kernels, as chip_smoke.py builds them
+    # the per-candidate path's K3, as chip_smoke.py builds it
     k3p = build_fused_ilqr(hl.params, hl.limits, 1.0, num_horizon=N,
                            max_iter=CAP)
-    k4p = build_fused_lm_shooting(hl.nl_limits, 1.0, num_horizon=N,
-                                  max_iters=NL_CAP)
 
     report["headlines"] = dict(
-        i2lqr=headlines("i2lqr", lambda s, k: hl.i2lqr(s, k), k1,
-                        "i2lqr_step_kernel", names["k1"], BATCH),
-        all=headlines("all", nlmpc(all_p, hl.scen_all), k2_all,
+        i2lqr=headlines(libs, "i2lqr", lambda s, k: hl.i2lqr(s, k), k1,
+                        "i2lqr_step_kernel", names["k1"], BATCH,
+                        spans=False),
+        all=headlines(libs, "all", nlmpc(all_p, hl.scen_all), k2_all,
                       "nlmpc_step_all_kernel", names["all"], ALL_BATCH),
-        spaceVarying=headlines("spaceVarying", nlmpc(sv_p, hl.scen), k2_sv,
-                               "nlmpc_step_kernel", names["k2"], BATCH),
+        spaceVarying=headlines(libs, "spaceVarying", nlmpc(sv_p, hl.scen),
+                               k2_sv, "nlmpc_step_kernel", names["k2"],
+                               BATCH),
         spaceVarying_plain=headlines(
-            "spaceVarying plain order", nlmpc(sv_p, hl.scen), k2_sv_plain,
-            "nlmpc_step_kernel", ["other", "this"], BATCH),
-        timeVarying=headlines("timeVarying", nlmpc(tv_p, hl.scen), k2_tv,
-                              "nlmpc_step_kernel", names["k2"], BATCH,
+            libs, "spaceVarying plain order", nlmpc(sv_p, hl.scen),
+            k2_sv_plain, "nlmpc_step_kernel", ["other", "this"], BATCH),
+        timeVarying=headlines(libs, "timeVarying", nlmpc(tv_p, hl.scen),
+                              k2_tv, "nlmpc_step_kernel", names["k2"], BATCH,
                               seeds=(1, 2, 3, 4, 5)),
         i2lqr_k3=headlines(
-            "i2lqr through K3", lambda s, k: hl.i2lqr(s, None, k), k3p,
-            "fused_ilqr_kernel", names["k3"], BATCH,
-            attrs=("max_iter", "with_skip")),
-        spaceVarying_k4=headlines(
-            "spaceVarying through K4",
-            lambda s, k: hl.nlmpc(s, sv_p, hl.scen, None, k), k4p,
-            "fused_lm_shooting_kernel", names["k4"], BATCH,
-            attrs=("max_iters", "with_skip", "with_hzn")))
+            libs, "i2lqr through K3", lambda s, k: hl.i2lqr(s, None, k), k3p,
+            "fused_ilqr_kernel", names["k3"], BATCH, attrs=K3_ATTRS))
     hl_sv = report["headlines"]
     require(hl_sv["spaceVarying_plain"]["this"]["hash"]
             == hl_sv["spaceVarying"]["this"]["hash"],
@@ -515,11 +514,90 @@ def k1_k2_ab(dev, libs, names) -> dict:
     return report
 
 
+def k4_capture(hl, lp, sc, want, all_iter, k4, candidate_solver=None):
+    """K4's inputs at the lap-2 capture of a seed-0 run of the NLMPC
+    per-candidate path (``lp`` on ``sc``, through ``candidate_solver`` or
+    the simulator's default K4): the plain step's inputs tapped by the
+    rule ``want`` and the step replayed with ``k4`` under a Recorder."""
+    with tap_step(batched_nlmpc_soa, "nlmpc_step_reference", 6, want,
+                  all_iter=all_iter) as tap:
+        hl.nlmpc(0, lp, sc, None, candidate_solver)
+    rec = Recorder(k4, ())
+    nlmpc_step_reference(lp, hl.nl_limits, 1.0, *tap.captured[2][1],
+                         max_iters=NL_CAP, candidate_solver=rec)
+    require(len(rec.calls) == 1, "one K4 call a step")
+    return rec.calls[0]
+
+
+def k4_ab(dev, libs, names) -> dict:
+    """K4 of each library on phase 7's random lanes and on the lanes of the
+    lap-2 captures of the NLMPC per-candidate headline and of the
+    spaceVarying run over every stored lap, then those runs' headlines,
+    in turns (module docstring)."""
+    hl = Headlines(dev)
+    k4 = build_fused_lm_shooting(hl.nl_limits, 1.0, num_horizon=N,
+                                 max_iters=NL_CAP)
+    sv_p = LmpcParams.make()
+    every = {m: LmpcParams.make(ss_option=m, all_ss_iter=True)
+             for m in ("spaceVarying", "timeVarying")}
+    inputs = dict(
+        random_lanes=random_k4_lanes(dev),
+        path_lap2=k4_capture(hl, sv_p, hl.scen, want_capture(NL_CAPTURES),
+                             False, k4, k4),
+        every_lap_lap2=k4_capture(
+            hl, every["spaceVarying"], hl.scen_all,
+            lambda lap, i, a: EVERY_CAPTURES.get(lap) == i, True, k4))
+    report = {"calls": {}}
+    for tag, a in inputs.items():
+        live = int((a[4] < 0.5).sum())
+        for dtype in (torch.float64, torch.float32):
+            ad = tuple(t.to(dtype) if t.is_floating_point() and i != 4
+                       else t for i, t in enumerate(a))
+            with launching(libs["this"]):
+                ref = k4(*ad)
+            require(all(torch.equal(g, w) for g, w in zip(
+                ref, fused_lm_shooting_reference(
+                    hl.nl_limits, 1.0, *ad, num_horizon=N,
+                    max_iters=NL_CAP))),
+                    f"K4 {tag} {dtype}: not bitwise equal to the plain solve")
+            for name in names:
+                with launching(libs[name]):
+                    got = k4(*ad)
+                require(all(torch.equal(g, w) for g, w in zip(got, ref)),
+                        f"K4 {tag} {dtype}: {name} differs from this "
+                        f"checkout's kernel")
+        ms = {name: [] for name in names}
+        for name in names + names[::-1]:
+            with launching(libs[name]):
+                ms[name].append(cuda_ms(lambda: k4(*ad), 5))
+        report["calls"][tag] = dict(lanes=a[1].shape[-1], live_lanes=live,
+                                    ms=ms)
+        print(f"[K4 {tag}] {a[1].shape[-1]} lanes ({live} live), bitwise "
+              f"equal to the plain solve and between libraries; f32 ms a "
+              f"call " + ", ".join(f"{n} {v[0]:.3f}/{v[1]:.3f}"
+                                   for n, v in ms.items()), flush=True)
+    del inputs, a, ad, ref, got
+    kw = dict(attrs=K4_ATTRS)
+    report["headlines"] = dict(
+        spaceVarying_k4=headlines(
+            libs, "spaceVarying through K4",
+            lambda s, k: hl.nlmpc(s, sv_p, hl.scen, None, k), k4,
+            "fused_lm_shooting_kernel", names, BATCH, **kw),
+        **{f"every_lap_{m}": headlines(
+            libs, f"{m} over every stored lap",
+            lambda s, k, lp=lp: hl.nlmpc(s, lp, hl.scen_all, None, k), k4,
+            "fused_lm_shooting_kernel", names, ALL_BATCH, **kw)
+           for m, lp in every.items()})
+    return report
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True)
     ap.add_argument("--generic", action="store_true",
-                    help="K3 and K5 only (no K1, no K2)")
+                    help="K3 and K5 only (no K1, no K2, no K4)")
+    ap.add_argument("--k4", action="store_true",
+                    help="K4 only (no K1, no K2, no K3, no K5)")
     ap.add_argument("--also", nargs=2, action="append", default=[],
                     metavar=("NAME", "DIR"))
     ap.add_argument("--variant", nargs=4, action="append", default=[],
@@ -579,9 +657,12 @@ def main():
             print(f"[SASS instructions, local loads, local stores {name}] "
                   f"{json.dumps(counts)}", flush=True)
 
-    report["generic"] = generic_ab(dev, libs, names["k3"], names["k5"])
-    if not args.generic:
+    if not args.k4:
+        report["generic"] = generic_ab(dev, libs, names["k3"], names["k5"])
+    if not (args.generic or args.k4):
         report.update(k1_k2_ab(dev, libs, names))
+    if not args.generic:
+        report["k4"] = k4_ab(dev, libs, names["k4"])
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)

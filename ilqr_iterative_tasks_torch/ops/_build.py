@@ -45,8 +45,9 @@ _ARGTYPES = {
     # stream
     "i2lqr_step_launch": [_I] * 4 + [_P] + [_I] * 4 + [_P] * 14,
     # dtype, n, consts, max_iters, B, x0, x_term, u_warm, obs, skip, hzn,
-    # us, x_last, term_err, feasible, stream
-    "fused_lm_shooting_launch": [_I, _I, _P, _I, _I] + [_P] * 11,
+    # us, x_last, term_err, feasible, stream, counter (one int32 the launch
+    # takes its chunks of lanes from)
+    "fused_lm_shooting_launch": [_I, _I, _P, _I, _I] + [_P] * 12,
     # dtype, n, k, nsi, time_varying, qsort, consts, max_iters, B, T, x,
     # guess, u_warm, states, qfun, lap_len, lap_ids, lap_ok, obs, skip, hzn,
     # t, min_cost, us, feasible_any, new_guess, idx, row, succ, stream

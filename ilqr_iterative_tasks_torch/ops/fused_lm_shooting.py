@@ -96,6 +96,7 @@ class FusedLmShooting:
         x_last = torch.empty((4, b), dtype=dtype, device=dev)
         term_err = torch.empty((b,), dtype=dtype, device=dev)
         feasible = torch.empty((b,), dtype=dtype, device=dev)
+        counter = torch.empty((1,), dtype=torch.int32, device=dev)
         lib = _build.library()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -104,7 +105,8 @@ class FusedLmShooting:
                 x0.data_ptr(), x_term.data_ptr(),
                 u_warm.data_ptr(), obs.data_ptr(), skip.data_ptr(),
                 hzn.data_ptr(), us.data_ptr(), x_last.data_ptr(),
-                term_err.data_ptr(), feasible.data_ptr(), stream)
+                term_err.data_ptr(), feasible.data_ptr(), stream,
+                counter.data_ptr())
         _build.check_launch(rc, "fused_lm_shooting")
         self.launches += 1
         return us, x_last, term_err, feasible

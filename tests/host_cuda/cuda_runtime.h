@@ -1,12 +1,17 @@
-// CPU emulation of the CUDA runtime pieces the K3 and K5 kernels use: every
-// CUDA thread of a launch is a std::thread, the lane counter a host atomic.
-// The card reports EMU_SMS SMs (1 unless the build defines it), each
-// holding one block. For checking kernel logic against the plain version
-// on the host; no performance meaning.
+// CPU emulation of the CUDA runtime pieces the K3, K4 and K5 kernels use:
+// every CUDA thread of a launch is a std::thread, the lane counter a host
+// atomic, and the 32 threads of a warp meet at a barrier of their own for
+// the warp's ballots and shuffles (full mask only), exchanging values
+// through one slot a thread. The card reports EMU_SMS SMs (1 unless the
+// build defines it), each holding one block. For checking kernel logic
+// against the plain version on the host; no performance meaning.
 #pragma once
 #include <math.h>
+#include <condition_variable>
 #include <cstdlib>
 #include <cstring>
+#include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -39,15 +44,75 @@ inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   std::memset(p, v, n); return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
-// declared for the thread tiles of tile.cuh, which K3 and K5 do not use
-template <class V> V __shfl_sync(unsigned, V, int, int = 32);
-template <class V> V __shfl_xor_sync(unsigned, V, int, int = 32);
-unsigned __ballot_sync(unsigned, bool);
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+
+namespace emu {
+// The threads of one warp: a reusable barrier and a slot a thread.
+struct Warp {
+  std::mutex m;
+  std::condition_variable cv;
+  int arrived = 0;
+  unsigned long gen = 0;
+  unsigned long long slot[32];
+  void sync() {
+    std::unique_lock<std::mutex> l(m);
+    const unsigned long g = gen;
+    if (++arrived == 32) {
+      arrived = 0;
+      ++gen;
+      cv.notify_all();
+    } else {
+      cv.wait(l, [&] { return gen != g; });
+    }
+  }
+};
+inline std::unique_ptr<Warp[]> warps;  // of the running launch
+inline Warp& warp() {
+  return warps[(blockIdx.x * blockDim.x + threadIdx.x) / 32];
+}
+inline void full(unsigned mask) {
+  if (mask != 0xffffffffu) std::abort();  // only whole warps are emulated
+}
+// v of every thread of the warp in its slot; returns the slot of src
+template <class V> V exchange(V v, int src) {
+  static_assert(sizeof(V) <= sizeof(unsigned long long), "8 bytes at most");
+  Warp& w = warp();
+  std::memcpy(&w.slot[threadIdx.x & 31], &v, sizeof(V));
+  w.sync();
+  V out;
+  std::memcpy(&out, &w.slot[src & 31], sizeof(V));
+  w.sync();  // every thread has read before a slot is written again
+  return out;
+}
+}  // namespace emu
+
+template <class V> V __shfl_sync(unsigned mask, V v, int src, int width = 32) {
+  emu::full(mask);
+  return emu::exchange(v, (threadIdx.x & 31 & ~(width - 1)) + (src & (width - 1)));
+}
+template <class V>
+V __shfl_xor_sync(unsigned mask, V v, int lane_mask, int width = 32) {
+  emu::full(mask);
+  const int l = threadIdx.x & 31;
+  return emu::exchange(v, (l & ~(width - 1)) + ((l ^ lane_mask) & (width - 1)));
+}
+inline unsigned __ballot_sync(unsigned mask, bool p) {
+  emu::full(mask);
+  emu::Warp& w = emu::warp();
+  w.slot[threadIdx.x & 31] = p;
+  w.sync();
+  unsigned out = 0;
+  for (int i = 0; i < 32; ++i) out |= (w.slot[i] ? 1u : 0u) << i;
+  w.sync();
+  return out;
+}
 
 namespace emu {
 template <class K, class... A>
 void run(K kernel, dim3 g, dim3 b, A... args) {
   gridDim = g; blockDim = b;
+  if (b.x % 32) std::abort();  // blocks of whole warps
+  warps.reset(new Warp[g.x * b.x / 32]);
   const unsigned batch = 8;
   for (unsigned b0 = 0; b0 < g.x; b0 += batch) {
     std::vector<std::thread> ts;

@@ -22,6 +22,8 @@ from ilqr_iterative_tasks_torch.control.batched_soa import (
     SoaScenarios, _step_solver_inputs, simulate_learning_runs_soa)
 from ilqr_iterative_tasks_torch.experiments.generic_bench import (
     candidates, generic_kwargs, k5_task, throughput_inputs)
+from ilqr_iterative_tasks_torch.experiments.headlines import (
+    K4_EDGE_CASES, k4_edge_lanes)
 from ilqr_iterative_tasks_torch.models import double_integrator
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
 from ilqr_iterative_tasks_torch.ops import _build
@@ -902,6 +904,29 @@ def test_k5_lane_counts_are_bitwise(dev, b, dtype):
     a = tuple(t.to(dtype) for t in throughput_inputs(b, dev))
     _equal(k5(*a), k5.plain(*a))
     assert k5.launches == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", [*K4_EDGE_CASES, "straddle"])
+def test_k4_edge_cases_are_bitwise(dev, case, dtype):
+    """K4's lane queue on its edge cases (experiments/headlines.py) and,
+    ``straddle``, twice the threads the card holds and 19 lanes more, those
+    19 live: the last chunk of 32 lanes crosses the end of the lanes with
+    live lanes in it; every output bit for bit the plain solve's."""
+    if case == "straddle":
+        code = 0 if dtype == torch.float32 else 1
+        tail = 2 * _resident_threads("fused_lm_shooting_attributes", code, N)
+        a = k4_edge_lanes("skip_74", dev, b=tail + 19)
+        a[4][tail:] = 0.0
+    else:
+        a = k4_edge_lanes(case, dev)
+    a = tuple(t.to(dtype) if t.is_floating_point() and i != 4 else t
+              for i, t in enumerate(a))
+    lim = SystemLimits.make(dtype=torch.float64)
+    k4 = build_fused_lm_shooting(lim, 1.0, num_horizon=N, max_iters=NL_CAP)
+    _equal(k4(*a), fused_lm_shooting_reference(lim, 1.0, *a, num_horizon=N,
+                                               max_iters=NL_CAP))
+    assert k4.launches == 1
 
 
 # ---- the per-candidate path: K3 under the i2LQR simulator, K4 under the

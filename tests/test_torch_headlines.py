@@ -1,18 +1,21 @@
 """The helpers that chip_smoke.py and experiments/kernel_ab.py share
 (experiments/headlines.py), on the CPU: the lap-records hash tells runs
-apart by their bits, and the capturing step solver keeps the inputs of the
+apart by their bits, the capturing step solver keeps the inputs of the
 steps its rule names while the run goes on through the kernel's CPU
-route."""
+route, and K4's edge-case and random lanes are what they say."""
 
 import types
 
 import numpy as np
+import pytest
 import torch
 
 from ilqr_iterative_tasks_torch.control.batched_soa import (
     SoaScenarios, simulate_learning_runs_soa)
 from ilqr_iterative_tasks_torch.experiments import headlines
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
+from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
+    obstacle_to_lanes_nlmpc)
 from ilqr_iterative_tasks_torch.ops.i2lqr_step import build_fused_i2lqr_step
 from ilqr_iterative_tasks_torch.sim.seed import seed_trajectory
 from ilqr_iterative_tasks_torch.utils.params import IlqrParams, SystemLimits
@@ -110,3 +113,43 @@ def test_tap_step_keeps_the_plain_steps_inputs_on_the_candidate_path():
     assert step_i == 5 and len(args) == 9 and args[0].shape == (4, 2)
     assert headlines.lap_records_hash(res) == headlines.lap_records_hash(
         run())
+
+
+@pytest.mark.parametrize("case", sorted(headlines.K4_EDGE_CASES))
+def test_k4_edge_lanes_hold_their_case(case):
+    b, share, (lo, hi), every = headlines.K4_EDGE_CASES[case]
+    a = headlines.k4_edge_lanes(case, "cpu")
+    assert [tuple(t.shape) for t in a] == [(4, b), (4, b), (6, 2, b), (7, b),
+                                           (b,), (b,)]
+    assert [t.dtype for t in a] == [torch.float64] * 4 + [torch.float32,
+                                                          torch.int32]
+    assert set(a[4].tolist()) <= {0.0, 1.0}
+    if every:  # every n-th chunk of 32 lanes live, the rest as the share
+        chunks = a[4][:b // 32 * 32].view(-1, 32)
+        assert int(chunks[every - 1::every].sum()) == 0
+        assert 0.6 < float(chunks.sum(dim=1).gt(0).double().mean()) < 0.7
+    else:  # skipped, scattered
+        assert int(a[4].sum()) == round(share * b)
+    assert int(a[5].min()) >= lo and int(a[5].max()) < hi
+    if case == "hzn_1_to_7":  # below and above the solve's [2, 6]
+        assert int(a[5].min()) == 1 and int(a[5].max()) == 7
+    for t in a:
+        assert t.is_contiguous() and bool(torch.isfinite(t.double()).all())
+
+
+def test_random_k4_lanes_are_phase_7s_draws():
+    # chip_smoke.py's phase 7 draws its K4 lanes from numpy's generator of
+    # seed 0 after phase 3's K3 lanes
+    b = headlines.RANDOM_LANES
+    rng = np.random.default_rng(0)
+    xcl = seed_trajectory(1.0)[0]
+    headlines.seed_lanes(rng, xcl, b, 1, 9)
+    headlines.lane_obstacle(rng, b, "cpu")
+    hzn = rng.integers(1, 7, b)
+    x0, xt = headlines.seed_lanes(rng, xcl, b, 0, 3, extra=hzn)
+    obs = obstacle_to_lanes_nlmpc(headlines.lane_obstacle(rng, b, "cpu"), b)
+    warm = rng.normal(size=(6, 2, b)) * np.array([1.5, 1.0])[None, :, None]
+    want = (x0, xt, warm, obs, np.arange(b) % 16 == 5, hzn)
+    got = headlines.random_k4_lanes("cpu")
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w, dtype=g.numpy().dtype))

@@ -1,14 +1,18 @@
-"""The K3 and K5 kernel sources (csrc/fused_ilqr.cu, csrc/generic_ilqr.cu)
-run on the host: g++ builds them against tests/host_cuda/cuda_runtime.h,
-which runs every CUDA thread of a launch as a host thread (the lane counter
-as a host atomic), so the lanes refilled from the counter by a grid of one
-block of 128 threads are held bit for bit against the plain versions
-without a card. The host's libm stands in for CUDA's, and torch's CPU sin /
-cos / exp differ from it in the last bit, so only the double integrator (no
-transcendental) is held against its plain version; the bicycle, the
-unicycle and K3 are held against a second build of the same sources on a
-card of 4 SMs, whose grid takes every lane by its index, which shares the
-host's libm.
+"""The K3, K4 and K5 kernel sources (csrc/fused_ilqr.cu,
+csrc/fused_lm_shooting.cu, csrc/generic_ilqr.cu) run on the host: g++
+builds them against tests/host_cuda/cuda_runtime.h, which runs every CUDA
+thread of a launch as a host thread (the lane counter as a host atomic,
+a warp's ballots and shuffles through a barrier of its 32 threads), so the
+lanes refilled from the counter by a grid of one block of 128 threads are
+held bit for bit against the plain versions without a card. The host's
+libm stands in for CUDA's, and torch's CPU sin / cos / exp differ from it
+in the last bit, so only the double integrator (no transcendental) is held
+against its plain version; the bicycle, the unicycle, K3 and K4 are held
+against a second build of the same sources on a card of 33 SMs, whose grid
+takes every lane of these tests by its index (K4: every chunk of 32
+lanes), which shares the host's libm, and K4 against its plain version
+where no LM trip runs (a skipped lane's solution is its clipped warm start
+or zeros) and by its verdicts.
 """
 
 import ctypes
@@ -22,6 +26,8 @@ import torch
 
 from ilqr_iterative_tasks_torch.experiments.generic_bench import (
     generic_kwargs, k5_task, throughput_inputs)
+from ilqr_iterative_tasks_torch.experiments.headlines import (
+    K4_EDGE_CASES, k4_edge_lanes)
 from ilqr_iterative_tasks_torch.models import double_integrator
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
 from ilqr_iterative_tasks_torch.ops import _build
@@ -29,12 +35,17 @@ from ilqr_iterative_tasks_torch.ops.fused_generic_ilqr import (
     MODEL_CODES, build_fused_generic_ilqr)
 from ilqr_iterative_tasks_torch.ops.fused_ilqr import (
     DTYPE_CODES, build_fused_ilqr, fused_ilqr_reference, obstacle_to_lanes)
+from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
+    build_fused_lm_shooting, fused_lm_shooting_reference)
 from ilqr_iterative_tasks_torch.sim.seed import seed_trajectory
 from ilqr_iterative_tasks_torch.utils.params import IlqrParams, SystemLimits
 
 torch.set_num_threads(1)
 SHIM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "host_cuda")
-SOURCES = ("fused_ilqr.cu", "generic_ilqr.cu")
+SOURCES = ("fused_ilqr.cu", "fused_lm_shooting.cu", "generic_ilqr.cu")
+LAUNCHERS = ("fused_ilqr_launch", "fused_lm_shooting_launch",
+             "generic_ilqr_launch")
+MANY_SMS = 33  # 4 224 threads: every lane of these tests by its index
 
 
 def host_source(text: str) -> str:
@@ -55,37 +66,46 @@ def host_source(text: str) -> str:
 
 def _start_host_build(d, sms):
     """g++ of the sources, as host code, into directory d for a card of
-    ``sms`` SMs; returns (the compiler's process, the library's path)."""
+    ``sms`` SMs, one compiler a source; returns (the compilers' processes,
+    the libraries' paths)."""
     d.mkdir()
     for name in os.listdir(_build.CSRC_DIR):
         with open(os.path.join(_build.CSRC_DIR, name)) as f:
             (d / name).write_text(host_source(f.read()))
-    so = str(d / "lib.so")
-    return subprocess.Popen(
-        ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-         "-pthread", "-w", f"-DEMU_SMS={sms}", "-x", "c++", "-I", SHIM,
-         "-o", so, *(str(d / s) for s in SOURCES)]), so
+    procs, sos = [], []
+    for src in SOURCES:
+        sos.append(str(d / (src + ".so")))
+        procs.append(subprocess.Popen(
+            ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC",
+             "-fno-gnu-unique", "-shared", "-pthread", "-w",
+             f"-DEMU_SMS={sms}", "-x", "c++", "-I", SHIM, "-o", sos[-1],
+             str(d / src)]))
+    return procs, sos
 
 
-def _load(proc, so):
-    assert proc.wait() == 0
-    lib = ctypes.CDLL(so)
-    for name in ("fused_ilqr_launch", "generic_ilqr_launch"):
-        getattr(lib, name).argtypes = _build._ARGTYPES[name]
-    return lib
+class _Lib:
+    """The launchers of one build's libraries, by name."""
+
+    def __init__(self, procs, sos):
+        assert all(p.wait() == 0 for p in procs)
+        for name, so in zip(LAUNCHERS, sos):
+            fn = getattr(ctypes.CDLL(so), name)
+            fn.argtypes = _build._ARGTYPES[name]
+            setattr(self, name, fn)
 
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
     """(the sources on a card of one SM, one block of 128 threads that
-    refills; on a card of 4, whose grid holds every lane of these tests),
-    host builds made at once"""
+    refills; on a card of MANY_SMS, whose grid holds every lane of these
+    tests), host builds made at once (the static lane grid of each build
+    is its own: -fno-gnu-unique)"""
     if shutil.which("g++") is None:
         pytest.skip("needs g++")
     d = tmp_path_factory.mktemp("host_kernels")
     builds = [_start_host_build(d / "one_sm", 1),
-              _start_host_build(d / "four_sms", 4)]
-    return tuple(_load(*b) for b in builds)
+              _start_host_build(d / "many_sms", MANY_SMS)]
+    return tuple(_Lib(*b) for b in builds)
 
 
 @pytest.fixture(scope="module")
@@ -197,3 +217,50 @@ def test_k3_every_lane_skipped_matches_plain_bitwise(lib, dtype):
     _equal(got, fused_ilqr_reference(p, lim, 1.0, *a, skip, num_horizon=6,
                                      max_iter=150))
     assert torch.equal(got[0], a[2])
+
+
+def _k4(lib, k4, a):
+    n, b, dt = k4.num_horizon, a[1].shape[-1], a[1].dtype
+    out = (torch.full((n, 2, b), torch.nan, dtype=dt),
+           torch.full((4, b), torch.nan, dtype=dt),
+           torch.full((b,), torch.nan, dtype=dt),
+           torch.full((b,), torch.nan, dtype=dt))
+    counter = torch.empty(1, dtype=torch.int32)
+    assert lib.fused_lm_shooting_launch(
+        DTYPE_CODES[dt], n, k4._consts, k4.max_iters, b, *map(_ptr, (
+            *a, *out)), None, counter.data_ptr()) == 0
+    for t in out:  # every lane written
+        assert bool(torch.isfinite(t).all())
+    return out
+
+
+def _k4_case(case, dtype):
+    """K4_EDGE_CASES' lanes, and ``straddle``: 2 x 128 + 19 lanes, those
+    from 256 on live, so that the one-block build's last chunk of 32 lanes
+    holds live lanes and crosses the end of the lanes"""
+    if case == "straddle":
+        a = k4_edge_lanes("skip_74", "cpu", b=275)
+        a[4][256:] = 0.0
+    else:
+        a = k4_edge_lanes(case, "cpu")
+    return tuple(t.to(dtype) if t.is_floating_point() and i != 4 else t
+                 for i, t in enumerate(a))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", [*K4_EDGE_CASES, "straddle"])
+def test_k4_lane_queue_matches_a_grid_of_every_lane(libs, case, dtype):
+    # one block of 4 warps, live lanes queued from the counter, against
+    # warps that each take one chunk by its index
+    lim = SystemLimits.make(dtype=torch.float64, device="cpu")
+    k4 = build_fused_lm_shooting(lim, 1.0, num_horizon=6, max_iters=12)
+    a = _k4_case(case, dtype)
+    got = _k4(libs[0], k4, a)
+    _equal(got, _k4(libs[1], k4, a))
+    want = fused_lm_shooting_reference(lim, 1.0, *a, num_horizon=6,
+                                       max_iters=12)
+    skipped = a[4] > 0.5
+    # a skipped lane runs no LM trip: its clipped warm start or zeros
+    assert float((got[0] == want[0]).all(dim=(0, 1))[skipped].double()
+                 .mean().nan_to_num(1.0)) >= 0.99
+    assert float((got[3] == want[3]).double().mean()) >= 0.97
