@@ -17,7 +17,8 @@ stall_reseed guard, and k = 32 over 4 stored laps), and the generic-system
 tier's benchmarks through the generic LM-iLQR kernel K5. Phases:
 
 1. device: the card's name and power limit;
-2. build: nvcc of the six kernel sources (one process per source), with
+2. build: nvcc of the kernel sources (one process per source), and at
+   once of a counting build of them (K1 at k = 32 counts its solves), with
    seconds, registers and spills, and the registers, local memory and
    resident warps an SM of the loaded f32 K1, K2 all, K2 spaceVarying /
    timeVarying (with qsort_skip), K3, K4 (f32 and f64) and K5 (the double
@@ -84,12 +85,18 @@ tier's benchmarks through the generic LM-iLQR kernel K5. Phases:
 18. the all headline through K2 with all_rev_skip (bench.py:218-221 without
    retile_frac: B = 8 192, nsi 1, cap 12, infeasible_retire 8): a warm run,
    whose K2 launches are counted, and two timed runs, as phase 15's;
-19. K1 at k = 32 (a block of nsi x 32 threads a lane) against its plain
-   step on inputs captured from phase 21's k32_nsi4 run (lap 1 early, lap 2
-   mid, lap 4, where most lanes' stored laps are shorter than 32 rows), at
-   nsi = 4 and at nsi = 2 on the captures' last two stored laps: f32 bit
-   for bit, f64 cast up at phase 4's gates, with both per-step times and
-   phase 2's registers and warps; and the k = 8 K1 on inputs captured
+19. K1 at k = 32 (one lane a warp, each distinct solve of a step once)
+   against its plain step on inputs captured from phase 21's k32_nsi4 run
+   (lap 1 early, lap 2 mid, lap 4, where most lanes' stored laps are
+   shorter than 32 rows), at nsi = 4 and at nsi = 2 on the captures' last
+   two stored laps: f32 bit for bit, f64 cast up at phase 4's gates, with
+   both per-step times, phase 2's registers and warps, and the solves a
+   live lane-step that a counting build of the kernel (built in phase 2)
+   runs on the card, beside the distinct ones the step needs
+   (experiments/headlines.py ``k32_distinct``; the count must lie between
+   them and them plus 4 a lane) and the 3 x nsi x 32 of the plain order;
+   the bound counts the distinct solves only (and, beside it, every
+   candidate's); and the k = 8 K1 on inputs captured
    from the k8_nsi1_sr3 run at the first step of each lap where some
    active lane's pass-0 guess is the goal;
 20. a zero-noise i2LQR closed loop through K1 at k = 32 / nsi = 2 (f64,
@@ -166,6 +173,7 @@ K4: phase 23's, phase 7's in its ``random_lanes``). It needs a CUDA device
 and the repository.
 """
 
+import concurrent.futures
 import json
 import os
 import sys
@@ -189,9 +197,10 @@ from ilqr_iterative_tasks_torch.experiments.headlines import (  # noqa: E402
     NL_CAP, NL_CAPTURES, NL_RETIRE, SWEEP_BATCH, SWEEP_CAP, SWEEP_CAPTURES,
     EVERY_CAPTURES, K3_ATTRS, K4_ATTRS, RANDOM_LANES, SWEEP_CONFIGS,
     SWEEP_LAPS, Capture, Headlines, Recorder, cuda_ms, device_seconds,
-    k1_capture, k2_capture, k4_lanes, lane_obstacle, lap_records_hash,
-    no_plain_solve_on_card, require, seed_lanes, sweep_capture,
-    sweep_step_solver, tap_step, want_capture)
+    K1_COUNT, k1_capture, k2_capture, k4_lanes, lane_obstacle,
+    lap_records_hash, counted_solves, k32_distinct, no_plain_solve_on_card,
+    require, seed_lanes, sweep_capture, sweep_step_solver, tap_step,
+    want_capture)
 
 ZERO_NOISE_LAPS = [55, 28, 24]  # CPU XLA f32 family, docs/PARITY.md:146
 # NLMPC headline lap completion bound. Completion follows the f32 arithmetic
@@ -686,9 +695,13 @@ def main():
           f"{torch.version.cuda}", flush=True)
 
     # ---- 2. build ----
-    path, build_s = _build.build()
-    print(f"[2 build] {build_s:.1f} s nvcc {' '.join(_build.NVCC_FLAGS)}",
-          flush=True)
+    # with the counting build of K1 at k = 32 (phase 19), nvcc's at once
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        counting = ex.submit(_build.build, _build.CSRC_DIR, K1_COUNT)
+        path, build_s = _build.build()
+        counting = _build.load(counting.result()[0])
+    print(f"[2 build] {build_s:.1f} s nvcc {' '.join(_build.NVCC_FLAGS)} "
+          f"(and {' '.join(K1_COUNT)})", flush=True)
     with open(path[:-3] + ".log") as f:
         for line in f:
             if ("registers" in line or "spill" in line
@@ -1550,7 +1563,7 @@ def main():
     captured = sweep_caps["k32_nsi4"].captured
     require(sorted(captured) == sorted(SWEEP_CAPTURES),
             f"k32 sweep captured {sorted(captured)}")
-    k32_stats = dict(max_abs_err=0.0)
+    k32_stats, k32_solves = dict(max_abs_err=0.0), {}
     for lap, (step, args) in sorted(captured.items()):
         active = args[8] < 0.5
         n_act = int(active.sum())
@@ -1560,16 +1573,17 @@ def main():
         for dtype in (torch.float32, torch.float64):
             a = cast(args, dtype, keep=(8,))
             out = k32(*a)
-            trips = []
+            trips, cands, cands2 = [], [], []
             ref, plain = timed_call(lambda: i2lqr_step_reference(
-                p32, limits, 1.0, *a, max_iter=SWEEP_CAP, trips=trips))
+                p32, limits, 1.0, *a, max_iter=SWEEP_CAP, trips=trips,
+                cands=cands))
             gate, maxd = k1_gate(f"19 K1 k32 lap {lap}", out, ref, active,
                                  dtype)
             a2 = list(a)
             a2[5], a2[6] = a[5][-2:].contiguous(), a[6][-2:].contiguous()
             out2 = k32_2(*a2)
             ref2, plain2 = timed_call(lambda: i2lqr_step_reference(
-                p32_2, limits, 1.0, *a2, max_iter=SWEEP_CAP))
+                p32_2, limits, 1.0, *a2, max_iter=SWEEP_CAP, cands=cands2))
             gate2, maxd2 = k1_gate(f"19 K1 k32 nsi 2 lap {lap}", out2, ref2,
                                    active, dtype)
             line = (f"[19 K1 k32 lap {lap} step {step} {str(dtype)[6:]}] "
@@ -1577,35 +1591,69 @@ def main():
                     f"{short:.3f} of them), lap_ok {a[6].tolist()}: nsi 4 "
                     f"{gate}; nsi 2 {gate2}")
             if dtype == torch.float32:
+                # the solves a live lane-step: run on the card (the
+                # counting build), and the distinct ones the step needs,
+                # each solved once (the final winner at most once more a
+                # pass and once at the end)
+                solved = k32_distinct(a[5], a[6], cands)
+                sol = {}
+                for tag, kern, inp, cs in (("nsi4", k32, a, solved), (
+                        "nsi2", k32_2, a2, k32_distinct(a2[5], a2[6],
+                                                        cands2))):
+                    need = sum(int(m.sum()) for m in cs)
+                    ran = counted_solves(counting, lambda: kern(*inp))
+                    require(need <= ran <= need + 4 * n_act,
+                            f"19 K1 k32 {tag} lap {lap}: {ran} solves on "
+                            f"the card, {need} needed")
+                    sol[tag] = dict(solves=ran / n_act,
+                                    distinct=need / n_act)
+                k32_solves[f"lap{lap}"] = sol
                 k32_stats["max_abs_err"] = max(k32_stats["max_abs_err"],
                                                maxd, maxd2)
                 ms = cuda_ms(lambda: k32(*a), 10)
                 ms2 = cuda_ms(lambda: k32_2(*a2), 10)
                 line += (f"; kernel {ms:.3f} ms (nsi 2 {ms2:.3f}), plain "
-                         f"{plain:.3f} ms (nsi 2 {plain2:.3f}) per step")
+                         f"{plain:.3f} ms (nsi 2 {plain2:.3f}) per step; "
+                         f"solves a live lane-step on the card "
+                         f"{sol['nsi4']['solves']:.2f} (distinct "
+                         f"{sol['nsi4']['distinct']:.2f}) against the plain "
+                         f"order's {3 * 4 * 32} (nsi 2 "
+                         f"{sol['nsi2']['solves']:.2f}, distinct "
+                         f"{sol['nsi2']['distinct']:.2f}, of {3 * 2 * 32})")
                 if lap == 2:
                     b_all = args[0].shape[-1]
                     idx = torch.nonzero(active).flatten()[:SAMPLE_LANES]
                     sample = lanes_of(a, idx.cpu(), b_all)
-                    iters, mean_trips, _ = step_iters(trips, active)
+                    plain_ops = lambda max_iter: i2lqr_step_reference(
+                        host_p32, host_limits, 1.0, *sample,
+                        max_iter=max_iter)
+                    iters, mean_trips, share = step_iters(trips, active,
+                                                          solved)
+                    all_iters, _, _ = step_iters(trips, active)
+                    bytes_moved = step_bytes(a, out, (2, 3), k32.nsi)
+                    every_bound = bound(solve_ops(
+                        plain_ops, "max_iter", len(idx), n_act, all_iters),
+                        bytes_moved)["bound_ms"]
                     k32_stats.update(ms=ms, plain_ms=plain, nsi2_ms=ms2,
                                      nsi2_plain_ms=plain2,
-                                     mean_iters=mean_trips, **bound(
-                        solve_ops(lambda max_iter: i2lqr_step_reference(
-                            host_p32, host_limits, 1.0, *sample,
-                            max_iter=max_iter), "max_iter", len(idx), n_act,
-                            iters), step_bytes(a, out, (2, 3), k32.nsi)))
+                                     mean_iters=mean_trips,
+                                     **bound(solve_ops(
+                                         plain_ops, "max_iter", len(idx),
+                                         n_act, iters, share), bytes_moved))
                     line += (f"; bound {k32_stats['bound_ms']:.4f} ms by "
-                             f"{k32_stats['bound_by']} ({mean_trips:.2f} LM "
-                             f"iterations a candidate solve)")
+                             f"{k32_stats['bound_by']} over the distinct "
+                             f"solves ({share:.4f} of the candidates, "
+                             f"{mean_trips:.2f} LM iterations a solve; "
+                             f"every candidate {every_bound:.4f})")
             print(line, flush=True)
     del captured
     print(f"[19 K1 k32] lap-2 capture {k32_stats['ms']:.3f} ms a step at nsi "
           f"4, {k32_stats['nsi2_ms']:.3f} at nsi 2 (f32), "
           f"{occupancy['k1_k32']['registers']} registers, "
           f"{occupancy['k1_k32']['local_bytes']} bytes of local memory, "
-          f"{occupancy['k1_k32']['warps_per_sm']} warps per SM, "
-          f"{k32.nsi * k32.k} threads a lane", flush=True)
+          f"{occupancy['k1_k32']['warps_per_sm']} warps per SM, one lane a "
+          f"warp; solves a live lane-step on the card and distinct "
+          f"{json.dumps(k32_solves)}", flush=True)
     sr_caps = sweep_caps["k8_nsi1_sr3"].captured
     require(len(sr_caps) > 0, "k8_nsi1_sr3: the guard never re-seeded")
     k8s = sweep_k1["k8_nsi1_sr3"]

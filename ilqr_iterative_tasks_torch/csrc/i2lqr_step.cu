@@ -16,10 +16,11 @@
 // Computes what the composed XLA path of control/batched_soa.py computes
 // (the TPU kernel's oracle); for nsi = 1 that is exactly the TPU kernel.
 // For a lap that is not yet stored (lap_ok = 0) the kNN runs on the clipped
-// lap id, as there, and its costs are masked. None of the TPU kernel's
-// options (dedup, qsort_skip, dom_skip, group, stream_safe_set, with_stats,
-// reuse_extract) is ported: the shipped dedup and qsort_skip are
-// bitwise-neutral, so this plain kernel computes what the bench's does.
+// lap id, as there, and its costs are masked. Of the TPU kernel's options
+// (dedup, qsort_skip, dom_skip, group, stream_safe_set, with_stats,
+// reuse_extract) only dedup is in effect, at k = 32 (below); the shipped
+// dedup and qsort_skip are bitwise-neutral, so this kernel computes what
+// the bench's does.
 //
 // Design: a tile of G = nsi * k threads per lane, one thread per
 // candidate (Tile, lm_core.cuh); blocks of 128 threads hold 128 / G lanes,
@@ -48,18 +49,49 @@
 //
 // More candidates than a warp holds (k = 32, nsi 2 and 4: the robustness
 // sweep's k32 / nsi4 candidate set, experiments/scenario_sweep.py) run in
-// i2lqr_step_block_kernel: a lane is a block of nsi * 32 threads, warp r
-// lap row r and its thread s candidate s. The kNN is the warp's
-// (knn_rows_group over the lap with lists of depth ceil(T / 32): a thread
-// sees at most that many rows, so deeper lists would hold only +inf); the
-// candidates' compare values and costs go to shared memory, and after a
-// barrier every thread runs lex_select over that table; the winner's
-// thread writes its terminal state and kNN row there, and after a second
-// barrier every thread reads the new guess. A skip lane is a whole block
-// and exits before any barrier. What bounds it is the tile's: the
-// candidates' LM chains (on an H100 a candidate solve costs the step as
-// much as in the tile kernel), plus a block's wait at each pass's barriers
-// for the slowest of its nsi * 32 solves.
+// i2lqr_step_block_kernel, which solves each distinct (lap, kNN row) of a
+// step once, as the JAX sweep's k = 32 build does (dedup=True,
+// store_solutions=False: ops/pallas_i2lqr_step.py:82-109). A candidate's
+// solve is a pure function of (x0, its safe-set row, the obstacle), so a
+// row repeats bit for bit wherever it recurs: in a later pass, in a row of
+// a lap not yet stored (its lap id clipped onto a stored lap), or when a
+// lap of at most 32 rows gives every row in every pass. A block holds 4
+// lanes, lane i on warp i. Per pass a lane's warp runs the kNN of each
+// distinct lap id in turn (knn_rows_group over the lap with lists of depth
+// ceil(T / 32): a thread sees at most that many rows, so deeper lists
+// would hold only +inf) into the lane's table in shared memory, and queues
+// the valid slots of the laps a stored row reads whose (lap, row) the step
+// has not solved (a ballot and its popcount prefix, in slot order). The
+// block's 128 threads then solve its lanes' queues, one after the other,
+// one solve a thread (zeros-initialised lm_solve; entry j on thread
+// (the block's solves so far + j) % 128), keeping each solve's
+// distance and, for a lane's first K1_BLOCK_XL solves, terminal state in
+// the lane's cache, indexed by (lap, row). Each thread of a lane's warp
+// reads its slot of every row, takes the reach cost from the cache with
+// this pass's unit and cutoff, and the warp selects by ballots and
+// shuffles what lex_select does (the first differing slot decides a row
+// compare, a first-min argmin the column); the guess re-centres on the
+// winner's cached terminal state. A winner that no cost read (slot 0 of a
+// lap without rows, or of a lap that only rows not yet stored name) or
+// whose terminal state was not kept is solved then, in a round of the
+// block's such winners. Absent slots and rows of laps not yet stored are
+// never solved. The final winner's us are written by the thread that
+// solved it when no later solve of that thread overwrote them (the
+// rotation above makes that so for a block's last 128 solves), else it is
+// solved once more (bitwise the same solution). The kernel has one call
+// of lm_solve: three sites made nvcc keep it a function whose arrays live
+// in local memory. Skipped lanes write zeros; their warps solve with the
+// block.
+//
+// What bounds it on the card: the distinct solves' LM chains, 128 a round
+// of the block, each round lasting its slowest solve: a block pools its
+// lanes' solves, so a step with few live lanes runs a lane's pass in one
+// or two rounds (a step's latency is what the sweep's late steps pay, with
+// few lanes left), and a full step runs about a quarter of the plain
+// order's solves (a counting build, K1_COUNT_SOLVES below, counts them on
+// the card). The solve's registers set 16 resident warps
+// (K1_BLOCK_MIN_WARPS, 128 registers); the cache is 5.5 KB a lane in f32
+// (dist direct-mapped, K1_BLOCK_XL terminal states).
 #include "lm_core.cuh"
 
 namespace ilqr {
@@ -167,19 +199,73 @@ __global__ void __launch_bounds__(128, K1_MIN_BLOCKS) i2lqr_step_kernel(
   }
 }
 
-// The resident warps an SM that __launch_bounds__ asks of the block
-// kernel (NSI * 32 threads a block: 16 / NSI blocks), which caps its
-// registers as K1_MIN_BLOCKS caps the tile kernel's: 128 a thread. It
-// spills a little and was the fastest of 8 (uncapped), 16 and 24 warps
-// at every capture on an H100 (PERF.md, experiments/kernel_ab.py).
+// The resident warps an SM that __launch_bounds__ asks of the k = 32
+// kernel, which caps its registers as K1_MIN_BLOCKS caps the tile
+// kernel's: 128 a thread; the fastest of 8, 12 and 16 warps (PERF.md,
+// experiments/kernel_ab.py).
 constexpr int K1_BLOCK_MIN_WARPS = 16;
-constexpr int K1_BLOCK_K = 32;  // candidates a lap row: a warp
+constexpr int K1_BLOCK_K = 32;    // candidates a lap row: a warp
+constexpr int K1_BLOCK_D = 4;     // kNN list depth: T_rows <= 32 * 4
+constexpr int K1_BLOCK_ROWS = K1_BLOCK_K * K1_BLOCK_D;
+// terminal states a lane keeps, in solve order (a winner past them is
+// solved again)
+constexpr int K1_BLOCK_XL = 160;
+// lanes a block: lane w on warp w (its kNN, queue and selection); the
+// block's 128 threads solve the lanes' queues together
+constexpr int K1_BLOCK_LANES = 4;
 
-// One lane a block of NSI * 32 threads (header). D: the depth of a
-// thread's kNN list; the launcher runs it only for T_rows <= 32 * D.
-template <typename T, int N, int NSI, int D>
-__global__ void __launch_bounds__(NSI * K1_BLOCK_K,
-                                  K1_BLOCK_MIN_WARPS / NSI)
+#ifdef K1_COUNT_SOLVES
+// A counting build (nvcc -DK1_COUNT_SOLVES): the k = 32 kernel adds each
+// solve it runs to k1_solves, which i2lqr_step_solves reads and zeroes.
+__device__ unsigned long long k1_solves;
+#define K1_ON_SOLVE(lane) atomicAdd(&k1_solves, 1ull)
+#endif
+
+// One lane's state of the k = 32 kernel in shared memory: the cache of the
+// step's solves by (distinct lap u, safe-set row) and this pass's table. A
+// distinct lap is named by the first lap row r whose lap id it is.
+template <typename T, int NSI>
+struct K1Lane {
+  T dist[NSI][K1_BLOCK_ROWS];  // |x_N - x_term| of a solved (u, row)
+  // terminal states in solve order; the last, a winner solved again
+  T xl[K1_BLOCK_XL + 1][4];
+  // 0: (u, row) not solved; else 1 + its entry of xl (K1_BLOCK_XL: not kept)
+  unsigned char at[NSI][K1_BLOCK_ROWS];
+  unsigned char ik[NSI][K1_BLOCK_K];  // this pass's kNN rows of lap u
+  unsigned valid[NSI];                // slot s of lap u holds a row
+  unsigned short queue[NSI * K1_BLOCK_K];  // u * ROWS + row, to solve
+  int n_queue;  // of queue
+  int kept;     // the queues' solves before this pass
+  int key;      // the final winner: u * ROWS + row, and its lap row
+  int best;
+  int writer;   // the thread that holds the winner's us
+};
+
+// A lane's outputs: its winner's us (held by this thread), the shrink
+// flag, the winner's kNN row and lap row.
+template <typename T, int N, int NSI>
+__device__ __forceinline__ void k1_write(const K1Lane<T, NSI>& L,
+                                         const T (&us)[N][2], int B, int b,
+                                         const int* lap_len,
+                                         const int* lap_ids, T* us_out,
+                                         T* shrink_out, int* idx_out,
+                                         int* row_out) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    us_out[(2 * i) * B + b] = us[i][0];
+    us_out[(2 * i + 1) * B + b] = us[i][1];
+  }
+  const int idx = L.key % K1_BLOCK_ROWS;
+  const int len_sel = lap_len[(size_t)lap_ids[L.best] * B + b];
+  shrink_out[b] = (idx + 1) > (len_sel - 1) ? (T)1 : (T)0;
+  idx_out[b] = idx;
+  row_out[b] = L.best;
+}
+
+// K1 at k = 32: K1_BLOCK_LANES lanes a block, a warp each (header).
+template <typename T, int N, int NSI>
+__global__ void __launch_bounds__(K1_BLOCK_LANES * 32,
+                                  K1_BLOCK_MIN_WARPS / K1_BLOCK_LANES)
     i2lqr_step_block_kernel(
         const Consts<T> C, int B, int T_rows, const T* __restrict__ x,
         const T* __restrict__ g0, const T* __restrict__ states,
@@ -188,93 +274,257 @@ __global__ void __launch_bounds__(NSI * K1_BLOCK_K,
         const T* __restrict__ obs, const float* __restrict__ skip,
         T* __restrict__ us_out, T* __restrict__ shrink_out,
         int* __restrict__ idx_out, int* __restrict__ row_out) {
-  constexpr int K = K1_BLOCK_K, G = NSI * K;
-  __shared__ T s_cmp[G], s_cost[G];  // the lane's selection table
-  __shared__ T s_xg[4];              // the winner's terminal state
-  __shared__ int s_idx;              // and its kNN row
-  const int b = blockIdx.x;
-  const int c = threadIdx.x;  // candidate s = c % K of lap row r = c / K
-  const int r = c / K, s = c % K;
-  if (skip[b] > 0.5f) {  // the whole block: no barrier is reached
-    for (int i = c; i < 2 * N; i += G) us_out[i * B + b] = (T)0;
-    if (c == 0) {
+  static_assert(NSI <= 4, "two bits a lap row's distinct lap");
+  constexpr int K = K1_BLOCK_K, ROWS = K1_BLOCK_ROWS, XL = K1_BLOCK_XL;
+  constexpr int LANES = K1_BLOCK_LANES, THREADS = 32 * LANES;
+  __shared__ K1Lane<T, NSI> lanes[LANES];
+  const int tid = threadIdx.x, w = tid / 32, s = tid % 32;
+  const int b0 = blockIdx.x * LANES;  // the block's first lane
+  const int b = b0 + w;               // this warp's lane
+  if (b < B && skip[b] > 0.5f) {  // a skipped lane: zeros
+    for (int i = s; i < 2 * N; i += 32) us_out[i * B + b] = (T)0;
+    if (s == 0) {
       shrink_out[b] = (T)0;
       idx_out[b] = 0;
       row_out[b] = 0;
     }
-    return;
   }
-  const Tile<K> warp;
+  // this warp runs a live lane (else it only solves the block's queues)
+  const bool own = b < B && skip[b] <= 0.5f;
+  K1Lane<T, NSI>& L = lanes[w];
+  const Tile<32> warp;
   const T inf = (T)INFINITY;
-  T x0[4], xg[4];
+  T xg[4];
+  if (own) {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    x0[q] = x[q * B + b];
-    xg[q] = g0[q * B + b];
+    for (int q = 0; q < 4; ++q) xg[q] = g0[q * B + b];
   }
-  const Obs<T> o = load_obs(obs, B, b);
-  const int lap = lap_ids[r];
-  const bool lap_stored = lap_ok[r] != 0;
-  const int len = lap_len[(size_t)lap * B + b];
-  const int rows = len < T_rows ? len : T_rows;
   const size_t row_stride = (size_t)4 * B;  // one safe-set row (4, B)
-  const T* st = states + (size_t)lap * T_rows * row_stride + b;
+  // bit masks of the lap rows: stored, and distinct laps whose costs a
+  // stored row reads; two bits a row: the first row of its lap id
+  unsigned lok = 0, need = 0, firsts = 0;
+#pragma unroll
+  for (int r = 0; r < NSI; ++r) {
+    int f = r;
+    for (int r2 = r - 1; r2 >= 0; --r2)
+      if (lap_ids[r2] == lap_ids[r]) f = r2;
+    firsts |= (unsigned)f << (2 * r);
+    if (lap_ok[r] != 0) {
+      lok |= 1u << r;
+      need |= 1u << f;
+    }
+  }
+  auto first = [&](int r) { return (int)(firsts >> (2 * r)) & 3; };
+  for (int i = s; i < NSI * ROWS; i += 32) (&L.at[0][0])[i] = 0;
+  if (s == 0) {
+    L.n_queue = 0;
+    L.kept = 0;
+    L.writer = -1;
+  }
 
   T us[N][2];
-  int win = 0, idx_sel = 0, row_sel = 0;
-  for (int pass = 0; pass < 3; ++pass) {
-    // ---- kNN of this warp's lap row, then this thread's candidate ----
-    T dk;
-    int ik;
-    knn_rows_group<T, K, K, D>(warp, s, st, row_stride, B, rows, xg, dk,
-                               ik);
-    const bool cok = dk < inf && lap_stored;
-    T xt[4];
-    const T* p = st + ik * row_stride;
+  int held = -1, held_lane = -1;  // the (lane, u * ROWS + row) of `us`
+  int pass = 0, best = 0, idx_sel = 0, e_sel = 0;
+  // the block's solves so far: entry j of a round goes to thread
+  // (solved + j) % THREADS, so that a thread solves again only after every
+  // other one has (its last solution is then the newest it could hold)
+  int solved = 0;
+  // what the queues hold: a pass's candidates, winners no cost read or
+  // whose terminal states were not kept, or final winners
+  enum { PASS, WINNER, FINAL } queue = PASS;
+  for (;;) {
+    if (queue == PASS) {
+      __syncthreads();  // the last pass's tables are read
+      if (own) {
+        // ---- the kNN of each distinct lap ----
 #pragma unroll
-    for (int q = 0; q < 4; ++q) xt[q] = p[q * B];
-    const T cq = qfun[((size_t)lap * T_rows + ik) * B + b];
+        for (int u = 0; u < NSI; ++u) {
+          if (first(u) != u) continue;
+          const int len = lap_len[(size_t)lap_ids[u] * B + b];
+          const int rows = len < T_rows ? len : T_rows;
+          T dk;
+          int ik;
+          knn_rows_group<T, K, K, K1_BLOCK_D>(
+              warp, s,
+              states + (size_t)lap_ids[u] * T_rows * row_stride + b,
+              row_stride, B, rows, xg, dk, ik);
+          L.ik[u][s] = (unsigned char)ik;
+          const unsigned v = warp.ballot(dk < inf);
+          if (s == 0) L.valid[u] = v;
+        }
+        __syncwarp();
+        // ---- the queue: valid slots of needed laps not solved yet;
+        // entry q keeps its terminal state in entry kept + q of xl, if
+        // any ----
+        int n = 0;
 #pragma unroll
-    for (int i = 0; i < N; ++i) us[i][0] = us[i][1] = (T)0;
-    const Solve<T, N> S{C, x0, xt, o};
-    T xl[4], cost, dist;
-    S.lm_solve(us, false, xl, cost, dist);
-    const T unit = C.unit[pass];
-    const T i_rel = fmax(ceil(dist / unit - (T)1e-12), (T)1.0);
-    const T rc = dist <= C.cutoff[pass] ? cq + (T)N + (T)100.0 * i_rel : inf;
-    const T ccost = cok ? rc : inf;
-    // ---- the selection table in shared memory (ragged list compare:
-    // absent slots -inf, laps not yet stored +inf), read by every thread
-    s_cmp[c] = lap_stored ? (cok ? ccost : -inf) : inf;
-    s_cost[c] = ccost;
+        for (int u = 0; u < NSI; ++u) {
+          if (first(u) != u || !((need >> u) & 1u)) continue;
+          const int row = L.ik[u][s];
+          const bool fresh =
+              ((L.valid[u] >> s) & 1u) && L.at[u][row] == 0;
+          const unsigned m = warp.ballot(fresh);
+          if (fresh) {
+            const int q = n + __popc(m & ((1u << s) - 1u));
+            L.queue[q] = (unsigned short)(u * ROWS + row);
+            L.at[u][row] =
+                (unsigned char)(1 + (L.kept + q < XL ? L.kept + q : XL));
+          }
+          n += __popc(m);
+        }
+        if (s == 0) L.n_queue = n;
+      }
+      __syncthreads();
+    }
+    // ---- the lanes' queues, one after the other, THREADS at a time (the
+    // kernel's one solve: its distance and terminal state into the lane's
+    // cache; `us` keeps its solution) ----
+    int total = 0;
+#pragma unroll
+    for (int i = 0; i < LANES; ++i) total += lanes[i].n_queue;
+    for (int j = (tid - solved % THREADS + THREADS) % THREADS; j < total;
+         j += THREADS) {
+      int i = 0, q = j;
+      while (q >= lanes[i].n_queue) q -= lanes[i++].n_queue;
+      K1Lane<T, NSI>& Li = lanes[i];
+      const int bi = b0 + i;
+      const int key = Li.queue[q], u = key / ROWS, row = key % ROWS;
+      const int e = queue == PASS && Li.kept + q < XL ? Li.kept + q : XL;
+      T x0[4], xt[4];
+      const T* p =
+          states + ((size_t)lap_ids[u] * T_rows + row) * row_stride + bi;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        x0[c] = x[c * B + bi];
+        xt[c] = p[c * B];
+      }
+      const Obs<T> o = load_obs(obs, B, bi);
+#pragma unroll
+      for (int c = 0; c < N; ++c) us[c][0] = us[c][1] = (T)0;
+      const Solve<T, N> S{C, x0, xt, o};
+      T xl[4], cost, dist;
+      S.lm_solve(us, false, xl, cost, dist);
+      Li.dist[u][row] = dist;
+      // past the kept entries, a PASS round's solves all write entry XL;
+      // it is read only after a WINNER round, whose one solve a lane is
+      // then its last writer (a winner at XL is always solved again)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) Li.xl[e][c] = xl[c];
+      held = key;
+      held_lane = i;
+#ifdef K1_ON_SOLVE
+      K1_ON_SOLVE(bi);  // a counting build counts the solves
+#endif
+      if (queue == FINAL)
+        k1_write<T, N, NSI>(Li, us, B, bi, lap_len, lap_ids, us_out,
+                            shrink_out, idx_out, row_out);
+    }
+    solved += total;
     __syncthreads();
-    const T* cmp_t = s_cmp;
-    const T* cost_t = s_cost;
-    win = lex_select<T, NSI, K>(cmp_t, cost_t, row_sel);
-    if (c == win) {  // the guess re-centres on the winner's terminal state
+    if (queue == FINAL) break;
+    bool again = false;  // this lane's winner is to be solved
+    if (own && queue == PASS) {
+      if (s == 0) L.kept += L.n_queue;
+      // ---- this thread's slot of every row: the relaxed reach cost
+      // (masked on laps not yet stored and absent slots) and the ragged
+      // list compare value (absent slots -inf, laps not yet stored +inf)
+      const T unit = C.unit[pass], cutoff = C.cutoff[pass];
+      T cmp[NSI], cst[NSI];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) s_xg[q] = xl[q];
-      s_idx = ik;
+      for (int r = 0; r < NSI; ++r) {
+        const int u = first(r);
+        const int row = L.ik[u][s];
+        const bool cok = ((lok >> r) & 1u) && ((L.valid[u] >> s) & 1u);
+        T c = inf;
+        if (cok) {
+          const T dist = L.dist[u][row];
+          const T cq = qfun[((size_t)lap_ids[r] * T_rows + row) * B + b];
+          const T i_rel = fmax(ceil(dist / unit - (T)1e-12), (T)1.0);
+          c = dist <= cutoff ? cq + (T)N + (T)100.0 * i_rel : inf;
+        }
+        cst[r] = c;
+        cmp[r] = ((lok >> r) & 1u) ? (cok ? c : -inf) : inf;
+      }
+      // ---- lex_select by the warp: a row replaces the best where its
+      // first differing slot is less; then the first-min slot of the best
+      // row ----
+      best = 0;
+#pragma unroll
+      for (int r = 1; r < NSI; ++r) {
+        T bb = cmp[0];
+#pragma unroll
+        for (int q = 1; q < NSI; ++q)
+          if (q == best) bb = cmp[q];
+        const unsigned diff = warp.ballot(cmp[r] != bb);
+        if (diff != 0u &&
+            warp.shfl((int)(cmp[r] < bb), __ffs((int)diff) - 1) != 0)
+          best = r;
+      }
+      T bc = cst[0];
+#pragma unroll
+      for (int q = 1; q < NSI; ++q)
+        if (q == best) bc = cst[q];
+      int col = s;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const T oc = warp.shfl_xor(bc, off);
+        const int ocol = warp.shfl_xor(col, off);
+        if (oc < bc || (oc == bc && ocol < col)) {
+          bc = oc;
+          col = ocol;
+        }
+      }
+      const int u = first(best);
+      idx_sel = L.ik[u][col];
+      e_sel = (int)L.at[u][idx_sel] - 1;
+      // a winner no cost read, or whose terminal state was not kept, is
+      // solved now into the last entry of xl
+      again = e_sel < 0 || e_sel == XL;
+      __syncwarp();
+      if (s == 0) {
+        L.n_queue = again ? 1 : 0;
+        if (again) {
+          L.queue[0] = (unsigned short)(u * ROWS + idx_sel);
+          L.at[u][idx_sel] = (unsigned char)(1 + XL);
+        }
+      }
+      if (again) e_sel = XL;
+    }
+    if (queue == PASS && __syncthreads_or(again)) {
+      queue = WINNER;
+      continue;
+    }
+    if (own) {  // the guess re-centres on the winner's terminal state
+#pragma unroll
+      for (int c = 0; c < 4; ++c) xg[c] = L.xl[e_sel][c];
+    }
+    queue = PASS;
+    if (++pass < 3) continue;
+    // ---- each lane's us: written by the thread that holds them, else
+    // solved once more ----
+    if (own && s == 0) {
+      L.key = first(best) * ROWS + idx_sel;
+      L.best = best;
     }
     __syncthreads();
-#pragma unroll
-    for (int q = 0; q < 4; ++q) xg[q] = s_xg[q];
-    idx_sel = s_idx;
-  }
-  if (c == win) {  // the winner's thread holds its solution
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      us_out[(2 * i) * B + b] = us[i][0];
-      us_out[(2 * i + 1) * B + b] = us[i][1];
+    // only live lanes queue solves; of the threads that hold a winner (its
+    // solver and a WINNER round's, past the kept entries) one writes
+    if (held_lane >= 0 && held == lanes[held_lane].key &&
+        atomicCAS(&lanes[held_lane].writer, -1, tid) == -1)
+      k1_write<T, N, NSI>(lanes[held_lane], us, B, b0 + held_lane, lap_len,
+                          lap_ids, us_out, shrink_out, idx_out, row_out);
+    __syncthreads();
+    const bool last = own && L.writer < 0;
+    if (own && s == 0) {
+      L.n_queue = last ? 1 : 0;
+      L.queue[0] = (unsigned short)L.key;
     }
-    const int len_sel = lap_len[(size_t)lap_ids[row_sel] * B + b];
-    shrink_out[b] = (idx_sel + 1) > (len_sel - 1) ? (T)1 : (T)0;
-    idx_out[b] = idx_sel;
-    row_out[b] = row_sel;
+    if (!__syncthreads_or(last)) break;
+    queue = FINAL;
   }
 }
 
-template <typename T, int N, int NSI, int D>
+template <typename T, int N, int NSI>
 int launch_i2lqr_step_block(const double* consts, int max_iter, int B,
                             int T_rows, const void* x, const void* g0,
                             const void* states, const void* qfun,
@@ -282,9 +532,11 @@ int launch_i2lqr_step_block(const double* consts, int max_iter, int B,
                             const void* lap_ok, const void* obs,
                             const void* skip, void* us, void* shrink,
                             void* idx, void* row, cudaStream_t stream) {
-  if (T_rows > K1_BLOCK_K * D) return -1;  // a thread would drop rows
+  if (T_rows > K1_BLOCK_ROWS) return -1;  // a thread would drop rows
   const Consts<T> C = make_consts<T>(consts, max_iter);
-  i2lqr_step_block_kernel<T, N, NSI, D><<<B, NSI * K1_BLOCK_K, 0, stream>>>(
+  constexpr int lanes = K1_BLOCK_LANES;
+  i2lqr_step_block_kernel<T, N, NSI>
+      <<<(B + lanes - 1) / lanes, lanes * 32, 0, stream>>>(
       C, B, T_rows, (const T*)x, (const T*)g0, (const T*)states,
       (const T*)qfun, (const int*)lap_len, (const int*)lap_ids,
       (const int*)lap_ok, (const T*)obs, (const float*)skip, (T*)us,
@@ -319,10 +571,10 @@ int launch_i2lqr_step(const double* consts, int max_iter, int B, int T_rows,
         consts, max_iter, B, T_rows, x, g0, states, qfun, lap_len, lap_ids,  \
         lap_ok, obs, skip, us, shrink, idx, row, s);
 
-// k = 32: one lane a block, kNN lists of depth 4 (T <= 128 rows).
+// k = 32: one lane a warp, kNN lists of depth 4 (T <= 128 rows).
 #define I2LQR_BLOCK_CASE(TYPE, CODE, N_, NSI_)                              \
   if (dtype == CODE && n == N_ && k == 32 && nsi == NSI_)                    \
-    return ilqr::launch_i2lqr_step_block<TYPE, N_, NSI_, 4>(                 \
+    return ilqr::launch_i2lqr_step_block<TYPE, N_, NSI_>(                    \
         consts, max_iter, B, T_rows, x, g0, states, qfun, lap_len, lap_ids,  \
         lap_ok, obs, skip, us, shrink, idx, row, s);
 
@@ -361,8 +613,8 @@ extern "C" int i2lqr_step_launch(int dtype, int n, int k, int nsi,
 #define I2LQR_BLOCK_ATTRIBUTES(TYPE, CODE, N_, NSI_)                        \
   if (dtype == CODE && n == N_ && k == 32 && nsi == NSI_)                    \
     return ilqr::kernel_attributes(                                          \
-        ilqr::i2lqr_step_block_kernel<TYPE, N_, NSI_, 4>,                    \
-        NSI_ * ilqr::K1_BLOCK_K, out);
+        ilqr::i2lqr_step_block_kernel<TYPE, N_, NSI_>,                       \
+        ilqr::K1_BLOCK_LANES * 32, out);
 
 // The loaded kernel's resources for (dtype, n, k, nsi), as the runtime
 // reports them (kernel_attributes, tile.cuh); -1 when no kernel is
@@ -379,3 +631,15 @@ extern "C" int i2lqr_step_attributes(int dtype, int n, int k, int nsi,
   I2LQR_BLOCK_ATTRIBUTES(double, 1, 6, 4)
   return -1;
 }
+
+#ifdef K1_COUNT_SOLVES
+// A counting build's solves of the k = 32 kernel since the last call, into
+// *out; zeroes the count. Waits for the device. Returns the cudaError_t.
+extern "C" int i2lqr_step_solves(unsigned long long* out) {
+  const unsigned long long zero = 0;
+  int rc = (int)cudaMemcpyFromSymbol(out, ilqr::k1_solves, sizeof zero);
+  if (rc == 0)
+    rc = (int)cudaMemcpyToSymbol(ilqr::k1_solves, &zero, sizeof zero);
+  return rc;
+}
+#endif

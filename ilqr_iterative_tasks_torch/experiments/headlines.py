@@ -5,6 +5,8 @@ themselves (through the whole-step kernels K1 / K2 or, with a
 solver that captures a kernel's inputs and its rule, the tap that captures
 the plain step's inputs on the per-candidate path, the guard that no plain
 candidate solve sees a CUDA tensor, K4's random lanes and edge cases,
+K1's k = 32 edge-case lanes, the solves a step needs and those its
+counting build runs, the library the wrappers launch from,
 CUDA-event timing, device seconds from a profiler trace and a hash of a
 run's lap records.
 
@@ -19,6 +21,7 @@ Nothing touches the card at import.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import hashlib
 import time
 
@@ -31,8 +34,10 @@ from ilqr_iterative_tasks_torch.control import batched_soa
 from ilqr_iterative_tasks_torch.control.batched_nlmpc_soa import (
     simulate_nlmpc_runs_soa)
 from ilqr_iterative_tasks_torch.control.batched_soa import (
-    SoaScenarios, simulate_learning_runs_soa)
+    SoaScenarios, _step_solver_inputs, simulate_learning_runs_soa)
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
+from ilqr_iterative_tasks_torch.ops import _build
+from ilqr_iterative_tasks_torch.ops.fused_ilqr import obstacle_to_lanes
 from ilqr_iterative_tasks_torch.sim.seed import seed_trajectory
 from ilqr_iterative_tasks_torch.utils.params import IlqrParams, SystemLimits
 
@@ -194,6 +199,109 @@ def k4_edge_lanes(case, dev, b=None):
     if every:
         skip[np.arange(b) // 32 % every == every - 1] = 0.0
     return k4_lanes(rng, seed_trajectory(1.0)[0], skip, dev, hzn_range)
+
+
+def k1_block_lanes(nsi, lap_count, dev, b=517, t_rows=MAX_STEPS,
+                   max_laps=MAX_LAPS):
+    """K1's inputs at k = 32 (f64) with every edge case of its schedule:
+    four stored laps on a 0.5 grid, x on it too: lap 0 the seed lap, lap 1
+    its first 60 rows each stored twice (tied distances), lap 2 every other
+    row, lap 3 a lap shorter than k = 32 (the last 24-30 rows of the seed
+    lap; every 11th lane 1-7 rows); with lap_count < nsi laps not yet
+    stored (lap_ok = 0, their ids clipped to lap 0). Every 7th lane
+    skipped; b is not a multiple of anything the kernel holds."""
+    rng = np.random.default_rng(40 + nsi + lap_count)
+    xcl, _ = seed_trajectory(1.0)
+    states = np.zeros((max_laps, t_rows, 4, b))
+    states[0, :121] = xcl[:, :, None]
+    states[1, :120] = np.repeat(xcl[:60], 2, axis=0)[:, :, None]
+    states[2, :61] = xcl[::2, :, None]
+    lap_len = np.zeros((max_laps, b), np.int32)
+    lap_len[0], lap_len[1], lap_len[2] = 121, 120, 61
+    lap_len[3] = rng.integers(24, 31, b)
+    lap_len[3, ::11] = rng.integers(1, 8, lap_len[3, ::11].shape)
+    for lane in range(b):
+        n3 = lap_len[3, lane]
+        states[3, :n3, :, lane] = xcl[121 - n3:]
+    states = np.round(states * 2) / 2
+    t = np.arange(t_rows)[None, :, None]
+    qfun = np.maximum(lap_len[:, None, :] - 1.0 - t, 0.0)
+    rows = rng.integers(0, 121, b)
+    x = np.round((xcl[rows] + rng.normal(size=(b, 4))
+                  * [1.0, 1.0, 0.3, 0.05]) * 2) / 2
+    f = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)
+    lap_ids, lap_ok, _ = _step_solver_inputs(lap_count, nsi, max_laps, None,
+                                             b, dev)
+    skip = (torch.arange(b, device=dev) % 7 == 0).float()
+    obs = obstacle_to_lanes(
+        Obstacle.make(31.0, -2.0, 8.0, 6.0, spd=0.5, moving_option=1,
+                      dtype=torch.float64, device=dev).map(
+            lambda v: v.expand(b)), b).contiguous()
+    return (f(x.T).contiguous(), f(x.T).contiguous(), f(states), f(qfun),
+            torch.tensor(lap_len, device=dev), lap_ids, lap_ok, obs, skip)
+
+
+def k32_distinct(lap_ids, lap_ok, cands):
+    """The candidates whose solves a step at k = 32 needs, from what its
+    plain version gave in ``cands`` (``i2lqr_step_reference``'s list: each
+    pass's kNN rows, slots that hold a row, winner): per pass a (nsi*k, B)
+    bool mask of the slots that hold a row of a lap some stored lap row
+    names, at the first lap row of that id, whose (lap, row) no earlier
+    pass gave. A solve is a pure function of (x0, row, obstacle), so these
+    are every solve the step's costs read (K1 solves each once, and its
+    final winner at most once more each pass and once at the end)."""
+    ids, oks = [int(v) for v in lap_ids.tolist()], lap_ok.tolist()
+    nsi = len(ids)
+    first = [ids.index(i) for i in ids]
+    need = [any(oks[r] and first[r] == u for r in range(nsi))
+            for u in range(nsi)]
+    rows = 1 + max(int(idx.max()) for idx, _, _ in cands)
+    b = cands[0][0].shape[-1]
+    seen = torch.zeros((nsi, rows + 1, b), dtype=torch.bool,
+                       device=cands[0][0].device)  # row `rows`: none
+    masks = []
+    for idx, fin, _ in cands:
+        idx, fin = idx.view(nsi, -1, b).long(), fin.view(nsi, -1, b)
+        mask = torch.zeros_like(fin)
+        for u in range(nsi):
+            if first[u] == u and need[u]:
+                # a pass's valid slots of a lap hold distinct rows
+                mask[u] = fin[u] & ~seen[u].gather(0, idx[u])
+                seen[u].scatter_(0, torch.where(mask[u], idx[u], rows),
+                                 True)
+        masks.append(mask.view(-1, b))
+    return masks
+
+
+# _build.build's defines of a counting library (K1_COUNT_SOLVES,
+# csrc/i2lqr_step.cu): K1 at k = 32 counts the solves it runs
+K1_COUNT = ("-DK1_COUNT_SOLVES",)
+
+
+@contextlib.contextmanager
+def launching(lib):
+    """The wrappers launch from ``lib`` inside the block."""
+    keep = _build.library
+    _build.library = lambda: lib
+    try:
+        yield
+    finally:
+        _build.library = keep
+
+
+def counted_solves(lib, fn) -> int:
+    """The solves K1 at k = 32 runs on the card in ``fn()``, whose
+    wrappers launch from ``lib``, a library built with ``K1_COUNT``."""
+    count = lib.i2lqr_step_solves
+    count.argtypes, count.restype = [ctypes.c_void_p], ctypes.c_int
+    n = ctypes.c_ulonglong()
+    torch.cuda.synchronize()
+    require(count(ctypes.byref(n)) == 0, "i2lqr_step_solves failed")
+    with launching(lib):
+        fn()
+    torch.cuda.synchronize()
+    require(count(ctypes.byref(n)) == 0, "i2lqr_step_solves failed")
+    return n.value
 
 
 class Capture:

@@ -3,7 +3,7 @@ against those of another checkout (an earlier commit) and of edited copies
 of this checkout's sources, in turns on one card.
 
     python -m ilqr_iterative_tasks_torch.experiments.kernel_ab \\
-        --other DIR [--generic | --k4] [--also NAME DIR ...] \\
+        --other DIR [--generic | --k4 | --k32] [--also NAME DIR ...] \\
         [--variant NAME FILE OLD NEW ...] [--out chiprun_out/kernel_ab.json]
 
 DIR holds the other checkout (``DIR/ilqr_iterative_tasks_torch/csrc``, whose
@@ -64,6 +64,18 @@ f32 ms a call in turns, with the lanes and live lanes; then those
 headlines and the timeVarying one over every stored lap through each
 library in turns.
 
+K1 at k = 32 (all of it with ``--k32``, which leaves out the rest): on
+the k32_nsi4 sweep's captures (chip_smoke.py phase 19's rule), at nsi 4
+and, on their last two stored laps, nsi 2, every library that
+instantiates it must equal this checkout's bit for bit; then the f32 ms a
+step in turns, beside the solves a live lane-step that a counting build of
+this checkout runs on the card (``headlines.counted_solves``), the
+distinct ones the step needs (``headlines.k32_distinct``) and the
+3 x nsi x 32 of the plain order; then the k32_nsi4 sweep (B = 4 096, 4
+laps, moving obstacle, seed 0; ``scenario_sweep.run_sweep``) through each
+library in turns, two runs each, whose lap records must agree, with the
+run's host seconds, then one more run each under the profiler.
+
 For every headline: host seconds, lap-sims/s, the
 lap records' hash (which must agree between libraries for the same seed)
 and, but for K1's, the kernel's CUDA-event spans (which hold the wrapper's
@@ -84,7 +96,6 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
-import contextlib
 import ctypes
 import json
 import os
@@ -101,11 +112,12 @@ from ilqr_iterative_tasks_torch.experiments.generic_bench import (
     bench_kernel, bench_throughput, candidates, card_line, generic_kwargs,
     k5_task, throughput_inputs, warp_trips)
 from ilqr_iterative_tasks_torch.experiments.headlines import (
-    ALL_BATCH, BATCH, CAP, EVERY_CAPTURES, K2_ATTRS, K3_ATTRS, K4_ATTRS, LAPS,
-    MAX_LAPS, MAX_STEPS, N, NL_CAP, NL_CAPTURES, SWEEP_BATCH, SWEEP_LAPS,
-    Headlines, Recorder, cuda_ms, device_seconds, k1_capture, k2_capture,
-    lap_records_hash, random_k4_lanes, require, sweep_capture,
-    sweep_step_solver, tap_step, want_capture)
+    ALL_BATCH, BATCH, CAP, EVERY_CAPTURES, K1_COUNT, K2_ATTRS, K3_ATTRS,
+    K4_ATTRS, LAPS, MAX_LAPS, MAX_STEPS, N, NL_CAP, NL_CAPTURES, SWEEP_BATCH,
+    SWEEP_LAPS, SWEEP_CAP, Headlines, Recorder, counted_solves, cuda_ms,
+    device_seconds, k1_capture, k2_capture, k32_distinct, lap_records_hash,
+    launching, random_k4_lanes, require, sweep_capture, sweep_step_solver,
+    tap_step, want_capture)
 from ilqr_iterative_tasks_torch.experiments.nlmpc_profile import EventTimed
 from ilqr_iterative_tasks_torch.experiments.scenario_sweep import run_sweep
 from ilqr_iterative_tasks_torch.models import double_integrator, kinetic_bicycle
@@ -117,6 +129,8 @@ from ilqr_iterative_tasks_torch.ops.fused_ilqr import (
     build_fused_ilqr, obstacle_to_lanes)
 from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
     build_fused_lm_shooting, fused_lm_shooting_reference)
+from ilqr_iterative_tasks_torch.ops.i2lqr_step import (
+    build_fused_i2lqr_step, i2lqr_step_reference)
 from ilqr_iterative_tasks_torch.ops.ilqr_soa import ilqr_solve_soa
 from ilqr_iterative_tasks_torch.ops.nlmpc_step import (
     build_fused_nlmpc_step, nlmpc_step_reference)
@@ -135,7 +149,7 @@ RESOURCES = {
     "k1": ("i2lqr_step_attributes", (0, N, 8, 1),
            f"i2lqr_step_kernel<float,{N},8,1>"),
     "k1_k32": ("i2lqr_step_attributes", (0, N, 32, 4),
-               f"i2lqr_step_block_kernel<float,{N},4,4>"),
+               f"i2lqr_step_block_kernel<float,{N},4"),
     "k2_all": ("nlmpc_step_all_attributes", (0, N),
                f"nlmpc_step_all_kernel<float,{N}"),
     "k2_sv": ("nlmpc_step_attributes", (0, N, 8, 1, 0, 1),
@@ -255,17 +269,6 @@ def sass_counts(funcs: dict, prefixes=(
             ops = re.findall(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", text)
             out[name] = (len(ops), ops.count("LDL"), ops.count("STL"))
     return out
-
-
-@contextlib.contextmanager
-def launching(lib):
-    """The wrappers launch from ``lib`` inside the block."""
-    keep = _build.library
-    _build.library = lambda: lib
-    try:
-        yield
-    finally:
-        _build.library = keep
 
 
 def generic_ab(dev, libs, names_k3, names_k5) -> dict:
@@ -391,6 +394,108 @@ def headlines(libs, tag, run, kern, kernel_name, names, b, seeds=(1, 2),
     return out
 
 
+def capture_steps(libs, tag, kern, captured, names, reps):
+    """ms a step of ``kern`` launched from each library of ``names``
+    (turns A B ... B A), after checking each library's outputs equal
+    this checkout's bit for bit."""
+    rows = {}
+    for lap, (step, a) in sorted(captured.items()):
+        with launching(libs["this"]):
+            ref = kern(*a)
+        for name in names:
+            with launching(libs[name]):
+                got = kern(*a)
+            require(all(torch.equal(g, w) for g, w in zip(got, ref)),
+                    f"{tag} lap {lap}: {name} differs from this "
+                    f"checkout's kernel")
+        ms = {name: [] for name in names}
+        for name in names + names[::-1]:
+            with launching(libs[name]):
+                ms[name].append(cuda_ms(lambda: kern(*a), reps))
+        rows[f"lap{lap}_step{step}"] = ms
+        print(f"[{tag} lap {lap} step {step}] bitwise equal; ms a step "
+              + ", ".join(f"{n} {v[0]:.3f}/{v[1]:.3f}"
+                          for n, v in ms.items()), flush=True)
+    return rows
+
+
+def k32_names(libs, names):
+    """Those of ``names`` whose library instantiates K1 at k = 32."""
+    out3 = (ctypes.c_int * 3)()
+    return [n for n in names
+            if libs[n].i2lqr_step_attributes(0, N, 32, 4, out3) == 0]
+
+
+def k32_ab(dev, libs, names, counting) -> dict:
+    """K1 at k = 32 of each library on the k32_nsi4 sweep's captures, then
+    that sweep in turns (module docstring); ``counting`` is this
+    checkout's counting library."""
+    names = k32_names(libs, names)
+
+    def sweep(result=None):
+        return run_sweep(SWEEP_BATCH, SWEEP_LAPS, moving=True,
+                         num_ss_points=32, num_ss_iter=4, quiet=True,
+                         device=dev, result=result)
+
+    with sweep_step_solver(32, 4, sweep_capture, device=dev) as (k32, cap32):
+        sweep()
+    limits = SystemLimits.make(device=dev)
+    p2 = IlqrParams.make(num_ss_points=32, num_ss_iter=2, device=dev)
+    k32_2 = build_fused_i2lqr_step(p2, limits, 1.0, num_horizon=N,
+                                   max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+                                   max_iter=SWEEP_CAP)
+    nsi2 = {}
+    solves = {}
+    for lap, (step, a) in sorted(cap32.captured.items()):
+        a2 = list(a)
+        a2[5], a2[6] = a[5][-2:].contiguous(), a[6][-2:].contiguous()
+        nsi2[lap] = (step, a2)
+        n_act = int((a[8] < 0.5).sum())
+        for tag, kern, args in (("nsi4", k32, a), ("nsi2", k32_2, a2)):
+            cands = []
+            i2lqr_step_reference(kern.params, limits, 1.0, *args,
+                                 max_iter=SWEEP_CAP, cands=cands)
+            need = sum(int(m.sum()) for m in k32_distinct(args[5], args[6],
+                                                          cands))
+            ran = counted_solves(counting, lambda: kern(*args))
+            require(need <= ran <= need + 4 * n_act,
+                    f"K1 k32 {tag} lap {lap}: {ran} solves, {need} needed")
+            row = dict(solves=ran / n_act, distinct=need / n_act,
+                       plain_solves=3 * kern.nsi * 32, lap_ok=args[6].tolist())
+            solves[f"{tag}_lap{lap}_step{step}"] = row
+            print(f"[K1 k32 {tag} lap {lap} step {step} solves a live "
+                  f"lane-step] {json.dumps(row)}", flush=True)
+    report = dict(solves=solves, steps=dict(
+        nsi4=capture_steps(libs, "K1 k32 nsi4", k32, cap32.captured, names,
+                           10),
+        nsi2=capture_steps(libs, "K1 k32 nsi2", k32_2, nsi2, names, 10)))
+    runs = {name: dict(s=[], hash=[]) for name in names}
+    for name in names + names[::-1] + names + names[::-1]:
+        res = []
+        with launching(libs[name]):
+            t0 = time.perf_counter()
+            sweep(res)
+            sec = time.perf_counter() - t0
+        runs[name]["s"].append(sec)
+        runs[name]["hash"].append(lap_records_hash(res[0]))
+        print(f"[k32_nsi4 sweep {name}] {sec:.3f} s, hash "
+              f"{runs[name]['hash'][-1]}", flush=True)
+        del res
+    require(len({h for r in runs.values() for h in r["hash"]}) == 1,
+            "k32_nsi4 sweep: lap records differ between runs")
+    for name in names:
+        with launching(libs[name]):
+            k_s, busy_s, host_s = device_seconds(sweep,
+                                                 "i2lqr_step_block_kernel")
+        runs[name].update(device_s=k_s, busy_s=busy_s,
+                          profiled_host_s=host_s)
+        print(f"[k32_nsi4 sweep {name} profiled] i2lqr_step_block_kernel "
+              f"{k_s:.4f} s of the card a run; the card busy {busy_s:.4f} "
+              f"s of {host_s:.3f} s under the profiler", flush=True)
+    report["sweep"] = runs
+    return report
+
+
 def k1_k2_ab(dev, libs, names) -> dict:
     """K1 and K2 of each library at the headlines' captures, then their
     headlines, in turns (module docstring)."""
@@ -425,9 +530,7 @@ def k1_k2_ab(dev, libs, names) -> dict:
     with sweep_step_solver(32, 4, sweep_capture, device=dev) as (k32, cap32):
         run_sweep(SWEEP_BATCH, SWEEP_LAPS, moving=True, num_ss_points=32,
                   num_ss_iter=4, quiet=True, device=dev)
-    out3 = (ctypes.c_int * 3)()
-    names_k32 = [n for n in names["k1"] if libs[n].i2lqr_step_attributes(
-        0, N, 32, 4, out3) == 0]
+    names_k32 = k32_names(libs, names["k1"])
     caps = {}
     for tag, lp, sc, kern, it in (
             ("all", all_p, hl.scen_all, k2_all, False),
@@ -439,47 +542,32 @@ def k1_k2_ab(dev, libs, names) -> dict:
         caps[tag] = cap.captured
 
     # ---- steps at every capture, every library in turns ----
-    def steps(tag, kern, captured, names, reps):
-        """ms a step of ``kern`` launched from each library of ``names``
-        (turns A B ... B A), after checking each library's outputs equal
-        this checkout's bit for bit."""
-        rows = {}
-        for lap, (step, a) in sorted(captured.items()):
-            with launching(libs["this"]):
-                ref = kern(*a)
-            for name in names:
-                with launching(libs[name]):
-                    got = kern(*a)
-                require(all(torch.equal(g, w) for g, w in zip(got, ref)),
-                        f"{tag} lap {lap}: {name} differs from this "
-                        f"checkout's kernel")
-            ms = {name: [] for name in names}
-            for name in names + names[::-1]:
-                with launching(libs[name]):
-                    ms[name].append(cuda_ms(lambda: kern(*a), reps))
-            rows[f"lap{lap}_step{step}"] = ms
-            print(f"[{tag} lap {lap} step {step}] bitwise equal; ms a step "
-                  + ", ".join(f"{n} {v[0]:.3f}/{v[1]:.3f}"
-                              for n, v in ms.items()), flush=True)
-        return rows
-
     report["steps"] = dict(
-        k1=steps("K1", k1, cap1.captured, names["k1"], 10),
-        k1_k32=steps("K1 k32 nsi4", k32, cap32.captured, names_k32, 10),
-        all_rev_skip=steps("K2 all_rev_skip", k2_all, caps["all"],
-                           names["all"], 5),
-        all_forward=steps("K2 all forward", k2_fwd, caps["all"],
-                          names["all"], 3),
-        all_iter=steps("K2 all_iter", k2_iter, caps["all_iter"],
-                       names["all"], 3),
-        spaceVarying=steps("K2 spaceVarying", k2_sv, caps["spaceVarying"],
-                           names["k2"], 10),
-        spaceVarying_plain=steps("K2 spaceVarying plain order", k2_sv_plain,
-                                 caps["spaceVarying"], ["other", "this"], 5),
-        timeVarying=steps("K2 timeVarying", k2_tv, caps["timeVarying"],
-                          names["k2"], 10),
-        timeVarying_plain=steps("K2 timeVarying plain order", k2_tv_plain,
-                                caps["timeVarying"], ["other", "this"], 5))
+        k1=capture_steps(
+            libs, "K1", k1, cap1.captured, names["k1"], 10),
+        k1_k32=capture_steps(
+            libs, "K1 k32 nsi4", k32, cap32.captured, names_k32, 10),
+        all_rev_skip=capture_steps(
+            libs, "K2 all_rev_skip", k2_all, caps["all"],
+            names["all"], 5),
+        all_forward=capture_steps(
+            libs, "K2 all forward", k2_fwd, caps["all"],
+            names["all"], 3),
+        all_iter=capture_steps(
+            libs, "K2 all_iter", k2_iter, caps["all_iter"],
+            names["all"], 3),
+        spaceVarying=capture_steps(
+            libs, "K2 spaceVarying", k2_sv, caps["spaceVarying"],
+            names["k2"], 10),
+        spaceVarying_plain=capture_steps(
+            libs, "K2 spaceVarying plain order", k2_sv_plain,
+            caps["spaceVarying"], ["other", "this"], 5),
+        timeVarying=capture_steps(
+            libs, "K2 timeVarying", k2_tv, caps["timeVarying"],
+            names["k2"], 10),
+        timeVarying_plain=capture_steps(
+            libs, "K2 timeVarying plain order", k2_tv_plain,
+            caps["timeVarying"], ["other", "this"], 5))
 
     # ---- headlines in turns, one seed a turn, then one profiled run ----
     def nlmpc(lp, sc):
@@ -598,6 +686,8 @@ def main():
                     help="K3 and K5 only (no K1, no K2, no K4)")
     ap.add_argument("--k4", action="store_true",
                     help="K4 only (no K1, no K2, no K3, no K5)")
+    ap.add_argument("--k32", action="store_true",
+                    help="K1 at k = 32 only")
     ap.add_argument("--also", nargs=2, action="append", default=[],
                     metavar=("NAME", "DIR"))
     ap.add_argument("--variant", nargs=4, action="append", default=[],
@@ -632,9 +722,12 @@ def main():
     # four libraries at a time, each one nvcc a source: enough to keep the
     # host's cores busy without holding every compiler's memory at once
     with concurrent.futures.ThreadPoolExecutor(min(len(dirs), 4)) as ex:
-        built = {name: f.result() for name, f in
-                 {n: ex.submit(_build.build, d) for n, d in dirs.items()}
-                 .items()}
+        futures = {n: ex.submit(_build.build, d) for n, d in dirs.items()}
+        if args.k32:  # this checkout's counting build
+            counting = ex.submit(_build.build, _build.CSRC_DIR, K1_COUNT)
+        built = {name: f.result() for name, f in futures.items()}
+        if args.k32:
+            counting = _build.load(counting.result()[0])
     build_s = time.perf_counter() - t0
     libs = {name: _build.load(path) for name, (path, _) in built.items()}
     report = dict(card=card, build_s=build_s, resources={
@@ -657,11 +750,13 @@ def main():
             print(f"[SASS instructions, local loads, local stores {name}] "
                   f"{json.dumps(counts)}", flush=True)
 
-    if not args.k4:
+    if args.k32:
+        report["k32"] = k32_ab(dev, libs, names["k1"], counting)
+    if not (args.k4 or args.k32):
         report["generic"] = generic_ab(dev, libs, names["k3"], names["k5"])
-    if not (args.generic or args.k4):
+    if not (args.generic or args.k4 or args.k32):
         report.update(k1_k2_ab(dev, libs, names))
-    if not args.generic:
+    if not (args.generic or args.k32):
         report["k4"] = k4_ab(dev, libs, names["k4"])
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

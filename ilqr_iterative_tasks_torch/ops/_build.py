@@ -71,8 +71,8 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path(csrc_dir: str = CSRC_DIR) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(csrc_dir: str = CSRC_DIR, defines=()) -> str:
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
     for name in SOURCES:
         if not os.path.exists(os.path.join(csrc_dir, name)):
             continue  # a header an earlier checkout does not have
@@ -82,19 +82,20 @@ def library_path(csrc_dir: str = CSRC_DIR) -> str:
                         f"libilqr_torch_kernels_{h.hexdigest()[:16]}.so")
 
 
-def build(csrc_dir: str = CSRC_DIR) -> tuple[str, float]:
+def build(csrc_dir: str = CSRC_DIR, defines=()) -> tuple[str, float]:
     """Compile the library unless it exists. Returns (path, seconds spent).
     The package's kernels by default; a measurement may build another
-    checkout's ``csrc_dir`` into a library of its own."""
-    path = library_path(csrc_dir)
+    checkout's ``csrc_dir``, or the sources with the nvcc ``defines`` of a
+    counting build, into a library of its own."""
+    path = library_path(csrc_dir, defines)
     if os.path.exists(path):
         return path, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", os.path.join(tmp, s + ".o"),
-                 os.path.join(csrc_dir, s)]
+        cmds = [[nvcc, *NVCC_FLAGS, *defines, "-c", "-o",
+                 os.path.join(tmp, s + ".o"), os.path.join(csrc_dir, s)]
                 for s in SOURCES if s.endswith(".cu")]
         procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)

@@ -24,8 +24,10 @@ JAX per-candidate path (``pallas_solver``, batched_soa.py:553-620).
 
 The kernel is instantiated at horizon 6 for k = 8 (nsi 1 and 2: a tile of
 nsi*k threads a lane) and for k = 32 (nsi 2 and 4, the robustness sweep's
-candidate sets: a block of nsi*32 threads a lane, max_steps <= 128), in
-f32 and f64; any other size raises on a CUDA tensor.
+candidate sets, max_steps <= 128: a lane a warp, four to a block of 128
+threads that solves each distinct (lap, row) candidate of a lane's step
+once, pooled over the block), in f32 and f64; any other size raises on a
+CUDA tensor. Both compute the plain version bit for bit.
 """
 
 from __future__ import annotations
@@ -83,12 +85,15 @@ def _lex_argmin_rows(cost_rows):
 def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
                          states, qfun, lap_len, lap_ids, lap_ok, obs, skip, *,
                          max_iter: int, trips: list | None = None,
-                         candidate_solver=None):
+                         cands: list | None = None, candidate_solver=None):
     """Plain version of K1 (module docstring). The candidate solves of all
     nsi laps run as one batched ``ilqr_solve_soa`` per pass (per-lane
     results do not depend on the batching: done lanes freeze). If
     ``trips`` is a list, each pass appends its solves' trip counts to it:
-    (nsi*k, B) i32, 0 on skipped lanes.
+    (nsi*k, B) i32, 0 on skipped lanes. If ``cands`` is a list, each pass
+    appends its candidates' kNN rows (nsi*k, B) i64, whether each slot
+    holds a row (nsi*k, B) bool (whatever its lap's lap_ok) and the
+    winner (B,) i64, row * k + slot.
 
     ``candidate_solver``: a K3 built for the same constants and cap
     (``build_fused_ilqr``), called once a pass on the pass's nsi*k*B
@@ -123,7 +128,7 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
                      flat(obs_kb), flat(skip[None, None])[0])
 
     def one_pass(outer, xg):
-        idx_rows, q_rows, ok_rows, xt_rows = [], [], [], []
+        idx_rows, q_rows, ok_rows, xt_rows, fin_rows = [], [], [], [], []
         for off in range(nsi):
             st = states[laps[off]]  # (T, 4, B)
             dist = (torch.abs(st[:, 0] - xg[0][None])
@@ -136,7 +141,8 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
                           qfun[laps[off]]])
             idx_rows.append(idx)
             q_rows.append(q)
-            ok_rows.append(torch.isfinite(dval) & oks[off])
+            fin_rows.append(torch.isfinite(dval))
+            ok_rows.append(fin_rows[-1] & oks[off])
             xt_rows.append(torch.stack([x0s, x1s, x2s, x3s]))
         x_terms = torch.cat(xt_rows, dim=1)  # (4, nsi*k, B)
         cand_ok = torch.cat(ok_rows)  # (nsi*k, B): valid row of a stored lap
@@ -175,6 +181,8 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
         us_sel = sol_us.gather(2, win[None, None, None].expand(n, 2, 1, b))
         xl_sel = x_last.gather(1, win[None, None].expand(4, 1, b))[:, 0]
         idx_sel = torch.cat(idx_rows).gather(0, win[None])[0]
+        if cands is not None:
+            cands.append((torch.cat(idx_rows), torch.cat(fin_rows), win))
         return xl_sel, us_sel[:, :, 0], idx_sel, best_row
 
     xg = g0
@@ -256,8 +264,12 @@ class FusedI2lqrStep:
 def build_fused_i2lqr_step(params: IlqrParams, limits: SystemLimits, dt, *,
                            num_horizon: int, max_steps: int, max_laps: int,
                            max_iter: int = 150) -> FusedI2lqrStep:
-    """Factory mirroring the JAX package's ``build_fused_i2lqr_step``
-    (none of its kernel options are ported)."""
+    """Factory mirroring the JAX package's ``build_fused_i2lqr_step``. It
+    takes none of that factory's kernel options: at k = 32 the kernel
+    computes what the JAX sweep's ``dedup=True, store_solutions=False``
+    build does (each distinct candidate solve of a step once, the winner
+    solved again where its solution was not kept; bitwise the plain step),
+    and at k = 8 what the plain order does."""
     return FusedI2lqrStep(params, limits, dt, num_horizon=num_horizon,
                           max_steps=max_steps, max_laps=max_laps,
                           max_iter=max_iter)

@@ -1,10 +1,16 @@
-// CPU emulation of the CUDA runtime pieces the K3, K4 and K5 kernels use:
-// every CUDA thread of a launch is a std::thread, the lane counter a host
-// atomic, and the 32 threads of a warp meet at a barrier of their own for
-// the warp's ballots and shuffles (full mask only), exchanging values
-// through one slot a thread. The card reports EMU_SMS SMs (1 unless the
-// build defines it), each holding one block. For checking kernel logic
-// against the plain version on the host; no performance meaning.
+// CPU emulation of the CUDA runtime pieces the K1, K3, K4 and K5 kernels
+// use: every CUDA thread of a launch is a std::thread, the lane counter a
+// host atomic, and the 32 threads of a warp meet at a barrier of their own
+// for the warp's ballots, shuffles and __syncwarp (full mask only),
+// exchanging values through one slot a thread (two sets of slots, used in
+// turn, so that one barrier an exchange suffices); the threads of a block
+// meet at the block's barrier for __syncthreads and __syncthreads_or. A
+// block's __shared__ storage is a static variable: a build whose kernels
+// declare it defines EMU_SHARED (elsewhere __shared__ does not compile),
+// and its launches run one block at a time. The card reports EMU_SMS SMs
+// (1 unless the build defines it), each holding one block. For checking
+// kernel logic against the plain version on the host; no performance
+// meaning.
 #pragma once
 #include <math.h>
 #include <condition_variable>
@@ -24,6 +30,11 @@
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
+#ifdef EMU_SHARED
+#define __shared__ static
+#else
+#define __shared__ __shared___needs_EMU_SHARED
+#endif
 
 struct dim3 { unsigned x = 1, y = 1, z = 1; };
 inline thread_local dim3 threadIdx, blockIdx;
@@ -44,29 +55,51 @@ inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   std::memset(p, v, n); return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline int atomicCAS(int* p, int cmp, int v) {
+  __atomic_compare_exchange_n(p, &cmp, v, false, __ATOMIC_SEQ_CST,
+                              __ATOMIC_SEQ_CST);
+  return cmp;
+}
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __ffs(int v) { return __builtin_ffs(v); }
 
 namespace emu {
-// The threads of one warp: a reusable barrier and a slot a thread.
-struct Warp {
+// A reusable barrier of `count` threads, which also returns whether the
+// predicate held on any of them (a generation's result is kept until every
+// thread has left it: two generations later).
+struct Barrier {
   std::mutex m;
   std::condition_variable cv;
-  int arrived = 0;
+  int arrived = 0, any = 0, result[2] = {0, 0};
   unsigned long gen = 0;
-  unsigned long long slot[32];
-  void sync() {
+  int sync(int count, int p = 0) {
     std::unique_lock<std::mutex> l(m);
     const unsigned long g = gen;
-    if (++arrived == 32) {
-      arrived = 0;
+    any |= p != 0;
+    if (++arrived == count) {
+      result[g & 1] = any;
+      any = arrived = 0;
       ++gen;
       cv.notify_all();
     } else {
       cv.wait(l, [&] { return gen != g; });
     }
+    return result[g & 1];
   }
 };
-inline std::unique_ptr<Warp[]> warps;  // of the running launch
+// The threads of one warp: its barrier and two sets of a slot a thread.
+// Every thread of the warp runs the same collectives, so they agree on
+// the set an exchange uses; a thread writes one set only after every
+// thread has passed the barrier of the exchange that last used the other,
+// and so has read the set it is about to write.
+struct Warp {
+  Barrier bar;
+  unsigned long long slot[2][32];
+  void sync() { bar.sync(32); }
+};
+inline thread_local unsigned turns = 0;  // exchanges this thread made
+inline std::unique_ptr<Warp[]> warps;      // of the running launch
+inline std::unique_ptr<Barrier[]> blocks;  // of the running launch
 inline Warp& warp() {
   return warps[(blockIdx.x * blockDim.x + threadIdx.x) / 32];
 }
@@ -77,11 +110,11 @@ inline void full(unsigned mask) {
 template <class V> V exchange(V v, int src) {
   static_assert(sizeof(V) <= sizeof(unsigned long long), "8 bytes at most");
   Warp& w = warp();
-  std::memcpy(&w.slot[threadIdx.x & 31], &v, sizeof(V));
+  unsigned long long* slot = w.slot[turns++ & 1];
+  std::memcpy(&slot[threadIdx.x & 31], &v, sizeof(V));
   w.sync();
   V out;
-  std::memcpy(&out, &w.slot[src & 31], sizeof(V));
-  w.sync();  // every thread has read before a slot is written again
+  std::memcpy(&out, &slot[src & 31], sizeof(V));
   return out;
 }
 }  // namespace emu
@@ -96,16 +129,34 @@ V __shfl_xor_sync(unsigned mask, V v, int lane_mask, int width = 32) {
   const int l = threadIdx.x & 31;
   return emu::exchange(v, (l & ~(width - 1)) + ((l ^ lane_mask) & (width - 1)));
 }
+inline void __syncwarp(unsigned mask = 0xffffffffu) {
+  emu::full(mask);
+  emu::warp().sync();
+}
+inline void __syncthreads() { emu::blocks[blockIdx.x].sync(blockDim.x); }
+inline int __syncthreads_or(int p) {
+  return emu::blocks[blockIdx.x].sync(blockDim.x, p);
+}
 inline unsigned __ballot_sync(unsigned mask, bool p) {
   emu::full(mask);
   emu::Warp& w = emu::warp();
-  w.slot[threadIdx.x & 31] = p;
+  unsigned long long* slot = w.slot[emu::turns++ & 1];
+  slot[threadIdx.x & 31] = p;
   w.sync();
   unsigned out = 0;
-  for (int i = 0; i < 32; ++i) out |= (w.slot[i] ? 1u : 0u) << i;
-  w.sync();
+  for (int i = 0; i < 32; ++i) out |= (slot[i] ? 1u : 0u) << i;
   return out;
 }
+
+namespace emu {
+// A build that defines K1_ON_SOLVE(lane) as emu::count(lane) counts each
+// lane's solves into the ints that emu_count_into names.
+inline int* counts = nullptr;
+inline void count(int lane) {
+  if (counts) __atomic_fetch_add(&counts[lane], 1, __ATOMIC_SEQ_CST);
+}
+}  // namespace emu
+extern "C" void emu_count_into(int* p) { emu::counts = p; }
 
 namespace emu {
 template <class K, class... A>
@@ -113,7 +164,12 @@ void run(K kernel, dim3 g, dim3 b, A... args) {
   gridDim = g; blockDim = b;
   if (b.x % 32) std::abort();  // blocks of whole warps
   warps.reset(new Warp[g.x * b.x / 32]);
+  blocks.reset(new Barrier[g.x]);
+#ifdef EMU_SHARED
+  const unsigned batch = 1;  // a block's shared storage is static
+#else
   const unsigned batch = 8;
+#endif
   for (unsigned b0 = 0; b0 < g.x; b0 += batch) {
     std::vector<std::thread> ts;
     for (unsigned bi = b0; bi < g.x && bi < b0 + batch; ++bi)

@@ -23,7 +23,7 @@ from ilqr_iterative_tasks_torch.control.batched_soa import (
 from ilqr_iterative_tasks_torch.experiments.generic_bench import (
     candidates, generic_kwargs, k5_task, throughput_inputs)
 from ilqr_iterative_tasks_torch.experiments.headlines import (
-    K4_EDGE_CASES, k4_edge_lanes)
+    K4_EDGE_CASES, k1_block_lanes, k4_edge_lanes)
 from ilqr_iterative_tasks_torch.models import double_integrator
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
 from ilqr_iterative_tasks_torch.ops import _build
@@ -204,47 +204,12 @@ def test_closed_loop_through_k1_matches_plain(dev):
                                atol=1e-9)
 
 
-# ---- K1 at k = 32: one lane a block of nsi * 32 threads ----
-def _k1_block_inputs(nsi, lap_count, dev, b=517):
-    """Four stored laps on a 0.5 grid, x on it too: lap 0 the seed lap,
-    lap 1 its first 60 rows each stored twice (tied distances), lap 2 every
-    other row, lap 3 a lap shorter than k = 32 (the last 24-30 rows of the
-    seed lap; every 11th lane 1-7 rows); with lap_count < nsi laps not yet
-    stored (lap_ok = 0). Every 7th lane skipped; b is not a multiple of
-    anything the kernel holds."""
-    rng = np.random.default_rng(40 + nsi + lap_count)
-    xcl, _ = seed_trajectory(1.0)
-    states = np.zeros((MAX_LAPS, T_ROWS, 4, b))
-    states[0, :121] = xcl[:, :, None]
-    states[1, :120] = np.repeat(xcl[:60], 2, axis=0)[:, :, None]
-    states[2, :61] = xcl[::2, :, None]
-    lap_len = np.zeros((MAX_LAPS, b), np.int32)
-    lap_len[0], lap_len[1], lap_len[2] = 121, 120, 61
-    lap_len[3] = rng.integers(24, 31, b)
-    lap_len[3, ::11] = rng.integers(1, 8, lap_len[3, ::11].shape)
-    for lane in range(b):
-        n3 = lap_len[3, lane]
-        states[3, :n3, :, lane] = xcl[121 - n3:]
-    states = np.round(states * 2) / 2
-    t = np.arange(T_ROWS)[None, :, None]
-    qfun = np.maximum(lap_len[:, None, :] - 1.0 - t, 0.0)
-    rows = rng.integers(0, 121, b)
-    x = np.round((xcl[rows] + rng.normal(size=(b, 4))
-                  * [1.0, 1.0, 0.3, 0.05]) * 2) / 2
-    f = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)
-    lap_ids, lap_ok, _ = _step_solver_inputs(lap_count, nsi, MAX_LAPS, None,
-                                             b, dev)
-    skip = (torch.arange(b, device=dev) % 7 == 0).float()
-    obs = _lanes(b, torch.float64, dev)[3]
-    return (f(x.T).contiguous(), f(x.T).contiguous(), f(states), f(qfun),
-            torch.tensor(lap_len, device=dev), lap_ids, lap_ok, obs, skip)
-
-
+# ---- K1 at k = 32: one lane a warp ----
 @pytest.mark.parametrize("nsi,lap_count", [(2, 4), (4, 4), (4, 2)])
 def test_k1_blocks_of_32_candidates_match_plain_bitwise(dev, nsi, lap_count):
     p, l = IlqrParams.make(num_ss_points=32, num_ss_iter=nsi), \
         SystemLimits.make()
-    args = _k1_block_inputs(nsi, lap_count, dev)
+    args = k1_block_lanes(nsi, lap_count, dev)
     k1 = build_fused_i2lqr_step(p, l, 1.0, num_horizon=N, max_steps=T_ROWS,
                                 max_laps=MAX_LAPS, max_iter=CAP)
     for dtype in (torch.float32, torch.float64):
@@ -315,7 +280,7 @@ def test_sweep_on_the_card_launches_k1(dev, k, nsi):
 def test_k1_raises_where_nothing_is_instantiated(dev, k, nsi, max_steps):
     p, l = IlqrParams.make(num_ss_points=k, num_ss_iter=nsi), \
         SystemLimits.make()
-    a = list(_k1_block_inputs(4, 4, dev, b=64))
+    a = list(k1_block_lanes(4, 4, dev, b=64))
     a[2] = torch.zeros((MAX_LAPS, max_steps, 4, 64), dtype=torch.float64,
                        device=dev)
     a[3] = torch.zeros((MAX_LAPS, max_steps, 64), dtype=torch.float64,

@@ -2,7 +2,8 @@
 (experiments/headlines.py), on the CPU: the lap-records hash tells runs
 apart by their bits, the capturing step solver keeps the inputs of the
 steps its rule names while the run goes on through the kernel's CPU
-route, and K4's edge-case and random lanes are what they say."""
+route, K4's edge-case and random lanes are what they say, and the
+candidates a step at k = 32 needs are each distinct (lap, row) once."""
 
 import types
 
@@ -16,7 +17,8 @@ from ilqr_iterative_tasks_torch.experiments import headlines
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
 from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
     obstacle_to_lanes_nlmpc)
-from ilqr_iterative_tasks_torch.ops.i2lqr_step import build_fused_i2lqr_step
+from ilqr_iterative_tasks_torch.ops.i2lqr_step import (
+    build_fused_i2lqr_step, i2lqr_step_reference)
 from ilqr_iterative_tasks_torch.sim.seed import seed_trajectory
 from ilqr_iterative_tasks_torch.utils.params import IlqrParams, SystemLimits
 
@@ -153,3 +155,27 @@ def test_random_k4_lanes_are_phase_7s_draws():
     got = headlines.random_k4_lanes("cpu")
     for g, w in zip(got, want):
         assert np.array_equal(g.numpy(), np.asarray(w, dtype=g.numpy().dtype))
+
+
+@pytest.mark.parametrize("nsi,lap_count", [(4, 2), (4, 4)])
+def test_k32_distinct_gives_each_needed_candidate_once(nsi, lap_count):
+    # the candidates a step needs are the distinct (lap, row) of the valid
+    # slots of stored laps over the three passes, each once, at the first
+    # lap row of its lap id
+    a = headlines.k1_block_lanes(nsi, lap_count, "cpu", b=10)
+    p = IlqrParams.make(num_ss_points=32, num_ss_iter=nsi, device="cpu")
+    cands = []
+    i2lqr_step_reference(p, SystemLimits.make(device="cpu"), 1.0, *a,
+                         max_iter=16, cands=cands)
+    solved = headlines.k32_distinct(a[5], a[6], cands)
+    laps, oks = a[5].tolist(), a[6].tolist()
+    for lane in range(10):
+        got = [(laps[c // 32], int(idx[c, lane]))
+               for m, (idx, _, _) in zip(solved, cands)
+               for c in range(nsi * 32) if m[c, lane]]
+        want = {(laps[c // 32], int(idx[c, lane]))
+                for idx, fin, _ in cands for c in range(nsi * 32)
+                if oks[c // 32] and fin[c, lane]}
+        assert len(got) == len(set(got)) and set(got) == want
+        assert all(laps.index(laps[c // 32]) == c // 32
+                   for m in solved for c in range(nsi * 32) if m[c, lane])

@@ -1,10 +1,12 @@
-"""The K3, K4 and K5 kernel sources (csrc/fused_ilqr.cu,
-csrc/fused_lm_shooting.cu, csrc/generic_ilqr.cu) run on the host: g++
-builds them against tests/host_cuda/cuda_runtime.h, which runs every CUDA
-thread of a launch as a host thread (the lane counter as a host atomic,
-a warp's ballots and shuffles through a barrier of its 32 threads), so the
-lanes refilled from the counter by a grid of one block of 128 threads are
-held bit for bit against the plain versions without a card. The host's
+"""The K1, K3, K4 and K5 kernel sources (csrc/i2lqr_step.cu,
+csrc/fused_ilqr.cu, csrc/fused_lm_shooting.cu, csrc/generic_ilqr.cu) run
+on the host: g++ builds them against tests/host_cuda/cuda_runtime.h, which
+runs every CUDA thread of a launch as a host thread (the lane counter as a
+host atomic, a warp's ballots, shuffles and __syncwarp through a barrier
+of its 32 threads, a block's shared memory as static storage with one
+block at a time), so the lanes refilled from the counter by a grid of one
+block of 128 threads are held bit for bit against the plain versions
+without a card. The host's
 libm stands in for CUDA's, and torch's CPU sin / cos / exp differ from it
 in the last bit, so only the double integrator (no transcendental) is held
 against its plain version; the bicycle, the unicycle, K3 and K4 are held
@@ -27,7 +29,8 @@ import torch
 from ilqr_iterative_tasks_torch.experiments.generic_bench import (
     generic_kwargs, k5_task, throughput_inputs)
 from ilqr_iterative_tasks_torch.experiments.headlines import (
-    K4_EDGE_CASES, k4_edge_lanes)
+    K4_EDGE_CASES, MAX_LAPS, MAX_STEPS, k1_block_lanes, k32_distinct,
+    k4_edge_lanes)
 from ilqr_iterative_tasks_torch.models import double_integrator
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
 from ilqr_iterative_tasks_torch.ops import _build
@@ -37,6 +40,8 @@ from ilqr_iterative_tasks_torch.ops.fused_ilqr import (
     DTYPE_CODES, build_fused_ilqr, fused_ilqr_reference, obstacle_to_lanes)
 from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
     build_fused_lm_shooting, fused_lm_shooting_reference)
+from ilqr_iterative_tasks_torch.ops.i2lqr_step import (
+    build_fused_i2lqr_step, i2lqr_step_reference)
 from ilqr_iterative_tasks_torch.sim.seed import seed_trajectory
 from ilqr_iterative_tasks_torch.utils.params import IlqrParams, SystemLimits
 
@@ -46,6 +51,10 @@ SOURCES = ("fused_ilqr.cu", "fused_lm_shooting.cu", "generic_ilqr.cu")
 LAUNCHERS = ("fused_ilqr_launch", "fused_lm_shooting_launch",
              "generic_ilqr_launch")
 MANY_SMS = 33  # 4 224 threads: every lane of these tests by its index
+# K1, its blocks one at a time (shared memory), counting each lane's solves
+K1_SOURCES, K1_LAUNCHERS = ("i2lqr_step.cu",), ("i2lqr_step_launch",)
+K1_FLAGS = ("-DEMU_SHARED", "-DK1_ON_SOLVE(lane)=emu::count(lane)")
+K1_LANES = 33  # lanes of the K1 tests: blocks of 4 or 2, a ragged edge
 
 
 def host_source(text: str) -> str:
@@ -53,7 +62,9 @@ def host_source(text: str) -> str:
     ``emu::launcher(kernel, grid, block, ...)(args)``."""
     out, i = [], 0
     while (j := text.find("<<<", i)) >= 0:
-        k, depth = j - 1, 0  # back over the kernel's name and <...>
+        k, depth = j - 1, 0  # back over blanks, the kernel's name and <...>
+        while text[k].isspace():
+            k -= 1
         while k >= 0 and (depth or text[k].isalnum() or text[k] in "_:<>"):
             depth += {">": 1, "<": -1}.get(text[k], 0)
             k -= 1
@@ -64,48 +75,52 @@ def host_source(text: str) -> str:
     return "".join(out + [text[i:]])
 
 
-def _start_host_build(d, sms):
-    """g++ of the sources, as host code, into directory d for a card of
-    ``sms`` SMs, one compiler a source; returns (the compilers' processes,
-    the libraries' paths)."""
+def _start_host_build(d, sms, sources=SOURCES, flags=()):
+    """g++ of ``sources``, as host code, into directory d for a card of
+    ``sms`` SMs, one compiler a source, with the extra ``flags``; returns
+    (the compilers' processes, the libraries' paths)."""
     d.mkdir()
     for name in os.listdir(_build.CSRC_DIR):
         with open(os.path.join(_build.CSRC_DIR, name)) as f:
             (d / name).write_text(host_source(f.read()))
     procs, sos = [], []
-    for src in SOURCES:
+    for src in sources:
         sos.append(str(d / (src + ".so")))
         procs.append(subprocess.Popen(
             ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC",
              "-fno-gnu-unique", "-shared", "-pthread", "-w",
-             f"-DEMU_SMS={sms}", "-x", "c++", "-I", SHIM, "-o", sos[-1],
-             str(d / src)]))
+             f"-DEMU_SMS={sms}", *flags, "-x", "c++", "-I", SHIM, "-o",
+             sos[-1], str(d / src)]))
     return procs, sos
 
 
 class _Lib:
     """The launchers of one build's libraries, by name."""
 
-    def __init__(self, procs, sos):
+    def __init__(self, procs, sos, launchers=LAUNCHERS):
         assert all(p.wait() == 0 for p in procs)
-        for name, so in zip(LAUNCHERS, sos):
-            fn = getattr(ctypes.CDLL(so), name)
+        for name, so in zip(launchers, sos):
+            dll = ctypes.CDLL(so)
+            fn = getattr(dll, name)
             fn.argtypes = _build._ARGTYPES[name]
             setattr(self, name, fn)
+        self.emu_count_into = dll.emu_count_into
 
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
     """(the sources on a card of one SM, one block of 128 threads that
     refills; on a card of MANY_SMS, whose grid holds every lane of these
-    tests), host builds made at once (the static lane grid of each build
-    is its own: -fno-gnu-unique)"""
+    tests; K1, counting its solves), host builds made at once (the static
+    lane grid of each build is its own: -fno-gnu-unique)"""
     if shutil.which("g++") is None:
         pytest.skip("needs g++")
     d = tmp_path_factory.mktemp("host_kernels")
     builds = [_start_host_build(d / "one_sm", 1),
-              _start_host_build(d / "many_sms", MANY_SMS)]
-    return tuple(_Lib(*b) for b in builds)
+              _start_host_build(d / "many_sms", MANY_SMS),
+              _start_host_build(d / "k1", 1, K1_SOURCES, K1_FLAGS)]
+    return (_Lib(*builds[0]), _Lib(*builds[1]),
+            _Lib(*builds[2], launchers=K1_LAUNCHERS))
 
 
 @pytest.fixture(scope="module")
@@ -264,3 +279,43 @@ def test_k4_lane_queue_matches_a_grid_of_every_lane(libs, case, dtype):
     assert float((got[0] == want[0]).all(dim=(0, 1))[skipped].double()
                  .mean().nan_to_num(1.0)) >= 0.99
     assert float((got[3] == want[3]).double().mean()) >= 0.97
+
+
+@pytest.mark.parametrize("nsi,lap_count", [(2, 4), (4, 4), (4, 2), (4, 1)])
+def test_k1_at_32_candidates_matches_plain_solving_each_once(libs, nsi,
+                                                            lap_count):
+    # tied distances, laps of 1-7 and of fewer than 32 rows, laps not yet
+    # stored (lap_count < nsi; at 1 every lap id clips to the seed lap),
+    # skipped lanes
+    k1_lib = libs[2]
+    p = IlqrParams.make(num_ss_points=32, num_ss_iter=nsi, device="cpu")
+    lim = SystemLimits.make(device="cpu")
+    k1 = build_fused_i2lqr_step(p, lim, 1.0, num_horizon=6,
+                                max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+                                max_iter=16)
+    a = k1_block_lanes(nsi, lap_count, "cpu", b=K1_LANES)
+    b, dt = K1_LANES, torch.float64
+    out = (torch.full((6, 2, b), torch.nan, dtype=dt),
+           torch.full((b,), torch.nan, dtype=dt),
+           torch.full((b,), -1, dtype=torch.int32),
+           torch.full((b,), -1, dtype=torch.int32))
+    counts = torch.zeros(b, dtype=torch.int32)
+    k1_lib.emu_count_into(ctypes.c_void_p(counts.data_ptr()))
+    assert k1_lib.i2lqr_step_launch(
+        DTYPE_CODES[dt], 6, 32, nsi, k1._consts, 16, b, MAX_STEPS, MAX_LAPS,
+        *map(_ptr, (*a, *out)), None) == 0
+    k1_lib.emu_count_into(None)
+    cands = []
+    want = i2lqr_step_reference(p, lim, 1.0, *a, max_iter=16, cands=cands)
+    for g, w in zip(out[1:], want[1:]):
+        assert torch.equal(g, w)
+    # the host's libm stands in for CUDA's: us to the last bits
+    torch.testing.assert_close(out[0], want[0], rtol=0, atol=1e-9)
+    # each distinct candidate the step needs solved once, the final
+    # winner at most once more a pass and once at the end
+    active = a[8] < 0.5
+    need = sum(m.long().sum(0) for m in k32_distinct(a[5], a[6], cands))
+    got = counts.long()
+    assert bool(((need <= got) & (got <= need + 4))[active].all())
+    assert int(got[~active].abs().sum()) == 0
+    assert int(got[active].max()) < 3 * nsi * 32
