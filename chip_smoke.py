@@ -147,10 +147,33 @@ tier's benchmarks through the generic LM-iLQR kernel K5. Phases:
 25. exact resume on the card: the i2LQR run through K1 and the NLMPC
    spaceVarying run through K2 at B = 4 096 (seed 0): 2 laps, a checkpoint
    (utils/checkpoint.py) to a temporary file, loaded and resumed for 2
-   more laps on a generator of another seed, must hash as the 4-lap run.
+   more laps on a generator of another seed, must hash as the 4-lap run;
+26. the i2LQR host tier on the card: the step-by-step I2LqrController
+   (control/i2lqr.py), each relaxation pass one K3 launch over every
+   candidate of every lap in its window, driven by
+   experiments/runner.py's ``run_closed_loop``: f64 in the CI
+   configuration (obstacle (31, -2) 8 x 6, zero noise, goal appended, 5
+   laps), whose laps must equal the JAX host controller's parallel-sweep
+   f64 sequence; f32 over 3 laps (lap 1 <= 60, the last <= 30); and the
+   demo CLI's setting (BASELINE config 1) through experiments/ilqr_test.py
+   ``main([..., "--device", "cuda"])``, within 1 of [54, 29, 23]. K3's
+   launches must be 3 x the steps that solved (the controller counts them;
+   replay and horizon-1 steps do not solve). Each run prints its wall
+   seconds, ms a solving ``calc_input`` (median, p99) and lanes a launch;
+   K3 on a pass captured in the f64 run's lap 2 equals its plain version
+   bit for bit, with both ms;
+27. the NLMPC host tier on the card: NlmpcController (control/nlmpc.py),
+   one K4 launch a solving step over every lap's candidates, f64 zero
+   noise, 3 laps in spaceVarying, timeVarying and all + all_ss_iter, whose
+   laps must equal the JAX host's [32, 23, 23], [111, 104, 97] and [26,
+   22, 22]; K4's launches must equal the steps that solved, and every step
+   recorded infeasible must come from the plant's one caught exception,
+   InfeasibleStep; K4 on a step captured in the spaceVarying run's lap 2
+   equals its plain version bit for bit, with both ms.
 
 Every simulator run of the headlines (experiments/headlines.py) and of
-phases 24-25 runs inside ``no_plain_solve_on_card``: a plain candidate
+phases 24-25, and every host controller run of phases 26-27, runs inside
+``no_plain_solve_on_card``: a plain candidate
 solve that sees a CUDA tensor raises.
 
 Every phase raises on failure, so the script exits non-zero. It prints the
@@ -169,7 +192,8 @@ position within the reach bound, the forward all scan a row at its first
 difference with the best row). K2 has one entry a mode. Each kernel's
 figures come from the inputs of the run whose launches they sit beside
 (K3: phase 11's ``--kernel`` lanes, and phase 22's in its ``i2lqr_path``;
-K4: phase 23's, phase 7's in its ``random_lanes``). It needs a CUDA device
+K4: phase 23's, phase 7's in its ``random_lanes``; the ``host_path`` of
+each, phases 26-27's runs and captured call). It needs a CUDA device
 and the repository.
 """
 
@@ -234,6 +258,16 @@ HOST_EVERY_TV_LAPS = [111, 102, 93]
 # 0.9120 (standard error 0.0018), timeVarying 0.9851 (0.0008); PERF.md
 EVERY_COMPLETION_MIN = {"spaceVarying": 0.9066, "timeVarying": 0.9827}
 RESUME_BATCH = 4096  # phase 25
+# the JAX package's host I2LqrController, parallel sweep, f64, the CI
+# configuration (obstacle (31, -2) 8 x 6, zero noise, goal appended, 5
+# laps): computed on the CPU with the JAX package, as the slow test
+# tests/test_torch_host_i2lqr.py::test_five_lap_parallel_matches_jax
+# computes it beside the port's plain f64 loop (the same laps); the JAX
+# package's own test holds it within 2 of the
+# reference's [54, 27, 24, 24, 24] (tests/test_closed_loop_i2lqr.py:37)
+HOST_I2LQR_F64_LAPS = [55, 28, 23, 23, 23]
+# BASELINE config 1, the demo CLI (tests/test_closed_loop_i2lqr.py:119-133)
+DEMO_LAPS = [54, 29, 23]
 # host controller, f64, k = 32 / nsi = 2, 4 laps: the JAX package's
 # I2LqrController run as tests/test_ragged_selection.py:107-146 runs it
 # (computed once on the CPU; the port's plain f64 loop gives the same)
@@ -645,6 +679,170 @@ def check_candidate_steps(tag, captured, step, kernel, skip_at):
                                  calls=rec.calls)
         print(line, flush=True)
     return stats
+
+
+class HostCapture:
+    """Wraps a host controller's ``k3`` / ``k4`` method: the kernel it
+    returns keeps a copy of the inputs of the first call made while the
+    controller's safe set holds ``laps`` laps (the seed lap and laps - 1
+    learning laps, so the call is in learning lap ``laps``)."""
+
+    def __init__(self, ctrl, method, laps):
+        self.ctrl, self.laps, self.captured = ctrl, laps, None
+        built = getattr(ctrl, method)
+        setattr(ctrl, method, lambda *a: self.wrap(built(*a)))
+
+    def wrap(self, kernel):
+        def call(*args):
+            if self.captured is None and self.ctrl.iter == self.laps:
+                self.captured = (kernel, [a.clone() for a in args])
+            return kernel(*args)
+        return call
+
+
+def host_run(tag, run, per_step, card):
+    """One closed-loop run of a host controller on the card, ``run()``
+    returning its RunResult. The controller builds its own kernels, so
+    their launch counts start at 0 with the run. Returns (result, figures):
+    laps, wall seconds, the kernels' launches (which must be ``per_step``
+    x the steps that solved), ms a solving ``calc_input`` (median, p99;
+    host clock, after the outputs reached the host) and the lanes of each
+    launch."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run()
+    wall = time.perf_counter() - t0
+    ctrl = res.plant.ctrl_policy
+    kernels = ctrl._k3 if hasattr(ctrl, "_k3") else ctrl._k4
+    launches = sum(k.launches for k in kernels.values())
+    solved = len(ctrl.solve_seconds)
+    ms = np.asarray(ctrl.solve_seconds) * 1e3
+    lanes = np.asarray(ctrl.launch_lanes)
+    out = dict(laps=[int(t) for t in res.all_lap_times],
+               finished=list(res.lap_finished), wall_s=wall,
+               solve_steps=solved, launches=launches,
+               ms_per_calc_input={"median": float(np.median(ms)),
+                                  "p99": float(np.percentile(ms, 99))},
+               lanes_per_launch={"min": int(lanes.min()),
+                                 "median": float(np.median(lanes)),
+                                 "max": int(lanes.max())})
+    print(f"[{tag}] {json.dumps(out)}; card {card}", flush=True)
+    require(solved > 0 and launches == per_step * solved,
+            f"{tag}: {launches} kernel launches on {solved} solving steps "
+            f"({per_step} a step)")
+    return res, out
+
+
+def host_capture_check(tag, cap, plain):
+    """The captured kernel call against ``plain`` on the same inputs on
+    the card, bit for bit; returns the kernel's and the plain version's
+    ms a call."""
+    require(cap.captured is not None, f"{tag}: no call captured")
+    kernel, a = cap.captured
+    out = kernel(*a)
+    ref, plain_ms = timed_call(lambda: plain(*a))
+    require(all(torch.equal(g, w) for g, w in zip(out, ref)),
+            f"{tag}: the kernel differs from its plain version")
+    ms = cuda_ms(lambda: kernel(*a), 5)
+    print(f"[{tag}] {a[1].shape[-1]} lanes, bitwise equal to the plain "
+          f"version; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms a call",
+          flush=True)
+    return dict(lanes=a[1].shape[-1], ms=ms, plain_ms=plain_ms,
+                max_abs_err=float(max((g - w).abs().max()
+                                      for g, w in zip(out, ref))))
+
+
+def host_tier(card):
+    """Phases 26-27: the host controllers on the card through K3 and K4;
+    returns the ``host_path`` figures of K3 and K4."""
+    from ilqr_iterative_tasks_torch.control.i2lqr import I2LqrController
+    from ilqr_iterative_tasks_torch.control.nlmpc import (
+        HOST_LM_ITERS, NlmpcController)
+    from ilqr_iterative_tasks_torch.experiments import ilqr_test
+    from ilqr_iterative_tasks_torch.experiments.runner import (
+        default_obstacle, run_closed_loop)
+    from ilqr_iterative_tasks_torch.ops.fused_ilqr import fused_ilqr_reference
+    from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
+        fused_lm_shooting_reference)
+    from ilqr_iterative_tasks_torch.sim.plant import InfeasibleStep
+    from ilqr_iterative_tasks_torch.utils.params import IlqrParams, LmpcParams
+
+    # ---- 26. the i2LQR host tier on the card through K3 ----
+    f64 = torch.float64
+    t26 = time.perf_counter()
+    host_k3 = {}
+    demo = ["--lap-number", "3", "--num-ss-iters", "2", "--num-ss-points",
+            "8", "--device", "cuda"]
+    with no_plain_solve_on_card():
+        ctrl = I2LqrController(IlqrParams.make(dtype=f64),
+                               obstacle=default_obstacle(1.0), dtype=f64)
+        cap26 = HostCapture(ctrl, "k3", 2)
+        res, host_k3["ci_f64"] = host_run(
+            "26 i2LQR host f64, CI configuration, 5 laps",
+            lambda: run_closed_loop(ctrl, 5, goal_fixup="append"), 3, card)
+        require(all(res.lap_finished) and res.seed_time == 120.0
+                and host_k3["ci_f64"]["laps"][1:] == HOST_I2LQR_F64_LAPS,
+                f"i2LQR host f64: laps {host_k3['ci_f64']['laps']}, the JAX "
+                f"host's {HOST_I2LQR_F64_LAPS}")
+        res, host_k3["ci_f32"] = host_run(
+            "26 i2LQR host f32, 3 laps",
+            lambda: run_closed_loop(
+                I2LqrController(IlqrParams.make(),
+                                obstacle=default_obstacle(1.0)),
+                3, goal_fixup="append"), 3, card)
+        require(all(res.lap_finished) and res.lap_times[0] <= 60.0
+                and res.lap_times[-1] <= 30.0,
+                f"i2LQR host f32: laps {res.lap_times}")
+        res, host_k3["demo_cli"] = host_run(
+            "26 i2LQR host, experiments/ilqr_test.py " + " ".join(demo),
+            lambda: ilqr_test.main(demo), 3, card)
+        require(all(res.lap_finished) and all(
+            abs(t - w) <= 1 for t, w in zip(res.lap_times, DEMO_LAPS)),
+            f"i2LQR demo CLI: laps {res.lap_times}, want {DEMO_LAPS} +- 1")
+    host_k3["captured_pass"] = host_capture_check(
+        "26 K3 on a captured pass of the f64 run, lap 2", cap26,
+        lambda *a: fused_ilqr_reference(
+            ctrl.params, ctrl.limits, 1.0, *a, num_horizon=N,
+            max_iter=ctrl.params.max_ilqr_iter))
+    host_k3["seconds"] = time.perf_counter() - t26
+    print(f"[26 i2LQR host tier] {host_k3['seconds']:.1f} s", flush=True)
+
+    # ---- 27. the NLMPC host tier on the card through K4 ----
+    t27 = time.perf_counter()
+    host_k4 = {}
+    modes = {"spaceVarying": (dict(ss_option="spaceVarying"),
+                              HOST_NLMPC_LAPS),
+             "timeVarying": (dict(ss_option="timeVarying"), HOST_TV_LAPS),
+             "all": (dict(all_ss_point=True, all_ss_iter=True),
+                     HOST_ALL_LAPS)}
+    with no_plain_solve_on_card():
+        for mode, (kw, want) in modes.items():
+            ctrl = NlmpcController(LmpcParams.make(**kw),
+                                   obstacle=default_obstacle(1.0), dtype=f64)
+            if mode == "spaceVarying":
+                cap27, ctrl27 = HostCapture(ctrl, "k4", 2), ctrl
+            res, host_k4[mode] = host_run(
+                f"27 NLMPC host f64 {mode}, 3 laps",
+                lambda: run_closed_loop(ctrl, 3, goal_fixup=None), 1, card)
+            require(all(res.lap_finished)
+                    and host_k4[mode]["laps"][1:] == want,
+                    f"NLMPC host {mode}: laps {host_k4[mode]['laps']}, the "
+                    f"JAX host's {want}")
+            zeros = sum(int((f == 0).sum())
+                        for f in res.plant.diagnostics["feasibility"])
+            errs = res.plant.infeasible_errors
+            require(zeros == len(errs) and all(
+                isinstance(e, InfeasibleStep) for e in errs),
+                f"NLMPC host {mode}: {zeros} infeasible steps, "
+                f"{len(errs)} from InfeasibleStep")
+            host_k4[mode]["infeasible_steps"] = zeros
+    host_k4["captured_call"] = host_capture_check(
+        "27 K4 on a captured step of the spaceVarying run, lap 2", cap27,
+        lambda *a: fused_lm_shooting_reference(
+            ctrl27.limits, 1.0, *a, num_horizon=N, max_iters=HOST_LM_ITERS))
+    host_k4["seconds"] = time.perf_counter() - t27
+    print(f"[27 NLMPC host tier] {host_k4['seconds']:.1f} s", flush=True)
+    return host_k3, host_k4
 
 
 def main():
@@ -1918,6 +2116,8 @@ def main():
           f"{ker['bicycle_k3_solves_per_s']:.1f} solves/s (B="
           f"{G_KERNEL_LANES}, K5/K3 time {ker['k5_vs_k3_time_ratio']}); K5 "
           f"launches {k5_launches}, card {card}", flush=True)
+
+    host_k3, host_k4 = host_tier(card)
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
 
     csrc, tpu = "ilqr_iterative_tasks_torch/csrc/", "ilqr_iterative_tasks_tpu/ops/"
@@ -1964,7 +2164,7 @@ def main():
              source=csrc + "fused_ilqr.cu",
              replaces=tpu + "pallas_ilqr.py:87",
              launches=k3_path_launches, **k3_stats, **occupancy["k3"],
-             i2lqr_path=k3_path),
+             i2lqr_path=k3_path, host_path=host_k3),
         # K4's figures are the NLMPC headline's through it (phase 23: the
         # launches of its run, the rest on the lap-2 capture's lanes);
         # phase 7's random lanes and phase 24's every-lap runs beside them
@@ -1972,7 +2172,8 @@ def main():
              source=csrc + "fused_lm_shooting.cu",
              replaces=tpu + "pallas_lm_shooting.py:97",
              on_main_path=True, **k4_path, **occupancy["k4"],
-             random_lanes=k4_stats, every_stored_lap=every),
+             random_lanes=k4_stats, every_stored_lap=every,
+             host_path=host_k4),
         dict(name="generic_ilqr (K5)", route="cuda",
              source=csrc + "generic_ilqr.cu",
              replaces=tpu + "pallas_generic_ilqr.py:64",

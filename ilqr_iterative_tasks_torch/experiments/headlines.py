@@ -369,14 +369,19 @@ def tap_step(module, name, lap_arg, want, all_iter=False):
 @contextlib.contextmanager
 def no_plain_solve_on_card():
     """Inside the block, the plain candidate solves (``ilqr_solve_soa``,
-    ``lm_feasibility_solve_soa``), as the plain steps and the kernels' CPU
-    routes call them, raise on a CUDA tensor: on the card a simulator's
-    candidate solves are K3's or K4's, never the plain version's."""
+    ``lm_feasibility_solve_soa``), as the plain steps, the kernels' CPU
+    routes and ops/ilqr.py call them, and the host tier's own solves
+    (ops/ilqr.py ``ilqr_solve``, ops/lm_shooting.py, ops/al_ilqr.py) raise
+    on a CUDA tensor: on the card a simulator's or a host controller's
+    candidate solves are K3's or K4's, never a plain version's."""
     from ilqr_iterative_tasks_torch.ops import (
-        fused_ilqr, fused_lm_shooting, i2lqr_step, nlmpc_step)
-    sites = [(m, "ilqr_solve_soa") for m in (i2lqr_step, fused_ilqr)] + [
+        al_ilqr, fused_ilqr, fused_lm_shooting, i2lqr_step, ilqr,
+        lm_shooting, nlmpc_step)
+    sites = [(m, "ilqr_solve_soa") for m in (i2lqr_step, fused_ilqr, ilqr)] + [
         (m, "lm_feasibility_solve_soa") for m in (nlmpc_step,
-                                                  fused_lm_shooting)]
+                                                  fused_lm_shooting)] + [
+        (ilqr, "ilqr_solve"), (lm_shooting, "_solve_batch"),
+        (al_ilqr, "al_ilqr_solve")]
     saved = [getattr(m, name) for m, name in sites]
 
     def guard(fn, name):

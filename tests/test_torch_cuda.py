@@ -1066,3 +1066,52 @@ def test_resume_is_exact_on_the_card(dev, path, kind, tmp_path):
     assert torch.equal(rest.final_x, whole.final_x)
     for a, b in zip(rest.safe_set, whole.safe_set):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["i2lqr", "nlmpc", "nlmpc_hzn3"])
+def test_host_controller_step_on_the_card_matches_the_cpu(dev, kind):
+    """One calc_input of a host controller (control/i2lqr.py through K3,
+    control/nlmpc.py through K4) on the card and on the CPU (the kernels'
+    plain versions), f64, from a state of the seed lap: the same inputs
+    and predicted states (1e-8) and the same shrink, with three K3
+    launches (one a relaxation pass) or one K4 launch on the card.
+    ``nlmpc_hzn3`` shrinks the NLMPC horizon to 3 with a matching warm
+    start, so the N = 6 K4 solves with hzn = 3 lanes and a zero-padded
+    warm start."""
+    from ilqr_iterative_tasks_torch.control.i2lqr import I2LqrController
+    from ilqr_iterative_tasks_torch.control.nlmpc import NlmpcController
+    from ilqr_iterative_tasks_torch.experiments.runner import (
+        default_obstacle)
+    f64 = torch.float64
+    xcl, ucl = seed_trajectory(1.0)
+    ctrls = {}
+    for d in (dev, torch.device("cpu")):
+        if kind == "i2lqr":
+            c = I2LqrController(IlqrParams.make(dtype=f64, device=d),
+                                obstacle=default_obstacle(1.0), dtype=f64,
+                                device=d)
+        else:
+            c = NlmpcController(LmpcParams.make(device=d),
+                                obstacle=default_obstacle(1.0), dtype=f64,
+                                device=d)
+        c.add_trajectory(xcl, ucl)
+        c.set_timestep(1.0)
+        if kind == "nlmpc_hzn3":
+            c.num_horizon = 3
+            c.x_guess = np.concatenate([xcl[10:14].flatten(),
+                                        ucl[10:13].flatten()])
+            c.x_terminal_guess = xcl[13].copy()
+        c.set_state(xcl[10])
+        c.calc_input()
+        ctrls[d.type] = c
+    card, cpu = ctrls["cuda"], ctrls["cpu"]
+    for name in ("u", "x_pred", "u_pred", "x_terminal_guess"):
+        np.testing.assert_allclose(getattr(card, name), getattr(cpu, name),
+                                   rtol=0, atol=1e-8)
+    assert card.num_horizon == cpu.num_horizon
+    if kind == "nlmpc_hzn3":
+        assert card.x_pred.shape == (4, 4) and card.u_pred.shape == (2, 3)
+    kernels = card._k3 if kind == "i2lqr" else card._k4
+    assert sum(k.launches for k in kernels.values()) == (
+        3 if kind == "i2lqr" else 1)
+    assert card.launch_lanes == cpu.launch_lanes

@@ -7,6 +7,8 @@ import pytest
 import torch
 
 from ilqr_iterative_tasks_torch.control.batched_soa import SoaScenarios
+from ilqr_iterative_tasks_torch.control.i2lqr import I2LqrController
+from ilqr_iterative_tasks_torch.control.nlmpc import NlmpcController
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
 from ilqr_iterative_tasks_torch.ops.generic_ilqr import GenericIlqrConfig
 from ilqr_iterative_tasks_torch.utils import convert, device
@@ -25,6 +27,10 @@ ENTRY_POINTS = {
     "convert.tensor": lambda: convert.tensor(np.ones(3)),
     "GenericIlqrConfig.make": lambda: GenericIlqrConfig.make(
         np.zeros((2, 2)), np.eye(1), np.eye(2), [-1.0], [1.0]).u_upper,
+    "I2LqrController": lambda: I2LqrController(
+        IlqrParams.make(device="cpu")).limits.a_max,
+    "NlmpcController": lambda: NlmpcController(
+        LmpcParams.make(device="cpu")).limits.a_max,
 }
 
 

@@ -1,6 +1,7 @@
 """The torch port runs without JAX and without the JAX package: in a fresh
 interpreter, import every module of the port, run a tiny i2LQR and a tiny
-NLMPC learning run and a tiny generic-system solve on the CPU, and check
+NLMPC learning run, two steps of each host controller and a tiny
+generic-system solve on the CPU, and check
 that no module of jax or of ``ilqr_iterative_tasks_tpu`` was loaded. A
 source scan holds the same rule for every file of the port and for
 chip_smoke.py."""
@@ -67,6 +68,27 @@ us, x_last, cost, iters = solve(torch.zeros_like(xt), xt,
                                 torch.zeros((6, 2, 2), dtype=torch.float64))
 assert torch.isfinite(us).all() and bool((iters > 0).all())
 assert float((x_last - xt).abs().max()) < 0.1, x_last
+from ilqr_iterative_tasks_torch.control.i2lqr import I2LqrController
+from ilqr_iterative_tasks_torch.control.nlmpc import NlmpcController
+from ilqr_iterative_tasks_torch.experiments.runner import default_obstacle
+from ilqr_iterative_tasks_torch.sim.plant import true_step
+f64 = torch.float64
+for ctrl in (
+        I2LqrController(IlqrParams.make(dtype=f64, device=cpu),
+                        obstacle=default_obstacle(1.0), dtype=f64,
+                        device=cpu),
+        NlmpcController(LmpcParams.make(device=cpu),
+                        obstacle=default_obstacle(1.0), dtype=f64,
+                        device=cpu)):
+    ctrl.add_trajectory(xcl, ucl)
+    ctrl.set_timestep(1.0)
+    x = np.zeros(4)
+    for _ in range(2):
+        ctrl.set_state(x)
+        ctrl.calc_input()
+        x = true_step(x, ctrl.get_input(), 1.0)
+    assert np.isfinite(x).all() and x[0] > 0.5, x
+    assert len(ctrl.solve_seconds) == 2, ctrl.solve_seconds
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in {FORBIDDEN})
 assert not loaded, loaded
