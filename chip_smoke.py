@@ -13,8 +13,11 @@ headlines through the per-candidate path (the plain step's glue as torch
 ops on the card around the candidate kernels K3 and K4), the NLMPC safe
 set over every stored lap through K4, exact resume from a checkpoint, the
 randomized moving-obstacle sweep through K1 (k = 8, with and without the
-stall_reseed guard, and k = 32 over 4 stored laps), and the generic-system
-tier's benchmarks through the generic LM-iLQR kernel K5. Phases:
+stall_reseed guard, and k = 32 over 4 stored laps), the generic-system
+tier's benchmarks through the generic LM-iLQR kernel K5, and the host
+tier (one robot, step by step) through K3 and K4: its controllers, the
+paper scenarios with moving obstacles, host checkpoint and resume, the
+latency bench (with K1), profiling and plots. Phases:
 
 1. device: the card's name and power limit;
 2. build: nvcc of the kernel sources (one process per source), and at
@@ -169,10 +172,51 @@ tier's benchmarks through the generic LM-iLQR kernel K5. Phases:
    22, 22]; K4's launches must equal the steps that solved, and every step
    recorded infeasible must come from the plant's one caught exception,
    InfeasibleStep; K4 on a step captured in the spaceVarying run's lap 2
-   equals its plain version bit for bit, with both ms.
+   equals its plain version bit for bit, with both ms;
+28. the paper scenarios on the card (experiments/scenarios.py): the 10
+   runs {ilqr, nlmpc} x {no, static, add_static, add_moving up, add_moving
+   left} obstacle, 8 laps in f32 through ``run_scenario(...,
+   device="cuda")``, each writing one ego_*.npz with the JAX file's keys;
+   the finished flags equal and every finished lap within 2 of the JAX
+   package's f32 laps on XLA:CPU (of the moving scenarios, the laps before
+   the injection; the later ones are printed beside JAX's); K3 / K4
+   launches = 3 / 1 x the solving steps; the four moving scenarios again
+   in f64 (build_schedule, run_closed_loop): NLMPC's laps equal the JAX
+   package's, i2LQR's before the injection and the moving lap finished
+   (its later laps follow last bits, printed beside JAX's and the CPU
+   route's); a K3 and a K4 call captured in each moving lap (the
+   obstacle's speed lanes non-zero) bit for bit against their plain
+   versions, with their bounds; the i2LQR moving lap and the two after
+   it step by step (``replay_lockstep``), the card's controller given the
+   JAX package's recorded f64 run's state at every step (data/jax_f64/),
+   every input within 1e-8 of the JAX run's;
+29. host checkpoint and resume on the card (utils/checkpoint.py): i2LQR
+   (CI configuration) and NLMPC spaceVarying in f64, 2 laps, save_run,
+   resume_controller into a fresh controller, 1 lap with
+   seed_safe_set=False, each equal to the JAX package's laps and no slower
+   than the last uninterrupted lap; the NLMPC controller resumed from the
+   committed data/ego_nlmpc_ss_8_no_obstacle.npz for one lap, equal to the
+   JAX package's;
+30. the latency bench on the card: ``latency_bench.main(["--device",
+   "cuda"])`` (JAX's defaults: batches 2 048 and 32 768, one device) and
+   its report; completion 1.0 in both per-step runs; the launches each
+   bench function counts (``main(..., launches=)``): K3 = 3 x the i2LQR
+   controller's solving steps and 4 a throughput batch, K4 = the NLMPC
+   controller's solving steps, K1 launched by the whole-step bench and the
+   batched run; K3 on each throughput batch's lanes and K1 on the
+   whole-step bench's inputs at 1 024 lanes and at 1 lane bit for bit
+   against their plain versions, with ms, plain ms, bound and the
+   blocking and pipelined p50 / p99;
+31. profiling and plots on the card: one solving i2LQR lap (f32) under
+   ``utils/profiling.trace`` with an ``annotate`` span, whose trace must
+   hold the span and K3's kernel; the card's busy share of the lap (K3's
+   device seconds, and every kernel's and copy's, over the lap's wall);
+   ``device_memory_stats`` reporting the card; the demo CLI with
+   ``--plotting`` rendering its two figures under Agg (where the machine
+   has matplotlib).
 
 Every simulator run of the headlines (experiments/headlines.py) and of
-phases 24-25, and every host controller run of phases 26-27, runs inside
+phases 24-25, and every host controller run of phases 26-30, runs inside
 ``no_plain_solve_on_card``: a plain candidate
 solve that sees a CUDA tensor raises.
 
@@ -193,11 +237,14 @@ difference with the best row). K2 has one entry a mode. Each kernel's
 figures come from the inputs of the run whose launches they sit beside
 (K3: phase 11's ``--kernel`` lanes, and phase 22's in its ``i2lqr_path``;
 K4: phase 23's, phase 7's in its ``random_lanes``; the ``host_path`` of
-each, phases 26-27's runs and captured call). It needs a CUDA device
-and the repository.
+each, phases 26-27's runs and captured call; ``scenarios``, phases
+28-29's; ``latency_bench``, phase 30's, of K1 too, and K3's traced lap,
+phase 31's). The host tier's f64 calls are bounded at 34 TFLOP/s (f64
+without tensor cores). It needs a CUDA device and the repository.
 """
 
 import concurrent.futures
+import dataclasses
 import json
 import os
 import sys
@@ -207,6 +254,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
@@ -268,6 +316,54 @@ RESUME_BATCH = 4096  # phase 25
 HOST_I2LQR_F64_LAPS = [55, 28, 23, 23, 23]
 # BASELINE config 1, the demo CLI (tests/test_closed_loop_i2lqr.py:119-133)
 DEMO_LAPS = [54, 29, 23]
+# the paper scenarios (experiments/scenarios.py, 8 laps, zero noise, dt 1):
+# the JAX package's laps and finished flags, computed once on the CPU with
+# its run_scenario (f32, XLA:CPU) and, for the moving obstacle in f64, its
+# build_schedule + run_closed_loop, as phase 28 runs the port's
+SCENARIO_CASES = (("no_obstacle", "up"), ("static_obstacle", "up"),
+                  ("add_static_obstacle", "up"),
+                  ("add_moving_obstacle", "up"),
+                  ("add_moving_obstacle", "left"))
+_T8, _T6FF, _T5FFF = [True] * 8, [True] * 6 + [False] * 2, (
+    [True] * 5 + [False] * 3)
+SCENARIO_F32 = {
+    "ilqr_ss_8_no_obstacle": ([54, 29, 25, 23, 23, 23, 23, 23], _T8),
+    "ilqr_ss_8_static_obstacle": ([55, 28, 24, 23, 23, 23, 23, 23], _T8),
+    "ilqr_ss_8_add_static_obstacle": ([54, 29, 25, 23, 23, 23, 23, 23], _T8),
+    "ilqr_ss_8_add_moving_obstacle_up": ([54, 29, 25, 23, 23, 79, 121, 121],
+                                         _T6FF),
+    "ilqr_ss_8_add_moving_obstacle_left": ([54, 29, 25, 23, 23, 45, 54, 101],
+                                           _T8),
+    "nlmpc_ss_8_no_obstacle": ([32] + [22] * 7, _T8),
+    "nlmpc_ss_8_static_obstacle": ([32] + [22] * 7, _T8),
+    "nlmpc_ss_8_add_static_obstacle": ([32] + [22] * 7, _T8),
+    "nlmpc_ss_8_add_moving_obstacle_up": ([32, 22, 22, 22, 22, 26, 23, 22],
+                                          _T8),
+    "nlmpc_ss_8_add_moving_obstacle_left": (
+        [32, 22, 22, 22, 22, 121, 121, 121], _T5FFF),
+}
+# the moving-obstacle scenarios in f64: the JAX package's laps (all
+# finished; its i2LQR runs are data/jax_f64/) and the port's plain route
+# on the CPU. The i2LQR laps from the injection on follow last bits: the
+# port makes the JAX run's decision at every step of laps 5-7 given its
+# states (phase 28's lockstep, tests/test_torch_scenarios.py), and the
+# JAX run's own laps change under a 1e-12 move of the state
+SCENARIO_F64 = {
+    ("ilqr", "up"): [54, 29, 25, 23, 23, 77, 86, 62],
+    ("ilqr", "left"): [54, 29, 25, 23, 23, 39, 37, 35],
+    ("nlmpc", "up"): [32, 23, 23, 23, 23, 23, 23, 23],
+    ("nlmpc", "left"): [32, 23, 23, 23, 23, 24, 24, 24],
+}
+SCENARIO_F64_CPU_PORT = {("ilqr", "up"): [54, 29, 25, 23, 23, 86, 121, 121],
+                         ("ilqr", "left"): [54, 29, 25, 23, 23, 39, 37, 36]}
+# host checkpoint and resume (phase 29), f64: the JAX package's host
+# controllers, 2 laps, save_run, resume_controller into a fresh one, 1 lap
+# with seed_safe_set=False (computed once on the CPU with the JAX package)
+RESUME_FIRST = {"ilqr": [55, 28], "nlmpc": [32, 23]}
+RESUME_LAP = {"ilqr": [23], "nlmpc": [23]}
+# the JAX package's NLMPC controller (spaceVarying, no obstacle, f64)
+# resumed from data/ego_nlmpc_ss_8_no_obstacle.npz for one lap
+ARTIFACT_RESUMED_LAP = [23]
 # host controller, f64, k = 32 / nsi = 2, 4 laps: the JAX package's
 # I2LqrController run as tests/test_ragged_selection.py:107-146 runs it
 # (computed once on the CPU; the port's plain f64 loop gives the same)
@@ -283,6 +379,7 @@ G_KERNEL_LANES = 131072  # generic_bench --kernel (generic_bench.py:164)
 G_F64_LANES = 32768  # lanes of the f64 plain solve in phase 11
 G_CAP = 150  # the generic benches' max_iter
 PEAK_F32_OPS = 67e12  # H100 SXM, f32 outside the tensor cores
+PEAK_F64_OPS = 34e12  # H100 SXM, f64 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 ELEMENTWISE = frozenset(
     "abs add ceil clamp clamp_max clamp_min cos div eq exp floor ge gt le "
@@ -333,10 +430,11 @@ def step_bytes(args, out, slots, nsi) -> float:
                for i, t in enumerate(args)) + nbytes(out)
 
 
-def bound(ops, bytes_moved) -> dict:
+def bound(ops, bytes_moved, peak=PEAK_F32_OPS) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    f32 operations over the peak rate, whichever is longer."""
-    by_ops, by_bytes = ops / PEAK_F32_OPS, bytes_moved / PEAK_BYTES
+    operations over the peak rate of their type (f32 by default),
+    whichever is longer."""
+    by_ops, by_bytes = ops / peak, bytes_moved / PEAK_BYTES
     return dict(bound_ms=1e3 * max(by_ops, by_bytes),
                 bound_by="operations" if by_ops >= by_bytes else "bytes",
                 ops=int(ops), bytes=int(bytes_moved), library_ms=None)
@@ -733,10 +831,73 @@ def host_run(tag, run, per_step, card):
     return res, out
 
 
+def on_host(obj):
+    """A frozen dataclass of tensors (params, limits) with each tensor
+    copied to the host, for the operation counts."""
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).cpu() for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
+def call_bound(kernel, a, out) -> dict:
+    """``bound`` of one K3 or K4 call on the inputs ``a`` (outputs
+    ``out``): the plain version's operations on a few host lanes times
+    the LM iterations this call's lanes need (the plain solve's trips on
+    the card; K4: both starts of the live lanes), at the peak rate of the
+    lanes' type; with the mean iterations a lane."""
+    from ilqr_iterative_tasks_torch.ops.fused_ilqr import (
+        FusedIlqr, fused_ilqr_reference)
+    from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
+        fused_lm_shooting_reference)
+    from ilqr_iterative_tasks_torch.ops.ilqr_soa import ilqr_solve_soa
+    from ilqr_iterative_tasks_torch.ops.lm_shooting_soa import (
+        lm_feasibility_solve_soa)
+
+    b = a[1].shape[-1]
+    if isinstance(kernel, FusedIlqr):
+        p, lim = kernel.params, kernel.limits
+        trips = ilqr_solve_soa(
+            p, lim, a[3], a[0], a[1], a[2], float(p.lamb), kernel.dt,
+            num_horizon=kernel.num_horizon, max_iter=kernel.max_iter,
+            done0=None if len(a) < 5 else a[4] > 0.5).lane_iters.double()
+        live, its = torch.ones(b, dtype=torch.bool), float(trips.sum())
+        hp, hl = on_host(p), on_host(lim)
+        plain = lambda max_iter: fused_ilqr_reference(
+            hp, hl, kernel.dt, *sample, num_horizon=kernel.num_horizon,
+            max_iter=max_iter)
+        cap_kw = "max_iter"
+    else:
+        lim, n = kernel.limits, kernel.num_horizon
+        live = (a[4] < 0.5).cpu()
+        trips = lm_feasibility_solve_soa(
+            lim, a[3], a[0], a[1], a[2], kernel.dt, num_horizon=n,
+            max_iters=kernel.max_iters,
+            m_lanes=torch.clamp(a[5].long(), 2, n),
+            done0=a[4] > 0.5).n_iters.double().cpu()
+        its = float(trips[live].sum()) / 2
+        hl = on_host(lim)
+        plain = lambda max_iters: fused_lm_shooting_reference(
+            hl, kernel.dt, *sample, num_horizon=n, max_iters=max_iters)
+        cap_kw = "max_iters"
+    idx = torch.nonzero(live).flatten()[:SAMPLE_LANES]
+    sample = lanes_of(a, idx, b)
+    peak = PEAK_F64_OPS if a[1].dtype == torch.float64 else PEAK_F32_OPS
+    out_b = bound(solve_ops(plain, cap_kw, len(idx), int(live.sum()), its),
+                  nbytes(a) + nbytes(out), peak)
+    out_b["mean_iters"] = float(trips.cpu()[live].mean())
+    return out_b
+
+
+def max_abs_err(out, ref):
+    """The largest absolute difference over a call's outputs."""
+    return float(max((g.double() - w.double()).abs().max()
+                     for g, w in zip(out, ref)))
+
+
 def host_capture_check(tag, cap, plain):
     """The captured kernel call against ``plain`` on the same inputs on
     the card, bit for bit; returns the kernel's and the plain version's
-    ms a call."""
+    ms a call and the call's bound (``call_bound``)."""
     require(cap.captured is not None, f"{tag}: no call captured")
     kernel, a = cap.captured
     out = kernel(*a)
@@ -744,12 +905,14 @@ def host_capture_check(tag, cap, plain):
     require(all(torch.equal(g, w) for g, w in zip(out, ref)),
             f"{tag}: the kernel differs from its plain version")
     ms = cuda_ms(lambda: kernel(*a), 5)
+    stats = dict(lanes=a[1].shape[-1], ms=ms, plain_ms=plain_ms,
+                 max_abs_err=max_abs_err(out, ref),
+                 **call_bound(kernel, a, out))
     print(f"[{tag}] {a[1].shape[-1]} lanes, bitwise equal to the plain "
-          f"version; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms a call",
-          flush=True)
-    return dict(lanes=a[1].shape[-1], ms=ms, plain_ms=plain_ms,
-                max_abs_err=float(max((g - w).abs().max()
-                                      for g, w in zip(out, ref))))
+          f"version; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms a call; "
+          f"bound {stats['bound_ms']:.5f} ms by {stats['bound_by']} "
+          f"({stats['mean_iters']:.2f} LM iterations a lane)", flush=True)
+    return stats
 
 
 def host_tier(card):
@@ -843,6 +1006,384 @@ def host_tier(card):
     host_k4["seconds"] = time.perf_counter() - t27
     print(f"[27 NLMPC host tier] {host_k4['seconds']:.1f} s", flush=True)
     return host_k3, host_k4
+
+
+def scenario_file_check(tag, path, laps):
+    """The run's ``ego_*.npz``: JAX's keys for the seed lap and ``laps``
+    learning laps, every entry numeric, read with allow_pickle=False."""
+    want = {"num_laps", "lap_times", "seed_time", "lap_finished"}
+    want |= {f"ss_{c}_{i}" for c in "xu" for i in range(laps + 1)}
+    want |= {f"lap_{k}_{i}" for k in ("state", "input", "solver_time",
+                                      "feasibility") for i in range(laps)}
+    with np.load(path, allow_pickle=False) as z:
+        keys = set(z.files)
+        numeric = all(z[k].dtype.kind in "biuf" for k in keys)
+    require(keys == want and numeric,
+            f"{tag}: {os.path.basename(path)} keys {sorted(keys ^ want)} "
+            f"differ from the JAX file's, or an entry is not numeric")
+
+
+def host_scenarios(card, tmp):
+    """Phases 28-29: the paper scenarios and the host checkpoint on the
+    card; returns the K3 and K4 figures of each."""
+    from ilqr_iterative_tasks_torch.control.i2lqr import I2LqrController
+    from ilqr_iterative_tasks_torch.control.nlmpc import (
+        HOST_LM_ITERS, NlmpcController)
+    from ilqr_iterative_tasks_torch.experiments import scenarios as scn
+    from ilqr_iterative_tasks_torch.experiments.runner import (
+        default_obstacle, run_closed_loop)
+    from ilqr_iterative_tasks_torch.ops.fused_ilqr import fused_ilqr_reference
+    from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
+        fused_lm_shooting_reference)
+    from ilqr_iterative_tasks_torch.utils import checkpoint
+    from ilqr_iterative_tasks_torch.utils.params import IlqrParams, LmpcParams
+
+    f64 = torch.float64
+    inject = scn.INJECT_LAP
+    k3_out, k4_out = {}, {}
+
+    # ---- 28. the paper scenarios on the card ----
+    t28 = time.perf_counter()
+    for kind in ("ilqr", "nlmpc"):
+        per_step, figs = (3, k3_out) if kind == "ilqr" else (1, k4_out)
+        for scenario, opt in SCENARIO_CASES:
+            tag = scn.scenario_tag(kind, scenario, 8, opt)
+            with no_plain_solve_on_card():
+                res, fig = host_run(
+                    f"28 {tag} f32, 8 laps", lambda: scn.run_scenario(
+                        kind, scenario, lap_number=8, moving_option=opt,
+                        save_dir=tmp, device="cuda"), per_step, card)
+            scenario_file_check(tag, os.path.join(tmp, f"ego_{tag}.npz"), 8)
+            want, want_done = SCENARIO_F32[tag]
+            laps, done = fig["laps"][1:], fig["finished"]
+            # the moving obstacle's laps (the injection on) follow the
+            # arithmetic's last bits: printed beside JAX's, held step by
+            # step in f64 below
+            held = inject if scenario == "add_moving_obstacle" else 8
+            require(fig["laps"][0] == 120 and done[:held] == want_done[:held]
+                    and all(abs(a - b) <= 2 for a, b, f in zip(
+                        laps[:held], want[:held], done) if f),
+                    f"{tag} f32: laps {laps} finished {done}, the JAX "
+                    f"package's {want} {want_done} (+-2, laps 0-{held - 1})")
+            print(f"[28 {tag} f32] laps {laps} finished {done}; the JAX "
+                  f"package's on XLA:CPU {want} {want_done}", flush=True)
+            figs[f"{tag}_f32"] = fig
+    # f64, the moving obstacle: the four runs through build_schedule and
+    # run_closed_loop, a K3 / K4 call captured in the moving lap
+    captures = {}
+    for kind in ("ilqr", "nlmpc"):
+        for opt in ("up", "left"):
+            obstacle, schedule = scn.build_schedule(
+                "add_moving_obstacle", 1.0, opt)
+            if kind == "ilqr":
+                ctrl = I2LqrController(IlqrParams.make(dtype=f64),
+                                       obstacle=obstacle, dtype=f64)
+                method, fixup, per_step, figs = "k3", "snap", 3, k3_out
+            else:
+                ctrl = NlmpcController(LmpcParams.make(),
+                                       obstacle=obstacle, dtype=f64)
+                method, fixup, per_step, figs = "k4", None, 1, k4_out
+            captures[kind, opt] = HostCapture(ctrl, method, inject + 1), ctrl
+            with no_plain_solve_on_card():
+                res, fig = host_run(
+                    f"28 {kind} add_moving_obstacle_{opt} f64, 8 laps",
+                    lambda: run_closed_loop(ctrl, 8, goal_fixup=fixup,
+                                            obstacle_schedule=schedule),
+                    per_step, card)
+            laps, want = fig["laps"][1:], SCENARIO_F64[kind, opt]
+            cpu = SCENARIO_F64_CPU_PORT.get((kind, opt))
+            print(f"[28 {kind} moving {opt} f64] laps {laps}, the JAX "
+                  f"package's {want}"
+                  + (f", the port's CPU route {cpu}" if cpu else ""),
+                  flush=True)
+            if kind == "nlmpc":
+                require(laps == want and all(fig["finished"]),
+                        f"NLMPC moving {opt} f64: laps {laps}, JAX {want}")
+            else:
+                # from the injection on the laps follow last bits (the
+                # JAX run's own laps change under a 1e-12 move of the
+                # state): held step by step below
+                require(laps[:inject] == want[:inject]
+                        and fig["finished"][:inject + 1] == [True] * (
+                            inject + 1),
+                        f"i2LQR moving {opt} f64: laps {laps[:inject + 1]} "
+                        f"finished {fig['finished']}, JAX {want}")
+            figs[f"moving_{opt}_f64"] = fig
+    for (kind, opt), (cap, ctrl) in captures.items():
+        kernel, a = cap.captured
+        lane = 4 if opt == "up" else 5  # spd * up, spd * left
+        require(bool((a[3][lane] != 0).all()),
+                f"{kind} moving {opt}: the captured call sees no motion")
+        name = "K3" if kind == "ilqr" else "K4"
+        if kind == "ilqr":
+            plain = lambda *a, c=ctrl: fused_ilqr_reference(
+                c.params, c.limits, 1.0, *a, num_horizon=N,
+                max_iter=c.params.max_ilqr_iter)
+        else:
+            plain = lambda *a, c=ctrl: fused_lm_shooting_reference(
+                c.limits, 1.0, *a, num_horizon=N, max_iters=HOST_LM_ITERS)
+        (k3_out if kind == "ilqr" else k4_out)[f"moving_{opt}_call"] = (
+            host_capture_check(f"28 {name} in the moving lap ({opt}, f64)",
+                               cap, plain))
+    # the i2LQR moving lap and the two after it step by step: the card's
+    # controller (K3) in lockstep with the JAX package's recorded f64 run
+    # (data/jax_f64/), given its state at every step
+    for opt in ("up", "left"):
+        obstacle, schedule = scn.build_schedule(
+            "add_moving_obstacle", 1.0, opt)
+        ctrl = I2LqrController(IlqrParams.make(dtype=f64), obstacle=obstacle,
+                               dtype=f64)
+        path = os.path.join(HERE, "data", "jax_f64",
+                            f"ego_ilqr_ss_8_add_moving_obstacle_{opt}.npz")
+        with no_plain_solve_on_card():
+            worst = scn.replay_lockstep(ctrl, path, inject, schedule)
+        steps = SCENARIO_F64["ilqr", opt][inject:]
+        print(f"[28 i2LQR moving {opt} f64 lockstep] laps 5-7 ({steps} "
+              f"steps), the card's K3 controller given the JAX package's "
+              f"recorded states: max |u - JAX's u| a lap "
+              f"{[f'{w:.3e}' for w in worst]}", flush=True)
+        require(len(worst) == 3 and max(worst) <= 1e-8,
+                f"lockstep {opt}: {worst}")
+        k3_out[f"moving_{opt}_lockstep_max_diff"] = worst
+    print(f"[28 scenarios] {time.perf_counter() - t28:.1f} s", flush=True)
+
+    # ---- 29. host checkpoint and resume on the card ----
+    t29 = time.perf_counter()
+    for kind in ("ilqr", "nlmpc"):
+        if kind == "ilqr":
+            make = lambda: I2LqrController(
+                IlqrParams.make(dtype=f64), obstacle=default_obstacle(1.0),
+                dtype=f64)
+            fixup, per_step, figs = "append", 3, k3_out
+        else:
+            make = lambda: NlmpcController(
+                LmpcParams.make(ss_option="spaceVarying"),
+                obstacle=default_obstacle(1.0), dtype=f64)
+            fixup, per_step, figs = None, 1, k4_out
+        ctrl = make()
+        path = os.path.join(tmp, f"resume_{kind}.npz")
+        with no_plain_solve_on_card():
+            res, first = host_run(
+                f"29 {kind} f64, 2 laps", lambda: run_closed_loop(
+                    ctrl, 2, goal_fixup=fixup), per_step, card)
+            checkpoint.save_run(path, res, ctrl)
+            resumed = checkpoint.resume_controller(make(), path)
+            require(resumed.iter == 3 and all(
+                np.array_equal(a, b) for a, b in zip(
+                    resumed.safe_set.ss, ctrl.safe_set.ss)),
+                f"{kind}: the resumed safe set differs")
+            res2, again = host_run(
+                f"29 {kind} f64, 1 lap resumed from the checkpoint",
+                lambda: run_closed_loop(resumed, 1, goal_fixup=fixup,
+                                        seed_safe_set=False), per_step, card)
+        require(first["laps"][1:] == RESUME_FIRST[kind]
+                and again["laps"][1:] == RESUME_LAP[kind]
+                and res2.lap_finished == [True]
+                and res2.lap_times[-1] <= res.lap_times[-1],
+                f"{kind} resume: {first['laps']} then {again['laps']}, the "
+                f"JAX package's {RESUME_FIRST[kind]} then {RESUME_LAP[kind]}")
+        figs["resumed"] = again
+    artifact = os.path.join(HERE, "data", "ego_nlmpc_ss_8_no_obstacle.npz")
+    ctrl = checkpoint.resume_controller(
+        NlmpcController(LmpcParams.make(ss_option="spaceVarying"),
+                        dtype=f64), artifact)
+    require(ctrl.iter == 9, f"the artifact holds {ctrl.iter} laps, not 9")
+    with no_plain_solve_on_card():
+        res, fig = host_run(
+            "29 NLMPC f64 resumed from data/ego_nlmpc_ss_8_no_obstacle.npz",
+            lambda: run_closed_loop(ctrl, 1, goal_fixup=None,
+                                    seed_safe_set=False), 1, card)
+    require(fig["laps"][1:] == ARTIFACT_RESUMED_LAP and ctrl.iter == 10,
+            f"artifact resume: laps {fig['laps']}, the JAX package's "
+            f"{ARTIFACT_RESUMED_LAP}")
+    k4_out["artifact_resumed"] = fig
+    print(f"[29 host resume] {time.perf_counter() - t29:.1f} s", flush=True)
+    return k3_out, k4_out
+
+
+def host_bench(card, tmp):
+    """Phases 30-31: the latency bench, profiling and plots on the card;
+    returns the K1, K3 and K4 figures."""
+    from ilqr_iterative_tasks_torch.control.i2lqr import I2LqrController
+    from ilqr_iterative_tasks_torch.experiments import ilqr_test
+    from ilqr_iterative_tasks_torch.experiments import latency_bench as lb
+    from ilqr_iterative_tasks_torch.experiments.runner import (
+        default_obstacle, run_closed_loop)
+    from ilqr_iterative_tasks_torch.ops.fused_ilqr import (
+        fused_ilqr_reference)
+    from ilqr_iterative_tasks_torch.ops.i2lqr_step import (
+        i2lqr_step_reference)
+    from ilqr_iterative_tasks_torch.utils import profiling
+    from ilqr_iterative_tasks_torch.utils.params import IlqrParams
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    k1_out, k3_out, k4_out = {}, {}, {}
+
+    # ---- 30. the latency bench on the card ----
+    t30 = time.perf_counter()
+    batches = [2048, 32768]
+    counts = {}
+    with no_plain_solve_on_card():
+        report = lb.main(["--device", "cuda"], launches=counts)
+    print(f"[30 latency_bench] {json.dumps(report)}; card {card}",
+          flush=True)
+    for key in ("per_step_latency", "per_step_latency_nlmpc"):
+        require(report[key]["lap_completion_rate"] == 1.0,
+                f"latency bench {key}: completion "
+                f"{report[key]['lap_completion_rate']}")
+    print(f"[30 latency_bench launches] {json.dumps(counts)}", flush=True)
+    i2c, nlc = counts["per_step_latency"], counts["per_step_latency_nlmpc"]
+    require(i2c["k3"] == 3 * i2c["solving_steps"] > 0
+            and nlc["k4"] == nlc["solving_steps"] > 0
+            and all(counts["soa_solves_per_s"][str(b)] == 4
+                    for b in batches)
+            and counts["device_fused_step_latency"] > 0
+            and counts["lap_sims_per_s_by_devices"]["1"] > 0,
+            f"latency bench launches {counts}")
+    k3_out["latency_bench_per_step"] = dict(
+        launches=i2c["k3"], **report["per_step_latency"])
+    k4_out["latency_bench_per_step"] = dict(
+        launches=nlc["k4"], **report["per_step_latency_nlmpc"])
+    k1_out["latency_bench_scaling"] = dict(
+        launches=counts["lap_sims_per_s_by_devices"]["1"],
+        lap_sims_per_s=report["lap_sims_per_s_by_devices"])
+    # K3's throughput lanes (main's draws, batch after batch) against the
+    # plain solve, with the call's bound
+    k3 = lb.build_throughput_solver(dev)
+    rng = np.random.default_rng(0)
+    for b in batches:
+        a = lb.solver_throughput_inputs(b, rng, dev)
+        out = k3(*a)
+        ref, plain_ms = timed_call(lambda: fused_ilqr_reference(
+            k3.params, k3.limits, 1.0, *a, num_horizon=N,
+            max_iter=k3.max_iter))
+        require(all(torch.equal(g, w) for g, w in zip(out, ref)),
+                f"K3 throughput B={b}: not bitwise equal to the plain solve")
+        st = dict(launches=counts["soa_solves_per_s"][str(b)],
+                  ms=cuda_ms(lambda: k3(*a), 5), plain_ms=plain_ms,
+                  max_abs_err=max_abs_err(out, ref),
+                  solves_per_s=report["soa_solves_per_s"][str(b)],
+                  **call_bound(k3, a, out))
+        print(f"[30 K3 throughput B={b}] bitwise equal to the plain solve; "
+              f"kernel {st['ms']:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{st['bound_ms']:.4f} ms by {st['bound_by']} "
+              f"({st['mean_iters']:.2f} LM iterations a lane); "
+              f"{st['solves_per_s']} solves/s", flush=True)
+        k3_out[f"throughput_{b}"] = st
+    # K1 at 1024 lanes (main's) and 1 lane against the plain step
+    for b in (1024, 1):
+        if b == 1024:
+            lat, launches = (report["device_fused_step_latency"],
+                             counts["device_fused_step_latency"])
+        else:
+            one = {}
+            lat = lb.bench_device_step_latency(batch=b, device=dev,
+                                               launches=one)
+            launches = one["device_fused_step_latency"]
+        k1, a = lb.device_step_inputs(b, dev)
+        host_p, host_l = on_host(k1.params), on_host(k1.limits)
+        out = k1(*a)
+        trips = []
+        ref, plain_ms = timed_call(lambda: i2lqr_step_reference(
+            k1.params, k1.limits, 1.0, *a, max_iter=lb.K1_MAX_ITER,
+            trips=trips))
+        require(all(torch.equal(g, w) for g, w in zip(out, ref)),
+                f"K1 B={b}: not bitwise equal to the plain step")
+        active = a[8] < 0.5
+        idx = torch.nonzero(active).flatten()[:SAMPLE_LANES].cpu()
+        sample = lanes_of(a, idx, b)
+        iters, mean_trips, _ = step_iters(trips, active)
+        st = dict(launches=launches, ms=cuda_ms(lambda: k1(*a), 10),
+                  plain_ms=plain_ms, max_abs_err=max_abs_err(out, ref),
+                  mean_iters=mean_trips,
+                  **{k: lat[k] for k in lat if k.startswith("p")},
+                  **bound(solve_ops(
+                      lambda max_iter: i2lqr_step_reference(
+                          host_p, host_l, 1.0, *sample, max_iter=max_iter),
+                      "max_iter", len(idx), int(active.sum()), iters),
+                      step_bytes(a, out, (2, 3), k1.nsi)))
+        print(f"[30 K1 B={b}] bitwise equal to the plain step; "
+              f"{launches} launches; blocking p50 / p99 {lat['p50_ms']} / "
+              f"{lat['p99_ms']} ms, pipelined p50 / p99 "
+              f"{lat['p50_ms_per_step_pipelined']} / "
+              f"{lat['p99_ms_per_step_pipelined']} ms a step; kernel "
+              f"{st['ms']:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{st['bound_ms']:.5f} ms by {st['bound_by']} "
+              f"({mean_trips:.2f} LM iterations a candidate solve); "
+              f"{lat['note']}", flush=True)
+        k1_out[f"device_step_{b}"] = st
+    print(f"[30 latency bench] {time.perf_counter() - t30:.1f} s", flush=True)
+
+    # ---- 31. profiling and plots on the card ----
+    t31 = time.perf_counter()
+    trace_dir = os.path.join(tmp, "trace")
+    ctrl = I2LqrController(IlqrParams.make(), obstacle=default_obstacle(1.0))
+    with no_plain_solve_on_card(), profiling.trace(trace_dir) as prof:
+        with profiling.annotate("host_i2lqr_lap"):
+            t0 = time.perf_counter()
+            res = run_closed_loop(ctrl, 1, goal_fixup="append")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    # the card's kernels and copies; the span's own range on the card (a
+    # user annotation, as long as the lap) is not work
+    dev_us = sorted(((getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0)), e.key)
+                     for e in events if e.device_type == DeviceType.CUDA
+                     and e.key != "host_i2lqr_lap"), reverse=True)
+    k3_s = sum(t for t, k in dev_us if "fused_ilqr" in k) / 1e6
+    busy_s = sum(t for t, _ in dev_us) / 1e6
+    with open(os.path.join(trace_dir, profiling.TRACE_FILE)) as f:
+        text = f.read()
+    require("host_i2lqr_lap" in {e.key for e in events}
+            and "host_i2lqr_lap" in text and "fused_ilqr" in text
+            and k3_s > 0 and all(res.lap_finished),
+            "the trace lacks the lap's span or K3's kernel")
+    prof_fig = dict(lap_steps=int(res.lap_times[0]),
+                    solving_steps=len(ctrl.solve_seconds), wall_s=wall,
+                    k3_device_s=k3_s, busy_s=busy_s,
+                    k3_busy_share=k3_s / wall, busy_share=busy_s / wall,
+                    trace_mb=len(text) / 1e6,
+                    top_device_s={k[:48]: t / 1e6 for t, k in dev_us[:4]})
+    print(f"[31 profiled i2LQR lap f32] {json.dumps(prof_fig)}: the card "
+          f"runs K3 {100 * k3_s / wall:.1f} % and any kernel or copy "
+          f"{100 * busy_s / wall:.1f} % of the traced lap's wall; card "
+          f"{card}", flush=True)
+    k3_out["profiled_lap"] = prof_fig
+    mem = profiling.device_memory_stats()
+    require(f"cuda:{dev.index}" in mem
+            and mem[f"cuda:{dev.index}"]["allocated_bytes.all.peak"] > 0,
+            f"device_memory_stats: {sorted(mem)}")
+    print(f"[31 device_memory_stats] {sorted(mem)}: peak allocated "
+          f"{mem[f'cuda:{dev.index}']['allocated_bytes.all.peak'] / 2**20:.1f}"
+          f" MiB", flush=True)
+    try:
+        import matplotlib
+    except ImportError:
+        print("[31 plots] matplotlib is not installed on this machine: the "
+              "demo CLI's --plotting is not run here", flush=True)
+    else:
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        before = set(plt.get_fignums())
+        with no_plain_solve_on_card():
+            res = ilqr_test.main(["--lap-number", "1", "--device", "cuda",
+                                  "--plotting"])
+        new = sorted(set(plt.get_fignums()) - before)
+        sizes = []
+        for i, n in enumerate(new):
+            path = os.path.join(tmp, f"fig{i}.png")
+            plt.figure(n).savefig(path)
+            sizes.append(os.path.getsize(path))
+        plt.close("all")
+        require(len(new) == 2 and min(sizes) > 0 and all(res.lap_finished),
+                f"--plotting: {len(new)} figures of {sizes} bytes")
+        print(f"[31 plots] ilqr_test --plotting --device cuda rendered "
+              f"{len(new)} figures under Agg ({sizes} bytes as png)",
+              flush=True)
+    print(f"[31 profiling and plots] {time.perf_counter() - t31:.1f} s",
+          flush=True)
+    return k1_out, k3_out, k4_out
 
 
 def main():
@@ -2118,6 +2659,9 @@ def main():
           f"launches {k5_launches}, card {card}", flush=True)
 
     host_k3, host_k4 = host_tier(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        scen_k3, scen_k4 = host_scenarios(card, tmp)
+        bench_k1, bench_k3, bench_k4 = host_bench(card, tmp)
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
 
     csrc, tpu = "ilqr_iterative_tasks_torch/csrc/", "ilqr_iterative_tasks_tpu/ops/"
@@ -2126,7 +2670,8 @@ def main():
              source=csrc + "i2lqr_step.cu",
              replaces=tpu + "pallas_i2lqr_step.py:221",
              launches=k1_launches, max_abs_err=k1_err, ms=k1_ms,
-             plain_ms=k1_plain_ms, **k1_bound, **occupancy["k1"]),
+             plain_ms=k1_plain_ms, **k1_bound, **occupancy["k1"],
+             latency_bench=bench_k1),
         dict(name="i2lqr_step (K1, k32 nsi4)", route="cuda",
              source=csrc + "i2lqr_step.cu",
              replaces=tpu + "pallas_i2lqr_step.py:221",
@@ -2164,7 +2709,8 @@ def main():
              source=csrc + "fused_ilqr.cu",
              replaces=tpu + "pallas_ilqr.py:87",
              launches=k3_path_launches, **k3_stats, **occupancy["k3"],
-             i2lqr_path=k3_path, host_path=host_k3),
+             i2lqr_path=k3_path, host_path=host_k3, scenarios=scen_k3,
+             latency_bench=bench_k3),
         # K4's figures are the NLMPC headline's through it (phase 23: the
         # launches of its run, the rest on the lap-2 capture's lanes);
         # phase 7's random lanes and phase 24's every-lap runs beside them
@@ -2173,7 +2719,7 @@ def main():
              replaces=tpu + "pallas_lm_shooting.py:97",
              on_main_path=True, **k4_path, **occupancy["k4"],
              random_lanes=k4_stats, every_stored_lap=every,
-             host_path=host_k4),
+             host_path=host_k4, scenarios=scen_k4, latency_bench=bench_k4),
         dict(name="generic_ilqr (K5)", route="cuda",
              source=csrc + "generic_ilqr.cu",
              replaces=tpu + "pallas_generic_ilqr.py:64",

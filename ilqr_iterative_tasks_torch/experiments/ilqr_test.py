@@ -2,11 +2,12 @@
 
 Port of ilqr_iterative_tasks_tpu/experiments/ilqr_test.py (the reference's
 entry point): flags --lap-number --num-ss-points --num-ss-iters
---direct-ilqr --save-trajectory; N = 6, dt = 1, obstacle ellipse (31, -3)
-8 x 6, zero noise, the last recorded state snapped to the goal after each
-lap. ``--device`` names where the candidate solves run (the current CUDA
-device by default, through the K3 kernel; ``cpu`` for its plain version).
-``--plotting`` is not yet ported.
+--direct-ilqr --save-trajectory --plotting; N = 6, dt = 1, obstacle
+ellipse (31, -3) 8 x 6, zero noise, the last recorded state snapped to the
+goal after each lap. ``--device`` names where the candidate solves run
+(the current CUDA device by default, through the K3 kernel; ``cpu`` for
+its plain version). ``--plotting`` shows the inputs and the last lap's
+trajectory (utils/viz.py).
 
 Run:  python -m ilqr_iterative_tasks_torch.experiments.ilqr_test \\
           --lap-number 3 --num-ss-iters 2 --num-ss-points 8 [--device cpu]
@@ -43,7 +44,7 @@ def add_common_flags(parser: argparse.ArgumentParser):
 
 def report(result, args, prefix: str):
     """Print the lap times; write the last lap's states and inputs into
-    data/ under ``--save-trajectory``; refuse ``--plotting``."""
+    data/ under ``--save-trajectory``; plot the run under ``--plotting``."""
     print(f"time at iteration 0 is {result.seed_time:.0f} s")
     for lap, t in enumerate(result.lap_times, start=1):
         print(f"time at iteration {lap} is {t:.0f} s")
@@ -53,15 +54,13 @@ def report(result, args, prefix: str):
                    np.round(result.plant.data["state"][-1], 5), fmt="%f")
         np.savetxt(os.path.join(data, f"{prefix}_input_multi_laps.txt"),
                    np.round(result.plant.data["input"][-1], 5), fmt="%f")
-
-
-def check_plotting(args):
     if args.get("plotting"):
-        raise NotImplementedError("--plotting is not yet ported (utils/viz.py)")
+        from ilqr_iterative_tasks_torch.utils import viz
+        viz.plot_inputs(result.plant)
+        viz.plot_closed_loop(result.plant, result.plant.ctrl_policy)
 
 
 def test_ilqr(args):
-    check_plotting(args)
     dt = 1.0
     device = args.get("device")
     params = IlqrParams.make(

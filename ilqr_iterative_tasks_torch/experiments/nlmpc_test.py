@@ -5,7 +5,8 @@ reference's entry point): flags --lap-number --num-ss-points
 --num-ss-iters --ss-option {space,time,all} --save-trajectory; N = 6,
 dt = 1, obstacle (31, -2) 8 x 6, zero noise. ``--device`` names where the
 candidate solves run (the current CUDA device by default, through the K4
-kernel; ``cpu`` for its plain version). ``--plotting`` is not yet ported.
+kernel; ``cpu`` for its plain version). ``--plotting`` shows the inputs
+and the last lap's trajectory (utils/viz.py).
 
 Run:  python -m ilqr_iterative_tasks_torch.experiments.nlmpc_test \\
           --lap-number 5 --num-ss-iters 2 --num-ss-points 8 --ss-option space
@@ -17,14 +18,13 @@ import argparse
 
 from ilqr_iterative_tasks_torch.control.nlmpc import NlmpcController
 from ilqr_iterative_tasks_torch.experiments.ilqr_test import (
-    add_common_flags, check_plotting, report)
+    add_common_flags, report)
 from ilqr_iterative_tasks_torch.experiments.runner import run_closed_loop
 from ilqr_iterative_tasks_torch.sim.plant import ObstacleSim
 from ilqr_iterative_tasks_torch.utils.params import LmpcParams
 
 
 def nlmpc_test(args):
-    check_plotting(args)
     dt = 1.0
     device = args.get("device")
     if args["ss_option"] == "all":

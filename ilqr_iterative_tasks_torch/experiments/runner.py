@@ -5,6 +5,9 @@ and the simulator, seed the controller's safe set with the scripted lap
 (or a recorded one), run ``lap_number`` closed-loop laps and report the lap
 times. After each lap the demo CLI snaps the last recorded state to the
 goal (``goal_fixup="snap"``) and the CI test appends it (``"append"``).
+An ``obstacle_schedule`` injects or removes obstacles between laps (the
+paper scenarios, experiments/scenarios.py), and ``seed_safe_set=False``
+runs a controller resumed from a checkpoint (utils/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -34,14 +37,21 @@ class RunResult:
 
 def run_closed_loop(controller, lap_number: int, dt: float = 1.0,
                     zero_noise: bool = True, goal_fixup: str = "snap",
+                    obstacle_schedule=None,
                     rng: Optional[np.random.Generator] = None,
+                    seed_safe_set: bool = True,
                     seed: Optional[tuple] = None,
                     verbose: bool = False) -> RunResult:
     """Seed lap + ``lap_number`` learning laps with any controller of the
     ControlBase API (set_timestep, set_state, calc_input, get_input) with
     ``add_trajectory``.
 
-    ``seed``: optional (xcl, ucl) replacing the scripted seed lap.
+    ``obstacle_schedule``: optional callable (lap_index, controller) ->
+    None, called before each lap, that may replace ``controller.obstacle``
+    (the controllers read it at every step). ``seed_safe_set=False`` skips
+    the seed lap's ``add_trajectory``, for a controller resumed from a
+    checkpoint whose safe set is already filled. ``seed``: optional (xcl,
+    ucl) replacing the scripted seed lap.
     """
     xcl, ucl = seed if seed is not None else seed_trajectory(dt)
     xcl = np.asarray(xcl, dtype=np.float64)
@@ -51,7 +61,8 @@ def run_closed_loop(controller, lap_number: int, dt: float = 1.0,
     plant.set_timestep(dt)
     if zero_noise:
         plant.set_zero_noise()
-    controller.add_trajectory(xcl, ucl)
+    if seed_safe_set:
+        controller.add_trajectory(xcl, ucl)
     controller.set_timestep(dt)
     plant.set_ctrl_policy(controller)
 
@@ -61,6 +72,8 @@ def run_closed_loop(controller, lap_number: int, dt: float = 1.0,
     simulator.set_goal(xcl[-1, :])
 
     for lap in range(lap_number):
+        if obstacle_schedule is not None:
+            obstacle_schedule(lap, controller)
         if verbose:
             print(f"iteration {lap} begins")
         simulator.sim(lap)
@@ -86,7 +99,8 @@ def run_closed_loop(controller, lap_number: int, dt: float = 1.0,
     )
 
 
-def default_obstacle(dt: float = 1.0) -> ObstacleSim:
+def default_obstacle(dt: float = 1.0, for_nlmpc: bool = False) -> ObstacleSim:
     """The standard test obstacle: x = 31, y = -2, an 8 x 6 ellipse (the
-    demo CLIs use y = -3 for i2LQR)."""
+    demo CLIs use y = -3 for i2LQR). ``for_nlmpc`` is accepted for the JAX
+    signature; both controllers take the same obstacle."""
     return ObstacleSim(31.0, -2.0, 8.0, 6.0, spd=0, timestep=dt)

@@ -9,6 +9,7 @@ import torch
 from ilqr_iterative_tasks_torch.control.batched_soa import SoaScenarios
 from ilqr_iterative_tasks_torch.control.i2lqr import I2LqrController
 from ilqr_iterative_tasks_torch.control.nlmpc import NlmpcController
+from ilqr_iterative_tasks_torch.experiments import latency_bench
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
 from ilqr_iterative_tasks_torch.ops.generic_ilqr import GenericIlqrConfig
 from ilqr_iterative_tasks_torch.utils import convert, device
@@ -31,6 +32,9 @@ ENTRY_POINTS = {
         IlqrParams.make(device="cpu")).limits.a_max,
     "NlmpcController": lambda: NlmpcController(
         LmpcParams.make(device="cpu")).limits.a_max,
+    "latency_bench.solver_throughput_inputs":
+        lambda: latency_bench.solver_throughput_inputs(
+            4, np.random.default_rng(0))[1],
 }
 
 

@@ -340,13 +340,62 @@ def test_sequential_lambda_refuses_a_cuda_device():
                         sequential_lambda=True)
 
 
-def test_demo_cli_on_the_cpu(capsys):
+class _Replay:
+    """Stands in for the controller in the demo CLI: replays the seed
+    lap's inputs (a lap of the CPU route takes ~25-45 s)."""
+
+    def __init__(self, params, obstacle=None, device=None):
+        self.obstacle, self.k, self.u = obstacle, 0, None
+
+    def set_timestep(self, dt):
+        pass
+
+    def set_state(self, x):
+        pass
+
+    def calc_input(self):
+        self.u = UCL[min(self.k, len(UCL) - 1)]
+        self.k += 1
+
+    def get_input(self):
+        return self.u
+
+    def add_trajectory(self, x, u):
+        pass
+
+
+def test_demo_cli_on_the_cpu(capsys, monkeypatch):
     res = ilqr_test.main(["--lap-number", "0", "--device", "cpu"])
     assert res.all_lap_times == [120.0]
     assert "time at iteration 0 is 120 s" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ilqr_test.main(["--lap-number", "1", "--device", "cpu",
-                        "--plotting"])
+    # --plotting renders the inputs and the last lap against its obstacle
+    # under Agg (the JAX CLI's utils/viz.py calls)
+    import matplotlib
+    backend = matplotlib.get_backend()
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    try:
+        monkeypatch.setattr(ilqr_test, "I2LqrController", _Replay)
+        before = set(plt.get_fignums())
+        res = ilqr_test.main(["--lap-number", "1", "--device", "cpu",
+                              "--plotting"])
+        figs = [plt.figure(n) for n in sorted(set(plt.get_fignums())
+                                              - before)]
+        assert len(figs) == 2
+        inputs, traj = figs
+        np.testing.assert_array_equal(
+            inputs.axes[0].get_lines()[0].get_ydata(),
+            res.plant.data["input"][-1][:, 0])
+        np.testing.assert_array_equal(
+            traj.axes[0].get_lines()[-1].get_xydata(),
+            res.plant.data["state"][-1][:, :2])
+        # the obstacle's ellipse every 5 of its centres, then the trajectory
+        centres = res.plant.ctrl_policy.obstacle.lap_states[-1]
+        assert len(traj.axes[0].get_lines()) == 1 + len(
+            range(0, len(centres), 5))
+    finally:
+        plt.close("all")
+        matplotlib.use(backend)
 
 
 @pytest.mark.slow

@@ -347,8 +347,30 @@ def test_demo_cli_on_the_cpu(capsys):
                            "--ss-option", "time"])
     assert res.all_lap_times == [120.0]
     assert "time at iteration 0 is 120 s" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        nlmpc_test.main(["--device", "cpu", "--plotting"])
+    # --plotting renders one learning lap's inputs and trajectory under
+    # Agg (the JAX CLI's utils/viz.py calls)
+    import matplotlib
+    backend = matplotlib.get_backend()
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    try:
+        before = set(plt.get_fignums())
+        res = nlmpc_test.main(["--lap-number", "1", "--device", "cpu",
+                               "--plotting"])
+        assert res.lap_finished == [True]
+        figs = [plt.figure(n) for n in sorted(set(plt.get_fignums())
+                                              - before)]
+        assert len(figs) == 2
+        inputs, traj = figs
+        np.testing.assert_array_equal(
+            inputs.axes[1].get_lines()[0].get_ydata(),
+            res.plant.data["input"][-1][:, 1])
+        np.testing.assert_array_equal(
+            traj.axes[0].get_lines()[-1].get_xydata(),
+            res.plant.data["state"][-1][:, :2])
+    finally:
+        plt.close("all")
+        matplotlib.use(backend)
 
 
 @pytest.mark.slow
