@@ -17,7 +17,10 @@ stall_reseed guard, and k = 32 over 4 stored laps), the generic-system
 tier's benchmarks through the generic LM-iLQR kernel K5, and the host
 tier (one robot, step by step) through K3 and K4: its controllers, the
 paper scenarios with moving obstacles, host checkpoint and resume, the
-latency bench (with K1), profiling and plots. Phases:
+latency bench (with K1), profiling and plots, and the scale-out paths on
+torch.distributed (the scenario-sharded headlines through K1 and K2 and
+the meshed NLMPC controller through K4 on ranks of one process each).
+Phases:
 
 1. device: the card's name and power limit;
 2. build: nvcc of the kernel sources (one process per source), and at
@@ -213,12 +216,29 @@ latency bench (with K1), profiling and plots. Phases:
    device seconds, and every kernel's and copy's, over the lap's wall);
    ``device_memory_stats`` reporting the card; the demo CLI with
    ``--plotting`` rendering its two figures under Agg (where the machine
-   has matplotlib).
+   has matplotlib);
+32. scale-out on torch.distributed (ilqr_iterative_tasks_torch/parallel/,
+   experiments/scale_out.py): the i2LQR and NLMPC spaceVarying headlines
+   (B = 49 152, phases 6 and 10's configurations) on injected noise,
+   unsharded in this process and through the ``_sharded`` wrappers on 2
+   ranks that share the card (gloo: NCCL refuses two ranks on one card),
+   each rank launching K1 / K2 on its 24 576 lanes, whose gathered lap
+   records must hash as the unsharded runs'; the same wrappers on a world
+   of one NCCL rank at B = 2 048; the meshed NLMPC host controller
+   (``mesh=``, f64, zero noise) in spaceVarying and all + all_ss_iter on
+   the 2 ranks, whose laps must be the JAX package's pinned meshed ones
+   ([120, 32, 23], [120, 26, 22]) and whose K4 launches, one a rank a
+   solving step over its half of the candidates, are reported with their
+   lanes; each run's wall seconds, the gather's ms, and phase 30's
+   device-count rates (its batched run now spawned as one NCCL rank a
+   card). Two ranks on one card measure contention, not scaling.
 
 Every simulator run of the headlines (experiments/headlines.py) and of
-phases 24-25, and every host controller run of phases 26-30, runs inside
-``no_plain_solve_on_card``: a plain candidate
-solve that sees a CUDA tensor raises.
+phases 24-25, every host controller run of phases 26-30, and every run of
+each rank of phase 32 (and of phase 30's batched run), runs inside
+``no_plain_solve_on_card``: a plain candidate solve that sees a CUDA
+tensor raises. A rank that fails fails its phase
+(parallel/launch.py kills the other ranks and raises with their output).
 
 Every phase raises on failure, so the script exits non-zero. It prints the
 card line and a JSON line of the kernels before its last line, which is
@@ -239,8 +259,10 @@ figures come from the inputs of the run whose launches they sit beside
 K4: phase 23's, phase 7's in its ``random_lanes``; the ``host_path`` of
 each, phases 26-27's runs and captured call; ``scenarios``, phases
 28-29's; ``latency_bench``, phase 30's, of K1 too, and K3's traced lap,
-phase 31's). The host tier's f64 calls are bounded at 34 TFLOP/s (f64
-without tensor cores). It needs a CUDA device and the repository.
+phase 31's; ``sharded`` of K1 and K2 and ``meshed_controller`` of K4,
+phase 32's launches a rank). The host tier's f64 calls are bounded at 34
+TFLOP/s (f64 without tensor cores). It needs a CUDA device and the
+repository.
 """
 
 import concurrent.futures
@@ -1384,6 +1406,106 @@ def host_bench(card, tmp):
     print(f"[31 profiling and plots] {time.perf_counter() - t31:.1f} s",
           flush=True)
     return k1_out, k3_out, k4_out
+
+
+def scale_out(card, scaling):
+    """Phase 32: the scale-out paths on the card (parallel/): the i2LQR and
+    NLMPC headlines through the ``_sharded`` wrappers on 2 ranks that share
+    the card (gloo), hashing as their unsharded runs in this process on the
+    same injected noise; a world of one NCCL rank at a small batch; the
+    meshed NLMPC controller through K4 on the 2 ranks. ``scaling``: phase
+    30's device-count rates. Returns the figures for the kernels line."""
+    from ilqr_iterative_tasks_torch.experiments import scale_out as so
+    from ilqr_iterative_tasks_torch.parallel.launch import spawn
+
+    t32 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    target = f"{so.__name__}:scale_out_rank"
+    want, small = {}, {}
+    for which in ("i2lqr", "nlmpc"):
+        want[which] = so.headline(which, BATCH, dev)
+        small[which] = so.headline(which, so.SMALL_BATCH, dev)["hash"]
+        print(f"[32 {which} unsharded] B={BATCH} {json.dumps(want[which])}",
+              flush=True)
+    # two ranks on the one card: NCCL refuses that, gloo stages the
+    # gathers through the host; their times are contention, not scaling
+    ranks = spawn(target, 2, BATCH, tuple(so.MESHED_LAPS), backend="gloo",
+                  timeout=600)
+    out = {}
+    for which, kernel in (("i2lqr", "K1"), ("nlmpc", "K2")):
+        for r in ranks:
+            g = r[which]
+            print(f"[32 {which} sharded rank {r['rank']}/2 {r['backend']}] "
+                  f"B={BATCH} ({BATCH // 2} lanes a rank) wall "
+                  f"{g['wall_s']:.3f} s, simulator {g['run_s']:.3f} s, "
+                  f"gather {g['gather_ms']:.1f} ms, {kernel} launches "
+                  f"{g['launches']}, completion {g['completion']:.4f}, lap "
+                  f"records {g['hash']} (unsharded {want[which]['hash']}); "
+                  f"card {card}", flush=True)
+            require(g["hash"] == want[which]["hash"],
+                    f"sharded {which} on rank {r['rank']}: lap records "
+                    f"{g['hash']} != unsharded {want[which]['hash']}")
+            require(g["launches"] > 0,
+                    f"{kernel} was not launched on rank {r['rank']}")
+        out[which] = dict(
+            ranks=2, backend="gloo", batch=BATCH,
+            launches_per_rank=[r[which]["launches"] for r in ranks],
+            wall_s=max(r[which]["wall_s"] for r in ranks),
+            gather_ms=max(r[which]["gather_ms"] for r in ranks),
+            unsharded_wall_s=want[which]["wall_s"],
+            unsharded_launches=want[which]["launches"],
+            hash=want[which]["hash"])
+    meshed = {}
+    for mode, laps in so.MESHED_LAPS.items():
+        for r in ranks:
+            g = r[f"controller_{mode}"]
+            print(f"[32 meshed NLMPC controller {mode} rank {r['rank']}/2] "
+                  f"laps {g['laps']} (JAX pinned {laps}), K4 launches "
+                  f"{g['k4_launches']} over {g['solving_steps']} solving "
+                  f"steps, lanes a launch {g['lanes']} ({g['lanes_total']} "
+                  f"in all), {g['step_ms_median']:.2f} ms a solving step "
+                  f"(median), wall {g['wall_s']:.2f} s; card {card}",
+                  flush=True)
+            require(g["laps"] == laps and all(g["finished"]),
+                    f"meshed controller {mode} rank {r['rank']}: laps "
+                    f"{g['laps']} != {laps}")
+            require(g["k4_launches"] == g["solving_steps"] > 0,
+                    f"meshed controller {mode}: K4 launches "
+                    f"{g['k4_launches']} != solving steps "
+                    f"{g['solving_steps']}")
+        meshed[mode] = dict(
+            ranks=2, backend="gloo", laps=laps,
+            launches_per_rank=[r[f"controller_{mode}"]["k4_launches"]
+                               for r in ranks],
+            lanes_per_rank=[r[f"controller_{mode}"]["lanes_total"]
+                            for r in ranks],
+            step_ms_median=max(r[f"controller_{mode}"]["step_ms_median"]
+                               for r in ranks),
+            gather_probe_ms=ranks[0]["gather_probe_ms"])
+    for r in ranks:
+        print(f"[32 gather probe rank {r['rank']}/2] ms an all_gather of "
+              f"(8, 6) f64 over gloo: "
+              f"{json.dumps(r['gather_probe_ms'])}", flush=True)
+    nccl = spawn(target, 1, so.SMALL_BATCH, backend="nccl", timeout=600)[0]
+    for which in ("i2lqr", "nlmpc"):
+        g = nccl[which]
+        print(f"[32 {which} NCCL world 1] B={so.SMALL_BATCH} lap records "
+              f"{g['hash']} (unsharded {small[which]}), launches "
+              f"{g['launches']}, gather {g['gather_ms']:.1f} ms", flush=True)
+        require(nccl["backend"] == "nccl" and g["hash"] == small[which],
+                f"NCCL world 1 {which}: lap records {g['hash']} != "
+                f"{small[which]}")
+        require(g["launches"] > 0, f"NCCL world 1 {which}: no launch")
+        out[which]["nccl_world_1"] = dict(batch=so.SMALL_BATCH,
+                                          launches=g["launches"],
+                                          gather_ms=g["gather_ms"])
+    print(f"[32 gather probe NCCL world 1] ms an all_gather of (8, 6) f64: "
+          f"{json.dumps(nccl['gather_probe_ms'])}", flush=True)
+    print(f"[32 bench_device_scaling] {json.dumps(scaling)} lap-sims/s "
+          f"(phase 30; counts above the visible cards skipped); card {card}",
+          flush=True)
+    print(f"[32 scale-out] {time.perf_counter() - t32:.1f} s", flush=True)
+    return out["i2lqr"], out["nlmpc"], meshed
 
 
 def main():
@@ -2662,6 +2784,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         scen_k3, scen_k4 = host_scenarios(card, tmp)
         bench_k1, bench_k3, bench_k4 = host_bench(card, tmp)
+    sharded_k1, sharded_k2, meshed_k4 = scale_out(
+        card, bench_k1["latency_bench_scaling"]["lap_sims_per_s"])
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
 
     csrc, tpu = "ilqr_iterative_tasks_torch/csrc/", "ilqr_iterative_tasks_tpu/ops/"
@@ -2671,7 +2795,7 @@ def main():
              replaces=tpu + "pallas_i2lqr_step.py:221",
              launches=k1_launches, max_abs_err=k1_err, ms=k1_ms,
              plain_ms=k1_plain_ms, **k1_bound, **occupancy["k1"],
-             latency_bench=bench_k1),
+             latency_bench=bench_k1, sharded=sharded_k1),
         dict(name="i2lqr_step (K1, k32 nsi4)", route="cuda",
              source=csrc + "i2lqr_step.cu",
              replaces=tpu + "pallas_i2lqr_step.py:221",
@@ -2686,7 +2810,8 @@ def main():
              replaces=tpu + "pallas_nlmpc_step.py:245",
              launches=k2_launches, **k2_stats, **occupancy["k2_sv"],
              lap_sims_per_s=nl_rate["qsort_skip"],
-             no_qsort_skip_lap_sims_per_s=nl_rate["plain"]),
+             no_qsort_skip_lap_sims_per_s=nl_rate["plain"],
+             sharded=sharded_k2),
         dict(name="nlmpc_step (K2, timeVarying)", route="cuda",
              source=csrc + "nlmpc_step.cu",
              replaces=tpu + "pallas_nlmpc_step.py:245",
@@ -2719,7 +2844,8 @@ def main():
              replaces=tpu + "pallas_lm_shooting.py:97",
              on_main_path=True, **k4_path, **occupancy["k4"],
              random_lanes=k4_stats, every_stored_lap=every,
-             host_path=host_k4, scenarios=scen_k4, latency_bench=bench_k4),
+             host_path=host_k4, scenarios=scen_k4, latency_bench=bench_k4,
+             meshed_controller=meshed_k4),
         dict(name="generic_ilqr (K5)", route="cuda",
              source=csrc + "generic_ilqr.cu",
              replaces=tpu + "pallas_generic_ilqr.py:64",

@@ -1,8 +1,7 @@
 """NLMPC learning controller (the nonlinear learning-MPC baseline), step by
 step on the host, with its candidate solves through the K4 kernel.
 
-Port of ilqr_iterative_tasks_tpu/control/nlmpc.py (without its ``mesh=``
-path). Per control step:
+Port of ilqr_iterative_tasks_tpu/control/nlmpc.py. Per control step:
 
 - candidate terminal states from the last ``num_ss_iter`` laps (every lap
   with ``all_ss_iter``) by one of three safe-set options: advancing
@@ -28,6 +27,18 @@ version (ops/lm_shooting_soa.py) for CPU tensors and the kernel for CUDA
 ones. The winner's predicted states are the rollout of its first n inputs
 with K4's own x_n as the last column.
 
+With ``mesh=`` (a parallel/mesh.py mesh; its first axis is used) every
+rank of the mesh runs the controller alike, step by step: the
+spaceVarying kNN goes through parallel/sharded_safe_set.py::sharded_knn
+(each lap's rows padded so that every rank holds at least k and the mesh
+divides them, a local top-k a rank, the tuples gathered, the global top-k
+ordered by distance and row), and the step's one K4 launch becomes one
+launch a rank over its share of the candidates (padded to a multiple of
+the mesh by repeating the last one), whose outputs are gathered and the
+padding dropped. K4 is lane-local, so the solves are those of the
+unmeshed launch; the kNN orders ties by row where ``np.argsort`` keeps its
+own order.
+
 A step whose candidates are all infeasible raises ``InfeasibleStep``
 (sim/plant.py), the one exception the plant records as an infeasible step
 (holding the previous input); the reference pauses there instead. Every
@@ -48,6 +59,7 @@ from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
 from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
     FusedLmShooting, build_fused_lm_shooting, obstacle_to_lanes_nlmpc)
 from ilqr_iterative_tasks_torch.ops.ilqr import rollout
+from ilqr_iterative_tasks_torch.parallel.distributed import build_kernels
 from ilqr_iterative_tasks_torch.sim.plant import InfeasibleStep, true_step
 from ilqr_iterative_tasks_torch.utils.device import resolve
 from ilqr_iterative_tasks_torch.utils.params import LmpcParams, SystemLimits
@@ -63,12 +75,18 @@ class NlmpcController:
     of every step that solved (n > 1; host clock, after K4's outputs
     reached the host) and ``launch_lanes`` the lanes of every K4 call.
     ``calc_input`` raises ``InfeasibleStep`` when no candidate is feasible.
+    ``mesh``: run meshed over its ranks (module docstring); every rank of
+    the mesh drives its own copy of the controller on the same states.
     """
 
     def __init__(self, params: LmpcParams, obstacle: Optional[object] = None,
                  limits: Optional[SystemLimits] = None, dtype=torch.float32,
-                 device=None):
+                 device=None, mesh=None):
         self.device = resolve(device)
+        self.mesh = mesh
+        self.mesh_axis = mesh.axis_names[0] if mesh is not None else None
+        if mesh is not None and self.device.type == "cuda":
+            build_kernels(mesh)  # nvcc on one rank of the mesh
         self.params = params
         self.limits = (limits if limits is not None
                        else SystemLimits.make(dtype=dtype, device=self.device))
@@ -156,10 +174,50 @@ class NlmpcController:
         flat = self.x_guess[X_DIM * (n + 1): X_DIM * (n + 1) + U_DIM * n]
         return flat.reshape(n, U_DIM)
 
+    def _select_close_sharded(self, lap_id: int, k: int) -> np.ndarray:
+        """``select_close`` through the mesh's global top-k: the lap's rows
+        padded so that every rank holds at least k and the mesh divides
+        them; fewer than k where the lap is shorter."""
+        from ilqr_iterative_tasks_torch.parallel.sharded_safe_set import (
+            sharded_knn)
+
+        x, q = self.safe_set.ss[lap_id], self.safe_set.Qfun[lap_id]
+        t, ndev = x.shape[1], self.mesh.axis_size(self.mesh_axis)
+        tp = max(-(-t // ndev), k) * ndev
+        states = np.zeros((tp, X_DIM))
+        states[:t] = x.T
+        qfun = np.zeros(tp)
+        qfun[:t] = q
+        f = lambda a: torch.tensor(a, dtype=torch.float64, device=self.device)
+        idx, _, _, _ = sharded_knn(
+            f(states), torch.arange(tp, device=self.device) < t, f(qfun),
+            f(self.x_terminal_guess), k, self.mesh, self.mesh_axis)
+        return idx.cpu().numpy()
+
     def _solve_k4(self, x_terms: np.ndarray, n: int):
-        """One K4 launch over candidates x_terms (4, B) at horizon n ->
-        host (us (n, 2, B), x_last (4, B), feasible (B,) bool) in the
-        solve's dtype."""
+        """K4 over candidates x_terms (4, B) at horizon n -> host (us (n,
+        2, B), x_last (4, B), feasible (B,) bool) in the solve's dtype: one
+        launch, or under a mesh one a rank over its share of the lanes."""
+        b = x_terms.shape[1]
+        if self.mesh is None:
+            out = self._launch_k4(x_terms, n).cpu()
+        else:
+            size = self.mesh.axis_size(self.mesh_axis)
+            # repeat the last candidate; the padded lanes are dropped
+            xt = np.concatenate([x_terms, np.repeat(
+                x_terms[:, -1:], (-b) % size, axis=1)], axis=1)
+            per = xt.shape[1] // size
+            i = self.mesh.axis_index(self.mesh_axis)
+            out = self._launch_k4(xt[:, i * per:(i + 1) * per], n)
+            out = torch.cat(self.mesh.all_gather(out, self.mesh_axis),
+                            dim=1)[:, :b].cpu()
+        return (out[:n * U_DIM].reshape(n, U_DIM, b),
+                out[n * U_DIM:n * U_DIM + X_DIM], out[-1] > 0.5)
+
+    def _launch_k4(self, x_terms: np.ndarray, n: int) -> torch.Tensor:
+        """One K4 launch over candidates x_terms (4, B) at horizon n -> its
+        outputs on the device, stacked: us rows (n * 2), x_last (4) and
+        feasible (1), each (B,)."""
         b, big_n = x_terms.shape[1], self.params.num_horizon
         f = lambda a: torch.tensor(np.ascontiguousarray(a), dtype=self.dtype,
                                    device=self.device)
@@ -173,10 +231,8 @@ class NlmpcController:
         us, x_last, _, feasible = self.k4()(x0, f(x_terms), u_warm, lanes,
                                             skip, hzn)
         self.launch_lanes.append(b)
-        out = torch.cat([us[:n].reshape(n * U_DIM, b), x_last,
-                         feasible[None]]).cpu()
-        return (out[:n * U_DIM].reshape(n, U_DIM, b),
-                out[n * U_DIM:n * U_DIM + X_DIM], out[-1] > 0.5)
+        return torch.cat([us[:n].reshape(n * U_DIM, b), x_last,
+                          feasible[None]])
 
     def _winner_pred(self, us: torch.Tensor, x_last: torch.Tensor):
         """(x_pred (4, n+1), u_pred (2, n)) float64 of one K4 lane."""
@@ -200,6 +256,9 @@ class NlmpcController:
                 idxs.append(np.arange(0, self.safe_set.ss[lap_id].shape[1]))
             elif p.ss_option == "timeVarying":
                 idxs.append(self._select_time_varying(lap_id))
+            elif self.mesh is not None:  # kNN through the mesh's top-k
+                idxs.append(self._select_close_sharded(lap_id,
+                                                       p.num_ss_points))
             else:  # spaceVarying: kNN around the terminal guess
                 idxs.append(self.safe_set.select_close(
                     lap_id, self.x_terminal_guess, p.num_ss_points))

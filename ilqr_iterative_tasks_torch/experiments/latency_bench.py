@@ -13,9 +13,10 @@ Port of ilqr_iterative_tasks_tpu/experiments/latency_bench.py. Reports
   ``pipeline_depth`` launches;
 - ``soa_solves_per_s``: K3 candidate solves a second across batch sizes
   (its plain version on the CPU);
-- ``lap_sims_per_s_by_devices``: the batched i2LQR learning run
-  (``simulate_learning_runs_soa``, through K1 on the card) a device count;
-  only count 1 is ported (counts above 1 wait for the scale-out port).
+- ``lap_sims_per_s_by_devices``: the batched i2LQR learning run a device
+  count n, sharded over n ranks (parallel/sharded_soa.py, through K1 on
+  the card; NCCL, one card a rank, so counts above the visible cards are
+  skipped; gloo on the CPU).
 
 Each bench function, and ``main``, takes an optional ``launches`` dict
 into which it writes, under the report key it measures, the kernel
@@ -36,6 +37,7 @@ import time
 import numpy as np
 import torch
 
+from ilqr_iterative_tasks_torch.parallel.launch import spawn
 from ilqr_iterative_tasks_torch.utils.device import resolve
 
 MAX_STEPS, MAX_LAPS = 128, 8
@@ -230,20 +232,30 @@ def bench_device_step_latency(batch: int = 1024, reps: int = 30,
             "budget_ms": 1000.0}
 
 
-def bench_device_scaling(device_counts, device=None, launches=None):
-    """Lap-sims a second of the batched i2LQR learning run (2 laps, LM cap
-    40, plant noise on, f32) a device count: 256 lanes a card (8 on the
-    CPU). Counts above the visible cards are skipped; a count above 1
-    raises NotImplementedError (on the CPU every count is there, as JAX
-    makes that many CPU devices)."""
+def scaling_rank(per_device: int, num_laps: int, sim_step_budget: int,
+                 device_type: str) -> dict:
+    """One rank of ``bench_device_scaling``: the batched i2LQR learning run
+    (LM cap 40, plant noise on, f32) over the global scenario mesh, each
+    rank ``per_device`` lanes of it (``_shardmap``: each shard its own
+    noise stream, the result gathered at the end). A warm run, then a timed
+    one between barriers (the card synchronized): its seconds and the K1
+    launches of this rank (0 on the CPU). A plain candidate solve on the
+    card raises (``headlines.no_plain_solve_on_card``)."""
     from ilqr_iterative_tasks_torch.control.batched_soa import (
-        SoaScenarios, default_step_solver, simulate_learning_runs_soa)
+        SoaScenarios, default_step_solver)
+    from ilqr_iterative_tasks_torch.experiments.headlines import (
+        no_plain_solve_on_card)
     from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
+    from ilqr_iterative_tasks_torch.parallel.distributed import (
+        global_scenario_mesh)
+    from ilqr_iterative_tasks_torch.parallel.sharded_soa import (
+        simulate_learning_runs_soa_shardmap)
     from ilqr_iterative_tasks_torch.sim.seed import seed_trajectory
     from ilqr_iterative_tasks_torch.utils.params import (IlqrParams,
                                                          SystemLimits)
 
-    dev = resolve(device)
+    mesh = global_scenario_mesh()
+    dev = mesh.device if device_type == "cuda" else torch.device("cpu")
     on_card = dev.type == "cuda"
     f32 = torch.float32
     params = IlqrParams.make(device=dev)
@@ -254,40 +266,62 @@ def bench_device_scaling(device_counts, device=None, launches=None):
     seed_us = torch.zeros((MAX_STEPS, 2), dtype=f32, device=dev)
     seed_us[:len(ucl)] = torch.tensor(ucl, dtype=f32, device=dev)
     obstacle = Obstacle.make(31.0, -2.0, 8.0, 6.0, dtype=f32, device=dev)
+    scs = SoaScenarios.broadcast(np.zeros(4), xcl[-1], obstacle,
+                                 per_device * mesh.size, noise_on=True,
+                                 dtype=f32, device=dev)
+
+    def run(seed):
+        with no_plain_solve_on_card():
+            simulate_learning_runs_soa_shardmap(
+                params, limits, scs, seed_xs, seed_us, len(xcl), 1.0, mesh,
+                num_laps=num_laps, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+                solver_max_iter=40, sim_step_budget=sim_step_budget,
+                generator=torch.Generator(dev).manual_seed(seed))
+        _sync(dev)
+
+    # on the card the run launches the simulator's cached K1
+    k1 = (default_step_solver(params, limits, 1.0, max_steps=MAX_STEPS,
+                              max_laps=MAX_LAPS, max_iter=40)
+          if on_card else None)
+    before = k1.launches if on_card else 0
+    run(0)
+    mesh.barrier()
+    t0 = time.perf_counter()
+    run(1)
+    mesh.barrier()
+    return dict(seconds=time.perf_counter() - t0,
+                k1_launches=k1.launches - before if on_card else 0)
+
+
+def bench_device_scaling(device_counts, device=None, launches=None, *,
+                         per_device=None, num_laps=2, sim_step_budget=121):
+    """Lap-sims a second of the batched i2LQR learning run (``num_laps``
+    laps, LM cap 40, plant noise on, f32) a device count n: n ranks, each
+    with ``per_device`` lanes (256 a card, 8 on the CPU), started by
+    parallel/launch.py (NCCL, one card a rank; gloo on the CPU, one thread
+    a rank) and run through the scenario-sharded simulator. The rate is
+    the global B x laps over rank 0's seconds of the timed run. Counts
+    above the visible cards are skipped (on the CPU every count is there,
+    as JAX makes that many CPU devices). ``launches`` gets the K1 launches
+    of each count's runs, summed over its ranks."""
+    from ilqr_iterative_tasks_torch.ops import _build
+
+    dev = resolve(device)
+    on_card = dev.type == "cuda"
     n_avail = torch.cuda.device_count() if on_card else max(device_counts)
-    per_dev = 256 if on_card else 8
-    num_laps = 2
+    per_dev = per_device or (256 if on_card else 8)
+    if on_card:
+        _build.build()  # once, before the ranks load it
     out, counts = {}, {}
     for nd in device_counts:
         if nd > n_avail:
             continue
-        if nd > 1:
-            raise NotImplementedError(
-                f"{nd} devices: the scenario-sharded simulators are not "
-                f"ported yet (ROADMAP Queue 1 item 4, scale-out)")
-        batch = per_dev * nd
-        scs = SoaScenarios.broadcast(np.zeros(4), xcl[-1], obstacle, batch,
-                                     noise_on=True, dtype=f32, device=dev)
-
-        def run(seed):
-            simulate_learning_runs_soa(
-                params, limits, scs, seed_xs, seed_us, len(xcl), 1.0,
-                num_laps=num_laps, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
-                solver_max_iter=40,
-                generator=torch.Generator(dev).manual_seed(seed))
-            _sync(dev)
-
-        # on the card the run launches the simulator's cached K1
-        k1 = (default_step_solver(params, limits, 1.0, max_steps=MAX_STEPS,
-                                  max_laps=MAX_LAPS, max_iter=40)
-              if on_card else None)
-        before = k1.launches if on_card else 0
-        run(0)
-        t0 = time.perf_counter()
-        run(1)
-        out[str(nd)] = round(batch * num_laps / (time.perf_counter() - t0),
-                             1)
-        counts[str(nd)] = k1.launches - before if on_card else 0
+        got = spawn(f"{__name__}:scaling_rank", nd, per_dev, num_laps,
+                    sim_step_budget, dev.type,
+                    backend="nccl" if on_card else "gloo",
+                    threads=None if on_card else 1, timeout=3600)
+        out[str(nd)] = round(per_dev * nd * num_laps / got[0]["seconds"], 1)
+        counts[str(nd)] = sum(g["k1_launches"] for g in got)
     if launches is not None:
         launches["lap_sims_per_s_by_devices"] = counts
     return out

@@ -1115,3 +1115,54 @@ def test_host_controller_step_on_the_card_matches_the_cpu(dev, kind):
     assert sum(k.launches for k in kernels.values()) == (
         3 if kind == "i2lqr" else 1)
     assert card.launch_lanes == cpu.launch_lanes
+
+
+def test_sharded_knn_on_the_card_is_the_cpu_s(dev):
+    """``sharded_knn`` over a one-rank mesh (no process group) on CUDA
+    tensors gives the CPU's rows, points and distances, ties ordered by row
+    (a stable sort on the card), f32 and f64."""
+    from ilqr_iterative_tasks_torch.parallel.mesh import make_mesh
+    from ilqr_iterative_tasks_torch.parallel.sharded_safe_set import (
+        sharded_knn)
+    rng = np.random.default_rng(4)
+    grid = rng.integers(-3, 4, (32, 4)).astype(float)
+    states = grid[np.arange(256) % 32]
+    valid = rng.random(256) > 0.2
+    for dtype in (torch.float32, torch.float64):
+        args = [torch.tensor(states, dtype=dtype),
+                torch.tensor(valid), torch.arange(256.0, dtype=dtype),
+                torch.tensor(grid[5] + 0.5, dtype=dtype)]
+        cpu = sharded_knn(*args, 8, make_mesh())
+        card = sharded_knn(*(a.to(dev) for a in args), 8, make_mesh())
+        for c, g in zip(cpu, card):
+            assert torch.equal(c, g.cpu())
+        assert len(set(cpu[3].tolist())) < 8  # ties among the 8
+
+
+def test_one_rank_sharded_run_on_the_card_is_the_unsharded_run(dev):
+    """The ``_sharded`` NLMPC wrapper over a one-rank mesh on the card, 2
+    laps on a generator, through the simulator's own K2: the unsharded
+    run's lap records and generator state, bit for bit."""
+    from ilqr_iterative_tasks_torch.parallel.mesh import make_mesh
+    from ilqr_iterative_tasks_torch.parallel.sharded_soa import (
+        simulate_nlmpc_runs_soa_sharded)
+    xcl, ucl = seed_trajectory(1.0)
+    seed_xs, seed_us = np.zeros((T_ROWS, 4)), np.zeros((T_ROWS, 2))
+    seed_xs[:121], seed_us[:120] = xcl, ucl
+    scen = SoaScenarios.broadcast(np.zeros(4), xcl[-1], Obstacle.make(
+        31.0, -2.0, 8.0, 6.0, device=dev), 256, noise_on=True, device=dev)
+    args = (LmpcParams.make(device=dev),
+            SystemLimits.make(dtype=torch.float64, device=dev), scen,
+            seed_xs, seed_us, 121, 1.0)
+    kw = dict(num_laps=2, max_steps=T_ROWS, max_laps=MAX_LAPS,
+              max_lm_iters=12, infeasible_retire=8)
+    want = simulate_nlmpc_runs_soa(
+        *args, generator=torch.Generator(dev).manual_seed(5), **kw)
+    got = simulate_nlmpc_runs_soa_sharded(
+        *args, make_mesh(), generator=torch.Generator(dev).manual_seed(5),
+        **kw)
+    for g, w in zip((got.lap_steps, got.lap_done, got.final_x,
+                     *got.safe_set), (want.lap_steps, want.lap_done,
+                                      want.final_x, *want.safe_set)):
+        assert torch.equal(g, w)
+    assert torch.equal(got.final_key, want.final_key)

@@ -1,9 +1,9 @@
 """The port's latency bench (experiments/latency_bench.py) on the CPU
 against the JAX package's: the report's keys (the card-only whole-step
 entry aside), K3's throughput lanes and LM cap, the batched run's sizes,
-the NLMPC per-step latency run, and the refusal of device counts above 1
-(the scale-out port is still to come). The full CPU report and the i2LQR
-per-step run (full i2LQR laps on the CPU route) are ``slow``."""
+the NLMPC per-step latency run, and the device-count scaling over 1 and 2
+ranks (gloo subprocesses) at a tiny size. The full CPU report and the
+i2LQR per-step run (full i2LQR laps on the CPU route) are ``slow``."""
 
 import io
 import json
@@ -43,13 +43,29 @@ def test_report_keys_match_jax(monkeypatch):
     the JAX report's keys and sub-keys, "backend" "cpu". K3's throughput
     runs for real (its plain version); the batched learning run, two runs
     of ~1.5 min on the CPU route, is recorded and not run here (the slow
-    test runs it)."""
+    test runs it): its one rank runs in this process, on the one-rank mesh
+    of no process group."""
     calls = []
 
     def recorded(params, limits, scs, seed_xs, seed_us, seed_len, dt, **kw):
         calls.append((scs.x0.shape[-1], seed_len, dt, kw))
+        b, laps = scs.x0.shape[-1], kw["num_laps"]
+        z = lambda *shape, dtype=torch.float32: torch.zeros(shape,
+                                                            dtype=dtype)
+        return batched_soa.SoaRunResult(
+            lap_steps=z(laps, b, dtype=torch.int32),
+            lap_done=z(laps, b, dtype=torch.bool), final_x=z(4, b),
+            safe_set=(z(8, 128, 4, b), z(8, 128, b),
+                      z(8, 128, b, dtype=torch.bool),
+                      z(8, b, dtype=torch.int32)), lap_count=1 + laps)
+
+    def one_rank_here(target, world, *args, backend, **kw):
+        assert (target, world, backend) == (
+            f"{lb.__name__}:scaling_rank", 1, "gloo")
+        return [lb.scaling_rank(*args)]
 
     monkeypatch.setattr(batched_soa, "simulate_learning_runs_soa", recorded)
+    monkeypatch.setattr(lb, "spawn", one_rank_here)
     argv = ["--skip-latency", "--batches", "64"]
     out, launches = io.StringIO(), {}
     with redirect_stdout(out):
@@ -74,9 +90,18 @@ def test_report_keys_match_jax(monkeypatch):
                 kw["max_laps"]) == (2, 40, 128, 8)
 
 
-def test_device_counts_above_one_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        lb.bench_device_scaling([2], device="cpu")
+def test_device_scaling_runs_each_count_on_its_ranks():
+    """``bench_device_scaling([1, 2])`` on the CPU spawns 1 and 2 gloo
+    ranks (here 2 lanes a rank, 1 lap cut at 1 step): a rate for each
+    count, no K1 launch on the CPU route."""
+    launches = {}
+    out = lb.bench_device_scaling([1, 2], device="cpu", launches=launches,
+                                  per_device=2, num_laps=1, sim_step_budget=1)
+    assert list(out) == ["1", "2"] and all(r > 0 for r in out.values())
+    assert launches == {"lap_sims_per_s_by_devices": {"1": 0, "2": 0}}
+
+
+def test_whole_step_latency_is_card_only():
     assert lb.bench_device_step_latency(device="cpu") is None
 
 

@@ -1,10 +1,12 @@
 """The torch port runs without JAX and without the JAX package: in a fresh
-interpreter, import every module of the port, run a tiny i2LQR and a tiny
-NLMPC learning run, two steps of each host controller and a tiny
-generic-system solve on the CPU, and check
-that no module of jax or of ``ilqr_iterative_tasks_tpu`` was loaded. A
-source scan holds the same rule for every file of the port and for
-chip_smoke.py."""
+interpreter, import every module of the port (the scale-out package
+``parallel`` among them), run a tiny i2LQR and a tiny NLMPC learning run,
+two steps of each host controller, a tiny generic-system solve and the
+sharded kNN and a sharded NLMPC run on a one-rank mesh on the CPU, and
+check that no module of jax or of ``ilqr_iterative_tasks_tpu`` was loaded.
+A source scan holds the same rule for every file of the port, for
+chip_smoke.py and for the multi-process tests' rank functions
+(tests/_torch_distributed_worker.py)."""
 
 import ast
 import os
@@ -89,6 +91,20 @@ for ctrl in (
         x = true_step(x, ctrl.get_input(), 1.0)
     assert np.isfinite(x).all() and x[0] > 0.5, x
     assert len(ctrl.solve_seconds) == 2, ctrl.solve_seconds
+from ilqr_iterative_tasks_torch.parallel import (
+    distributed, launch, mesh, sharded_safe_set, sharded_soa)
+one = mesh.make_mesh()
+assert one.size == 1 and not torch.distributed.is_initialized()
+states = torch.tensor([[3.0, 0, 0, 0], [1.0, 0, 0, 0], [2.0, 0, 0, 0]])
+rows = sharded_safe_set.sharded_knn(
+    states, torch.tensor([True, True, False]), torch.arange(3.0),
+    torch.zeros(4), 2, one)[0]
+assert rows.tolist() == [1, 0], rows
+res = sharded_soa.simulate_nlmpc_runs_soa_sharded(
+    LmpcParams.make(device=cpu), SystemLimits.make(device=cpu), sc, seed,
+    seed_u, 121, 1.0, one, num_laps=1, max_laps=4, sim_step_budget=3,
+    max_lm_iters=12, generator=torch.Generator().manual_seed(0))
+assert res.lap_steps.tolist() == [[3, 3]], res.lap_steps
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in {FORBIDDEN})
 assert not loaded, loaded
@@ -119,8 +135,12 @@ def _imports(path: pathlib.Path):
 def test_port_sources_import_no_jax_package():
     root = pathlib.Path(REPO)
     files = sorted((root / "ilqr_iterative_tasks_torch").rglob("*.py"))
-    files.append(root / "chip_smoke.py")
+    files += [root / "chip_smoke.py",
+              root / "tests" / "_torch_distributed_worker.py"]
     assert len(files) > 20
+    assert {"distributed.py", "launch.py", "mesh.py", "sharded_safe_set.py",
+            "sharded_soa.py"} <= {f.name for f in files
+                                  if f.parent.name == "parallel"}
     bad = {str(f.relative_to(root)): sorted(set(_imports(f)) & set(FORBIDDEN))
            for f in files}
     bad = {f: names for f, names in bad.items() if names}
