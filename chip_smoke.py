@@ -292,9 +292,9 @@ from ilqr_iterative_tasks_torch.experiments.headlines import (  # noqa: E402
     EVERY_CAPTURES, K3_ATTRS, K4_ATTRS, RANDOM_LANES, SWEEP_CONFIGS,
     SWEEP_LAPS, Capture, Headlines, Recorder, cuda_ms, device_seconds,
     K1_COUNT, k1_capture, k2_capture, k4_lanes, lane_obstacle,
-    lap_records_hash, counted_solves, k32_distinct, no_plain_solve_on_card,
-    require, seed_lanes, sweep_capture, sweep_step_solver, tap_step,
-    want_capture)
+    lap_records_hash, counted_solves, k32_distinct, live_share,
+    no_plain_solve_on_card, require, seed_lanes, stats_summary,
+    sweep_capture, sweep_step_solver, tap_step, want_capture)
 
 ZERO_NOISE_LAPS = [55, 28, 24]  # CPU XLA f32 family, docs/PARITY.md:146
 # NLMPC headline lap completion bound. Completion follows the f32 arithmetic
@@ -691,6 +691,131 @@ def check_k2(tag, k2, alts, captured, plain, host_plain, nsi2=None):
                              f"starts)")
             print(line, flush=True)
     return stats
+
+
+# K1's options at k = 8 (phase 4b), by name; "dedup_qsort" is the pair the
+# JAX main path ships (bench.py:79-82), phase 6b's and the simulator's
+K1_OPTION_SETS = {"dedup": dict(dedup=True),
+                  "qsort_skip": dict(qsort_skip=True),
+                  "dedup_qsort": dict(dedup=True, qsort_skip=True)}
+
+
+def k1_with(params, limits, options, **kw):
+    """K1 at the headline's sizes with ``options``."""
+    from ilqr_iterative_tasks_torch.ops.i2lqr_step import (
+        build_fused_i2lqr_step)
+    return build_fused_i2lqr_step(params, limits, 1.0, num_horizon=N,
+                                  max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+                                  max_iter=CAP, **options, **kw)
+
+
+def check_k1_options(captured, k1, params, limits, host_params, host_limits):
+    """Phase 4b: on phase 4's captures (f32 as captured) K1 with each
+    option set of K1_OPTION_SETS, with and without with_stats, and K1's
+    counting build in the plain order ("with_stats"), against K1 without
+    options: the outputs bit for bit, the counts integer for integer the
+    plain version's (the lane queue's iters_executed, which the plain
+    version does not model, by its invariants), ms a step of each beside
+    K1's, the counts' sums and the bound over the solves each schedule
+    runs (its iters_useful and the solves the plain version reports).
+    Returns each set's figures at the lap-2 capture."""
+    from ilqr_iterative_tasks_torch.ops.i2lqr_step import (
+        i2lqr_step_reference)
+    sets = {"with_stats": {}, **K1_OPTION_SETS}
+    kern = {name: (k1_with(params, limits, o) if o else k1,
+                   k1_with(params, limits, o, with_stats=True))
+            for name, o in sets.items()}
+    nc, stats = k1.nsi * k1.k, {}
+    for lap, (step, args) in sorted(captured.items()):
+        a = cast(args, torch.float32, keep=(8,))
+        active = a[8] < 0.5
+        n_act = int(active.sum())
+        base = k1(*a)
+        base_ms = cuda_ms(lambda: k1(*a), 10)
+        print(f"[4b K1 options lap {lap} step {step} f32] active {n_act}, "
+              f"K1 without options {base_ms:.3f} ms a step", flush=True)
+        for name, o in sets.items():
+            shipped, counted = kern[name]
+            out = counted(*a)
+            require(all(torch.equal(g, w) for g, w in zip(out[:4], base))
+                    and all(torch.equal(g, w) for g, w in zip(shipped(*a),
+                                                              base)),
+                    f"4b K1 {name} lap {lap}: outputs are not K1's")
+            trips = []
+            ref, plain_ms = timed_call(lambda: i2lqr_step_reference(
+                params, limits, 1.0, *a, max_iter=CAP, with_stats=True,
+                trips=trips, **o))
+            for g, w, what in zip(out[4:], ref[4:],
+                                  ("useful", "executed", "queue_floor")):
+                if what == "executed" and o.get("qsort_skip"):
+                    require(bool((g >= out[4]).all())
+                            and int(g[~active].abs().sum()) == 0,
+                            f"4b K1 {name} lap {lap}: executed")
+                    continue
+                require(torch.equal(g, w), f"4b K1 {name} lap {lap}: "
+                        f"{what} is not the plain version's")
+            if o.get("qsort_skip"):  # the headline's batch fills the card
+                require(shipped.lane_queue_runs(a[0].shape[-1], a[0].device,
+                                                a[0].dtype),
+                        f"4b K1 {name}: the lane queue does not run")
+            ms = cuda_ms(lambda: shipped(*a), 10)
+            stats_ms = cuda_ms(lambda: counted(*a), 10)
+            useful, executed, floor = (float(t[active].double().sum())
+                                       for t in out[4:])
+            solves = float(torch.cat(trips)[:, active].gt(0).double().sum())
+            line = (f"[4b K1 {name} lap {lap}] bitwise K1's, counts the "
+                    f"plain version's; {ms:.3f} ms a step (counting build "
+                    f"{stats_ms:.3f}, plain {plain_ms:.3f}); solves a live "
+                    f"lane {solves / n_act:.2f} of {3 * nc}, useful "
+                    f"{useful / n_act:.2f} trips, executed "
+                    f"{executed / n_act:.2f} thread-trips, waste "
+                    f"{1 - useful / executed:.4f}, queue floor (32 lanes) / "
+                    f"executed {floor / executed:.4f}")
+            if lap == 2:
+                idx = torch.nonzero(active).flatten()[:SAMPLE_LANES]
+                sample = lanes_of(a, idx.cpu(), a[0].shape[-1])
+                st = bound(solve_ops(
+                    lambda max_iter: i2lqr_step_reference(
+                        host_params, host_limits, 1.0, *sample,
+                        max_iter=max_iter), "max_iter", len(idx), n_act,
+                    useful / (3 * nc), solves / (n_act * 3 * nc)),
+                    step_bytes(a, out[:4], (2, 3), k1.nsi))
+                st.update(ms=stats_ms if not o else ms, stats_ms=stats_ms,
+                          plain_ms=plain_ms, k1_ms=base_ms,
+                          max_abs_err=max_abs_err(out[:4], base),
+                          solves_a_lane=solves / n_act,
+                          useful_a_lane=useful / n_act,
+                          executed_a_lane=executed / n_act,
+                          waste=1 - useful / executed,
+                          floor_over_executed=floor / executed)
+                stats[name] = st
+                line += (f"; bound {st['bound_ms']:.4f} ms by "
+                         f"{st['bound_by']}")
+            print(line, flush=True)
+    return stats
+
+
+def check_k2_counts(tag, k2s, captured, lp, limits):
+    """K2 with_stats on captured inputs (f32 as captured): iters_useful and
+    iters_executed integer for integer the plain step's; prints their sums
+    a live lane and the waste share."""
+    from ilqr_iterative_tasks_torch.ops.nlmpc_step import (
+        nlmpc_step_reference)
+    for lap, (step, args) in sorted(captured.items()):
+        a = cast(args, torch.float32, keep=(9,))
+        active = a[9] < 0.5
+        out = k2s(*a)
+        ref = nlmpc_step_reference(lp, limits, 1.0, *a,
+                                   max_iters=k2s.max_iters,
+                                   qsort_skip=k2s.qsort_skip, with_stats=True)
+        for g, w, what in zip(out[6:], ref[6:], ("useful", "executed")):
+            require(torch.equal(g, w), f"{tag} lap {lap}: {what} is not "
+                    f"the plain step's")
+        useful, executed = (float(t[active].double().sum()) for t in out[6:])
+        n_act = int(active.sum())
+        print(f"[{tag} lap {lap} step {step}] counts the plain step's: "
+              f"useful {useful / n_act:.2f}, executed {executed / n_act:.2f}"
+              f" a live lane, waste {1 - useful / executed:.4f}", flush=True)
 
 
 def cast(args, dtype, keep=()):
@@ -1574,6 +1699,10 @@ def main():
     # and K5 (N = 6), as the CUDA runtime reports them
     occupancy = dict(
         k1=_build.attributes(lib, "i2lqr_step_attributes", 0, N, 8, 1),
+        k1_opts=_build.attributes(lib, "i2lqr_step_opts_attributes", 0, N, 8,
+                                  1),
+        k1_lanes=_build.attributes(lib, "i2lqr_step_opts_attributes", 0, N,
+                                   8, 0),
         k1_k32=_build.attributes(lib, "i2lqr_step_attributes", 0, N, 32, 4),
         k2_all=_build.attributes(lib, "nlmpc_step_all_attributes", 0, N),
         k2_sv=_build.attributes(lib, "nlmpc_step_attributes", 0, N, 8, 1, 0,
@@ -1778,6 +1907,9 @@ def main():
                              f"{k1_bound['bound_by']} ({mean_trips:.2f} LM "
                              f"iterations a candidate solve)")
             print(line, flush=True)
+    # ---- 4b. K1's options on the same captures ----
+    k1_opt_stats = check_k1_options(cap.captured, k1, params, limits,
+                                    host_params, host_limits)
     del cap
     print(f"[4 K1] lap-2 capture {k1_ms:.3f} ms a step (f32), "
           f"{occupancy['k1']['registers']} registers, "
@@ -1805,20 +1937,71 @@ def main():
     require(all(abs(a - b) <= 2 for a, b in zip(laps0, ZERO_NOISE_LAPS)),
             f"zero-noise laps {laps0} not within 2 of {ZERO_NOISE_LAPS}")
 
-    # ---- 6b. i2LQR headline timed runs ----
-    times, hashes = [], []
-    for seed in (1, 2):
+    # ---- 6b. i2LQR headline timed runs through K1 without options and
+    # with the pair the JAX main path ships (dedup + qsort_skip), in turns;
+    # the pair must leave every lap record as it was ----
+    # the simulator's own K1 (no step_solver): the pair at k = 8 / nsi 1
+    k1_pair = batched_soa.default_step_solver(
+        params, limits, 1.0, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+        max_iter=CAP)
+    require(k1_pair.dedup and k1_pair.qsort_skip
+            and k1_pair.lane_queue_runs(BATCH, dev, torch.float32),
+            "the simulator's K1 does not run dedup + qsort_skip's lane "
+            "queue at the headline's batch")
+    times, hashes, seed_hash, pair_launches = {"plain": [], "pair": []}, [], \
+        {}, {}
+    for seed, name in ((1, "plain"), (1, "pair"), (2, "pair"), (2, "plain")):
+        solver = k1_pair if name == "pair" else k1
+        solver.launches = 0
         t0 = time.perf_counter()
-        res = headline(seed, k1)
-        times.append(time.perf_counter() - t0)
-        hashes.append(lap_records_hash(res))
+        res = headline(seed, None if name == "pair" else k1)
+        times[name].append(time.perf_counter() - t0)
+        pair_launches.setdefault(name, solver.launches)
+        h = lap_records_hash(res)
+        hashes.append(h)
+        require(seed_hash.setdefault(seed, h) == h,
+                f"headline seed {seed}: dedup + qsort_skip changed the run")
         del res
-    best = min(times)
+    require(pair_launches["pair"] > 0, "K1 with dedup + qsort_skip was not "
+            "launched by the main path")
+    best = min(times["plain"])
     rate = BATCH * LAPS / best
+    pair_rate = BATCH * LAPS / min(times["pair"])
     print(f"[6 headline] {rate:.1f} lap-sims/s, {best:.3f} s per batch "
-          f"(runs {[round(t, 3) for t in times]}, lap records {hashes}), "
-          f"completion {completion:.4f}, K1 launches {k1_launches}, card "
-          f"{card}", flush=True)
+          f"(runs {[round(t, 3) for t in times['plain']]}); with dedup + "
+          f"qsort_skip {pair_rate:.1f} lap-sims/s, "
+          f"{min(times['pair']):.3f} s per batch (runs "
+          f"{[round(t, 3) for t in times['pair']]}), K1 launches "
+          f"{pair_launches['pair']} (without {pair_launches['plain']}); lap "
+          f"records {hashes}, completion {completion:.4f}, K1 launches "
+          f"{k1_launches}, card {card}", flush=True)
+    # seed 0 again through K1 that counts, in the plain order and with the
+    # pair: each launch's live share, the run's useful, executed and queue
+    # floor (the lap records phase 6's warm run's)
+    k1_counted = {}
+    for name, opts in (("with_stats", {}),
+                       ("dedup_qsort", K1_OPTION_SETS["dedup_qsort"])):
+        kc = k1_with(params, limits, opts, with_stats=True)
+        rec = live_share(kc, 8, BATCH)
+        t0 = time.perf_counter()
+        res = headline(0, rec)
+        run_s = time.perf_counter() - t0
+        require(lap_records_hash(res) == k1_hash,
+                f"headline through K1 {name}: lap records changed")
+        require(kc.launches > 0, f"K1 {name} was not launched")
+        k1_counted[name] = dict(launches=kc.launches, run_s=run_s,
+                                live_share=rec.shares(),
+                                **stats_summary(res.iter_stats))
+        c = k1_counted[name]
+        print(f"[6 headline counted {name}] {run_s:.3f} s, K1 launches "
+              f"{kc.launches}, live share a launch min "
+              f"{c['live_share']['min']:.4f} median "
+              f"{c['live_share']['median']:.4f} mean "
+              f"{c['live_share']['mean']:.4f}; useful {c['useful']}, "
+              f"executed {c['executed']} thread-trips: waste "
+              f"{c['waste']:.4f}; queue floor (32 lanes) {c['queue_floor']}"
+              f", / executed {c['floor_over_executed']:.4f}", flush=True)
+        del res
 
     # ---- 22. the i2LQR headline through K3, the per-candidate path ----
     k3p = build_fused_ilqr(params, limits, 1.0, num_horizon=N, max_iter=CAP)
@@ -2000,8 +2183,13 @@ def main():
                 plain_of(lp2)[0])
 
     nl_plain, nl_host_plain = plain_of(nl_params)
-    k2_stats = check_k2("8 K2", k2q, {"no_qsort_skip": k2}, cap2.captured,
+    k2qs = build_fused_nlmpc_step(nl_params, nl_limits, 1.0, qsort_skip=True,
+                                  with_stats=True, **nl_sizes)
+    k2_stats = check_k2("8 K2", k2q, {"no_qsort_skip": k2,
+                                      "with_stats": k2qs}, cap2.captured,
                         nl_plain, nl_host_plain, nsi2=nsi2_of(nl_params))
+    check_k2_counts("8c K2 with_stats", k2qs, cap2.captured, nl_params,
+                    nl_limits)
     del cap2
     print(f"[8 K2] lap-2 capture {k2_stats['ms']:.3f} ms a step with "
           f"qsort_skip, {k2_stats['no_qsort_skip_ms']:.3f} ms without (f32), "
@@ -2060,6 +2248,28 @@ def main():
                     f"NLMPC headline seed {seed}: qsort_skip changed the run")
         runs[seed] = res
     del runs, res
+    # seed 0 again through K2 with qsort_skip that counts: each launch's
+    # live share and the run's useful and executed trips (the lap records
+    # phase 10's warm run's)
+    rec = live_share(k2qs, 9, BATCH)
+    k2qs.launches = 0
+    t0 = time.perf_counter()
+    res = nl_headline(0, rec)
+    k2_counted = dict(run_s=time.perf_counter() - t0,
+                      launches=k2qs.launches, live_share=rec.shares(),
+                      **stats_summary(res.iter_stats))
+    require(lap_records_hash(res) == k2_hash,
+            "NLMPC headline through K2 with_stats: lap records changed")
+    require(k2qs.launches > 0, "K2 with_stats was not launched")
+    del res, rec
+    c = k2_counted
+    print(f"[10 NLMPC headline counted] {c['run_s']:.3f} s, K2 launches "
+          f"{c['launches']}, live share a launch min "
+          f"{c['live_share']['min']:.4f} median "
+          f"{c['live_share']['median']:.4f} mean "
+          f"{c['live_share']['mean']:.4f}; useful {c['useful']}, executed "
+          f"{c['executed']} thread-trips: waste {c['waste']:.4f}, lap "
+          f"records {k2_hash}", flush=True)
     nl_rate = {name: BATCH * LAPS / min(t) for name, t in nl_times.items()}
     for name, label in (("qsort_skip", ""), ("plain", " without qsort_skip")):
         print(f"[10 NLMPC headline{label}] {nl_rate[name]:.1f} lap-sims/s, "
@@ -2364,6 +2574,9 @@ def main():
     for tag, k, nsi, sr in SWEEP_CONFIGS:
         wrap = (sweep_capture if tag == "k32_nsi4"
                 else lambda kk, w=wants[tag]: Capture(kk, K1_ATTRS, 5, w))
+        # the simulator's own K1: at k = 8 / nsi 1 with dedup and
+        # qsort_skip, as the JAX sweep builds it
+        # (experiments/scenario_sweep.py:78-82)
         with sweep_step_solver(k, nsi, wrap, device=dev) as (k1s, cap_s):
             for kk in (k1, k1s, k3, k4):
                 kk.launches = 0
@@ -2385,7 +2598,11 @@ def main():
         rep.update(launches=launches, hash=lap_records_hash(res),
                    completion=p_done, completion_se=se)
         sweep[tag], sweep_caps[tag], sweep_k1[tag] = rep, cap_s, k1s
-        print(f"[21 sweep {tag}] B={SWEEP_BATCH} completion "
+        rep["lane_queue"] = bool(getattr(k1s, "qsort_skip", False)
+                                 and k1s.lane_queue_runs(
+                                     SWEEP_BATCH, dev, torch.float32))
+        print(f"[21 sweep {tag}] B={SWEEP_BATCH} lane queue "
+              f"{rep['lane_queue']}, completion "
               f"{rep['completion_rate']:.4f} (standard error {se:.5f}), "
               f"final-lap mean {rep['final_lap_mean']}, lap-step p50s "
               f"{rep['lap_steps_p50']}, p95s {rep['lap_steps_p95']}, wall "
@@ -2400,6 +2617,40 @@ def main():
     print(f"[21 sweep k32_nsi4 profiled] K1 k32 {k32_prof['k1_device_s']:.4f}"
           f" s of the card a run; the card busy {k32_prof['busy_s']:.4f} s of "
           f"{k32_prof['host_s']:.3f} s under the profiler", flush=True)
+    # the k = 8 sweeps through K1 in the plain order and through the pair's
+    # lane queue (a counting build: the queue runs whatever the batch), in
+    # turns: the simulator's K1 runs the queue only on a batch that fills
+    # the card at one thread a lane, which the sweep's does not
+    from ilqr_iterative_tasks_torch.experiments.scenario_sweep import (
+        MAX_LAPS as S_LAPS, MAX_STEPS as S_STEPS)
+    sweep_ab = {}
+    for tag, k, nsi, sr in SWEEP_CONFIGS[:2]:
+        p8 = IlqrParams.make(num_ss_points=k, num_ss_iter=nsi)
+        arms = {name: build_fused_i2lqr_step(
+                    p8, limits, 1.0, num_horizon=N, max_steps=S_STEPS,
+                    max_laps=S_LAPS, max_iter=SWEEP_CAP, **opts)
+                for name, opts in (("plain", {}), ("lane_queue", dict(
+                    dedup=True, qsort_skip=True, with_stats=True)))}
+        walls = {name: [] for name in arms}
+        for name in ("plain", "lane_queue", "lane_queue", "plain"):
+            with sweep_step_solver(k, nsi, lambda _, a=arms[name]: a,
+                                   device=dev):
+                runs = []
+                t0 = time.perf_counter()
+                run_sweep(SWEEP_BATCH, SWEEP_LAPS, moving=True,
+                          num_ss_points=k, num_ss_iter=nsi, stall_reseed=sr,
+                          quiet=True, device=dev, result=runs)
+                torch.cuda.synchronize()
+                walls[name].append(time.perf_counter() - t0)
+            require(lap_records_hash(runs[0]) == sweep[tag]["hash"],
+                    f"sweep {tag} through K1 {name}: lap records changed")
+            del runs
+        sweep_ab[tag] = walls
+        print(f"[21 sweep {tag} A/B] wall s in turns: plain "
+              f"{[round(t, 3) for t in walls['plain']]}, dedup + "
+              f"qsort_skip in the lane queue "
+              f"{[round(t, 3) for t in walls['lane_queue']]} (lap records "
+              f"{sweep[tag]['hash']} both)", flush=True)
     base = sweep["k8_nsi1"]
     for tag in ("k8_nsi1_sr3", "k32_nsi4"):
         require(sweep[tag]["completion"] > base["completion"]
@@ -2796,6 +3047,25 @@ def main():
              launches=k1_launches, max_abs_err=k1_err, ms=k1_ms,
              plain_ms=k1_plain_ms, **k1_bound, **occupancy["k1"],
              latency_bench=bench_k1, sharded=sharded_k1),
+        # K1 at k = 8 with its options (csrc/i2lqr_step_opts.cu): ms,
+        # bound and counts at phase 4b's lap-2 capture, launches in the runs
+        # that went through it (phase 6b's counted run in the plain order;
+        # the simulator's own K1, the pair, in its timed seed-1 run)
+        dict(name="i2lqr_step (K1, with_stats)", route="cuda",
+             source=csrc + "i2lqr_step_opts.cu",
+             replaces=tpu + "pallas_i2lqr_step.py:221",
+             launches=k1_counted["with_stats"]["launches"],
+             **k1_opt_stats["with_stats"], **occupancy["k1_opts"],
+             headline=k1_counted["with_stats"]),
+        dict(name="i2lqr_step (K1, dedup + qsort_skip)", route="cuda",
+             source=csrc + "i2lqr_step_opts.cu",
+             replaces=tpu + "pallas_i2lqr_step.py:221",
+             launches=pair_launches["pair"], **k1_opt_stats["dedup_qsort"],
+             **occupancy["k1_lanes"], lap_sims_per_s=pair_rate,
+             no_options_lap_sims_per_s=rate,
+             headline_counted=k1_counted["dedup_qsort"],
+             qsort_skip_alone=k1_opt_stats["qsort_skip"],
+             dedup_alone=k1_opt_stats["dedup"], sweep_wall_s=sweep_ab),
         dict(name="i2lqr_step (K1, k32 nsi4)", route="cuda",
              source=csrc + "i2lqr_step.cu",
              replaces=tpu + "pallas_i2lqr_step.py:221",
@@ -2812,6 +3082,17 @@ def main():
              lap_sims_per_s=nl_rate["qsort_skip"],
              no_qsort_skip_lap_sims_per_s=nl_rate["plain"],
              sharded=sharded_k2),
+        # K2 spaceVarying with qsort_skip and with_stats: the same solves
+        # as K2's (its bound), ms at phase 8's lap-2 capture, launches in
+        # phase 10b's counted run
+        dict(name="nlmpc_step (K2, with_stats)", route="cuda",
+             source=csrc + "nlmpc_step.cu",
+             replaces=tpu + "pallas_nlmpc_step.py:245",
+             launches=k2_counted["launches"],
+             max_abs_err=k2_stats["max_abs_err"],
+             ms=k2_stats["with_stats_ms"], plain_ms=k2_stats["plain_ms"],
+             bound_ms=k2_stats["bound_ms"], bound_by=k2_stats["bound_by"],
+             library_ms=None, headline=k2_counted),
         dict(name="nlmpc_step (K2, timeVarying)", route="cuda",
              source=csrc + "nlmpc_step.cu",
              replaces=tpu + "pallas_nlmpc_step.py:245",

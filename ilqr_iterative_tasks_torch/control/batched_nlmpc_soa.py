@@ -59,6 +59,10 @@ class NlmpcSoaRunResult(NamedTuple):
     # i32, each lane-lap's longest all-infeasible streak that feasibility
     # ended and its streak at the lap's end
     streaks: tuple = ()
+    # a step solver built with_stats: (iters_useful, iters_executed) (B,)
+    # i64, each lane's sums over the run's steps (this run's only where it
+    # resumes one)
+    iter_stats: tuple = ()
 
 
 def add_lap(ss, slot, xs_rec, us_rec, n_valid):
@@ -244,6 +248,7 @@ def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
             return nlmpc_step_reference(params, limits, dt, *args,
                                         max_iters=max_lm_iters,
                                         candidate_solver=candidate_solver)
+    stats_on = bool(getattr(step_solver, "with_stats", False))
     if max_steps < sim_step_budget + (2 if goal_append else 1):
         raise ValueError(
             f"max_steps={max_steps} too small for sim_step_budget="
@@ -285,6 +290,8 @@ def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
     goal, noise_on = scenarios.goal, scenarios.noise_on
     lap_steps = torch.zeros((num_laps, b), dtype=torch.int32, device=dev)
     lap_done = torch.zeros((num_laps, b), dtype=torch.bool, device=dev)
+    stat_acc = (tuple(torch.zeros((b,), dtype=torch.int64, device=dev)
+                      for _ in range(2)) if stats_on else ())
     if with_streak_stats:
         streaks = (torch.zeros((num_laps, b), dtype=torch.int32, device=dev),
                    torch.zeros((num_laps, b), dtype=torch.int32, device=dev))
@@ -317,9 +324,11 @@ def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
             skip = (done | retired).to(torch.float32)
             if bool((skip < 0.5).any()):
                 extra = (t, min_cost) if mode == "timeVarying" else ()
-                us_w, feas_f, new_guess0, idx_sel, row_sel, succ_f = solver(
+                (us_w, feas_f, new_guess0, idx_sel, row_sel, succ_f,
+                 *stats) = solver(
                     x, guess, u_warm, states, qfun, lap_len, lap_ids, lap_ok,
                     obstacle_to_lanes_nlmpc(obstacle, b), skip, hzn, *extra)
+                stat_acc = tuple(a + v for a, v in zip(stat_acc, stats))
             else:  # every lane done or retired: outputs would be zeros
                 us_w = torch.zeros((n, 2, b), dtype=dtype, device=dev)
                 feas_f = succ_f = torch.zeros((b,), dtype=dtype, device=dev)
@@ -380,4 +389,4 @@ def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
         lap_steps=lap_steps, lap_done=lap_done, final_x=x, safe_set=ss,
         lap_count=lap0 + num_laps,
         final_key=noise_key(noise, generator, sim_step),
-        streaks=streaks if with_streak_stats else ())
+        streaks=streaks if with_streak_stats else (), iter_stats=stat_acc)

@@ -118,6 +118,10 @@ class SoaRunResult(NamedTuple):
     # the noise position after the run (noise_key): pass (safe_set,
     # lap_count, final_key) back as ``resume_from`` to continue the run
     final_key: object = None
+    # a step solver built with_stats: (iters_useful, iters_executed,
+    # queue_floor) (B,) i64, each lane's sums over the run's steps (this
+    # run's only where it resumes one)
+    iter_stats: tuple = ()
 
 
 def noise_key(noise, generator, rows):
@@ -230,14 +234,22 @@ def default_step_solver(params: IlqrParams, limits: SystemLimits, dt, *,
                         max_iter: int) -> FusedI2lqrStep:
     """The K1 that ``simulate_learning_runs_soa`` launches on CUDA
     scenarios when no step_solver is passed: built once per constants and
-    sizes, then reused (its ``launches`` keeps counting)."""
+    sizes, then reused (its ``launches`` keeps counting). At k = 8 and
+    nsi = 1 it takes the options the JAX main path ships, ``dedup`` and
+    ``qsort_skip`` (bench.py:79-82; bitwise-neutral), which run where the
+    batch fills the card at one thread a lane
+    (``FusedI2lqrStep.lane_queue_runs``): on an H100 the i2LQR headline
+    ran 0.658 s a batch with them against 0.891 without (PERF.md).
+    Other sizes run the plain order."""
     key = (tuple(_build.consts_array(solver_consts(params, limits, dt))),
            params.num_ss_points, params.num_ss_iter, params.num_horizon,
            max_steps, max_laps, max_iter)
     if key not in _K1_CACHE:
+        pair = params.num_ss_points == 8 and params.num_ss_iter == 1
         _K1_CACHE[key] = build_fused_i2lqr_step(
             params, limits, dt, num_horizon=params.num_horizon,
-            max_steps=max_steps, max_laps=max_laps, max_iter=max_iter)
+            max_steps=max_steps, max_laps=max_laps, max_iter=max_iter,
+            dedup=pair, qsort_skip=pair)
     return _K1_CACHE[key]
 
 
@@ -346,6 +358,7 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
             return i2lqr_step_reference(params, limits, dt, *args,
                                         max_iter=cap,
                                         candidate_solver=candidate_solver)
+    stats_on = bool(getattr(step_solver, "with_stats", False))
     # the record write reaches row sim_step_budget, goal_append one more
     if max_steps < sim_step_budget + (2 if goal_append else 1):
         raise ValueError(
@@ -387,6 +400,8 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
     zero_u = torch.zeros((1, 2, b), dtype=dtype, device=dev)
     lap_steps = torch.zeros((num_laps, b), dtype=torch.int32, device=dev)
     lap_done = torch.zeros((num_laps, b), dtype=torch.bool, device=dev)
+    stat_acc = (tuple(torch.zeros((b,), dtype=torch.int64, device=dev)
+                      for _ in range(3)) if stats_on else ())
     # sim_step: executed steps over the run (and the run it resumes), the
     # noise row
 
@@ -411,9 +426,10 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
             g0 = x if stall_reseed is None else torch.where(
                 (stall >= stall_reseed)[None], goal, x)
             if bool((skip < 0.5).any()):
-                us_sel, shrink_f, idx_sel, row_sel = solver(
+                us_sel, shrink_f, idx_sel, row_sel, *stats = solver(
                     x, g0, states, qfun, lap_len, lap_ids, lap_ok,
                     obstacle_to_lanes(obstacle, b), skip)
+                stat_acc = tuple(a + v for a, v in zip(stat_acc, stats))
                 if stall_reseed is not None:
                     # the winner's time-to-go, Qfun at (its lap, its kNN
                     # row); active lanes count the steps it did not
@@ -464,4 +480,5 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
     return SoaRunResult(lap_steps=lap_steps, lap_done=lap_done,
                         final_x=goal, safe_set=ss,
                         lap_count=lap0 + num_laps,
-                        final_key=noise_key(noise, generator, sim_step))
+                        final_key=noise_key(noise, generator, sim_step),
+                        iter_stats=stat_acc)

@@ -17,10 +17,12 @@
 // (the TPU kernel's oracle); for nsi = 1 that is exactly the TPU kernel.
 // For a lap that is not yet stored (lap_ok = 0) the kNN runs on the clipped
 // lap id, as there, and its costs are masked. Of the TPU kernel's options
-// (dedup, qsort_skip, dom_skip, group, stream_safe_set, with_stats,
-// reuse_extract) only dedup is in effect, at k = 32 (below); the shipped
-// dedup and qsort_skip are bitwise-neutral, so this kernel computes what
-// the bench's does.
+// this file takes none at k = 8, and at k = 32 dedup is in effect whatever
+// the factory says (below). At k = 8, with_stats, dedup and qsort_skip run
+// in i2lqr_step_opts.cu, which computes this kernel's outputs bit for bit
+// (the options are bitwise-neutral), so this kernel computes what the
+// bench's does; dom_skip, group, stream_safe_set, store_solutions and
+// reuse_extract are not ported (ops/i2lqr_step.py, _UNPORTED).
 //
 // Design: a tile of G = nsi * k threads per lane, one thread per
 // candidate (Tile, lm_core.cuh); blocks of 128 threads hold 128 / G lanes,

@@ -1,0 +1,546 @@
+// K1 at k = 8 with the TPU kernel's options: with_stats, dedup and
+// qsort_skip (ilqr_iterative_tasks_tpu/ops/pallas_i2lqr_step.py, factory
+// docstring :82-181, kernel :240-292, :541-720). It computes what
+// i2lqr_step_kernel (i2lqr_step.cu) computes, bit for bit: the options
+// change which candidate solves run, never the outputs. The kernel without
+// options stays i2lqr_step_kernel, whose registers these options would
+// change.
+//
+// The plain order (with_stats, dedup; nsi 1 and 2), i2lqr_step_opts_kernel:
+// as i2lqr_step_kernel, a tile of G = nsi * k threads a lane, one thread a
+// candidate slot, blocks of 128 threads. Unlike it, a warp's tiles stay
+// together to the end (a skipped lane's tile, or one past B, does no work
+// but takes part in the warp's collectives), so that the warp can count
+// its trips. dedup: thread c keeps what its slot gave in passes 0 and 1
+// (kNN row, whether it was a valid candidate, its distance and terminal
+// state). In a later pass a valid candidate whose row an entry of the same
+// lap row holds (the K threads of that row, read by shuffles) takes that
+// entry's distance and terminal state and is not solved. A final winner so
+// taken is solved again by its thread in a round of its own: its us (the
+// same pure solve, bitwise).
+//
+// qsort_skip (nsi = 1), i2lqr_step_lanes_kernel: a lane queue, one thread
+// a lane (below). A tile of 8 threads that solved one position a lane a
+// round measured 7.70 ms at the i2LQR headline's lap-2 capture against
+// this design's 2.39 (PERF.md): at the headline a lane solves about
+// one position a pass, which left 7 of a tile's 8 threads idle.
+//
+// with_stats: three int32 (B,) counts a lane, summed over the step.
+// iters_useful: the trips of the lane's solves (lm_solve's count, the
+// plain version's lane_iters). iters_executed: thread-trips its warp pays,
+// in the tile every solve round its warp runs (a round a pass, and a
+// winner solved again one more), the lane's G threads times the warp's
+// longest solve of the round; in the lane queue each solve's longest trips
+// among the warp's threads that run it together. upass (3, B): a pass's
+// useful trips plus one arrival at each position the lane visits (every
+// slot in the plain order, the slots not skipped under qsort_skip), the
+// final winner's solve again counted in pass 2; the wrapper takes JAX's
+// queue_floor from it (ops/i2lqr_step.py). Skipped lanes write 0.
+//
+// What bounds it on the card: the tile as i2lqr_step_kernel; the lane
+// queue a lane's LM chains in series (about one solve a pass at the
+// headline), a warp's 32 lanes' longest series.
+#include "lm_core.cuh"
+
+namespace ilqr {
+
+constexpr int K1_OPT_STATS = 1, K1_OPT_DEDUP = 2, K1_OPT_QSORT = 4;
+
+// v summed over the tile's threads, in every thread
+template <int G>
+__device__ __forceinline__ int tile_sum(const Tile<G>& tl, int v) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) v += tl.shfl_xor(v, off);
+  return v;
+}
+
+template <typename T, int N, int K, int NSI>
+__global__ void __launch_bounds__(128, 4) i2lqr_step_opts_kernel(
+    const Consts<T> C, int B, int T_rows, int opts, const T* __restrict__ x,
+    const T* __restrict__ g0, const T* __restrict__ states,
+    const T* __restrict__ qfun, const int* __restrict__ lap_len,
+    const int* __restrict__ lap_ids, const int* __restrict__ lap_ok,
+    const T* __restrict__ obs, const float* __restrict__ skip,
+    T* __restrict__ us_out, T* __restrict__ shrink_out,
+    int* __restrict__ idx_out, int* __restrict__ row_out,
+    int* __restrict__ useful_out, int* __restrict__ exec_out,
+    int* __restrict__ upass_out) {
+  constexpr int G = NSI * K;  // threads a lane, one a candidate
+  static_assert(128 % G == 0, "a block holds whole lanes");
+  constexpr unsigned FULL = 0xffffffffu;
+  const bool stats = opts & K1_OPT_STATS, dedup = opts & K1_OPT_DEDUP;
+  const Tile<G> tl;
+  const int b = (blockIdx.x * blockDim.x + threadIdx.x) / G;
+  const int c = tl.rank;  // candidate s = c % K of lap row r = c / K
+  const int r = c / K, s = c % K;
+  const bool in = b < B;
+  const bool live = in && skip[b] <= 0.5f;
+  if (in && !live) {
+    for (int i = c; i < 2 * N; i += G) us_out[i * B + b] = (T)0;
+    if (c == 0) {
+      shrink_out[b] = (T)0;
+      idx_out[b] = 0;
+      row_out[b] = 0;
+      if (stats) {
+        useful_out[b] = 0;
+        exec_out[b] = 0;
+        for (int p = 0; p < 3; ++p) upass_out[p * B + b] = 0;
+      }
+    }
+  }
+  if (__ballot_sync(FULL, live) == 0) return;  // the whole warp
+  const T inf = (T)INFINITY;
+  T x0[4] = {}, xg[4] = {};
+  Obs<T> o{};
+  int lap = 0, len = 0;
+  bool lap_stored = false, lok[NSI];
+#pragma unroll
+  for (int rr = 0; rr < NSI; ++rr) lok[rr] = lap_ok[rr] != 0;
+  if (live) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      x0[q] = x[q * B + b];
+      xg[q] = g0[q * B + b];
+    }
+    o = load_obs(obs, B, b);
+    lap = lap_ids[r];
+    lap_stored = lap_ok[r] != 0;
+    len = lap_len[(size_t)lap * B + b];
+  }
+  const int rows = len < T_rows ? len : T_rows;
+  const size_t row_stride = (size_t)4 * B;  // one safe-set row (4, B)
+  const T* st = states + (size_t)lap * T_rows * row_stride + b;
+
+  T us[N][2];
+  // the dedup cache: this slot's kNN row, validity, distance and terminal
+  // state in passes 0 and 1
+  int e_idx[2] = {0, 0};
+  bool e_ok[2] = {false, false};
+  T e_d[2] = {(T)0, (T)0}, e_xl[2][4] = {};
+  int win = 0, idx_sel = 0, row_sel = 0;
+  bool again = false;     // the final winner's us are to be solved again
+  int solved_pass = -1;   // the pass of this thread's last solve (its us)
+  int useful = 0, executed = 0, up2 = 0, fin_tr = 0;
+  T xt[4] = {};
+  // passes 0-2, then (where a lane's final winner was taken from the
+  // cache) a round that solves it again: the kernel's one lm_solve
+  for (int pass = 0; pass < 4; ++pass) {
+    const bool fin = pass == 3;
+    if (fin && !__any_sync(FULL, again)) break;
+    // ---- kNN of this thread's lap row, its candidate, the cache ----
+    int ik = 0;
+    bool cok = false, hit = false;
+    T cq = (T)0, hd = (T)0, hxl[4] = {};
+    if (!fin && live) {
+      T dk;
+      knn_rows_group<T, K, G>(tl, s, st, row_stride, B, rows, xg, dk, ik);
+      cok = dk < inf && lap_stored;
+      const T* p = st + ik * row_stride;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) xt[q] = p[q * B];
+      cq = qfun[((size_t)lap * T_rows + ik) * B + b];
+      if (dedup) {
+#pragma unroll
+        for (int pp = 0; pp < 2; ++pp) {
+          if (pp >= pass) break;
+          int src = -1;
+#pragma unroll
+          for (int j = 0; j < K; ++j) {
+            const int q = r * K + j;
+            const int oi = tl.shfl(e_idx[pp], q);
+            const bool ook = tl.shfl((int)e_ok[pp], q) != 0;
+            if (src < 0 && ook && cok && oi == ik) src = q;
+          }
+          const int from = src < 0 ? c : src;
+          const T d = tl.shfl(e_d[pp], from);
+          T xl[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) xl[q] = tl.shfl(e_xl[pp][q], from);
+          if (!hit && src >= 0) {
+            hit = true;
+            hd = d;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) hxl[q] = xl[q];
+          }
+        }
+      }
+    }
+    // ---- the pass's round of solves (every candidate the cache does not
+    // give), or the final round (a winner the cache gave, again) ----
+    const bool visit = live;  // the plain order visits every slot
+    const T unit = fin ? (T)1 : C.unit[pass];
+    const T cutoff = fin ? (T)0 : C.cutoff[pass];
+    T d_me = hd, xl_me[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) xl_me[q] = hxl[q];
+    const bool go = fin ? live && again && c == win : live && !hit;
+    int tr = 0;  // this thread's trips this round
+    if (go) {  // ---- the zeros-initialised solve ----
+#pragma unroll
+      for (int i = 0; i < N; ++i) us[i][0] = us[i][1] = (T)0;
+      const Solve<T, N> S{C, x0, xt, o};
+      T cost;
+      S.template lm_solve<true>(us, false, xl_me, cost, d_me, &tr);
+      solved_pass = pass;
+    }
+    if (stats) {
+      useful += tr;
+      const int most = (int)__reduce_max_sync(FULL, (unsigned)tr);
+      if (live) executed += G * most;
+    }
+    if (fin) {
+      fin_tr = tr;
+      if (go) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          us_out[(2 * i) * B + b] = us[i][0];
+          us_out[(2 * i + 1) * B + b] = us[i][1];
+        }
+      }
+      break;
+    }
+    if (!live) continue;
+    // ---- this slot's relaxed reach cost, then the selection over the
+    // tile's candidates, in every thread: lexicographic row-min over laps
+    // (ragged list compare: absent slots -inf, laps not yet stored +inf),
+    // then the first-min argmin over the winning row ----
+    T ccost = inf;
+    if (visit && cok) {
+      const T i_rel = fmax(ceil(d_me / unit - (T)1e-12), (T)1.0);
+      ccost = d_me <= cutoff ? cq + (T)N + (T)100.0 * i_rel : inf;
+    }
+    T cmp[G], cst[G];
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      cst[q] = tl.shfl(ccost, q);
+      const bool okq = tl.shfl((int)cok, q) != 0;
+      cmp[q] = lok[q / K] ? (okq ? cst[q] : -inf) : inf;
+    }
+    win = lex_select<T, NSI, K>(cmp, cst, row_sel);
+    idx_sel = tl.shfl(ik, win);
+    // the guess re-centres on the winner's terminal state
+#pragma unroll
+    for (int q = 0; q < 4; ++q) xg[q] = tl.shfl(xl_me[q], win);
+    if (pass < 2) {  // the cache keeps what the schedule solved or took
+      const bool ok = cok && visit;
+      if (pass == 0) {
+        e_idx[0] = ik;
+        e_ok[0] = ok;
+        e_d[0] = d_me;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) e_xl[0][q] = xl_me[q];
+      } else {
+        e_idx[1] = ik;
+        e_ok[1] = ok;
+        e_d[1] = d_me;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) e_xl[1][q] = xl_me[q];
+      }
+    }
+    if (stats) {  // the pass's useful trips and arrivals, a lane's sum
+      const int u = tile_sum(tl, tr + (visit ? 1 : 0));
+      if (pass < 2) {
+        if (c == 0) upass_out[pass * B + b] = u;
+      } else {
+        up2 = u;
+      }
+    }
+    if (pass == 2) {
+      again = tl.shfl((int)(solved_pass != 2), win) != 0;
+      if (c == win) {
+        if (!again) {
+#pragma unroll
+          for (int i = 0; i < N; ++i) {
+            us_out[(2 * i) * B + b] = us[i][0];
+            us_out[(2 * i + 1) * B + b] = us[i][1];
+          }
+        }
+        const int len_sel = lap_len[(size_t)lap_ids[row_sel] * B + b];
+        shrink_out[b] = (idx_sel + 1) > (len_sel - 1) ? (T)1 : (T)0;
+        idx_out[b] = idx_sel;
+        row_out[b] = row_sel;
+      }
+    }
+  }
+  if (stats && live) {  // the lane's counts (the final solve again in pass 2)
+    useful = tile_sum(tl, useful);
+    const int again_tr = tile_sum(tl, fin_tr);
+    if (c == 0) {
+      useful_out[b] = useful;
+      exec_out[b] = executed;
+      upass_out[2 * B + b] = up2 + again_tr + (again ? 1 : 0);
+    }
+  }
+}
+
+// qsort_skip at nsi = 1 as a lane queue: one thread a lane walks its own
+// positions, on the grid of what the card holds at once whose threads take
+// their next lane from a counter (launch_lanes, tile.cuh), as K3 does. Per
+// pass the thread runs the lane's kNN alone (knn_rows), ranks its K slots
+// by (Qfun, slot), invalid slots last, and visits the positions in that
+// order under the strict skip: position p > 0 is skipped when it is
+// invalid or q + n + 100 > the best cost so far (tier-quantised costs tie
+// across different q), which ends the lane's pass (dominance is monotone
+// in position). It keeps the lexicographic (cost, slot) minimum, the plain
+// order's first-min argmin, with its terminal state and, where it solved
+// it, its us. dedup: the lane's solves of passes 0 and 1 (row, distance,
+// terminal state) in local memory, matched by row. A final winner taken
+// from the cache is solved again, at the kernel's one call of lm_solve.
+
+template <typename T, int N, int K>
+__global__ void __launch_bounds__(128) i2lqr_step_lanes_kernel(
+    const Consts<T> C, int B, int T_rows, int opts, const T* __restrict__ x,
+    const T* __restrict__ g0, const T* __restrict__ states,
+    const T* __restrict__ qfun, const int* __restrict__ lap_len,
+    const int* __restrict__ lap_ids, const int* __restrict__ lap_ok,
+    const T* __restrict__ obs, const float* __restrict__ skip,
+    T* __restrict__ us_out, T* __restrict__ shrink_out,
+    int* __restrict__ idx_out, int* __restrict__ row_out,
+    int* __restrict__ useful_out, int* __restrict__ exec_out,
+    int* __restrict__ upass_out, int* __restrict__ counter, int n_threads) {
+  static_assert(K <= 8, "the rank order: K slots of 4 bits");
+  const bool stats = opts & K1_OPT_STATS, dedup = opts & K1_OPT_DEDUP;
+  const T inf = (T)INFINITY;
+  const size_t row_stride = (size_t)4 * B;  // one safe-set row (4, B)
+  const int lap = lap_ids[0];
+  const bool lap_stored = lap_ok[0] != 0;
+  for (int b = blockIdx.x * blockDim.x + threadIdx.x; b < B;
+       b = next_lane(counter, n_threads)) {
+    if (skip[b] > 0.5f) {
+      for (int i = 0; i < 2 * N; ++i) us_out[i * B + b] = (T)0;
+      shrink_out[b] = (T)0;
+      idx_out[b] = 0;
+      row_out[b] = 0;
+      if (stats) {
+        useful_out[b] = 0;
+        exec_out[b] = 0;
+        for (int p = 0; p < 3; ++p) upass_out[p * B + b] = 0;
+      }
+      continue;
+    }
+    T x0[4], xg[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      x0[q] = x[q * B + b];
+      xg[q] = g0[q * B + b];
+    }
+    const Obs<T> o = load_obs(obs, B, b);
+    const int len = lap_len[(size_t)lap * B + b];
+    const int rows = len < T_rows ? len : T_rows;
+    const T* st = states + (size_t)lap * T_rows * row_stride + b;
+    // the dedup cache: rows solved or taken in passes 0 and 1
+    int e_row[2 * K];
+    T e_d[2 * K], e_xl[2 * K][4];
+    int n_cache = 0;
+    T us[N][2], us_win[N][2];
+    int useful = 0, executed = 0, win_row = 0;
+    bool held = false;  // us_win holds the final winner's solution
+    for (int pass = 0; pass < 3; ++pass) {
+      T dk[K];
+      int ik[K];
+      knn_rows<T, K>(st, row_stride, B, rows, xg, dk, ik);
+      T qe[K];
+#pragma unroll
+      for (int s = 0; s < K; ++s)
+        qe[s] = dk[s] < inf && lap_stored
+                    ? qfun[((size_t)lap * T_rows + ik[s]) * B + b] : inf;
+      unsigned order = 0;  // position p's slot in bits 4p..4p+3
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        int rank = 0;
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+          rank += qe[j] < qe[s] || (qe[j] == qe[s] && j < s);
+        order |= (unsigned)s << (4 * rank);
+      }
+      const T unit = C.unit[pass], cutoff = C.cutoff[pass];
+      const int n_prev = n_cache;  // this pass matches earlier passes only
+      T best = inf, xl_win[4] = {};
+      int best_slot = 0, up = 0;
+      // positions in rank order (the lane stops at the first it skips),
+      // then, after pass 2, the final winner again where the cache gave it:
+      // the kernel's one lm_solve
+      for (int p = 0; p <= K; ++p) {
+        int s = K, row = 0;
+        T q = inf;
+        bool stop = p == K;
+        if (!stop) {
+          s = (int)((order >> (4 * p)) & 15u);
+#pragma unroll
+          for (int j = 0; j < K; ++j)
+            if (j == s) {
+              q = qe[j];
+              row = ik[j];
+            }
+          stop = p > 0 && (!(q < inf) || q + (T)N + (T)100.0 > best);
+        }
+        const bool again = stop && pass == 2 && !held;
+        if (stop && !again) break;
+        if (again) row = win_row;
+        const bool ok = !again && q < inf;
+        int hit = -1;
+        if (dedup && ok)
+          for (int e = 0; e < n_prev && hit < 0; ++e)
+            if (e_row[e] == row) hit = e;
+        T d, xl[4];
+        int tr = 0;
+        if (hit >= 0) {
+          d = e_d[hit];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) xl[c] = e_xl[hit][c];
+        } else {
+          T xt[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) xt[c] = st[row * row_stride + c * B];
+#pragma unroll
+          for (int i = 0; i < N; ++i) us[i][0] = us[i][1] = (T)0;
+          const Solve<T, N> S{C, x0, xt, o};
+          T cost;
+          S.template lm_solve<true>(us, false, xl, cost, d, &tr);
+          if (stats)
+            executed += (int)__reduce_max_sync(__activemask(), (unsigned)tr);
+        }
+        useful += tr;
+        up += 1 + tr;
+        if (again) {  // the final winner's us
+#pragma unroll
+          for (int i = 0; i < N; ++i) {
+            us_win[i][0] = us[i][0];
+            us_win[i][1] = us[i][1];
+          }
+          break;
+        }
+        if (dedup && ok && pass < 2) {
+          e_row[n_cache] = row;
+          e_d[n_cache] = d;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) e_xl[n_cache][c] = xl[c];
+          ++n_cache;
+        }
+        const T i_rel = fmax(ceil(d / unit - (T)1e-12), (T)1.0);
+        const T cost = ok && d <= cutoff ? q + (T)N + (T)100.0 * i_rel : inf;
+        // the (cost, slot) lexicographic minimum; slot 0 is the winner
+        // while every cost is +inf
+        if (s == best_slot || cost < best || (cost == best && s < best_slot)) {
+          best = cost;
+          best_slot = s;
+          win_row = row;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) xl_win[c] = xl[c];
+          held = hit < 0;
+          if (held) {
+#pragma unroll
+            for (int i = 0; i < N; ++i) {
+              us_win[i][0] = us[i][0];
+              us_win[i][1] = us[i][1];
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) xg[c] = xl_win[c];
+      if (stats) upass_out[pass * B + b] = up;
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      us_out[(2 * i) * B + b] = us_win[i][0];
+      us_out[(2 * i + 1) * B + b] = us_win[i][1];
+    }
+    shrink_out[b] = (win_row + 1) > (len - 1) ? (T)1 : (T)0;
+    idx_out[b] = win_row;
+    row_out[b] = 0;
+    if (stats) {
+      useful_out[b] = useful;
+      exec_out[b] = executed;
+    }
+  }
+}
+
+template <typename T, int N, int K, int NSI>
+int launch_i2lqr_step_opts(int opts, const double* consts, int max_iter,
+                           int B, int T_rows, const void* x, const void* g0,
+                           const void* states, const void* qfun,
+                           const void* lap_len, const void* lap_ids,
+                           const void* lap_ok, const void* obs,
+                           const void* skip, void* us, void* shrink,
+                           void* idx, void* row, void* useful, void* exec,
+                           void* upass, void* counter, cudaStream_t stream) {
+  const Consts<T> C = make_consts<T>(consts, max_iter);
+  if constexpr (NSI == 1) {
+    if (opts & K1_OPT_QSORT)
+      return launch_lanes<i2lqr_step_lanes_kernel<T, N, K>>(
+          B, (int*)counter, stream, C, B, T_rows, opts, (const T*)x,
+          (const T*)g0, (const T*)states, (const T*)qfun,
+          (const int*)lap_len, (const int*)lap_ids, (const int*)lap_ok,
+          (const T*)obs, (const float*)skip, (T*)us, (T*)shrink, (int*)idx,
+          (int*)row, (int*)useful, (int*)exec, (int*)upass);
+  }
+  constexpr int lanes_per_block = 128 / (NSI * K);
+  i2lqr_step_opts_kernel<T, N, K, NSI>
+      <<<(B + lanes_per_block - 1) / lanes_per_block, 128, 0, stream>>>(
+      C, B, T_rows, opts, (const T*)x, (const T*)g0, (const T*)states,
+      (const T*)qfun, (const int*)lap_len, (const int*)lap_ids,
+      (const int*)lap_ok, (const T*)obs, (const float*)skip, (T*)us,
+      (T*)shrink, (int*)idx, (int*)row, (int*)useful, (int*)exec,
+      (int*)upass);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace ilqr
+
+#define I2LQR_OPTS_CASE(TYPE, CODE, N_, K_, NSI_)                            \
+  if (dtype == CODE && n == N_ && k == K_ && nsi == NSI_)                    \
+    return ilqr::launch_i2lqr_step_opts<TYPE, N_, K_, NSI_>(                 \
+        opts, consts, max_iter, B, T_rows, x, g0, states, qfun, lap_len,     \
+        lap_ids, lap_ok, obs, skip, us, shrink, idx, row, useful, exec,      \
+        upass, counter, s);
+
+// K1 at k = 8 with options: opts ORs 1 (with_stats), 2 (dedup) and 4
+// (qsort_skip, nsi = 1 only: the lane queue). Arguments as
+// i2lqr_step_launch's, then the stats (int32: useful (B,), executed (B,),
+// upass (3, B); read only with with_stats, else may be null), the lane
+// queue's counter (one int32 of device memory) and the stream. Returns the cudaError_t of the launch, or -1 when no kernel is
+// instantiated for (dtype, n, k, nsi) or qsort_skip is asked with
+// nsi != 1.
+extern "C" int i2lqr_step_opts_launch(
+    int dtype, int n, int k, int nsi, int opts, const double* consts,
+    int max_iter, int B, int T_rows, int max_laps, const void* x,
+    const void* g0, const void* states, const void* qfun,
+    const void* lap_len, const void* lap_ids, const void* lap_ok,
+    const void* obs, const void* skip, void* us, void* shrink, void* idx,
+    void* row, void* useful, void* exec, void* upass, void* counter,
+    void* stream) {
+  (void)max_laps;
+  if (B <= 0) return 0;
+  if ((opts & ilqr::K1_OPT_QSORT) && nsi != 1) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  I2LQR_OPTS_CASE(float, 0, 6, 8, 1)
+  I2LQR_OPTS_CASE(double, 1, 6, 8, 1)
+  I2LQR_OPTS_CASE(float, 0, 6, 8, 2)
+  I2LQR_OPTS_CASE(double, 1, 6, 8, 2)
+  return -1;
+}
+
+#define I2LQR_OPTS_ATTRIBUTES(TYPE, CODE, N_, K_, NSI_)                      \
+  if (dtype == CODE && n == N_ && k == K_ && nsi == NSI_)                    \
+    return ilqr::kernel_attributes(                                          \
+        ilqr::i2lqr_step_opts_kernel<TYPE, N_, K_, NSI_>, 128, out);
+
+// The loaded options kernel's resources (kernel_attributes, tile.cuh): the
+// tile's at nsi 1 and 2, the lane queue's (qsort_skip) at nsi 0; -1 when
+// none is instantiated.
+extern "C" int i2lqr_step_opts_attributes(int dtype, int n, int k, int nsi,
+                                          int* out) {
+  if (n == 6 && k == 8 && nsi == 0)
+    return dtype == 0 ? ilqr::kernel_attributes(
+                            ilqr::i2lqr_step_lanes_kernel<float, 6, 8>, 128,
+                            out)
+                      : ilqr::kernel_attributes(
+                            ilqr::i2lqr_step_lanes_kernel<double, 6, 8>,
+                            128, out);
+  I2LQR_OPTS_ATTRIBUTES(float, 0, 6, 8, 1)
+  I2LQR_OPTS_ATTRIBUTES(double, 1, 6, 8, 1)
+  I2LQR_OPTS_ATTRIBUTES(float, 0, 6, 8, 2)
+  I2LQR_OPTS_ATTRIBUTES(double, 1, 6, 8, 2)
+  return -1;
+}

@@ -393,12 +393,17 @@ struct Solve {
 
   // The LM loop from `us` (in: initial inputs; out: the solution). A lane
   // that starts `done` runs no iteration. Writes the terminal state of the
-  // solution's rollout, its cost and dist = |x_N - x_term|.
+  // solution's rollout, its cost and dist = |x_N - x_term|. A counting
+  // instantiation (COUNT) also writes the loop's trips into *trips: the
+  // iterations until the lane froze, the cap where it never did (the plain
+  // version's lane_iters); the others keep the registers they had.
+  template <bool COUNT = false>
   __device__ void lm_solve(T (&us)[N][2], bool done, T* x_last, T& cost_out,
-                           T& dist_out) const {
+                           T& dist_out, int* trips = nullptr) const {
     T xs[N + 1][4];
     T lamb = C.lamb0;
-    for (int it = 0; it < C.max_iter && !done; ++it) {
+    int it = 0;
+    for (; it < C.max_iter && !done; ++it) {
 #pragma unroll
       for (int i = 0; i < N; ++i) {
         us[i][0] = clip(us[i][0], C.neg_a_max, C.a_max);
@@ -422,6 +427,7 @@ struct Solve {
       const bool diverged = !accept && lamb > C.max_lamb;
       done = converged || diverged;
     }
+    if constexpr (COUNT) *trips = it;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       us[i][0] = clip(us[i][0], C.neg_a_max, C.a_max);

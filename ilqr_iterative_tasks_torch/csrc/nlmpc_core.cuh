@@ -299,11 +299,15 @@ struct Shoot {
   }
 
   // The LM loop from uf (in: start; out: the iterate). A lane that starts
-  // done runs no iteration. Returns the residual of the final iterate.
-  __device__ T solve_from(T (&uf)[NV], bool done) const {
+  // done runs no iteration. Returns the residual of the final iterate. A
+  // counting instantiation (COUNT) adds the loop's trips to *trips (the
+  // plain version's per-start trips); the others keep their registers.
+  template <bool COUNT = false>
+  __device__ T solve_from(T (&uf)[NV], bool done, int* trips = nullptr) const {
     T lam = (T)1e-3;
     const T alphas[5] = {(T)1.0, (T)0.5, (T)0.25, (T)0.1, (T)0.02};
-    for (int it = 0; it < C.max_iters && !done; ++it) {
+    int it = 0;
+    for (; it < C.max_iters && !done; ++it) {
       T rows[M], xs[N + 1][4], du[NV];
       const T f0 = residual(uf, rows, xs);
       lm_step(uf, rows, xs, lam, du);
@@ -329,22 +333,26 @@ struct Shoot {
       const T f_new = accept ? best_f : f0;
       done = f_new < (T)1e-14 || (!accept && lam > (T)1e10);
     }
+    if constexpr (COUNT) *trips += it;
     return residual_f(uf);
   }
 
   // Both starts and the verdict. warm: the clipped warm start. Writes the
-  // clipped solution, x_m of its rollout and term_err; returns feasible.
+  // clipped solution, x_m of its rollout and term_err; returns feasible. A
+  // counting instantiation (COUNT) writes both starts' trips into *trips.
+  template <bool COUNT = false>
   __device__ bool feasibility_solve(const T (&warm)[NV], bool done0,
                                     T (&us)[N][2], T (&x_m)[4],
-                                    T& term_err) const {
+                                    T& term_err, int* trips = nullptr) const {
     T uf[NV], uz[NV];
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       uf[i] = warm[i];
       uz[i] = (T)0.0;
     }
-    const T f_w = solve_from(uf, done0);
-    const T f_z = solve_from(uz, done0);
+    if constexpr (COUNT) *trips = 0;
+    const T f_w = solve_from<COUNT>(uf, done0, trips);
+    const T f_z = solve_from<COUNT>(uz, done0, trips);
     if (f_z < f_w) {  // strict: the warm start wins ties
 #pragma unroll
       for (int i = 0; i < NV; ++i) uf[i] = uz[i];

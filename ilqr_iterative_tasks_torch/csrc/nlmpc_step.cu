@@ -113,7 +113,19 @@ __device__ __forceinline__ bool window_any(int start, int len) {
   return any;
 }
 
-template <typename T, int N, int K, int NSI, int G, bool QSORT>
+// with_stats (a STATS instantiation): two int32 (B,) counts a lane, summed
+// over the step, written to `useful` and `exec`. iters_useful: the trips of
+// the lane's candidate solves, both starts (feasibility_solve's count, the
+// plain version's n_iters), the winner solved again included.
+// iters_executed: every solve round its warp runs, the lane's G threads
+// times the warp's longest solve of the round (thread-trips; the plain
+// order runs one round and, where the winner is solved again, a second;
+// timeVarying's qsort_skip a round a rank and that one). A warp of a
+// STATS build keeps its tiles to the end for that: a skipped lane's tile,
+// or one past B, reads lane 0 and takes part in the warp's collectives
+// but solves and writes nothing. Skipped lanes write 0.
+template <typename T, int N, int K, int NSI, int G, bool QSORT,
+          bool STATS = false>
 __global__ void __launch_bounds__(128, QSORT ? K2_TV_MIN_BLOCKS : 1)
     nlmpc_step_kernel(
     const NlmpcConsts<T> C, int B, int T_rows, bool time_varying,
@@ -123,19 +135,33 @@ __global__ void __launch_bounds__(128, QSORT ? K2_TV_MIN_BLOCKS : 1)
     const int* __restrict__ lap_ids, const int* __restrict__ lap_ok,
     const T* __restrict__ obs, const float* __restrict__ skip,
     const int* __restrict__ hzn, const int* __restrict__ t_in,
-    const int* __restrict__ mc_in, const StepOut<T, N> out) {
+    const int* __restrict__ mc_in, const StepOut<T, N> out,
+    int* __restrict__ useful_out = nullptr,
+    int* __restrict__ exec_out = nullptr) {
   static_assert(128 % G == 0, "a block holds whole lanes");
   static_assert(QSORT ? (NSI == 1 && G <= K && K <= 16) : G == NSI * K,
                 "qsort_skip (timeVarying): one row of at most 16 slots; "
                 "else one candidate a thread");
   const Tile<G> tl;
-  const int b = (blockIdx.x * blockDim.x + threadIdx.x) / G;
-  if (b >= B) return;
+  const int b_in = (blockIdx.x * blockDim.x + threadIdx.x) / G;
   const int j = tl.rank;
-  if (skip[b] > 0.5f) {
-    if (j == 0) out.skip_lane(B, b);
-    return;
+  bool live = true;
+  if constexpr (!STATS) {
+    if (b_in >= B) return;
+    if (skip[b_in] > 0.5f) {
+      if (j == 0) out.skip_lane(B, b_in);
+      return;
+    }
+  } else {
+    live = b_in < B && skip[b_in] <= 0.5f;
+    if (b_in < B && !live && j == 0) {
+      out.skip_lane(B, b_in);
+      useful_out[b_in] = 0;
+      exec_out[b_in] = 0;
+    }
+    if (__ballot_sync(0xffffffffu, live) == 0) return;  // the whole warp
   }
+  const int b = STATS && !live ? 0 : b_in;
   const T inf = (T)INFINITY;
   T x0[4], xg[4];
 #pragma unroll
@@ -221,8 +247,22 @@ __global__ void __launch_bounds__(128, QSORT ? K2_TV_MIN_BLOCKS : 1)
   // write; `fin`: the winner is solved again with done0 = h1 ----
   bool fin = false;
   int win = 0;  // plain order: the winning thread
+  // with_stats: this tile's rounds go on; this round's trips of this
+  // thread's solve; the lane's sums
+  [[maybe_unused]] bool going = live;
+  [[maybe_unused]] int tr = 0, useful = 0, executed = 0;
 #pragma unroll 1
   for (int round = 0;; ++round) {
+    if constexpr (STATS) {  // the warp's rounds: the last one's counts
+      if (round > 0) {
+        useful += tr;
+        const int most = (int)__reduce_max_sync(0xffffffffu, (unsigned)tr);
+        if (live) executed += G * most;
+      }
+      tr = 0;
+      if (!__any_sync(0xffffffffu, going)) break;
+      if (!going) continue;
+    }
     bool go;
     int slot = 0;
     if constexpr (QSORT) {
@@ -249,7 +289,12 @@ __global__ void __launch_bounds__(128, QSORT ? K2_TV_MIN_BLOCKS : 1)
     bool feasible = false;
     if (go) {
       const Shoot<T, N> S{C, x0, xt, o, mm};
-      feasible = S.feasibility_solve(warm, h1 || (!fin && !okc), us, xm, te);
+      if constexpr (STATS)
+        feasible = S.template feasibility_solve<true>(
+            warm, h1 || (!fin && !okc), us, xm, te, &tr);
+      else
+        feasible = S.feasibility_solve(warm, h1 || (!fin && !okc), us, xm,
+                                       te);
     }
     bool write = go, feas_out = false;
     if (!fin) {
@@ -292,22 +337,39 @@ __global__ void __launch_bounds__(128, QSORT ? K2_TV_MIN_BLOCKS : 1)
       out.write(B, b, us, xm, xt, st + (size_t)nxt * row_stride, h1,
                 feas_out, ci, r, succ);
     }
+    if constexpr (STATS) {
+      going = false;
+      continue;
+    }
     break;
+  }
+  if constexpr (STATS) {
+    if (live) {
+#pragma unroll
+      for (int off = G / 2; off > 0; off >>= 1)
+        useful += tl.shfl_xor(useful, off);
+      if (j == 0) {
+        useful_out[b] = useful;
+        exec_out[b] = executed;
+      }
+    }
   }
 }
 
-// The kernel for (dtype, sizes, mode, qsort) and its threads a lane:
-// timeVarying's qsort_skip at K2_TV_G threads, else the plain order at one
-// thread a candidate.
+// The kernel for (dtype, sizes, mode, qsort, stats) and its threads a
+// lane: timeVarying's qsort_skip at K2_TV_G threads, else the plain order
+// at one thread a candidate.
 template <typename T, int N, int K, int NSI>
 struct StepKernel {
   using F = decltype(&nlmpc_step_kernel<T, N, K, NSI, NSI * K, false>);
   F f = &nlmpc_step_kernel<T, N, K, NSI, NSI * K, false>;
   int g = NSI * K;
-  StepKernel(bool time_varying, bool qsort) {
+  StepKernel(bool time_varying, bool qsort, bool stats) {
+    if (stats) f = &nlmpc_step_kernel<T, N, K, NSI, NSI * K, false, true>;
     if constexpr (NSI == 1) {
       if (qsort && time_varying) {
-        f = &nlmpc_step_kernel<T, N, K, 1, K2_TV_G, true>;
+        f = stats ? &nlmpc_step_kernel<T, N, K, 1, K2_TV_G, true, true>
+                  : &nlmpc_step_kernel<T, N, K, 1, K2_TV_G, true>;
         g = K2_TV_G;
       }
     }
@@ -323,11 +385,11 @@ int launch_nlmpc_step(const double* consts, int max_iters, int B, int T_rows,
                       const void* obs, const void* skip, const void* hzn,
                       const void* t, const void* mc, void* us, void* fe,
                       void* ng, void* idx, void* row, void* succ,
-                      cudaStream_t stream) {
+                      void* useful, void* exec, cudaStream_t stream) {
   const NlmpcConsts<T> C = make_nlmpc_consts<T>(consts, max_iters);
   const StepOut<T, N> out{(T*)us, (T*)fe, (T*)ng, (int*)idx, (int*)row,
                           (T*)succ};
-  const StepKernel<T, N, K, NSI> kern(time_varying, qsort);
+  const StepKernel<T, N, K, NSI> kern(time_varying, qsort, useful != nullptr);
   const auto f = kern.f;
   const int lanes_per_block = 128 / kern.g;
   f<<<(B + lanes_per_block - 1) / lanes_per_block, 128, 0, stream>>>(
@@ -335,7 +397,7 @@ int launch_nlmpc_step(const double* consts, int max_iters, int B, int T_rows,
       (const T*)uw, (const T*)states, (const T*)qfun, (const int*)lap_len,
       (const int*)lap_ids, (const int*)lap_ok, (const T*)obs,
       (const float*)skip, (const int*)hzn, (const int*)t, (const int*)mc,
-      out);
+      out, (int*)useful, (int*)exec);
   return (int)cudaGetLastError();
 }
 
@@ -346,7 +408,29 @@ int launch_nlmpc_step(const double* consts, int max_iters, int B, int T_rows,
     return ilqr::launch_nlmpc_step<TYPE, N_, K_, NSI_>(                      \
         consts, max_iters, B, T_rows, tv, qs, x, guess, uw, states, qfun,    \
         lap_len, lap_ids, lap_ok, obs, skip, hzn, t, mc, us, fe, ng, idx,    \
-        row, succ, s);
+        row, succ, useful, exec, s);
+
+static int nlmpc_step_any(int dtype, int n, int k, int nsi, int time_varying,
+                          int qsort, const double* consts, int max_iters,
+                          int B, int T_rows, const void* x,
+                          const void* guess, const void* uw,
+                          const void* states, const void* qfun,
+                          const void* lap_len, const void* lap_ids,
+                          const void* lap_ok, const void* obs,
+                          const void* skip, const void* hzn, const void* t,
+                          const void* mc, void* us, void* fe, void* ng,
+                          void* idx, void* row, void* succ, void* useful,
+                          void* exec, void* stream) {
+  if (B <= 0) return 0;
+  if (qsort && nsi != 1) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool tv = time_varying != 0, qs = qsort != 0;
+  NLMPC_STEP_CASE(float, 0, 6, 8, 1)
+  NLMPC_STEP_CASE(double, 1, 6, 8, 1)
+  NLMPC_STEP_CASE(float, 0, 6, 8, 2)
+  NLMPC_STEP_CASE(double, 1, 6, 8, 2)
+  return -1;
+}
 
 // dtype: 0 float32, 1 float64; time_varying: 0 spaceVarying (t, mc unused,
 // may be null), 1 timeVarying (t, min_cost (B,) i32); qsort: 1 for
@@ -365,21 +449,34 @@ extern "C" int nlmpc_step_launch(int dtype, int n, int k, int nsi,
                                  const void* mc, void* us, void* fe,
                                  void* ng, void* idx, void* row, void* succ,
                                  void* stream) {
-  if (B <= 0) return 0;
-  if (qsort && nsi != 1) return -1;
-  cudaStream_t s = (cudaStream_t)stream;
-  const bool tv = time_varying != 0, qs = qsort != 0;
-  NLMPC_STEP_CASE(float, 0, 6, 8, 1)
-  NLMPC_STEP_CASE(double, 1, 6, 8, 1)
-  NLMPC_STEP_CASE(float, 0, 6, 8, 2)
-  NLMPC_STEP_CASE(double, 1, 6, 8, 2)
-  return -1;
+  return nlmpc_step_any(dtype, n, k, nsi, time_varying, qsort, consts,
+                        max_iters, B, T_rows, x, guess, uw, states, qfun,
+                        lap_len, lap_ids, lap_ok, obs, skip, hzn, t, mc, us,
+                        fe, ng, idx, row, succ, nullptr, nullptr, stream);
+}
+
+// nlmpc_step_launch with with_stats: its STATS instantiation, which also
+// writes iters_useful and iters_executed, int32 (B,) each (the kernel's
+// header), into useful and exec.
+extern "C" int nlmpc_step_stats_launch(
+    int dtype, int n, int k, int nsi, int time_varying, int qsort,
+    const double* consts, int max_iters, int B, int T_rows, const void* x,
+    const void* guess, const void* uw, const void* states, const void* qfun,
+    const void* lap_len, const void* lap_ids, const void* lap_ok,
+    const void* obs, const void* skip, const void* hzn, const void* t,
+    const void* mc, void* us, void* fe, void* ng, void* idx, void* row,
+    void* succ, void* useful, void* exec, void* stream) {
+  if (useful == nullptr || exec == nullptr) return -1;
+  return nlmpc_step_any(dtype, n, k, nsi, time_varying, qsort, consts,
+                        max_iters, B, T_rows, x, guess, uw, states, qfun,
+                        lap_len, lap_ids, lap_ok, obs, skip, hzn, t, mc, us,
+                        fe, ng, idx, row, succ, useful, exec, stream);
 }
 
 #define NLMPC_STEP_ATTRIBUTES(TYPE, CODE, N_, K_, NSI_)                      \
   if (dtype == CODE && n == N_ && k == K_ && nsi == NSI_)                    \
     return ilqr::kernel_attributes(                                          \
-        ilqr::StepKernel<TYPE, N_, K_, NSI_>(tv, qs).f, 128, out);
+        ilqr::StepKernel<TYPE, N_, K_, NSI_>(tv, qs, false).f, 128, out);
 
 // The resources of the kernel that nlmpc_step_launch runs for the same
 // (dtype, n, k, nsi, time_varying, qsort), as the runtime reports them

@@ -241,6 +241,100 @@ def k1_block_lanes(nsi, lap_count, dev, b=517, t_rows=MAX_STEPS,
             torch.tensor(lap_len, device=dev), lap_ids, lap_ok, obs, skip)
 
 
+def k1_option_lanes(nsi, lap_count, dev, b=128, dtype=torch.float64,
+                    t_rows=MAX_STEPS, max_laps=MAX_LAPS):
+    """K1's inputs at k = 8 with the edge cases of its schedules (dedup,
+    qsort_skip): three stored laps on a 0.5 grid, x on it too: lap 0 the
+    seed lap, lap 1 its first 60 rows each stored twice (tied distances),
+    lap 2 the last 3-30 rows of the seed lap (every 9th lane 1-7 rows:
+    fewer rows than k), Qfun halved and floored on laps 1 and 2 (ties
+    within a row of candidates); with lap_count < nsi laps not yet
+    stored. Every 7th lane skipped, every 13th far from every stored point
+    (nothing within reach in any pass: the slot-0 fallback)."""
+    rng = np.random.default_rng(70 + nsi + lap_count)
+    xcl, _ = seed_trajectory(1.0)
+    states = np.zeros((max_laps, t_rows, 4, b))
+    states[0, :121] = xcl[:, :, None]
+    states[1, :120] = np.repeat(xcl[:60], 2, axis=0)[:, :, None]
+    lap_len = np.zeros((max_laps, b), np.int32)
+    lap_len[0], lap_len[1] = 121, 120
+    lap_len[2] = rng.integers(3, 31, b)
+    lap_len[2, ::9] = rng.integers(1, 8, lap_len[2, ::9].shape)
+    for lane in range(b):
+        n2 = lap_len[2, lane]
+        states[2, :n2, :, lane] = xcl[121 - n2:]
+    states = np.round(states * 2) / 2
+    t = np.arange(t_rows)[None, :, None]
+    qfun = np.maximum(lap_len[:, None, :] - 1.0 - t, 0.0)
+    qfun[1:] = np.floor(qfun[1:] / 2)  # ties in Qfun within a lap
+    rows = rng.integers(0, 121, b)
+    x = np.round((xcl[rows] + rng.normal(size=(b, 4))
+                  * [1.0, 1.0, 0.3, 0.05]) * 2) / 2
+    x[::13, :2] += 500.0
+    f = lambda a: torch.tensor(a, dtype=dtype, device=dev)
+    lap_ids, lap_ok, _ = _step_solver_inputs(lap_count, nsi, max_laps, None,
+                                             b, dev)
+    skip = (torch.arange(b, device=dev) % 7 == 3).float()
+    obs = obstacle_to_lanes(
+        Obstacle.make(31.0, -2.0, 8.0, 6.0, spd=0.5, moving_option=1,
+                      dtype=dtype, device=dev).map(
+            lambda v: v.expand(b)), b).contiguous()
+    return (f(x.T).contiguous(), f(x.T).contiguous(), f(states), f(qfun),
+            torch.tensor(lap_len, device=dev), lap_ids, lap_ok, obs, skip)
+
+
+def k2_option_lanes(nsi, lap_count, dev, b=128, dtype=torch.float64,
+                    t_rows=40, max_laps=4):
+    """K2's block-mode inputs (spaceVarying and timeVarying read the same)
+    with the edge cases of its schedules and counts: lap_count stored laps
+    of the seed lap, the oldest from its start, the others from a row near
+    each lane's x0 and 4-40 rows long (some shorter than k = 8); the guess
+    row n and the warm start the first n inputs of the newest lap; every
+    5th lane a shrunk horizon 1-5, every 7th skipped, the last 8 far off
+    (nothing feasible); t 0-7, min_cost the least stored lap length - 1.
+    Returns (x, guess, u_warm, states, qfun, lap_len, lap_ids, lap_ok, obs
+    (7, B), skip, hzn, t, min_cost)."""
+    from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
+        obstacle_to_lanes_nlmpc)
+    rng = np.random.default_rng(90 + nsi + lap_count)
+    xcl, ucl = seed_trajectory(1.0)
+    start = rng.integers(0, 80, b)
+    length = rng.integers(4, t_rows + 1, b)
+    states = np.zeros((max_laps, t_rows, 4, b))
+    inputs = np.zeros((max_laps, t_rows, 2, b))
+    lap_len = np.zeros((max_laps, b), np.int32)
+    for lap in range(lap_count):
+        for lane in range(b):
+            r = 0 if lap == 0 else start[lane]
+            rows = min(length[lane], 120 - r)
+            states[lap, :rows, :, lane] = xcl[r:r + rows]
+            inputs[lap, :rows, :, lane] = ucl[r:r + rows]
+            lap_len[lap, lane] = rows
+    t = np.arange(t_rows)[None, :, None]
+    qfun = np.maximum(lap_len[:, None, :] - 1.0 - t, 0.0)
+    x = (xcl[start] + rng.normal(size=(b, 4)) * [0.2, 0.2, 0.05, 0.02]).T
+    x[1, -8:] += 60.0
+    lanes = np.arange(b)
+    new = lap_count - 1
+    guess = states[new, np.minimum(N, lap_len[new] - 1), :, lanes].T
+    u_warm = inputs[new, :N].copy()  # (N, 2, B)
+    hzn = np.full(b, N, np.int32)
+    hzn[::5] = rng.integers(1, N, hzn[::5].shape)
+    f = lambda a: torch.tensor(a, dtype=dtype, device=dev).contiguous()
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    lap_ids, lap_ok, _ = _step_solver_inputs(lap_count, nsi, max_laps, None,
+                                             b, dev)
+    obs = obstacle_to_lanes_nlmpc(
+        Obstacle.make(31.0, -2.0, 8.0, 6.0, spd=0.5, moving_option=1,
+                      dtype=dtype, device=dev).map(
+            lambda v: v.expand(b)), b).contiguous()
+    skip = (torch.arange(b, device=dev) % 7 == 3).float()
+    min_cost = np.full(b, (lap_len[:lap_count] - 1).min(axis=0), np.int32)
+    return (f(x), f(guess), f(u_warm), f(states), f(qfun),
+            torch.tensor(lap_len, device=dev), lap_ids, lap_ok, obs, skip,
+            i32(hzn), i32(rng.integers(0, 8, b)), i32(min_cost))
+
+
 def k32_distinct(lap_ids, lap_ok, cands):
     """The candidates whose solves a step at k = 32 needs, from what its
     plain version gave in ``cands`` (``i2lqr_step_reference``'s list: each
@@ -328,6 +422,52 @@ class Capture:
         if lap not in self.captured and self.want(lap, i, args):
             self.captured[lap] = (i, [a.clone() for a in args])
         return self.kernel(*args)
+
+
+class LiveShare:
+    """A step solver that delegates to a whole-step kernel (K1 or K2,
+    every attribute a simulator reads passed through) and keeps each
+    launch's live lanes (skip < 0.5, the argument at ``skip_arg``: 8 for
+    K1, 9 for K2) as a device tensor, read only by ``shares`` after the
+    run, so it adds no host sync inside it."""
+
+    def __init__(self, kernel, skip_arg):
+        self.kernel, self.skip_arg, self.live = kernel, skip_arg, []
+
+    def __getattr__(self, name):
+        return getattr(self.kernel, name)
+
+    def __call__(self, *args):
+        self.live.append((args[self.skip_arg] < 0.5).sum())
+        return self.kernel(*args)
+
+    def shares(self) -> dict:
+        """Each launch's live share (live lanes / B): min, median, mean and
+        the launches."""
+        b = self.kernel_lanes
+        s = torch.stack(self.live).double().cpu() / b
+        return dict(min=float(s.min()), median=float(s.median()),
+                    mean=float(s.mean()), launches=len(self.live))
+
+
+def live_share(kernel, skip_arg, lanes):
+    """``LiveShare`` of ``kernel`` for launches of ``lanes`` lanes."""
+    rec = LiveShare(kernel, skip_arg)
+    rec.__dict__["kernel_lanes"] = lanes
+    return rec
+
+
+def stats_summary(iter_stats) -> dict:
+    """A run's ``iter_stats`` read as PERF.md reads them: the sums of
+    useful and executed trips, the waste share 1 - useful / executed and,
+    for K1, the queue floor against the trips executed."""
+    sums = [int(t.sum()) for t in iter_stats]
+    out = dict(useful=sums[0], executed=sums[1],
+               waste=1.0 - sums[0] / max(sums[1], 1))
+    if len(sums) > 2:
+        out.update(queue_floor=sums[2], floor_over_executed=sums[2]
+                   / max(sums[1], 1))
+    return out
 
 
 class Recorder:

@@ -503,8 +503,10 @@ def k1_k2_ab(dev, libs, names) -> dict:
     # ---- captures, through this checkout's kernels ----
     hl = Headlines(dev)
     sizes = dict(max_steps=MAX_STEPS, max_laps=MAX_LAPS)
-    k1 = batched_soa.default_step_solver(hl.params, hl.limits, 1.0, **sizes,
-                                         max_iter=CAP)
+    # K1 in the plain order, the kernel every library has (the simulator's
+    # own K1 takes dedup and qsort_skip, csrc/i2lqr_step_opts.cu)
+    k1 = build_fused_i2lqr_step(hl.params, hl.limits, 1.0, num_horizon=N,
+                                **sizes, max_iter=CAP)
 
     def k2_of(lp, **opts):
         return build_fused_nlmpc_step(lp, hl.nl_limits, 1.0, num_horizon=N,

@@ -43,7 +43,9 @@ from ilqr_iterative_tasks_torch.utils.device import resolve
 MAX_STEPS, MAX_LAPS = 128, 8
 K1_MAX_ITER = 16  # the JAX bench's K1 LM cap
 K1_NOTE = ("K1 at k = 8 in the plain candidate order: the JAX bench's "
-           "dedup=True is bitwise-neutral and the port's K1 takes no option")
+           "dedup=True is bitwise-neutral, and the port's K1 runs its "
+           "options only on a batch that fills the card at one thread a "
+           "lane, which these do not")
 
 
 def _sync(dev: torch.device):

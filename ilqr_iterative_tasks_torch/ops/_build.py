@@ -23,7 +23,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 SOURCES = ("tile.cuh", "lm_core.cuh", "nlmpc_core.cuh", "dual.cuh",
-           "fused_ilqr.cu", "i2lqr_step.cu", "fused_lm_shooting.cu",
+           "fused_ilqr.cu", "i2lqr_step.cu", "i2lqr_step_opts.cu",
+           "fused_lm_shooting.cu",
            "nlmpc_step.cu", "nlmpc_step_all.cu", "generic_ilqr.cu")
 # Precise sin/cos/exp, IEEE division and sqrt (no --use_fast_math), and no
 # FMA contraction (-fmad=false): the kernels then round operation by
@@ -44,6 +45,10 @@ _ARGTYPES = {
     # qfun, lap_len, lap_ids, lap_ok, obs, skip, us, shrink, idx, row,
     # stream
     "i2lqr_step_launch": [_I] * 4 + [_P] + [_I] * 4 + [_P] * 14,
+    # dtype, n, k, nsi, opts, consts, max_iter, B, T, max_laps, x, g0,
+    # states, qfun, lap_len, lap_ids, lap_ok, obs, skip, us, shrink, idx,
+    # row, useful, executed, upass, counter, stream
+    "i2lqr_step_opts_launch": [_I] * 5 + [_P] + [_I] * 4 + [_P] * 18,
     # dtype, n, consts, max_iters, B, x0, x_term, u_warm, obs, skip, hzn,
     # us, x_last, term_err, feasible, stream, counter (one int32 the launch
     # takes its chunks of lanes from)
@@ -52,6 +57,9 @@ _ARGTYPES = {
     # guess, u_warm, states, qfun, lap_len, lap_ids, lap_ok, obs, skip, hzn,
     # t, min_cost, us, feasible_any, new_guess, idx, row, succ, stream
     "nlmpc_step_launch": [_I] * 6 + [_P] + [_I] * 3 + [_P] * 20,
+    # as nlmpc_step_launch, with useful and executed (B,) i32 before the
+    # stream
+    "nlmpc_step_stats_launch": [_I] * 6 + [_P] + [_I] * 3 + [_P] * 22,
     # dtype, n, rows, rev, consts, max_iters, B, T, x, u_warm, states, qfun,
     # lap_len, lap_ids, lap_ok, obs, skip, hzn, scratch, us, feasible_any,
     # new_guess, idx, row, succ, stream
@@ -124,9 +132,12 @@ def library() -> ctypes.CDLL:
 
 
 def load(path: str) -> ctypes.CDLL:
-    """A built library with its launchers' argument types declared."""
+    """A built library with its launchers' argument types declared (those
+    it has: an earlier checkout's library lacks the later ones)."""
     lib = ctypes.CDLL(path)
     for name, argtypes in _ARGTYPES.items():
+        if not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

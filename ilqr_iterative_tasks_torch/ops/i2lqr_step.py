@@ -27,7 +27,10 @@ nsi*k threads a lane) and for k = 32 (nsi 2 and 4, the robustness sweep's
 candidate sets, max_steps <= 128: a lane a warp, four to a block of 128
 threads that solves each distinct (lap, row) candidate of a lane's step
 once, pooled over the block), in f32 and f64; any other size raises on a
-CUDA tensor. Both compute the plain version bit for bit.
+CUDA tensor. Both compute the plain version bit for bit. At k = 8 the TPU
+kernel's ``dedup``, ``qsort_skip`` and ``with_stats`` run in a kernel of
+their own (csrc/i2lqr_step_opts.cu), whose outputs are the same bits and
+whose counts are the plain version's (``i2lqr_step_reference``).
 """
 
 from __future__ import annotations
@@ -82,18 +85,77 @@ def _lex_argmin_rows(cost_rows):
     return best
 
 
+def queue_floor(upass, width: int):
+    """JAX's ``queue_floor`` from the per-pass counts of a step: upass
+    (passes, B), each lane's useful trips plus one arrival a visited
+    position. Per pass the max over each aligned group of ``width`` lanes,
+    summed over the passes, given to every lane of the group: (B,) i32."""
+    passes, b = upass.shape
+    groups = -(-b // width)
+    pad = torch.zeros((passes, groups * width), dtype=torch.int64,
+                      device=upass.device)
+    pad[:, :b] = upass
+    top = pad.view(passes, groups, width).amax(dim=2).sum(dim=0)
+    return top.repeat_interleave(width)[:b].to(torch.int32)
+
+
+def warp_executed(rounds, active, threads: int):
+    """``iters_executed`` of a tile layout: ``threads`` threads a lane,
+    32 // threads lanes a warp. rounds: each solve round's (B,) trips, the
+    most a lane's threads ran in it; every round the warp runs, each of
+    its live lanes pays its threads times the warp's most. (B,) i32."""
+    width = 32 // threads
+    b = active.shape[0]
+    total = torch.zeros(b, dtype=torch.int64, device=active.device)
+    for r in rounds:
+        total += queue_floor(r[None].to(torch.int64), width)
+    return torch.where(active, total * threads, 0).to(torch.int32)
+
+
 def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
                          states, qfun, lap_len, lap_ids, lap_ok, obs, skip, *,
                          max_iter: int, trips: list | None = None,
-                         cands: list | None = None, candidate_solver=None):
+                         cands: list | None = None, candidate_solver=None,
+                         dedup: bool = False, qsort_skip: bool = False,
+                         with_stats: bool = False, floor_width: int = 32):
     """Plain version of K1 (module docstring). The candidate solves of all
     nsi laps run as one batched ``ilqr_solve_soa`` per pass (per-lane
     results do not depend on the batching: done lanes freeze). If
     ``trips`` is a list, each pass appends its solves' trip counts to it:
-    (nsi*k, B) i32, 0 on skipped lanes. If ``cands`` is a list, each pass
-    appends its candidates' kNN rows (nsi*k, B) i64, whether each slot
-    holds a row (nsi*k, B) bool (whatever its lap's lap_ok) and the
-    winner (B,) i64, row * k + slot.
+    (nsi*k, B) i32, 0 on skipped lanes and on candidates the schedule
+    does not solve (and a (1, B) entry for a final winner solved again).
+    If ``cands`` is a list, each pass appends its candidates' kNN rows
+    (nsi*k, B) i64, whether each slot holds a row (nsi*k, B) bool
+    (whatever its lap's lap_ok) and the winner (B,) i64, row * k + slot.
+
+    ``dedup`` and ``qsort_skip`` are the TPU kernel's schedules
+    (ops/pallas_i2lqr_step.py:82-95, :153-181), run as it runs them; they
+    change which solves run, never the outputs. ``dedup``: a candidate of
+    a valid row that a valid candidate of the same lap row solved (and, under
+    ``qsort_skip``, did not skip) in an earlier pass of the step, passes 0
+    and 1, takes that solve's distance and terminal state and is not
+    solved; a final winner so taken is solved again for its ``us`` (the
+    same pure solve, bitwise). ``qsort_skip`` (nsi = 1): positions in the
+    stable (Qfun, slot) order of each lane, invalid candidates last, solved
+    one at a time under the strict skip q + n + 100 > the best cost so far
+    (position 0 always solves), the best kept as the lexicographic (cost,
+    slot) minimum, which is the plain order's first-min argmin.
+
+    ``with_stats`` appends three (B,) i32 counts summed over the step:
+    ``iters_useful``, each solve's trips until its lane froze
+    (``lane_iters``; 0 for candidates skipped, dominated or taken from the
+    cache); ``iters_executed``, the thread-trips the lane pays in the K1
+    tile kernel's layout (nsi*k threads a lane, 32 / (nsi*k) lanes a warp:
+    every solve round its warp runs, its threads times the warp's longest
+    solve of the round; 0 on skipped lanes), under ``qsort_skip`` in a lane
+    queue's taken in lane order (one thread a lane, 32 lanes a warp, a
+    round a position; the card's queue takes its lanes from a counter, so
+    its count is its own); and ``queue_floor``, JAX's
+    (``queue_floor`` above at ``floor_width`` lanes) over the per-pass
+    counts: the useful trips plus one arrival at each position a lane
+    visits (every candidate in the plain order; under ``qsort_skip`` the
+    positions not skipped), and the final winner's solve again where it
+    happens.
 
     ``candidate_solver``: a K3 built for the same constants and cap
     (``build_fused_ilqr``), called once a pass on the pass's nsi*k*B
@@ -103,29 +165,74 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
     lane's result; this port does not: K3 takes its lanes from a counter
     as it goes, and compaction saved 10 % of K3's time over an i2LQR
     headline run on the card, 64 ms of a 2.2-3.0 s run before the gathers
-    it adds (PERF.md). The trip counts are the plain solve's only."""
-    if candidate_solver is not None and trips is not None:
-        raise ValueError("trips counts the plain solve's iterations")
+    it adds (PERF.md). It takes none of the options (JAX's per-candidate
+    path has none). The trip counts are the plain solve's only."""
+    if candidate_solver is not None and (trips is not None or dedup
+                                         or qsort_skip or with_stats):
+        raise ValueError("the candidate solver's path counts no trips and "
+                         "takes no schedule option")
     n = params.num_horizon
     k = params.num_ss_points
     nsi = params.num_ss_iter
+    if qsort_skip and nsi != 1:
+        raise ValueError("qsort_skip requires num_ss_iter == 1")
+    nc = nsi * k
     t_rows = states.shape[1]
     b = x.shape[-1]
     dtype, dev = x.dtype, x.device
     inf = float("inf")
     laps = [int(v) for v in lap_ids.tolist()]
     oks = [bool(v) for v in lap_ok.tolist()]
-    frozen = (skip > 0.5)[None].expand(nsi * k, b)
+    active = skip <= 0.5
+    frozen = (~active)[None].expand(nc, b)
     t_idx = torch.arange(t_rows, device=dev)[:, None]
-    x0b = x[:, None, :].expand(4, nsi * k, b)
-    zeros_ws = torch.zeros((n, 2, nsi * k, b), dtype=dtype, device=dev)
+    x0b = x[:, None, :].expand(4, nc, b)
+    zeros_ws = torch.zeros((n, 2, nc, b), dtype=dtype, device=dev)
     obs_kb = obs[:, None, :]
     if candidate_solver is not None:  # the candidates as lanes of K3
-        lanes = nsi * k * b
-        flat = lambda t: t.expand(t.shape[0], nsi * k, b).reshape(
+        lanes = nc * b
+        flat = lambda t: t.expand(t.shape[0], nc, b).reshape(
             t.shape[0], lanes).contiguous()
         cand_args = (flat(x[:, None]), zeros_ws.reshape(n, 2, lanes),
                      flat(obs_kb), flat(skip[None, None])[0])
+    cache = []  # passes 0 and 1: (idx, ok, d, x_last) of each slot
+    rounds, upass = [], []  # with_stats: a round's (B,) trips, a pass's
+
+    def solve(x_terms, done0):
+        """Zeros-initialised solves of x_terms (4, C, B): (us, x_last, d,
+        trips (C, B))."""
+        c = x_terms.shape[1]
+        sol = ilqr_solve_soa(params, limits, obs_kb, x0b[:, :c],
+                             x_terms, zeros_ws[:, :, :c],
+                             float(params.lamb), dt, num_horizon=n,
+                             max_iter=max_iter, done0=done0)
+        x_last = sol.xs[-1]
+        dd = [x_last[i] - x_terms[i] for i in range(4)]
+        d = torch.sqrt(dd[0] * dd[0] + dd[1] * dd[1] + dd[2] * dd[2]
+                       + dd[3] * dd[3])
+        return sol.us, x_last, d, sol.lane_iters
+
+    def cached(cand_idx, cand_ok):
+        """dedup: (hit (nc, B), d (nc, B), x_last (4, nc, B)) of each slot
+        from the earlier passes' solves of its lap row."""
+        hit = torch.zeros((nc, b), dtype=torch.bool, device=dev)
+        d = torch.zeros((nc, b), dtype=dtype, device=dev)
+        xl = torch.zeros((4, nc, b), dtype=dtype, device=dev)
+        for e_idx, e_ok, e_d, e_xl in cache:
+            for r in range(nsi):
+                sl = slice(r * k, (r + 1) * k)
+                for j in range(r * k, (r + 1) * k):
+                    take = ((cand_idx[sl] == e_idx[j]) & e_ok[j]
+                            & cand_ok[sl] & ~hit[sl])
+                    d[sl] = torch.where(take, e_d[j], d[sl])
+                    xl[:, sl] = torch.where(take, e_xl[:, j:j + 1], xl[:, sl])
+                    hit[sl] |= take
+        return hit, d, xl
+
+    def reach_cost(d, q, unit):
+        i_rel = torch.clamp_min(torch.ceil(true_div(d, unit) - 1e-12), 1.0)
+        return torch.where(d <= unit * params.max_relax_iter,
+                           q + float(n) + 100.0 * i_rel, inf)
 
     def one_pass(outer, xg):
         idx_rows, q_rows, ok_rows, xt_rows, fin_rows = [], [], [], [], []
@@ -144,31 +251,73 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
             fin_rows.append(torch.isfinite(dval))
             ok_rows.append(fin_rows[-1] & oks[off])
             xt_rows.append(torch.stack([x0s, x1s, x2s, x3s]))
-        x_terms = torch.cat(xt_rows, dim=1)  # (4, nsi*k, B)
-        cand_ok = torch.cat(ok_rows)  # (nsi*k, B): valid row of a stored lap
-        if candidate_solver is None:
-            sol = ilqr_solve_soa(params, limits, obs_kb, x0b, x_terms,
-                                 zeros_ws, float(params.lamb), dt,
-                                 num_horizon=n, max_iter=max_iter,
-                                 done0=frozen)
-            if trips is not None:
-                trips.append(sol.lane_iters)
-            sol_us, x_last = sol.us, sol.xs[-1]
-            dd = [x_last[i] - x_terms[i] for i in range(4)]
-            d = torch.sqrt(dd[0] * dd[0] + dd[1] * dd[1] + dd[2] * dd[2]
-                           + dd[3] * dd[3])
+        x_terms = torch.cat(xt_rows, dim=1)  # (4, nc, B)
+        cand_ok = torch.cat(ok_rows)  # (nc, B): valid row of a stored lap
+        cand_idx = torch.cat(idx_rows)
+        cand_q = torch.cat(q_rows)
+        unit = 80.0 / (10 ** outer)
+        if dedup:
+            hit, d_hit, xl_hit = cached(cand_idx, cand_ok)
         else:
+            hit = torch.zeros((nc, b), dtype=torch.bool, device=dev)
+        if candidate_solver is not None:
             x0_l, u0_l, obs_l, skip_l = cand_args
             us_l, xl_l, _, d_l = candidate_solver(
                 x0_l, x_terms.reshape(4, lanes), u0_l, obs_l, skip_l)
-            sol_us = us_l.reshape(n, 2, nsi * k, b)
-            x_last = xl_l.reshape(4, nsi * k, b)
-            d = d_l.reshape(nsi * k, b)
-        unit = 80.0 / (10 ** outer)
-        i_rel = torch.clamp_min(torch.ceil(true_div(d, unit) - 1e-12), 1.0)
-        cost = torch.where(d <= unit * params.max_relax_iter,
-                           torch.cat(q_rows) + float(n) + 100.0 * i_rel, inf)
-        cost = torch.where(cand_ok, cost, inf)
+            sol_us = us_l.reshape(n, 2, nc, b)
+            x_last = xl_l.reshape(4, nc, b)
+            d = d_l.reshape(nc, b)
+            ran = torch.zeros((nc, b), dtype=torch.int32, device=dev)
+            visit = torch.ones((nc, b), dtype=torch.bool, device=dev)
+        elif not qsort_skip:  # the plain order: one round of every slot
+            sol_us, x_last, d, ran = solve(x_terms, frozen | hit)
+            visit = torch.ones((nc, b), dtype=torch.bool, device=dev)
+            rounds.append(ran.amax(dim=0))
+        else:  # positions in (Qfun, slot) order, one round each
+            qe = torch.where(cand_ok, cand_q, inf)
+            slots = torch.arange(k, device=dev)[:, None]
+            # ahead[i, j]: slot j ranks before slot i
+            ahead = ((qe[None] < qe[:, None])
+                     | ((qe[None] == qe[:, None])
+                        & (slots[None] < slots[:, None])))
+            order = torch.argsort(ahead.sum(dim=1), dim=0)  # position -> slot
+            sol_us = torch.zeros((n, 2, k, b), dtype=dtype, device=dev)
+            x_last = torch.zeros((4, k, b), dtype=dtype, device=dev)
+            d = torch.zeros((k, b), dtype=dtype, device=dev)
+            ran = torch.zeros((k, b), dtype=torch.int32, device=dev)
+            visit = torch.zeros((k, b), dtype=torch.bool, device=dev)
+            best = torch.full((b,), inf, dtype=dtype, device=dev)
+            alive = active.clone()
+            for p in range(k):
+                slot = order[p]  # (B,)
+                q_p = cand_q.gather(0, slot[None])[0]
+                ok_p = cand_ok.gather(0, slot[None])[0]
+                lb = torch.where(ok_p, q_p, inf) + float(n) + 100.0
+                dom = ((lb > best) | ~ok_p) & (p > 0)
+                alive = alive & ~dom  # dominance is monotone in position
+                hit_p = hit.gather(0, slot[None])[0]
+                xt_p = x_terms.gather(1, slot[None, None].expand(4, 1, b))
+                us_p, xl_p, d_p, ran_p = solve(xt_p, ~(alive & ~hit_p)[None])
+                cost = reach_cost(d_p[0], q_p, unit)
+                if dedup:
+                    d_c = d_hit.gather(0, slot[None])[0]
+                    cost = torch.where(hit_p, reach_cost(d_c, q_p, unit),
+                                       cost)
+                best = torch.where(alive & ok_p, torch.minimum(best, cost),
+                                   best)
+                at = (slots == slot[None]) & alive[None]  # (k, B)
+                sol_us = torch.where(at, us_p, sol_us)
+                x_last = torch.where(at, xl_p, x_last)
+                d = torch.where(at, d_p, d)
+                ran = torch.where(at, ran_p, ran)
+                visit = visit | at
+                rounds.append(ran_p[0])
+                if not bool(alive.any()):
+                    break
+        if dedup:
+            d = torch.where(hit, d_hit, d)
+            x_last = torch.where(hit, xl_hit, x_last)
+        cost = torch.where(cand_ok & visit, reach_cost(d, cand_q, unit), inf)
         # ragged Python-list comparison: a row shorter than k (k exceeds the
         # stored lap's length) ranks its absent tail slots -inf; rows of
         # laps not yet stored rank above everything (batched_soa.py:656-668)
@@ -180,32 +329,73 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
         win = best_row * k + torch.argmin(row_cost, dim=0)  # (B,)
         us_sel = sol_us.gather(2, win[None, None, None].expand(n, 2, 1, b))
         xl_sel = x_last.gather(1, win[None, None].expand(4, 1, b))[:, 0]
-        idx_sel = torch.cat(idx_rows).gather(0, win[None])[0]
+        idx_sel = cand_idx.gather(0, win[None])[0]
+        if dedup and outer < 2:
+            cache.append((cand_idx, cand_ok & visit, d, x_last))
+        if trips is not None:
+            trips.append(ran)
+        upass.append((ran.to(torch.int64)
+                      + (visit & active).to(torch.int64)).sum(0))
         if cands is not None:
-            cands.append((torch.cat(idx_rows), torch.cat(fin_rows), win))
-        return xl_sel, us_sel[:, :, 0], idx_sel, best_row
+            cands.append((cand_idx, torch.cat(fin_rows), win))
+        again = active & hit.gather(0, win[None])[0]  # a winner not solved
+        xt_sel = x_terms.gather(1, win[None, None].expand(4, 1, b))
+        return (xl_sel, us_sel[:, :, 0], idx_sel, best_row, ran, again,
+                xt_sel)
 
     xg = g0
+    useful = torch.zeros(b, dtype=torch.int64, device=dev)
     for outer in range(3):
-        xg, us_sel, idx_sel, best_row = one_pass(outer, xg)
+        xg, us_sel, idx_sel, best_row, ran, again, xt_sel = one_pass(outer,
+                                                                     xg)
+        useful += ran.to(torch.int64).sum(0)
+    if dedup and bool(again.any()):  # the final winner solved again
+        us_w, _, _, ran_w = solve(xt_sel, ~again[None])
+        us_sel = torch.where(again, us_w[:, :, 0], us_sel)
+        useful += ran_w[0]
+        upass[-1] = upass[-1] + ran_w[0] + again.to(torch.int64)
+        rounds.append(ran_w[0])
+        if trips is not None:
+            trips.append(ran_w)
     lap_sel = torch.tensor(laps, device=dev)[best_row]
     chosen_len = lap_len.gather(0, lap_sel[None])[0]
     shrink = ((idx_sel + 1) > (chosen_len - 1)).to(dtype)
-    active = skip <= 0.5
-    return (torch.where(active, us_sel, 0.0),
+    outs = (torch.where(active, us_sel, 0.0),
             torch.where(active, shrink, 0.0),
             torch.where(active, idx_sel, 0).to(torch.int32),
             torch.where(active, best_row, 0).to(torch.int32))
+    if not with_stats:
+        return outs
+    return outs + (torch.where(active, useful, 0).to(torch.int32),
+                   warp_executed(rounds, active, 1 if qsort_skip else nc),
+                   queue_floor(torch.stack(upass), floor_width))
+
+
+# Kernel options of the TPU factory that the port does not take, and why.
+_UNPORTED = {
+    "dom_skip": "superseded by qsort_skip (pallas_i2lqr_step.py:133-147)",
+    "group": "interleaves a TPU tile's solves; a thread runs one chain "
+             "(pallas_i2lqr_step.py:149-155)",
+    "reuse_extract": "off in every bench config",
+    "stream_safe_set": "the port's K1 always reads the safe set from "
+                       "global memory",
+    "store_solutions": "the port's K1 keeps no candidate's solution but "
+                       "the ones its threads hold (a winner not held is "
+                       "solved again)",
+}
 
 
 class FusedI2lqrStep:
     """K1: one whole i2LQR control step per lane. Attributes k, nsi,
-    num_horizon, max_steps, max_laps and max_iter describe what it was
-    built for; ``launches`` counts kernel launches."""
+    num_horizon, max_steps, max_laps, max_iter, dedup, qsort_skip,
+    with_stats and floor_width describe what it was built for;
+    ``launches`` counts kernel launches. Use ``build_fused_i2lqr_step``."""
 
     def __init__(self, params: IlqrParams, limits: SystemLimits, dt, *,
                  num_horizon: int, max_steps: int, max_laps: int,
-                 max_iter: int = 150):
+                 max_iter: int = 150, dedup: bool = False,
+                 qsort_skip: bool = False, with_stats: bool = False,
+                 floor_width: int = 32):
         self.params, self.limits, self.dt = params, limits, float(dt)
         self.k = params.num_ss_points
         self.nsi = params.num_ss_iter
@@ -213,18 +403,49 @@ class FusedI2lqrStep:
         self.max_steps = max_steps
         self.max_laps = max_laps
         self.max_iter = max_iter
+        self.dedup, self.qsort_skip = dedup, qsort_skip
+        self.with_stats, self.floor_width = with_stats, floor_width
         if num_horizon != params.num_horizon:
             raise ValueError(f"num_horizon={num_horizon} differs from "
                              f"params.num_horizon={params.num_horizon}")
         self._consts = _build.consts_array(solver_consts(params, limits, dt))
+        # the options kernel runs at k = 8 only; k = 32 pools its distinct
+        # solves whatever dedup says
+        self._opts = ((1 if with_stats else 0) | (2 if dedup else 0)
+                      | (4 if qsort_skip else 0)) if self.k == 8 else 0
+        self._held = {}  # (device, dtype): lanes the lane queue holds
         self.launches = 0
+
+    def lane_queue_runs(self, b, dev, dtype) -> bool:
+        """Whether a launch of ``b`` lanes runs qsort_skip's lane queue
+        (one thread a lane): always with counts, else where the lanes fill
+        the card at one thread a lane, its SMs times the queue kernel's
+        resident threads an SM. Below that the step runs the plain order
+        (the same bits), whose tile of 8 threads a lane fills it sooner:
+        the i2LQR sweep (B = 4 096) ran 1.23 s and 1.69-1.75 s a run
+        through the queue against 1.05-1.23 s without (PERF.md)."""
+        if not self.qsort_skip or self.k != 8:
+            return False
+        if self.with_stats:
+            return True
+        key = (dev, dtype)
+        if key not in self._held:
+            occ = _build.attributes(_build.library(),
+                                    "i2lqr_step_opts_attributes",
+                                    DTYPE_CODES[dtype], self.num_horizon,
+                                    self.k, 0)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            self._held[key] = occ["warps_per_sm"] * 32 * sms
+        return b >= self._held[key]
 
     def __call__(self, x, g0, states, qfun, lap_len, lap_ids, lap_ok, obs,
                  skip):
         if x.device.type == "cpu":
             return i2lqr_step_reference(
                 self.params, self.limits, self.dt, x, g0, states, qfun,
-                lap_len, lap_ids, lap_ok, obs, skip, max_iter=self.max_iter)
+                lap_len, lap_ids, lap_ok, obs, skip, max_iter=self.max_iter,
+                dedup=self.dedup, qsort_skip=self.qsort_skip,
+                with_stats=self.with_stats, floor_width=self.floor_width)
         if x.device.type != "cuda":
             raise ValueError(f"unsupported device {x.device}")
         dev, dtype = x.device, x.dtype
@@ -246,30 +467,75 @@ class FusedI2lqrStep:
         shrink = torch.empty((b,), dtype=dtype, device=dev)
         idx_sel = torch.empty((b,), dtype=torch.int32, device=dev)
         row_sel = torch.empty((b,), dtype=torch.int32, device=dev)
+        ins = (x.data_ptr(), g0.data_ptr(), states.data_ptr(),
+               qfun.data_ptr(), lap_len.data_ptr(), lap_ids.data_ptr(),
+               lap_ok.data_ptr(), obs.data_ptr(), skip.data_ptr(),
+               us.data_ptr(), shrink.data_ptr(), idx_sel.data_ptr(),
+               row_sel.data_ptr())
         lib = _build.library()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.i2lqr_step_launch(
-                DTYPE_CODES[dtype], n, self.k, nsi, self._consts,
-                self.max_iter, b, t_rows, ml, x.data_ptr(), g0.data_ptr(),
-                states.data_ptr(), qfun.data_ptr(), lap_len.data_ptr(),
-                lap_ids.data_ptr(), lap_ok.data_ptr(), obs.data_ptr(),
-                skip.data_ptr(), us.data_ptr(), shrink.data_ptr(),
-                idx_sel.data_ptr(), row_sel.data_ptr(), stream)
+            if self._opts and (not self.qsort_skip
+                               or self.lane_queue_runs(b, dev, dtype)):
+                stats = torch.empty((5, b), dtype=torch.int32, device=dev)
+                counter = torch.empty(1, dtype=torch.int32, device=dev)
+                rc = lib.i2lqr_step_opts_launch(
+                    DTYPE_CODES[dtype], n, self.k, nsi, self._opts,
+                    self._consts, self.max_iter, b, t_rows, ml, *ins,
+                    stats[0].data_ptr(), stats[1].data_ptr(),
+                    stats[2].data_ptr(), counter.data_ptr(), stream)
+            else:
+                rc = lib.i2lqr_step_launch(
+                    DTYPE_CODES[dtype], n, self.k, nsi, self._consts,
+                    self.max_iter, b, t_rows, ml, *ins, stream)
         _build.check_launch(rc, "i2lqr_step")
         self.launches += 1
-        return us, shrink, idx_sel, row_sel
+        if not self.with_stats:
+            return us, shrink, idx_sel, row_sel
+        return (us, shrink, idx_sel, row_sel, stats[0], stats[1],
+                queue_floor(stats[2:], self.floor_width))
 
 
 def build_fused_i2lqr_step(params: IlqrParams, limits: SystemLimits, dt, *,
                            num_horizon: int, max_steps: int, max_laps: int,
-                           max_iter: int = 150) -> FusedI2lqrStep:
-    """Factory mirroring the JAX package's ``build_fused_i2lqr_step``. It
-    takes none of that factory's kernel options: at k = 32 the kernel
-    computes what the JAX sweep's ``dedup=True, store_solutions=False``
-    build does (each distinct candidate solve of a step once, the winner
-    solved again where its solution was not kept; bitwise the plain step),
-    and at k = 8 what the plain order does."""
+                           max_iter: int = 150, dedup: bool = False,
+                           qsort_skip: bool = False,
+                           with_stats: bool = False, floor_width: int = 32,
+                           **unported) -> FusedI2lqrStep:
+    """Factory mirroring the JAX package's ``build_fused_i2lqr_step``
+    (pallas_i2lqr_step.py:47), with its guards (:196-204). At k = 8 it
+    takes the options the JAX main path and sweep ship, run by
+    csrc/i2lqr_step_opts.cu: ``dedup`` and ``qsort_skip`` (nsi = 1, a lane
+    queue of one thread a lane), the bitwise-neutral schedules of
+    ``i2lqr_step_reference``, and
+    ``with_stats``, whose three (B,) i32 counts (``iters_useful``,
+    ``iters_executed``, ``queue_floor`` at ``floor_width`` lanes: 32, a
+    warp of one thread a lane, unless a caller asks for JAX's 128) follow
+    the four outputs. Without options the k = 8 step runs
+    csrc/i2lqr_step.cu's tile kernel, the plain order, and so does a
+    ``qsort_skip`` K1 without counts on fewer lanes than its lane queue
+    fills the card with (``FusedI2lqrStep.lane_queue_runs``). At k = 32
+    the kernel pools each step's distinct candidate solves, which is
+    ``dedup`` in
+    effect (the JAX sweep's ``dedup=True, store_solutions=False`` build),
+    so ``dedup`` is taken there and changes nothing; ``with_stats`` raises
+    (a pooled solve has no lane of its own), as does ``qsort_skip``
+    (nsi >= 2). The TPU options in ``_UNPORTED`` raise."""
+    for name in unported:
+        if name not in _UNPORTED:
+            raise TypeError(f"unexpected keyword argument {name!r}")
+        raise ValueError(f"{name} is not taken by the port: "
+                         f"{_UNPORTED[name]}")
+    if qsort_skip and params.num_ss_iter != 1:
+        raise ValueError("qsort_skip requires num_ss_iter == 1 (the "
+                         "lexicographic row-min over laps needs exact "
+                         "per-candidate costs, base.py:462)")
+    if with_stats and params.num_ss_points != 8:
+        raise ValueError("with_stats is counted at k = 8 only: the k = 32 "
+                         "kernel pools a block's distinct solves, which have "
+                         "no lane of their own")
     return FusedI2lqrStep(params, limits, dt, num_horizon=num_horizon,
                           max_steps=max_steps, max_laps=max_laps,
-                          max_iter=max_iter)
+                          max_iter=max_iter, dedup=dedup,
+                          qsort_skip=qsort_skip, with_stats=with_stats,
+                          floor_width=floor_width)

@@ -50,7 +50,7 @@ import torch
 from ilqr_iterative_tasks_torch.ops import _build
 from ilqr_iterative_tasks_torch.ops.fused_ilqr import DTYPE_CODES, check_lanes
 from ilqr_iterative_tasks_torch.ops.i2lqr_step import (
-    _lex_argmin_rows, _topk_select)
+    _lex_argmin_rows, _topk_select, warp_executed)
 from ilqr_iterative_tasks_torch.ops.ilqr_soa import step_soa
 from ilqr_iterative_tasks_torch.ops.lm_shooting_soa import (
     lm_feasibility_solve_soa)
@@ -74,7 +74,8 @@ def nlmpc_step_reference(params: LmpcParams, limits: SystemLimits, dt, x,
                          guess, u_warm, states, qfun, lap_len, lap_ids,
                          lap_ok, obs, skip, hzn, t=None, min_cost=None, *,
                          max_iters: int, trips: list | None = None,
-                         cands: list | None = None, candidate_solver=None):
+                         cands: list | None = None, candidate_solver=None,
+                         qsort_skip: bool = False, with_stats: bool = False):
     """Plain version of K2 (module docstring). spaceVarying and
     timeVarying: the candidate solves of all rows run as one batched solve
     and the winner's solution is read from it (a candidate solve is a pure
@@ -100,13 +101,30 @@ def nlmpc_step_reference(params: LmpcParams, limits: SystemLimits, dt, x,
     candidates' solve, as without it. The trip counts are the plain
     solve's only.
 
+    ``with_stats`` (spaceVarying and timeVarying) appends K2's two (B,)
+    i32 counts, summed over the step, for the schedule the kernel runs
+    (csrc/nlmpc_step.cu): the plain order, one thread a candidate, which
+    spaceVarying runs with ``qsort_skip`` too; under timeVarying's
+    ``qsort_skip`` one thread a lane that solves the ranks in (Qfun, slot)
+    order up to the first feasible one. ``iters_useful``: the trips of the
+    solves it runs, both starts (``n_iters``): every candidate a stored row
+    of a stored lap backs (the others enter done) or the ranks it solves,
+    and a winner whose own solve started done, solved again with done0 =
+    h1 where nothing is feasible. ``iters_executed``: every solve round its
+    warp runs (one, and that one), the lane's threads times the warp's
+    longest solve (``i2lqr_step.warp_executed``); 0 on skipped lanes. The
+    outputs do not depend on either option.
+
     With ``all_ss_iter`` outside mode all, lap_ids names every slot and the
     rows of laps not yet stored (a suffix: lap_ok is a prefix) are not
     solved at all: their costs are +inf and they rank above every stored
     row, so they never win and drop out with no change to the result."""
-    if candidate_solver is not None and trips is not None:
+    if candidate_solver is not None and (trips is not None or with_stats):
         raise ValueError("trips counts the plain solve's iterations")
     mode = params.ss_mode
+    if with_stats and mode == "all":
+        raise ValueError("with_stats is instrumented for the block modes "
+                         "(spaceVarying/timeVarying) only")
     n, k = params.num_horizon, params.num_ss_points
     if mode == "timeVarying" and (t is None or min_cost is None):
         raise ValueError("the timeVarying step needs t and min_cost")
@@ -152,8 +170,11 @@ def nlmpc_step_reference(params: LmpcParams, limits: SystemLimits, dt, x,
         return (us_l.reshape(n, 2, c, b), xm_l.reshape(4, c, b),
                 fe_l.reshape(c, b) > 0.5, None)
 
+    ran = []  # each candidate solve's trips
+
     def solve(x_terms, done0):
         us, x_m, feasible, n_iters = solve_lanes(x_terms, done0)
+        ran.append(n_iters)
         if trips is not None:
             trips.append(n_iters)
         dr = [x1[i] - x_terms[i] for i in range(4)]
@@ -239,25 +260,93 @@ def nlmpc_step_reference(params: LmpcParams, limits: SystemLimits, dt, x,
         x_pred = sol_xm.gather(1, win[None, None].expand(4, 1, b))[:, 0]
         xt_sel = x_terms.gather(1, win[None, None].expand(4, 1, b))[:, 0]
         lap_sel = lap_t[best_row]
+        if with_stats:
+            stats = _k2_counts(
+                ran[0], struct & lap_ok_kb, torch.cat(q_rows), cost, win,
+                active, h1, qsort_skip and mode == "timeVarying",
+                lambda need: solve_lanes(xt_sel[:, None], ~need[None])[3][0],
+                lambda need: solve_lanes(x_terms[:, :1], ~need[None])[3][0])
     x_pred = torch.where(h1[None], xt_sel, x_pred)
     len_sel = lap_len.gather(0, lap_sel[None])[0]
     succ = (idx_sel + 1) <= (len_sel - 1)
     nxt = torch.clamp(idx_sel + 1, 0, t_rows - 1)
     x_succ = states[lap_sel, nxt, :, lanes].T  # (4, B)
     new_guess = torch.where(succ[None], x_succ, x_pred)
-    return (torch.where(active, us_w, 0.0),
+    outs = (torch.where(active, us_w, 0.0),
             torch.where(active, feasible_any, False).to(dtype),
             torch.where(active, new_guess, 0.0),
             torch.where(active, idx_sel, 0).to(torch.int32),
             torch.where(active, best_row, 0).to(torch.int32),
             torch.where(active, succ, False).to(dtype))
+    return outs + stats if with_stats else outs
+
+
+# The threads a lane of K2 timeVarying under qsort_skip (K2_TV_G in
+# csrc/nlmpc_step.cu).
+K2_TV_THREADS = 1
+
+
+def _k2_counts(n_iters, okc, q, cost, win, active, h1, ranked, solve_win,
+               solve_first):
+    """K2's (iters_useful, iters_executed) of a block-mode step
+    (``nlmpc_step_reference``'s ``with_stats``). n_iters: the candidates'
+    trips (C, B); okc: backed by a stored row of a stored lap; q: their
+    Qfun; cost: their costs (+inf where infeasible); win: the winner (B,);
+    ``ranked``: timeVarying's qsort_skip schedule; solve_win(need) /
+    solve_first(need): the trips of the winner's / slot 0's solve with
+    done0 = h1 on the lanes of ``need`` (B,)."""
+    c, b = n_iters.shape
+    inf = float("inf")
+    lanes = active & ~h1
+    tr = torch.where(okc & lanes[None], n_iters, 0).to(torch.int64)
+    if not ranked:
+        # one round of every candidate, then the winner again where its
+        # cost is +inf and its own solve started done
+        found = torch.isfinite(cost.gather(0, win[None])[0])
+        held = okc.gather(0, win[None])[0]
+        need = lanes & ~found & ~held
+        again = (solve_win(need).to(torch.int64) if bool(need.any())
+                 else torch.zeros(b, dtype=torch.int64, device=tr.device))
+        rounds = [tr.amax(dim=0), again]
+        useful = tr.sum(dim=0) + again
+        threads = c
+    else:  # ranks by (Qfun, slot) up to the first feasible one
+        qk = torch.where(okc, q, inf)
+        slots = torch.arange(c, device=tr.device)[:, None]
+        # ahead[i, j]: slot j ranks before slot i
+        ahead = ((qk[None] < qk[:, None])
+                 | ((qk[None] == qk[:, None])
+                    & (slots[None] < slots[:, None])))
+        order = torch.argsort(ahead.sum(dim=1), dim=0)  # rank -> slot
+        nsolve = torch.clamp_min(torch.isfinite(qk).sum(dim=0), 1)
+        fin_rank = torch.isfinite(cost.gather(0, order))  # (C, B)
+        first = torch.where(fin_rank.any(dim=0),
+                            torch.argmax(fin_rank.to(torch.int8), dim=0),
+                            nsolve - 1)  # the last rank solved
+        last = order.gather(0, first[None])[0]
+        found = fin_rank.any(dim=0)
+        held = (last == 0) & (h1 | okc[0])
+        need = active & ~found & ~held
+        again = (solve_first(need & ~h1).to(torch.int64)
+                 if bool((need & ~h1).any())
+                 else torch.zeros(b, dtype=torch.int64, device=tr.device))
+        rounds, useful = [], torch.zeros(b, dtype=torch.int64,
+                                         device=tr.device)
+        for r in range(c + 1):
+            t_r = tr.gather(0, order[min(r, c - 1)][None])[0]
+            t_r = torch.where(r <= first, t_r, 0) if r < c else 0 * t_r
+            t_r = t_r + torch.where(need & (first + 1 == r), again, 0)
+            rounds.append(t_r)
+            useful += t_r
+        threads = K2_TV_THREADS
+    return (torch.where(active, useful, 0).to(torch.int32),
+            warp_executed(rounds, active, threads))
 
 
 # Kernel options of the TPU factory that the port does not take, and why.
 _UNPORTED = {
     "zeros_skip": "retired from the bench (bench.py:140-144)",
     "prox_skip": "on the roadmap's not-to-port list",
-    "with_stats": "not ported yet",
     "store_solutions": "the port's K2 keeps no candidate's solution but "
                        "the winner's (held by its thread, or solved again)",
     "stream_safe_set": "the port's K2 always reads the safe set from "
@@ -268,13 +357,15 @@ _UNPORTED = {
 class FusedNlmpcStep:
     """K2: one whole NLMPC control step per lane. Attributes k, nsi,
     num_horizon, max_steps, max_laps, max_iters, mode, all_iter,
-    qsort_skip and all_rev_skip describe what it was built for;
-    ``launches`` counts kernel launches. Use ``build_fused_nlmpc_step``."""
+    qsort_skip, all_rev_skip and with_stats describe what it was built
+    for; ``launches`` counts kernel launches. Use
+    ``build_fused_nlmpc_step``."""
 
     def __init__(self, params: LmpcParams, limits: SystemLimits, dt, *,
                  num_horizon: int, max_steps: int, max_laps: int,
                  max_iters: int, mode: str, all_iter: bool,
-                 qsort_skip: bool, all_rev_skip: bool):
+                 qsort_skip: bool, all_rev_skip: bool,
+                 with_stats: bool = False):
         self.params, self.limits, self.dt = params, limits, float(dt)
         self.k = params.num_ss_points
         self.nsi = params.num_ss_iter
@@ -284,6 +375,7 @@ class FusedNlmpcStep:
         self.max_iters = max_iters
         self.mode, self.all_iter = mode, all_iter
         self.qsort_skip, self.all_rev_skip = qsort_skip, all_rev_skip
+        self.with_stats = with_stats
         self.rows = max_laps if all_iter else self.nsi  # lap rows a step
         self._consts = _build.nlmpc_consts_array(nlmpc_consts(limits, dt))
         self.launches = 0
@@ -297,7 +389,8 @@ class FusedNlmpcStep:
             return nlmpc_step_reference(
                 self.params, self.limits, self.dt, x, guess, u_warm, states,
                 qfun, lap_len, lap_ids, lap_ok, obs, skip, hzn, t, min_cost,
-                max_iters=self.max_iters)
+                max_iters=self.max_iters, qsort_skip=self.qsort_skip,
+                with_stats=self.with_stats)
         if x.device.type != "cuda":
             raise ValueError(f"unsupported device {x.device}")
         dev, dtype = x.device, x.dtype
@@ -345,33 +438,45 @@ class FusedNlmpcStep:
                     None if scratch is None else scratch.data_ptr(), *outs,
                     stream)
             else:
-                rc = lib.nlmpc_step_launch(
-                    DTYPE_CODES[dtype], n, self.k, self.nsi,
-                    int(time_varying), int(self.qsort_skip), self._consts,
-                    self.max_iters, b, t_rows, x.data_ptr(),
-                    guess.data_ptr(), u_warm.data_ptr(), states.data_ptr(),
-                    qfun.data_ptr(), lap_len.data_ptr(), lap_ids.data_ptr(),
-                    lap_ok.data_ptr(), obs.data_ptr(), skip.data_ptr(),
-                    hzn.data_ptr(), t.data_ptr() if time_varying else None,
-                    min_cost.data_ptr() if time_varying else None, *outs,
-                    stream)
+                args = (DTYPE_CODES[dtype], n, self.k, self.nsi,
+                        int(time_varying), int(self.qsort_skip), self._consts,
+                        self.max_iters, b, t_rows, x.data_ptr(),
+                        guess.data_ptr(), u_warm.data_ptr(),
+                        states.data_ptr(), qfun.data_ptr(),
+                        lap_len.data_ptr(), lap_ids.data_ptr(),
+                        lap_ok.data_ptr(), obs.data_ptr(), skip.data_ptr(),
+                        hzn.data_ptr(),
+                        t.data_ptr() if time_varying else None,
+                        min_cost.data_ptr() if time_varying else None, *outs)
+                if self.with_stats:
+                    stats = torch.empty((2, b), dtype=torch.int32,
+                                        device=dev)
+                    rc = lib.nlmpc_step_stats_launch(
+                        *args, stats[0].data_ptr(), stats[1].data_ptr(),
+                        stream)
+                else:
+                    rc = lib.nlmpc_step_launch(*args, stream)
         _build.check_launch(rc, "nlmpc_step")
         self.launches += 1
-        return us, feasible_any, new_guess, idx_sel, row_sel, succ
+        outs = us, feasible_any, new_guess, idx_sel, row_sel, succ
+        return outs + (stats[0], stats[1]) if self.with_stats else outs
 
 
 def build_fused_nlmpc_step(params: LmpcParams, limits: SystemLimits, dt, *,
                            num_horizon: int, max_steps: int, max_laps: int,
                            max_iters: int = 60, qsort_skip: bool = False,
                            all_rev_skip: bool = False,
+                           with_stats: bool = False,
                            **unported) -> FusedNlmpcStep:
     """Factory mirroring the JAX package's ``build_fused_nlmpc_step``
     (pallas_nlmpc_step.py:54), with its guards (:172-231). The mode and
     the lap window are the params' (``ss_mode``, ``all_ss_iter``), which the
     plain step on CPU tensors reads too. ``qsort_skip`` (spaceVarying /
     timeVarying, nsi = 1) and ``all_rev_skip`` (all, nsi = 1, no all_iter)
-    are bitwise-neutral schedules. The TPU options in ``_UNPORTED``
-    raise."""
+    are bitwise-neutral schedules. ``with_stats`` (spaceVarying /
+    timeVarying) appends two (B,) i32 counts to the outputs,
+    ``iters_useful`` and ``iters_executed`` (``nlmpc_step_reference``).
+    The TPU options in ``_UNPORTED`` raise."""
     for name in unported:
         if name not in _UNPORTED:
             raise TypeError(f"unexpected keyword argument {name!r}")
@@ -389,6 +494,9 @@ def build_fused_nlmpc_step(params: LmpcParams, limits: SystemLimits, dt, *,
         raise ValueError("all_iter widens the lap window of mode='all' (the "
                          "kNN or window over every stored lap runs through "
                          "the plain step's glue and a candidate solver)")
+    if mode == "all" and with_stats:
+        raise ValueError("with_stats is instrumented for the block modes "
+                         "(spaceVarying/timeVarying) only")
     if mode == "all" and qsort_skip:
         raise ValueError("qsort_skip is not defined for mode='all' (the "
                          "lexicographic row comparison needs every "
@@ -407,4 +515,5 @@ def build_fused_nlmpc_step(params: LmpcParams, limits: SystemLimits, dt, *,
                           max_steps=max_steps, max_laps=max_laps,
                           max_iters=max_iters, mode=mode, all_iter=all_iter,
                           qsort_skip=bool(qsort_skip),
-                          all_rev_skip=bool(all_rev_skip))
+                          all_rev_skip=bool(all_rev_skip),
+                          with_stats=bool(with_stats))

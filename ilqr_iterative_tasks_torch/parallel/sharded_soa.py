@@ -8,8 +8,12 @@ runs the port's whole simulator on its columns: on the card it launches K1
 (i2LQR) or K2 / K4 (NLMPC) as the unsharded run does. No lane reads
 another, so the ranks share nothing while they run. At the end every
 per-lane field (lap steps and done flags, final states, the safe set,
-``streaks``) is gathered along the trailing axis into the global result on
-every rank, and ``lap_count`` is checked equal across ranks.
+``streaks``, ``iter_stats``) is gathered along the trailing axis into the
+global result on every rank, and ``lap_count`` is checked equal across
+ranks. ``iter_stats`` (a step solver built ``with_stats``) are the
+unsharded run's where each rank's columns hold whole groups of the
+counts' lanes (a warp's for ``iters_executed``, ``floor_width`` for K1's
+``queue_floor``); under ``*_shardmap`` each shard counts its own run.
 
 The two noise semantics differ, as in the JAX package:
 
@@ -115,6 +119,8 @@ def gather_result(res, mesh: Mesh, axis: str = "scenario", stats=None):
                   safe_set=tuple(g(t) for t in res.safe_set))
     if getattr(res, "streaks", ()):
         fields["streaks"] = tuple(g(t) for t in res.streaks)
+    if getattr(res, "iter_stats", ()):
+        fields["iter_stats"] = tuple(g(t) for t in res.iter_stats)
     counts = mesh.all_gather(torch.tensor([res.lap_count],
                                           device=res.lap_steps.device), axis)
     if any(int(c) != res.lap_count for c in counts):
@@ -174,6 +180,9 @@ def _sharded(sim, params, limits, scenarios, seed_xs, seed_us, seed_len, dt,
     if getattr(res, "streaks", ()):
         res = res._replace(streaks=tuple(
             torch.cat(ts) for ts in zip(*(r.streaks for r in laps))))
+    if getattr(res, "iter_stats", ()):  # each lap's run counts afresh
+        res = res._replace(iter_stats=tuple(
+            sum(ts) for ts in zip(*(r.iter_stats for r in laps))))
     key = None
     if isinstance(source, ColumnDraws):
         source.advance(rows)

@@ -31,6 +31,21 @@ F64, CPU = torch.float64, "cpu"
 SHARDED_B, SHARDMAP_B, CAP, NOISE_ROWS = 16, 8, 8, 300
 I2LQR_KW = dict(num_laps=1, max_steps=128, max_laps=4, solver_max_iter=CAP)
 NLMPC_KW = dict(num_laps=1, max_steps=128, max_laps=4, max_lm_iters=CAP)
+# the counting run: 2 laps of at most 20 steps through a K1 with_stats
+# (and dedup), its queue_floor over groups of 8 lanes, a rank's share of
+# SHARDED_B
+STATS_KW = dict(I2LQR_KW, num_laps=2, sim_step_budget=20)
+STATS_WIDTH = 8
+
+
+def stats_solver(ip, lim):
+    """The counting K1 of the ``_sharded`` i2LQR stats run."""
+    from ilqr_iterative_tasks_torch.ops.i2lqr_step import (
+        build_fused_i2lqr_step)
+    return build_fused_i2lqr_step(
+        ip, lim, 1.0, num_horizon=ip.num_horizon,
+        max_steps=I2LQR_KW["max_steps"], max_laps=I2LQR_KW["max_laps"],
+        max_iter=CAP, dedup=True, with_stats=True, floor_width=STATS_WIDTH)
 
 
 def setup(b):
@@ -69,8 +84,10 @@ def pair_mesh():
 def sharded_runs():
     """The ``_sharded`` runs of tests/test_torch_sharded_soa.py on a world
     of 4, each pair of ranks a 2-rank mesh: ranks 0-1 i2LQR (B = 16, 1 lap,
-    injected global noise), ranks 2-3 NLMPC on that noise (with its streak
-    statistics) and then NLMPC over 3 laps on a generator of seed 7."""
+    injected global noise) and then i2LQR over 2 laps through a K1 that
+    counts (``stats_solver``), ranks 2-3 NLMPC on that noise (with its
+    streak statistics) and then NLMPC over 3 laps on a generator of seed
+    7."""
     mesh = pair_mesh()
     ip, lp, lim, sx, su, scen = setup(SHARDED_B)
     noise = global_noise(SHARDED_B)
@@ -78,6 +95,10 @@ def sharded_runs():
     if mesh.ranks[0] == 0:
         out["i2lqr"] = simulate_learning_runs_soa_sharded(
             ip, lim, scen, sx, su, 121, 1.0, mesh, noise=noise, **I2LQR_KW)
+        out["i2lqr_stats"] = simulate_learning_runs_soa_sharded(
+            ip, lim, scen, sx, su, 121, 1.0, mesh, noise=noise,
+            step_solver=stats_solver(ip, lim),
+            **STATS_KW)
     else:
         out["nlmpc"] = simulate_nlmpc_runs_soa_sharded(
             lp, lim, scen, sx, su, 121, 1.0, mesh, noise=noise,

@@ -1,9 +1,12 @@
-// CPU emulation of the CUDA runtime pieces the K1, K3, K4 and K5 kernels
-// use: every CUDA thread of a launch is a std::thread, the lane counter a
-// host atomic, and the 32 threads of a warp meet at a barrier of their own
-// for the warp's ballots, shuffles and __syncwarp (full mask only),
-// exchanging values through one slot a thread (two sets of slots, used in
-// turn, so that one barrier an exchange suffices); the threads of a block
+// CPU emulation of the CUDA runtime pieces the K1-K5 kernels use: every
+// CUDA thread of a launch is a std::thread, the lane counter a host
+// atomic, and the 32 threads of a warp meet at a barrier of their own for
+// the warp's ballots, shuffles, reductions and __syncwarp, exchanging
+// values through one slot a thread (two sets of slots, used in turn, so
+// that one barrier an exchange suffices); a collective of a part of the
+// warp (a tile's mask) meets at a barrier of the mask's threads and
+// exchanges through a third set, written and read between two of its
+// barriers (the tiles of a warp are disjoint); the threads of a block
 // meet at the block's barrier for __syncthreads and __syncthreads_or. A
 // block's __shared__ storage is a static variable: a build whose kernels
 // declare it defines EMU_SHARED (elsewhere __shared__ does not compile),
@@ -16,6 +19,7 @@
 #include <condition_variable>
 #include <cstdlib>
 #include <cstring>
+#include <map>
 #include <memory>
 #include <mutex>
 #include <thread>
@@ -95,7 +99,21 @@ struct Barrier {
 struct Warp {
   Barrier bar;
   unsigned long long slot[2][32];
+  unsigned long long part[32];  // the exchanges of a part of the warp
+  std::mutex m;
+  std::map<unsigned, std::unique_ptr<Barrier>> parts;
   void sync() { bar.sync(32); }
+  void sync(unsigned mask) {
+    if (mask == 0xffffffffu) return sync();
+    Barrier* p;
+    {
+      std::lock_guard<std::mutex> l(m);
+      std::unique_ptr<Barrier>& q = parts[mask];
+      if (!q) q.reset(new Barrier);
+      p = q.get();
+    }
+    p->sync(__builtin_popcount(mask));
+  }
 };
 inline thread_local unsigned turns = 0;  // exchanges this thread made
 inline std::unique_ptr<Warp[]> warps;      // of the running launch
@@ -103,49 +121,74 @@ inline std::unique_ptr<Barrier[]> blocks;  // of the running launch
 inline Warp& warp() {
   return warps[(blockIdx.x * blockDim.x + threadIdx.x) / 32];
 }
-inline void full(unsigned mask) {
-  if (mask != 0xffffffffu) std::abort();  // only whole warps are emulated
-}
-// v of every thread of the warp in its slot; returns the slot of src
-template <class V> V exchange(V v, int src) {
+// v of every thread of the mask in its slot; returns the slot of src (a
+// thread of the mask)
+template <class V> V exchange(V v, int src, unsigned mask = 0xffffffffu) {
   static_assert(sizeof(V) <= sizeof(unsigned long long), "8 bytes at most");
   Warp& w = warp();
-  unsigned long long* slot = w.slot[turns++ & 1];
-  std::memcpy(&slot[threadIdx.x & 31], &v, sizeof(V));
-  w.sync();
+  const int l = threadIdx.x & 31;
+  if (!((mask >> l) & 1u) || !((mask >> (src & 31)) & 1u)) std::abort();
   V out;
+  if (mask != 0xffffffffu) {
+    std::memcpy(&w.part[l], &v, sizeof(V));
+    w.sync(mask);
+    std::memcpy(&out, &w.part[src & 31], sizeof(V));
+    w.sync(mask);
+    return out;
+  }
+  unsigned long long* slot = w.slot[turns++ & 1];
+  std::memcpy(&slot[l], &v, sizeof(V));
+  w.sync();
   std::memcpy(&out, &slot[src & 31], sizeof(V));
   return out;
 }
 }  // namespace emu
 
 template <class V> V __shfl_sync(unsigned mask, V v, int src, int width = 32) {
-  emu::full(mask);
-  return emu::exchange(v, (threadIdx.x & 31 & ~(width - 1)) + (src & (width - 1)));
+  return emu::exchange(v, (threadIdx.x & 31 & ~(width - 1)) + (src & (width - 1)),
+                       mask);
 }
 template <class V>
 V __shfl_xor_sync(unsigned mask, V v, int lane_mask, int width = 32) {
-  emu::full(mask);
   const int l = threadIdx.x & 31;
-  return emu::exchange(v, (l & ~(width - 1)) + ((l ^ lane_mask) & (width - 1)));
+  return emu::exchange(v, (l & ~(width - 1)) + ((l ^ lane_mask) & (width - 1)),
+                       mask);
 }
-inline void __syncwarp(unsigned mask = 0xffffffffu) {
-  emu::full(mask);
-  emu::warp().sync();
-}
+inline void __syncwarp(unsigned mask = 0xffffffffu) { emu::warp().sync(mask); }
 inline void __syncthreads() { emu::blocks[blockIdx.x].sync(blockDim.x); }
 inline int __syncthreads_or(int p) {
   return emu::blocks[blockIdx.x].sync(blockDim.x, p);
 }
+namespace emu {
+// every thread's v of the mask, into all[] (0 outside the mask)
+inline void gather(unsigned mask, unsigned long long v, unsigned long long* all) {
+  Warp& w = warp();
+  const int l = threadIdx.x & 31;
+  if (!((mask >> l) & 1u)) std::abort();
+  unsigned long long* slot = mask == 0xffffffffu ? w.slot[turns++ & 1] : w.part;
+  slot[l] = v;
+  w.sync(mask);
+  for (int i = 0; i < 32; ++i) all[i] = (mask >> i) & 1u ? slot[i] : 0;
+  if (mask != 0xffffffffu) w.sync(mask);
+}
+}  // namespace emu
 inline unsigned __ballot_sync(unsigned mask, bool p) {
-  emu::full(mask);
-  emu::Warp& w = emu::warp();
-  unsigned long long* slot = w.slot[emu::turns++ & 1];
-  slot[threadIdx.x & 31] = p;
-  w.sync();
+  unsigned long long all[32];
+  emu::gather(mask, p, all);
   unsigned out = 0;
-  for (int i = 0; i < 32; ++i) out |= (slot[i] ? 1u : 0u) << i;
+  for (int i = 0; i < 32; ++i) out |= (all[i] ? 1u : 0u) << i;
   return out;
+}
+inline int __any_sync(unsigned mask, int p) { return __ballot_sync(mask, p != 0) != 0; }
+// Threads run on their own here: at any point a thread is the one thread
+// of its warp that runs it.
+inline unsigned __activemask() { return 1u << (threadIdx.x & 31); }
+inline unsigned __reduce_max_sync(unsigned mask, unsigned v) {
+  unsigned long long all[32];
+  emu::gather(mask, v, all);
+  unsigned long long out = 0;
+  for (int i = 0; i < 32; ++i) out = all[i] > out ? all[i] : out;
+  return (unsigned)out;
 }
 
 namespace emu {

@@ -1166,3 +1166,128 @@ def test_one_rank_sharded_run_on_the_card_is_the_unsharded_run(dev):
                                       want.final_x, *want.safe_set)):
         assert torch.equal(g, w)
     assert torch.equal(got.final_key, want.final_key)
+
+
+# K1 at k = 8 with its options (dedup, qsort_skip, with_stats) and K2's
+# with_stats on the card, as tests/test_torch_k1_options.py,
+# tests/test_torch_k2_stats.py and tests/test_torch_kernels_host.py hold
+# their plain versions on the CPU
+K1_OPTION_CASES = [(1, 3, dict(with_stats=True)), (1, 3, dict(dedup=True)),
+                   (1, 3, dict(qsort_skip=True, with_stats=True)),
+                   (1, 3, dict(dedup=True, qsort_skip=True,
+                               with_stats=True)),
+                   (1, 1, dict(dedup=True, qsort_skip=True,
+                               with_stats=True)),
+                   (2, 3, dict(dedup=True, with_stats=True)),
+                   (2, 1, dict(dedup=True, with_stats=True))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nsi,lap_count,options", K1_OPTION_CASES)
+def test_k1_options_match_plain_bitwise(dev, nsi, lap_count, options,
+                                        dtype):
+    """Outputs bit for bit the plain order's, counts integer for integer
+    the plain version's on the card (queue_floor at the factory's 32 lanes
+    and at JAX's tile of 128; qsort_skip's lane queue's iters_executed by
+    its invariants)."""
+    from ilqr_iterative_tasks_torch.experiments.headlines import (
+        k1_option_lanes)
+    p = IlqrParams.make(num_ss_iter=nsi, dtype=dtype, device=dev)
+    lim = SystemLimits.make(dtype=dtype, device=dev)
+    a = k1_option_lanes(nsi, lap_count, dev, b=517, dtype=dtype)
+    for width in (32, 128):
+        k1 = build_fused_i2lqr_step(p, lim, 1.0, num_horizon=N,
+                                    max_steps=T_ROWS, max_laps=MAX_LAPS,
+                                    max_iter=CAP, floor_width=width,
+                                    **options)
+        got = k1(*a)
+        assert k1.launches == 1
+        want = i2lqr_step_reference(p, lim, 1.0, *a, max_iter=CAP,
+                                    floor_width=width, **options)
+        assert len(got) == len(want)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g.dtype == w.dtype
+            if i == 5 and options.get("qsort_skip"):
+                live = a[8] < 0.5
+                assert bool((g >= got[4]).all())
+                assert int(g[~live].abs().sum()) == 0
+            else:
+                assert torch.equal(g, w), i
+
+
+@pytest.mark.parametrize("mode,nsi,lap_count,qsort", [
+    ("spaceVarying", 1, 2, False), ("spaceVarying", 1, 2, True),
+    ("timeVarying", 1, 2, False), ("timeVarying", 1, 2, True),
+    ("spaceVarying", 2, 2, False), ("timeVarying", 2, 1, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k2_counts_match_plain(dev, mode, nsi, lap_count, qsort, dtype):
+    """K2 with_stats: outputs bit for bit K2's without counts and the plain
+    step's on the card, useful and executed integer for integer."""
+    from ilqr_iterative_tasks_torch.experiments.headlines import (
+        k2_option_lanes)
+    p = LmpcParams.make(num_ss_iter=nsi, ss_option=mode, dtype=dtype,
+                        device=dev)
+    lim = SystemLimits.make(dtype=torch.float64, device=dev)
+    a = k2_option_lanes(nsi, lap_count, dev, b=517, dtype=dtype)
+    args = a if mode == "timeVarying" else a[:11]
+    sizes = dict(num_horizon=N, max_steps=a[3].shape[1],
+                 max_laps=a[3].shape[0], max_iters=12, qsort_skip=qsort)
+    got = build_fused_nlmpc_step(p, lim, 1.0, with_stats=True, **sizes)(*args)
+    plain = build_fused_nlmpc_step(p, lim, 1.0, **sizes)(*args)
+    for g, w in zip(got[:6], plain):
+        assert torch.equal(g, w)
+    want = nlmpc_step_reference(p, lim, 1.0, *args, max_iters=12,
+                                qsort_skip=qsort, with_stats=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_closed_loop_through_a_counting_k1_keeps_the_records(dev):
+    """The simulator through K1 with dedup, qsort_skip and with_stats
+    hashes as through K1 without options (2 laps, B = 256, f32, injected
+    noise), and its iter_stats are populated."""
+    from ilqr_iterative_tasks_torch.experiments.headlines import (
+        lap_records_hash)
+    p = IlqrParams.make(device=dev)
+    lim = SystemLimits.make(device=dev)
+    xcl, _ = seed_trajectory(1.0)
+    seed = np.zeros((T_ROWS, 4))
+    seed[:121] = xcl
+    b = 256
+    scen = SoaScenarios.broadcast(
+        np.zeros(4), xcl[-1], Obstacle.make(31.0, -2.0, 8.0, 6.0, device=dev),
+        b, noise_on=True, device=dev)
+    noise = torch.tensor(np.random.default_rng(2).normal(size=(400, 2, b)),
+                         dtype=torch.float32, device=dev)
+    kw = dict(num_laps=2, max_steps=T_ROWS, max_laps=MAX_LAPS,
+              solver_max_iter=CAP, noise=noise)
+    sizes = dict(num_horizon=N, max_steps=T_ROWS, max_laps=MAX_LAPS,
+                 max_iter=CAP)
+    runs = [simulate_learning_runs_soa(
+        p, lim, scen, seed, np.zeros((T_ROWS, 2)), 121, 1.0,
+        step_solver=build_fused_i2lqr_step(p, lim, 1.0, **sizes, **o), **kw)
+        for o in ({}, dict(dedup=True, qsort_skip=True, with_stats=True))]
+    assert lap_records_hash(runs[0]) == lap_records_hash(runs[1])
+    useful, executed, floor = runs[1].iter_stats
+    assert bool((useful <= executed).all()) and int(useful.min()) > 0
+
+
+def test_k1_runs_the_lane_queue_where_the_batch_fills_the_card(dev):
+    """qsort_skip without counts runs the lane queue only on a batch of at
+    least the lanes the card holds at one thread a lane (the headline's
+    49 152 lanes; phase 6b of chip_smoke.py runs it there); below it the
+    plain order, the same bits."""
+    from ilqr_iterative_tasks_torch.experiments.headlines import (
+        k1_option_lanes)
+    p = IlqrParams.make(device=dev)
+    lim = SystemLimits.make(device=dev)
+    k1 = build_fused_i2lqr_step(p, lim, 1.0, num_horizon=N,
+                                max_steps=T_ROWS, max_laps=MAX_LAPS,
+                                max_iter=CAP, dedup=True, qsort_skip=True)
+    assert not k1.lane_queue_runs(517, dev, torch.float32)
+    assert k1.lane_queue_runs(49152, dev, torch.float32)
+    a = k1_option_lanes(1, 3, dev, b=517, dtype=torch.float32)
+    got = k1(*a)
+    want = i2lqr_step_reference(p, lim, 1.0, *a, max_iter=CAP)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -29,8 +29,8 @@ import torch
 from ilqr_iterative_tasks_torch.experiments.generic_bench import (
     generic_kwargs, k5_task, throughput_inputs)
 from ilqr_iterative_tasks_torch.experiments.headlines import (
-    K4_EDGE_CASES, MAX_LAPS, MAX_STEPS, k1_block_lanes, k32_distinct,
-    k4_edge_lanes)
+    K4_EDGE_CASES, MAX_LAPS, MAX_STEPS, k1_block_lanes, k1_option_lanes,
+    k2_option_lanes, k32_distinct, k4_edge_lanes)
 from ilqr_iterative_tasks_torch.models import double_integrator
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
 from ilqr_iterative_tasks_torch.ops import _build
@@ -41,9 +41,12 @@ from ilqr_iterative_tasks_torch.ops.fused_ilqr import (
 from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
     build_fused_lm_shooting, fused_lm_shooting_reference)
 from ilqr_iterative_tasks_torch.ops.i2lqr_step import (
-    build_fused_i2lqr_step, i2lqr_step_reference)
+    build_fused_i2lqr_step, i2lqr_step_reference, queue_floor)
+from ilqr_iterative_tasks_torch.ops.nlmpc_step import (
+    build_fused_nlmpc_step, nlmpc_step_reference)
 from ilqr_iterative_tasks_torch.sim.seed import seed_trajectory
-from ilqr_iterative_tasks_torch.utils.params import IlqrParams, SystemLimits
+from ilqr_iterative_tasks_torch.utils.params import (
+    IlqrParams, LmpcParams, SystemLimits)
 
 torch.set_num_threads(1)
 SHIM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "host_cuda")
@@ -55,6 +58,12 @@ MANY_SMS = 33  # 4 224 threads: every lane of these tests by its index
 K1_SOURCES, K1_LAUNCHERS = ("i2lqr_step.cu",), ("i2lqr_step_launch",)
 K1_FLAGS = ("-DEMU_SHARED", "-DK1_ON_SOLVE(lane)=emu::count(lane)")
 K1_LANES = 33  # lanes of the K1 tests: blocks of 4 or 2, a ragged edge
+# K1 at k = 8 with its options and K2 with its counts (with_stats), a
+# build of their own
+OPT_SOURCES = ("i2lqr_step_opts.cu", "nlmpc_step.cu")
+OPT_LAUNCHERS = ("i2lqr_step_opts_launch",
+                 ("nlmpc_step_stats_launch", "nlmpc_step_launch"))
+OPT_LANES = 40  # 10 warps of K1 at k = 8, 3 blocks, a ragged edge
 
 
 def host_source(text: str) -> str:
@@ -99,11 +108,12 @@ class _Lib:
 
     def __init__(self, procs, sos, launchers=LAUNCHERS):
         assert all(p.wait() == 0 for p in procs)
-        for name, so in zip(launchers, sos):
+        for names, so in zip(launchers, sos):  # a name or names a library
             dll = ctypes.CDLL(so)
-            fn = getattr(dll, name)
-            fn.argtypes = _build._ARGTYPES[name]
-            setattr(self, name, fn)
+            for name in (names,) if isinstance(names, str) else names:
+                fn = getattr(dll, name)
+                fn.argtypes = _build._ARGTYPES[name]
+                setattr(self, name, fn)
         self.emu_count_into = dll.emu_count_into
 
 
@@ -111,16 +121,19 @@ class _Lib:
 def libs(tmp_path_factory):
     """(the sources on a card of one SM, one block of 128 threads that
     refills; on a card of MANY_SMS, whose grid holds every lane of these
-    tests; K1, counting its solves), host builds made at once (the static
-    lane grid of each build is its own: -fno-gnu-unique)"""
+    tests; K1, counting its solves; K1's options kernel and K2), host
+    builds made at once (the static lane grid of each build is its own:
+    -fno-gnu-unique)"""
     if shutil.which("g++") is None:
         pytest.skip("needs g++")
     d = tmp_path_factory.mktemp("host_kernels")
     builds = [_start_host_build(d / "one_sm", 1),
               _start_host_build(d / "many_sms", MANY_SMS),
-              _start_host_build(d / "k1", 1, K1_SOURCES, K1_FLAGS)]
+              _start_host_build(d / "k1", 1, K1_SOURCES, K1_FLAGS),
+              _start_host_build(d / "opts", 1, OPT_SOURCES)]
     return (_Lib(*builds[0]), _Lib(*builds[1]),
-            _Lib(*builds[2], launchers=K1_LAUNCHERS))
+            _Lib(*builds[2], launchers=K1_LAUNCHERS),
+            _Lib(*builds[3], launchers=OPT_LAUNCHERS))
 
 
 @pytest.fixture(scope="module")
@@ -319,3 +332,103 @@ def test_k1_at_32_candidates_matches_plain_solving_each_once(libs, nsi,
     assert bool(((need <= got) & (got <= need + 4))[active].all())
     assert int(got[~active].abs().sum()) == 0
     assert int(got[active].max()) < 3 * nsi * 32
+
+
+def _nan_outs(shapes, dt):
+    return tuple(torch.full(sh, torch.nan, dtype=dt) if d is None
+                 else torch.full(sh, -7, dtype=d) for sh, d in shapes)
+
+
+@pytest.mark.parametrize("nsi,lap_count,opts,b", [
+    (1, 3, 0, OPT_LANES), (1, 3, 1, OPT_LANES), (1, 3, 3, OPT_LANES),
+    (1, 3, 4, OPT_LANES), (1, 3, 5, OPT_LANES), (1, 3, 7, OPT_LANES),
+    (1, 1, 7, OPT_LANES), (1, 3, 6, OPT_LANES), (2, 3, 1, OPT_LANES),
+    (2, 3, 3, OPT_LANES), (2, 1, 3, OPT_LANES), (1, 3, 7, 300)])
+def test_k1_options_match_plain(libs, nsi, lap_count, opts, b):
+    """K1 at k = 8 with its options (opts: 1 with_stats, 2 dedup, 4
+    qsort_skip, the lane queue: one block of 128 threads that takes the
+    lanes from the counter, 300 of them refilling) on
+    headlines.k1_option_lanes, f64, 40 lanes: the outputs
+    are the plain step's (us to the host libm's last bits), the counts
+    integer for integer (queue_floor over upass at 32 lanes); without
+    options the tile kernel of i2lqr_step.cu gives the same bits."""
+    dt = torch.float64
+    p = IlqrParams.make(num_ss_iter=nsi, device="cpu", dtype=dt)
+    lim = SystemLimits.make(device="cpu", dtype=dt)
+    k1 = build_fused_i2lqr_step(p, lim, 1.0, num_horizon=6,
+                                max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+                                max_iter=8)
+    a = k1_option_lanes(nsi, lap_count, "cpu", b=b, dtype=dt)
+    out = _nan_outs([((6, 2, b), None), ((b,), None), ((b,), torch.int32),
+                     ((b,), torch.int32), ((5, b), torch.int32)], dt)
+    counter = torch.empty(1, dtype=torch.int32)
+    assert libs[3].i2lqr_step_opts_launch(
+        DTYPE_CODES[dt], 6, 8, nsi, opts, k1._consts, 8, b, MAX_STEPS,
+        MAX_LAPS, *map(_ptr, (*a, *out[:4])), *map(_ptr, out[4][:3]),
+        counter.data_ptr(), None) == 0
+    want = i2lqr_step_reference(p, lim, 1.0, *a, max_iter=8,
+                                dedup=bool(opts & 2),
+                                qsort_skip=bool(opts & 4), with_stats=True)
+    for g, w in zip(out[1:4], want[1:4]):
+        assert torch.equal(g, w)
+    torch.testing.assert_close(out[0], want[0], rtol=0, atol=1e-9)
+    if opts & 1:
+        assert torch.equal(out[4][0], want[4])
+        assert torch.equal(queue_floor(out[4][2:], 32), want[6])
+        if opts & 4:  # the lane queue's executed: its own invariants
+            live = a[8] < 0.5
+            assert bool((out[4][1] >= out[4][0]).all())
+            assert int(out[4][1][~live].abs().sum()) == 0
+        else:
+            assert torch.equal(out[4][1], want[5])
+    if opts == 0:  # the tile kernel without options
+        tile = _nan_outs([((6, 2, b), None), ((b,), None),
+                          ((b,), torch.int32), ((b,), torch.int32)], dt)
+        assert libs[2].i2lqr_step_launch(
+            DTYPE_CODES[dt], 6, 8, nsi, k1._consts, 8, b, MAX_STEPS,
+            MAX_LAPS, *map(_ptr, (*a, *tile)), None) == 0
+        _equal(tile, out[:4])
+
+
+@pytest.mark.parametrize("mode,nsi,lap_count,qsort", [
+    ("spaceVarying", 1, 2, 0), ("spaceVarying", 1, 2, 1),
+    ("timeVarying", 1, 2, 0), ("timeVarying", 1, 2, 1),
+    ("timeVarying", 1, 1, 1), ("spaceVarying", 2, 2, 0),
+    ("spaceVarying", 2, 1, 0), ("timeVarying", 2, 1, 0)])
+def test_k2_counts_match_plain(libs, mode, nsi, lap_count, qsort):
+    """K2's with_stats build on headlines.k2_option_lanes, f64, 40 lanes:
+    iters_useful and iters_executed integer for integer the plain step's;
+    the decisions the plain step's, and every output the same build
+    without counts gives (the host libm stands in for CUDA's, so the
+    solutions are held against the kernel itself)."""
+    b, dt, tv = OPT_LANES, torch.float64, int(mode == "timeVarying")
+    p = LmpcParams.make(num_ss_iter=nsi, ss_option=mode, device="cpu",
+                        dtype=dt)
+    lim = SystemLimits.make(device="cpu", dtype=torch.float64)
+    a = k2_option_lanes(nsi, lap_count, "cpu", b=b, dtype=dt)
+    k2 = build_fused_nlmpc_step(p, lim, 1.0, num_horizon=6,
+                                max_steps=a[3].shape[1],
+                                max_laps=a[3].shape[0], max_iters=12,
+                                qsort_skip=bool(qsort))
+    shapes = [((6, 2, b), None), ((b,), None), ((4, b), None),
+              ((b,), torch.int32), ((b,), torch.int32), ((b,), None)]
+    runs = []
+    for stats in (True, False):
+        out = _nan_outs(shapes + ([((b,), torch.int32)] * 2 if stats
+                                  else []), dt)
+        head = (DTYPE_CODES[dt], 6, 8, nsi, tv, qsort, k2._consts, 12, b,
+                a[3].shape[1], *map(_ptr, a[:11]),
+                _ptr(a[11]) if tv else None, _ptr(a[12]) if tv else None)
+        launch = (libs[3].nlmpc_step_stats_launch if stats
+                  else libs[3].nlmpc_step_launch)
+        assert launch(*head, *map(_ptr, out), None) == 0
+        runs.append(out)
+    _equal(runs[0][:6], runs[1])
+    want = nlmpc_step_reference(p, lim, 1.0, *a[:11],
+                                *(a[11:] if tv else (None, None)),
+                                max_iters=12, qsort_skip=bool(qsort),
+                                with_stats=True)
+    for i in (1, 3, 4, 5):
+        assert torch.equal(runs[0][i], want[i])
+    assert torch.equal(runs[0][6], want[6])
+    assert torch.equal(runs[0][7], want[7])

@@ -394,8 +394,7 @@ def test_factory_refuses_options_it_does_not_take():
     tl = convert.system_limits(JLimits.make(dtype=jnp.float64), device="cpu")
     sizes = dict(num_horizon=N, max_steps=T_ROWS, max_laps=MAX_LAPS)
     for name, value in (("stream_safe_set", True), ("store_solutions", False),
-                        ("prox_skip", True), ("zeros_skip", True),
-                        ("with_stats", True)):
+                        ("prox_skip", True), ("zeros_skip", True)):
         with pytest.raises(ValueError, match=name):
             build_fused_nlmpc_step(tp, tl, 1.0, **sizes, **{name: value})
     with pytest.raises(TypeError):
@@ -403,6 +402,15 @@ def test_factory_refuses_options_it_does_not_take():
     k2 = build_fused_nlmpc_step(tp, tl, 1.0, qsort_skip=True, **sizes)
     assert (k2.mode, k2.all_iter, k2.qsort_skip, k2.all_rev_skip) == (
         "spaceVarying", False, True, False)
+    # with_stats is taken in the block modes and refused in mode all, as
+    # the TPU factory refuses it there (pallas_nlmpc_step.py:189-191)
+    assert build_fused_nlmpc_step(tp, tl, 1.0, with_stats=True,
+                                  **sizes).with_stats
+    tp_all = convert.lmpc_params(JParams.make(dtype=jnp.float64,
+                                              all_ss_point=True),
+                                 device="cpu")
+    with pytest.raises(ValueError, match="with_stats"):
+        build_fused_nlmpc_step(tp_all, tl, 1.0, with_stats=True, **sizes)
 
 
 @pytest.mark.parametrize("mode", ["spaceVarying", "timeVarying",

@@ -10,7 +10,10 @@ lap on the same injected noise, and NLMPC over three laps on a generator
 keeping its columns, the ranks agreeing on each lap's rows). Every rank's
 gathered result must equal the unsharded run bit for bit: lap steps, done
 flags, final states, the safe set, ``streaks``, the lap count and the
-noise position. Meanwhile this process computes the unsharded runs.
+noise position; and an i2LQR run over two short laps through a K1 that
+counts
+(``with_stats``) gathers the unsharded run's ``iter_stats``. Meanwhile
+this process computes the unsharded runs.
 One-rank meshes (no group) and the column bookkeeping run in process.
 """
 
@@ -50,7 +53,11 @@ def _unsharded():
         nlmpc_generator=simulate_nlmpc_runs_soa(
             lp, lim, scen, sx, su, 121, 1.0,
             generator=torch.Generator().manual_seed(7),
-            **dict(w.NLMPC_KW, num_laps=3)))
+            **dict(w.NLMPC_KW, num_laps=3)),
+        i2lqr_stats=simulate_learning_runs_soa(
+            ip, lim, scen, sx, su, 121, 1.0, noise=noise,
+            step_solver=w.stats_solver(ip, lim),
+            **w.STATS_KW))
 
 
 @pytest.fixture(scope="module")
@@ -92,6 +99,24 @@ def test_sharded_run_is_the_unsharded_run(runs, run, index):
         assert torch.equal(key, want_key)
     else:  # the injected rows consumed
         assert key == want_key and isinstance(key, int)
+
+
+@pytest.mark.parametrize("index", [0, 1])
+def test_sharded_run_carries_iter_stats(runs, index):
+    """A ``_sharded`` i2LQR run through a K1 built with_stats (and dedup),
+    2 laps of at most 20 steps, each rank's 8 lanes a whole queue_floor
+    group: the gathered
+    ``iter_stats`` (summed over the rank's lap-by-lap runs) are the
+    unsharded run's, and the records too."""
+    got, want = runs
+    g, v = got[index]["i2lqr_stats"], want["i2lqr_stats"]
+    assert_same_run(g, v)
+    assert len(v.iter_stats) == 3 and len(g.iter_stats) == 3
+    for a, b in zip(g.iter_stats, v.iter_stats):
+        assert torch.equal(a, b)
+    useful, executed, floor = v.iter_stats
+    assert int(useful.sum()) > 0 and bool((useful <= executed).all())
+    assert bool((floor > 0).all())
 
 
 def test_the_runs_exercise_what_they_check(runs):
