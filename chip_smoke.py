@@ -34,13 +34,20 @@ Phases:
 4. K1 (whole i2LQR step) against the plain step on safe sets captured from
    the i2LQR headline run (early lap 1, mid lap 2, late lap 3), f32 as
    captured and f64 cast up, with both per-step times beside phase 2's
-   registers and warps per SM;
+   registers and warps per SM; 4c. on each capture K1 (the tile, and the
+   lane queue with its counts) launched over the first 4 096 and 1 024
+   lanes (``lanes=``, tail_shrink's launch) equals the launch over every
+   lane with the lanes past them skipped, bit for bit, with both ms;
 5. a zero-noise i2LQR closed loop through K1 (f32, 1024 identical lanes,
    cap 150) against the known lap sequence;
 6. the i2LQR headline through K1 (B = 49 152, cap 16): one warm run, whose
    K1 launches are counted, and two timed runs; lap-sims/s = B * laps / s;
    every run prints a hash of its lap records (lap steps, done flags,
    final states, safe set), so two commits can be shown to run alike;
+   6c. seed 1 with tail_shrink 4 096 and 1 024 in turns against the run
+   without (A B C C B A, the simulator's own K1), hashes equal, each
+   launch's lanes and ms logged: the launches over the prefix beside the
+   same steps' launches over B;
 7. K4 (NLMPC per-candidate solve) against the plain solve on 393 216 random
    candidate lanes (horizons 1-6, 1/16 skipped), f64 and f32, bit for bit,
    beside the share of lanes whose verdicts and solutions agree (the
@@ -51,13 +58,17 @@ Phases:
    with both per-step times; 8b. on the same inputs K2 with qsort_skip
    (the headline's) equals K2 without it bit for bit, with both times; and
    K2 at nsi = 2 (the last two stored laps of each capture, a tile of 16
-   threads a lane) against its plain step, at phase 8's gates;
+   threads a lane) against its plain step, at phase 8's gates; 8d. K2
+   and its counting instantiation over a prefix, as 4c;
 9. a zero-noise NLMPC closed loop through K2 (1024 identical lanes, cap 60):
    f64 must give the host controller's laps exactly, f32 within 2;
 10. the NLMPC headline through K2 with qsort_skip, as the simulator builds
    it (bench.py:145-148; B = 49 152, cap 12, infeasible_retire 8): one warm
    run, whose K2 launches are counted, and timed runs with and without
    qsort_skip in turns, whose lap records must be equal (hashes printed);
+   10c. as bench.py ships it (retile_frac 0.25, bench.py:131-132), and
+   with tail_shrink 4 096 and 1 024, in turns against the run without, as
+   6c, with the permutations a lap and their ms;
 11. K5 (generic LM-iLQR) against its plain version, f64 (first 32 768
    lanes) and f32, for each instantiated model: the double integrator on
    the ``--throughput`` lanes, the unicycle reach task of
@@ -75,7 +86,8 @@ Phases:
    K5 and K3 launches are counted;
 13. K2 in timeVarying mode against the plain step on inputs captured from
    the timeVarying headline run (as phase 8), with and without qsort_skip,
-   which must be bitwise equal, and at nsi = 2 as phase 8's;
+   which must be bitwise equal, and at nsi = 2 as phase 8's; over a
+   prefix as 4c;
 14. a zero-noise timeVarying closed loop through K2 (1024 identical lanes,
    cap 60): f64 must give the host controller's laps exactly;
 15. the timeVarying headline through K2 with qsort_skip (bench.py:207-211:
@@ -85,12 +97,13 @@ Phases:
 16. K2 in mode all against the plain step on inputs captured from the all
    headline run, all_rev_skip bitwise equal to the forward scan, and K2
    with all_iter on inputs captured from an all_iter run; the lap-2 times
-   beside phase 2's registers and warps per SM;
+   beside phase 2's registers and warps per SM; over a prefix as 4c;
 17. a zero-noise all + all_iter closed loop through K2 (1024 lanes, cap
    60): f64 must give the host controller's laps exactly;
-18. the all headline through K2 with all_rev_skip (bench.py:218-221 without
-   retile_frac: B = 8 192, nsi 1, cap 12, infeasible_retire 8): a warm run,
-   whose K2 launches are counted, and two timed runs, as phase 15's;
+18. the all headline through K2 with all_rev_skip (bench.py:218-221: B =
+   8 192, nsi 1, cap 12, infeasible_retire 8): a warm run, whose K2
+   launches are counted, and two timed runs, as phase 15's; 18c. with the
+   bench's retile_frac 0.25 in turns against without, as 10c;
 19. K1 at k = 32 (one lane a warp, each distinct solve of a step once)
    against its plain step on inputs captured from phase 21's k32_nsi4 run
    (lap 1 early, lap 2 mid, lap 4, where most lanes' stored laps are
@@ -104,7 +117,11 @@ Phases:
    the bound counts the distinct solves only (and, beside it, every
    candidate's); and the k = 8 K1 on inputs captured
    from the k8_nsi1_sr3 run at the first step of each lap where some
-   active lane's pass-0 guess is the goal;
+   active lane's pass-0 guess is the goal; 19b. on the three captures
+   K1 k = 32's counting instantiation (with_stats) equals the plain build
+   bit for bit and its counts (iters_useful, iters_executed, the queue
+   floor) the plain step's integer for integer, with its ms; both builds
+   over a prefix of 1 024 lanes as 4c;
 20. a zero-noise i2LQR closed loop through K1 at k = 32 / nsi = 2 (f64,
    1024 identical lanes, cap 150, 4 laps): the host controller's laps
    exactly;
@@ -119,7 +136,10 @@ Phases:
    i2LQR headline scenario at B = 4 096 with and without stall_reseed=3,
    which must lie within utils/envelope.py's behaviour envelope; and one
    more k32_nsi4 run under torch.profiler, whose trace gives K1's device
-   seconds and the card's busy seconds;
+   seconds and the card's busy seconds; 21c. the k32_nsi4 run once more
+   through the counting K1 at k = 32 (its launches counted, the lap
+   records the run's): the run's useful trips, executed thread-trips and
+   waste share;
 22. the i2LQR headline through K3 (``candidate_solver``: the plain step's
    glue around one K3 launch a relaxation pass; seed 0 as phase 6): K3's
    launches must be three a step with active lanes (steps counted by a tap
@@ -290,7 +310,8 @@ from ilqr_iterative_tasks_torch.experiments.headlines import (  # noqa: E402
     ALL_BATCH, BATCH, CAP, CAPTURES, K1_ATTRS, LAPS, MAX_LAPS, MAX_STEPS, N,
     NL_CAP, NL_CAPTURES, NL_RETIRE, SWEEP_BATCH, SWEEP_CAP, SWEEP_CAPTURES,
     EVERY_CAPTURES, K3_ATTRS, K4_ATTRS, RANDOM_LANES, SWEEP_CONFIGS,
-    SWEEP_LAPS, Capture, Headlines, Recorder, cuda_ms, device_seconds,
+    SWEEP_LAPS, Capture, Headlines, LaunchLog, Recorder, cuda_ms,
+    device_seconds, tail_launches,
     K1_COUNT, k1_capture, k2_capture, k4_lanes, lane_obstacle,
     lap_records_hash, counted_solves, k32_distinct, live_share,
     no_plain_solve_on_card, require, seed_lanes, stats_summary,
@@ -880,6 +901,92 @@ def compaction_replay(kernel, a, masks, rows):
     share = float(torch.stack([~m for m in masks]).double().mean())
     return dict(steps=len(masks), mean_active_share=share, ms=as_is,
                 compacted_ms=compacted)
+
+
+# the prefixes of the tail_shrink runs and of the prefix launches
+TAIL_PREFIXES = (4096, 1024)
+# (occupancy key, registers, bytes of local memory) of the plain f32
+# builds the lane prefix must leave as they were (PERF.md section 6)
+PLAIN_RESOURCES = (("k1", 128, 224), ("k1_k32", 128, 320),
+                   ("k1_lanes", 255, 432), ("k2_sv", 245, 48),
+                   ("k2_all", 255, 48))
+
+
+def check_prefix(tag, kernel, args, skip_at, prefixes=TAIL_PREFIXES,
+                 skip_outputs=()):
+    """A K1 / K2 launch over the first P lanes of full-width inputs
+    (``lanes=P``, a tail step's launch) against a launch over every lane
+    with the lanes past P skipped (the same step over B): every output bit
+    for bit (the lanes past P zeros in both; outputs at ``skip_outputs``
+    left out: the lane queue's executed, whose warps take lanes from a
+    counter), and both ms a step. Returns {P: (ms over B, ms over P)}."""
+    out = {}
+    for p in prefixes:
+        a = list(args)
+        a[skip_at] = a[skip_at].clone()
+        a[skip_at][p:] = 1.0
+        full, part = kernel(*a), kernel(*a, lanes=p)
+        for i, (f, g) in enumerate(zip(full, part)):
+            if i in skip_outputs:
+                continue
+            require(torch.equal(f, g) and not bool(g[..., p:].any()),
+                    f"{tag} lanes={p}: output {i} differs from the launch "
+                    f"over every lane")
+        out[p] = (cuda_ms(lambda: kernel(*a), 3),
+                  cuda_ms(lambda: kernel(*a, lanes=p), 3))
+        print(f"[{tag} lanes={p}] live {int((a[skip_at] < 0.5).sum())}: "
+              f"bitwise the launch over {a[0].shape[-1]} lanes; "
+              f"{out[p][0]:.3f} ms over every lane, {out[p][1]:.3f} ms over "
+              f"the prefix", flush=True)
+    return out
+
+
+def option_turns(tag, run, solver, skip_at, arms, card):
+    """The headline ``run(solver, **opts)`` for each arm of ``arms``
+    ({name: simulator options}) in turns, A B ... B A, on seed 1: each
+    run's seconds and lap-records hash (every arm's must be the first
+    arm's), its launches of ``solver`` through a LaunchLog (their ms
+    summed, the kernel's device time over the run; a tail_shrink
+    arm's launches over the prefix beside the same steps' launches over B
+    in the first arm's run: ``tail_launches``) and its permutations a lap
+    with their ms (``perm_log``). Returns {name: figures}."""
+    names = list(arms)
+    out = {n: dict(s=[]) for n in names}
+    want = None
+    for n in names + names[::-1]:
+        rec, perms = LaunchLog(solver, skip_at), []
+        solver.launches = 0
+        t0 = time.perf_counter()
+        res = run(rec, perm_log=perms, **arms[n])
+        out[n]["s"].append(time.perf_counter() - t0)
+        h = lap_records_hash(res)
+        want = want or h
+        require(h == want, f"{tag} {n}: lap records {h} differ from {want}")
+        require(solver.launches > 0, f"{tag} {n}: not launched")
+        log = rec.launches()
+        out[n].setdefault("launch_ms", []).append(
+            sum(ms for _, _, ms in log))
+        out[n].update(hash=h, launches=solver.launches, log=log,
+                      perms=[e["perms"] for e in perms],
+                      compacted=[e["compacted"] for e in perms],
+                      perm_ms=[sum(e["perm_ms"]) for e in perms])
+        del res, rec
+    base_log = out[names[0]]["log"]
+    for n in names:
+        out[n]["tail"] = tail_launches(out[n]["log"], base_log)
+    for n in names:
+        out[n].pop("log")
+    for n in names:
+        o = out[n]
+        print(f"[{tag} {n}] {json.dumps(arms[n])}: runs "
+              f"{[round(t, 3) for t in o['s']]} s, lap records {o['hash']}, "
+              f"launches {o['launches']} (ms of the card by CUDA events a "
+              f"run {[round(t, 3) for t in o['launch_ms']]}), permutations "
+              f"a lap {o['perms']} "
+              f"({[round(t, 3) for t in o['perm_ms']]} ms a lap, compacted "
+              f"{o['compacted']}); launches over the prefix "
+              f"{json.dumps(o['tail'])}; card {card}", flush=True)
+    return out
 
 
 def zero_counts(*kernels):
@@ -1704,6 +1811,8 @@ def main():
         k1_lanes=_build.attributes(lib, "i2lqr_step_opts_attributes", 0, N,
                                    8, 0),
         k1_k32=_build.attributes(lib, "i2lqr_step_attributes", 0, N, 32, 4),
+        k1_k32_stats=_build.attributes(
+            lib, "i2lqr_step_block_stats_attributes", 0, N, 4),
         k2_all=_build.attributes(lib, "nlmpc_step_all_attributes", 0, N),
         k2_sv=_build.attributes(lib, "nlmpc_step_attributes", 0, N, 8, 1, 0,
                                 1),
@@ -1722,6 +1831,14 @@ def main():
               f"{occ['registers']} registers, "
               f"{occ['local_bytes']} bytes of local memory a thread, "
               f"{occ['warps_per_sm']} resident warps an SM", flush=True)
+    # the plain builds keep their registers and local memory (f32) with
+    # the lane count apart from the lane stride (PERF.md section 6)
+    for key, regs, local in PLAIN_RESOURCES:
+        occ = occupancy[key]
+        require((occ["registers"], occ["local_bytes"]) == (regs, local),
+                f"2 {key}: {occ['registers']} registers and "
+                f"{occ['local_bytes']} B of local memory, not {regs} / "
+                f"{local}")
 
     params, limits = IlqrParams.make(), SystemLimits.make()
     # the same values on the host, for the operation counts
@@ -1910,6 +2027,17 @@ def main():
     # ---- 4b. K1's options on the same captures ----
     k1_opt_stats = check_k1_options(cap.captured, k1, params, limits,
                                     host_params, host_limits)
+    # ---- 4c. K1 over a prefix of the lanes (tail_shrink's launch): the
+    # tile and the lane queue (with its counts) ----
+    k1_lq = k1_with(params, limits, K1_OPTION_SETS["dedup_qsort"],
+                    with_stats=True)
+    k1_prefix = {}
+    for lap, (step, args) in sorted(cap.captured.items()):
+        a = cast(args, torch.float32, keep=(8,))
+        k1_prefix[f"lap{lap}"] = dict(
+            tile=check_prefix(f"4c K1 lap {lap}", k1, a, 8),
+            lane_queue=check_prefix(f"4c K1 lane queue lap {lap}", k1_lq, a,
+                                    8, skip_outputs=(5,)))
     del cap
     print(f"[4 K1] lap-2 capture {k1_ms:.3f} ms a step (f32), "
           f"{occupancy['k1']['registers']} registers, "
@@ -2002,6 +2130,13 @@ def main():
               f"{c['waste']:.4f}; queue floor (32 lanes) {c['queue_floor']}"
               f", / executed {c['floor_over_executed']:.4f}", flush=True)
         del res
+
+    # ---- 6c. the i2LQR headline with tail_shrink at two prefixes, in
+    # turns against the run without (the simulator's own K1) ----
+    tail6 = option_turns(
+        "6c i2LQR headline", lambda solver, **o: headline(1, solver, **o),
+        k1_pair, 8, {"none": {}, **{f"tail_{p}": dict(tail_shrink=p)
+                                    for p in TAIL_PREFIXES}}, card)
 
     # ---- 22. the i2LQR headline through K3, the per-candidate path ----
     k3p = build_fused_ilqr(params, limits, 1.0, num_horizon=N, max_iter=CAP)
@@ -2190,6 +2325,15 @@ def main():
                         nl_plain, nl_host_plain, nsi2=nsi2_of(nl_params))
     check_k2_counts("8c K2 with_stats", k2qs, cap2.captured, nl_params,
                     nl_limits)
+    # ---- 8d. K2 spaceVarying over a prefix of the lanes, and its
+    # counting instantiation ----
+    k2_prefix = {}
+    for lap, (step, args) in sorted(cap2.captured.items()):
+        a = cast(args, torch.float32, keep=(9,))
+        k2_prefix[f"lap{lap}"] = dict(
+            plain=check_prefix(f"8d K2 lap {lap}", k2, a, 9),
+            with_stats=check_prefix(f"8d K2 with_stats lap {lap}", k2qs, a,
+                                    9))
     del cap2
     print(f"[8 K2] lap-2 capture {k2_stats['ms']:.3f} ms a step with "
           f"qsort_skip, {k2_stats['no_qsort_skip_ms']:.3f} ms without (f32), "
@@ -2278,6 +2422,16 @@ def main():
               f"completion {nl_completion:.4f}, mean lap steps "
               f"{[round(v, 2) for v in nl_steps]}, K2 launches in its "
               f"seed-1 run {nl_launches[name]}, card {card}", flush=True)
+
+    # ---- 10c. the NLMPC headline as bench.py ships it (retile_frac
+    # 0.25), and with tail_shrink at two prefixes, in turns against the
+    # run without ----
+    opts10 = option_turns(
+        "10c NLMPC headline",
+        lambda solver, **o: hl.nlmpc(1, nl_params, scen, solver, **o), k2q,
+        9, {"none": {}, "retile": dict(retile_frac=0.25),
+            **{f"tail_{p}": dict(tail_shrink=p) for p in TAIL_PREFIXES}},
+        card)
 
     # ---- 23. the NLMPC headline through K4, the per-candidate path ----
     def nl_path_run(tag, lp, sc, solver, counted, want, all_iter=False):
@@ -2415,6 +2569,10 @@ def main():
     tv_stats = check_k2("13 K2 timeVarying", k2_tv,
                         {"no_qsort_skip": k2_tv_plain}, cap_tv.captured,
                         *plain_of(tv_params), nsi2=nsi2_of(tv_params))
+    tv_prefix = {f"lap{lap}": check_prefix(
+        f"13 K2 timeVarying lap {lap}", k2_tv,
+        cast(args, torch.float32, keep=(9,)), 9)
+        for lap, (step, args) in sorted(cap_tv.captured.items())}
     del cap_tv
     print(f"[13 K2 timeVarying] lap-2 capture {tv_stats['ms']:.3f} ms a step "
           f"with qsort_skip, {tv_stats['no_qsort_skip_ms']:.3f} ms without "
@@ -2462,6 +2620,10 @@ def main():
             f"captured {sorted(cap_all.captured)}")
     all_stats = check_k2("16 K2 all", k2_all, {"forward_scan": k2_all_fwd},
                          cap_all.captured, *plain_of(all_params))
+    all_prefix = {f"lap{lap}": check_prefix(
+        f"16 K2 all lap {lap}", k2_all,
+        cast(args, torch.float32, keep=(9,)), 9)
+        for lap, (step, args) in sorted(cap_all.captured.items())}
     del cap_all
     print(f"[16 K2 all] lap-2 capture {all_stats['ms']:.3f} ms a step with "
           f"all_rev_skip, {all_stats['forward_scan_ms']:.3f} ms forward "
@@ -2496,6 +2658,11 @@ def main():
     # ---- 18b. all headline timed runs ----
     all_rate, _ = timed("18 all headline", all_params, scen_all, k2_all,
                         ALL_BATCH, all_completion, all_steps, all_launches)
+    # ---- 18c. as bench.py ships it (retile_frac 0.25), in turns ----
+    opts18 = option_turns(
+        "18c all headline",
+        lambda solver, **o: hl.nlmpc(1, all_params, scen_all, solver, **o),
+        k2_all, 9, {"none": {}, "retile": dict(retile_frac=0.25)}, card)
 
     # ---- 24. the safe set over every stored lap (all_ss_iter without
     # all_ss_point) through K4, the simulator's default backend for it ----
@@ -2623,6 +2790,34 @@ def main():
     # the card at one thread a lane, which the sweep's does not
     from ilqr_iterative_tasks_torch.experiments.scenario_sweep import (
         MAX_LAPS as S_LAPS, MAX_STEPS as S_STEPS)
+    # ---- 21c. the k32_nsi4 run through K1 at k = 32 that counts (its
+    # counting instantiation): the run's waste share; the lap records the
+    # run's without counts ----
+    k32s = build_fused_i2lqr_step(
+        IlqrParams.make(num_ss_points=32, num_ss_iter=4), limits, 1.0,
+        num_horizon=N, max_steps=S_STEPS, max_laps=S_LAPS,
+        max_iter=SWEEP_CAP, with_stats=True)
+    with sweep_step_solver(32, 4, lambda _: k32s, device=dev):
+        zero_counts(k1, k3, k4, k32s)
+        runs = []
+        t0 = time.perf_counter()
+        with no_plain_solve_on_card():
+            run_sweep(SWEEP_BATCH, SWEEP_LAPS, moving=True, num_ss_points=32,
+                      num_ss_iter=4, quiet=True, device=dev, result=runs)
+        torch.cuda.synchronize()
+        k32_counted = dict(run_s=time.perf_counter() - t0,
+                           launches=k32s.launches,
+                           **stats_summary(runs[0].iter_stats))
+    require(k32_counted["launches"] == sweep["k32_nsi4"]["launches"],
+            f"21c: the counting K1 k32 launched {k32_counted['launches']} "
+            f"times")
+    require(lap_records_hash(runs[0]) == sweep["k32_nsi4"]["hash"],
+            "21c: the counting K1 k32 changed the sweep's lap records")
+    del runs
+    print(f"[21c sweep k32_nsi4 counted] {json.dumps(k32_counted)}: the "
+          f"useful trips over the warps' thread-trips "
+          f"{k32_counted['useful'] / k32_counted['executed']:.4f}, waste "
+          f"share {k32_counted['waste']:.4f}; card {card}", flush=True)
     sweep_ab = {}
     for tag, k, nsi, sr in SWEEP_CONFIGS[:2]:
         p8 = IlqrParams.make(num_ss_points=k, num_ss_iter=nsi)
@@ -2758,6 +2953,44 @@ def main():
                              f"{mean_trips:.2f} LM iterations a solve; "
                              f"every candidate {every_bound:.4f})")
             print(line, flush=True)
+    # ---- 19b. the counting instantiation at k = 32 against the plain
+    # step's counts, integer for integer; both builds over a prefix ----
+    k32_count_stats, k32_prefix = dict(max_abs_err=0.0), {}
+    for lap, (step, args) in sorted(captured.items()):
+        a = cast(args, torch.float32, keep=(8,))
+        active = a[8] < 0.5
+        out = k32s(*a)
+        require(all(torch.equal(g, w) for g, w in zip(out[:4], k32(*a))),
+                f"19b K1 k32 lap {lap}: the counting build's outputs differ")
+        ref, plain_ms = timed_call(lambda: i2lqr_step_reference(
+            p32, limits, 1.0, *a, max_iter=SWEEP_CAP, with_stats=True))
+        for g, w, what in zip(out[4:], ref[4:],
+                              ("useful", "executed", "queue_floor")):
+            require(torch.equal(g, w), f"19b K1 k32 lap {lap}: {what} is "
+                    f"not the plain step's")
+        ms = cuda_ms(lambda: k32s(*a), 10)
+        useful, executed = (float(t.double().sum()) for t in out[4:6])
+        n_act = int(active.sum())
+        if lap == 2:
+            k32_count_stats.update(ms=ms, plain_ms=plain_ms,
+                                   k32_ms=k32_stats["ms"])
+        k32_count_stats["max_abs_err"] = max(
+            k32_count_stats["max_abs_err"], max_abs_err(out[:4], ref[:4]))
+        k32_count_stats[f"lap{lap}"] = dict(
+            useful_a_live_lane=useful / n_act,
+            executed_a_live_lane=executed / n_act,
+            useful_over_executed=useful / executed)
+        k32_prefix[f"lap{lap}"] = dict(
+            plain=check_prefix(f"19b K1 k32 lap {lap}", k32, a, 8, (1024,)),
+            with_stats=check_prefix(f"19b K1 k32 with_stats lap {lap}", k32s,
+                                    a, 8, (1024,)))
+        print(f"[19b K1 k32 with_stats lap {lap} step {step} f32] active "
+              f"{n_act}: outputs the plain build's, counts integer for "
+              f"integer the plain step's; useful {useful / n_act:.2f}, "
+              f"executed {executed / n_act:.2f} thread-trips a live lane "
+              f"(useful / executed {useful / executed:.4f}); {ms:.3f} ms a "
+              f"step (plain build {cuda_ms(lambda: k32(*a), 10):.3f}, plain "
+              f"step {plain_ms:.3f})", flush=True)
     del captured
     print(f"[19 K1 k32] lap-2 capture {k32_stats['ms']:.3f} ms a step at nsi "
           f"4, {k32_stats['nsi2_ms']:.3f} at nsi 2 (f32), "
@@ -3046,7 +3279,8 @@ def main():
              replaces=tpu + "pallas_i2lqr_step.py:221",
              launches=k1_launches, max_abs_err=k1_err, ms=k1_ms,
              plain_ms=k1_plain_ms, **k1_bound, **occupancy["k1"],
-             latency_bench=bench_k1, sharded=sharded_k1),
+             latency_bench=bench_k1, sharded=sharded_k1, prefix=k1_prefix,
+             tail_shrink=tail6),
         # K1 at k = 8 with its options (csrc/i2lqr_step_opts.cu): ms,
         # bound and counts at phase 4b's lap-2 capture, launches in the runs
         # that went through it (phase 6b's counted run in the plain order;
@@ -3075,13 +3309,23 @@ def main():
                  "completion", "completion_se", "final_lap_mean",
                  "lap_steps_p50", "wall_s", "launches", "hash")}
                  for tag, r in sweep.items()}),
+        # K1 at k = 32 that counts (its STATS instantiation): ms and counts
+        # at phase 19b's captures, launches in phase 21c's counted run, its
+        # bound the plain build's (the same solves)
+        dict(name="i2lqr_step (K1, k32 nsi4, with_stats)", route="cuda",
+             source=csrc + "i2lqr_step.cu",
+             replaces=tpu + "pallas_i2lqr_step.py:221",
+             launches=k32_counted["launches"], **k32_count_stats,
+             bound_ms=k32_stats["bound_ms"], bound_by=k32_stats["bound_by"],
+             library_ms=None, **occupancy["k1_k32_stats"],
+             sweep_counted=k32_counted, prefix=k32_prefix),
         dict(name="nlmpc_step (K2)", route="cuda",
              source=csrc + "nlmpc_step.cu",
              replaces=tpu + "pallas_nlmpc_step.py:245",
              launches=k2_launches, **k2_stats, **occupancy["k2_sv"],
              lap_sims_per_s=nl_rate["qsort_skip"],
              no_qsort_skip_lap_sims_per_s=nl_rate["plain"],
-             sharded=sharded_k2),
+             sharded=sharded_k2, prefix=k2_prefix, options=opts10),
         # K2 spaceVarying with qsort_skip and with_stats: the same solves
         # as K2's (its bound), ms at phase 8's lap-2 capture, launches in
         # phase 10b's counted run
@@ -3098,12 +3342,12 @@ def main():
              replaces=tpu + "pallas_nlmpc_step.py:245",
              launches=tv_launches, **tv_stats, **occupancy["k2_tv"],
              lap_sims_per_s=tv_rate,
-             lap_sims_per_s_runs=tv_rates),
+             lap_sims_per_s_runs=tv_rates, prefix=tv_prefix),
         dict(name="nlmpc_step (K2, all)", route="cuda",
              source=csrc + "nlmpc_step_all.cu",
              replaces=tpu + "pallas_nlmpc_step.py:245",
              launches=all_launches, **all_stats, **occupancy["k2_all"],
-             lap_sims_per_s=all_rate,
+             lap_sims_per_s=all_rate, prefix=all_prefix, options=opts18,
              all_iter={kk: iter_stats[kk] for kk in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
              | dict(launches=iter_launches)),

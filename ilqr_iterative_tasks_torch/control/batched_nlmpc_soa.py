@@ -1,11 +1,12 @@
 """Batch-native (structure-of-arrays) NLMPC learning simulator in torch.
 
 Port of the base path of ilqr_iterative_tasks_tpu/control/batched_nlmpc_soa.py
-(``simulate_nlmpc_runs_soa`` :94 with ``resume_from``, ``pallas_solver``
-and ``with_streak_stats``, ``_advance_tail`` :254, ``run_lap`` :607,
-``lap_loop`` :827), in the safe-set modes spaceVarying, timeVarying and all
-(``LmpcParams.ss_mode``), the last num_ss_iter laps a step or, with
-``all_ss_iter``, every stored lap. The scenario batch B is the trailing
+(``simulate_nlmpc_runs_soa`` :94 with ``resume_from``, ``pallas_solver``,
+``with_streak_stats``, ``retile_frac`` and ``tail_shrink``,
+``_advance_tail`` :254, ``run_lap`` :607, ``lap_loop`` :827), in the
+safe-set modes spaceVarying, timeVarying and all (``LmpcParams.ss_mode``),
+the last num_ss_iter laps a step or, with ``all_ss_iter``, every stored
+lap. The scenario batch B is the trailing
 axis of every tensor; all B lanes run in lockstep and a lane that finishes
 its lap freezes. Each control step's ``calc_input`` is one call of a step
 solver: the K2 kernel (ops/nlmpc_step.py::build_fused_nlmpc_step), or the
@@ -35,8 +36,8 @@ import torch
 
 from ilqr_iterative_tasks_torch.control import batched_soa
 from ilqr_iterative_tasks_torch.control.batched_soa import (
-    SoaScenarios, _step_solver_inputs, draw_noise, noise_key, plant_step,
-    refuse, resume_noise, resumed_safe_set, solver_of)
+    LaneOrder, SoaScenarios, _step_solver_inputs, draw_noise, noise_key,
+    plant_step, refuse, resume_noise, resumed_safe_set, solver_of)
 from ilqr_iterative_tasks_torch.ops import _build
 from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
     FusedLmShooting, build_fused_lm_shooting, obstacle_to_lanes_nlmpc)
@@ -168,9 +169,6 @@ def lap_window(lap_count: int, nsi: int, max_laps: int, all_iter: bool, b,
     return lap_ids, lap_ok
 
 
-_UNSUPPORTED = ("retile_frac", "tail_shrink")
-
-
 def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
                             scenarios: SoaScenarios, seed_xs, seed_us,
                             seed_len: int, dt, *, num_laps: int,
@@ -185,6 +183,9 @@ def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
                             noise: torch.Tensor | None = None,
                             generator: torch.Generator | None = None,
                             resume_from=None,
+                            retile_frac: float | None = None,
+                            tail_shrink: int | None = None,
+                            perm_log: list | None = None,
                             **unsupported) -> NlmpcSoaRunResult:
     """Seed lap + ``num_laps`` NLMPC learning laps for B scenarios.
 
@@ -206,8 +207,16 @@ def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
     standard-normal draws or ``generator``: the plant-noise source (needed
     where noise_on is set). ``resume_from``: (safe_set, lap_count, key),
     as for ``batched_soa.simulate_learning_runs_soa``.
+
+    ``retile_frac`` and ``tail_shrink`` permute the lanes as in
+    ``batched_soa.simulate_learning_runs_soa`` (JAX
+    batched_nlmpc_soa.py:133-139, 604-890), the solver-skip lanes being
+    the done and the retired ones (retired lanes the middle class of
+    ``tail_shrink``'s order); the run, ``final_x`` and ``streaks``
+    included, equals the run without them bit for bit. ``perm_log`` as
+    there.
     """
-    refuse(unsupported, _UNSUPPORTED)
+    refuse(unsupported, ())
     n, k, nsi = params.num_horizon, params.num_ss_points, params.num_ss_iter
     mode, all_iter = params.ss_mode, bool(params.all_ss_iter)
 
@@ -295,6 +304,9 @@ def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
     if with_streak_stats:
         streaks = (torch.zeros((num_laps, b), dtype=torch.int32, device=dev),
                    torch.zeros((num_laps, b), dtype=torch.int32, device=dev))
+    order = (None if retile_frac is None and tail_shrink is None
+             else LaneOrder(b, retile_frac, tail_shrink, dev, perm_log))
+    scen_obs = scenarios.obstacle
     # sim_step: executed steps over the run (and the run it resumes), the
     # noise row
     x = x0
@@ -316,18 +328,48 @@ def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
         rec_max = torch.zeros((b,), dtype=torch.int32, device=dev)
         hzn = torch.full((b,), n, dtype=torch.int32, device=dev)
         u_prev = torch.zeros((2, b), dtype=dtype, device=dev)
-        obstacle = scenarios.obstacle
+        obstacle = scen_obs
         xs_rec = torch.zeros((max_steps, 4, b), dtype=dtype, device=dev)
         us_rec = torch.zeros((max_steps, 2, b), dtype=dtype, device=dev)
         xs_rec[0] = x0
-        while bool(((t < sim_step_budget) & ~done).any()):
-            skip = (done | retired).to(torch.float32)
-            if bool((skip < 0.5).any()):
+        if order is not None:
+            order.start_lap()
+        while True:
+            skip_b = done | retired
+            if order is None:
+                if not bool(((t < sim_step_budget) & ~done).any()):
+                    break
+            else:
+                running, n_skip, n_notdone = order.read(
+                    (t < sim_step_budget) & ~done, skip_b, done)
+                if not running:
+                    break
+                if order.fires(n_skip, n_notdone):
+                    # the per-lane state first: guess and u_warm may still
+                    # be views of the safe set, permuted in place last
+                    moved = order.permute(
+                        order.source(skip_b, done),
+                        [x, t, done, obstacle, guess, u_warm, hzn, u_prev,
+                         xs_rec, us_rec, streak, retired, rec_max, min_cost,
+                         x0, goal, noise_on, scen_obs, *stat_acc],
+                        ss, lap_count)
+                    (x, t, done, obstacle, guess, u_warm, hzn, u_prev,
+                     xs_rec, us_rec, streak, retired, rec_max, min_cost, x0,
+                     goal, noise_on, scen_obs) = moved[:18]
+                    stat_acc = tuple(moved[18:])
+                    skip_b = done | retired
+            w = b if order is None else order.lanes()
+            skip = skip_b.to(torch.float32)
+            if (bool((skip < 0.5).any()) if order is None
+                    else n_skip < b):
                 extra = (t, min_cost) if mode == "timeVarying" else ()
+                prefix = {} if (order is None or step_solver is None
+                                or w == b) else dict(lanes=w)
                 (us_w, feas_f, new_guess0, idx_sel, row_sel, succ_f,
                  *stats) = solver(
                     x, guess, u_warm, states, qfun, lap_len, lap_ids, lap_ok,
-                    obstacle_to_lanes_nlmpc(obstacle, b), skip, hzn, *extra)
+                    obstacle_to_lanes_nlmpc(obstacle, b), skip, hzn, *extra,
+                    **prefix)
                 stat_acc = tuple(a + v for a, v in zip(stat_acc, stats))
             else:  # every lane done or retired: outputs would be zeros
                 us_w = torch.zeros((n, 2, b), dtype=dtype, device=dev)
@@ -358,6 +400,8 @@ def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
                                      & ~done)
             u = torch.where(feas[None], u_solve, u_prev)
             z = draw_noise(noise, generator, sim_step, b, dtype, dev)
+            if order is not None:
+                z = order.route(z)
             sim_step += 1
             x_next, obstacle, reach = plant_step(x, u, dt, z, noise_on, done,
                                                  obstacle, goal)
@@ -369,22 +413,39 @@ def simulate_nlmpc_runs_soa(params: LmpcParams, limits: SystemLimits,
             u_prev = torch.where(done[None], u_prev, u)
             streak = streak_next
             # record writes: input row t (zeros for done lanes, whose row t
-            # was never written) and state row t_next
-            us_rec = torch.where((t_rows == t[None])[:, None],
-                                 torch.where(done[None], 0.0, u)[None],
-                                 us_rec)
-            xs_rec = torch.where((t_rows == t_next[None])[:, None],
-                                 x_next[None], xs_rec)
+            # was never written) and state row t_next; after a compaction
+            # every lane past the first w is done and its writes no-ops
+            if w == b:
+                us_rec = torch.where((t_rows == t[None])[:, None],
+                                     torch.where(done[None], 0.0, u)[None],
+                                     us_rec)
+                xs_rec = torch.where((t_rows == t_next[None])[:, None],
+                                     x_next[None], xs_rec)
+            else:
+                us_rec[..., :w] = torch.where(
+                    (t_rows == t[None, :w])[:, None],
+                    torch.where(done[None, :w], 0.0, u[:, :w])[None],
+                    us_rec[..., :w])
+                xs_rec[..., :w] = torch.where(
+                    (t_rows == t_next[None, :w])[:, None],
+                    x_next[None, :, :w], xs_rec[..., :w])
             done = done | reach
             x, t = x_next, t_next
         pos, n_valid = (t + 1, t + 2) if goal_append else (t, t + 1)
         xs_rec[pos.to(torch.int64), :, lanes] = goal.T
         add_lap(ss, lap_count, xs_rec, us_rec, n_valid)
+        if order is not None:  # lap rows in the original lane order
+            t, done, rec_max, streak = (order.to_original(a) for a in (
+                t, done, rec_max, streak))
         lap_steps[lap_i] = t
         lap_done[lap_i] = done
         if with_streak_stats:
             streaks[0][lap_i] = rec_max
             streaks[1][lap_i] = streak
+    if order is not None:
+        inv = order.finish(ss, lap0 + num_laps)
+        x = x[:, inv]
+        stat_acc = tuple(a[inv] for a in stat_acc)
     return NlmpcSoaRunResult(
         lap_steps=lap_steps, lap_done=lap_done, final_x=x, safe_set=ss,
         lap_count=lap0 + num_laps,

@@ -2,8 +2,8 @@
 
 Port of the base path of ilqr_iterative_tasks_tpu/control/batched_soa.py
 (``SoaScenarios.randomized`` :56, ``simulate_learning_runs_soa`` :237 with
-its ``stall_reseed`` guard, ``resume_from`` and ``pallas_solver``,
-``run_lap`` :717, ``lap_loop`` :924).
+its ``stall_reseed`` guard, ``resume_from``, ``pallas_solver``,
+``retile_frac`` and ``tail_shrink``, ``run_lap`` :717, ``lap_loop`` :924).
 The scenario batch B is the trailing axis of every tensor. All B lanes run in
 lockstep; a lane that finishes its lap freezes until every lane finishes or
 the step budget runs out. Each control step's ``calc_input`` is one call of
@@ -26,6 +26,7 @@ generator's state, or the count of injected rows consumed.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, replace
 from typing import NamedTuple
 
@@ -253,15 +254,132 @@ def default_step_solver(params: IlqrParams, limits: SystemLimits, dt, *,
     return _K1_CACHE[key]
 
 
-_UNSUPPORTED = ("retile_frac", "tail_shrink", "dedup_passes",
-                "precision_islands")
+_UNSUPPORTED = ("dedup_passes", "precision_islands")
+
+
+class LaneOrder:
+    """The lane permutation of ``retile_frac`` and ``tail_shrink`` (JAX
+    batched_soa.py:714-781, batched_nlmpc_soa.py:604-658): when a step
+    permutes every per-lane state, in which order, and which original lane
+    each position holds (``orig_id``). Both counts come from the one small
+    host read a step makes (``read``); ``log``, a list, receives a dict a
+    lap: the permutations (``perms``), whether the lap compacted
+    (``compacted``) and each permutation's ms (``perm_ms``: CUDA events on
+    the card, the host clock on the CPU; read after the run)."""
+
+    def __init__(self, b, retile_frac, tail_shrink, device, log=None):
+        if tail_shrink is not None and not 0 < tail_shrink < b:
+            raise ValueError(f"tail_shrink={tail_shrink} must be < batch {b}")
+        self.b, self.tail, self.log = b, tail_shrink, log
+        self.block = (None if retile_frac is None
+                      else max(1, int(round(retile_frac * b))))
+        self.orig_id = torch.arange(b, device=device)
+        self.on_card = torch.device(device).type == "cuda"
+        self._spans = []  # (lap entry, start, end) of each permutation
+
+    def start_lap(self):
+        """A lap begins: the skip count and the compaction restart."""
+        self.skip_base, self.compacted = 0, False
+        if self.log is not None:
+            self.log.append(dict(perms=0, compacted=False, perm_ms=[]))
+
+    @staticmethod
+    def read(running, skipf, done):
+        """(any lane running, solver-skip lanes, not-done lanes) in one
+        host read."""
+        return torch.stack([running.sum(), skipf.sum(),
+                            (~done).sum()]).tolist()
+
+    def fires(self, n_skip, n_notdone) -> bool:
+        """Whether this step permutes: the skip count grew by the retile
+        block since the last permutation, or (once a lap) the not-done
+        lanes first fit the tail_shrink prefix."""
+        tail = (self.tail is not None and not self.compacted
+                and n_notdone <= self.tail)
+        fire = tail or (self.block is not None
+                        and n_skip - self.skip_base >= self.block)
+        if fire:
+            self.skip_base = n_skip
+        self.compacted = self.compacted or tail
+        if self.log is not None:
+            self.log[-1]["compacted"] = self.compacted
+        return fire
+
+    def lanes(self) -> int:
+        """The lanes a step kernel runs and a step's records are written
+        for: the tail_shrink prefix once the lap compacted (every lane
+        past it is done), else all B."""
+        return self.tail if self.compacted else self.b
+
+    def source(self, skipf, done):
+        """The stable order of the permutation: solver-active lanes
+        first, then the skipped; under tail_shrink active, then not done
+        but skipped, then done, so the not-done lanes stay in the prefix
+        after a later retile."""
+        key = skipf.to(torch.int8)
+        if self.tail is not None:
+            key = key + done.to(torch.int8)
+        return torch.argsort(key, stable=True)
+
+    def permute(self, src, lanes, safe_set, stored):
+        """Move every tensor of ``lanes`` (a list, lane-trailing) to the
+        order ``src``, and the ``stored`` slots of each safe-set tensor in
+        place (the slots above hold zeros in every lane); returns the
+        permuted list."""
+        if self.log is not None:
+            if self.on_card:
+                t0 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+            else:
+                t0 = time.perf_counter()
+        take = lambda a: a.index_select(-1, src) if a.dim() else a
+        out = [a.map(take) if isinstance(a, Obstacle) else take(a)
+               for a in lanes]
+        for a in safe_set:
+            a[:stored] = a[:stored].index_select(-1, src)
+        self.orig_id = self.orig_id[src]
+        if self.log is not None:
+            entry = self.log[-1]
+            entry["perms"] += 1
+            if self.on_card:
+                t1 = torch.cuda.Event(enable_timing=True)
+                t1.record()
+                self._spans.append((entry, t0, t1))
+            else:
+                entry["perm_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def route(self, z):
+        """Noise drawn in the original lane order, each lane's own."""
+        return z[:, self.orig_id]
+
+    def to_original(self, a):
+        """A lane-trailing tensor in the original lane order."""
+        out = torch.empty_like(a)
+        out[..., self.orig_id] = a
+        return out
+
+    def finish(self, safe_set, stored):
+        """The safe set's ``stored`` slots back in the original lane
+        order, in place; the log's device times read."""
+        inv = torch.empty_like(self.orig_id)
+        inv[self.orig_id] = torch.arange(self.b, device=inv.device)
+        for a in safe_set:
+            a[:stored] = a[:stored].index_select(-1, inv)
+        if self._spans:
+            self._spans[-1][2].synchronize()
+            for entry, t0, t1 in self._spans:
+                entry["perm_ms"].append(t0.elapsed_time(t1))
+        return inv
 
 
 def refuse(unsupported: dict, left_out) -> None:
-    """Raise TypeError on options the port does not take."""
+    """Raise TypeError on options the port does not take (``left_out``:
+    the JAX simulator's options it leaves out)."""
     if unsupported:
+        note = f" (left out: {', '.join(left_out)})" if left_out else ""
         raise TypeError(f"{sorted(unsupported)} not supported by the torch "
-                        f"port (left out: {', '.join(left_out)})")
+                        f"port{note}")
 
 
 def solver_of(step_solver, candidate_solver, cap_attr, cap, flags, on_card,
@@ -303,6 +421,9 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
                                noise: torch.Tensor | None = None,
                                generator: torch.Generator | None = None,
                                resume_from=None,
+                               retile_frac: float | None = None,
+                               tail_shrink: int | None = None,
+                               perm_log: list | None = None,
                                **unsupported) -> SoaRunResult:
     """Seed lap + ``num_laps`` learning laps for B scenarios.
 
@@ -332,8 +453,30 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
     pass-0 kNN guess re-seeded to the goal instead of its current state,
     which pulls its candidates toward goal-ward safe-set points and out of
     a parking orbit. The count and the last Qfun restart at each lap.
+
+    ``retile_frac=f`` and ``tail_shrink=P`` (default None: no permutation
+    and the same ops) change the schedule only, as in the JAX simulator
+    (batched_soa.py:284-299): whenever the solver-skip lanes (done or
+    replaying) have grown by round(f * B) since the last permutation, and
+    once a lap when the not-done lanes first fit the first P lanes, every
+    per-lane state (the solver carry, the records, the stored laps of the
+    safe set, the scenario leaves, the ``iter_stats`` sums) is stably
+    permuted, active lanes first (under ``tail_shrink`` active, then
+    replaying, then done); from the compaction on a step kernel runs the
+    first P lanes only (``lanes=P``; the per-candidate path's launches do
+    not change) and the records are written there. Noise is drawn in the
+    original lane order and routed to each lane's position, and every
+    output comes back in the original order, so the run equals the run
+    without the options bit for bit (``iter_stats``' executed and floor
+    counts excepted: they count the warps the lanes share). The port's
+    kernels run any lane count, so P need be no tile multiple; it must be
+    below B, and does not combine with ``stall_reseed``. ``perm_log``
+    receives ``LaneOrder``'s record of the permutations a lap.
     """
     refuse(unsupported, _UNSUPPORTED)
+    if tail_shrink is not None and stall_reseed is not None:
+        raise ValueError("tail_shrink with stall_reseed is not supported "
+                         "(the stall count reads every lane's step)")
     n = params.num_horizon
     k = params.num_ss_points
     nsi = params.num_ss_iter
@@ -402,6 +545,9 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
     lap_done = torch.zeros((num_laps, b), dtype=torch.bool, device=dev)
     stat_acc = (tuple(torch.zeros((b,), dtype=torch.int64, device=dev)
                       for _ in range(3)) if stats_on else ())
+    order = (None if retile_frac is None and tail_shrink is None
+             else LaneOrder(b, retile_frac, tail_shrink, dev, perm_log))
+    scen_obs = scenarios.obstacle
     # sim_step: executed steps over the run (and the run it resumes), the
     # noise row
 
@@ -410,7 +556,7 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
         x = x0
         t = torch.zeros((b,), dtype=torch.int32, device=dev)
         done = torch.zeros((b,), dtype=torch.bool, device=dev)
-        obstacle = scenarios.obstacle
+        obstacle = scen_obs
         horizon_left = torch.full((b,), n, dtype=torch.int32, device=dev)
         replay_pos = torch.zeros((b,), dtype=torch.int32, device=dev)
         u_old = torch.zeros((n, 2, b), dtype=dtype, device=dev)
@@ -419,16 +565,45 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
         if stall_reseed is not None:  # steps without progress, last Qfun
             stall = torch.zeros((b,), dtype=torch.int32, device=dev)
             q_prev = torch.full((b,), float("inf"), dtype=dtype, device=dev)
-        while bool(((t < sim_step_budget) & ~done).any()):
+        if order is not None:
+            order.start_lap()
+        while True:
             in_replay = horizon_left < n
+            if order is None:
+                if not bool(((t < sim_step_budget) & ~done).any()):
+                    break
+            else:
+                skipf = done | in_replay
+                running, n_skip, n_notdone = order.read(
+                    (t < sim_step_budget) & ~done, skipf, done)
+                if not running:
+                    break
+                if order.fires(n_skip, n_notdone):
+                    moved = [x, t, done, obstacle, horizon_left, replay_pos,
+                             u_old, xs_rec, x0, goal, noise_on, scen_obs,
+                             *stat_acc]
+                    if stall_reseed is not None:
+                        moved += [stall, q_prev]
+                    moved = order.permute(order.source(skipf, done), moved,
+                                          ss, lap_count)
+                    (x, t, done, obstacle, horizon_left, replay_pos, u_old,
+                     xs_rec, x0, goal, noise_on, scen_obs) = moved[:12]
+                    stat_acc = tuple(moved[12:12 + len(stat_acc)])
+                    if stall_reseed is not None:
+                        stall, q_prev = moved[-2:]
+                    in_replay = horizon_left < n
+            w = b if order is None else order.lanes()
             lap_ids, lap_ok, skip = _step_solver_inputs(
                 lap_count, nsi, max_laps, done | in_replay, b, dev)
             g0 = x if stall_reseed is None else torch.where(
                 (stall >= stall_reseed)[None], goal, x)
-            if bool((skip < 0.5).any()):
+            if (bool((skip < 0.5).any()) if order is None
+                    else n_skip < b):
+                prefix = {} if w == b or step_solver is None else dict(
+                    lanes=w)
                 us_sel, shrink_f, idx_sel, row_sel, *stats = solver(
                     x, g0, states, qfun, lap_len, lap_ids, lap_ok,
-                    obstacle_to_lanes(obstacle, b), skip)
+                    obstacle_to_lanes(obstacle, b), skip, **prefix)
                 stat_acc = tuple(a + v for a, v in zip(stat_acc, stats))
                 if stall_reseed is not None:
                     # the winner's time-to-go, Qfun at (its lap, its kNN
@@ -456,6 +631,8 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
                 in_replay | shrink, horizon_left - 1, horizon_left)
             replay_next = torch.where(in_replay, replay_pos + 1, replay_pos)
             z = draw_noise(noise, generator, sim_step, b, dtype, dev)
+            if order is not None:
+                z = order.route(z)
             sim_step += 1
             x_next, obstacle, reach = plant_step(x, u, dt, z, noise_on, done,
                                                  obstacle, goal)
@@ -464,8 +641,9 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
             horizon_left = torch.where(done, horizon_left, horizon_next)
             replay_pos = torch.where(done, replay_pos, replay_next)
             u_old = torch.where(done[None, None], u_old, u_old_next)
-            # record row t of each lane (a done lane rewrites its frozen row)
-            xs_rec[t.to(torch.int64), :, lanes] = x_next.T
+            # record row t of each lane (a done lane rewrites its frozen
+            # row, so the lanes past w need no write)
+            xs_rec[t[:w].to(torch.int64), :, lanes[:w]] = x_next[:, :w].T
             done = done | reach
             x = x_next
         if goal_append:  # goal as an extra recorded row
@@ -475,10 +653,15 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
             xs_rec[t.to(torch.int64), :, lanes] = goal.T
             n_valid = t + 1
         add_lap(ss, lap_count, xs_rec, n_valid)
+        if order is not None:  # lap rows in the original lane order
+            t, done = order.to_original(t), order.to_original(done)
         lap_steps[lap_i] = t
         lap_done[lap_i] = done
+    if order is not None:
+        inv = order.finish(ss, lap0 + num_laps)
+        stat_acc = tuple(a[inv] for a in stat_acc)
     return SoaRunResult(lap_steps=lap_steps, lap_done=lap_done,
-                        final_x=goal, safe_set=ss,
+                        final_x=scenarios.goal, safe_set=ss,
                         lap_count=lap0 + num_laps,
                         final_key=noise_key(noise, generator, sim_step),
                         iter_stats=stat_acc)

@@ -93,7 +93,14 @@
 // order's solves (a counting build, K1_COUNT_SOLVES below, counts them on
 // the card). The solve's registers set 16 resident warps
 // (K1_BLOCK_MIN_WARPS, 128 registers); the cache is 5.5 KB a lane in f32
-// (dist direct-mapped, K1_BLOCK_XL terminal states).
+// (dist direct-mapped, K1_BLOCK_XL terminal states). A counting (STATS)
+// instantiation adds each solve's trips a (u, row) in shared memory and
+// counts with_stats from them (i2lqr_step_block_kernel's comment).
+//
+// Every kernel here takes the count of lanes to run (nb) apart from B, the
+// lane stride of its arrays: a launch over the first nb lanes of
+// full-width arrays, as the simulators' tail_shrink prefix launches, reads
+// and writes nothing past them.
 #include "lm_core.cuh"
 
 namespace ilqr {
@@ -107,7 +114,7 @@ constexpr int K1_MIN_BLOCKS = 4;
 
 template <typename T, int N, int K, int NSI>
 __global__ void __launch_bounds__(128, K1_MIN_BLOCKS) i2lqr_step_kernel(
-    const Consts<T> C, int B, int T_rows, const T* __restrict__ x,
+    const Consts<T> C, int B, int nb, int T_rows, const T* __restrict__ x,
     const T* __restrict__ g0, const T* __restrict__ states,
     const T* __restrict__ qfun, const int* __restrict__ lap_len,
     const int* __restrict__ lap_ids, const int* __restrict__ lap_ok,
@@ -118,7 +125,7 @@ __global__ void __launch_bounds__(128, K1_MIN_BLOCKS) i2lqr_step_kernel(
   static_assert(128 % G == 0, "a block holds whole lanes");
   const Tile<G> tl;
   const int b = (blockIdx.x * blockDim.x + threadIdx.x) / G;
-  if (b >= B) return;
+  if (b >= nb) return;
   const int c = tl.rank;  // candidate s = c % K of lap row r = c / K
   const int r = c / K, s = c % K;
   if (skip[b] > 0.5f) {
@@ -243,6 +250,24 @@ struct K1Lane {
   int writer;   // the thread that holds the winner's us
 };
 
+// What a counting instantiation of the k = 32 kernel (STATS) keeps in
+// shared memory a lane: each solved (distinct lap u, row)'s trips, and
+// under dedup the rows a lap row's valid candidates named in passes 0 and
+// 1. The plain instantiation keeps a char instead.
+template <int NSI>
+struct K1Counts {
+  unsigned short trips[K1_BLOCK_LANES][NSI][K1_BLOCK_ROWS];
+  unsigned seen[K1_BLOCK_LANES][NSI][K1_BLOCK_ROWS / 32];
+};
+template <bool STATS, int NSI>
+struct K1CountsOf {
+  using type = K1Counts<NSI>;
+};
+template <int NSI>
+struct K1CountsOf<false, NSI> {
+  using type = char;
+};
+
 // A lane's outputs: its winner's us (held by this thread), the shrink
 // flag, the winner's kNN row and lap row.
 template <typename T, int N, int NSI>
@@ -265,25 +290,47 @@ __device__ __forceinline__ void k1_write(const K1Lane<T, NSI>& L,
 }
 
 // K1 at k = 32: K1_BLOCK_LANES lanes a block, a warp each (header).
-template <typename T, int N, int NSI>
+//
+// with_stats (a STATS instantiation, i2lqr_step_block_stats_launch): the
+// counts of i2lqr_step_opts.cu, a lane's, summed over the step.
+// iters_useful and upass (3, B) are the plain version's per lane
+// (i2lqr_step_reference): every candidate slot's trips a pass in the
+// plain order, a slot without a row solving row 0, a lap row not yet
+// stored its clipped lap's rows, and under dedup (opts & 2) not the slots
+// a valid candidate of the same lap row named in passes 0 and 1, the
+// final winner so taken counted again; the kernel reads them from the
+// trips of its pooled solves (a solve is a pure function of its lap and
+// row, so its trips repeat wherever the row recurs). iters_executed is
+// the warp's: each round of solves its 32 threads run together, 32 times
+// the longest solve among them, a pooled solve counted on the warp that
+// runs it, whichever lane it serves (a skipped lane's warp solves for
+// the block, and is counted; a warp past the launch's last lane is not).
+// So a block's useful trips may exceed its executed thread-trips: that
+// excess is what pooling saves.
+template <typename T, int N, int NSI, bool STATS = false>
 __global__ void __launch_bounds__(K1_BLOCK_LANES * 32,
                                   K1_BLOCK_MIN_WARPS / K1_BLOCK_LANES)
     i2lqr_step_block_kernel(
-        const Consts<T> C, int B, int T_rows, const T* __restrict__ x,
-        const T* __restrict__ g0, const T* __restrict__ states,
+        const Consts<T> C, int B, int nb, int T_rows,
+        const T* __restrict__ x, const T* __restrict__ g0,
+        const T* __restrict__ states,
         const T* __restrict__ qfun, const int* __restrict__ lap_len,
         const int* __restrict__ lap_ids, const int* __restrict__ lap_ok,
         const T* __restrict__ obs, const float* __restrict__ skip,
         T* __restrict__ us_out, T* __restrict__ shrink_out,
-        int* __restrict__ idx_out, int* __restrict__ row_out) {
+        int* __restrict__ idx_out, int* __restrict__ row_out,
+        int opts = 0, int* __restrict__ useful_out = nullptr,
+        int* __restrict__ exec_out = nullptr,
+        int* __restrict__ upass_out = nullptr) {
   static_assert(NSI <= 4, "two bits a lap row's distinct lap");
   constexpr int K = K1_BLOCK_K, ROWS = K1_BLOCK_ROWS, XL = K1_BLOCK_XL;
   constexpr int LANES = K1_BLOCK_LANES, THREADS = 32 * LANES;
   __shared__ K1Lane<T, NSI> lanes[LANES];
+  __shared__ typename K1CountsOf<STATS, NSI>::type cnt;
   const int tid = threadIdx.x, w = tid / 32, s = tid % 32;
   const int b0 = blockIdx.x * LANES;  // the block's first lane
   const int b = b0 + w;               // this warp's lane
-  if (b < B && skip[b] > 0.5f) {  // a skipped lane: zeros
+  if (b < nb && skip[b] > 0.5f) {  // a skipped lane: zeros
     for (int i = s; i < 2 * N; i += 32) us_out[i * B + b] = (T)0;
     if (s == 0) {
       shrink_out[b] = (T)0;
@@ -292,7 +339,7 @@ __global__ void __launch_bounds__(K1_BLOCK_LANES * 32,
     }
   }
   // this warp runs a live lane (else it only solves the block's queues)
-  const bool own = b < B && skip[b] <= 0.5f;
+  const bool own = b < nb && skip[b] <= 0.5f;
   K1Lane<T, NSI>& L = lanes[w];
   const Tile<32> warp;
   const T inf = (T)INFINITY;
@@ -322,6 +369,16 @@ __global__ void __launch_bounds__(K1_BLOCK_LANES * 32,
     L.n_queue = 0;
     L.kept = 0;
     L.writer = -1;
+  }
+  // the counts: the warp's thread-trips, the lane's useful trips, a pass's
+  // useful trips and arrivals (upass)
+  int executed = 0, useful = 0, upass[3] = {0, 0, 0};
+  const bool dedup = opts & 2;
+  if constexpr (STATS) {
+    for (int i = s; i < NSI * ROWS; i += 32) {
+      (&cnt.trips[w][0][0])[i] = 0;
+      if (i < NSI * ROWS / 32) (&cnt.seen[w][0][0])[i] = 0u;
+    }
   }
 
   T us[N][2];
@@ -405,7 +462,13 @@ __global__ void __launch_bounds__(K1_BLOCK_LANES * 32,
       for (int c = 0; c < N; ++c) us[c][0] = us[c][1] = (T)0;
       const Solve<T, N> S{C, x0, xt, o};
       T xl[4], cost, dist;
-      S.lm_solve(us, false, xl, cost, dist);
+      if constexpr (STATS) {
+        int tr = 0;
+        S.template lm_solve<true>(us, false, xl, cost, dist, &tr);
+        cnt.trips[i][u][row] = (unsigned short)tr;
+      } else {
+        S.lm_solve(us, false, xl, cost, dist);
+      }
       Li.dist[u][row] = dist;
       // past the kept entries, a PASS round's solves all write entry XL;
       // it is read only after a WINNER round, whose one solve a lane is
@@ -423,6 +486,22 @@ __global__ void __launch_bounds__(K1_BLOCK_LANES * 32,
     }
     solved += total;
     __syncthreads();
+    if constexpr (STATS) {
+      // the round's thread-trips on this warp: every pass of the loop
+      // above, 32 times its threads' longest solve
+      const int j0 = (tid - (solved - total) % THREADS + THREADS) % THREADS;
+      for (int j = j0, m = 0; m * THREADS < total; ++m, j += THREADS) {
+        int tr = 0;
+        if (j < total) {
+          int i = 0, q = j;
+          while (q >= lanes[i].n_queue) q -= lanes[i++].n_queue;
+          const int key = lanes[i].queue[q];
+          tr = cnt.trips[i][key / ROWS][key % ROWS];
+        }
+        executed += 32 * (int)__reduce_max_sync(0xffffffffu, (unsigned)tr);
+      }
+      __syncthreads();  // the queues are read
+    }
     if (queue == FINAL) break;
     bool again = false;  // this lane's winner is to be solved
     if (own && queue == PASS) {
@@ -432,11 +511,21 @@ __global__ void __launch_bounds__(K1_BLOCK_LANES * 32,
       // list compare value (absent slots -inf, laps not yet stored +inf)
       const T unit = C.unit[pass], cutoff = C.cutoff[pass];
       T cmp[NSI], cst[NSI];
+      unsigned hits = 0;  // STATS: the lap rows whose slot dedup takes
+      int mine = 0;       // STATS: this thread's slots' useful trips
 #pragma unroll
       for (int r = 0; r < NSI; ++r) {
         const int u = first(r);
         const int row = L.ik[u][s];
         const bool cok = ((lok >> r) & 1u) && ((L.valid[u] >> s) & 1u);
+        if constexpr (STATS) {
+          // this slot's useful trips, unless an earlier pass's valid
+          // candidate of this lap row named its row (dedup)
+          const bool hit = dedup && cok &&
+                           ((cnt.seen[w][r][row / 32] >> (row % 32)) & 1u);
+          hits |= (unsigned)hit << r;
+          if (!hit) mine += cnt.trips[w][u][row];
+        }
         T c = inf;
         if (cok) {
           const T dist = L.dist[u][row];
@@ -479,6 +568,29 @@ __global__ void __launch_bounds__(K1_BLOCK_LANES * 32,
       const int u = first(best);
       idx_sel = L.ik[u][col];
       e_sel = (int)L.at[u][idx_sel] - 1;
+      if constexpr (STATS) {
+        // the pass's useful trips and its slots' arrivals; dedup keeps
+        // this pass's rows
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          mine += warp.shfl_xor(mine, off);
+        useful += mine;
+        upass[pass] = mine + NSI * K;
+        if (dedup && pass < 2) {
+#pragma unroll
+          for (int r = 0; r < NSI; ++r) {
+            const int row = L.ik[first(r)][s];
+            if (((lok >> r) & 1u) && ((L.valid[first(r)] >> s) & 1u))
+              atomicOr(&cnt.seen[w][r][row / 32], 1u << (row % 32));
+          }
+        }
+        // a final winner dedup took is solved again: its trips once more
+        if (pass == 2 && warp.shfl((int)((hits >> best) & 1u), col) != 0) {
+          const int tr = cnt.trips[w][u][idx_sel];
+          useful += tr;
+          upass[2] += tr + 1;
+        }
+      }
       // a winner no cost read, or whose terminal state was not kept, is
       // solved now into the last entry of xl
       again = e_sel < 0 || e_sel == XL;
@@ -524,41 +636,53 @@ __global__ void __launch_bounds__(K1_BLOCK_LANES * 32,
     if (!__syncthreads_or(last)) break;
     queue = FINAL;
   }
+  if constexpr (STATS) {  // a lane's counts; a skipped lane's warp's
+    if (b < nb && s == 0) {
+      useful_out[b] = own ? useful : 0;
+      exec_out[b] = executed;
+#pragma unroll
+      for (int p = 0; p < 3; ++p) upass_out[p * B + b] = own ? upass[p] : 0;
+    }
+  }
 }
 
-template <typename T, int N, int NSI>
+template <typename T, int N, int NSI, bool STATS = false>
 int launch_i2lqr_step_block(const double* consts, int max_iter, int B,
-                            int T_rows, const void* x, const void* g0,
-                            const void* states, const void* qfun,
-                            const void* lap_len, const void* lap_ids,
-                            const void* lap_ok, const void* obs,
-                            const void* skip, void* us, void* shrink,
-                            void* idx, void* row, cudaStream_t stream) {
+                            int nb, int T_rows, const void* x,
+                            const void* g0, const void* states,
+                            const void* qfun, const void* lap_len,
+                            const void* lap_ids, const void* lap_ok,
+                            const void* obs, const void* skip, void* us,
+                            void* shrink, void* idx, void* row,
+                            cudaStream_t stream, int opts = 0,
+                            void* useful = nullptr, void* exec = nullptr,
+                            void* upass = nullptr) {
   if (T_rows > K1_BLOCK_ROWS) return -1;  // a thread would drop rows
   const Consts<T> C = make_consts<T>(consts, max_iter);
   constexpr int lanes = K1_BLOCK_LANES;
-  i2lqr_step_block_kernel<T, N, NSI>
-      <<<(B + lanes - 1) / lanes, lanes * 32, 0, stream>>>(
-      C, B, T_rows, (const T*)x, (const T*)g0, (const T*)states,
+  i2lqr_step_block_kernel<T, N, NSI, STATS>
+      <<<(nb + lanes - 1) / lanes, lanes * 32, 0, stream>>>(
+      C, B, nb, T_rows, (const T*)x, (const T*)g0, (const T*)states,
       (const T*)qfun, (const int*)lap_len, (const int*)lap_ids,
       (const int*)lap_ok, (const T*)obs, (const float*)skip, (T*)us,
-      (T*)shrink, (int*)idx, (int*)row);
+      (T*)shrink, (int*)idx, (int*)row, opts, (int*)useful, (int*)exec,
+      (int*)upass);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int N, int K, int NSI>
-int launch_i2lqr_step(const double* consts, int max_iter, int B, int T_rows,
-                      const void* x, const void* g0, const void* states,
-                      const void* qfun, const void* lap_len,
-                      const void* lap_ids, const void* lap_ok,
-                      const void* obs, const void* skip, void* us,
-                      void* shrink, void* idx, void* row,
+int launch_i2lqr_step(const double* consts, int max_iter, int B, int nb,
+                      int T_rows, const void* x, const void* g0,
+                      const void* states, const void* qfun,
+                      const void* lap_len, const void* lap_ids,
+                      const void* lap_ok, const void* obs, const void* skip,
+                      void* us, void* shrink, void* idx, void* row,
                       cudaStream_t stream) {
   const Consts<T> C = make_consts<T>(consts, max_iter);
   constexpr int lanes_per_block = 128 / (NSI * K);
   i2lqr_step_kernel<T, N, K, NSI>
-      <<<(B + lanes_per_block - 1) / lanes_per_block, 128, 0, stream>>>(
-      C, B, T_rows, (const T*)x, (const T*)g0, (const T*)states,
+      <<<(nb + lanes_per_block - 1) / lanes_per_block, 128, 0, stream>>>(
+      C, B, nb, T_rows, (const T*)x, (const T*)g0, (const T*)states,
       (const T*)qfun, (const int*)lap_len, (const int*)lap_ids,
       (const int*)lap_ok, (const T*)obs, (const float*)skip, (T*)us,
       (T*)shrink, (int*)idx, (int*)row);
@@ -570,17 +694,21 @@ int launch_i2lqr_step(const double* consts, int max_iter, int B, int T_rows,
 #define I2LQR_CASE(TYPE, CODE, N_, K_, NSI_)                                 \
   if (dtype == CODE && n == N_ && k == K_ && nsi == NSI_)                    \
     return ilqr::launch_i2lqr_step<TYPE, N_, K_, NSI_>(                      \
-        consts, max_iter, B, T_rows, x, g0, states, qfun, lap_len, lap_ids,  \
-        lap_ok, obs, skip, us, shrink, idx, row, s);
+        consts, max_iter, B, lanes, T_rows, x, g0, states, qfun, lap_len,    \
+        lap_ids, lap_ok, obs, skip, us, shrink, idx, row, s);
 
 // k = 32: one lane a warp, kNN lists of depth 4 (T <= 128 rows).
 #define I2LQR_BLOCK_CASE(TYPE, CODE, N_, NSI_)                              \
   if (dtype == CODE && n == N_ && k == 32 && nsi == NSI_)                    \
     return ilqr::launch_i2lqr_step_block<TYPE, N_, NSI_>(                    \
-        consts, max_iter, B, T_rows, x, g0, states, qfun, lap_len, lap_ids,  \
-        lap_ok, obs, skip, us, shrink, idx, row, s);
+        consts, max_iter, B, lanes, T_rows, x, g0, states, qfun, lap_len,    \
+        lap_ids, lap_ok, obs, skip, us, shrink, idx, row, s);
 
-// dtype: 0 float32, 1 float64. max_laps is the safe set's leading size
+// dtype: 0 float32, 1 float64. B is the lane stride of every (..., B)
+// array; the kernel runs lanes 0 .. lanes - 1 (lanes <= B) and writes
+// nothing past them (the caller's outputs there stay as they were).
+// `lanes` comes last, so that an earlier checkout's launcher, which does
+// not take it, runs every lane. max_laps is the safe set's leading size
 // (the kernel reads only the laps named by lap_ids). Returns the
 // cudaError_t of the launch, or -1 when no kernel is instantiated for
 // (dtype, n, k, nsi) or, at k = 32, for more than 128 rows T.
@@ -592,9 +720,10 @@ extern "C" int i2lqr_step_launch(int dtype, int n, int k, int nsi,
                                  const void* lap_ids, const void* lap_ok,
                                  const void* obs, const void* skip, void* us,
                                  void* shrink, void* idx, void* row,
-                                 void* stream) {
+                                 void* stream, int lanes) {
   (void)max_laps;
-  if (B <= 0) return 0;
+  if (lanes < 0 || lanes > B) return (int)cudaErrorInvalidValue;
+  if (lanes == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   I2LQR_CASE(float, 0, 6, 8, 1)
   I2LQR_CASE(double, 1, 6, 8, 1)
@@ -607,15 +736,44 @@ extern "C" int i2lqr_step_launch(int dtype, int n, int k, int nsi,
   return -1;
 }
 
+#define I2LQR_BLOCK_STATS_CASE(TYPE, CODE, N_, NSI_)                        \
+  if (dtype == CODE && n == N_ && nsi == NSI_)                               \
+    return ilqr::launch_i2lqr_step_block<TYPE, N_, NSI_, true>(              \
+        consts, max_iter, B, lanes, T_rows, x, g0, states, qfun, lap_len,    \
+        lap_ids, lap_ok, obs, skip, us, shrink, idx, row, s, opts, useful,   \
+        exec, upass);
+
+// K1 at k = 32 with with_stats: its STATS instantiation (the kernel's
+// header), arguments as i2lqr_step_launch's without k, opts (2: dedup,
+// which changes the counts only) after nsi, and the counts (int32:
+// useful (B,), executed (B,), upass (3, B)) before the stream.
+extern "C" int i2lqr_step_block_stats_launch(
+    int dtype, int n, int nsi, int opts, const double* consts, int max_iter,
+    int B, int T_rows, int max_laps, const void* x, const void* g0,
+    const void* states, const void* qfun, const void* lap_len,
+    const void* lap_ids, const void* lap_ok, const void* obs,
+    const void* skip, void* us, void* shrink, void* idx, void* row,
+    void* useful, void* exec, void* upass, void* stream, int lanes) {
+  (void)max_laps;
+  if (lanes < 0 || lanes > B) return (int)cudaErrorInvalidValue;
+  if (lanes == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  I2LQR_BLOCK_STATS_CASE(float, 0, 6, 2)
+  I2LQR_BLOCK_STATS_CASE(double, 1, 6, 2)
+  I2LQR_BLOCK_STATS_CASE(float, 0, 6, 4)
+  I2LQR_BLOCK_STATS_CASE(double, 1, 6, 4)
+  return -1;
+}
+
 #define I2LQR_ATTRIBUTES(TYPE, CODE, N_, K_, NSI_)                           \
   if (dtype == CODE && n == N_ && k == K_ && nsi == NSI_)                    \
     return ilqr::kernel_attributes(                                          \
         ilqr::i2lqr_step_kernel<TYPE, N_, K_, NSI_>, 128, out);
 
-#define I2LQR_BLOCK_ATTRIBUTES(TYPE, CODE, N_, NSI_)                        \
+#define I2LQR_BLOCK_ATTRIBUTES(TYPE, CODE, N_, NSI_, STATS_)                \
   if (dtype == CODE && n == N_ && k == 32 && nsi == NSI_)                    \
     return ilqr::kernel_attributes(                                          \
-        ilqr::i2lqr_step_block_kernel<TYPE, N_, NSI_>,                       \
+        ilqr::i2lqr_step_block_kernel<TYPE, N_, NSI_, STATS_>,               \
         ilqr::K1_BLOCK_LANES * 32, out);
 
 // The loaded kernel's resources for (dtype, n, k, nsi), as the runtime
@@ -627,10 +785,21 @@ extern "C" int i2lqr_step_attributes(int dtype, int n, int k, int nsi,
   I2LQR_ATTRIBUTES(double, 1, 6, 8, 1)
   I2LQR_ATTRIBUTES(float, 0, 6, 8, 2)
   I2LQR_ATTRIBUTES(double, 1, 6, 8, 2)
-  I2LQR_BLOCK_ATTRIBUTES(float, 0, 6, 2)
-  I2LQR_BLOCK_ATTRIBUTES(double, 1, 6, 2)
-  I2LQR_BLOCK_ATTRIBUTES(float, 0, 6, 4)
-  I2LQR_BLOCK_ATTRIBUTES(double, 1, 6, 4)
+  I2LQR_BLOCK_ATTRIBUTES(float, 0, 6, 2, false)
+  I2LQR_BLOCK_ATTRIBUTES(double, 1, 6, 2, false)
+  I2LQR_BLOCK_ATTRIBUTES(float, 0, 6, 4, false)
+  I2LQR_BLOCK_ATTRIBUTES(double, 1, 6, 4, false)
+  return -1;
+}
+
+// The STATS instantiation's resources at k = 32 (as above).
+extern "C" int i2lqr_step_block_stats_attributes(int dtype, int n, int nsi,
+                                                 int* out) {
+  const int k = 32;
+  I2LQR_BLOCK_ATTRIBUTES(float, 0, 6, 2, true)
+  I2LQR_BLOCK_ATTRIBUTES(double, 1, 6, 2, true)
+  I2LQR_BLOCK_ATTRIBUTES(float, 0, 6, 4, true)
+  I2LQR_BLOCK_ATTRIBUTES(double, 1, 6, 4, true)
   return -1;
 }
 

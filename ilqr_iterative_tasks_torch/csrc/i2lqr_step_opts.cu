@@ -56,15 +56,15 @@ __device__ __forceinline__ int tile_sum(const Tile<G>& tl, int v) {
 
 template <typename T, int N, int K, int NSI>
 __global__ void __launch_bounds__(128, 4) i2lqr_step_opts_kernel(
-    const Consts<T> C, int B, int T_rows, int opts, const T* __restrict__ x,
-    const T* __restrict__ g0, const T* __restrict__ states,
-    const T* __restrict__ qfun, const int* __restrict__ lap_len,
-    const int* __restrict__ lap_ids, const int* __restrict__ lap_ok,
-    const T* __restrict__ obs, const float* __restrict__ skip,
-    T* __restrict__ us_out, T* __restrict__ shrink_out,
-    int* __restrict__ idx_out, int* __restrict__ row_out,
-    int* __restrict__ useful_out, int* __restrict__ exec_out,
-    int* __restrict__ upass_out) {
+    const Consts<T> C, int B, int nb, int T_rows, int opts,
+    const T* __restrict__ x, const T* __restrict__ g0,
+    const T* __restrict__ states, const T* __restrict__ qfun,
+    const int* __restrict__ lap_len, const int* __restrict__ lap_ids,
+    const int* __restrict__ lap_ok, const T* __restrict__ obs,
+    const float* __restrict__ skip, T* __restrict__ us_out,
+    T* __restrict__ shrink_out, int* __restrict__ idx_out,
+    int* __restrict__ row_out, int* __restrict__ useful_out,
+    int* __restrict__ exec_out, int* __restrict__ upass_out) {
   constexpr int G = NSI * K;  // threads a lane, one a candidate
   static_assert(128 % G == 0, "a block holds whole lanes");
   constexpr unsigned FULL = 0xffffffffu;
@@ -73,7 +73,7 @@ __global__ void __launch_bounds__(128, 4) i2lqr_step_opts_kernel(
   const int b = (blockIdx.x * blockDim.x + threadIdx.x) / G;
   const int c = tl.rank;  // candidate s = c % K of lap row r = c / K
   const int r = c / K, s = c % K;
-  const bool in = b < B;
+  const bool in = b < nb;
   const bool live = in && skip[b] <= 0.5f;
   if (in && !live) {
     for (int i = c; i < 2 * N; i += G) us_out[i * B + b] = (T)0;
@@ -289,22 +289,23 @@ __global__ void __launch_bounds__(128, 4) i2lqr_step_opts_kernel(
 
 template <typename T, int N, int K>
 __global__ void __launch_bounds__(128) i2lqr_step_lanes_kernel(
-    const Consts<T> C, int B, int T_rows, int opts, const T* __restrict__ x,
-    const T* __restrict__ g0, const T* __restrict__ states,
-    const T* __restrict__ qfun, const int* __restrict__ lap_len,
-    const int* __restrict__ lap_ids, const int* __restrict__ lap_ok,
-    const T* __restrict__ obs, const float* __restrict__ skip,
-    T* __restrict__ us_out, T* __restrict__ shrink_out,
-    int* __restrict__ idx_out, int* __restrict__ row_out,
-    int* __restrict__ useful_out, int* __restrict__ exec_out,
-    int* __restrict__ upass_out, int* __restrict__ counter, int n_threads) {
+    const Consts<T> C, int B, int nb, int T_rows, int opts,
+    const T* __restrict__ x, const T* __restrict__ g0,
+    const T* __restrict__ states, const T* __restrict__ qfun,
+    const int* __restrict__ lap_len, const int* __restrict__ lap_ids,
+    const int* __restrict__ lap_ok, const T* __restrict__ obs,
+    const float* __restrict__ skip, T* __restrict__ us_out,
+    T* __restrict__ shrink_out, int* __restrict__ idx_out,
+    int* __restrict__ row_out, int* __restrict__ useful_out,
+    int* __restrict__ exec_out, int* __restrict__ upass_out,
+    int* __restrict__ counter, int n_threads) {
   static_assert(K <= 8, "the rank order: K slots of 4 bits");
   const bool stats = opts & K1_OPT_STATS, dedup = opts & K1_OPT_DEDUP;
   const T inf = (T)INFINITY;
   const size_t row_stride = (size_t)4 * B;  // one safe-set row (4, B)
   const int lap = lap_ids[0];
   const bool lap_stored = lap_ok[0] != 0;
-  for (int b = blockIdx.x * blockDim.x + threadIdx.x; b < B;
+  for (int b = blockIdx.x * blockDim.x + threadIdx.x; b < nb;
        b = next_lane(counter, n_threads)) {
     if (skip[b] > 0.5f) {
       for (int i = 0; i < 2 * N; ++i) us_out[i * B + b] = (T)0;
@@ -458,7 +459,8 @@ __global__ void __launch_bounds__(128) i2lqr_step_lanes_kernel(
 
 template <typename T, int N, int K, int NSI>
 int launch_i2lqr_step_opts(int opts, const double* consts, int max_iter,
-                           int B, int T_rows, const void* x, const void* g0,
+                           int B, int nb, int T_rows, const void* x,
+                           const void* g0,
                            const void* states, const void* qfun,
                            const void* lap_len, const void* lap_ids,
                            const void* lap_ok, const void* obs,
@@ -469,7 +471,7 @@ int launch_i2lqr_step_opts(int opts, const double* consts, int max_iter,
   if constexpr (NSI == 1) {
     if (opts & K1_OPT_QSORT)
       return launch_lanes<i2lqr_step_lanes_kernel<T, N, K>>(
-          B, (int*)counter, stream, C, B, T_rows, opts, (const T*)x,
+          nb, (int*)counter, stream, C, B, nb, T_rows, opts, (const T*)x,
           (const T*)g0, (const T*)states, (const T*)qfun,
           (const int*)lap_len, (const int*)lap_ids, (const int*)lap_ok,
           (const T*)obs, (const float*)skip, (T*)us, (T*)shrink, (int*)idx,
@@ -477,8 +479,8 @@ int launch_i2lqr_step_opts(int opts, const double* consts, int max_iter,
   }
   constexpr int lanes_per_block = 128 / (NSI * K);
   i2lqr_step_opts_kernel<T, N, K, NSI>
-      <<<(B + lanes_per_block - 1) / lanes_per_block, 128, 0, stream>>>(
-      C, B, T_rows, opts, (const T*)x, (const T*)g0, (const T*)states,
+      <<<(nb + lanes_per_block - 1) / lanes_per_block, 128, 0, stream>>>(
+      C, B, nb, T_rows, opts, (const T*)x, (const T*)g0, (const T*)states,
       (const T*)qfun, (const int*)lap_len, (const int*)lap_ids,
       (const int*)lap_ok, (const T*)obs, (const float*)skip, (T*)us,
       (T*)shrink, (int*)idx, (int*)row, (int*)useful, (int*)exec,
@@ -491,7 +493,8 @@ int launch_i2lqr_step_opts(int opts, const double* consts, int max_iter,
 #define I2LQR_OPTS_CASE(TYPE, CODE, N_, K_, NSI_)                            \
   if (dtype == CODE && n == N_ && k == K_ && nsi == NSI_)                    \
     return ilqr::launch_i2lqr_step_opts<TYPE, N_, K_, NSI_>(                 \
-        opts, consts, max_iter, B, T_rows, x, g0, states, qfun, lap_len,     \
+        opts, consts, max_iter, B, lanes, T_rows, x, g0, states, qfun,       \
+        lap_len,                                                             \
         lap_ids, lap_ok, obs, skip, us, shrink, idx, row, useful, exec,      \
         upass, counter, s);
 
@@ -499,7 +502,9 @@ int launch_i2lqr_step_opts(int opts, const double* consts, int max_iter,
 // (qsort_skip, nsi = 1 only: the lane queue). Arguments as
 // i2lqr_step_launch's, then the stats (int32: useful (B,), executed (B,),
 // upass (3, B); read only with with_stats, else may be null), the lane
-// queue's counter (one int32 of device memory) and the stream. Returns the cudaError_t of the launch, or -1 when no kernel is
+// queue's counter (one int32 of device memory), the stream and the lanes
+// to run (as i2lqr_step_launch's). Returns the cudaError_t of the launch,
+// or -1 when no kernel is
 // instantiated for (dtype, n, k, nsi) or qsort_skip is asked with
 // nsi != 1.
 extern "C" int i2lqr_step_opts_launch(
@@ -509,9 +514,10 @@ extern "C" int i2lqr_step_opts_launch(
     const void* lap_len, const void* lap_ids, const void* lap_ok,
     const void* obs, const void* skip, void* us, void* shrink, void* idx,
     void* row, void* useful, void* exec, void* upass, void* counter,
-    void* stream) {
+    void* stream, int lanes) {
   (void)max_laps;
-  if (B <= 0) return 0;
+  if (lanes < 0 || lanes > B) return (int)cudaErrorInvalidValue;
+  if (lanes == 0) return 0;
   if ((opts & ilqr::K1_OPT_QSORT) && nsi != 1) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   I2LQR_OPTS_CASE(float, 0, 6, 8, 1)

@@ -128,7 +128,7 @@ template <typename T, int N, int K, int NSI, int G, bool QSORT,
           bool STATS = false>
 __global__ void __launch_bounds__(128, QSORT ? K2_TV_MIN_BLOCKS : 1)
     nlmpc_step_kernel(
-    const NlmpcConsts<T> C, int B, int T_rows, bool time_varying,
+    const NlmpcConsts<T> C, int B, int nb, int T_rows, bool time_varying,
     const T* __restrict__ x, const T* __restrict__ guess,
     const T* __restrict__ uw, const T* __restrict__ states,
     const T* __restrict__ qfun, const int* __restrict__ lap_len,
@@ -147,14 +147,14 @@ __global__ void __launch_bounds__(128, QSORT ? K2_TV_MIN_BLOCKS : 1)
   const int j = tl.rank;
   bool live = true;
   if constexpr (!STATS) {
-    if (b_in >= B) return;
+    if (b_in >= nb) return;
     if (skip[b_in] > 0.5f) {
       if (j == 0) out.skip_lane(B, b_in);
       return;
     }
   } else {
-    live = b_in < B && skip[b_in] <= 0.5f;
-    if (b_in < B && !live && j == 0) {
+    live = b_in < nb && skip[b_in] <= 0.5f;
+    if (b_in < nb && !live && j == 0) {
       out.skip_lane(B, b_in);
       useful_out[b_in] = 0;
       exec_out[b_in] = 0;
@@ -377,8 +377,8 @@ struct StepKernel {
 };
 
 template <typename T, int N, int K, int NSI>
-int launch_nlmpc_step(const double* consts, int max_iters, int B, int T_rows,
-                      bool time_varying, bool qsort, const void* x,
+int launch_nlmpc_step(const double* consts, int max_iters, int B, int nb,
+                      int T_rows, bool time_varying, bool qsort, const void* x,
                       const void* guess, const void* uw, const void* states,
                       const void* qfun, const void* lap_len,
                       const void* lap_ids, const void* lap_ok,
@@ -392,8 +392,8 @@ int launch_nlmpc_step(const double* consts, int max_iters, int B, int T_rows,
   const StepKernel<T, N, K, NSI> kern(time_varying, qsort, useful != nullptr);
   const auto f = kern.f;
   const int lanes_per_block = 128 / kern.g;
-  f<<<(B + lanes_per_block - 1) / lanes_per_block, 128, 0, stream>>>(
-      C, B, T_rows, time_varying, (const T*)x, (const T*)guess,
+  f<<<(nb + lanes_per_block - 1) / lanes_per_block, 128, 0, stream>>>(
+      C, B, nb, T_rows, time_varying, (const T*)x, (const T*)guess,
       (const T*)uw, (const T*)states, (const T*)qfun, (const int*)lap_len,
       (const int*)lap_ids, (const int*)lap_ok, (const T*)obs,
       (const float*)skip, (const int*)hzn, (const int*)t, (const int*)mc,
@@ -406,7 +406,8 @@ int launch_nlmpc_step(const double* consts, int max_iters, int B, int T_rows,
 #define NLMPC_STEP_CASE(TYPE, CODE, N_, K_, NSI_)                            \
   if (dtype == CODE && n == N_ && k == K_ && nsi == NSI_)                    \
     return ilqr::launch_nlmpc_step<TYPE, N_, K_, NSI_>(                      \
-        consts, max_iters, B, T_rows, tv, qs, x, guess, uw, states, qfun,    \
+        consts, max_iters, B, lanes, T_rows, tv, qs, x, guess, uw, states,   \
+        qfun,                                                                \
         lap_len, lap_ids, lap_ok, obs, skip, hzn, t, mc, us, fe, ng, idx,    \
         row, succ, useful, exec, s);
 
@@ -420,8 +421,9 @@ static int nlmpc_step_any(int dtype, int n, int k, int nsi, int time_varying,
                           const void* skip, const void* hzn, const void* t,
                           const void* mc, void* us, void* fe, void* ng,
                           void* idx, void* row, void* succ, void* useful,
-                          void* exec, void* stream) {
-  if (B <= 0) return 0;
+                          void* exec, void* stream, int lanes) {
+  if (lanes < 0 || lanes > B) return (int)cudaErrorInvalidValue;
+  if (lanes == 0) return 0;
   if (qsort && nsi != 1) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   const bool tv = time_varying != 0, qs = qsort != 0;
@@ -435,8 +437,11 @@ static int nlmpc_step_any(int dtype, int n, int k, int nsi, int time_varying,
 // dtype: 0 float32, 1 float64; time_varying: 0 spaceVarying (t, mc unused,
 // may be null), 1 timeVarying (t, min_cost (B,) i32); qsort: 1 for
 // qsort_skip (nsi = 1 only). The kernel reads only the laps named by
-// lap_ids. Returns the cudaError_t of the launch, or -1 when no kernel is
-// instantiated for (dtype, n, k, nsi) or qsort is asked with nsi != 1.
+// lap_ids. B is the lane stride; the kernel runs the first `lanes` lanes,
+// as i2lqr_step_launch's (last, so that an earlier checkout's launcher
+// runs every lane). Returns the cudaError_t of the launch, or -1 when no
+// kernel is instantiated for (dtype, n, k, nsi) or qsort is asked with
+// nsi != 1.
 extern "C" int nlmpc_step_launch(int dtype, int n, int k, int nsi,
                                  int time_varying, int qsort,
                                  const double* consts, int max_iters, int B,
@@ -448,11 +453,12 @@ extern "C" int nlmpc_step_launch(int dtype, int n, int k, int nsi,
                                  const void* hzn, const void* t,
                                  const void* mc, void* us, void* fe,
                                  void* ng, void* idx, void* row, void* succ,
-                                 void* stream) {
+                                 void* stream, int lanes) {
   return nlmpc_step_any(dtype, n, k, nsi, time_varying, qsort, consts,
                         max_iters, B, T_rows, x, guess, uw, states, qfun,
                         lap_len, lap_ids, lap_ok, obs, skip, hzn, t, mc, us,
-                        fe, ng, idx, row, succ, nullptr, nullptr, stream);
+                        fe, ng, idx, row, succ, nullptr, nullptr, stream,
+                        lanes);
 }
 
 // nlmpc_step_launch with with_stats: its STATS instantiation, which also
@@ -465,12 +471,12 @@ extern "C" int nlmpc_step_stats_launch(
     const void* lap_len, const void* lap_ids, const void* lap_ok,
     const void* obs, const void* skip, const void* hzn, const void* t,
     const void* mc, void* us, void* fe, void* ng, void* idx, void* row,
-    void* succ, void* useful, void* exec, void* stream) {
+    void* succ, void* useful, void* exec, void* stream, int lanes) {
   if (useful == nullptr || exec == nullptr) return -1;
   return nlmpc_step_any(dtype, n, k, nsi, time_varying, qsort, consts,
                         max_iters, B, T_rows, x, guess, uw, states, qfun,
                         lap_len, lap_ids, lap_ok, obs, skip, hzn, t, mc, us,
-                        fe, ng, idx, row, succ, useful, exec, stream);
+                        fe, ng, idx, row, succ, useful, exec, stream, lanes);
 }
 
 #define NLMPC_STEP_ATTRIBUTES(TYPE, CODE, N_, K_, NSI_)                      \

@@ -87,8 +87,8 @@ __device__ __forceinline__ int nth_set_bit(unsigned m, int n) {
 
 template <typename T, int N, int G>
 __global__ void __launch_bounds__(128) nlmpc_step_all_kernel(
-    const NlmpcConsts<T> C, T rb_v, T rb_c, int B, int T_rows, int n_rows,
-    bool rev, const T* __restrict__ x, const T* __restrict__ uw,
+    const NlmpcConsts<T> C, T rb_v, T rb_c, int B, int nb, int T_rows,
+    int n_rows, bool rev, const T* __restrict__ x, const T* __restrict__ uw,
     const T* __restrict__ states, const T* __restrict__ qfun,
     const int* __restrict__ lap_len, const int* __restrict__ lap_ids,
     const int* __restrict__ lap_ok, const T* __restrict__ obs,
@@ -97,7 +97,7 @@ __global__ void __launch_bounds__(128) nlmpc_step_all_kernel(
   static_assert(128 % G == 0, "a block holds whole lanes");
   const Tile<G> tl;
   const int b = (blockIdx.x * blockDim.x + threadIdx.x) / G;
-  if (b >= B) return;
+  if (b >= nb) return;
   const int j = tl.rank;
   if (skip[b] > 0.5f) {
     if (j == 0) out.skip_lane(B, b);
@@ -278,7 +278,8 @@ __global__ void __launch_bounds__(128) nlmpc_step_all_kernel(
 
 template <typename T, int N>
 int launch_nlmpc_step_all(const double* consts, int max_iters, int B,
-                          int T_rows, int n_rows, bool rev, const void* x,
+                          int nb, int T_rows, int n_rows, bool rev,
+                          const void* x,
                           const void* uw, const void* states,
                           const void* qfun, const void* lap_len,
                           const void* lap_ids, const void* lap_ok,
@@ -294,8 +295,8 @@ int launch_nlmpc_step_all(const double* consts, int max_iters, int B,
                           (T*)succ};
   constexpr int G = K2_ALL_G;
   nlmpc_step_all_kernel<T, N, G>
-      <<<(B + 128 / G - 1) / (128 / G), 128, 0, stream>>>(
-      C, rb_v, rb_c, B, T_rows, n_rows, rev, (const T*)x, (const T*)uw,
+      <<<(nb + 128 / G - 1) / (128 / G), 128, 0, stream>>>(
+      C, rb_v, rb_c, B, nb, T_rows, n_rows, rev, (const T*)x, (const T*)uw,
       (const T*)states, (const T*)qfun, (const int*)lap_len,
       (const int*)lap_ids, (const int*)lap_ok, (const T*)obs,
       (const float*)skip, (const int*)hzn, (T*)scratch, out);
@@ -307,8 +308,10 @@ int launch_nlmpc_step_all(const double* consts, int max_iters, int B,
 // dtype: 0 float32, 1 float64; n_rows: the lap rows of lap_ids / lap_ok
 // (nsi, or max_laps with all_iter); rev: 1 for all_rev_skip (n_rows = 1
 // only); scratch: (T_rows, B) of the dtype when n_rows > 1, else unused.
-// Returns the cudaError_t of the launch, or -1 when no kernel is
-// instantiated for (dtype, n) or rev is asked with n_rows != 1.
+// B is the lane stride; the kernel runs the first `lanes` lanes, as
+// i2lqr_step_launch's (last, so that an earlier checkout's launcher runs
+// every lane). Returns the cudaError_t of the launch, or -1 when no
+// kernel is instantiated for (dtype, n) or rev is asked with n_rows != 1.
 extern "C" int nlmpc_step_all_launch(int dtype, int n, int n_rows, int rev,
                                      const double* consts, int max_iters,
                                      int B, int T_rows, const void* x,
@@ -318,21 +321,22 @@ extern "C" int nlmpc_step_all_launch(int dtype, int n, int n_rows, int rev,
                                      const void* obs, const void* skip,
                                      const void* hzn, void* scratch, void* us,
                                      void* fe, void* ng, void* idx, void* row,
-                                     void* succ, void* stream) {
-  if (B <= 0) return 0;
+                                     void* succ, void* stream, int lanes) {
+  if (lanes < 0 || lanes > B) return (int)cudaErrorInvalidValue;
+  if (lanes == 0) return 0;
   if ((rev && n_rows != 1) || n_rows < 1 || (n_rows > 1 && !scratch))
     return -1;
   cudaStream_t s = (cudaStream_t)stream;
   if (n == 6 && dtype == 0)
     return ilqr::launch_nlmpc_step_all<float, 6>(
-        consts, max_iters, B, T_rows, n_rows, rev != 0, x, uw, states, qfun,
-        lap_len, lap_ids, lap_ok, obs, skip, hzn, scratch, us, fe, ng, idx,
-        row, succ, s);
+        consts, max_iters, B, lanes, T_rows, n_rows, rev != 0, x, uw, states,
+        qfun, lap_len, lap_ids, lap_ok, obs, skip, hzn, scratch, us, fe, ng,
+        idx, row, succ, s);
   if (n == 6 && dtype == 1)
     return ilqr::launch_nlmpc_step_all<double, 6>(
-        consts, max_iters, B, T_rows, n_rows, rev != 0, x, uw, states, qfun,
-        lap_len, lap_ids, lap_ok, obs, skip, hzn, scratch, us, fe, ng, idx,
-        row, succ, s);
+        consts, max_iters, B, lanes, T_rows, n_rows, rev != 0, x, uw, states,
+        qfun, lap_len, lap_ids, lap_ok, obs, skip, hzn, scratch, us, fe, ng,
+        idx, row, succ, s);
   return -1;
 }
 

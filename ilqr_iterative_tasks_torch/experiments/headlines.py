@@ -412,7 +412,7 @@ class Capture:
         self.calls = {}
         self.captured = {}
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kw):
         if self.iter_rows:  # laps stored - 1
             lap = int(args[self.lap_arg + 1].sum())
         else:
@@ -421,7 +421,7 @@ class Capture:
         self.calls[lap] = i + 1
         if lap not in self.captured and self.want(lap, i, args):
             self.captured[lap] = (i, [a.clone() for a in args])
-        return self.kernel(*args)
+        return self.kernel(*args, **kw)
 
 
 class LiveShare:
@@ -437,9 +437,9 @@ class LiveShare:
     def __getattr__(self, name):
         return getattr(self.kernel, name)
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kw):
         self.live.append((args[self.skip_arg] < 0.5).sum())
-        return self.kernel(*args)
+        return self.kernel(*args, **kw)
 
     def shares(self) -> dict:
         """Each launch's live share (live lanes / B): min, median, mean and
@@ -479,9 +479,54 @@ class Recorder:
         for a in attrs:
             setattr(self, a, getattr(kernel, a))
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kw):
         self.calls.append(args)
-        return self.kernel(*args)
+        return self.kernel(*args, **kw)
+
+
+class LaunchLog:
+    """A step solver that delegates to a whole-step kernel (K1 or K2,
+    every attribute passed through) and keeps each launch's lanes (B, or
+    the prefix a ``tail_shrink`` run launches over), its live lanes (the
+    skip mask at ``skip_arg``) and a pair of CUDA events around it; read
+    after the run by ``launches``, so it adds no host sync inside it."""
+
+    def __init__(self, kernel, skip_arg):
+        self.kernel, self.skip_arg, self.log = kernel, skip_arg, []
+
+    def __getattr__(self, name):
+        return getattr(self.kernel, name)
+
+    def __call__(self, *args, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = self.kernel(*args, **kw)
+        end.record()
+        b = args[0].shape[-1]
+        self.log.append((kw.get("lanes") or b,
+                         (args[self.skip_arg] < 0.5).sum(), start, end))
+        return out
+
+    def launches(self) -> list:
+        """(lanes, live lanes, ms) of each launch, in order."""
+        torch.cuda.synchronize()
+        return [(n, int(live), s.elapsed_time(e))
+                for n, live, s, e in self.log]
+
+
+def tail_launches(log, base_log) -> dict:
+    """A ``tail_shrink`` run's launches over a prefix (LaunchLog.launches)
+    beside the same launches of the run without it (the same steps, over
+    B): their count, live lanes, and ms summed and a launch."""
+    pre = [i for i, (n, _, _) in enumerate(log) if n < base_log[i][0]]
+    ms = sum(log[i][2] for i in pre)
+    ms_b = sum(base_log[i][2] for i in pre)
+    return dict(launches=len(log), prefix_launches=len(pre),
+                prefix=log[pre[0]][0] if pre else None,
+                live_lanes=sum(log[i][1] for i in pre),
+                prefix_ms=ms, over_b_ms=ms_b,
+                prefix_ms_a_launch=ms / max(len(pre), 1),
+                over_b_ms_a_launch=ms_b / max(len(pre), 1))
 
 
 @contextlib.contextmanager
@@ -617,26 +662,28 @@ class Headlines:
                                    b, noise_on=True, device=dev)
             for b in (BATCH, ALL_BATCH))
 
-    def i2lqr(self, seed, solver, candidate_solver=None):
+    def i2lqr(self, seed, solver, candidate_solver=None, **opts):
         """The i2LQR headline through ``solver`` (K1 or one wrapping it) or,
         with ``candidate_solver`` (K3 built with max_iter CAP) and no
-        solver, through the per-candidate path."""
+        solver, through the per-candidate path; ``opts``: more of the
+        simulator's options (``retile_frac``, ``tail_shrink``,
+        ``perm_log``)."""
         g = torch.Generator(device=self.dev).manual_seed(seed)
         with no_plain_solve_on_card():
             res = simulate_learning_runs_soa(
                 self.params, self.limits, self.scen, self.seed_xs, None, 121,
                 1.0, step_solver=solver, candidate_solver=candidate_solver,
                 generator=g, num_laps=LAPS, max_steps=MAX_STEPS,
-                max_laps=MAX_LAPS, solver_max_iter=CAP)
+                max_laps=MAX_LAPS, solver_max_iter=CAP, **opts)
         torch.cuda.synchronize(self.dev)
         return res
 
-    def nlmpc(self, seed, lp, sc, solver, candidate_solver=None):
+    def nlmpc(self, seed, lp, sc, solver, candidate_solver=None, **opts):
         """An NLMPC headline of the parameters ``lp`` on the scenarios
         ``sc`` through ``solver`` (K2 or one wrapping it) or, with
         ``candidate_solver`` (K4 built with max_iters NL_CAP) and no solver,
         through the per-candidate path; with neither, through the
-        simulator's default backend."""
+        simulator's default backend; ``opts`` as ``i2lqr``'s."""
         g = torch.Generator(device=self.dev).manual_seed(seed)
         with no_plain_solve_on_card():
             res = simulate_nlmpc_runs_soa(
@@ -644,6 +691,6 @@ class Headlines:
                 step_solver=solver, candidate_solver=candidate_solver,
                 generator=g, num_laps=LAPS, max_steps=MAX_STEPS,
                 max_laps=MAX_LAPS, max_lm_iters=NL_CAP,
-                infeasible_retire=NL_RETIRE)
+                infeasible_retire=NL_RETIRE, **opts)
         torch.cuda.synchronize(self.dev)
         return res

@@ -53,10 +53,10 @@ class EventTimed:
             setattr(self, a, getattr(k2, a))
         self.events = []
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kw):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        out = self.k2(*args)
+        out = self.k2(*args, **kw)
         end.record()
         self.events.append((start, end))
         return out

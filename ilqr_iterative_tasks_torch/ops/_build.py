@@ -43,27 +43,34 @@ _ARGTYPES = {
     "fused_ilqr_launch": [_I, _I, _P, _I, _I] + [_P] * 11,
     # dtype, n, k, nsi, consts, max_iter, B, T, max_laps, x, g0, states,
     # qfun, lap_len, lap_ids, lap_ok, obs, skip, us, shrink, idx, row,
-    # stream
-    "i2lqr_step_launch": [_I] * 4 + [_P] + [_I] * 4 + [_P] * 14,
+    # stream, lanes (the first lanes of B run; last, so that an earlier
+    # checkout's launcher, which takes no lanes, runs every lane)
+    "i2lqr_step_launch": [_I] * 4 + [_P] + [_I] * 4 + [_P] * 14 + [_I],
     # dtype, n, k, nsi, opts, consts, max_iter, B, T, max_laps, x, g0,
     # states, qfun, lap_len, lap_ids, lap_ok, obs, skip, us, shrink, idx,
-    # row, useful, executed, upass, counter, stream
-    "i2lqr_step_opts_launch": [_I] * 5 + [_P] + [_I] * 4 + [_P] * 18,
+    # row, useful, executed, upass, counter, stream, lanes
+    "i2lqr_step_opts_launch": [_I] * 5 + [_P] + [_I] * 4 + [_P] * 18 + [_I],
+    # K1 at k = 32 with counts: dtype, n, nsi, opts, consts, max_iter, B,
+    # T, max_laps, x, g0, states, qfun, lap_len, lap_ids, lap_ok, obs,
+    # skip, us, shrink, idx, row, useful, executed, upass, stream, lanes
+    "i2lqr_step_block_stats_launch": ([_I] * 4 + [_P] + [_I] * 4 + [_P] * 17
+                                      + [_I]),
     # dtype, n, consts, max_iters, B, x0, x_term, u_warm, obs, skip, hzn,
     # us, x_last, term_err, feasible, stream, counter (one int32 the launch
     # takes its chunks of lanes from)
     "fused_lm_shooting_launch": [_I, _I, _P, _I, _I] + [_P] * 12,
     # dtype, n, k, nsi, time_varying, qsort, consts, max_iters, B, T, x,
     # guess, u_warm, states, qfun, lap_len, lap_ids, lap_ok, obs, skip, hzn,
-    # t, min_cost, us, feasible_any, new_guess, idx, row, succ, stream
-    "nlmpc_step_launch": [_I] * 6 + [_P] + [_I] * 3 + [_P] * 20,
+    # t, min_cost, us, feasible_any, new_guess, idx, row, succ, stream,
+    # lanes
+    "nlmpc_step_launch": [_I] * 6 + [_P] + [_I] * 3 + [_P] * 20 + [_I],
     # as nlmpc_step_launch, with useful and executed (B,) i32 before the
     # stream
-    "nlmpc_step_stats_launch": [_I] * 6 + [_P] + [_I] * 3 + [_P] * 22,
+    "nlmpc_step_stats_launch": [_I] * 6 + [_P] + [_I] * 3 + [_P] * 22 + [_I],
     # dtype, n, rows, rev, consts, max_iters, B, T, x, u_warm, states, qfun,
     # lap_len, lap_ids, lap_ok, obs, skip, hzn, scratch, us, feasible_any,
-    # new_guess, idx, row, succ, stream
-    "nlmpc_step_all_launch": [_I] * 4 + [_P] + [_I] * 3 + [_P] * 18,
+    # new_guess, idx, row, succ, stream, lanes
+    "nlmpc_step_all_launch": [_I] * 4 + [_P] + [_I] * 3 + [_P] * 18 + [_I],
     # dtype, model, n, consts, max_iter, B, x0, x_term, u_init, us, x_last,
     # cost, n_iters, stream, counter
     "generic_ilqr_launch": [_I, _I, _I, _P, _I, _I] + [_P] * 9,

@@ -13,6 +13,8 @@ the CPU; for CUDA tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
@@ -61,6 +63,28 @@ def check_lanes(name: str, t: torch.Tensor, shape, dtype, device):
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def lane_outputs(specs, b: int, lanes: int, device) -> list:
+    """The output tensors of a whole-step launch, one a (shape, dtype) of
+    ``specs``: uninitialised where the launch runs all ``b`` lanes, else
+    views of one zeroed buffer a dtype, so that the lanes past the first
+    ``lanes``, which the kernel does not write, read as a skipped lane's
+    zeros at one fill a dtype."""
+    if lanes == b:
+        return [torch.empty(shape, dtype=dt, device=device)
+                for shape, dt in specs]
+    sizes = {}
+    for shape, dt in specs:
+        sizes[dt] = sizes.get(dt, 0) + math.prod(shape)
+    bufs = {dt: torch.zeros(n, dtype=dt, device=device)
+            for dt, n in sizes.items()}
+    out, used = [], dict.fromkeys(sizes, 0)
+    for shape, dt in specs:
+        n = math.prod(shape)
+        out.append(bufs[dt][used[dt]:used[dt] + n].view(shape))
+        used[dt] += n
+    return out
 
 
 class FusedIlqr:

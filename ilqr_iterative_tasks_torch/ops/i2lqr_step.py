@@ -15,7 +15,9 @@ the horizon-shrink flag. Signature (batch trailing):
     -> (us (n,2,B), shrink (B,), idx_sel (B,) i32, row_sel (B,) i32)
 
 ``g0`` is the pass-0 kNN guess (the current state, or the goal where the
-simulator's ``stall_reseed`` guard fires). Lanes with skip=1 return zeros.
+simulator's ``stall_reseed`` guard fires). Lanes with skip=1 return zeros,
+and so do the lanes past ``lanes`` where a call names it (a launch over
+the first ``lanes`` of the B lanes).
 ``i2lqr_step_reference`` is the plain version: the JAX package's composed
 XLA path (control/batched_soa.py ``solve_step`` / ``one_pass``, :513-712),
 the bitwise oracle of the TPU kernel. Given a ``candidate_solver`` (K3,
@@ -30,15 +32,19 @@ once, pooled over the block), in f32 and f64; any other size raises on a
 CUDA tensor. Both compute the plain version bit for bit. At k = 8 the TPU
 kernel's ``dedup``, ``qsort_skip`` and ``with_stats`` run in a kernel of
 their own (csrc/i2lqr_step_opts.cu), whose outputs are the same bits and
-whose counts are the plain version's (``i2lqr_step_reference``).
+whose counts are the plain version's (``i2lqr_step_reference``). At
+k = 32 a counting instantiation of the block kernel counts ``with_stats``;
+its ``iters_executed`` the host replays (``block_executed``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ilqr_iterative_tasks_torch.ops import _build
-from ilqr_iterative_tasks_torch.ops.fused_ilqr import DTYPE_CODES, check_lanes
+from ilqr_iterative_tasks_torch.ops.fused_ilqr import (
+    DTYPE_CODES, check_lanes, lane_outputs)
 from ilqr_iterative_tasks_torch.ops.ilqr_soa import ilqr_solve_soa, true_div
 from ilqr_iterative_tasks_torch.utils.params import (
     IlqrParams, SystemLimits, solver_consts)
@@ -112,6 +118,95 @@ def warp_executed(rounds, active, threads: int):
     return torch.where(active, total * threads, 0).to(torch.int32)
 
 
+# The k = 32 kernel's layout (csrc/i2lqr_step.cu): lanes a block (a warp
+# each), the block's threads, and the terminal states a lane keeps
+K32_LANES, K32_THREADS, K32_XL = 4, 128, 160
+
+
+def block_executed(passes, laps, oks, active, t_rows):
+    """``iters_executed`` of the k = 32 block kernel (csrc/i2lqr_step.cu,
+    ``i2lqr_step_block_kernel``), its schedule replayed on the host: each
+    block of 4 lanes, a warp a lane, queues per pass each live lane's
+    valid candidates of the distinct laps a stored row reads whose (lap,
+    row) the step has not solved, in slot order; the block's 128 threads
+    solve the lanes' queues one after the other, entry j on thread
+    (solves so far + j) % 128, 128 at a time. A final winner not solved
+    (or whose terminal state is past the 160 a lane keeps) is solved in a
+    round of its own, and a lane's final winner once more at the end where
+    no thread's last solve holds it. Every round of 128 entries costs each
+    warp 32 times the longest trips among its threads' entries; a warp is
+    its lane's, whichever lane an entry serves (a skipped lane's warp
+    included). passes: each pass's (kNN rows (nc, B), whether each slot
+    holds a row (nc, B), trips (nc, B), the slots dedup took (nc, B), the
+    winner (B,), row * 32 + slot); a solve's trips are those of the slot
+    that ran it, wherever its (lap, row) recurs. (B,) i32."""
+    k, lanes, threads, xl = 32, K32_LANES, K32_THREADS, K32_XL
+    nsi, b = len(laps), active.shape[0]
+    first = [laps.index(laps[r]) for r in range(nsi)]
+    need = sorted({first[r] for r in range(nsi) if oks[r]})
+    act = active.cpu().numpy()
+    pss = [[t.cpu().numpy() for t in p] for p in passes]
+    trips = np.zeros((b, nsi, t_rows), np.int64)
+    for idx, _, ran, hit, _ in pss:
+        for r in range(nsi):
+            sl = slice(r * k, (r + 1) * k)
+            s_, l_ = np.nonzero(~hit[sl] & act[None])
+            trips[l_, first[r], idx[sl][s_, l_]] = ran[sl][s_, l_]
+    executed = np.zeros(b, np.int64)
+    for b0 in range(0, b, lanes):
+        own = [b0 + w < b and bool(act[b0 + w]) for w in range(lanes)]
+        at = np.full((lanes, nsi, t_rows), -1)  # a solved (u, row)'s entry
+        kept, held, state = [0] * lanes, [None] * threads, [0]
+        exe = executed[b0:b0 + lanes]
+
+        def run(entries):  # a round: (lane, u, row) in queue order
+            base = state[0]
+            for m in range(0, len(entries), threads):
+                most = [0] * lanes
+                for j in range(m, min(len(entries), m + threads)):
+                    th = (base + j) % threads
+                    w, u, row = entries[j]
+                    most[th // 32] = max(most[th // 32],
+                                         int(trips[b0 + w, u, row]))
+                    held[th] = entries[j]
+                for w in range(len(exe)):
+                    exe[w] += 32 * most[w]
+            state[0] += len(entries)
+
+        final = {}
+        for idx, valid, _, _, win in pss:
+            entries = []
+            for w in range(lanes):
+                if not own[w]:
+                    continue
+                q = 0
+                for u in need:
+                    for slot in range(u * k, (u + 1) * k):
+                        row = int(idx[slot, b0 + w])
+                        if valid[slot, b0 + w] and at[w, u, row] < 0:
+                            at[w, u, row] = min(kept[w] + q, xl)
+                            entries.append((w, u, row))
+                            q += 1
+                kept[w] += q
+            run(entries)
+            again = []
+            for w in range(lanes):
+                if own[w]:
+                    wn = int(win[b0 + w])
+                    u, row = first[wn // k], int(idx[wn, b0 + w])
+                    if at[w, u, row] < 0 or at[w, u, row] == xl:
+                        at[w, u, row] = xl
+                        again.append((w, u, row))
+                    final[w] = (w, u, row)
+            if again:
+                run(again)
+        last = [e for w, e in sorted(final.items()) if e not in held]
+        if last:
+            run(last)
+    return torch.from_numpy(executed).to(device=active.device,
+                                         dtype=torch.int32)
+
+
 def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
                          states, qfun, lap_len, lap_ids, lap_ok, obs, skip, *,
                          max_iter: int, trips: list | None = None,
@@ -150,7 +245,9 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
     solve of the round; 0 on skipped lanes), under ``qsort_skip`` in a lane
     queue's taken in lane order (one thread a lane, 32 lanes a warp, a
     round a position; the card's queue takes its lanes from a counter, so
-    its count is its own); and ``queue_floor``, JAX's
+    its count is its own), at k = 32 the block kernel's, a lane's warp's
+    thread-trips over the pooled solves it runs, a skipped lane's too
+    (``block_executed``); and ``queue_floor``, JAX's
     (``queue_floor`` above at ``floor_width`` lanes) over the per-pass
     counts: the useful trips plus one arrival at each position a lane
     visits (every candidate in the plain order; under ``qsort_skip`` the
@@ -197,6 +294,8 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
                      flat(obs_kb), flat(skip[None, None])[0])
     cache = []  # passes 0 and 1: (idx, ok, d, x_last) of each slot
     rounds, upass = [], []  # with_stats: a round's (B,) trips, a pass's
+    # with_stats at k = 32: each pass's slots, for block_executed
+    block = [] if with_stats and k == 32 else None
 
     def solve(x_terms, done0):
         """Zeros-initialised solves of x_terms (4, C, B): (us, x_last, d,
@@ -338,6 +437,8 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
                       + (visit & active).to(torch.int64)).sum(0))
         if cands is not None:
             cands.append((cand_idx, torch.cat(fin_rows), win))
+        if block is not None:
+            block.append((cand_idx, torch.cat(fin_rows), ran, hit, win))
         again = active & hit.gather(0, win[None])[0]  # a winner not solved
         xt_sel = x_terms.gather(1, win[None, None].expand(4, 1, b))
         return (xl_sel, us_sel[:, :, 0], idx_sel, best_row, ran, again,
@@ -366,8 +467,10 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
             torch.where(active, best_row, 0).to(torch.int32))
     if not with_stats:
         return outs
-    return outs + (torch.where(active, useful, 0).to(torch.int32),
-                   warp_executed(rounds, active, 1 if qsort_skip else nc),
+    executed = (block_executed(block, laps, oks, active, t_rows)
+                if block is not None
+                else warp_executed(rounds, active, 1 if qsort_skip else nc))
+    return outs + (torch.where(active, useful, 0).to(torch.int32), executed,
                    queue_floor(torch.stack(upass), floor_width))
 
 
@@ -439,13 +542,22 @@ class FusedI2lqrStep:
         return b >= self._held[key]
 
     def __call__(self, x, g0, states, qfun, lap_len, lap_ids, lap_ok, obs,
-                 skip):
+                 skip, lanes=None):
+        """One step of every lane, or with ``lanes`` of the first ``lanes``
+        (the arrays keep their B lanes: no copy); the outputs past them
+        are zeros, as a skipped lane's."""
+        b = x.shape[-1]
+        lanes = b if lanes is None else int(lanes)
+        if not 0 <= lanes <= b:
+            raise ValueError(f"lanes={lanes} outside a batch of {b}")
         if x.device.type == "cpu":
-            return i2lqr_step_reference(
-                self.params, self.limits, self.dt, x, g0, states, qfun,
-                lap_len, lap_ids, lap_ok, obs, skip, max_iter=self.max_iter,
+            return on_prefix(lambda *a: i2lqr_step_reference(
+                self.params, self.limits, self.dt, *a, max_iter=self.max_iter,
                 dedup=self.dedup, qsort_skip=self.qsort_skip,
-                with_stats=self.with_stats, floor_width=self.floor_width)
+                with_stats=self.with_stats, floor_width=self.floor_width),
+                lanes,
+                (x, g0, states, qfun, lap_len), (lap_ids, lap_ok),
+                (obs, skip))
         if x.device.type != "cuda":
             raise ValueError(f"unsupported device {x.device}")
         dev, dtype = x.device, x.dtype
@@ -453,7 +565,6 @@ class FusedI2lqrStep:
             raise TypeError(f"unsupported dtype {dtype}")
         n, nsi, t_rows, ml = (self.num_horizon, self.nsi, self.max_steps,
                               self.max_laps)
-        b = x.shape[-1]
         check_lanes("x", x, (4, b), dtype, dev)
         check_lanes("g0", g0, (4, b), dtype, dev)
         check_lanes("states", states, (ml, t_rows, 4, b), dtype, dev)
@@ -463,10 +574,10 @@ class FusedI2lqrStep:
         check_lanes("lap_ok", lap_ok, (nsi,), torch.int32, dev)
         check_lanes("obs", obs, (6, b), dtype, dev)
         check_lanes("skip", skip, (b,), torch.float32, dev)
-        us = torch.empty((n, 2, b), dtype=dtype, device=dev)
-        shrink = torch.empty((b,), dtype=dtype, device=dev)
-        idx_sel = torch.empty((b,), dtype=torch.int32, device=dev)
-        row_sel = torch.empty((b,), dtype=torch.int32, device=dev)
+        i32 = torch.int32
+        us, shrink, idx_sel, row_sel, *stats = lane_outputs(
+            [((n, 2, b), dtype), ((b,), dtype), ((b,), i32), ((b,), i32)]
+            + ([((5, b), i32)] if self.with_stats else []), b, lanes, dev)
         ins = (x.data_ptr(), g0.data_ptr(), states.data_ptr(),
                qfun.data_ptr(), lap_len.data_ptr(), lap_ids.data_ptr(),
                lap_ok.data_ptr(), obs.data_ptr(), skip.data_ptr(),
@@ -475,25 +586,50 @@ class FusedI2lqrStep:
         lib = _build.library()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            if self._opts and (not self.qsort_skip
-                               or self.lane_queue_runs(b, dev, dtype)):
-                stats = torch.empty((5, b), dtype=torch.int32, device=dev)
+            if self.with_stats:
+                stats = stats[0]
+                counts = (stats[0].data_ptr(), stats[1].data_ptr(),
+                          stats[2].data_ptr())
+            if self.with_stats and self.k == 32:
+                rc = lib.i2lqr_step_block_stats_launch(
+                    DTYPE_CODES[dtype], n, nsi, 2 if self.dedup else 0,
+                    self._consts, self.max_iter, b, t_rows, ml, *ins,
+                    *counts, stream, lanes)
+            elif self._opts and (not self.qsort_skip
+                                 or self.lane_queue_runs(lanes, dev, dtype)):
+                if not self.with_stats:
+                    counts = (None,) * 3
                 counter = torch.empty(1, dtype=torch.int32, device=dev)
                 rc = lib.i2lqr_step_opts_launch(
                     DTYPE_CODES[dtype], n, self.k, nsi, self._opts,
                     self._consts, self.max_iter, b, t_rows, ml, *ins,
-                    stats[0].data_ptr(), stats[1].data_ptr(),
-                    stats[2].data_ptr(), counter.data_ptr(), stream)
+                    *counts, counter.data_ptr(), stream, lanes)
             else:
                 rc = lib.i2lqr_step_launch(
                     DTYPE_CODES[dtype], n, self.k, nsi, self._consts,
-                    self.max_iter, b, t_rows, ml, *ins, stream)
+                    self.max_iter, b, t_rows, ml, *ins, stream, lanes)
         _build.check_launch(rc, "i2lqr_step")
         self.launches += 1
         if not self.with_stats:
             return us, shrink, idx_sel, row_sel
-        return (us, shrink, idx_sel, row_sel, stats[0], stats[1],
-                queue_floor(stats[2:], self.floor_width))
+        floor = torch.zeros((b,), dtype=torch.int32, device=dev)
+        floor[:lanes] = queue_floor(stats[2:, :lanes], self.floor_width)
+        return us, shrink, idx_sel, row_sel, stats[0], stats[1], floor
+
+
+def on_prefix(plain, lanes, lane_args, shared_args, more_args):
+    """``plain`` (a plain step) on the first ``lanes`` lanes of its
+    lane-trailing arguments, its outputs padded with zeros to B lanes: the
+    CPU route of a kernel launched over a prefix (JAX ``_run_small``,
+    batched_soa.py:478-500). Arguments: the lane-trailing ones before the
+    shared (unsliced) ones, then the rest, lane-trailing or None."""
+    b = lane_args[0].shape[-1]
+    if lanes == b:
+        return plain(*lane_args, *shared_args, *more_args)
+    cut = lambda a: None if a is None else a[..., :lanes]
+    out = plain(*map(cut, lane_args), *shared_args, *map(cut, more_args))
+    return tuple(torch.cat([o, o.new_zeros(o.shape[:-1] + (b - lanes,))],
+                           dim=-1) for o in out)
 
 
 def build_fused_i2lqr_step(params: IlqrParams, limits: SystemLimits, dt, *,
@@ -516,11 +652,12 @@ def build_fused_i2lqr_step(params: IlqrParams, limits: SystemLimits, dt, *,
     ``qsort_skip`` K1 without counts on fewer lanes than its lane queue
     fills the card with (``FusedI2lqrStep.lane_queue_runs``). At k = 32
     the kernel pools each step's distinct candidate solves, which is
-    ``dedup`` in
-    effect (the JAX sweep's ``dedup=True, store_solutions=False`` build),
-    so ``dedup`` is taken there and changes nothing; ``with_stats`` raises
-    (a pooled solve has no lane of its own), as does ``qsort_skip``
-    (nsi >= 2). The TPU options in ``_UNPORTED`` raise."""
+    ``dedup`` in effect (the JAX sweep's ``dedup=True,
+    store_solutions=False`` build), so ``dedup`` is taken there and
+    changes only the counts; ``with_stats`` runs a counting instantiation
+    of it (``iters_executed`` a lane's warp's, ``block_executed``), and
+    ``qsort_skip`` raises (nsi >= 2). The TPU options in ``_UNPORTED``
+    raise."""
     for name in unported:
         if name not in _UNPORTED:
             raise TypeError(f"unexpected keyword argument {name!r}")
@@ -530,10 +667,6 @@ def build_fused_i2lqr_step(params: IlqrParams, limits: SystemLimits, dt, *,
         raise ValueError("qsort_skip requires num_ss_iter == 1 (the "
                          "lexicographic row-min over laps needs exact "
                          "per-candidate costs, base.py:462)")
-    if with_stats and params.num_ss_points != 8:
-        raise ValueError("with_stats is counted at k = 8 only: the k = 32 "
-                         "kernel pools a block's distinct solves, which have "
-                         "no lane of their own")
     return FusedI2lqrStep(params, limits, dt, num_horizon=num_horizon,
                           max_steps=max_steps, max_laps=max_laps,
                           max_iter=max_iter, dedup=dedup,

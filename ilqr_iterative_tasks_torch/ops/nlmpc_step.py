@@ -48,9 +48,10 @@ from __future__ import annotations
 import torch
 
 from ilqr_iterative_tasks_torch.ops import _build
-from ilqr_iterative_tasks_torch.ops.fused_ilqr import DTYPE_CODES, check_lanes
+from ilqr_iterative_tasks_torch.ops.fused_ilqr import (
+    DTYPE_CODES, check_lanes, lane_outputs)
 from ilqr_iterative_tasks_torch.ops.i2lqr_step import (
-    _lex_argmin_rows, _topk_select, warp_executed)
+    _lex_argmin_rows, _topk_select, on_prefix, warp_executed)
 from ilqr_iterative_tasks_torch.ops.ilqr_soa import step_soa
 from ilqr_iterative_tasks_torch.ops.lm_shooting_soa import (
     lm_feasibility_solve_soa)
@@ -381,16 +382,24 @@ class FusedNlmpcStep:
         self.launches = 0
 
     def __call__(self, x, guess, u_warm, states, qfun, lap_len, lap_ids,
-                 lap_ok, obs, skip, hzn, t=None, min_cost=None):
+                 lap_ok, obs, skip, hzn, t=None, min_cost=None, lanes=None):
+        """One step of every lane, or with ``lanes`` of the first ``lanes``
+        (the arrays keep their B lanes: no copy); the outputs past them
+        are zeros, as a skipped lane's."""
         time_varying = self.mode == "timeVarying"
         if time_varying and (t is None or min_cost is None):
             raise ValueError("the timeVarying step needs t and min_cost")
+        b = x.shape[-1]
+        lanes = b if lanes is None else int(lanes)
+        if not 0 <= lanes <= b:
+            raise ValueError(f"lanes={lanes} outside a batch of {b}")
         if x.device.type == "cpu":
-            return nlmpc_step_reference(
-                self.params, self.limits, self.dt, x, guess, u_warm, states,
-                qfun, lap_len, lap_ids, lap_ok, obs, skip, hzn, t, min_cost,
+            return on_prefix(lambda *a: nlmpc_step_reference(
+                self.params, self.limits, self.dt, *a,
                 max_iters=self.max_iters, qsort_skip=self.qsort_skip,
-                with_stats=self.with_stats)
+                with_stats=self.with_stats), lanes,
+                (x, guess, u_warm, states, qfun, lap_len), (lap_ids, lap_ok),
+                (obs, skip, hzn, t, min_cost))
         if x.device.type != "cuda":
             raise ValueError(f"unsupported device {x.device}")
         dev, dtype = x.device, x.dtype
@@ -398,7 +407,6 @@ class FusedNlmpcStep:
             raise TypeError(f"unsupported dtype {dtype}")
         n, rows, t_rows, ml = (self.num_horizon, self.rows, self.max_steps,
                                self.max_laps)
-        b = x.shape[-1]
         check_lanes("x", x, (4, b), dtype, dev)
         check_lanes("guess", guess, (4, b), dtype, dev)
         check_lanes("u_warm", u_warm, (n, 2, b), dtype, dev)
@@ -413,12 +421,12 @@ class FusedNlmpcStep:
         if time_varying:
             check_lanes("t", t, (b,), torch.int32, dev)
             check_lanes("min_cost", min_cost, (b,), torch.int32, dev)
-        us = torch.empty((n, 2, b), dtype=dtype, device=dev)
-        feasible_any = torch.empty((b,), dtype=dtype, device=dev)
-        new_guess = torch.empty((4, b), dtype=dtype, device=dev)
-        idx_sel = torch.empty((b,), dtype=torch.int32, device=dev)
-        row_sel = torch.empty((b,), dtype=torch.int32, device=dev)
-        succ = torch.empty((b,), dtype=dtype, device=dev)
+        i32 = torch.int32
+        us, feasible_any, new_guess, idx_sel, row_sel, succ, *stats = \
+            lane_outputs([((n, 2, b), dtype), ((b,), dtype), ((4, b), dtype),
+                          ((b,), i32), ((b,), i32), ((b,), dtype)]
+                         + ([((2, b), i32)] if self.with_stats else []), b,
+                         lanes, dev)
         outs = (us.data_ptr(), feasible_any.data_ptr(), new_guess.data_ptr(),
                 idx_sel.data_ptr(), row_sel.data_ptr(), succ.data_ptr())
         lib = _build.library()
@@ -436,7 +444,7 @@ class FusedNlmpcStep:
                     lap_ok.data_ptr(), obs.data_ptr(), skip.data_ptr(),
                     hzn.data_ptr(),
                     None if scratch is None else scratch.data_ptr(), *outs,
-                    stream)
+                    stream, lanes)
             else:
                 args = (DTYPE_CODES[dtype], n, self.k, self.nsi,
                         int(time_varying), int(self.qsort_skip), self._consts,
@@ -449,13 +457,12 @@ class FusedNlmpcStep:
                         t.data_ptr() if time_varying else None,
                         min_cost.data_ptr() if time_varying else None, *outs)
                 if self.with_stats:
-                    stats = torch.empty((2, b), dtype=torch.int32,
-                                        device=dev)
+                    stats = stats[0]
                     rc = lib.nlmpc_step_stats_launch(
                         *args, stats[0].data_ptr(), stats[1].data_ptr(),
-                        stream)
+                        stream, lanes)
                 else:
-                    rc = lib.nlmpc_step_launch(*args, stream)
+                    rc = lib.nlmpc_step_launch(*args, stream, lanes)
         _build.check_launch(rc, "nlmpc_step")
         self.launches += 1
         outs = us, feasible_any, new_guess, idx_sel, row_sel, succ

@@ -35,6 +35,14 @@ The two noise semantics differ, as in the JAX package:
   ``final_key`` is None: the per-shard streams are not continued through
   this wrapper.
 
+The simulators' options pass through in ``kw``, ``retile_frac`` and
+``tail_shrink`` included (as JAX's wrappers pass them,
+ilqr_iterative_tasks_tpu/parallel/sharded_soa.py:39-54): each rank
+permutes its own columns (its retile block ``retile_frac`` x its lanes;
+``tail_shrink`` a prefix of its lanes, below their count) and routes its
+own columns' draws by its own lane ids, so the ``_sharded`` result stays
+the unsharded run's bit for bit (of ``iter_stats`` the useful trips).
+
 ``stats`` (a dict, optional) receives ``run_s`` (the rank's seconds in its
 simulator calls) and ``gather_ms`` (the gather of the result).
 """

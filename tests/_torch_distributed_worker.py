@@ -36,6 +36,8 @@ NLMPC_KW = dict(num_laps=1, max_steps=128, max_laps=4, max_lm_iters=CAP)
 # SHARDED_B
 STATS_KW = dict(I2LQR_KW, num_laps=2, sim_step_budget=20)
 STATS_WIDTH = 8
+# the lane permutations of the options runs (each rank its own 8 lanes)
+OPTIONS = dict(retile_frac=0.25, tail_shrink=4)
 
 
 def stats_solver(ip, lim):
@@ -87,7 +89,8 @@ def sharded_runs():
     injected global noise) and then i2LQR over 2 laps through a K1 that
     counts (``stats_solver``), ranks 2-3 NLMPC on that noise (with its
     streak statistics) and then NLMPC over 3 laps on a generator of seed
-    7."""
+    7; the first i2LQR run and the last NLMPC run again with OPTIONS,
+    each beside its permutation log."""
     mesh = pair_mesh()
     ip, lp, lim, sx, su, scen = setup(SHARDED_B)
     noise = global_noise(SHARDED_B)
@@ -99,6 +102,10 @@ def sharded_runs():
             ip, lim, scen, sx, su, 121, 1.0, mesh, noise=noise,
             step_solver=stats_solver(ip, lim),
             **STATS_KW)
+        log = []
+        out["i2lqr_options"] = (simulate_learning_runs_soa_sharded(
+            ip, lim, scen, sx, su, 121, 1.0, mesh, noise=noise,
+            perm_log=log, **OPTIONS, **I2LQR_KW), log)
     else:
         out["nlmpc"] = simulate_nlmpc_runs_soa_sharded(
             lp, lim, scen, sx, su, 121, 1.0, mesh, noise=noise,
@@ -107,6 +114,11 @@ def sharded_runs():
             lp, lim, scen, sx, su, 121, 1.0, mesh,
             generator=torch.Generator().manual_seed(7),
             **dict(NLMPC_KW, num_laps=3))
+        log = []
+        out["nlmpc_generator_options"] = (simulate_nlmpc_runs_soa_sharded(
+            lp, lim, scen, sx, su, 121, 1.0, mesh,
+            generator=torch.Generator().manual_seed(7), perm_log=log,
+            **OPTIONS, **dict(NLMPC_KW, num_laps=3)), log)
     return out
 
 

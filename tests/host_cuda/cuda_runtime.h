@@ -44,7 +44,8 @@ struct dim3 { unsigned x = 1, y = 1, z = 1; };
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidConfiguration = 9 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaErrorInvalidConfiguration = 9 };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 typedef void* cudaStream_t;
 struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
@@ -63,6 +64,9 @@ inline int atomicCAS(int* p, int cmp, int v) {
   __atomic_compare_exchange_n(p, &cmp, v, false, __ATOMIC_SEQ_CST,
                               __ATOMIC_SEQ_CST);
   return cmp;
+}
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+  return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
 }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int __ffs(int v) { return __builtin_ffs(v); }

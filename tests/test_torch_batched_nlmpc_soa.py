@@ -205,14 +205,22 @@ def test_infeasible_retire_holds_the_input_and_skips_the_lane():
 
 
 def test_unported_options_raise():
+    """An option the simulator does not know raises; retile_frac and
+    tail_shrink are taken (tests/test_torch_retile_nlmpc.py holds them bit
+    for bit)."""
     _, seed_xs, seed_us = _seed()
     limits = SystemLimits.make(dtype=F64, device="cpu")
-    kw = dict(num_laps=1, max_steps=T_ROWS, max_laps=MAX_LAPS)
-    for bad in (dict(retile_frac=0.25), dict(tail_shrink=8)):
-        with pytest.raises(TypeError, match=next(iter(bad))):
-            simulate_nlmpc_runs_soa(LmpcParams.make(dtype=F64, device="cpu"),
-                                    limits, _scenarios(2), seed_xs, seed_us,
-                                    121, 1.0, **bad, **kw)
+    kw = dict(num_laps=1, max_steps=T_ROWS, max_laps=MAX_LAPS,
+              sim_step_budget=3, max_lm_iters=4)
+    with pytest.raises(TypeError, match="precision_islands"):
+        simulate_nlmpc_runs_soa(LmpcParams.make(dtype=F64, device="cpu"),
+                                limits, _scenarios(2), seed_xs, seed_us,
+                                121, 1.0, precision_islands=(), **kw)
+    for taken in (dict(retile_frac=0.25), dict(tail_shrink=1)):
+        res = simulate_nlmpc_runs_soa(
+            LmpcParams.make(dtype=F64, device="cpu"), limits, _scenarios(2),
+            seed_xs, seed_us, 121, 1.0, **taken, **kw)
+        assert res.lap_steps.tolist() == [[3, 3]]
     # the kNN or window over every stored lap runs: see the
     # every_stored_lap tests here and in tests/test_torch_nlmpc_step.py
 

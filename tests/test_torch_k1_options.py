@@ -36,8 +36,8 @@ import torch
 from ilqr_iterative_tasks_torch.control.batched_soa import (
     SoaScenarios, simulate_learning_runs_soa)
 from ilqr_iterative_tasks_torch.experiments.headlines import (
-    MAX_LAPS, MAX_STEPS, k1_option_lanes, lap_records_hash, live_share,
-    stats_summary)
+    MAX_LAPS, MAX_STEPS, k1_block_lanes, k1_option_lanes, lap_records_hash,
+    live_share, stats_summary)
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
 from ilqr_iterative_tasks_torch.ops.i2lqr_step import (
     build_fused_i2lqr_step, i2lqr_step_reference, queue_floor,
@@ -147,8 +147,15 @@ def test_factory_takes_the_shipped_options_and_refuses_the_rest():
                              max_iter=CAP, qsort_skip=True)
     p32 = IlqrParams.make(num_ss_points=32, num_ss_iter=4, device=cpu)
     assert build_fused_i2lqr_step(p32, lim, 1.0, dedup=True, **sizes).dedup
-    with pytest.raises(ValueError, match="with_stats"):
-        build_fused_i2lqr_step(p32, lim, 1.0, with_stats=True, **sizes)
+    # k = 32 counts too: a lane's warp's thread-trips over the block's
+    # pooled solves, which a skipped lane's warp runs as well
+    k32 = build_fused_i2lqr_step(p32, lim, 1.0, with_stats=True, **sizes)
+    a = k1_block_lanes(4, 4, cpu, b=12)
+    useful, executed, floor = k32(*a)[4:]
+    live = a[8] < 0.5
+    assert int(useful[~live].abs().sum()) == 0 and bool((floor > 0).all())
+    assert bool((useful[live] > 0).all()) and bool((executed > 0).all())
+    assert bool((executed % 32 == 0).all())
 
 
 @pytest.fixture(scope="module")
@@ -199,6 +206,52 @@ def test_counts_match_the_jax_kernel(jax_k1, run, options):
     assert (mine == theirs).mean() >= 0.85
     assert np.abs(mine - theirs).max() <= 8
     assert abs(int(mine.sum()) - float(theirs.sum())) <= 0.01 * theirs.sum()
+
+
+@pytest.fixture(scope="module")
+def jax_k32(tmp_path_factory):
+    out = tmp_path_factory.mktemp("jax_k32") / "k32.npz"
+    run = subprocess.run(
+        [sys.executable, os.path.join(TESTS, "_jax_step_stats.py"), "k32",
+         str(out)], capture_output=True, text=True, timeout=900,
+        cwd=os.path.dirname(TESTS))
+    assert run.returncode == 0, run.stderr[-4000:]
+    return dict(np.load(out))
+
+
+def test_k32_counts_match_the_jax_kernel(jax_k1, jax_k32):
+    """K1 at k = 32, nsi 2 (tests/_jax_step_stats.py ``k32``: the k1 lanes
+    with their lap stored twice, 20 rows for 32 slots): the plain step
+    with with_stats against the JAX kernel's. iters_useful and
+    queue_floor keep their per-lane meaning at k = 32 (iters_executed is
+    the port's warps', not JAX's tiles'): the decisions, queue_floor and
+    the sums hold at the k1 comparison's tolerances. A lane here sums 192
+    solves (8x k = 8's), each row's solve recurring in both stored copies
+    and all three passes, so one solve's f32 convergence trip (XLA:CPU's
+    arithmetic against torch's) moves a lane's sum by 6 a trip: 77 % of
+    the live lanes equal (k = 8's bar: 85 %), the largest difference 78
+    (13 trips), ROADMAP Queue 3."""
+    p = IlqrParams.make(num_ss_points=32, num_ss_iter=2, device="cpu",
+                        dtype=torch.float32)
+    lim = SystemLimits.make(device="cpu", dtype=torch.float32)
+    a = list(_jax_test_lanes(jax_k1["obs"]))
+    a[2] = a[2].clone()
+    a[2][1] = a[2][0]
+    a[5], a[6] = torch.arange(2, dtype=torch.int32), torch.ones(
+        2, dtype=torch.int32)
+    got = [t.numpy() for t in i2lqr_step_reference(
+        p, lim, 1.0, *a, max_iter=CAP, with_stats=True, floor_width=128)]
+    live = a[8].numpy() < 0.5
+    agree = live.copy()
+    for i in (1, 2, 3):
+        agree &= got[i] == jax_k32[f"plain_{i}"]
+    assert agree.sum() >= 0.99 * live.sum()
+    np.testing.assert_array_equal(got[6], jax_k32["plain_6"])
+    mine, theirs = got[4][agree], jax_k32["plain_4"][agree]
+    assert abs(int(mine.sum()) - float(theirs.sum())) <= 0.01 * theirs.sum()
+    assert (mine == theirs).mean() >= 0.75
+    assert np.all((mine - theirs) % 6 == 0)
+    assert np.abs(mine - theirs).max() <= 6 * 2 * CAP
 
 
 def test_closed_loop_with_a_counting_k1_keeps_the_records():

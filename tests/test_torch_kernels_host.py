@@ -55,14 +55,16 @@ LAUNCHERS = ("fused_ilqr_launch", "fused_lm_shooting_launch",
              "generic_ilqr_launch")
 MANY_SMS = 33  # 4 224 threads: every lane of these tests by its index
 # K1, its blocks one at a time (shared memory), counting each lane's solves
-K1_SOURCES, K1_LAUNCHERS = ("i2lqr_step.cu",), ("i2lqr_step_launch",)
+K1_SOURCES = ("i2lqr_step.cu",)
+K1_LAUNCHERS = (("i2lqr_step_launch", "i2lqr_step_block_stats_launch"),)
 K1_FLAGS = ("-DEMU_SHARED", "-DK1_ON_SOLVE(lane)=emu::count(lane)")
 K1_LANES = 33  # lanes of the K1 tests: blocks of 4 or 2, a ragged edge
 # K1 at k = 8 with its options and K2 with its counts (with_stats), a
 # build of their own
-OPT_SOURCES = ("i2lqr_step_opts.cu", "nlmpc_step.cu")
+OPT_SOURCES = ("i2lqr_step_opts.cu", "nlmpc_step.cu", "nlmpc_step_all.cu")
 OPT_LAUNCHERS = ("i2lqr_step_opts_launch",
-                 ("nlmpc_step_stats_launch", "nlmpc_step_launch"))
+                 ("nlmpc_step_stats_launch", "nlmpc_step_launch"),
+                 "nlmpc_step_all_launch")
 OPT_LANES = 40  # 10 warps of K1 at k = 8, 3 blocks, a ragged edge
 
 
@@ -121,9 +123,9 @@ class _Lib:
 def libs(tmp_path_factory):
     """(the sources on a card of one SM, one block of 128 threads that
     refills; on a card of MANY_SMS, whose grid holds every lane of these
-    tests; K1, counting its solves; K1's options kernel and K2), host
-    builds made at once (the static lane grid of each build is its own:
-    -fno-gnu-unique)"""
+    tests; K1, counting its solves; K1's options kernel and K2 in each
+    mode), host builds made at once (the static lane grid of each build is
+    its own: -fno-gnu-unique)"""
     if shutil.which("g++") is None:
         pytest.skip("needs g++")
     d = tmp_path_factory.mktemp("host_kernels")
@@ -316,7 +318,7 @@ def test_k1_at_32_candidates_matches_plain_solving_each_once(libs, nsi,
     k1_lib.emu_count_into(ctypes.c_void_p(counts.data_ptr()))
     assert k1_lib.i2lqr_step_launch(
         DTYPE_CODES[dt], 6, 32, nsi, k1._consts, 16, b, MAX_STEPS, MAX_LAPS,
-        *map(_ptr, (*a, *out)), None) == 0
+        *map(_ptr, (*a, *out)), None, b) == 0
     k1_lib.emu_count_into(None)
     cands = []
     want = i2lqr_step_reference(p, lim, 1.0, *a, max_iter=16, cands=cands)
@@ -365,7 +367,7 @@ def test_k1_options_match_plain(libs, nsi, lap_count, opts, b):
     assert libs[3].i2lqr_step_opts_launch(
         DTYPE_CODES[dt], 6, 8, nsi, opts, k1._consts, 8, b, MAX_STEPS,
         MAX_LAPS, *map(_ptr, (*a, *out[:4])), *map(_ptr, out[4][:3]),
-        counter.data_ptr(), None) == 0
+        counter.data_ptr(), None, b) == 0
     want = i2lqr_step_reference(p, lim, 1.0, *a, max_iter=8,
                                 dedup=bool(opts & 2),
                                 qsort_skip=bool(opts & 4), with_stats=True)
@@ -386,7 +388,7 @@ def test_k1_options_match_plain(libs, nsi, lap_count, opts, b):
                           ((b,), torch.int32), ((b,), torch.int32)], dt)
         assert libs[2].i2lqr_step_launch(
             DTYPE_CODES[dt], 6, 8, nsi, k1._consts, 8, b, MAX_STEPS,
-            MAX_LAPS, *map(_ptr, (*a, *tile)), None) == 0
+            MAX_LAPS, *map(_ptr, (*a, *tile)), None, b) == 0
         _equal(tile, out[:4])
 
 
@@ -421,7 +423,7 @@ def test_k2_counts_match_plain(libs, mode, nsi, lap_count, qsort):
                 _ptr(a[11]) if tv else None, _ptr(a[12]) if tv else None)
         launch = (libs[3].nlmpc_step_stats_launch if stats
                   else libs[3].nlmpc_step_launch)
-        assert launch(*head, *map(_ptr, out), None) == 0
+        assert launch(*head, *map(_ptr, out), None, b) == 0
         runs.append(out)
     _equal(runs[0][:6], runs[1])
     want = nlmpc_step_reference(p, lim, 1.0, *a[:11],
@@ -432,3 +434,146 @@ def test_k2_counts_match_plain(libs, mode, nsi, lap_count, qsort):
         assert torch.equal(runs[0][i], want[i])
     assert torch.equal(runs[0][6], want[6])
     assert torch.equal(runs[0][7], want[7])
+
+
+@pytest.mark.parametrize("nsi,lap_count,dedup,lanes", [
+    (4, 4, 0, K1_LANES), (4, 2, 2, K1_LANES), (2, 4, 2, 30),
+    (2, 1, 0, 29)])
+def test_k1_at_32_counts_match_plain(libs, nsi, lap_count, dedup, lanes):
+    """The counting instantiation of K1 at k = 32 (f64, 33 lanes, of them
+    the first ``lanes``; dedup 2 counts as the plain step with dedup):
+    its outputs those of the plain instantiation, iters_useful and
+    queue_floor (over its upass) the plain step's integer for integer,
+    iters_executed the host replay of its schedule
+    (``i2lqr_step.block_executed``); past the lanes, nothing written."""
+    k1_lib, b, dt = libs[2], K1_LANES, torch.float64
+    p = IlqrParams.make(num_ss_points=32, num_ss_iter=nsi, device="cpu")
+    lim = SystemLimits.make(device="cpu")
+    k1 = build_fused_i2lqr_step(p, lim, 1.0, num_horizon=6,
+                                max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+                                max_iter=16, dedup=bool(dedup),
+                                with_stats=True)
+    a = k1_block_lanes(nsi, lap_count, "cpu", b=b)
+    shapes = [((6, 2, b), None), ((b,), None), ((b,), torch.int32),
+              ((b,), torch.int32)]
+    plain_out, out = _nan_outs(shapes, dt), _nan_outs(shapes, dt)
+    stats = torch.full((5, b), -7, dtype=torch.int32)
+    assert k1_lib.i2lqr_step_launch(
+        DTYPE_CODES[dt], 6, 32, nsi, k1._consts, 16, b, MAX_STEPS, MAX_LAPS,
+        *map(_ptr, (*a, *plain_out)), None, lanes) == 0
+    assert k1_lib.i2lqr_step_block_stats_launch(
+        DTYPE_CODES[dt], 6, nsi, dedup, k1._consts, 16, b, MAX_STEPS,
+        MAX_LAPS, *map(_ptr, (*a, *out)), *map(_ptr, stats[:3]), None,
+        lanes) == 0
+    for g, w in zip(out, plain_out):
+        assert torch.equal(g.nan_to_num(-7), w.nan_to_num(-7))
+        assert bool((g[..., lanes:].nan_to_num(-7) == -7).all())
+    want = k1(*a, lanes=lanes)  # the plain step on the first lanes
+    for g, w in zip(out[1:], want[1:4]):
+        assert torch.equal(g[..., :lanes], w[..., :lanes])
+    got = stats[:, :lanes]
+    assert torch.equal(got[0], want[4][:lanes])
+    assert torch.equal(got[1], want[5][:lanes])
+    assert torch.equal(queue_floor(got[2:], 32), want[6][:lanes])
+    assert bool((stats[:, lanes:] == -7).all())
+    live = a[8][:lanes] < 0.5
+    assert int(got[1][~live].abs().sum()) > 0  # a skipped lane's warp solves
+    assert int(got[0].sum()) > 0 and int(got[1].sum()) > 0
+
+
+PREFIX = 21  # lanes of a prefix launch: not a multiple of a tile or warp
+
+
+def _skip_past(a, at, lanes):
+    """The inputs ``a`` with the lanes past ``lanes`` skipped (the skip
+    mask at position ``at``): a tail step's, whose lanes past the prefix
+    are done."""
+    a = list(a)
+    a[at] = a[at].clone()
+    a[at][lanes:] = 1.0
+    return a
+
+
+def _k1_prefix(libs, kernel, lanes):
+    """K1 at k = 8 on headlines.k1_option_lanes (f64, OPT_LANES lanes,
+    those past PREFIX skipped): the tile kernel (i2lqr_step.cu), the
+    options tile (with_stats and dedup) or the lane queue (with_stats,
+    dedup and qsort_skip), launched over the first ``lanes``."""
+    b, dt = OPT_LANES, torch.float64
+    p = IlqrParams.make(device="cpu", dtype=dt)
+    lim = SystemLimits.make(device="cpu", dtype=dt)
+    k1 = build_fused_i2lqr_step(p, lim, 1.0, num_horizon=6,
+                                max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+                                max_iter=8)
+    a = _skip_past(k1_option_lanes(1, 3, "cpu", b=b, dtype=dt), 8, PREFIX)
+    out = _nan_outs([((6, 2, b), None), ((b,), None), ((b,), torch.int32),
+                     ((b,), torch.int32), ((5, b), torch.int32)], dt)
+    head = (DTYPE_CODES[dt], 6, 8, 1)
+    tail = (k1._consts, 8, b, MAX_STEPS, MAX_LAPS,
+            *map(_ptr, (*a, *out[:4])))
+    if kernel == "tile":
+        rc = libs[2].i2lqr_step_launch(*head, *tail, None, lanes)
+    else:
+        counter = torch.empty(1, dtype=torch.int32)
+        rc = libs[3].i2lqr_step_opts_launch(
+            *head, 3 if kernel == "opts" else 7, *tail,
+            *map(_ptr, out[4][:3]), counter.data_ptr(), None, lanes)
+    assert rc == 0
+    return out
+
+
+def _k2_prefix(libs, kernel, lanes):
+    """K2 on headlines.k2_option_lanes (f64, OPT_LANES lanes, nsi 1, two
+    stored laps): spaceVarying, timeVarying with qsort_skip, its with_stats
+    instantiation, and mode all (all_rev_skip), over the first ``lanes``."""
+    b, dt = OPT_LANES, torch.float64
+    tv = int(kernel in ("time", "stats"))
+    p = LmpcParams.make(ss_option="timeVarying" if tv else "spaceVarying",
+                        all_ss_point=kernel == "all", device="cpu", dtype=dt)
+    lim = SystemLimits.make(device="cpu", dtype=torch.float64)
+    a = _skip_past(k2_option_lanes(1, 2, "cpu", b=b, dtype=dt), 9, PREFIX)
+    k2 = build_fused_nlmpc_step(p, lim, 1.0, num_horizon=6,
+                                max_steps=a[3].shape[1],
+                                max_laps=a[3].shape[0], max_iters=12)
+    shapes = [((6, 2, b), None), ((b,), None), ((4, b), None),
+              ((b,), torch.int32), ((b,), torch.int32), ((b,), None)]
+    if kernel == "all":
+        out = _nan_outs(shapes, dt)
+        x, _, uw, st, qf, ll, ids, ok, obs, skip, hzn = a[:11]
+        assert libs[3].nlmpc_step_all_launch(
+            DTYPE_CODES[dt], 6, 1, 1, k2._consts, 12, b, a[3].shape[1],
+            *map(_ptr, (x, uw, st, qf, ll, ids, ok, obs, skip, hzn)), None,
+            *map(_ptr, out), None, lanes) == 0
+        return out
+    out = _nan_outs(shapes + ([((b,), torch.int32)] * 2
+                              if kernel == "stats" else []), dt)
+    head = (DTYPE_CODES[dt], 6, 8, 1, tv, tv, k2._consts, 12, b,
+            a[3].shape[1], *map(_ptr, a[:11]), _ptr(a[11]) if tv else None,
+            _ptr(a[12]) if tv else None)
+    launch = (libs[3].nlmpc_step_stats_launch if kernel == "stats"
+              else libs[3].nlmpc_step_launch)
+    assert launch(*head, *map(_ptr, out), None, lanes) == 0
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["k1_tile", "k1_opts", "k1_queue",
+                                    "k2_space", "k2_time", "k2_stats",
+                                    "k2_all"])
+def test_prefix_launch_is_the_full_launch_s_first_lanes(libs, kernel):
+    """Every K1 and K2 build launched over the first PREFIX lanes of
+    full-width arrays (no copy), the lanes past them skipped as in a tail
+    step, writes those lanes as a launch over every lane does, bit for
+    bit, the warps' counts included, and nothing past them (the wrappers
+    give those lanes zeros, as a skipped lane's)."""
+    name, which = kernel.split("_")
+    run = _k1_prefix if name == "k1" else _k2_prefix
+    full, part = run(libs, which, OPT_LANES), run(libs, which, PREFIX)
+    for f, g in zip(full, part):
+        head = (slice(None),) * (f.dim() - 1) + (slice(0, PREFIX),)
+        rest = (slice(None),) * (f.dim() - 1) + (slice(PREFIX, None),)
+        if kernel == "k1_queue" and f.dim() == 2 and f.shape[0] == 5:
+            # the lane queue's executed: its warps' lanes come from a
+            # counter, so only the lanes' own counts hold
+            f, g = f[[0, 2, 3, 4]], g[[0, 2, 3, 4]]
+        assert torch.equal(f[head].nan_to_num(-7), g[head].nan_to_num(-7))
+        assert bool((g[rest].nan_to_num(-7) == -7).all())

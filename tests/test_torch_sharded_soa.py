@@ -119,6 +119,29 @@ def test_sharded_run_carries_iter_stats(runs, index):
     assert bool((floor > 0).all())
 
 
+@pytest.mark.parametrize("index", [0, 1])
+@pytest.mark.parametrize("run", ["i2lqr", "nlmpc_generator"])
+def test_sharded_run_with_lane_permutations_is_the_unsharded_run(
+        runs, run, index):
+    """``retile_frac`` and ``tail_shrink`` through the ``_sharded``
+    wrappers: each rank permutes its own 8 lanes (the retile block and the
+    prefix its own) and routes its own columns' draws; the gathered run
+    equals the unsharded run without the options bit for bit, the noise
+    position included, and the rank's lanes were permuted (the NLMPC
+    rank's also compacted in some lap; the i2LQR lanes end their one lap
+    together)."""
+    got, want = runs
+    rank = index if run == "i2lqr" else 2 + index
+    g, log = got[rank][f"{run}_options"]
+    assert_same_run(g, want[run])
+    if run == "i2lqr":
+        assert g.final_key == want[run].final_key
+    else:
+        assert torch.equal(g.final_key, want[run].final_key)
+    assert sum(e["perms"] for e in log) > 0
+    assert run == "i2lqr" or any(e["compacted"] for e in log)
+
+
 def test_the_runs_exercise_what_they_check(runs):
     """In a lap before the last, the two ranks' lanes end at different
     steps (so the next lap's noise rows must be agreed), and the streaks
