@@ -24,8 +24,11 @@ Phases:
 
 1. device: the card's name and power limit;
 2. build: nvcc of the kernel sources (one process per source), and at
-   once of a counting build of them (K1 at k = 32 counts its solves), with
-   seconds, registers and spills, and the registers, local memory and
+   once of a counting build of them (K1 at k = 32 counts its solves) and
+   of K5's library of each (model, horizon) phases 11-12 launch (the
+   translation unit ops/fused_generic_ilqr.py writes for the model's
+   CUDA_STEP; one nvcc each), with seconds (K5's build's wall time
+   apart), registers and spills, and the registers, local memory and
    resident warps an SM of the loaded f32 K1, K2 all, K2 spaceVarying /
    timeVarying (with qsort_skip), K3, K4 (f32 and f64) and K5 (the double
    integrator and the bicycle at N = 6) as the CUDA runtime reports them;
@@ -45,9 +48,11 @@ Phases:
    every run prints a hash of its lap records (lap steps, done flags,
    final states, safe set), so two commits can be shown to run alike;
    6c. seed 1 with tail_shrink 4 096 and 1 024 in turns against the run
-   without (A B C C B A, the simulator's own K1), hashes equal, each
-   launch's lanes and ms logged: the launches over the prefix beside the
-   same steps' launches over B;
+   without (A B C C B A, the simulator's own K1), each arm's hash equal in
+   its two turns (tail_shrink alone gives the lane at position p of a
+   compacted lap draw p, as JAX's simulator does, so its run is its own),
+   each launch's lanes and ms logged: the launches over the prefix beside
+   the same steps' launches over B;
 7. K4 (NLMPC per-candidate solve) against the plain solve on 393 216 random
    candidate lanes (horizons 1-6, 1/16 skipped), f64 and f32, bit for bit,
    beside the share of lanes whose verdicts and solutions agree (the
@@ -80,6 +85,15 @@ Phases:
    absent obstacle) against its plain solve on those lanes, f64 (first
    32 768) and f32, with phase 3's agreement gates and the plain solve's
    trips;
+11b. K5 for two models a caller gives with three inputs (the damped-
+   Cholesky branch; generic_bench.k5_task's holonomic vehicle and 3-D
+   point mass), at N = 6 on 32 768 lanes, and the holonomic vehicle also
+   at N = 3, f64 and f32, each bit for bit against its plain version,
+   with kernel and plain ms, trips (warp_trips), the kernel's registers,
+   local memory and resident warps from the runtime and its bound (the
+   plain version's operations x the trips over 67 TFLOP/s, f64 over 34);
+   then the caller's path: each model's K5 from wrappers counted from 0,
+   five calls each on those lanes in f32;
 12. the generic headline: experiments/generic_bench.py ``--throughput``
    (the double integrator through K5, B = 32 768) and ``--kernel`` (K5 on
    the bicycle and the double integrator against K3, B = 131 072), whose
@@ -421,6 +435,12 @@ G_LANES = 32768  # generic_bench --throughput (bench.py:229)
 G_KERNEL_LANES = 131072  # generic_bench --kernel (generic_bench.py:164)
 G_F64_LANES = 32768  # lanes of the f64 plain solve in phase 11
 G_CAP = 150  # the generic benches' max_iter
+# K5's (model, horizon) of phases 11 (the --throughput and --kernel lanes,
+# the unicycle at N 8), 11b (the caller's 3-input models) and 12
+K5_BUILDS = (("double_integrator", 6), ("unicycle", 8), ("bicycle", 6),
+             ("holonomic", 6), ("point_mass", 6), ("holonomic", 3))
+# phase 11b's caller models with three inputs, by (name, horizon)
+K5_CALLER = (("holonomic", 6), ("point_mass", 6), ("holonomic", 3))
 PEAK_F32_OPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_F64_OPS = 34e12  # H100 SXM, f64 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -941,18 +961,19 @@ def check_prefix(tag, kernel, args, skip_at, prefixes=TAIL_PREFIXES,
     return out
 
 
-def option_turns(tag, run, solver, skip_at, arms, card):
+def option_turns(tag, run, solver, skip_at, arms, card, own=()):
     """The headline ``run(solver, **opts)`` for each arm of ``arms``
     ({name: simulator options}) in turns, A B ... B A, on seed 1: each
     run's seconds and lap-records hash (every arm's must be the first
-    arm's), its launches of ``solver`` through a LaunchLog (their ms
+    arm's, but an arm of ``own`` must repeat its own other turn's: a run
+    the options change), its launches of ``solver`` through a LaunchLog (their ms
     summed, the kernel's device time over the run; a tail_shrink
     arm's launches over the prefix beside the same steps' launches over B
     in the first arm's run: ``tail_launches``) and its permutations a lap
     with their ms (``perm_log``). Returns {name: figures}."""
     names = list(arms)
     out = {n: dict(s=[]) for n in names}
-    want = None
+    want = {}
     for n in names + names[::-1]:
         rec, perms = LaunchLog(solver, skip_at), []
         solver.launches = 0
@@ -960,8 +981,10 @@ def option_turns(tag, run, solver, skip_at, arms, card):
         res = run(rec, perm_log=perms, **arms[n])
         out[n]["s"].append(time.perf_counter() - t0)
         h = lap_records_hash(res)
-        want = want or h
-        require(h == want, f"{tag} {n}: lap records {h} differ from {want}")
+        key = n if n in own else names[0]
+        want.setdefault(key, h)
+        require(h == want[key], f"{tag} {n}: lap records {h} differ from "
+                                f"{want[key]}")
         require(solver.launches > 0, f"{tag} {n}: not launched")
         log = rec.launches()
         out[n].setdefault("launch_ms", []).append(
@@ -1750,8 +1773,8 @@ def main():
     from ilqr_iterative_tasks_torch.control.batched_soa import (
         SoaScenarios, simulate_learning_runs_soa)
     from ilqr_iterative_tasks_torch.experiments.generic_bench import (
-        bench_kernel, bench_throughput, candidates, card_line,
-        generic_kwargs, throughput_inputs, warp_trips)
+        K5_MODELS, bench_kernel, bench_throughput, candidates, card_line,
+        generic_kwargs, k5_task, throughput_inputs, warp_trips)
     from ilqr_iterative_tasks_torch.experiments.nlmpc_profile import (
         EventTimed)
     from ilqr_iterative_tasks_torch.models import (
@@ -1759,7 +1782,8 @@ def main():
     from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
     from ilqr_iterative_tasks_torch.ops import _build
     from ilqr_iterative_tasks_torch.ops.fused_generic_ilqr import (
-        MODEL_CODES, build_fused_generic_ilqr, fused_generic_ilqr_reference)
+        build_fused_generic_ilqr, fused_generic_ilqr_reference, k5_library,
+        k5_source)
     from ilqr_iterative_tasks_torch.ops.fused_ilqr import (
         build_fused_ilqr, fused_ilqr_reference, obstacle_to_lanes)
     from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
@@ -1788,18 +1812,26 @@ def main():
           f"{torch.version.cuda}", flush=True)
 
     # ---- 2. build ----
-    # with the counting build of K1 at k = 32 (phase 19), nvcc's at once
-    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+    # with the counting build of K1 at k = 32 (phase 19) and K5's library
+    # of each (model, horizon) of phases 11, 11b and 12, nvcc's at once
+    k5_builds = [(K5_MODELS[name], nh) for name, nh in K5_BUILDS]
+    with concurrent.futures.ThreadPoolExecutor(3) as ex:
         counting = ex.submit(_build.build, _build.CSRC_DIR, K1_COUNT)
+        generic = ex.submit(_build.build_generic,
+                            [k5_source(m, nh) for m, nh in k5_builds])
         path, build_s = _build.build()
         counting = _build.load(counting.result()[0])
+        generic = generic.result()
+    k5_build_s = max(sec for _, sec in generic)
     print(f"[2 build] {build_s:.1f} s nvcc {' '.join(_build.NVCC_FLAGS)} "
-          f"(and {' '.join(K1_COUNT)})", flush=True)
-    with open(path[:-3] + ".log") as f:
-        for line in f:
-            if ("registers" in line or "spill" in line
-                    or "Compiling entry" in line):
-                print("   ", line.strip())
+          f"(and {' '.join(K1_COUNT)}); K5's {len(generic)} libraries "
+          f"{K5_BUILDS} {k5_build_s:.1f} s wall, one nvcc each", flush=True)
+    for log in [path] + [p for p, _ in generic]:
+        with open(log[:-3] + ".log") as f:
+            for line in f:
+                if ("registers" in line or "spill" in line
+                        or "Compiling entry" in line):
+                    print("   ", line.strip())
     lib = _build.library()
     # the loaded f32 K1 (k 8 / nsi 1 and k 32 / nsi 4), K2 all, K2
     # spaceVarying / timeVarying (qsort_skip, nsi 1), K3, K4 (and its f64)
@@ -1821,10 +1853,10 @@ def main():
         k3=_build.attributes(lib, "fused_ilqr_attributes", 0, N),
         k4=_build.attributes(lib, "fused_lm_shooting_attributes", 0, N),
         k4_f64=_build.attributes(lib, "fused_lm_shooting_attributes", 1, N),
-        k5=_build.attributes(lib, "generic_ilqr_attributes", 0,
-                             MODEL_CODES["double_integrator"], N),
-        k5_bicycle=_build.attributes(lib, "generic_ilqr_attributes", 0,
-                                     MODEL_CODES["bicycle"], N))
+        k5=_build.attributes(k5_library(double_integrator, N),
+                             "k5_attributes", 0),
+        k5_bicycle=_build.attributes(k5_library(kinetic_bicycle, N),
+                                     "k5_attributes", 0))
     for key, occ in occupancy.items():
         print(f"[2 {key.removesuffix('_f64')} "
               f"{'f64' if key.endswith('_f64') else 'f32'}] "
@@ -2132,11 +2164,14 @@ def main():
         del res
 
     # ---- 6c. the i2LQR headline with tail_shrink at two prefixes, in
-    # turns against the run without (the simulator's own K1) ----
+    # turns against the run without (the simulator's own K1): tail_shrink
+    # alone does not route the noise draws (JAX's simulator does not), so
+    # from a lap's compaction on its run is its own, repeated by its
+    # other turn ----
+    tails = {f"tail_{p}": dict(tail_shrink=p) for p in TAIL_PREFIXES}
     tail6 = option_turns(
         "6c i2LQR headline", lambda solver, **o: headline(1, solver, **o),
-        k1_pair, 8, {"none": {}, **{f"tail_{p}": dict(tail_shrink=p)
-                                    for p in TAIL_PREFIXES}}, card)
+        k1_pair, 8, {"none": {}, **tails}, card, own=tuple(tails))
 
     # ---- 22. the i2LQR headline through K3, the per-candidate path ----
     k3p = build_fused_ilqr(params, limits, 1.0, num_horizon=N, max_iter=CAP)
@@ -3246,6 +3281,63 @@ def main():
         print(line, flush=True)
         del out, ref
 
+    # ---- 11b. K5 for a caller's models with three inputs ----
+    k5_m3 = {}
+    for name, nh in K5_CALLER:
+        model, kw, inputs = k5_task(name, nh, G_LANES, dev)
+        k5 = build_fused_generic_ilqr(model, **kw)
+        for dtype in (torch.float64, torch.float32):
+            a = tuple(t.to(dtype) for t in inputs)
+            tag = f"11b K5 {name} N{nh} {str(dtype)[6:]}"
+            out = k5(*a)
+            ref, plain_ms = timed_call(lambda: k5.plain(*a))
+            for t in out:
+                require(bool(torch.isfinite(t.double()).all()),
+                        f"{tag}: non-finite output")
+            require(all(torch.equal(g, w) for g, w in zip(out, ref)),
+                    f"{tag}: not bitwise equal to the plain version")
+            code = 0 if dtype == torch.float32 else 1
+            sample = lanes_of(a, torch.arange(SAMPLE_LANES), G_LANES)
+            row = dict(
+                max_abs_err=max_abs_err(out, ref),
+                ms=cuda_ms(lambda: k5(*a), 5), plain_ms=plain_ms,
+                mean_iters=float(out[3].double().mean()),
+                warp_trips=warp_trips(out[3], kw["max_iter"]),
+                **bound(solve_ops(
+                    lambda max_iter: fused_generic_ilqr_reference(
+                        model, *sample, **{**kw, "max_iter": max_iter}),
+                    "max_iter", SAMPLE_LANES, G_LANES,
+                    float(out[3].double().sum())), nbytes(a) + nbytes(out),
+                    PEAK_F32_OPS if code == 0 else PEAK_F64_OPS),
+                **_build.attributes(k5_library(model, nh), "k5_attributes",
+                                    code))
+            k5_m3[f"{name}_N{nh}_{str(dtype)[6:]}"] = row
+            err = torch.linalg.norm((out[1] - a[1]).double(), dim=0)
+            print(f"[{tag}] lanes {G_LANES}: bitwise equal to the plain "
+                  f"version; kernel {row['ms']:.3f} ms, plain "
+                  f"{plain_ms:.1f} ms per call; bound {row['bound_ms']:.4f} "
+                  f"ms by {row['bound_by']}; {row['registers']} registers, "
+                  f"{row['local_bytes']} B local, {row['warps_per_sm']} "
+                  f"warps / SM; mean n_iters {row['mean_iters']:.2f} (max "
+                  f"{int(out[3].max())}), max|x_N - x_term| "
+                  f"{float(err.max()):.3e}; trips "
+                  f"{json.dumps(row['warp_trips'])}", flush=True)
+            del out, ref
+    # the caller's path: each model's K5 through a wrapper counted from 0,
+    # five f32 calls on those lanes
+    k5_m3_launches = 0
+    for name, nh in K5_CALLER:
+        model, kw, inputs = k5_task(name, nh, G_LANES, dev)
+        k5 = build_fused_generic_ilqr(model, **kw)
+        a = tuple(t.to(torch.float32) for t in inputs)
+        for _ in range(5):
+            k5(*a)
+        torch.cuda.synchronize()
+        require(k5.launches == 5, f"11b K5 {name} N{nh}: {k5.launches} "
+                                  f"launches, not 5")
+        k5_m3_launches += k5.launches
+    print(f"[11b K5 m = 3 path] {k5_m3_launches} launches", flush=True)
+
     # ---- 12. the generic headline through K5 ----
     # each bench builds its own wrappers: their counts start at 0
     thr = bench_throughput(G_LANES, G_CAP, device=dev)
@@ -3372,10 +3464,17 @@ def main():
              host_path=host_k4, scenarios=scen_k4, latency_bench=bench_k4,
              meshed_controller=meshed_k4),
         dict(name="generic_ilqr (K5)", route="cuda",
-             source=csrc + "generic_ilqr.cu",
+             source=csrc + "generic_ilqr.cuh",
              replaces=tpu + "pallas_generic_ilqr.py:64",
              launches=k5_launches, **k5_stats, **occupancy["k5"],
-             bicycle=occupancy["k5_bicycle"]),
+             bicycle=occupancy["k5_bicycle"], build_s=k5_build_s),
+        # K5 at m = 3 (phase 11b): the holonomic vehicle's f32 figures at
+        # N = 6, every caller run's beside them
+        dict(name="generic_ilqr (K5, m = 3)", route="cuda",
+             source=csrc + "generic_ilqr.cuh",
+             replaces=tpu + "pallas_generic_ilqr.py:64",
+             launches=k5_m3_launches, **k5_m3["holonomic_N6_float32"],
+             runs=k5_m3),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -350,7 +350,9 @@ class LaneOrder:
         return out
 
     def route(self, z):
-        """Noise drawn in the original lane order, each lane's own."""
+        """Noise drawn in the original lane order, each lane's own (the
+        i2LQR simulator routes only under ``retile_frac``, the NLMPC one
+        under either option, as JAX's do)."""
         return z[:, self.orig_id]
 
     def to_original(self, a):
@@ -455,7 +457,7 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
     a parking orbit. The count and the last Qfun restart at each lap.
 
     ``retile_frac=f`` and ``tail_shrink=P`` (default None: no permutation
-    and the same ops) change the schedule only, as in the JAX simulator
+    and the same ops) change the schedule, as in the JAX simulator
     (batched_soa.py:284-299): whenever the solver-skip lanes (done or
     replaying) have grown by round(f * B) since the last permutation, and
     once a lap when the not-done lanes first fit the first P lanes, every
@@ -464,11 +466,16 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
     permuted, active lanes first (under ``tail_shrink`` active, then
     replaying, then done); from the compaction on a step kernel runs the
     first P lanes only (``lanes=P``; the per-candidate path's launches do
-    not change) and the records are written there. Noise is drawn in the
-    original lane order and routed to each lane's position, and every
-    output comes back in the original order, so the run equals the run
-    without the options bit for bit (``iter_stats``' executed and floor
-    counts excepted: they count the warps the lanes share). The port's
+    not change) and the records are written there. Every output comes
+    back in the original lane order. Noise is drawn in the original lane
+    order; with ``retile_frac`` it is routed to each lane's position, so
+    the run equals the run without the options bit for bit
+    (``iter_stats``' executed and floor counts excepted: they count the
+    warps the lanes share). With ``tail_shrink`` alone it is not routed,
+    as JAX's i2LQR simulator does not route it (batched_soa.py:838-843):
+    once a lap compacts, the lane at position p takes draw p, and from
+    there the run is JAX's, not the run without the option (on draws equal
+    across the lanes it is that run too). The port's
     kernels run any lane count, so P need be no tile multiple; it must be
     below B, and does not combine with ``stall_reseed``. ``perm_log``
     receives ``LaneOrder``'s record of the permutations a lap.
@@ -631,7 +638,9 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
                 in_replay | shrink, horizon_left - 1, horizon_left)
             replay_next = torch.where(in_replay, replay_pos + 1, replay_pos)
             z = draw_noise(noise, generator, sim_step, b, dtype, dev)
-            if order is not None:
+            if retile_frac is not None:
+                # as JAX routes them (batched_soa.py:838-843): under
+                # tail_shrink alone the lane at position p takes draw p
                 z = order.route(z)
             sim_step += 1
             x_next, obstacle, reach = plant_step(x, u, dt, z, noise_on, done,

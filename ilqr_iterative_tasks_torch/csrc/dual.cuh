@@ -1,4 +1,4 @@
-// Forward-mode dual numbers for the K5 kernel (generic_ilqr.cu): a model's
+// Forward-mode dual numbers for the K5 kernel (generic_ilqr.cuh): a model's
 // step, written once as a template over its scalar type, gives a Jacobian
 // column when it runs on Dual<T> with a one-hot tangent. The step takes
 // the sin and cos of its angle's value from its caller.

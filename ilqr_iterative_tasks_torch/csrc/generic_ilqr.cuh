@@ -1,4 +1,5 @@
-// K5: one generic-system LM-iLQR solve per lane.
+// K5: one generic-system LM-iLQR solve per lane, for the model the caller
+// gives.
 //
 // Replaces ilqr_iterative_tasks_tpu/ops/pallas_generic_ilqr.py::
 // build_generic_ilqr_pallas (kernel :64, pallas_call :119), whose body is
@@ -11,22 +12,44 @@
 // lane runs its own trips, which gives every lane the same result because
 // done lanes freeze in the lockstep loop.
 //
-// Dynamics: a model is a struct with NX, NU, the state whose sin and cos
-// its step takes (ANGLE, -1 for none) and a step templated over its scalar
-// type that takes them (Model::step below). Jacobian columns come from
-// running the step on forward-mode dual numbers (dual.cuh) with a one-hot
-// tangent, one pass per state or input component, as the plain version's
-// one-hot torch.func.jvp columns do; the sin and cos of the stage's angle
-// are those of the rollout's step from the same state, so the dual passes
-// evaluate none. A new model is one templated step and a line in the
-// launcher's table.
+// Dynamics: the TPU factory compiles whatever step the caller passes, and
+// so does this header. A model is a struct with NX, NU, the state whose
+// sin and cos its step takes (ANGLE, -1 for none) and a step templated
+// over its scalar type that takes them:
+//
+//   struct Unicycle {
+//     static constexpr int NX = 3, NU = 2, ANGLE = 2;
+//     template <typename S, typename T>
+//     ILQR_HD static void step(const S* x, const S* u, T dt, T sn, T cs,
+//                              S* y) {
+//       y[0] = x[0] + u[0] * mcos(x[2], sn, cs) * dt;
+//       y[1] = x[1] + u[0] * msin(x[2], sn, cs) * dt;
+//       y[2] = x[2] + u[1] * dt;
+//     }
+//   };
+//
+// ops/fused_generic_ilqr.py writes one translation unit a (model, N): this
+// header, the model's struct (its CUDA_STEP) and ILQR_K5_EXPORT(Model, N),
+// the C launcher and attributes function of the f32 and f64 kernels, built
+// by nvcc into a library of its own. A step is +, - and * of its states,
+// inputs and constants (dual.cuh defines no other operation) and
+// msin / mcos of x[ANGLE], which return the sin and cos of x[ANGLE]
+// whatever their argument. Jacobian columns come from running
+// the step on forward-mode dual numbers (dual.cuh) with a one-hot tangent,
+// one pass per state or input component, as the plain version's one-hot
+// torch.func.jvp columns do; the sin and cos of the stage's angle are
+// those of the rollout's step from the same state, so the dual passes
+// evaluate none (and a step can take no other transcendental of its
+// state).
 //
 // Arithmetic follows the plain torch version (ops/generic_ilqr_soa.py)
 // operation by operation, in its order, with constants folded in double on
 // the host where the torch code folds Python floats. Zero weights of Q, R
 // and Qterminal are skipped by branches uniform across the card (the
-// plain version skips them in Python). Built with -fmad=false and without
-// fast math, the float kernel rounds as the torch ops do.
+// plain version skips them in Python). Quu is inverted in closed form for
+// m <= 2 and by a damped Cholesky factor for m > 2, as the plain version
+// does. Built with -fmad=false and without fast math (IEEE sqrt and
+// division), the float kernel rounds as the torch ops do.
 //
 // One thread a lane, blocks of 128. Lanes are refilled as they finish: the
 // grid holds as many blocks as the card keeps resident (launch_lanes,
@@ -38,49 +61,17 @@
 // (n+m)*N dual step passes, the N-step Riccati recursion and two rollouts)
 // times the trips of each warp's slowest lane, summed over the lanes a warp
 // takes; a lane reads (2n + N*m) values and writes (N*m + n + 2), so
-// memory traffic is negligible.
+// memory traffic is negligible. Its state lives in registers, N*m*(n+1)
+// gains and N+1 states a lane; where they exceed the register file (n 6,
+// m 3) they spill to local memory.
+#pragma once
+
 #include <cuda_runtime.h>
 
 #include "dual.cuh"
 #include "tile.cuh"
 
 namespace ilqr {
-
-// ---- the models (models/*.py step_comps, same expressions and order);
-// sn, cs: the sin and cos of x[ANGLE]'s value ----
-
-struct DoubleIntegrator {
-  static constexpr int NX = 4, NU = 2, ANGLE = -1;
-  template <typename S, typename T>
-  ILQR_HD static void step(const S* x, const S* u, T dt, T, T, S* y) {
-    y[0] = x[0] + x[2] * dt + (T)0.5 * u[0] * dt * dt;
-    y[1] = x[1] + x[3] * dt + (T)0.5 * u[1] * dt * dt;
-    y[2] = x[2] + u[0] * dt;
-    y[3] = x[3] + u[1] * dt;
-  }
-};
-
-struct Unicycle {
-  static constexpr int NX = 3, NU = 2, ANGLE = 2;
-  template <typename S, typename T>
-  ILQR_HD static void step(const S* x, const S* u, T dt, T sn, T cs, S* y) {
-    y[0] = x[0] + u[0] * mcos(x[2], sn, cs) * dt;
-    y[1] = x[1] + u[0] * msin(x[2], sn, cs) * dt;
-    y[2] = x[2] + u[1] * dt;
-  }
-};
-
-struct Bicycle {  // ops/ilqr_soa.py::step_soa
-  static constexpr int NX = 4, NU = 2, ANGLE = 3;
-  template <typename S, typename T>
-  ILQR_HD static void step(const S* x, const S* u, T dt, T sn, T cs, S* y) {
-    const S arc = x[2] * dt + (T)0.5 * u[0] * dt * dt;
-    y[0] = x[0] + mcos(x[3], sn, cs) * arc;
-    y[1] = x[1] + msin(x[3], sn, cs) * arc;
-    y[2] = x[2] + u[0] * dt;
-    y[3] = x[3] + u[1] * dt;
-  }
-};
 
 // ---- solver constants, passed by value ----
 
@@ -166,10 +157,6 @@ ILQR_HD T lin_row(const T (&two_m)[D][D], const bool (&nz)[D][D], int row,
 template <typename T, class Model, int N>
 struct GenericSolve {
   static constexpr int NX = Model::NX, NU = Model::NU;
-  static_assert(NU <= 2,
-                "K5 has the closed-form spectral clamp of Quu for m <= 2 "
-                "only; the damped-Cholesky branch for m > 2 is in the plain "
-                "version (ops/generic_ilqr_soa.py)");
   const GConsts<T, NX, NU>& C;
   const T* x0;  // (NX)
   const T* xt;  // (NX)
@@ -246,36 +233,74 @@ struct GenericSolve {
     }
   }
 
-  // Regularized inverse of the symmetric Quu (upper triangle q):
-  // f(Quu), f(e) = 1/(max(e,0)+lamb), in closed form
+  // The regularized inverse of the symmetric Quu q, in the form apply_inv
+  // takes (the generic core's quu_solve). m <= 2: f(Quu), f(e) =
+  // 1/(max(e,0)+lamb), in closed form. m > 2: the scalar Cholesky factor L
+  // of Quu + lamb I, each pivot clamped at 1e-30 before its sqrt, L's
+  // entries below the diagonal and 1/L_cc on it.
   ILQR_HD void quu_inv(const T (&q)[NU][NU], T lamb, T (&inv)[NU][NU]) const {
-    if (NU == 1) {
+    if constexpr (NU == 1) {
       inv[0][0] = (T)1.0 / (fmax(q[0][0], (T)0.0) + lamb);
-      return;
+    } else if constexpr (NU == 2) {
+      const T q00 = q[0][0], q01 = q[0][1], q11 = q[1][1];
+      const T mean = (T)0.5 * (q00 + q11);
+      const T disc = sqrt(
+          fmax((T)0.25 * ((q00 - q11) * (q00 - q11)) + q01 * q01, (T)0.0));
+      const T e1 = mean + disc, e2 = mean - disc;
+      const T f1 = (T)1.0 / (fmax(e1, (T)0.0) + lamb);
+      const T f2 = (T)1.0 / (fmax(e2, (T)0.0) + lamb);
+      const T beta = disc > (T)1e-12 ? (f1 - f2) / (e1 - e2) : (T)0.0;
+      const T alpha = f1 - beta * e1;
+      inv[0][0] = alpha + beta * q00;
+      inv[0][1] = beta * q01;
+      inv[1][0] = beta * q01;
+      inv[1][1] = alpha + beta * q11;
+    } else {
+#pragma unroll
+      for (int c = 0; c < NU; ++c) {
+        T dv = q[c][c] + lamb;
+#pragma unroll
+        for (int t = 0; t < c; ++t) dv = dv - inv[c][t] * inv[c][t];
+        // torch.clamp_min keeps a NaN
+        const T ld = sqrt(dv != dv ? dv : fmax(dv, (T)1e-30));
+        inv[c][c] = (T)1.0 / ld;
+#pragma unroll
+        for (int r = c + 1; r < NU; ++r) {
+          T v = q[c][r];
+#pragma unroll
+          for (int t = 0; t < c; ++t) v = v - inv[r][t] * inv[c][t];
+          inv[r][c] = v * inv[c][c];
+        }
+      }
     }
-    const T q00 = q[0][0], q01 = q[0][NU - 1], q11 = q[NU - 1][NU - 1];
-    const T mean = (T)0.5 * (q00 + q11);
-    const T disc = sqrt(
-        fmax((T)0.25 * ((q00 - q11) * (q00 - q11)) + q01 * q01, (T)0.0));
-    const T e1 = mean + disc, e2 = mean - disc;
-    const T f1 = (T)1.0 / (fmax(e1, (T)0.0) + lamb);
-    const T f2 = (T)1.0 / (fmax(e2, (T)0.0) + lamb);
-    const T beta = disc > (T)1e-12 ? (f1 - f2) / (e1 - e2) : (T)0.0;
-    const T alpha = f1 - beta * e1;
-    inv[0][0] = alpha + beta * q00;
-    inv[0][NU - 1] = beta * q01;
-    inv[NU - 1][0] = beta * q01;
-    inv[NU - 1][NU - 1] = alpha + beta * q11;
   }
 
-  // inv @ rhs as the generic core's quu_solve writes it out
+  // Quu_reg^{-1} rhs as the generic core's quu_solve writes it out: m <= 2
+  // the product with quu_inv's matrix, m > 2 forward then back
+  // substitution through its factor
   ILQR_HD void apply_inv(const T (&inv)[NU][NU], const T* rhs,
                          T* out) const {
-    if (NU == 1) {
+    if constexpr (NU == 1) {
       out[0] = inv[0][0] * rhs[0];
+    } else if constexpr (NU == 2) {
+      out[0] = inv[0][0] * rhs[0] + inv[0][1] * rhs[1];
+      out[1] = inv[0][1] * rhs[0] + inv[1][1] * rhs[1];
     } else {
-      out[0] = inv[0][0] * rhs[0] + inv[0][1] * rhs[NU - 1];
-      out[NU - 1] = inv[0][1] * rhs[0] + inv[1][1] * rhs[NU - 1];
+      T y[NU];
+#pragma unroll
+      for (int r = 0; r < NU; ++r) {
+        T v = rhs[r];
+#pragma unroll
+        for (int t = 0; t < r; ++t) v = v - inv[r][t] * y[t];
+        y[r] = v * inv[r][r];
+      }
+#pragma unroll
+      for (int r = NU - 1; r >= 0; --r) {
+        T v = y[r];
+#pragma unroll
+        for (int t = r + 1; t < NU; ++t) v = v - inv[t][r] * out[t];
+        out[r] = v * inv[r][r];
+      }
     }
   }
 
@@ -578,47 +603,28 @@ int attributes_dtype(int dtype, int* out) {
 
 }  // namespace ilqr
 
-// (model code, model, horizon) of every instantiation: model 0 double
-// integrator, 1 unicycle, 2 bicycle (ops/fused_generic_ilqr.py MODEL_CODES)
-#define ILQR_GENERIC_CASES(CASE)  \
-  CASE(0, DoubleIntegrator, 6)    \
-  CASE(0, DoubleIntegrator, 10)   \
-  CASE(1, Unicycle, 6)            \
-  CASE(1, Unicycle, 8)            \
-  CASE(2, Bicycle, 6)
-
-// dtype: 0 float32, 1 float64; n: the horizon; counter: one int of device
-// memory the launch takes its lanes from (launch_lanes, tile.cuh). Returns
-// the cudaError_t of the launch, or -1 when no kernel is instantiated for
-// (dtype, model, n).
-extern "C" int generic_ilqr_launch(int dtype, int model, int n,
-                                   const double* consts, int max_iter, int B,
-                                   const void* x0, const void* xt,
-                                   const void* u_init, void* us, void* xl,
-                                   void* cost, void* iters, void* stream,
-                                   void* counter) {
-  using namespace ilqr;
-  if (B <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-#define ILQR_LAUNCH_CASE(CODE, MODEL, HORIZON)                              \
-  if (model == CODE && n == HORIZON)                                        \
-    return launch_dtype<MODEL, HORIZON>(dtype, consts, max_iter, B, x0, xt, \
-                                        u_init, us, xl, cost, iters,      \
-                                        counter, s);
-  ILQR_GENERIC_CASES(ILQR_LAUNCH_CASE)
-#undef ILQR_LAUNCH_CASE
-  return -1;
-}
-
-// The loaded kernel's resources for (dtype, model, n), as the runtime
-// reports them (kernel_attributes, tile.cuh); -1 when no kernel is
-// instantiated.
-extern "C" int generic_ilqr_attributes(int dtype, int model, int n,
-                                       int* out) {
-  using namespace ilqr;
-#define ILQR_ATTRIBUTES_CASE(CODE, MODEL, HORIZON) \
-  if (model == CODE && n == HORIZON) return attributes_dtype<MODEL, HORIZON>(dtype, out);
-  ILQR_GENERIC_CASES(ILQR_ATTRIBUTES_CASE)
-#undef ILQR_ATTRIBUTES_CASE
-  return -1;
-}
+// The C interface of K5 for MODEL (a struct of namespace ilqr) at horizon
+// HORIZON, one line of a generated translation unit
+// (ops/fused_generic_ilqr.py::k5_source):
+//   k5_launch(dtype, consts, max_iter, B, x0, x_term, u_init, us, x_last,
+//             cost, n_iters, stream, counter): dtype 0 float32, 1 float64;
+//     counter: one int of device memory the launch takes its lanes from
+//     (launch_lanes, tile.cuh). Returns the cudaError_t of the launch, or
+//     -1 for another dtype.
+//   k5_attributes(dtype, out): the loaded kernel's resources, as the
+//     runtime reports them (kernel_attributes, tile.cuh); -1 for another
+//     dtype.
+#define ILQR_K5_EXPORT(MODEL, HORIZON)                                      \
+  extern "C" int k5_launch(int dtype, const double* consts, int max_iter,   \
+                           int B, const void* x0, const void* xt,           \
+                           const void* u_init, void* us, void* xl,          \
+                           void* cost, void* iters, void* stream,           \
+                           void* counter) {                                 \
+    if (B <= 0) return 0;                                                   \
+    return ilqr::launch_dtype<ilqr::MODEL, HORIZON>(                        \
+        dtype, consts, max_iter, B, x0, xt, u_init, us, xl, cost, iters,    \
+        counter, (cudaStream_t)stream);                                     \
+  }                                                                         \
+  extern "C" int k5_attributes(int dtype, int* out) {                       \
+    return ilqr::attributes_dtype<ilqr::MODEL, HORIZON>(dtype, out);        \
+  }

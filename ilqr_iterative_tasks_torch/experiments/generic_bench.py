@@ -138,21 +138,77 @@ def generic_kwargs(params: IlqrParams, limits: SystemLimits, *, max_iter,
                 dt=1.0, max_iter=max_iter, num_horizon=6)
 
 
+class Holonomic:
+    """A caller's model with three inputs (K5's m > 2 branch): a planar
+    vehicle that drives, turns and slides sideways. x = (px, py, theta),
+    u = (v, omega, s)."""
+    X_DIM, U_DIM = 3, 3
+    CUDA_STEP = """
+struct Holonomic {
+  static constexpr int NX = 3, NU = 3, ANGLE = 2;
+  template <typename S, typename T>
+  ILQR_HD static void step(const S* x, const S* u, T dt, T sn, T cs, S* y) {
+    y[0] = x[0] + u[0] * mcos(x[2], sn, cs) * dt - u[2] * msin(x[2], sn, cs) * dt;
+    y[1] = x[1] + u[0] * msin(x[2], sn, cs) * dt + u[2] * mcos(x[2], sn, cs) * dt;
+    y[2] = x[2] + u[1] * dt;
+  }
+};
+"""
+
+    @staticmethod
+    def step_comps(x, u, dt):
+        px, py, th = x
+        v, w, s = u
+        return (px + v * torch.cos(th) * dt - s * torch.sin(th) * dt,
+                py + v * torch.sin(th) * dt + s * torch.cos(th) * dt,
+                th + w * dt)
+
+
+class PointMass:
+    """A caller's model with three inputs and no transcendental: a 3-D
+    point mass, x = (p, v), u = a; p' = p + v dt + a dt^2 / 2,
+    v' = v + a dt."""
+    X_DIM, U_DIM = 6, 3
+    CUDA_STEP = """
+struct PointMass {
+  static constexpr int NX = 6, NU = 3, ANGLE = -1;
+  template <typename S, typename T>
+  ILQR_HD static void step(const S* x, const S* u, T dt, T, T, S* y) {
+    for (int c = 0; c < 3; ++c) {
+      y[c] = x[c] + x[3 + c] * dt + (T)0.5 * u[c] * dt * dt;
+      y[3 + c] = x[3 + c] + u[c] * dt;
+    }
+  }
+};
+"""
+
+    @staticmethod
+    def step_comps(x, u, dt):
+        p, v = x[:3], x[3:]
+        return (tuple(p[c] + v[c] * dt + 0.5 * u[c] * dt * dt
+                      for c in range(3))
+                + tuple(v[c] + u[c] * dt for c in range(3)))
+
+
 K5_MODELS = {"double_integrator": double_integrator, "unicycle": unicycle,
-             "bicycle": kinetic_bicycle}
+             "bicycle": kinetic_bicycle, "holonomic": Holonomic,
+             "point_mass": PointMass}
 
 
 def k5_task(name: str, nh: int, b: int, device):
     """(model, K5 settings, f64 (x0, x_term, u_init)) of a small task for
-    each model at horizon ``nh``, ``b`` lanes drawn from
+    each model of ``K5_MODELS`` at horizon ``nh``, ``b`` lanes drawn from
     ``np.random.default_rng(nh)``: the reach tasks of the JAX package's
     tests/test_generic_ilqr.py with jittered targets (double integrator,
-    unicycle), and the bicycle with IlqrParams costs, cap 60."""
+    unicycle), the bicycle with IlqrParams costs, and two models a caller
+    gives with three inputs: the holonomic vehicle with
+    tests/test_torch_generic_ilqr_soa.py's 3-input costs and the point mass
+    with the double integrator's; cap 60."""
     rng = np.random.default_rng(nh)
     model = K5_MODELS[name]
     n, m = model.X_DIM, model.U_DIM
     x0, u0 = np.zeros((n, b)), np.zeros((nh, m, b))
-    if name == "double_integrator":
+    if name in ("double_integrator", "point_mass"):
         kw = dict(matrix_Q=np.zeros((n, n)), matrix_R=0.05 * np.eye(m),
                   matrix_Qterminal=20.0 * np.eye(n), u_lower=-2.0 * np.ones(m),
                   u_upper=2.0 * np.ones(m), dt=0.5)
@@ -163,6 +219,13 @@ def k5_task(name: str, nh: int, b: int, device):
                   u_lower=-1.5 * np.ones(m), u_upper=1.5 * np.ones(m), dt=0.5)
         xt = np.array([2.0, 1.0, 0.5])[:, None] + 0.5 * rng.normal(
             size=(n, b))
+        u0 = u0 + 0.1
+    elif name == "holonomic":
+        kw = dict(matrix_Q=0.1 * np.eye(n),
+                  matrix_R=0.05 * np.eye(m) + 0.01 * np.ones((m, m)),
+                  matrix_Qterminal=25.0 * np.eye(n),
+                  u_lower=-1.5 * np.ones(m), u_upper=1.5 * np.ones(m), dt=0.5)
+        xt = rng.uniform(-2, 2, (n, b))
         u0 = u0 + 0.1
     else:
         p, lim = IlqrParams.make(device="cpu"), SystemLimits.make(device="cpu")

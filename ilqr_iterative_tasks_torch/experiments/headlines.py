@@ -36,7 +36,7 @@ from ilqr_iterative_tasks_torch.control.batched_nlmpc_soa import (
 from ilqr_iterative_tasks_torch.control.batched_soa import (
     SoaScenarios, _step_solver_inputs, simulate_learning_runs_soa)
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
-from ilqr_iterative_tasks_torch.ops import _build
+from ilqr_iterative_tasks_torch.ops import _build, fused_generic_ilqr
 from ilqr_iterative_tasks_torch.ops.fused_ilqr import obstacle_to_lanes
 from ilqr_iterative_tasks_torch.sim.seed import seed_trajectory
 from ilqr_iterative_tasks_torch.utils.params import IlqrParams, SystemLimits
@@ -373,14 +373,18 @@ K1_COUNT = ("-DK1_COUNT_SOLVES",)
 
 
 @contextlib.contextmanager
-def launching(lib):
-    """The wrappers launch from ``lib`` inside the block."""
-    keep = _build.library
+def launching(lib, k5=None):
+    """The wrappers launch from ``lib`` inside the block, and K5 from
+    ``k5(model, horizon)``'s library where it is given
+    (ops/fused_generic_ilqr.py ``k5_library``)."""
+    keep, keep_k5 = _build.library, fused_generic_ilqr.k5_library
     _build.library = lambda: lib
+    if k5 is not None:
+        fused_generic_ilqr.k5_library = k5
     try:
         yield
     finally:
-        _build.library = keep
+        _build.library, fused_generic_ilqr.k5_library = keep, keep_k5
 
 
 def counted_solves(lib, fn) -> int:
@@ -516,9 +520,12 @@ class LaunchLog:
 
 def tail_launches(log, base_log) -> dict:
     """A ``tail_shrink`` run's launches over a prefix (LaunchLog.launches)
-    beside the same launches of the run without it (the same steps, over
-    B): their count, live lanes, and ms summed and a launch."""
-    pre = [i for i, (n, _, _) in enumerate(log) if n < base_log[i][0]]
+    beside the launches of the run without it at the same steps (over B;
+    where the option changes the run, as the i2LQR simulator's noise,
+    steps of the same index, as far as that run has them): their count,
+    live lanes, and ms summed and a launch."""
+    pre = [i for i, (n, _, _) in enumerate(log[:len(base_log)])
+           if n < base_log[i][0]]
     ms = sum(log[i][2] for i in pre)
     ms_b = sum(base_log[i][2] for i in pre)
     return dict(launches=len(log), prefix_launches=len(pre),

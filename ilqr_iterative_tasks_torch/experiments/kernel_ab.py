@@ -22,17 +22,21 @@ Edits given under one NAME make one copy. A variant of ``i2lqr_step.cu`` is
 timed as K1, one of ``nlmpc_step_all.cu`` as K2 `all`, one of
 ``nlmpc_step.cu`` as K2 spaceVarying and timeVarying, one of
 ``fused_ilqr.cu`` as K3, one of ``fused_lm_shooting.cu`` as K4, one of
-``generic_ilqr.cu`` or ``dual.cuh`` as K5, one of any other file as all of
+``generic_ilqr.cuh`` or ``dual.cuh`` as K5, one of any other file as all of
 them. Every library is built at once (one
 nvcc a source); the simulators and the plain steps are this checkout's, and
-only the library the wrappers launch from changes between turns.
+only the library the wrappers launch from changes between turns. K5 is a
+library a (model, horizon) where the checkout has csrc/generic_ilqr.cuh,
+built against that checkout's header with the rest, and the one library's
+table of five (model, horizon) in an earlier checkout (``TableK5``).
 
 K3 and K5 (all of it with ``--generic``, which leaves out K1, K2 and K4;
 left out by ``--k4``, which runs only K4's group): on the
 lanes of ``generic_bench.py --throughput`` (K5, the double integrator) and
 ``--kernel`` (K5 on the bicycle and the double integrator, K3 with an absent
-obstacle), and on the tasks of ``generic_bench.k5_task`` (every K5
-instantiation, f32 and f64, 1 000 lanes), every library's outputs must
+obstacle), and on the tasks of ``generic_bench.k5_task`` (the five (model,
+horizon) an earlier checkout's table holds, f32 and f64, 1 000 lanes),
+every library's outputs must
 equal this checkout's bit for bit; then each kernel's ms a call by CUDA
 events in turns, and the generic headline (``bench_throughput`` and
 ``bench_kernel``) through each library in turns. The trips the lanes take
@@ -109,8 +113,8 @@ import torch
 
 from ilqr_iterative_tasks_torch.control import batched_nlmpc_soa, batched_soa
 from ilqr_iterative_tasks_torch.experiments.generic_bench import (
-    bench_kernel, bench_throughput, candidates, card_line, generic_kwargs,
-    k5_task, throughput_inputs, warp_trips)
+    K5_MODELS, bench_kernel, bench_throughput, candidates, card_line,
+    generic_kwargs, k5_task, throughput_inputs, warp_trips)
 from ilqr_iterative_tasks_torch.experiments.headlines import (
     ALL_BATCH, BATCH, CAP, EVERY_CAPTURES, K1_COUNT, K2_ATTRS, K3_ATTRS,
     K4_ATTRS, LAPS, MAX_LAPS, MAX_STEPS, N, NL_CAP, NL_CAPTURES, SWEEP_BATCH,
@@ -120,11 +124,12 @@ from ilqr_iterative_tasks_torch.experiments.headlines import (
     tap_step, want_capture)
 from ilqr_iterative_tasks_torch.experiments.nlmpc_profile import EventTimed
 from ilqr_iterative_tasks_torch.experiments.scenario_sweep import run_sweep
-from ilqr_iterative_tasks_torch.models import double_integrator, kinetic_bicycle
+from ilqr_iterative_tasks_torch.models import (
+    double_integrator, kinetic_bicycle, unicycle)
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
 from ilqr_iterative_tasks_torch.ops import _build
 from ilqr_iterative_tasks_torch.ops.fused_generic_ilqr import (
-    MODEL_CODES, build_fused_generic_ilqr)
+    build_fused_generic_ilqr, k5_source)
 from ilqr_iterative_tasks_torch.ops.fused_ilqr import (
     build_fused_ilqr, obstacle_to_lanes)
 from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
@@ -140,7 +145,7 @@ from ilqr_iterative_tasks_torch.utils.params import (
 # the kernels a variant of each file is timed as (any other file: all)
 GROUPS = {"i2lqr_step.cu": ("k1",), "nlmpc_step_all.cu": ("all",),
           "nlmpc_step.cu": ("k2",), "fused_ilqr.cu": ("k3",),
-          "fused_lm_shooting.cu": ("k4",), "generic_ilqr.cu": ("k5",),
+          "fused_lm_shooting.cu": ("k4",), "generic_ilqr.cuh": ("k5",),
           "dual.cuh": ("k5",)}
 # the f32 kernels whose resources are reported, by their attributes entry
 # and its arguments and, in a build log, by their name's prefix (K2
@@ -159,16 +164,49 @@ RESOURCES = {
     "k3": ("fused_ilqr_attributes", (0, N), f"fused_ilqr_kernel<float,{N}"),
     "k4": ("fused_lm_shooting_attributes", (0, N),
            f"fused_lm_shooting_kernel<float,{N}"),
-    "k5_double_integrator": (
-        "generic_ilqr_attributes", (0, MODEL_CODES["double_integrator"], N),
-        f"generic_ilqr_kernel<float,DoubleIntegrator,{N}"),
-    "k5_bicycle": ("generic_ilqr_attributes", (0, MODEL_CODES["bicycle"], N),
-                   f"generic_ilqr_kernel<float,Bicycle,{N}"),
 }
-# the (model, horizon) K5 instantiations, as csrc/generic_ilqr.cu's table
+# the (model, horizon) of an earlier checkout's K5 table (its
+# generic_ilqr.cu), whose model codes these are; the K5 tasks timed
 K5_INSTANTIATIONS = (("bicycle", 6), ("double_integrator", 6),
                      ("double_integrator", 10), ("unicycle", 6),
                      ("unicycle", 8))
+TABLE_CODES = {double_integrator: 0, unicycle: 1, kinetic_bicycle: 2}
+# the f32 K5 kernels whose resources are reported
+K5_RESOURCES = {"k5_double_integrator": (double_integrator, N),
+                "k5_bicycle": (kinetic_bicycle, N)}
+
+
+class TableK5:
+    """An earlier checkout's K5 for one (model, horizon) of its table, with
+    a generated library's C interface."""
+
+    def __init__(self, lib, model, nh):
+        self.lib, self.code, self.nh = lib, TABLE_CODES[model], nh
+
+    def k5_launch(self, dtype, *rest):
+        return self.lib.generic_ilqr_launch(dtype, self.code, self.nh, *rest)
+
+    def k5_attributes(self, dtype, out):
+        return self.lib.generic_ilqr_attributes(dtype, self.code, self.nh,
+                                                out)
+
+
+def k5_sources():
+    """The K5 translation units the generic A/B launches."""
+    tasks = K5_INSTANTIATIONS + tuple(
+        (name, N) for name in ("double_integrator", "bicycle"))
+    return sorted({k5_source(K5_MODELS[name], nh) for name, nh in tasks})
+
+
+def k5_libraries(lib, csrc_dir):
+    """(model, horizon) -> the K5 library of a checkout: generated against
+    its csrc/generic_ilqr.cuh, else its one library's table."""
+    if os.path.exists(os.path.join(csrc_dir, "generic_ilqr.cuh")):
+        return lambda model, nh: _build.generic_library(
+            k5_source(model, nh), csrc_dir)
+    return lambda model, nh: TableK5(lib, model, nh)
+
+
 G_LANES, G_KERNEL_LANES, G_CAP = 32768, 131072, 150
 
 
@@ -215,10 +253,16 @@ def log_registers(log_path: str) -> dict:
     return out
 
 
-def resources(lib, path: str, built_here: bool) -> dict:
-    """The f32 resources of RESOURCES' kernels in one library (module
-    docstring)."""
+def resources(lib, path: str, built_here: bool, k5) -> dict:
+    """The f32 resources of RESOURCES' kernels in one library and of
+    K5_RESOURCES' in its K5 libraries ``k5`` (module docstring)."""
     out = {}
+    for key, (model, nh) in K5_RESOURCES.items():
+        try:
+            out[key] = dict(_build.attributes(k5(model, nh), "k5_attributes",
+                                              0), source="CUDA runtime")
+        except AttributeError:  # an earlier library without attributes
+            pass
     for key, (entry, sizes, prefix) in RESOURCES.items():
         if hasattr(lib, entry):
             try:
@@ -271,7 +315,7 @@ def sass_counts(funcs: dict, prefixes=(
     return out
 
 
-def generic_ab(dev, libs, names_k3, names_k5) -> dict:
+def generic_ab(dev, libs, k5libs, names_k3, names_k5) -> dict:
     """K3 and K5 of each library on the generic benches' lanes and on
     ``k5_task``'s tasks, then the generic headline, in turns (module
     docstring)."""
@@ -305,16 +349,16 @@ def generic_ab(dev, libs, names_k3, names_k5) -> dict:
     out = {"calls": {}, "trips": {}}
     for tag, kind, reps, kern, a in cases:
         names = names_k3 if kind == "k3" else names_k5
-        with launching(libs["this"]):
+        with launching(libs["this"], k5libs["this"]):
             ref = kern(*a)
         for name in names:
-            with launching(libs[name]):
+            with launching(libs[name], k5libs[name]):
                 got = kern(*a)
             require(all(torch.equal(g, w) for g, w in zip(got, ref)),
                     f"{tag}: {name} differs from this checkout's kernel")
         ms = {name: [] for name in names}
         for name in names + names[::-1]:
-            with launching(libs[name]):
+            with launching(libs[name], k5libs[name]):
                 ms[name].append(cuda_ms(lambda: kern(*a), reps))
         out["calls"][tag] = ms
         if kind == "k5" and "task" not in tag:
@@ -335,7 +379,7 @@ def generic_ab(dev, libs, names_k3, names_k5) -> dict:
     # the generic headline in turns
     heads = {name: [] for name in names_k5}
     for name in names_k5 + names_k5[::-1]:
-        with launching(libs[name]):
+        with launching(libs[name], k5libs[name]):
             thr = bench_throughput(G_LANES, G_CAP, device=dev)
             ker = bench_kernel(G_KERNEL_LANES, G_CAP, device=dev)
         keys = ("double_integrator_k5_solves_per_s",
@@ -725,21 +769,35 @@ def main():
     # host's cores busy without holding every compiler's memory at once
     with concurrent.futures.ThreadPoolExecutor(min(len(dirs), 4)) as ex:
         futures = {n: ex.submit(_build.build, d) for n, d in dirs.items()}
+        generated = {n: ex.submit(_build.build_generic, k5_sources(), d)
+                     for n, d in dirs.items()
+                     if os.path.exists(os.path.join(d, "generic_ilqr.cuh"))}
         if args.k32:  # this checkout's counting build
             counting = ex.submit(_build.build, _build.CSRC_DIR, K1_COUNT)
         built = {name: f.result() for name, f in futures.items()}
+        generated = {name: [p for p, _ in f.result()]
+                     for name, f in generated.items()}
         if args.k32:
             counting = _build.load(counting.result()[0])
     build_s = time.perf_counter() - t0
     libs = {name: _build.load(path) for name, (path, _) in built.items()}
+    k5libs = {name: k5_libraries(libs[name], dirs[name]) for name in libs}
     report = dict(card=card, build_s=build_s, resources={
-        name: resources(libs[name], path, sec > 0)
+        name: resources(libs[name], path, sec > 0, k5libs[name])
         for name, (path, sec) in built.items()})
     print(f"[kernel_ab] {card}; build {build_s:.1f} s", flush=True)
     for name, res in report["resources"].items():
         print(f"[resources {name}] {json.dumps(res)}", flush=True)
-    # the kernels both checkouts build under one name: same SASS?
-    this_sass, other_sass = sass(built["this"][0]), sass(built["other"][0])
+    # the kernels both checkouts build under one name: same SASS? (K5's
+    # from its generated libraries where the checkout has them)
+    def sass_all(name):
+        out = sass(built[name][0])
+        if out is not None:
+            for path in generated.get(name, ()):
+                out.update(sass(path))
+        return out
+
+    this_sass, other_sass = sass_all("this"), sass_all("other")
     if this_sass is not None:
         report["same_sass"] = {k: this_sass[k] == other_sass[k]
                                for k in sorted(other_sass) if k in this_sass}
@@ -747,7 +805,7 @@ def main():
               f"{json.dumps(report['same_sass'])}", flush=True)
         report["sass_counts"] = {
             name: sass_counts({"this": this_sass, "other": other_sass}.get(
-                name) or sass(path)) for name, (path, _) in built.items()}
+                name) or sass_all(name)) for name in built}
         for name, counts in report["sass_counts"].items():
             print(f"[SASS instructions, local loads, local stores {name}] "
                   f"{json.dumps(counts)}", flush=True)
@@ -755,7 +813,8 @@ def main():
     if args.k32:
         report["k32"] = k32_ab(dev, libs, names["k1"], counting)
     if not (args.k4 or args.k32):
-        report["generic"] = generic_ab(dev, libs, names["k3"], names["k5"])
+        report["generic"] = generic_ab(dev, libs, k5libs, names["k3"],
+                                       names["k5"])
     if not (args.generic or args.k4 or args.k32):
         report.update(k1_k2_ab(dev, libs, names))
     if not (args.generic or args.k32):

@@ -12,8 +12,8 @@ last, as in the JAX module). The solvers evaluate the Jacobians at the
 SUCCESSOR state's (v, theta) with the current input's accel (reference
 quirk); these functions are evaluation-point agnostic. ``step_comps`` takes
 tuples of per-component tensors (ops/ilqr_soa.py's ``step_soa``), the form
-of the generic SoA solver and of the K5 kernel, whose CUDA instantiation of
-this model is ``CUDA_MODEL``.
+of the generic SoA solver; ``CUDA_STEP`` is the same step as the K5 kernel
+takes it (csrc/generic_ilqr.cuh; sn, cs the sin and cos of theta).
 """
 
 from __future__ import annotations
@@ -22,7 +22,19 @@ import torch
 
 X_DIM = 4
 U_DIM = 2
-CUDA_MODEL = "bicycle"  # csrc/generic_ilqr.cu Bicycle
+CUDA_STEP = """
+struct Bicycle {
+  static constexpr int NX = 4, NU = 2, ANGLE = 3;
+  template <typename S, typename T>
+  ILQR_HD static void step(const S* x, const S* u, T dt, T sn, T cs, S* y) {
+    const S arc = x[2] * dt + (T)0.5 * u[0] * dt * dt;
+    y[0] = x[0] + mcos(x[3], sn, cs) * arc;
+    y[1] = x[1] + msin(x[3], sn, cs) * arc;
+    y[2] = x[2] + u[0] * dt;
+    y[3] = x[3] + u[1] * dt;
+  }
+};
+"""
 
 
 def step_comps(x, u, dt):

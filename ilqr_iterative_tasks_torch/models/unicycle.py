@@ -4,8 +4,8 @@ the generic solvers.
 Port of ilqr_iterative_tasks_tpu/models/unicycle.py. State
 x = [px, py, theta]; input u = [v, omega]. ``step`` takes state-last
 tensors (..., 3); ``step_comps`` takes tuples of per-component tensors, the
-form of the generic SoA solver and of the K5 kernel, whose CUDA
-instantiation of this model is ``CUDA_MODEL``.
+form of the generic SoA solver; ``CUDA_STEP`` is the same step as the K5
+kernel takes it (csrc/generic_ilqr.cuh; sn, cs the sin and cos of theta).
 """
 
 from __future__ import annotations
@@ -14,7 +14,17 @@ import torch
 
 X_DIM = 3
 U_DIM = 2
-CUDA_MODEL = "unicycle"  # csrc/generic_ilqr.cu Unicycle
+CUDA_STEP = """
+struct Unicycle {
+  static constexpr int NX = 3, NU = 2, ANGLE = 2;
+  template <typename S, typename T>
+  ILQR_HD static void step(const S* x, const S* u, T dt, T sn, T cs, S* y) {
+    y[0] = x[0] + u[0] * mcos(x[2], sn, cs) * dt;
+    y[1] = x[1] + u[0] * msin(x[2], sn, cs) * dt;
+    y[2] = x[2] + u[1] * dt;
+  }
+};
+"""
 
 
 def step(x: torch.Tensor, u: torch.Tensor, dt) -> torch.Tensor:

@@ -1,11 +1,15 @@
-"""Build the CUDA kernels of csrc/ into one shared library, on first use.
+"""Build the CUDA kernels of csrc/ into shared libraries, on first use.
 
 Each ``.cu`` source is compiled by its own nvcc process, all started
 together, and the objects are linked into one shared library with a plain C
-interface, loaded with ctypes. The library's file name carries a hash of
-every source (headers included) and the flags, so an edited source builds
-anew and an unchanged one is reused. Output goes to ``build/torch_kernels/`` beside the package (git
-ignores ``build/``). Nothing is built at import time.
+interface, loaded with ctypes. K5 (csrc/generic_ilqr.cuh) is built for the
+caller's model instead: each (model, horizon) is a generated translation
+unit (ops/fused_generic_ilqr.py::k5_source), compiled by nvcc into a
+library of its own (``build_generic``, ``generic_library``). A library's
+file name carries a hash of its sources (headers included) and the flags,
+so an edited source builds anew and an unchanged one is reused. Output goes
+to ``build/torch_kernels/`` beside the package (git ignores ``build/``).
+Nothing is built at import time.
 """
 
 from __future__ import annotations
@@ -22,10 +26,15 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
+# The sources of the one library; a checkout lacks some of them (an
+# earlier one generic_ilqr.cu, K5 for a table of models, which kernel_ab.py
+# still builds and times; this one the later files), and they are skipped.
 SOURCES = ("tile.cuh", "lm_core.cuh", "nlmpc_core.cuh", "dual.cuh",
            "fused_ilqr.cu", "i2lqr_step.cu", "i2lqr_step_opts.cu",
            "fused_lm_shooting.cu",
            "nlmpc_step.cu", "nlmpc_step_all.cu", "generic_ilqr.cu")
+# what a generated K5 translation unit includes
+GENERIC_HEADERS = ("generic_ilqr.cuh", "dual.cuh", "tile.cuh")
 # Precise sin/cos/exp, IEEE division and sqrt (no --use_fast_math), and no
 # FMA contraction (-fmad=false): the kernels then round operation by
 # operation as the plain torch version does, which the LM accept/reject
@@ -71,8 +80,12 @@ _ARGTYPES = {
     # lap_len, lap_ids, lap_ok, obs, skip, hzn, scratch, us, feasible_any,
     # new_guess, idx, row, succ, stream, lanes
     "nlmpc_step_all_launch": [_I] * 4 + [_P] + [_I] * 3 + [_P] * 18 + [_I],
-    # dtype, model, n, consts, max_iter, B, x0, x_term, u_init, us, x_last,
-    # cost, n_iters, stream, counter
+    # K5 of a generated library (csrc/generic_ilqr.cuh ILQR_K5_EXPORT):
+    # dtype, consts, max_iter, B, x0, x_term, u_init, us, x_last, cost,
+    # n_iters, stream, counter
+    "k5_launch": [_I, _P, _I, _I] + [_P] * 9,
+    # an earlier checkout's K5, one library for a table of models: dtype,
+    # model, n, then as k5_launch
     "generic_ilqr_launch": [_I, _I, _I, _P, _I, _I] + [_P] * 9,
 }
 
@@ -111,7 +124,8 @@ def build(csrc_dir: str = CSRC_DIR, defines=()) -> tuple[str, float]:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         cmds = [[nvcc, *NVCC_FLAGS, *defines, "-c", "-o",
                  os.path.join(tmp, s + ".o"), os.path.join(csrc_dir, s)]
-                for s in SOURCES if s.endswith(".cu")]
+                for s in SOURCES if s.endswith(".cu")
+                and os.path.exists(os.path.join(csrc_dir, s))]
         procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for c in cmds]  # one nvcc per source, all at once
@@ -130,6 +144,66 @@ def build(csrc_dir: str = CSRC_DIR, defines=()) -> tuple[str, float]:
             raise RuntimeError("nvcc failed:\n" + "\n".join(outs)[-8000:])
         os.replace(lib, path)  # atomic: a concurrent build never sees a partial .so
     return path, time.perf_counter() - t0
+
+
+def generic_library_path(source: str, csrc_dir: str = CSRC_DIR) -> str:
+    """The library of a generated K5 translation unit ``source`` compiled
+    against ``csrc_dir``'s headers: its name a hash of the flags, the
+    source and the headers."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + b"\0"
+                       + source.encode())
+    for name in GENERIC_HEADERS:
+        with open(os.path.join(csrc_dir, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"libilqr_k5_{h.hexdigest()[:16]}.so")
+
+
+def build_generic(sources, csrc_dir: str = CSRC_DIR) -> list:
+    """Compile each generated K5 translation unit of ``sources`` into a
+    library of its own unless it exists, one nvcc each, all started
+    together; the source and nvcc's output are kept beside each library
+    (``.cu``, ``.log``). Returns [(path, seconds)] in the order of
+    ``sources``: the wall seconds of the build that made the library, 0.0
+    where it existed."""
+    paths = [generic_library_path(s, csrc_dir) for s in sources]
+    todo = {p: s for p, s in zip(paths, sources) if not os.path.exists(p)}
+    if not todo:
+        return [(p, 0.0) for p in paths]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for i, (path, src) in enumerate(todo.items()):
+            cu, so = (os.path.join(tmp, f"k5_{i}{ext}") for ext in (".cu",
+                                                                    ".so"))
+            with open(cu, "w") as f:
+                f.write(src)
+            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-I", csrc_dir, "-o", so, cu]
+            jobs.append((path, cu, so, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for path, cu, so, cmd, proc in jobs:
+            out = proc.communicate()[0]
+            shutil.copyfile(cu, path[:-3] + ".cu")
+            with open(path[:-3] + ".log", "w") as f:
+                f.write(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0 or not os.path.exists(so):
+                failed.append(out)
+            else:
+                os.replace(so, path)  # atomic, as build's
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed)[-8000:])
+    sec = time.perf_counter() - t0
+    return [(p, sec if p in todo else 0.0) for p in paths]
+
+
+@functools.lru_cache(maxsize=None)
+def generic_library(source: str, csrc_dir: str = CSRC_DIR) -> ctypes.CDLL:
+    """The library of a generated K5 translation unit, loaded (built on
+    first call)."""
+    return load(build_generic([source], csrc_dir)[0][0])
 
 
 @functools.lru_cache(maxsize=None)
@@ -157,8 +231,8 @@ def attributes(lib: ctypes.CDLL, entry: str, *sizes: int) -> dict:
     the library's ``*_attributes`` function (i2lqr_step_attributes: dtype,
     n, k, nsi; nlmpc_step_all_attributes: dtype, n; nlmpc_step_attributes:
     dtype, n, k, nsi, time_varying, qsort; fused_ilqr_attributes and
-    fused_lm_shooting_attributes: dtype, n;
-    generic_ilqr_attributes: dtype, model, n), ``sizes`` its arguments
+    fused_lm_shooting_attributes: dtype, n; a generated K5 library's
+    k5_attributes: dtype), ``sizes`` its arguments
     before the output."""
     out = (ctypes.c_int * 3)()
     check_launch(getattr(lib, entry)(*(ctypes.c_int(s) for s in sizes), out),
@@ -192,7 +266,7 @@ def nlmpc_consts_array(C) -> ctypes.Array:
 def generic_consts_array(q, r, qt, u_lo, u_hi, dt, eps, lamb0, lamb_factor,
                          max_lamb) -> ctypes.Array:
     """Pack the generic solver's constants into the doubles
-    ``make_generic_consts`` of csrc/generic_ilqr.cu reads: the symmetrized
+    ``make_generic_consts`` of csrc/generic_ilqr.cuh reads: the symmetrized
     q (n x n), r (m x m) and qt (n x n) row-major, u_lo (m), u_hi (m), then
     dt, eps, lamb0, lamb_factor, max_lamb."""
     vals = [float(v) for a in (q, r, qt, u_lo, u_hi) for v in a.reshape(-1)]

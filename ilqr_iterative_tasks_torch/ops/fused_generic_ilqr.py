@@ -1,5 +1,5 @@
 """Generic-system LM-iLQR, one solve per lane: the K5 kernel
-(csrc/generic_ilqr.cu) and its plain version.
+(csrc/generic_ilqr.cuh) and its plain version.
 
 Port of ilqr_iterative_tasks_tpu/ops/pallas_generic_ilqr.py
 (``build_generic_ilqr_pallas``, kernel :64, ``pl.pallas_call`` :119):
@@ -7,10 +7,14 @@ Port of ilqr_iterative_tasks_tpu/ops/pallas_generic_ilqr.py
     solve(x0 (n,B) or (n,), x_terminal (n,B), u_init (N,m,B))
     -> (us (N,m,B), x_last (n,B), cost (B,), n_iters (B,) i32)
 
-for a model module of models/ (``X_DIM``, ``U_DIM``, ``step_comps`` and
-``CUDA_MODEL``, the name of its instantiation in the kernel) with a
+for the caller's model, any object with ``X_DIM``, ``U_DIM``,
+``step_comps`` (the plain version's dynamics) and ``CUDA_STEP``: the C++
+text of the same step as a struct of namespace ``ilqr`` (the form of
+csrc/generic_ilqr.cuh's header comment; models/ holds three), with a
 quadratic cost about x_terminal, box bounds on u and the LM ladder of
-ops/generic_ilqr_soa.py. Any B; the kernel masks the ragged edge.
+ops/generic_ilqr_soa.py, at any horizon and for any number of inputs
+(closed-form Quu inverse for m <= 2, damped Cholesky for m > 2). Any B; the
+kernel masks the ragged edge.
 
 ``n_iters`` is each lane's own trip count: the LM iteration after which the
 lane turned done (converged or diverged), else max_iter. The TPU kernel
@@ -21,11 +25,15 @@ depend on the convention.
 
 The wrapper runs the plain version (ops/generic_ilqr_soa.py, which takes any
 ``step_comps``) only for tensors on the CPU; for CUDA tensors it launches
-the kernel or raises. The kernel is instantiated for the double integrator
-(N 6 and 10), the unicycle (N 6 and 8) and the bicycle (N 6), f32 and f64.
+the kernel or raises (a model without ``CUDA_STEP`` raises). The kernel of
+a (model, horizon) is the translation unit ``k5_source`` writes, built by
+nvcc into a library of its own at first use (ops/_build.py
+``generic_library``), f32 and f64.
 """
 
 from __future__ import annotations
+
+import re
 
 import torch
 
@@ -34,8 +42,31 @@ from ilqr_iterative_tasks_torch.ops.fused_ilqr import DTYPE_CODES, check_lanes
 from ilqr_iterative_tasks_torch.ops.generic_ilqr_soa import (
     build_generic_ilqr_soa, numpy_f64, symmetrize)
 
-# csrc/generic_ilqr.cu model codes
-MODEL_CODES = {"double_integrator": 0, "unicycle": 1, "bicycle": 2}
+
+def k5_source(model, num_horizon: int) -> str:
+    """The translation unit of K5 for ``model`` at ``num_horizon``:
+    csrc/generic_ilqr.cuh, the model's ``CUDA_STEP`` (its struct, named by
+    the text's first ``struct``) and the C launcher of that struct and
+    horizon. ValueError for a model without ``CUDA_STEP`` or a struct in
+    it."""
+    step = getattr(model, "CUDA_STEP", None)
+    if step is None:
+        raise ValueError(f"{getattr(model, '__name__', model)} has no "
+                         f"CUDA_STEP: K5 cannot run it on the card")
+    name = re.search(r"\bstruct\s+(\w+)", step)
+    if name is None:
+        raise ValueError("CUDA_STEP holds no struct")
+    name = name.group(1)
+    return (f"// K5 for {name} at N = {num_horizon}, written by "
+            f"ops/fused_generic_ilqr.py::k5_source\n"
+            f"#include \"generic_ilqr.cuh\"\n\nnamespace ilqr {{\n"
+            f"{step.strip()}\n}}  // namespace ilqr\n\n"
+            f"ILQR_K5_EXPORT({name}, {int(num_horizon)})\n")
+
+
+def k5_library(model, num_horizon: int):
+    """The loaded K5 library of (model, horizon), built on first use."""
+    return _build.generic_library(k5_source(model, num_horizon))
 
 
 def fused_generic_ilqr_reference(model, x0, x_terminal, u_init, **kw):
@@ -87,10 +118,6 @@ class FusedGenericIlqr:
         dev, dtype = x_terminal.device, x_terminal.dtype
         if dtype not in DTYPE_CODES:
             raise TypeError(f"unsupported dtype {dtype}")
-        code = MODEL_CODES.get(getattr(self.model, "CUDA_MODEL", None))
-        if code is None:
-            raise ValueError(f"{self.model.__name__} has no CUDA "
-                             f"instantiation in csrc/generic_ilqr.cu")
         b = x_terminal.shape[-1]
         if x0.dim() == 1:
             x0 = x0[:, None].expand(n, b).contiguous()
@@ -102,15 +129,15 @@ class FusedGenericIlqr:
         cost = torch.empty((b,), dtype=dtype, device=dev)
         n_iters = torch.empty((b,), dtype=torch.int32, device=dev)
         counter = torch.empty((1,), dtype=torch.int32, device=dev)
-        lib = _build.library()
+        lib = k5_library(self.model, nh)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.generic_ilqr_launch(
-                DTYPE_CODES[dtype], code, nh, self._consts, self.max_iter, b,
+            rc = lib.k5_launch(
+                DTYPE_CODES[dtype], self._consts, self.max_iter, b,
                 x0.data_ptr(), x_terminal.data_ptr(), u_init.data_ptr(),
                 us.data_ptr(), x_last.data_ptr(), cost.data_ptr(),
                 n_iters.data_ptr(), stream, counter.data_ptr())
-        _build.check_launch(rc, "generic_ilqr")
+        _build.check_launch(rc, "k5")
         self.launches += 1
         return us, x_last, cost, n_iters
 
@@ -122,7 +149,7 @@ def build_fused_generic_ilqr(model, *, n: int, m: int, matrix_Q, matrix_R,
                              num_horizon: int = 6,
                              lamb0: float = 1.0) -> FusedGenericIlqr:
     """Factory mirroring the JAX package's ``build_generic_ilqr_pallas``
-    (a model module in place of its ``step_comps``; no tile_rows)."""
+    (a model object in place of its ``step_comps``; no tile_rows)."""
     return FusedGenericIlqr(
         model, n=n, m=m, matrix_Q=matrix_Q, matrix_R=matrix_R,
         matrix_Qterminal=matrix_Qterminal, u_lower=u_lower, u_upper=u_upper,

@@ -50,6 +50,16 @@ def _quu_inv_1x1(q00, lamb):
     return (1.0 / (torch.clamp_min(q00, 0.0) + lamb),)
 
 
+def ieee_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The square root rounded to nearest, as IEEE 754 has it and as the
+    card's sqrt (torch's CUDA ops and the kernels) gives it. torch's CPU
+    sqrt (vector library code) is off by an ulp on some inputs, so on the
+    CPU this is numpy's, which is the processor's sqrt."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
+
+
 def numpy_f64(a) -> np.ndarray:
     """A numpy-convertible array or a tensor (on any device) as float64."""
     if isinstance(a, torch.Tensor):
@@ -166,7 +176,8 @@ def make_generic_core(step_comps: Callable, *, n: int, m: int,
         """[Quu_reg^{-1} r for r in rhs_list]; quu: dict[(a,b)] upper-tri.
 
         m <= 2: closed-form spectral clamp-and-shift. m > 2: scalar
-        Cholesky of (Quu + lamb I) with clamped pivots."""
+        Cholesky of (Quu + lamb I) with clamped pivots, each pivot's sqrt
+        rounded to nearest on every device (``ieee_sqrt``), as K5's."""
         if m == 1:
             (i00,) = _quu_inv_1x1(quu[(0, 0)], lamb)
             return [(i00 * r[0],) for r in rhs_list]
@@ -181,7 +192,7 @@ def make_generic_core(step_comps: Callable, *, n: int, m: int,
             dv = quu[(c, c)] + lamb
             for t in range(c):
                 dv = dv - low[(c, t)] * low[(c, t)]
-            ld = torch.sqrt(torch.clamp_min(dv, 1e-30))
+            ld = ieee_sqrt(torch.clamp_min(dv, 1e-30))
             low[(c, c)] = ld
             inv_d[c] = 1.0 / ld
             for r in range(c + 1, m):

@@ -39,9 +39,14 @@ The simulators' options pass through in ``kw``, ``retile_frac`` and
 ``tail_shrink`` included (as JAX's wrappers pass them,
 ilqr_iterative_tasks_tpu/parallel/sharded_soa.py:39-54): each rank
 permutes its own columns (its retile block ``retile_frac`` x its lanes;
-``tail_shrink`` a prefix of its lanes, below their count) and routes its
-own columns' draws by its own lane ids, so the ``_sharded`` result stays
-the unsharded run's bit for bit (of ``iter_stats`` the useful trips).
+``tail_shrink`` a prefix of its lanes, below their count) and, where the
+simulator routes the draws (the NLMPC one under either option, the i2LQR
+one under ``retile_frac``), routes its own columns' draws by its own lane
+ids, so the ``_sharded`` result stays the unsharded run's bit for bit (of
+``iter_stats`` the useful trips). The i2LQR simulator with ``tail_shrink``
+alone gives the lane at position p of a compacted lap draw p, as JAX's
+does, so there each rank's compaction of its own columns makes the
+``_sharded`` run another than the unsharded one, as it is in JAX.
 
 ``stats`` (a dict, optional) receives ``run_s`` (the rank's seconds in its
 simulator calls) and ``gather_ms`` (the gather of the result).
@@ -230,7 +235,8 @@ def simulate_learning_runs_soa_sharded(params, limits, scenarios, seed_xs,
                                        axis: str = "scenario", stats=None,
                                        **kw):
     """Scenario-sharded i2LQR learning runs, bit for bit the unsharded run
-    (``batched_soa.simulate_learning_runs_soa``; its options in ``kw``)."""
+    (``batched_soa.simulate_learning_runs_soa``; its options in ``kw``)
+    but where ``tail_shrink`` alone compacts a lap (module docstring)."""
     return _sharded(lambda *a, **k: batched_soa.simulate_learning_runs_soa(
         *a, **k), params, limits, scenarios, seed_xs, seed_us, seed_len, dt,
         mesh, axis, stats, kw)

@@ -28,7 +28,7 @@ from ilqr_iterative_tasks_torch.models import double_integrator
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
 from ilqr_iterative_tasks_torch.ops import _build
 from ilqr_iterative_tasks_torch.ops.fused_generic_ilqr import (
-    build_fused_generic_ilqr, fused_generic_ilqr_reference)
+    build_fused_generic_ilqr, fused_generic_ilqr_reference, k5_library)
 from ilqr_iterative_tasks_torch.ops.fused_ilqr import (
     build_fused_ilqr, fused_ilqr_reference, obstacle_to_lanes)
 from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
@@ -696,10 +696,13 @@ def test_simulators_launch_their_own_kernels_without_a_step_solver(dev):
     assert k2.launches > before
 
 
-# ---- the generic tier: K5 (mirroring chip_smoke.py phase 11) ----
-# (model, horizon) of the ILQR_GENERIC_CASE lines of csrc/generic_ilqr.cu
+# ---- the generic tier: K5 (mirroring chip_smoke.py phases 11, 11b) ----
+# (model, horizon) of generic_bench.k5_task's tasks run here: the five an
+# earlier fixed table held, a horizon it lacked, the caller's 3-input models
 INSTANTIATIONS = [("bicycle", 6), ("double_integrator", 6),
-                  ("double_integrator", 10), ("unicycle", 6), ("unicycle", 8)]
+                  ("double_integrator", 10), ("unicycle", 6), ("unicycle", 8),
+                  ("double_integrator", 5), ("holonomic", 3),
+                  ("holonomic", 6), ("point_mass", 6)]
 
 
 def _k5_problem(name, nh, b, dev):
@@ -739,12 +742,35 @@ def test_k5_matches_plain(dev, name, nh, dtype):
 
 
 def test_k5_raises_where_nothing_is_instantiated(dev):
+    """A model without CUDA_STEP has no kernel: a CUDA tensor raises (no
+    plain fallback); any horizon of a model with one builds and runs."""
     model, kw, a = _k5_problem("bicycle", 6, 256, dev)
-    k5 = build_fused_generic_ilqr(model, **{**kw, "num_horizon": 7})
-    with pytest.raises(ValueError, match="no kernel instantiated"):
-        k5(a[0], a[1], torch.zeros((7, 2, 256), dtype=torch.float64,
-                                   device=dev))
+    plain_only = SimpleNamespace(__name__="plain_only", X_DIM=4, U_DIM=2,
+                                 step_comps=model.step_comps)
+    k5 = build_fused_generic_ilqr(plain_only, **kw)
+    with pytest.raises(ValueError, match="no CUDA_STEP"):
+        k5(*a)
     assert k5.launches == 0
+    k5 = build_fused_generic_ilqr(model, **{**kw, "num_horizon": 7})
+    u7 = torch.zeros((7, 2, 256), dtype=torch.float64, device=dev)
+    _equal(k5(a[0], a[1], u7), k5.plain(a[0], a[1], u7))
+    assert k5.launches == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,nh", [("holonomic", 3), ("holonomic", 6),
+                                     ("point_mass", 6)])
+def test_k5_three_inputs_match_plain_bitwise(dev, name, nh, dtype):
+    """The damped-Cholesky branch (m = 3) on 4 096 lanes, every output bit
+    for bit the plain version's, and the kernel's resources."""
+    model, kw, inputs = k5_task(name, nh, 4096, dev)
+    a = tuple(t.to(dtype) for t in inputs)
+    k5 = build_fused_generic_ilqr(model, **kw)
+    _equal(k5(*a), k5.plain(*a))
+    assert k5.launches == 1
+    att = _build.attributes(k5_library(model, nh), "k5_attributes",
+                            0 if dtype == torch.float32 else 1)
+    assert att["warps_per_sm"] >= 4, att
 
 
 # ---- K3 and K5 bitwise against their plain versions at the edges of the
@@ -755,11 +781,12 @@ def _equal(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
-def _resident_threads(entry, *sizes):
+def _resident_threads(entry, *sizes, lib=None):
     """Threads of a kernel the card holds at once: its resident warps an SM
     (from the CUDA runtime) x 32 x the SMs; no grid holds more
-    lanes."""
-    att = _build.attributes(_build.library(), entry, *sizes)
+    lanes. ``lib``: the library with ``entry``, the package's by
+    default."""
+    att = _build.attributes(lib or _build.library(), entry, *sizes)
     return (att["warps_per_sm"] * 32
             * torch.cuda.get_device_properties(0).multi_processor_count)
 
@@ -837,9 +864,9 @@ def test_k3_every_lane_skipped_is_the_rollout(dev, dtype):
 LANE_COUNTS = ["1", "33", "1000", "beyond_the_grid"]
 
 
-def _lane_count(b, entry, *sizes):
-    return (2 * _resident_threads(entry, *sizes) if b == "beyond_the_grid"
-            else int(b))
+def _lane_count(b, entry, *sizes, lib=None):
+    return (2 * _resident_threads(entry, *sizes, lib=lib)
+            if b == "beyond_the_grid" else int(b))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -862,7 +889,8 @@ def test_k3_lane_counts_are_bitwise(dev, b, dtype):
 @pytest.mark.parametrize("b", LANE_COUNTS)
 def test_k5_lane_counts_are_bitwise(dev, b, dtype):
     code = 0 if dtype == torch.float32 else 1
-    b = _lane_count(b, "generic_ilqr_attributes", code, 0, N)
+    b = _lane_count(b, "k5_attributes", code,
+                    lib=k5_library(double_integrator, N))
     p, l = IlqrParams.make(), SystemLimits.make()
     k5 = build_fused_generic_ilqr(double_integrator, **generic_kwargs(
         p, l, max_iter=150, matrix_Q=np.zeros((4, 4))))

@@ -2,7 +2,8 @@
 the models' component steps and jvp Jacobians, the plain solve on the
 double integrator, the unicycle, the bicycle through the generic path and a
 3-input system (the damped-Cholesky branch) in f64, and the plain solve in
-f32 against the JAX Pallas kernel in interpret mode."""
+f32 against the JAX Pallas kernel in interpret mode, with two and three
+inputs."""
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +20,7 @@ from ilqr_iterative_tasks_tpu.ops.pallas_generic_ilqr import (
     build_generic_ilqr_pallas)
 from ilqr_iterative_tasks_tpu.utils.params import (
     IlqrParams as JParams, SystemLimits as JLimits)
+from ilqr_iterative_tasks_torch.experiments.generic_bench import k5_task
 from ilqr_iterative_tasks_torch.models import (
     double_integrator, kinetic_bicycle, unicycle)
 from ilqr_iterative_tasks_torch.ops.fused_generic_ilqr import (
@@ -206,3 +208,29 @@ def test_plain_f32_matches_pallas_kernel_in_interpret_mode():
     tile_max = iters.reshape(-1, 128).amax(dim=1)
     np.testing.assert_array_equal(tile_max.numpy(),
                                   iters_p.reshape(-1, 128)[:, 0])
+
+
+def test_three_input_k5_cpu_route_matches_pallas_kernel_in_interpret_mode():
+    """K5's CPU route at m = 3 (the damped-Cholesky branch) against the JAX
+    Pallas kernel in interpret mode on the same inputs, f32, at the
+    tolerances of the 2-input test above: the holonomic vehicle of
+    generic_bench.k5_task (this file's 3-input dynamics) at N = 3, two
+    tiles of 128 lanes (tile_rows=1)."""
+    model, kw, a = k5_task("holonomic", 3, 256, "cpu")
+    n, m, nh = kw["n"], kw["m"], kw["num_horizon"]
+    x0, xt, u0 = (t.numpy().astype(np.float32) for t in a)
+    pal = build_generic_ilqr_pallas(
+        _three_input(jnp.cos, jnp.sin), tile_rows=1, interpret=True,
+        **kw)(jnp.asarray(x0), jnp.asarray(xt), jnp.asarray(u0))
+    us_p, xl_p, cost_p, iters_p = (np.asarray(v) for v in pal)
+    k5 = build_fused_generic_ilqr(model, **kw)
+    f32 = torch.float32
+    us, x_last, cost, iters = k5(*(t.to(f32) for t in a))
+    assert k5.launches == 0 and (n, m) == (3, 3)
+    np.testing.assert_allclose(cost.numpy(), cost_p, rtol=2e-4)
+    np.testing.assert_allclose(x_last.numpy(), xl_p, atol=2e-3)
+    np.testing.assert_allclose(us.numpy(), us_p, atol=2e-3)
+    tile_max = iters.reshape(-1, 128).amax(dim=1)
+    np.testing.assert_array_equal(tile_max.numpy(),
+                                  iters_p.reshape(-1, 128)[:, 0])
+    assert int(iters.max()) > 1 and us.shape == (nh, m, 256)

@@ -1,6 +1,7 @@
 """The K1, K3, K4 and K5 kernel sources (csrc/i2lqr_step.cu,
-csrc/fused_ilqr.cu, csrc/fused_lm_shooting.cu, csrc/generic_ilqr.cu) run
-on the host: g++ builds them against tests/host_cuda/cuda_runtime.h, which
+csrc/fused_ilqr.cu, csrc/fused_lm_shooting.cu, and csrc/generic_ilqr.cuh
+in the translation unit ops/fused_generic_ilqr.py::k5_source writes for
+each (model, horizon)) run on the host: g++ builds them against tests/host_cuda/cuda_runtime.h, which
 runs every CUDA thread of a launch as a host thread (the lane counter as a
 host atomic, a warp's ballots, shuffles and __syncwarp through a barrier
 of its 32 threads, a block's shared memory as static storage with one
@@ -8,8 +9,10 @@ block at a time), so the lanes refilled from the counter by a grid of one
 block of 128 threads are held bit for bit against the plain versions
 without a card. The host's
 libm stands in for CUDA's, and torch's CPU sin / cos / exp differ from it
-in the last bit, so only the double integrator (no transcendental) is held
-against its plain version; the bicycle, the unicycle, K3 and K4 are held
+in the last bit, so only the double integrator and the 3-D point mass (no
+transcendental; the point mass has three inputs, K5's damped-Cholesky
+branch) are held against their plain versions; the bicycle, the unicycle,
+the holonomic vehicle (three inputs), K3 and K4 are held
 against a second build of the same sources on a card of 33 SMs, whose grid
 takes every lane of these tests by its index (K4: every chunk of 32
 lanes), which shares the host's libm, and K4 against its plain version
@@ -27,7 +30,7 @@ import pytest
 import torch
 
 from ilqr_iterative_tasks_torch.experiments.generic_bench import (
-    generic_kwargs, k5_task, throughput_inputs)
+    K5_MODELS, generic_kwargs, k5_task, throughput_inputs)
 from ilqr_iterative_tasks_torch.experiments.headlines import (
     K4_EDGE_CASES, MAX_LAPS, MAX_STEPS, k1_block_lanes, k1_option_lanes,
     k2_option_lanes, k32_distinct, k4_edge_lanes)
@@ -35,7 +38,7 @@ from ilqr_iterative_tasks_torch.models import double_integrator
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
 from ilqr_iterative_tasks_torch.ops import _build
 from ilqr_iterative_tasks_torch.ops.fused_generic_ilqr import (
-    MODEL_CODES, build_fused_generic_ilqr)
+    build_fused_generic_ilqr, k5_source)
 from ilqr_iterative_tasks_torch.ops.fused_ilqr import (
     DTYPE_CODES, build_fused_ilqr, fused_ilqr_reference, obstacle_to_lanes)
 from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
@@ -50,9 +53,16 @@ from ilqr_iterative_tasks_torch.utils.params import (
 
 torch.set_num_threads(1)
 SHIM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "host_cuda")
-SOURCES = ("fused_ilqr.cu", "fused_lm_shooting.cu", "generic_ilqr.cu")
-LAUNCHERS = ("fused_ilqr_launch", "fused_lm_shooting_launch",
-             "generic_ilqr_launch")
+SOURCES = ("fused_ilqr.cu", "fused_lm_shooting.cu")
+LAUNCHERS = ("fused_ilqr_launch", "fused_lm_shooting_launch")
+# K5's (model, horizon) libraries: those held against a grid of every lane
+# (models with an angle), and on one SM also those held against the plain
+# version (the double integrator at the horizons of the --throughput and
+# k5_task lanes and at N = 5, the point mass)
+K5_ANGLE = (("bicycle", 6), ("unicycle", 6), ("unicycle", 8),
+            ("holonomic", 3))
+K5_PLAIN = (("double_integrator", 5), ("double_integrator", 6),
+            ("double_integrator", 10), ("point_mass", 6))
 MANY_SMS = 33  # 4 224 threads: every lane of these tests by its index
 # K1, its blocks one at a time (shared memory), counting each lane's solves
 K1_SOURCES = ("i2lqr_step.cu",)
@@ -86,14 +96,20 @@ def host_source(text: str) -> str:
     return "".join(out + [text[i:]])
 
 
-def _start_host_build(d, sms, sources=SOURCES, flags=()):
-    """g++ of ``sources``, as host code, into directory d for a card of
-    ``sms`` SMs, one compiler a source, with the extra ``flags``; returns
-    (the compilers' processes, the libraries' paths)."""
+def _start_host_build(d, sms, sources=SOURCES, flags=(), k5=()):
+    """g++ of ``sources`` and of K5's generated translation unit of each
+    (model name, horizon) of ``k5``, as host code, into directory d for a
+    card of ``sms`` SMs, one compiler a source, with the extra ``flags``;
+    returns (the compilers' processes, the libraries' paths: ``sources``',
+    then ``k5``'s)."""
     d.mkdir()
     for name in os.listdir(_build.CSRC_DIR):
         with open(os.path.join(_build.CSRC_DIR, name)) as f:
             (d / name).write_text(host_source(f.read()))
+    sources = list(sources)
+    for name, nh in k5:
+        sources.append(f"k5_{name}_{nh}.cu")
+        (d / sources[-1]).write_text(k5_source(K5_MODELS[name], nh))
     procs, sos = [], []
     for src in sources:
         sos.append(str(d / (src + ".so")))
@@ -106,9 +122,10 @@ def _start_host_build(d, sms, sources=SOURCES, flags=()):
 
 
 class _Lib:
-    """The launchers of one build's libraries, by name."""
+    """The launchers of one build's libraries, by name; ``k5``: K5's
+    launcher of each (model, horizon) built."""
 
-    def __init__(self, procs, sos, launchers=LAUNCHERS):
+    def __init__(self, procs, sos, launchers=LAUNCHERS, k5=()):
         assert all(p.wait() == 0 for p in procs)
         for names, so in zip(launchers, sos):  # a name or names a library
             dll = ctypes.CDLL(so)
@@ -117,6 +134,11 @@ class _Lib:
                 fn.argtypes = _build._ARGTYPES[name]
                 setattr(self, name, fn)
         self.emu_count_into = dll.emu_count_into
+        self.k5 = {}
+        for (name, nh), so in zip(k5, sos[len(launchers):]):
+            fn = ctypes.CDLL(so).k5_launch
+            fn.argtypes = _build._ARGTYPES["k5_launch"]
+            self.k5[K5_MODELS[name], nh] = fn
 
 
 @pytest.fixture(scope="module")
@@ -129,11 +151,12 @@ def libs(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++")
     d = tmp_path_factory.mktemp("host_kernels")
-    builds = [_start_host_build(d / "one_sm", 1),
-              _start_host_build(d / "many_sms", MANY_SMS),
+    builds = [_start_host_build(d / "one_sm", 1, k5=K5_PLAIN + K5_ANGLE),
+              _start_host_build(d / "many_sms", MANY_SMS, k5=K5_ANGLE),
               _start_host_build(d / "k1", 1, K1_SOURCES, K1_FLAGS),
               _start_host_build(d / "opts", 1, OPT_SOURCES)]
-    return (_Lib(*builds[0]), _Lib(*builds[1]),
+    return (_Lib(*builds[0], k5=K5_PLAIN + K5_ANGLE),
+            _Lib(*builds[1], k5=K5_ANGLE),
             _Lib(*builds[2], launchers=K1_LAUNCHERS),
             _Lib(*builds[3], launchers=OPT_LAUNCHERS))
 
@@ -164,10 +187,9 @@ def _k5(lib, k5, x0, xt, u):
            torch.empty((k5.n, b), dtype=dt), torch.empty(b, dtype=dt),
            torch.empty(b, dtype=torch.int32))
     counter = torch.empty(1, dtype=torch.int32)
-    assert lib.generic_ilqr_launch(
-        DTYPE_CODES[dt], MODEL_CODES[k5.model.CUDA_MODEL], k5.num_horizon,
-        k5._consts, k5.max_iter, b, *map(_ptr, (x0, xt, u, *out)), None,
-        counter.data_ptr()) == 0
+    assert lib.k5[k5.model, k5.num_horizon](
+        DTYPE_CODES[dt], k5._consts, k5.max_iter, b,
+        *map(_ptr, (x0, xt, u, *out)), None, counter.data_ptr()) == 0
     return out
 
 
@@ -177,9 +199,10 @@ def _equal(got, want):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("nh", [6, 10])
+@pytest.mark.parametrize("nh", [5, 6, 10])
 def test_k5_double_integrator_matches_plain_bitwise(lib, nh, dtype):
-    # 300 lanes on one block of 128 threads: threads take several lanes
+    # 300 lanes on one block of 128 threads: threads take several lanes; N
+    # = 5 is a horizon no fixed instantiation had
     model, kw, a = k5_task("double_integrator", nh, 300, "cpu")
     a = tuple(t.to(dtype) for t in a)
     k5 = build_fused_generic_ilqr(model, **kw)
@@ -200,8 +223,19 @@ def test_k5_throughput_lanes_match_plain_bitwise(lib, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("name,nh", [("bicycle", 6), ("unicycle", 6),
-                                     ("unicycle", 8)])
+def test_k5_point_mass_matches_plain_bitwise(lib, dtype):
+    """A caller's model with three inputs (K5's damped-Cholesky solve of
+    Quu) and no transcendental, 300 lanes on one block of 128 threads."""
+    model, kw, a = k5_task("point_mass", 6, 300, "cpu")
+    a = tuple(t.to(dtype) for t in a)
+    k5 = build_fused_generic_ilqr(model, **kw)
+    got = _k5(lib, k5, *a)
+    _equal(got, k5.plain(*a))
+    assert int(got[3].max()) > 2 * int(got[3].min())  # lanes refill unevenly
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,nh", list(K5_ANGLE))
 def test_k5_models_with_an_angle_match_a_grid_of_every_lane(libs, name, nh,
                                                             dtype):
     model, kw, a = k5_task(name, nh, 300, "cpu")

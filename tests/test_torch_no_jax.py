@@ -1,12 +1,15 @@
 """The torch port runs without JAX and without the JAX package: in a fresh
 interpreter, import every module of the port (the scale-out package
 ``parallel`` among them), run a tiny i2LQR and a tiny NLMPC learning run,
-two steps of each host controller, a tiny generic-system solve and the
-sharded kNN and a sharded NLMPC run on a one-rank mesh on the CPU, and
-check that no module of jax or of ``ilqr_iterative_tasks_tpu`` was loaded.
-A source scan holds the same rule for every file of the port, for
-chip_smoke.py and for the multi-process tests' rank functions
-(tests/_torch_distributed_worker.py)."""
+two steps of each host controller, tiny generic-system solves (the two
+3-input tasks of generic_bench.k5_task among them) and the sharded kNN and
+a sharded NLMPC run on a one-rank mesh on the CPU, and check that no module
+of jax or of ``ilqr_iterative_tasks_tpu`` was loaded. A source scan holds
+the same rule for every file of the port, for chip_smoke.py and for the
+multi-process tests' rank functions (tests/_torch_distributed_worker.py),
+and holds the CUDA sources (csrc/ and the K5 translation units the port
+writes for each model of generic_bench.K5_MODELS) to include only the
+port's own headers and CUDA's."""
 
 import ast
 import os
@@ -70,6 +73,15 @@ us, x_last, cost, iters = solve(torch.zeros_like(xt), xt,
                                 torch.zeros((6, 2, 2), dtype=torch.float64))
 assert torch.isfinite(us).all() and bool((iters > 0).all())
 assert float((x_last - xt).abs().max()) < 0.1, x_last
+from ilqr_iterative_tasks_torch.experiments.generic_bench import (
+    K5_MODELS, k5_task)
+from ilqr_iterative_tasks_torch.ops.fused_generic_ilqr import k5_source
+for name in ("holonomic", "point_mass"):  # the m > 2 branch
+    model, kw, a = k5_task(name, 3, 4, cpu)
+    us, x_last, cost, iters = build_fused_generic_ilqr(model, **kw)(*a)
+    assert torch.isfinite(us).all() and bool((iters > 0).all()), name
+for model in K5_MODELS.values():
+    assert '#include "generic_ilqr.cuh"' in k5_source(model, 5)
 from ilqr_iterative_tasks_torch.control.i2lqr import I2LqrController
 from ilqr_iterative_tasks_torch.control.nlmpc import NlmpcController
 from ilqr_iterative_tasks_torch.experiments.runner import default_obstacle
@@ -145,3 +157,20 @@ def test_port_sources_import_no_jax_package():
            for f in files}
     bad = {f: names for f, names in bad.items() if names}
     assert not bad, bad
+
+
+def test_cuda_sources_include_only_the_port():
+    from ilqr_iterative_tasks_torch.experiments.generic_bench import (
+        K5_MODELS)
+    from ilqr_iterative_tasks_torch.ops.fused_generic_ilqr import k5_source
+    csrc = pathlib.Path(REPO) / "ilqr_iterative_tasks_torch" / "csrc"
+    texts = {f.name: f.read_text() for f in sorted(csrc.iterdir())}
+    texts.update({f"k5 {name} N6": k5_source(model, 6)
+                  for name, model in K5_MODELS.items()})
+    assert "generic_ilqr.cuh" in texts and len(texts) > 15
+    system = {"cuda_runtime.h", "math.h", "stdint.h", "cstdint"}
+    for name, text in texts.items():
+        for line in text.splitlines():
+            if line.startswith("#include"):
+                inc = line.split()[1].strip('"<>')
+                assert inc in texts or inc in system, (name, inc)
