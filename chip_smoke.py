@@ -29,7 +29,8 @@ Phases:
    translation unit ops/fused_generic_ilqr.py writes for the model's
    CUDA_STEP; one nvcc each), with seconds (K5's build's wall time
    apart), registers and spills, and the registers, local memory and
-   resident warps an SM of the loaded f32 K1, K2 all, K2 spaceVarying /
+   resident warps an SM of the loaded f32 K1 (its lane queue in f64
+   too), K2 all, K2 spaceVarying /
    timeVarying (with qsort_skip), K3, K4 (f32 and f64) and K5 (the double
    integrator and the bicycle at N = 6) as the CUDA runtime reports them;
 3. K3 (i2LQR per-candidate solve) against the plain solve on 393 216 random
@@ -47,12 +48,17 @@ Phases:
    K1 launches are counted, and two timed runs; lap-sims/s = B * laps / s;
    every run prints a hash of its lap records (lap steps, done flags,
    final states, safe set), so two commits can be shown to run alike;
-   6c. seed 1 with tail_shrink 4 096 and 1 024 in turns against the run
+   6b. through the simulator's own K1 (dedup + qsort_skip: the lane queue
+   from LANE_QUEUE_FROM lanes on; which kernel each batch of
+   CROSSOVER_BATCHES runs is printed) in turns against K1 without
+   options, hashes equal, and one profiled run (the lane queue's device
+   seconds); 6c. seed 1 with tail_shrink 4 096 and 1 024 in turns against the run
    without (A B C C B A, the simulator's own K1), each arm's hash equal in
    its two turns (tail_shrink alone gives the lane at position p of a
    compacted lap draw p, as JAX's simulator does, so its run is its own),
    each launch's lanes and ms logged: the launches over the prefix beside
-   the same steps' launches over B;
+   the same steps' launches over B (a tail launch's ms printed, with
+   the kernel the switch gives it);
 7. K4 (NLMPC per-candidate solve) against the plain solve on 393 216 random
    candidate lanes (horizons 1-6, 1/16 skipped), f64 and f32, bit for bit,
    beside the share of lanes whose verdicts and solutions agree (the
@@ -142,7 +148,8 @@ Phases:
 21. the robustness sweep (bench.py:250-270): experiments/scenario_sweep.py
    ``run_sweep`` at B = 4 096, 4 laps, moving obstacle, seed 0, in the
    canary's three configurations (k8_nsi1, k8_nsi1_sr3, k32_nsi4), each
-   through K1, whose launches are counted and must equal the simulator's
+   through K1 (the kernel each ran printed), whose launches are counted
+   and must equal the simulator's
    steps with active lanes; completion, final-lap mean, lap-step p50s,
    wall seconds and lap-records hash of each; the guard and the larger
    candidate set must complete more and finish the last lap sooner than
@@ -321,8 +328,9 @@ from ilqr_iterative_tasks_torch.control.batched_nlmpc_soa import (  # noqa: E402
 # the headlines, capture rule, timing and lap-records hash that
 # experiments/kernel_ab.py shares
 from ilqr_iterative_tasks_torch.experiments.headlines import (  # noqa: E402
-    ALL_BATCH, BATCH, CAP, CAPTURES, K1_ATTRS, LAPS, MAX_LAPS, MAX_STEPS, N,
-    NL_CAP, NL_CAPTURES, NL_RETIRE, SWEEP_BATCH, SWEEP_CAP, SWEEP_CAPTURES,
+    ALL_BATCH, BATCH, CAP, CAPTURES, CROSSOVER_BATCHES, K1_ATTRS, LAPS,
+    MAX_LAPS, MAX_STEPS, N, NL_CAP, NL_CAPTURES, NL_RETIRE, SWEEP_BATCH,
+    SWEEP_CAP, SWEEP_CAPTURES,
     EVERY_CAPTURES, K3_ATTRS, K4_ATTRS, RANDOM_LANES, SWEEP_CONFIGS,
     SWEEP_LAPS, Capture, Headlines, LaunchLog, Recorder, cuda_ms,
     device_seconds, tail_launches,
@@ -751,7 +759,8 @@ def k1_with(params, limits, options, **kw):
 
 
 def check_k1_options(captured, k1, params, limits, host_params, host_limits):
-    """Phase 4b: on phase 4's captures (f32 as captured) K1 with each
+    """Phase 4b: on phase 4's captures (f32 as captured; the lane queue,
+    dedup_qsort, in f64 cast up too, at phase 4's gates) K1 with each
     option set of K1_OPTION_SETS, with and without with_stats, and K1's
     counting build in the plain order ("with_stats"), against K1 without
     options: the outputs bit for bit, the counts integer for integer the
@@ -795,9 +804,8 @@ def check_k1_options(captured, k1, params, limits, host_params, host_limits):
                     continue
                 require(torch.equal(g, w), f"4b K1 {name} lap {lap}: "
                         f"{what} is not the plain version's")
-            if o.get("qsort_skip"):  # the headline's batch fills the card
-                require(shipped.lane_queue_runs(a[0].shape[-1], a[0].device,
-                                                a[0].dtype),
+            if o.get("qsort_skip"):  # the measured switch at the headline
+                require(shipped.lane_queue_runs(a[0].shape[-1]),
                         f"4b K1 {name}: the lane queue does not run")
             ms = cuda_ms(lambda: shipped(*a), 10)
             stats_ms = cuda_ms(lambda: counted(*a), 10)
@@ -833,6 +841,42 @@ def check_k1_options(captured, k1, params, limits, host_params, host_limits):
                 line += (f"; bound {st['bound_ms']:.4f} ms by "
                          f"{st['bound_by']}")
             print(line, flush=True)
+        # the lane queue (the simulator's own K1) in f64 cast up, with and
+        # without counts: bit for bit K1 without options, at phase 4's
+        # gates against the plain version
+        shipped, counted = kern["dedup_qsort"]
+        a = cast(args, torch.float64, keep=(8,))
+        base = k1(*a)
+        out = counted(*a)
+        require(all(torch.equal(g, w) for g, w in zip(out[:4], base))
+                and all(torch.equal(g, w) for g, w in zip(shipped(*a),
+                                                          base)),
+                f"4b K1 dedup_qsort lap {lap} f64: outputs are not K1's")
+        ref = i2lqr_step_reference(params, limits, 1.0, *a, max_iter=CAP,
+                                   with_stats=True,
+                                   **K1_OPTION_SETS["dedup_qsort"])
+        gate, _ = k1_gate(f"4b K1 dedup_qsort lap {lap}", out[:4], ref[:4],
+                          active, torch.float64)
+        # the trips follow the decisions, which phase 4's f64 gate lets
+        # differ on 0.1 % of live lanes: useful is held integer for integer
+        # on every lane whose decisions agree, the queue floor on every lane
+        # whose group of floor_width lanes agrees whole
+        agree = ((out[1] == ref[1]) & (out[2] == ref[2])
+                 & (out[3] == ref[3]))
+        width = counted.floor_width
+        whole = agree.view(-1, width).all(dim=1).repeat_interleave(width)
+        held = [int(((g != w) & m & active).sum())
+                for g, w, m in ((out[4], ref[4], agree),
+                                (out[6], ref[6], whole))]
+        require(held == [0, 0], f"4b K1 dedup_qsort lap {lap} f64: useful "
+                f"and queue floor differ from the plain version's on "
+                f"{held} lanes whose decisions agree")
+        print(f"[4b K1 dedup_qsort lap {lap} f64] bitwise K1's with and "
+              f"without counts; against the plain version {gate}; useful "
+              f"and queue floor the plain version's on the "
+              f"{int((agree & active).sum())} / "
+              f"{int((whole & active).sum())} live lanes whose decisions "
+              f"(whose group's) agree, of {int(active.sum())}", flush=True)
     return stats
 
 
@@ -926,9 +970,10 @@ def compaction_replay(kernel, a, masks, rows):
 # the prefixes of the tail_shrink runs and of the prefix launches
 TAIL_PREFIXES = (4096, 1024)
 # (occupancy key, registers, bytes of local memory) of the plain f32
-# builds the lane prefix must leave as they were (PERF.md section 6)
+# builds the lane prefix must leave as they were, and of K1's lane queue
+# as its chunk-queue design builds (PERF.md section 6)
 PLAIN_RESOURCES = (("k1", 128, 224), ("k1_k32", 128, 320),
-                   ("k1_lanes", 255, 432), ("k2_sv", 245, 48),
+                   ("k1_lanes", 168, 152), ("k2_sv", 245, 48),
                    ("k2_all", 255, 48))
 
 
@@ -1789,7 +1834,7 @@ def main():
     from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
         build_fused_lm_shooting, fused_lm_shooting_reference)
     from ilqr_iterative_tasks_torch.ops.i2lqr_step import (
-        build_fused_i2lqr_step, i2lqr_step_reference)
+        LANE_QUEUE_FROM, build_fused_i2lqr_step, i2lqr_step_reference)
     from ilqr_iterative_tasks_torch.ops.ilqr_soa import ilqr_solve_soa
     from ilqr_iterative_tasks_torch.ops.lm_shooting_soa import (
         lm_feasibility_solve_soa)
@@ -1833,7 +1878,8 @@ def main():
                         or "Compiling entry" in line):
                     print("   ", line.strip())
     lib = _build.library()
-    # the loaded f32 K1 (k 8 / nsi 1 and k 32 / nsi 4), K2 all, K2
+    # the loaded f32 K1 (k 8 / nsi 1 and k 32 / nsi 4; its lane queue in
+    # f64 too), K2 all, K2
     # spaceVarying / timeVarying (qsort_skip, nsi 1), K3, K4 (and its f64)
     # and K5 (N = 6), as the CUDA runtime reports them
     occupancy = dict(
@@ -1842,6 +1888,8 @@ def main():
                                   1),
         k1_lanes=_build.attributes(lib, "i2lqr_step_opts_attributes", 0, N,
                                    8, 0),
+        k1_lanes_f64=_build.attributes(lib, "i2lqr_step_opts_attributes", 1,
+                                       N, 8, 0),
         k1_k32=_build.attributes(lib, "i2lqr_step_attributes", 0, N, 32, 4),
         k1_k32_stats=_build.attributes(
             lib, "i2lqr_step_block_stats_attributes", 0, N, 4),
@@ -2105,9 +2153,22 @@ def main():
         params, limits, 1.0, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
         max_iter=CAP)
     require(k1_pair.dedup and k1_pair.qsort_skip
-            and k1_pair.lane_queue_runs(BATCH, dev, torch.float32),
+            and k1_pair.lane_queue_runs(BATCH),
             "the simulator's K1 does not run dedup + qsort_skip's lane "
             "queue at the headline's batch")
+    runs_at = {bb: "lane queue" if k1_pair.lane_queue_runs(bb)
+               else "plain order" for bb in CROSSOVER_BATCHES}
+    # a stall_reseed run's own K1 runs the plain order at every batch
+    k1_reseeded = batched_soa.default_step_solver(
+        params, limits, 1.0, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+        max_iter=CAP, reseeded=True)
+    require(not any(k1_reseeded.lane_queue_runs(bb)
+                    for bb in CROSSOVER_BATCHES),
+            "a stall_reseed run's K1 runs the lane queue")
+    print(f"[6 lane queue switch] the simulator's K1 runs the lane queue "
+          f"from {LANE_QUEUE_FROM} lanes (LANE_QUEUE_FROM): "
+          + ", ".join(f"B={bb} {k}" for bb, k in runs_at.items())
+          + "; with stall_reseed the plain order at each", flush=True)
     times, hashes, seed_hash, pair_launches = {"plain": [], "pair": []}, [], \
         {}, {}
     for seed, name in ((1, "plain"), (1, "pair"), (2, "pair"), (2, "plain")):
@@ -2163,6 +2224,16 @@ def main():
               f", / executed {c['floor_over_executed']:.4f}", flush=True)
         del res
 
+    # K1's device seconds over a headline run through the simulator's own
+    # K1 (the lane queue), from a profiler trace
+    pair_prof = dict(zip(("k1_device_s", "busy_s", "host_s"),
+                         device_seconds(lambda: headline(1, k1_pair),
+                                        "i2lqr_step_lanes_kernel")))
+    print(f"[6 headline profiled] the lane queue "
+          f"{pair_prof['k1_device_s']:.4f} s of the card a run; the card "
+          f"busy {pair_prof['busy_s']:.4f} s of {pair_prof['host_s']:.3f} s "
+          f"under the profiler; card {card}", flush=True)
+
     # ---- 6c. the i2LQR headline with tail_shrink at two prefixes, in
     # turns against the run without (the simulator's own K1): tail_shrink
     # alone does not route the noise draws (JAX's simulator does not), so
@@ -2172,6 +2243,18 @@ def main():
     tail6 = option_turns(
         "6c i2LQR headline", lambda solver, **o: headline(1, solver, **o),
         k1_pair, 8, {"none": {}, **tails}, card, own=tuple(tails))
+    for p in TAIL_PREFIXES:  # the simulator's K1 a tail launch
+        t = tail6[f"tail_{p}"]["tail"]
+        # the switch reads the launch's lanes: a prefix below
+        # LANE_QUEUE_FROM runs the plain order (the lane queue's own time
+        # over a prefix: phase 4c, experiments/kernel_ab.py --k1)
+        kern = ("the lane queue" if k1_pair.lane_queue_runs(p) else
+                "the plain order (i2lqr_step_kernel)")
+        print(f"[6c tail launch {p}] {kern} over the prefix "
+              f"{t['prefix_ms_a_launch']:.3f} ms a launch "
+              f"({t['prefix_launches']} launches), over B at the same "
+              f"steps {t['over_b_ms_a_launch']:.3f}; card {card}",
+              flush=True)
 
     # ---- 22. the i2LQR headline through K3, the per-candidate path ----
     k3p = build_fused_ilqr(params, limits, 1.0, num_horizon=N, max_iter=CAP)
@@ -2778,8 +2861,10 @@ def main():
                 else lambda kk, w=wants[tag]: Capture(kk, K1_ATTRS, 5, w))
         # the simulator's own K1: at k = 8 / nsi 1 with dedup and
         # qsort_skip, as the JAX sweep builds it
-        # (experiments/scenario_sweep.py:78-82)
-        with sweep_step_solver(k, nsi, wrap, device=dev) as (k1s, cap_s):
+        # (experiments/scenario_sweep.py:78-82), but for a reseeded run,
+        # which takes the plain order
+        with sweep_step_solver(k, nsi, wrap, device=dev,
+                               stall_reseed=sr) as (k1s, cap_s):
             for kk in (k1, k1s, k3, k4):
                 kk.launches = 0
             runs = []
@@ -2800,11 +2885,12 @@ def main():
         rep.update(launches=launches, hash=lap_records_hash(res),
                    completion=p_done, completion_se=se)
         sweep[tag], sweep_caps[tag], sweep_k1[tag] = rep, cap_s, k1s
-        rep["lane_queue"] = bool(getattr(k1s, "qsort_skip", False)
-                                 and k1s.lane_queue_runs(
-                                     SWEEP_BATCH, dev, torch.float32))
-        print(f"[21 sweep {tag}] B={SWEEP_BATCH} lane queue "
-              f"{rep['lane_queue']}, completion "
+        rep["lane_queue"] = bool(k1s.lane_queue_runs(SWEEP_BATCH))
+        rep["kernel"] = (
+            "i2lqr_step_lanes_kernel" if rep["lane_queue"] else
+            "i2lqr_step_block_kernel" if k == 32 else "i2lqr_step_kernel")
+        print(f"[21 sweep {tag}] B={SWEEP_BATCH} K1 {rep['kernel']}, "
+              f"completion "
               f"{rep['completion_rate']:.4f} (standard error {se:.5f}), "
               f"final-lap mean {rep['final_lap_mean']}, lap-step p50s "
               f"{rep['lap_steps_p50']}, p95s {rep['lap_steps_p95']}, wall "
@@ -2864,7 +2950,7 @@ def main():
         walls = {name: [] for name in arms}
         for name in ("plain", "lane_queue", "lane_queue", "plain"):
             with sweep_step_solver(k, nsi, lambda _, a=arms[name]: a,
-                                   device=dev):
+                                   device=dev, stall_reseed=sr):
                 runs = []
                 t0 = time.perf_counter()
                 run_sweep(SWEEP_BATCH, SWEEP_LAPS, moving=True,
@@ -3390,6 +3476,8 @@ def main():
              **occupancy["k1_lanes"], lap_sims_per_s=pair_rate,
              no_options_lap_sims_per_s=rate,
              headline_counted=k1_counted["dedup_qsort"],
+             profiled_run=pair_prof,
+             resources_f64=occupancy["k1_lanes_f64"],
              qsort_skip_alone=k1_opt_stats["qsort_skip"],
              dedup_alone=k1_opt_stats["dedup"], sweep_wall_s=sweep_ab),
         dict(name="i2lqr_step (K1, k32 nsi4)", route="cuda",

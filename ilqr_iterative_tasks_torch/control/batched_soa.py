@@ -231,22 +231,25 @@ _K1_CACHE: dict = {}
 
 
 def default_step_solver(params: IlqrParams, limits: SystemLimits, dt, *,
-                        max_steps: int, max_laps: int,
-                        max_iter: int) -> FusedI2lqrStep:
+                        max_steps: int, max_laps: int, max_iter: int,
+                        reseeded: bool = False) -> FusedI2lqrStep:
     """The K1 that ``simulate_learning_runs_soa`` launches on CUDA
     scenarios when no step_solver is passed: built once per constants and
     sizes, then reused (its ``launches`` keeps counting). At k = 8 and
     nsi = 1 it takes the options the JAX main path ships, ``dedup`` and
-    ``qsort_skip`` (bench.py:79-82; bitwise-neutral), which run where the
-    batch fills the card at one thread a lane
-    (``FusedI2lqrStep.lane_queue_runs``): on an H100 the i2LQR headline
-    ran 0.658 s a batch with them against 0.891 without (PERF.md).
-    Other sizes run the plain order."""
+    ``qsort_skip`` (bench.py:79-82; bitwise-neutral), whose lane queue
+    runs from ``LANE_QUEUE_FROM`` lanes on
+    (``FusedI2lqrStep.lane_queue_runs``, a switch set by measurement,
+    ops/i2lqr_step.py); smaller batches run the plain order. A
+    ``reseeded`` run (``stall_reseed``), whose reseeded lanes visit every
+    position in series, runs the plain order at every batch: there the
+    lane queue measured slower at each batch (``LANE_QUEUE_FROM``)."""
     key = (tuple(_build.consts_array(solver_consts(params, limits, dt))),
            params.num_ss_points, params.num_ss_iter, params.num_horizon,
-           max_steps, max_laps, max_iter)
+           max_steps, max_laps, max_iter, reseeded)
     if key not in _K1_CACHE:
-        pair = params.num_ss_points == 8 and params.num_ss_iter == 1
+        pair = (params.num_ss_points == 8 and params.num_ss_iter == 1
+                and not reseeded)
         _K1_CACHE[key] = build_fused_i2lqr_step(
             params, limits, dt, num_horizon=params.num_horizon,
             max_steps=max_steps, max_laps=max_laps, max_iter=max_iter,
@@ -492,7 +495,9 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
         step_solver, candidate_solver, "max_iter", cap, (),
         scenarios.x0.device.type != "cpu",
         lambda: (default_step_solver(params, limits, dt, max_steps=max_steps,
-                                     max_laps=max_laps, max_iter=cap), None))
+                                     max_laps=max_laps, max_iter=cap,
+                                     reseeded=stall_reseed is not None),
+                 None))
     if step_solver is not None:
         s = step_solver
         if ((s.k, s.nsi, s.num_horizon, s.max_steps, s.max_laps, s.max_iter)

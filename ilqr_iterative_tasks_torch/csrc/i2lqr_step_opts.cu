@@ -20,26 +20,30 @@
 // same pure solve, bitwise).
 //
 // qsort_skip (nsi = 1), i2lqr_step_lanes_kernel: a lane queue, one thread
-// a lane (below). A tile of 8 threads that solved one position a lane a
-// round measured 7.70 ms at the i2LQR headline's lap-2 capture against
-// this design's 2.39 (PERF.md): at the headline a lane solves about
-// one position a pass, which left 7 of a tile's 8 threads idle.
+// a lane, warps fed 32 live lanes at a time (below). A tile of 8 threads
+// that solved one position a lane a round measured 7.70 ms at the i2LQR
+// headline's lap-2 capture against the first lane queue's 2.39 (PERF.md):
+// at the headline a lane solves about one position a pass, which left 7
+// of a tile's 8 threads idle.
 //
 // with_stats: three int32 (B,) counts a lane, summed over the step.
 // iters_useful: the trips of the lane's solves (lm_solve's count, the
 // plain version's lane_iters). iters_executed: thread-trips its warp pays,
 // in the tile every solve round its warp runs (a round a pass, and a
 // winner solved again one more), the lane's G threads times the warp's
-// longest solve of the round; in the lane queue each solve's longest trips
-// among the warp's threads that run it together. upass (3, B): a pass's
-// useful trips plus one arrival at each position the lane visits (every
-// slot in the plain order, the slots not skipped under qsort_skip), the
-// final winner's solve again counted in pass 2; the wrapper takes JAX's
-// queue_floor from it (ops/i2lqr_step.py). Skipped lanes write 0.
+// longest solve of the round; in the lane queue each solve's longest
+// trips among the threads of its round (the warp's 32 queued live lanes,
+// one a thread) that run it together (its __activemask there). upass
+// (3, B): a pass's useful trips plus one arrival at each position the
+// lane visits (every slot in the plain order, the slots not skipped under
+// qsort_skip), the final winner's solve again counted in pass 2; the
+// wrapper takes JAX's queue_floor from it (ops/i2lqr_step.py). Skipped
+// lanes write 0.
 //
 // What bounds it on the card: the tile as i2lqr_step_kernel; the lane
 // queue a lane's LM chains in series (about one solve a pass at the
-// headline), a warp's 32 lanes' longest series.
+// headline), a round's 32 lanes' longest series, and its kNN scans (a
+// lap's rows, three times a lane-step).
 #include "lm_core.cuh"
 
 namespace ilqr {
@@ -274,78 +278,124 @@ __global__ void __launch_bounds__(128, 4) i2lqr_step_opts_kernel(
 }
 
 // qsort_skip at nsi = 1 as a lane queue: one thread a lane walks its own
-// positions, on the grid of what the card holds at once whose threads take
-// their next lane from a counter (launch_lanes, tile.cuh), as K3 does. Per
-// pass the thread runs the lane's kNN alone (knn_rows), ranks its K slots
-// by (Qfun, slot), invalid slots last, and visits the positions in that
-// order under the strict skip: position p > 0 is skipped when it is
-// invalid or q + n + 100 > the best cost so far (tier-quantised costs tie
-// across different q), which ends the lane's pass (dominance is monotone
-// in position). It keeps the lexicographic (cost, slot) minimum, the plain
-// order's first-min argmin, with its terminal state and, where it solved
-// it, its us. dedup: the lane's solves of passes 0 and 1 (row, distance,
-// terminal state) in local memory, matched by row. A final winner taken
-// from the cache is solved again, at the kernel's one call of lm_solve.
+// positions. Warps take their lanes in chunks of 32 (the grid holds what
+// the card keeps resident; a warp's first chunk by its index, the rest
+// from a counter, one atomicAdd a chunk, as K4's). A warp reads a chunk's
+// skip flags with one ballot, writes its skipped lanes' zeros at once
+// (coalesced) and queues its live lanes in a ring of 64 in shared memory;
+// once 32 are queued, or the chunks are spent, each thread runs one of
+// them (a round; the warp reconverges after it). Per pass the thread runs
+// the lane's kNN alone (knn_rows, a few rows' loads in flight), ranks its
+// K slots by (Qfun, slot), invalid slots last, and visits the positions
+// in that order under the strict skip: position p > 0 is skipped when it
+// is invalid or q + n + 100 > the best cost so far (tier-quantised costs
+// tie across different q), which ends the lane's pass (dominance is
+// monotone in position). It keeps the lexicographic (cost, slot) minimum,
+// the plain order's first-min argmin, with its terminal state and, where
+// it solved it, its us. dedup: the lane's solves of passes 0 and 1 (row,
+// distance, terminal state), matched by row, the first match winning (a
+// row the cache holds is not stored again). A final winner taken from the
+// cache is solved again, at the kernel's one call of lm_solve.
+//
+// State that lm_solve's registers would otherwise push to local memory
+// lives in the block's dynamic shared memory, a slice a thread (LaneSlots):
+// the dedup cache, the winner's us and the kNN rows. Measured designs
+// (PERF.md; H100, the headline's lap-2 capture, K1's device seconds a
+// headline run): the first queue (a thread took its next lane from the
+// counter, the cache and us in local memory, one row's loads at a time)
+// 2.365-2.414 ms, 0.332-0.335 s; this one 2.547-2.610 ms, 0.274-0.275 s;
+// without the register cap (245 registers, 8 warps an SM) 2.330-2.354 ms,
+// 0.314 s; rounds in which a warp's threads step their lanes to their
+// next solve and solve together, the lane's state in the slice, 3.282-
+// 3.404 ms, 0.311 s; a thread running the ring's lanes one after another
+// from that state 2.631-2.640 ms, 0.286 s.
 
+constexpr int K1_LQ_THREADS = 128;  // threads a block
+constexpr int K1_LQ_RING = 64;      // queued live lanes a warp can hold
+constexpr int K1_KNN_ROWS = 4;      // rows whose loads a kNN step issues
+// f32 blocks an SM the register cap is set for (168 registers, as many as
+// the shared slices allow; f64 takes no cap)
+constexpr int K1_LQ_F32_BLOCKS = 3;
+
+// A thread's slice of the block's dynamic shared memory, each field a
+// column of K1_LQ_THREADS (thread-fastest, so a warp's accesses to one
+// field fall in distinct banks): the dedup cache's 2K entries (distance,
+// terminal state, row), the winner's us and the pass's K kNN rows (an
+// invalid slot's row with bit 30 set); then a ring of K1_LQ_RING queued
+// lanes a warp.
 template <typename T, int N, int K>
-__global__ void __launch_bounds__(128) i2lqr_step_lanes_kernel(
-    const Consts<T> C, int B, int nb, int T_rows, int opts,
-    const T* __restrict__ x, const T* __restrict__ g0,
-    const T* __restrict__ states, const T* __restrict__ qfun,
-    const int* __restrict__ lap_len, const int* __restrict__ lap_ids,
-    const int* __restrict__ lap_ok, const T* __restrict__ obs,
-    const float* __restrict__ skip, T* __restrict__ us_out,
+struct LaneSlots {
+  static constexpr int E = 2 * K;           // cache entries
+  static constexpr int NT = 5 * E + 2 * N;  // T fields
+  static constexpr int NI = E + K;          // int fields
+  static constexpr int SLICES = K1_LQ_THREADS * (NT * (int)sizeof(T) +
+                                                 NI * (int)sizeof(int));
+  static constexpr int BYTES =
+      SLICES + (K1_LQ_THREADS / 32) * K1_LQ_RING * (int)sizeof(int);
+  static constexpr int INVALID = 1 << 30;
+  T* t;
+  int* i;
+  __device__ __forceinline__ LaneSlots(unsigned char* base, int tid)
+      : t(reinterpret_cast<T*>(base) + tid),
+        i(reinterpret_cast<int*>(base + K1_LQ_THREADS * NT * sizeof(T)) +
+          tid) {}
+  __device__ __forceinline__ T& d(int e) { return t[e * K1_LQ_THREADS]; }
+  __device__ __forceinline__ T& xl(int e, int c) {
+    return t[(E + 4 * e + c) * K1_LQ_THREADS];
+  }
+  __device__ __forceinline__ T& us(int i_, int j) {
+    return t[(5 * E + 2 * i_ + j) * K1_LQ_THREADS];
+  }
+  __device__ __forceinline__ int& row(int e) { return i[e * K1_LQ_THREADS]; }
+  __device__ __forceinline__ int& ik(int s) {
+    return i[(E + s) * K1_LQ_THREADS];
+  }
+  // the ring of the warp of block thread tid
+  static __device__ __forceinline__ int* ring(unsigned char* base, int tid) {
+    return reinterpret_cast<int*>(base + SLICES) + (tid / 32) * K1_LQ_RING;
+  }
+};
+
+// One live lane b of the lane queue: the kernel's parameters as
+// i2lqr_step_lanes_kernel's, its slice sl.
+template <typename T, int N, int K>
+__device__ __forceinline__ void lane_step(
+    const Consts<T>& C, int B, int T_rows, bool stats, bool dedup, int lap,
+    bool lap_stored, int b, LaneSlots<T, N, K>& sl, const T* __restrict__ x,
+    const T* __restrict__ g0, const T* __restrict__ states,
+    const T* __restrict__ qfun, const int* __restrict__ lap_len,
+    const T* __restrict__ obs, T* __restrict__ us_out,
     T* __restrict__ shrink_out, int* __restrict__ idx_out,
     int* __restrict__ row_out, int* __restrict__ useful_out,
-    int* __restrict__ exec_out, int* __restrict__ upass_out,
-    int* __restrict__ counter, int n_threads) {
-  static_assert(K <= 8, "the rank order: K slots of 4 bits");
-  const bool stats = opts & K1_OPT_STATS, dedup = opts & K1_OPT_DEDUP;
+    int* __restrict__ exec_out, int* __restrict__ upass_out) {
+  using Slots = LaneSlots<T, N, K>;
   const T inf = (T)INFINITY;
   const size_t row_stride = (size_t)4 * B;  // one safe-set row (4, B)
-  const int lap = lap_ids[0];
-  const bool lap_stored = lap_ok[0] != 0;
-  for (int b = blockIdx.x * blockDim.x + threadIdx.x; b < nb;
-       b = next_lane(counter, n_threads)) {
-    if (skip[b] > 0.5f) {
-      for (int i = 0; i < 2 * N; ++i) us_out[i * B + b] = (T)0;
-      shrink_out[b] = (T)0;
-      idx_out[b] = 0;
-      row_out[b] = 0;
-      if (stats) {
-        useful_out[b] = 0;
-        exec_out[b] = 0;
-        for (int p = 0; p < 3; ++p) upass_out[p * B + b] = 0;
-      }
-      continue;
-    }
-    T x0[4], xg[4];
+  T x0[4], xg[4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      x0[q] = x[q * B + b];
-      xg[q] = g0[q * B + b];
-    }
-    const Obs<T> o = load_obs(obs, B, b);
-    const int len = lap_len[(size_t)lap * B + b];
-    const int rows = len < T_rows ? len : T_rows;
-    const T* st = states + (size_t)lap * T_rows * row_stride + b;
-    // the dedup cache: rows solved or taken in passes 0 and 1
-    int e_row[2 * K];
-    T e_d[2 * K], e_xl[2 * K][4];
-    int n_cache = 0;
-    T us[N][2], us_win[N][2];
-    int useful = 0, executed = 0, win_row = 0;
-    bool held = false;  // us_win holds the final winner's solution
-    for (int pass = 0; pass < 3; ++pass) {
-      T dk[K];
+  for (int q = 0; q < 4; ++q) {
+    x0[q] = x[q * B + b];
+    xg[q] = g0[q * B + b];
+  }
+  const Obs<T> o = load_obs(obs, B, b);
+  const int len = lap_len[(size_t)lap * B + b];
+  const int rows = len < T_rows ? len : T_rows;
+  const T* st = states + (size_t)lap * T_rows * row_stride + b;
+  const T* qf = qfun + (size_t)lap * T_rows * B + b;  // row t at t * B
+  int n_cache = 0, useful = 0, executed = 0, win_row = 0;
+  bool held = false;  // the slice's us hold the final winner's solution
+  for (int pass = 0; pass < 3; ++pass) {
+    unsigned order = 0;  // position p's slot in bits 4p..4p+3
+    {
+      T dk[K], qe[K];
       int ik[K];
-      knn_rows<T, K>(st, row_stride, B, rows, xg, dk, ik);
-      T qe[K];
+      knn_rows<T, K, K1_KNN_ROWS>(st, row_stride, B, rows, xg, dk, ik);
 #pragma unroll
-      for (int s = 0; s < K; ++s)
-        qe[s] = dk[s] < inf && lap_stored
-                    ? qfun[((size_t)lap * T_rows + ik[s]) * B + b] : inf;
-      unsigned order = 0;  // position p's slot in bits 4p..4p+3
+      for (int s = 0; s < K; ++s) {
+        const bool ok = dk[s] < inf && lap_stored;
+        qe[s] = ok ? qf[(size_t)ik[s] * B] : inf;
+        sl.ik(s) = ok ? ik[s] : ik[s] | Slots::INVALID;
+      }
 #pragma unroll
       for (int s = 0; s < K; ++s) {
         int rank = 0;
@@ -354,105 +404,171 @@ __global__ void __launch_bounds__(128) i2lqr_step_lanes_kernel(
           rank += qe[j] < qe[s] || (qe[j] == qe[s] && j < s);
         order |= (unsigned)s << (4 * rank);
       }
-      const T unit = C.unit[pass], cutoff = C.cutoff[pass];
-      const int n_prev = n_cache;  // this pass matches earlier passes only
-      T best = inf, xl_win[4] = {};
-      int best_slot = 0, up = 0;
-      // positions in rank order (the lane stops at the first it skips),
-      // then, after pass 2, the final winner again where the cache gave it:
-      // the kernel's one lm_solve
-      for (int p = 0; p <= K; ++p) {
-        int s = K, row = 0;
-        T q = inf;
-        bool stop = p == K;
-        if (!stop) {
-          s = (int)((order >> (4 * p)) & 15u);
-#pragma unroll
-          for (int j = 0; j < K; ++j)
-            if (j == s) {
-              q = qe[j];
-              row = ik[j];
-            }
-          stop = p > 0 && (!(q < inf) || q + (T)N + (T)100.0 > best);
-        }
-        const bool again = stop && pass == 2 && !held;
-        if (stop && !again) break;
-        if (again) row = win_row;
-        const bool ok = !again && q < inf;
-        int hit = -1;
-        if (dedup && ok)
-          for (int e = 0; e < n_prev && hit < 0; ++e)
-            if (e_row[e] == row) hit = e;
-        T d, xl[4];
-        int tr = 0;
-        if (hit >= 0) {
-          d = e_d[hit];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) xl[c] = e_xl[hit][c];
-        } else {
-          T xt[4];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) xt[c] = st[row * row_stride + c * B];
-#pragma unroll
-          for (int i = 0; i < N; ++i) us[i][0] = us[i][1] = (T)0;
-          const Solve<T, N> S{C, x0, xt, o};
-          T cost;
-          S.template lm_solve<true>(us, false, xl, cost, d, &tr);
-          if (stats)
-            executed += (int)__reduce_max_sync(__activemask(), (unsigned)tr);
-        }
-        useful += tr;
-        up += 1 + tr;
-        if (again) {  // the final winner's us
-#pragma unroll
-          for (int i = 0; i < N; ++i) {
-            us_win[i][0] = us[i][0];
-            us_win[i][1] = us[i][1];
+    }
+    const T unit = C.unit[pass], cutoff = C.cutoff[pass];
+    const int n_prev = n_cache;  // this pass matches earlier passes only
+    T best = inf, xl_win[4] = {};
+    int best_slot = 0, up = 0;
+    // positions in rank order (the lane stops at the first it skips),
+    // then, after pass 2, the final winner again where the cache gave it:
+    // the kernel's one lm_solve
+    for (int p = 0; p <= K; ++p) {
+      int s = K, row = 0;
+      T q = inf;
+      bool stop = p == K;
+      if (!stop) {
+        s = (int)((order >> (4 * p)) & 15u);
+        const int e = sl.ik(s);
+        row = e & (Slots::INVALID - 1);
+        if (!(e & Slots::INVALID)) q = qf[(size_t)row * B];
+        stop = p > 0 && (!(q < inf) || q + (T)N + (T)100.0 > best);
+      }
+      const bool again = stop && pass == 2 && !held;
+      if (stop && !again) break;
+      if (again) row = win_row;
+      const bool ok = !again && q < inf;
+      int hit = -1;
+      if (dedup && ok)  // a bounded scan of the slice's rows
+        for (int e = 0; e < n_prev; ++e)
+          if (sl.row(e) == row) {
+            hit = e;
+            break;
           }
-          break;
-        }
-        if (dedup && ok && pass < 2) {
-          e_row[n_cache] = row;
-          e_d[n_cache] = d;
+      T d, xl[4], us[N][2];
+      int tr = 0;
+      if (hit >= 0) {
+        d = sl.d(hit);
 #pragma unroll
-          for (int c = 0; c < 4; ++c) e_xl[n_cache][c] = xl[c];
-          ++n_cache;
-        }
-        const T i_rel = fmax(ceil(d / unit - (T)1e-12), (T)1.0);
-        const T cost = ok && d <= cutoff ? q + (T)N + (T)100.0 * i_rel : inf;
-        // the (cost, slot) lexicographic minimum; slot 0 is the winner
-        // while every cost is +inf
-        if (s == best_slot || cost < best || (cost == best && s < best_slot)) {
-          best = cost;
-          best_slot = s;
-          win_row = row;
+        for (int c = 0; c < 4; ++c) xl[c] = sl.xl(hit, c);
+      } else {
+        T xt[4];
 #pragma unroll
-          for (int c = 0; c < 4; ++c) xl_win[c] = xl[c];
-          held = hit < 0;
-          if (held) {
+        for (int c = 0; c < 4; ++c) xt[c] = st[row * row_stride + c * B];
 #pragma unroll
-            for (int i = 0; i < N; ++i) {
-              us_win[i][0] = us[i][0];
-              us_win[i][1] = us[i][1];
-            }
-          }
+        for (int i = 0; i < N; ++i) us[i][0] = us[i][1] = (T)0;
+        const Solve<T, N> S{C, x0, xt, o};
+        T cost;
+        S.template lm_solve<true>(us, false, xl, cost, d, &tr);
+        if (stats)
+          executed += (int)__reduce_max_sync(__activemask(), (unsigned)tr);
+      }
+      useful += tr;
+      up += 1 + tr;
+      // the final winner's us (solved again), or a new best's that it
+      // solved
+      const T i_rel = fmax(ceil(d / unit - (T)1e-12), (T)1.0);
+      const T cost = ok && d <= cutoff ? q + (T)N + (T)100.0 * i_rel : inf;
+      // the (cost, slot) lexicographic minimum; slot 0 is the winner while
+      // every cost is +inf
+      const bool better = !again && (s == best_slot || cost < best ||
+                                     (cost == best && s < best_slot));
+      if (again || (better && hit < 0)) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          sl.us(i, 0) = us[i][0];
+          sl.us(i, 1) = us[i][1];
         }
       }
+      if (again) break;
+      if (dedup && ok && pass < 2 && hit < 0) {  // a row not cached yet
+        sl.row(n_cache) = row;
+        sl.d(n_cache) = d;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) xg[c] = xl_win[c];
-      if (stats) upass_out[pass * B + b] = up;
+        for (int c = 0; c < 4; ++c) sl.xl(n_cache, c) = xl[c];
+        ++n_cache;
+      }
+      if (better) {
+        best = cost;
+        best_slot = s;
+        win_row = row;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) xl_win[c] = xl[c];
+        held = hit < 0;
+      }
     }
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      us_out[(2 * i) * B + b] = us_win[i][0];
-      us_out[(2 * i + 1) * B + b] = us_win[i][1];
-    }
-    shrink_out[b] = (win_row + 1) > (len - 1) ? (T)1 : (T)0;
-    idx_out[b] = win_row;
-    row_out[b] = 0;
-    if (stats) {
-      useful_out[b] = useful;
-      exec_out[b] = executed;
+    for (int c = 0; c < 4; ++c) xg[c] = xl_win[c];
+    if (stats) upass_out[pass * B + b] = up;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    us_out[(2 * i) * B + b] = sl.us(i, 0);
+    us_out[(2 * i + 1) * B + b] = sl.us(i, 1);
+  }
+  shrink_out[b] = (win_row + 1) > (len - 1) ? (T)1 : (T)0;
+  idx_out[b] = win_row;
+  row_out[b] = 0;
+  if (stats) {
+    useful_out[b] = useful;
+    exec_out[b] = executed;
+  }
+}
+
+template <typename T, int N, int K>
+__global__ void __launch_bounds__(K1_LQ_THREADS,
+                      sizeof(T) == 4 ? K1_LQ_F32_BLOCKS : 1)
+    i2lqr_step_lanes_kernel(
+        const Consts<T> C, int B, int nb, int T_rows, int opts,
+        const T* __restrict__ x, const T* __restrict__ g0,
+        const T* __restrict__ states, const T* __restrict__ qfun,
+        const int* __restrict__ lap_len, const int* __restrict__ lap_ids,
+        const int* __restrict__ lap_ok, const T* __restrict__ obs,
+        const float* __restrict__ skip, T* __restrict__ us_out,
+        T* __restrict__ shrink_out, int* __restrict__ idx_out,
+        int* __restrict__ row_out, int* __restrict__ useful_out,
+        int* __restrict__ exec_out, int* __restrict__ upass_out,
+        int* __restrict__ counter, int n_threads) {
+  static_assert(K <= 8, "the rank order: K slots of 4 bits");
+  constexpr unsigned FULL = 0xffffffffu;
+  const bool stats = opts & K1_OPT_STATS, dedup = opts & K1_OPT_DEDUP;
+  const int lap = lap_ids[0];
+  const bool lap_stored = lap_ok[0] != 0;
+  const int wl = threadIdx.x & 31;
+  unsigned char* smem = dynamic_shared();
+  LaneSlots<T, N, K> sl(smem, threadIdx.x);
+  int* ring = LaneSlots<T, N, K>::ring(smem, threadIdx.x);
+  // the warp's chunk of lanes chunk .. chunk + 31; the first by its index
+  int chunk = blockIdx.x * blockDim.x + threadIdx.x - wl;
+  int head = 0, queued = 0;  // the ring's first slot and its lanes
+  for (;;) {
+    if (queued >= 32 || (queued > 0 && chunk >= nb)) {
+      // a round: the ring's next 32 live lanes, one a thread
+      __syncwarp();
+      const int b = wl < queued ? ring[(head + wl) % K1_LQ_RING] : -1;
+      __syncwarp();
+      head = (head + 32) % K1_LQ_RING;
+      queued = queued > 32 ? queued - 32 : 0;
+      if (b >= 0)
+        lane_step<T, N, K>(C, B, T_rows, stats, dedup, lap, lap_stored, b,
+                           sl, x, g0, states, qfun, lap_len, obs, us_out,
+                           shrink_out, idx_out, row_out, useful_out,
+                           exec_out, upass_out);
+    } else if (chunk < nb) {
+      // a chunk: its skipped lanes now, its live lanes into the ring
+      const int c = chunk + wl;
+      const bool in = c < nb;
+      const bool sk = in && skip[c] > 0.5f;
+      const unsigned mask = __ballot_sync(FULL, in && !sk);
+      if (in && !sk)
+        ring[(head + queued + __popc(mask & ((1u << wl) - 1u))) %
+             K1_LQ_RING] = c;
+      queued += __popc(mask);
+      int next = 0;
+      if (wl == 0) next = n_threads + atomicAdd(counter, 32);
+      chunk = __shfl_sync(FULL, next, 0);
+      if (sk) {
+        for (int i = 0; i < 2 * N; ++i) us_out[i * B + c] = (T)0;
+        shrink_out[c] = (T)0;
+        idx_out[c] = 0;
+        row_out[c] = 0;
+        if (stats) {
+          useful_out[c] = 0;
+          exec_out[c] = 0;
+          for (int p = 0; p < 3; ++p) upass_out[p * B + c] = 0;
+        }
+      }
+    } else {
+      break;
     }
   }
 }
@@ -470,7 +586,8 @@ int launch_i2lqr_step_opts(int opts, const double* consts, int max_iter,
   const Consts<T> C = make_consts<T>(consts, max_iter);
   if constexpr (NSI == 1) {
     if (opts & K1_OPT_QSORT)
-      return launch_lanes<i2lqr_step_lanes_kernel<T, N, K>>(
+      return launch_lanes<i2lqr_step_lanes_kernel<T, N, K>,
+                          LaneSlots<T, N, K>::BYTES>(
           nb, (int*)counter, stream, C, B, nb, T_rows, opts, (const T*)x,
           (const T*)g0, (const T*)states, (const T*)qfun,
           (const int*)lap_len, (const int*)lap_ids, (const int*)lap_ok,
@@ -538,12 +655,13 @@ extern "C" int i2lqr_step_opts_launch(
 extern "C" int i2lqr_step_opts_attributes(int dtype, int n, int k, int nsi,
                                           int* out) {
   if (n == 6 && k == 8 && nsi == 0)
-    return dtype == 0 ? ilqr::kernel_attributes(
-                            ilqr::i2lqr_step_lanes_kernel<float, 6, 8>, 128,
-                            out)
-                      : ilqr::kernel_attributes(
-                            ilqr::i2lqr_step_lanes_kernel<double, 6, 8>,
-                            128, out);
+    return dtype == 0
+               ? ilqr::kernel_attributes(
+                     ilqr::i2lqr_step_lanes_kernel<float, 6, 8>, 128, out,
+                     ilqr::LaneSlots<float, 6, 8>::BYTES)
+               : ilqr::kernel_attributes(
+                     ilqr::i2lqr_step_lanes_kernel<double, 6, 8>, 128, out,
+                     ilqr::LaneSlots<double, 6, 8>::BYTES);
   I2LQR_OPTS_ATTRIBUTES(float, 0, 6, 8, 1)
   I2LQR_OPTS_ATTRIBUTES(double, 1, 6, 8, 1)
   I2LQR_OPTS_ATTRIBUTES(float, 0, 6, 8, 2)

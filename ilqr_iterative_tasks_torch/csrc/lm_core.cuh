@@ -459,12 +459,45 @@ __device__ __forceinline__ Obs<T> load_obs(const T* obs, int B, int b) {
   return o;
 }
 
+// Row t's L1 distance d to `xg` into the ascending list (dk, ik):
+// insert at the end and bubble down; strict < keeps earlier rows first.
+template <typename T, int K>
+__device__ __forceinline__ void knn_insert(T (&dk)[K], int (&ik)[K], T d,
+                                           int t) {
+  if (d < dk[K - 1]) {
+    dk[K - 1] = d;
+    ik[K - 1] = t;
+#pragma unroll
+    for (int s = K - 1; s > 0; --s) {
+      if (dk[s] < dk[s - 1]) {
+        const T td = dk[s];
+        dk[s] = dk[s - 1];
+        dk[s - 1] = td;
+        const int ti = ik[s];
+        ik[s] = ik[s - 1];
+        ik[s - 1] = ti;
+      }
+    }
+  }
+}
+
+// Row t's L1 distance to `xg` (rows `row_stride` apart, components B apart).
+template <typename T>
+__device__ __forceinline__ T row_dist(const T* st, size_t row_stride, int B,
+                                      int t, const T* xg) {
+  const T* p = st + t * row_stride;
+  return fabs(p[0] - xg[0]) + fabs(p[B] - xg[1]) + fabs(p[2 * B] - xg[2]) +
+         fabs(p[3 * B] - xg[3]);
+}
+
 // The K nearest rows, by L1 distance to `xg`, among rows [0, rows) of one
 // stored lap of a batch-trailing safe set: `st` points at row 0 of this
 // lane, rows lie `row_stride` apart and components B apart, so a warp's
 // reads of one row are coalesced. Ascending distance with ties to the lower
-// row (insertion with a strict <); a slot left empty is row 0 at +inf.
-template <typename T, int K>
+// row (insertion with a strict <, rows in ascending order); a slot left
+// empty is row 0 at +inf. U rows' loads are issued before the first of
+// them is inserted, so that a thread keeps 4U loads in flight.
+template <typename T, int K, int U>
 __device__ __forceinline__ void knn_rows(const T* st, size_t row_stride,
                                          int B, int rows, const T* xg,
                                          T (&dk)[K], int (&ik)[K]) {
@@ -473,27 +506,17 @@ __device__ __forceinline__ void knn_rows(const T* st, size_t row_stride,
     dk[s] = (T)INFINITY;
     ik[s] = 0;
   }
-  for (int t = 0; t < rows; ++t) {
-    const T* p = st + t * row_stride;
-    const T d = fabs(p[0] - xg[0]) + fabs(p[B] - xg[1]) +
-                fabs(p[2 * B] - xg[2]) + fabs(p[3 * B] - xg[3]);
-    if (d < dk[K - 1]) {
-      // insert and bubble down; strict < keeps earlier rows first
-      dk[K - 1] = d;
-      ik[K - 1] = t;
+  int t = 0;
+  for (; t + U <= rows; t += U) {
+    T d[U];
 #pragma unroll
-      for (int s = K - 1; s > 0; --s) {
-        if (dk[s] < dk[s - 1]) {
-          const T td = dk[s];
-          dk[s] = dk[s - 1];
-          dk[s - 1] = td;
-          const int ti = ik[s];
-          ik[s] = ik[s - 1];
-          ik[s - 1] = ti;
-        }
-      }
-    }
+    for (int u = 0; u < U; ++u)
+      d[u] = row_dist(st, row_stride, B, t + u, xg);
+#pragma unroll
+    for (int u = 0; u < U; ++u) knn_insert(dk, ik, d[u], t + u);
   }
+  for (; t < rows; ++t)
+    knn_insert(dk, ik, row_dist(st, row_stride, B, t, xg), t);
 }
 
 // The rows knn_rows finds, by a group of K threads of a tile (K divides G,

@@ -1,8 +1,9 @@
 // Thread tiles and lane queues of the per-lane kernels: a tile of G threads
 // of one warp owns a lane (Tile; K1, K2), the resources of a loaded kernel
-// (kernel_attributes), and, for the kernels whose lanes take different
-// numbers of LM trips (K3, K5), a grid sized to what the card holds at once
-// whose threads take their lanes from a counter as they finish (next_lane,
+// (kernel_attributes), the launch's dynamic shared memory, and, for the
+// kernels whose lanes take different numbers of LM trips (K1's lane queue,
+// K3, K4, K5), a grid sized to what the card holds at once whose threads
+// or warps take their lanes from a counter as they finish (next_lane,
 // launch_lanes).
 #pragma once
 
@@ -11,24 +12,37 @@
 namespace ilqr {
 
 // The resources of a loaded kernel as the CUDA runtime reports them, for
-// blocks of `threads` threads: out[0] registers a thread, out[1] bytes of
-// local memory a thread (its stack frame, register spills included),
-// out[2] resident warps an SM. Returns the first failing query's
-// cudaError_t, else 0.
+// blocks of `threads` threads with `smem` bytes of dynamic shared memory:
+// out[0] registers a thread, out[1] bytes of local memory a thread (its
+// stack frame, register spills included), out[2] resident warps an SM.
+// Returns the first failing query's cudaError_t, else 0.
 template <typename F>
-int kernel_attributes(F* kernel, int threads, int* out) {
+int kernel_attributes(F* kernel, int threads, int* out, int smem = 0) {
   cudaFuncAttributes a;
   int blocks = 0;
-  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  cudaError_t e = cudaSuccess;
+  if (smem > 0)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, kernel);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                      threads, 0);
+                                                      threads, smem);
   if (e != cudaSuccess) return (int)e;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
   out[2] = blocks * threads / 32;
   return 0;
 }
+
+// The launch's dynamic shared memory (the host stand-in defines its own).
+#ifndef EMU_DYNAMIC_SHARED
+__device__ __forceinline__ unsigned char* dynamic_shared() {
+  extern __shared__ __align__(16) unsigned char dynamic_shared_bytes[];
+  return dynamic_shared_bytes;
+}
+#endif
 
 // A tile of G consecutive threads of a warp (G a power of two <= 32) that
 // owns one lane. Blocks are whole warps and a lane's tile starts at a
@@ -70,40 +84,54 @@ __device__ __forceinline__ int next_lane(int* counter, int n_threads) {
   return n_threads + atomicAdd(counter, 1);
 }
 
-// Blocks of 128 threads of Kernel the card holds at once (its resident
-// blocks an SM times the SMs), queried at the process's first launch of
-// Kernel and kept; -(the failing query's cudaError_t). A grid of any size
-// takes every lane, so the size, read on the first launch's card, sets
-// only the time.
-template <auto Kernel>
+// Blocks of 128 threads of Kernel, each with Smem bytes of dynamic shared
+// memory, the card holds at once (its resident blocks an SM times the
+// SMs), queried at the process's first launch of Kernel and kept (Smem
+// above 48 KB allowed first); -(the failing query's cudaError_t). A grid
+// of any size takes every lane, so the size, read on the first launch's
+// card, sets only the time.
+template <auto Kernel, int Smem = 0>
 int resident_blocks() {
   static const int held = [] {
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess && Smem > 0)
+      e = cudaFuncSetAttribute(Kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Smem);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, 128,
-                                                        0);
+                                                        Smem);
     return e == cudaSuccess ? per_sm * sms : -(int)e;
   }();
   return held;
 }
 
-// Launches Kernel (one thread a lane, blocks of 128, its last two
-// parameters the lane counter and the grid's threads) on as many blocks as
-// the card holds at once, and no more than B lanes need. `counter` is one
-// int of device memory, zeroed on the stream first. Returns the first
-// failing call's cudaError_t, else 0.
-template <auto Kernel, typename... A>
+// Launches Kernel (one thread a lane, blocks of 128 with Smem bytes of
+// dynamic shared memory, its last two parameters the lane counter and the
+// grid's threads) on as many blocks as the card holds at once, and no more
+// than B lanes need. `counter` is one int of device memory, zeroed on the
+// stream first. Smem above 48 KB is allowed on every launch, since the
+// allowance belongs to the current card's context and a process may launch
+// on more than one card. Returns the first failing call's cudaError_t,
+// else 0.
+template <auto Kernel, int Smem = 0, typename... A>
 int launch_lanes(int B, int* counter, cudaStream_t stream, A... args) {
-  const int held = resident_blocks<Kernel>();
+  const int held = resident_blocks<Kernel, Smem>();
   if (held <= 0) return held < 0 ? -held : (int)cudaErrorInvalidConfiguration;
   const int need = (int)(((long long)B + 127) / 128);
   const int blocks = need < held ? need : held;
-  const cudaError_t e = cudaMemsetAsync(counter, 0, sizeof(int), stream);
+  cudaError_t e = cudaSuccess;
+  if (Smem > 0)
+    e = cudaFuncSetAttribute(Kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Smem);
   if (e != cudaSuccess) return (int)e;
-  Kernel<<<blocks, 128, 0, stream>>>(args..., counter, blocks * 128);
+  e = cudaMemsetAsync(counter, 0, sizeof(int), stream);
+  if (e != cudaSuccess) return (int)e;
+  Kernel<<<blocks, 128, Smem, stream>>>(args..., counter, blocks * 128);
   return (int)cudaGetLastError();
 }
 

@@ -60,6 +60,9 @@ EVERY_CAPTURES = {1: 5, 2: 14, 3: 10}
 SWEEP_BATCH, SWEEP_LAPS, SWEEP_CAP = 4096, 4, 16
 SWEEP_CONFIGS = (("k8_nsi1", 8, 1, None), ("k8_nsi1_sr3", 8, 1, 3),
                  ("k32_nsi4", 32, 4, None))
+# the batches at which K1's lane queue was timed against the plain order
+# (experiments/kernel_ab.py --k1), which set LANE_QUEUE_FROM
+CROSSOVER_BATCHES = (4096, 8192, 16384, 32768, 40960, 49152)
 # (learning lap, control step) where the k32_nsi4 sweep's K1 inputs are
 # captured: by lap 4 most lanes' stored laps are shorter than 32 rows
 SWEEP_CAPTURES = {1: 5, 2: 14, 4: 10}
@@ -627,16 +630,18 @@ def sweep_capture(k1) -> Capture:
 
 
 @contextlib.contextmanager
-def sweep_step_solver(k, nsi, wrap, device=None):
+def sweep_step_solver(k, nsi, wrap, device=None, stall_reseed=None):
     """Inside the block, the K1 that ``run_sweep``'s simulator takes for
-    (k, nsi) (``default_step_solver``'s) is ``wrap(k1)``, a step solver
-    that delegates to it (a Capture); yields (k1, the wrapper)."""
+    (k, nsi, ``stall_reseed``) (``default_step_solver``'s) is
+    ``wrap(k1)``, a step solver that delegates to it (a Capture); yields
+    (k1, the wrapper)."""
     from ilqr_iterative_tasks_torch.experiments.scenario_sweep import (
         MAX_LAPS as S_LAPS, MAX_STEPS as S_STEPS)
     params = IlqrParams.make(num_ss_points=k, num_ss_iter=nsi, device=device)
     k1 = batched_soa.default_step_solver(
         params, SystemLimits.make(device=device), 1.0, max_steps=S_STEPS,
-        max_laps=S_LAPS, max_iter=SWEEP_CAP)
+        max_laps=S_LAPS, max_iter=SWEEP_CAP,
+        reseeded=stall_reseed is not None)
     key = next(kk for kk, v in batched_soa._K1_CACHE.items() if v is k1)
     wrapper = wrap(k1)
     batched_soa._K1_CACHE[key] = wrapper

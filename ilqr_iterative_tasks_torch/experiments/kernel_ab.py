@@ -3,7 +3,7 @@ against those of another checkout (an earlier commit) and of edited copies
 of this checkout's sources, in turns on one card.
 
     python -m ilqr_iterative_tasks_torch.experiments.kernel_ab \\
-        --other DIR [--generic | --k4 | --k32] [--also NAME DIR ...] \\
+        --other DIR [--generic | --k4 | --k32 | --k1] [--also NAME DIR ...] \\
         [--variant NAME FILE OLD NEW ...] [--out chiprun_out/kernel_ab.json]
 
 DIR holds the other checkout (``DIR/ilqr_iterative_tasks_torch/csrc``, whose
@@ -80,6 +80,24 @@ laps, moving obstacle, seed 0; ``scenario_sweep.run_sweep``) through each
 library in turns, two runs each, whose lap records must agree, with the
 run's host seconds, then one more run each under the profiler.
 
+The simulator's own K1 (``default_step_solver``'s dedup + qsort_skip, the
+lane queue of csrc/i2lqr_step_opts.cu; part of the default run, and all of
+it with ``--k1``, which also runs the crossover): on the i2LQR headline's
+captures, f32 and f64 cast up, every library's outputs, with and without
+counts, must equal K1 without options (this checkout's plain order) bit
+for bit and its iters_useful and queue floor this checkout's; then the
+f32 ms a step in turns, a launch over the first 4 096 lanes of the lap-3
+capture (the rest skipped) in turns, each library's lane queue forced
+there beside the plain order (the main path's below ``LANE_QUEUE_FROM``
+lanes), and the headline through each
+library in turns and once profiled. The crossover (``--k1``): this
+checkout's lane queue against the plain order at B = 4 096 to 49 152
+(``CROSSOVER_BATCHES``) on
+the headline's scenarios and the sweep's k8_nsi1 and k8_nsi1_sr3 runs, in
+turns, each run's wall seconds and K1's CUDA-event ms
+(``lane_queue_crossover``); it sets ``ops/i2lqr_step.py``'s
+``LANE_QUEUE_FROM``.
+
 For every headline: host seconds, lap-sims/s, the
 lap records' hash (which must agree between libraries for the same seed)
 and, but for K1's, the kernel's CUDA-event spans (which hold the wrapper's
@@ -100,6 +118,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import ctypes
 import json
 import os
@@ -112,16 +131,19 @@ import numpy as np
 import torch
 
 from ilqr_iterative_tasks_torch.control import batched_nlmpc_soa, batched_soa
+from ilqr_iterative_tasks_torch.control.batched_soa import (
+    SoaScenarios, simulate_learning_runs_soa)
 from ilqr_iterative_tasks_torch.experiments.generic_bench import (
     K5_MODELS, bench_kernel, bench_throughput, candidates, card_line,
     generic_kwargs, k5_task, throughput_inputs, warp_trips)
 from ilqr_iterative_tasks_torch.experiments.headlines import (
-    ALL_BATCH, BATCH, CAP, EVERY_CAPTURES, K1_COUNT, K2_ATTRS, K3_ATTRS,
+    ALL_BATCH, BATCH, CAP, CROSSOVER_BATCHES, EVERY_CAPTURES, K1_COUNT,
+    K2_ATTRS, K3_ATTRS,
     K4_ATTRS, LAPS, MAX_LAPS, MAX_STEPS, N, NL_CAP, NL_CAPTURES, SWEEP_BATCH,
-    SWEEP_LAPS, SWEEP_CAP, Headlines, Recorder, counted_solves, cuda_ms,
-    device_seconds, k1_capture, k2_capture, k32_distinct, lap_records_hash,
-    launching, random_k4_lanes, require, sweep_capture, sweep_step_solver,
-    tap_step, want_capture)
+    SWEEP_CONFIGS, SWEEP_LAPS, SWEEP_CAP, Headlines, LaunchLog, Recorder,
+    counted_solves, cuda_ms, device_seconds, k1_capture, k2_capture,
+    k32_distinct, lap_records_hash, launching, random_k4_lanes, require,
+    sweep_capture, sweep_step_solver, tap_step, want_capture)
 from ilqr_iterative_tasks_torch.experiments.nlmpc_profile import EventTimed
 from ilqr_iterative_tasks_torch.experiments.scenario_sweep import run_sweep
 from ilqr_iterative_tasks_torch.models import (
@@ -134,6 +156,7 @@ from ilqr_iterative_tasks_torch.ops.fused_ilqr import (
     build_fused_ilqr, obstacle_to_lanes)
 from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
     build_fused_lm_shooting, fused_lm_shooting_reference)
+from ilqr_iterative_tasks_torch.ops import i2lqr_step
 from ilqr_iterative_tasks_torch.ops.i2lqr_step import (
     build_fused_i2lqr_step, i2lqr_step_reference)
 from ilqr_iterative_tasks_torch.ops.ilqr_soa import ilqr_solve_soa
@@ -147,7 +170,8 @@ GROUPS = {"i2lqr_step.cu": ("k1",), "nlmpc_step_all.cu": ("all",),
           "nlmpc_step.cu": ("k2",), "fused_ilqr.cu": ("k3",),
           "fused_lm_shooting.cu": ("k4",), "generic_ilqr.cuh": ("k5",),
           "dual.cuh": ("k5",)}
-# the f32 kernels whose resources are reported, by their attributes entry
+# the kernels whose resources are reported (f32 but for K1's lane queue in
+# f64), by their attributes entry
 # and its arguments and, in a build log, by their name's prefix (K2
 # spaceVarying and timeVarying: qsort_skip, nsi 1)
 RESOURCES = {
@@ -155,6 +179,10 @@ RESOURCES = {
            f"i2lqr_step_kernel<float,{N},8,1>"),
     "k1_k32": ("i2lqr_step_attributes", (0, N, 32, 4),
                f"i2lqr_step_block_kernel<float,{N},4"),
+    "k1_lanes": ("i2lqr_step_opts_attributes", (0, N, 8, 0),
+                 f"i2lqr_step_lanes_kernel<float,{N},8>"),
+    "k1_lanes_f64": ("i2lqr_step_opts_attributes", (1, N, 8, 0),
+                     f"i2lqr_step_lanes_kernel<double,{N},8>"),
     "k2_all": ("nlmpc_step_all_attributes", (0, N),
                f"nlmpc_step_all_kernel<float,{N}"),
     "k2_sv": ("nlmpc_step_attributes", (0, N, 8, 1, 0, 1),
@@ -171,6 +199,8 @@ K5_INSTANTIATIONS = (("bicycle", 6), ("double_integrator", 6),
                      ("double_integrator", 10), ("unicycle", 6),
                      ("unicycle", 8))
 TABLE_CODES = {double_integrator: 0, unicycle: 1, kinetic_bicycle: 2}
+# the lanes of a prefix launch (chip_smoke.py's TAIL_PREFIXES' first)
+TAIL_LANES = 4096
 # the f32 K5 kernels whose resources are reported
 K5_RESOURCES = {"k5_double_integrator": (double_integrator, N),
                 "k5_bicycle": (kinetic_bicycle, N)}
@@ -540,6 +570,185 @@ def k32_ab(dev, libs, names, counting) -> dict:
     return report
 
 
+@contextlib.contextmanager
+def queue_from(lanes):
+    """Inside the block, K1's lane queue (qsort_skip without counts) runs
+    from ``lanes`` lanes on (``LANE_QUEUE_FROM``): 0 runs it at every
+    launch, 1 << 30 at none."""
+    keep = i2lqr_step.LANE_QUEUE_FROM
+    i2lqr_step.LANE_QUEUE_FROM = lanes
+    try:
+        yield
+    finally:
+        i2lqr_step.LANE_QUEUE_FROM = keep
+
+
+def pair_step_solver(hl):
+    """The i2LQR simulator's own K1 for the headline's sizes
+    (``default_step_solver``: dedup + qsort_skip, the lane queue)."""
+    k1 = batched_soa.default_step_solver(
+        hl.params, hl.limits, 1.0, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+        max_iter=CAP)
+    require(k1.dedup and k1.qsort_skip and k1.lane_queue_runs(BATCH),
+            "the simulator's K1 does not run the lane queue at the "
+            "headline's batch")
+    return k1
+
+
+def k1_lane_queue_ab(dev, libs, names) -> dict:
+    """The simulator's own K1 of each library of ``names`` (the lane
+    queue) on the i2LQR headline's captures, f32 and f64, with and
+    without counts: every library's outputs equal K1 without options
+    (this checkout's plain order) bit for bit, its iters_useful and
+    queue floor this checkout's; the f32 ms a step in turns; a launch
+    over the first 4 096 lanes of the lap-3 capture (the lanes past them
+    skipped: a tail_shrink launch's shape), the lane queue forced and the
+    plain order, in turns; then the headline
+    through each library in turns, hashes equal, and one profiled run
+    each (K1's device seconds and the card's busy seconds)."""
+    hl = Headlines(dev)
+    pair = pair_step_solver(hl)
+    sizes = dict(num_horizon=N, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+                 max_iter=CAP)
+    plain = build_fused_i2lqr_step(hl.params, hl.limits, 1.0, **sizes)
+    counted = build_fused_i2lqr_step(hl.params, hl.limits, 1.0, dedup=True,
+                                     qsort_skip=True, with_stats=True,
+                                     **sizes)
+    cap = k1_capture(pair)
+    hl.i2lqr(0, cap)
+    for lap, (step, args) in sorted(cap.captured.items()):
+        for dtype in (torch.float32, torch.float64):
+            a = [t.to(dtype) if t.is_floating_point() and i != 8 else t
+                 for i, t in enumerate(args)]
+            with launching(libs["this"]):
+                ref = plain(*a)
+                ref_c = counted(*a)
+            for name in names:
+                with launching(libs[name]):
+                    got, got_c = pair(*a), counted(*a)
+                require(all(torch.equal(g, w) for g, w in zip(got, ref))
+                        and all(torch.equal(g, w)
+                                for g, w in zip(got_c[:4], ref)),
+                        f"K1 lane queue {name} lap {lap} {dtype}: outputs "
+                        f"are not K1's without options")
+                require(torch.equal(got_c[4], ref_c[4])
+                        and torch.equal(got_c[6], ref_c[6]),
+                        f"K1 lane queue {name} lap {lap} {dtype}: counts")
+            print(f"[K1 lane queue lap {lap} step {step} {str(dtype)[6:]}]"
+                  f" {names} bitwise K1 without options, with and without "
+                  f"counts", flush=True)
+    caps32 = {lap: (step, [t.to(torch.float32) if t.is_floating_point()
+                           and i != 8 else t for i, t in enumerate(args)])
+              for lap, (step, args) in cap.captured.items()}
+    report = dict(steps=capture_steps(libs, "K1 lane queue", pair, caps32,
+                                      names, 10))
+    step, a = caps32[3]
+    a = list(a)
+    a[8] = a[8].clone()
+    a[8][TAIL_LANES:] = 1.0
+    require(not pair.lane_queue_runs(TAIL_LANES), "the switch moved: "
+            "the main path's prefix launch is no longer the plain order")
+    # each library's lane queue forced over the prefix, then the plain
+    # order, which the main path runs there (the switch), in turns
+    ms = {f"{name} {arm}": [] for arm in ("queue", "plain")
+          for name in names}
+    want = pair(*a, lanes=TAIL_LANES)
+    for name in names + names[::-1]:
+        with launching(libs[name]):
+            with queue_from(0):
+                require(all(torch.equal(g, w) for g, w in zip(
+                    pair(*a, lanes=TAIL_LANES), want)),
+                    f"K1 lane queue {name} over the prefix: outputs")
+                ms[f"{name} queue"].append(
+                    cuda_ms(lambda: pair(*a, lanes=TAIL_LANES), 10))
+            ms[f"{name} plain"].append(
+                cuda_ms(lambda: pair(*a, lanes=TAIL_LANES), 10))
+    live = int((a[8][:TAIL_LANES] < 0.5).sum())
+    report["prefix"] = dict(lanes=TAIL_LANES, live=live, ms=ms)
+    print(f"[K1 lane queue prefix launch] lap 3 step {step} over "
+          f"{TAIL_LANES} lanes, {live} live, the lane queue forced against "
+          f"the plain order (the main path's there): ms "
+          + ", ".join(f"{n} {v[0]:.3f}/{v[1]:.3f}" for n, v in ms.items()),
+          flush=True)
+    report["headline"] = headlines(
+        libs, "i2lqr lane queue", lambda sd, k: hl.i2lqr(sd, k), pair,
+        "i2lqr_step_lanes_kernel", names, BATCH, spans=False)
+    return report
+
+
+def lane_queue_crossover(dev) -> dict:
+    """This checkout's lane queue against the plain order (csrc/
+    i2lqr_step.cu) where the simulator's own K1 switches between them,
+    at each batch of CROSSOVER_BATCHES, in turns (plain, queue, queue,
+    plain): the i2LQR headline's scenarios (seed 1) and the robustness
+    sweep's k8_nsi1 and k8_nsi1_sr3 runs (seed 0), each run's wall
+    seconds and K1's CUDA-event ms summed over its launches; the lap
+    records of the two arms must agree."""
+    hl = Headlines(dev)
+    pair = pair_step_solver(hl)
+    out = {}
+    froms = {"plain": 1 << 30, "queue": 0}
+
+    def turns(tag, solver, run):
+        row = {arm: dict(s=[], k1_ms=[]) for arm in froms}
+        hashes = set()
+        for arm in ("plain", "queue", "queue", "plain"):
+            log = LaunchLog(solver, 8)
+            with queue_from(froms[arm]):
+                t0 = time.perf_counter()
+                res = run(log)
+                torch.cuda.synchronize()
+                row[arm]["s"].append(time.perf_counter() - t0)
+            row[arm]["k1_ms"].append(sum(ms for _, _, ms in log.launches()))
+            row[arm]["launches"] = len(log.log)
+            hashes.add(lap_records_hash(res))
+            del res
+        require(len(hashes) == 1, f"{tag}: the arms' lap records differ")
+        print(f"[crossover {tag}] wall s plain "
+              f"{[round(t, 3) for t in row['plain']['s']]} queue "
+              f"{[round(t, 3) for t in row['queue']['s']]}; K1 ms a run "
+              f"plain {[round(t, 2) for t in row['plain']['k1_ms']]} queue "
+              f"{[round(t, 2) for t in row['queue']['k1_ms']]}, "
+              f"{row['queue']['launches']} launches", flush=True)
+        return row
+
+    from ilqr_iterative_tasks_torch.experiments.scenario_sweep import (
+        MAX_LAPS as S_LAPS, MAX_STEPS as S_STEPS)
+    for b in CROSSOVER_BATCHES:
+        scen = SoaScenarios.broadcast(
+            np.zeros(4), hl.xcl[-1], Obstacle.make(31.0, -2.0, 8.0, 6.0,
+                                                   device=dev),
+            b, noise_on=True, device=dev)
+
+        def headline(k1, sc=scen):
+            g = torch.Generator(device=dev).manual_seed(1)
+            return simulate_learning_runs_soa(
+                hl.params, hl.limits, sc, hl.seed_xs, None, 121, 1.0,
+                step_solver=k1, generator=g, num_laps=LAPS,
+                max_steps=MAX_STEPS, max_laps=MAX_LAPS, solver_max_iter=CAP)
+
+        out[f"headline_{b}"] = turns(f"i2lqr headline B={b}", pair,
+                                     headline)
+        for tag, k, nsi, sr in SWEEP_CONFIGS[:2]:
+            params = IlqrParams.make(num_ss_points=k, num_ss_iter=nsi,
+                                     device=dev)
+            k1s = batched_soa.default_step_solver(
+                params, SystemLimits.make(device=dev), 1.0,
+                max_steps=S_STEPS, max_laps=S_LAPS, max_iter=SWEEP_CAP)
+
+            def sweep(k1, b=b, k=k, nsi=nsi, sr=sr):
+                runs = []
+                with sweep_step_solver(k, nsi, lambda _: k1, device=dev,
+                                       stall_reseed=sr):
+                    run_sweep(b, SWEEP_LAPS, moving=True, num_ss_points=k,
+                              num_ss_iter=nsi, stall_reseed=sr, quiet=True,
+                              device=dev, result=runs)
+                return runs[0]
+
+            out[f"{tag}_{b}"] = turns(f"sweep {tag} B={b}", k1s, sweep)
+    return out
+
+
 def k1_k2_ab(dev, libs, names) -> dict:
     """K1 and K2 of each library at the headlines' captures, then their
     headlines, in turns (module docstring)."""
@@ -548,7 +757,8 @@ def k1_k2_ab(dev, libs, names) -> dict:
     hl = Headlines(dev)
     sizes = dict(max_steps=MAX_STEPS, max_laps=MAX_LAPS)
     # K1 in the plain order, the kernel every library has (the simulator's
-    # own K1 takes dedup and qsort_skip, csrc/i2lqr_step_opts.cu)
+    # own K1, dedup and qsort_skip in csrc/i2lqr_step_opts.cu's lane
+    # queue, is k1_lane_queue_ab's)
     k1 = build_fused_i2lqr_step(hl.params, hl.limits, 1.0, num_horizon=N,
                                 **sizes, max_iter=CAP)
 
@@ -623,6 +833,7 @@ def k1_k2_ab(dev, libs, names) -> dict:
     k3p = build_fused_ilqr(hl.params, hl.limits, 1.0, num_horizon=N,
                            max_iter=CAP)
 
+    report["k1_lane_queue"] = k1_lane_queue_ab(dev, libs, names["k1"])
     report["headlines"] = dict(
         i2lqr=headlines(libs, "i2lqr", lambda s, k: hl.i2lqr(s, k), k1,
                         "i2lqr_step_kernel", names["k1"], BATCH,
@@ -734,6 +945,9 @@ def main():
                     help="K4 only (no K1, no K2, no K3, no K5)")
     ap.add_argument("--k32", action="store_true",
                     help="K1 at k = 32 only")
+    ap.add_argument("--k1", action="store_true",
+                    help="the simulator's own K1 (the lane queue) only, "
+                         "and its crossover against the plain order")
     ap.add_argument("--also", nargs=2, action="append", default=[],
                     metavar=("NAME", "DIR"))
     ap.add_argument("--variant", nargs=4, action="append", default=[],
@@ -812,12 +1026,15 @@ def main():
 
     if args.k32:
         report["k32"] = k32_ab(dev, libs, names["k1"], counting)
-    if not (args.k4 or args.k32):
+    if args.k1:
+        report["k1_lane_queue"] = k1_lane_queue_ab(dev, libs, names["k1"])
+        report["crossover"] = lane_queue_crossover(dev)
+    if not (args.k4 or args.k32 or args.k1):
         report["generic"] = generic_ab(dev, libs, k5libs, names["k3"],
                                        names["k5"])
-    if not (args.generic or args.k4 or args.k32):
+    if not (args.generic or args.k4 or args.k32 or args.k1):
         report.update(k1_k2_ab(dev, libs, names))
-    if not (args.generic or args.k32):
+    if not (args.generic or args.k32 or args.k1):
         report["k4"] = k4_ab(dev, libs, names["k4"])
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

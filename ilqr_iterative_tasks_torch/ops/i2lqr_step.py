@@ -488,6 +488,23 @@ _UNPORTED = {
 }
 
 
+# The lanes from which a launch of K1's lane queue (qsort_skip without
+# counts) runs it; below them the plain order. Measured
+# (experiments/kernel_ab.py --k1, K1's CUDA-event ms a run, the two orders
+# in turns; H100 80GB HBM3, 700 W; PERF.md): on the i2LQR headline's
+# scenarios the queue wins from 16 384 lanes on, on the sweep's k8_nsi1
+# from 40 960 (at 32 768 it is 0.5-2.7 % slower). So B = 4 096 (the
+# sweep), 8 192, 16 384 and 32 768 run the plain order, B = 40 960 and
+# 49 152 (the headline) the lane queue. The switch reads the launch's
+# lanes, so a tail_shrink launch over a 4 096-lane prefix runs the plain
+# order (there 0.63 ms against the queue's 1.89). A stall_reseed run,
+# whose reseeded lanes visit every position in series, lost in the queue
+# at every batch (4 096-49 152: 1.40-2.44 s of K1 a run against
+# 0.38-1.50): the simulator builds its K1 without the queue there
+# (control/batched_soa.py, default_step_solver's ``reseeded``).
+LANE_QUEUE_FROM = 40960
+
+
 class FusedI2lqrStep:
     """K1: one whole i2LQR control step per lane. Attributes k, nsi,
     num_horizon, max_steps, max_laps, max_iter, dedup, qsort_skip,
@@ -516,30 +533,16 @@ class FusedI2lqrStep:
         # solves whatever dedup says
         self._opts = ((1 if with_stats else 0) | (2 if dedup else 0)
                       | (4 if qsort_skip else 0)) if self.k == 8 else 0
-        self._held = {}  # (device, dtype): lanes the lane queue holds
         self.launches = 0
 
-    def lane_queue_runs(self, b, dev, dtype) -> bool:
+    def lane_queue_runs(self, b) -> bool:
         """Whether a launch of ``b`` lanes runs qsort_skip's lane queue
-        (one thread a lane): always with counts, else where the lanes fill
-        the card at one thread a lane, its SMs times the queue kernel's
-        resident threads an SM. Below that the step runs the plain order
-        (the same bits), whose tile of 8 threads a lane fills it sooner:
-        the i2LQR sweep (B = 4 096) ran 1.23 s and 1.69-1.75 s a run
-        through the queue against 1.05-1.23 s without (PERF.md)."""
-        if not self.qsort_skip or self.k != 8:
-            return False
-        if self.with_stats:
-            return True
-        key = (dev, dtype)
-        if key not in self._held:
-            occ = _build.attributes(_build.library(),
-                                    "i2lqr_step_opts_attributes",
-                                    DTYPE_CODES[dtype], self.num_horizon,
-                                    self.k, 0)
-            sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            self._held[key] = occ["warps_per_sm"] * 32 * sms
-        return b >= self._held[key]
+        (one thread a lane): always with counts, else from
+        ``LANE_QUEUE_FROM`` lanes (measured); below it the step runs the
+        plain order, the same bits. The same ``b`` always runs the same
+        kernel."""
+        return bool(self.qsort_skip and self.k == 8
+                    and (self.with_stats or b >= LANE_QUEUE_FROM))
 
     def __call__(self, x, g0, states, qfun, lap_len, lap_ids, lap_ok, obs,
                  skip, lanes=None):
@@ -596,7 +599,7 @@ class FusedI2lqrStep:
                     self._consts, self.max_iter, b, t_rows, ml, *ins,
                     *counts, stream, lanes)
             elif self._opts and (not self.qsort_skip
-                                 or self.lane_queue_runs(lanes, dev, dtype)):
+                                 or self.lane_queue_runs(lanes)):
                 if not self.with_stats:
                     counts = (None,) * 3
                 counter = torch.empty(1, dtype=torch.int32, device=dev)
@@ -649,8 +652,8 @@ def build_fused_i2lqr_step(params: IlqrParams, limits: SystemLimits, dt, *,
     warp of one thread a lane, unless a caller asks for JAX's 128) follow
     the four outputs. Without options the k = 8 step runs
     csrc/i2lqr_step.cu's tile kernel, the plain order, and so does a
-    ``qsort_skip`` K1 without counts on fewer lanes than its lane queue
-    fills the card with (``FusedI2lqrStep.lane_queue_runs``). At k = 32
+    ``qsort_skip`` K1 without counts on fewer than ``LANE_QUEUE_FROM``
+    lanes (``FusedI2lqrStep.lane_queue_runs``, a measured switch). At k = 32
     the kernel pools each step's distinct candidate solves, which is
     ``dedup`` in effect (the JAX sweep's ``dedup=True,
     store_solutions=False`` build), so ``dedup`` is taken there and

@@ -13,7 +13,8 @@
 // and its launches run one block at a time. The card reports EMU_SMS SMs
 // (1 unless the build defines it), each holding one block. For checking
 // kernel logic against the plain version on the host; no performance
-// meaning.
+// meaning. A launch's dynamic shared memory (its third launch argument) is
+// a buffer a block, which dynamic_shared() returns.
 #pragma once
 #include <math.h>
 #include <condition_variable>
@@ -47,10 +48,13 @@ typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
        cudaErrorInvalidConfiguration = 9 };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 typedef void* cudaStream_t;
 struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
 template <class F> cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, F) {
   a->numRegs = 1; a->localSizeBytes = 0; return 0; }
+template <class F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 template <class F> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
     int* n, F, int, size_t) { *n = 1; return 0; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
@@ -206,12 +210,25 @@ inline void count(int lane) {
 extern "C" void emu_count_into(int* p) { emu::counts = p; }
 
 namespace emu {
+inline std::unique_ptr<unsigned long long[]> dyn;  // of the running launch
+inline size_t dyn_words = 0;                        // a block's, in 8 bytes
+}  // namespace emu
+#define EMU_DYNAMIC_SHARED
+// the block's dynamic shared memory
+inline unsigned char* dynamic_shared() {
+  return reinterpret_cast<unsigned char*>(emu::dyn.get() +
+                                          blockIdx.x * emu::dyn_words);
+}
+
+namespace emu {
 template <class K, class... A>
-void run(K kernel, dim3 g, dim3 b, A... args) {
+void run(K kernel, dim3 g, dim3 b, size_t smem, A... args) {
   gridDim = g; blockDim = b;
   if (b.x % 32) std::abort();  // blocks of whole warps
   warps.reset(new Warp[g.x * b.x / 32]);
   blocks.reset(new Barrier[g.x]);
+  dyn_words = (smem + 7) / 8;
+  dyn.reset(new unsigned long long[g.x * dyn_words + 1]);
 #ifdef EMU_SHARED
   const unsigned batch = 1;  // a block's shared storage is static
 #else
@@ -229,13 +246,16 @@ void run(K kernel, dim3 g, dim3 b, A... args) {
   }
 }
 template <class K> struct Launcher {
-  K k; dim3 g, b;
-  template <class... A> void operator()(A... args) const { run(k, g, b, args...); }
+  K k; dim3 g, b; size_t smem;
+  template <class... A> void operator()(A... args) const {
+    run(k, g, b, smem, args...);
+  }
 };
 inline dim3 d3(unsigned x) { dim3 d; d.x = x; return d; }
 inline dim3 d3(dim3 x) { return x; }
 template <class K, class GG, class BB>
-Launcher<K> launcher(K k, GG g, BB b, size_t = 0, cudaStream_t = nullptr) {
-  return Launcher<K>{k, d3((unsigned)g), d3((unsigned)b)};
+Launcher<K> launcher(K k, GG g, BB b, size_t smem = 0,
+                     cudaStream_t = nullptr) {
+  return Launcher<K>{k, d3((unsigned)g), d3((unsigned)b), smem};
 }
 }  // namespace emu

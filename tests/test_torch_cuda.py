@@ -264,9 +264,11 @@ def test_sweep_on_the_card_launches_k1(dev, k, nsi):
     from ilqr_iterative_tasks_torch.experiments.scenario_sweep import (
         MAX_LAPS as SW_LAPS, MAX_STEPS as SW_STEPS, run_sweep)
     p = IlqrParams.make(num_ss_points=k, num_ss_iter=nsi)
+    # the K1 of a stall_reseed run (the plain order at k = 8)
     k1 = batched_soa.default_step_solver(p, SystemLimits.make(), 1.0,
                                          max_steps=SW_STEPS,
-                                         max_laps=SW_LAPS, max_iter=16)
+                                         max_laps=SW_LAPS, max_iter=16,
+                                         reseeded=True)
     before = k1.launches
     rep = run_sweep(256, 1, moving=True, num_ss_points=k, num_ss_iter=nsi,
                     stall_reseed=3, quiet=True)
@@ -1301,19 +1303,25 @@ def test_closed_loop_through_a_counting_k1_keeps_the_records(dev):
 
 
 def test_k1_runs_the_lane_queue_where_the_batch_fills_the_card(dev):
-    """qsort_skip without counts runs the lane queue only on a batch of at
-    least the lanes the card holds at one thread a lane (the headline's
-    49 152 lanes; phase 6b of chip_smoke.py runs it there); below it the
-    plain order, the same bits."""
+    """qsort_skip without counts runs the lane queue from the measured
+    switch on (LANE_QUEUE_FROM lanes; the headline's 49 152 lanes among
+    them, phase 6b of chip_smoke.py runs it there), below it the plain
+    order; either gives the plain step's bits."""
     from ilqr_iterative_tasks_torch.experiments.headlines import (
-        k1_option_lanes)
+        CROSSOVER_BATCHES, k1_option_lanes)
+    from ilqr_iterative_tasks_torch.ops.i2lqr_step import LANE_QUEUE_FROM
     p = IlqrParams.make(device=dev)
     lim = SystemLimits.make(device=dev)
     k1 = build_fused_i2lqr_step(p, lim, 1.0, num_horizon=N,
                                 max_steps=T_ROWS, max_laps=MAX_LAPS,
                                 max_iter=CAP, dedup=True, qsort_skip=True)
-    assert not k1.lane_queue_runs(517, dev, torch.float32)
-    assert k1.lane_queue_runs(49152, dev, torch.float32)
+    for b in (517, *CROSSOVER_BATCHES):
+        assert k1.lane_queue_runs(b) == (b >= LANE_QUEUE_FROM)
+    assert k1.lane_queue_runs(49152)
+    # a stall_reseed run's own K1 runs the plain order at every batch
+    assert not batched_soa.default_step_solver(
+        p, lim, 1.0, max_steps=T_ROWS, max_laps=MAX_LAPS, max_iter=CAP,
+        reseeded=True).lane_queue_runs(49152)
     a = k1_option_lanes(1, 3, dev, b=517, dtype=torch.float32)
     got = k1(*a)
     want = i2lqr_step_reference(p, lim, 1.0, *a, max_iter=CAP)

@@ -34,14 +34,14 @@ import pytest
 import torch
 
 from ilqr_iterative_tasks_torch.control.batched_soa import (
-    SoaScenarios, simulate_learning_runs_soa)
+    SoaScenarios, default_step_solver, simulate_learning_runs_soa)
 from ilqr_iterative_tasks_torch.experiments.headlines import (
     MAX_LAPS, MAX_STEPS, k1_block_lanes, k1_option_lanes, lap_records_hash,
     live_share, stats_summary)
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
 from ilqr_iterative_tasks_torch.ops.i2lqr_step import (
-    build_fused_i2lqr_step, i2lqr_step_reference, queue_floor,
-    warp_executed)
+    LANE_QUEUE_FROM, build_fused_i2lqr_step, i2lqr_step_reference,
+    queue_floor, warp_executed)
 from ilqr_iterative_tasks_torch.sim.seed import seed_trajectory
 from ilqr_iterative_tasks_torch.utils.params import IlqrParams, SystemLimits
 
@@ -252,6 +252,26 @@ def test_k32_counts_match_the_jax_kernel(jax_k1, jax_k32):
     assert (mine == theirs).mean() >= 0.75
     assert np.all((mine - theirs) % 6 == 0)
     assert np.abs(mine - theirs).max() <= 6 * 2 * CAP
+
+
+def test_the_simulator_s_k1_switch():
+    """The simulator's own K1 takes dedup + qsort_skip, whose lane queue
+    runs from LANE_QUEUE_FROM lanes on (the headline's 49 152 among them)
+    and the plain order below; a stall_reseed run's K1 runs the plain
+    order at every batch, 49 152 included."""
+    cpu = "cpu"
+    p, lim = IlqrParams.make(device=cpu), SystemLimits.make(device=cpu)
+    sizes = dict(max_steps=MAX_STEPS, max_laps=MAX_LAPS, max_iter=CAP)
+    k1 = default_step_solver(p, lim, 1.0, **sizes)
+    reseeded = default_step_solver(p, lim, 1.0, reseeded=True, **sizes)
+    assert k1.dedup and k1.qsort_skip and reseeded is not k1
+    assert not (reseeded.dedup or reseeded.qsort_skip)
+    assert default_step_solver(p, lim, 1.0, reseeded=True, **sizes) \
+        is reseeded
+    for b in (4096, LANE_QUEUE_FROM - 1, LANE_QUEUE_FROM, 49152, 1 << 20):
+        assert k1.lane_queue_runs(b) == (b >= LANE_QUEUE_FROM)
+        assert not reseeded.lane_queue_runs(b)
+    assert k1.lane_queue_runs(49152)
 
 
 def test_closed_loop_with_a_counting_k1_keeps_the_records():

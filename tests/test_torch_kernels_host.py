@@ -28,6 +28,7 @@ import subprocess
 import numpy as np
 import pytest
 import torch
+from _k5_caller_model import DragCar, task as drag_task
 
 from ilqr_iterative_tasks_torch.experiments.generic_bench import (
     K5_MODELS, generic_kwargs, k5_task, throughput_inputs)
@@ -63,6 +64,14 @@ K5_ANGLE = (("bicycle", 6), ("unicycle", 6), ("unicycle", 8),
             ("holonomic", 3))
 K5_PLAIN = (("double_integrator", 5), ("double_integrator", 6),
             ("double_integrator", 10), ("point_mass", 6))
+# models of these tests beside generic_bench's (tests/_k5_caller_model.py),
+# built on both cards
+TEST_MODELS = {"drag_car": DragCar}
+K5_CALLER = (("drag_car", 6),)
+
+
+def _k5_model(name):
+    return TEST_MODELS.get(name) or K5_MODELS[name]
 MANY_SMS = 33  # 4 224 threads: every lane of these tests by its index
 # K1, its blocks one at a time (shared memory), counting each lane's solves
 K1_SOURCES = ("i2lqr_step.cu",)
@@ -109,7 +118,7 @@ def _start_host_build(d, sms, sources=SOURCES, flags=(), k5=()):
     sources = list(sources)
     for name, nh in k5:
         sources.append(f"k5_{name}_{nh}.cu")
-        (d / sources[-1]).write_text(k5_source(K5_MODELS[name], nh))
+        (d / sources[-1]).write_text(k5_source(_k5_model(name), nh))
     procs, sos = [], []
     for src in sources:
         sos.append(str(d / (src + ".so")))
@@ -138,7 +147,7 @@ class _Lib:
         for (name, nh), so in zip(k5, sos[len(launchers):]):
             fn = ctypes.CDLL(so).k5_launch
             fn.argtypes = _build._ARGTYPES["k5_launch"]
-            self.k5[K5_MODELS[name], nh] = fn
+            self.k5[_k5_model(name), nh] = fn
 
 
 @pytest.fixture(scope="module")
@@ -151,12 +160,13 @@ def libs(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++")
     d = tmp_path_factory.mktemp("host_kernels")
-    builds = [_start_host_build(d / "one_sm", 1, k5=K5_PLAIN + K5_ANGLE),
-              _start_host_build(d / "many_sms", MANY_SMS, k5=K5_ANGLE),
+    k5_one, k5_many = K5_PLAIN + K5_ANGLE + K5_CALLER, K5_ANGLE + K5_CALLER
+    builds = [_start_host_build(d / "one_sm", 1, k5=k5_one),
+              _start_host_build(d / "many_sms", MANY_SMS, k5=k5_many),
               _start_host_build(d / "k1", 1, K1_SOURCES, K1_FLAGS),
               _start_host_build(d / "opts", 1, OPT_SOURCES)]
-    return (_Lib(*builds[0], k5=K5_PLAIN + K5_ANGLE),
-            _Lib(*builds[1], k5=K5_ANGLE),
+    return (_Lib(*builds[0], k5=k5_one),
+            _Lib(*builds[1], k5=k5_many),
             _Lib(*builds[2], launchers=K1_LAUNCHERS),
             _Lib(*builds[3], launchers=OPT_LAUNCHERS))
 
@@ -232,6 +242,28 @@ def test_k5_point_mass_matches_plain_bitwise(lib, dtype):
     got = _k5(lib, k5, *a)
     _equal(got, k5.plain(*a))
     assert int(got[3].max()) > 2 * int(got[3].min())  # lanes refill unevenly
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k5_caller_model_matches_plain(libs, dtype):
+    """The repair pass's caller model (tests/_k5_caller_model.py: a state
+    times itself, an input in the angle's row), its generated CUDA_STEP
+    unit on 3 lanes: in f64 bit for bit the plain version; in f32, where
+    torch's CPU sin / cos (vectorised even on 3 lanes) differ from the
+    host libm in the last bit, bit for bit the build on a card of 33 SMs
+    and the plain version's trips, with us within 1e-4."""
+    lib, many = libs[:2]
+    kw, x0, xt, u0 = drag_task(3, 6)
+    a = tuple(torch.tensor(v, dtype=dtype) for v in (x0, xt, u0))
+    k5 = build_fused_generic_ilqr(DragCar, **kw)
+    got, want = _k5(lib, k5, *a), k5.plain(*a)
+    assert int(got[3].min()) > 1
+    if dtype == torch.float64:
+        _equal(got, want)
+        return
+    _equal(got, _k5(many, k5, *a))
+    assert torch.equal(got[3], want[3])
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -424,6 +456,57 @@ def test_k1_options_match_plain(libs, nsi, lap_count, opts, b):
             DTYPE_CODES[dt], 6, 8, nsi, k1._consts, 8, b, MAX_STEPS,
             MAX_LAPS, *map(_ptr, (*a, *tile)), None, b) == 0
         _equal(tile, out[:4])
+
+
+# The lane queue's schedules: (batch, live share, lanes launched): a batch
+# of 19 chunks of 32 on a grid of 4 warps (the counter hands out chunks,
+# and a warp's ring fills past 32), a tail with about 1 % of its lanes
+# live, scattered over 47 chunks, and a prefix of the first case
+K1_QUEUE_CASES = {"chunks": (600, None, 600), "tail": (1500, 0.01, 1500),
+                  "prefix": (600, None, 333)}
+
+
+@pytest.mark.parametrize("case", list(K1_QUEUE_CASES))
+def test_k1_lane_queue_matches_plain(libs, case):
+    """K1's lane queue (dedup + qsort_skip + with_stats, one block of 128
+    threads whose warps take chunks of 32 lanes from the counter) on
+    headlines.k1_option_lanes, f64, in K1_QUEUE_CASES: the outputs are the
+    plain step's (us to the host libm's last bits), iters_useful and the
+    queue floor integer for integer, iters_executed at least useful and 0
+    on skipped lanes, and nothing written past the lanes launched."""
+    b, live_share, lanes = K1_QUEUE_CASES[case]
+    dt = torch.float64
+    p = IlqrParams.make(device="cpu", dtype=dt)
+    lim = SystemLimits.make(device="cpu", dtype=dt)
+    k1 = build_fused_i2lqr_step(p, lim, 1.0, num_horizon=6,
+                                max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+                                max_iter=8)
+    a = list(k1_option_lanes(1, 3, "cpu", b=b, dtype=dt))
+    if live_share is not None:
+        rng = np.random.default_rng(18)
+        a[8] = torch.tensor(rng.random(b) >= live_share, dtype=torch.float32)
+    out = _nan_outs([((6, 2, b), None), ((b,), None), ((b,), torch.int32),
+                     ((b,), torch.int32), ((5, b), torch.int32)], dt)
+    counter = torch.empty(1, dtype=torch.int32)
+    assert libs[3].i2lqr_step_opts_launch(
+        DTYPE_CODES[dt], 6, 8, 1, 7, k1._consts, 8, b, MAX_STEPS, MAX_LAPS,
+        *map(_ptr, (*a, *out[:4])), *map(_ptr, out[4][:3]),
+        counter.data_ptr(), None, lanes) == 0
+    cut = [t[..., :lanes] if t.dim() and t.shape[-1] == b else t for t in a]
+    want = i2lqr_step_reference(p, lim, 1.0, *cut, max_iter=8, dedup=True,
+                                qsort_skip=True, with_stats=True)
+    got = [t[..., :lanes] for t in out]
+    for g, w in zip(got[1:4], want[1:4]):
+        assert torch.equal(g, w)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-9)
+    live = cut[8] < 0.5
+    assert 0 < int(live.sum()) < lanes
+    assert torch.equal(got[4][0], want[4])
+    assert torch.equal(queue_floor(got[4][2:], 32), want[6])
+    assert bool((got[4][1] >= got[4][0]).all())
+    assert int(got[4][1][~live].abs().sum()) == 0
+    for t in out:  # nothing past the lanes launched
+        assert bool(t[..., lanes:].nan_to_num(-7).eq(-7).all())
 
 
 @pytest.mark.parametrize("mode,nsi,lap_count,qsort", [
