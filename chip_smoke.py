@@ -274,6 +274,28 @@ Phases:
    device-count rates (its batched run now spawned as one NCCL rank a
    card). Two ranks on one card measure contention, not scaling.
 
+The step kernels' last options (K1 reuse_extract, dom_skip, group; K2
+prox_skip, zeros_skip), each a template flag of its own: phase 2 prints
+each variant's registers, local memory and warps, and builds its counting
+library from the step kernels' sources only (their schedules' events:
+kNN kept, slots skipped, zeros starts skipped); 4d / 19c each K1 variant
+on phase 4's / 19's captures bit for bit K1 without the option and its
+plain version (f32), f64 on 4 096 live lanes at phase 4's gates, ms in
+turns with the option off, the plain version's time, solves and bound,
+reuse_extract's fire share and the card's events; 6d the i2LQR headline
+through each (hashes phase 6b's) and K1's profiled device seconds with
+and without reuse_extract in turns; 8e / 13b each K2 variant on phase 8's
+/ 13's captures at phase 8's gates against its plain version (prox_skip
+also bit for bit K2 without it); 10d / 15c the spaceVarying /
+timeVarying headline through K2 with prox_skip in turns with qsort_skip
+(hashes equal, K2's event-timed seconds); 10e zeros_skip at the JAX
+envelope gate's configuration (B = 128, 2 laps, budget 70, cap 12,
+generator seed 5) with and without it: it must change lanes and
+utils/envelope.py must reject it; 16b mode all's zeros_skip builds
+(all_rev_skip, the forward scan, all_iter) against their plain step; 21d
+the k32_nsi4 sweep through K1 at k = 32 with reuse_extract (phase 21a's
+hash).
+
 Every simulator run of the headlines (experiments/headlines.py) and of
 phases 24-25, every host controller run of phases 26-30, and every run of
 each rank of phase 32 (and of phase 30's batched run), runs inside
@@ -334,7 +356,9 @@ from ilqr_iterative_tasks_torch.experiments.headlines import (  # noqa: E402
     EVERY_CAPTURES, K3_ATTRS, K4_ATTRS, RANDOM_LANES, SWEEP_CONFIGS,
     SWEEP_LAPS, Capture, Headlines, LaunchLog, Recorder, cuda_ms,
     device_seconds, tail_launches,
-    K1_COUNT, k1_capture, k2_capture, k4_lanes, lane_obstacle,
+    K1_COUNT, K1_COUNT_SOURCES, k1_capture, k2_capture, k4_lanes,
+    kernel_events,
+    lane_obstacle,
     lap_records_hash, counted_solves, k32_distinct, live_share,
     no_plain_solve_on_card, require, seed_lanes, stats_summary,
     sweep_capture, sweep_step_solver, tap_step, want_capture)
@@ -749,13 +773,13 @@ K1_OPTION_SETS = {"dedup": dict(dedup=True),
                   "dedup_qsort": dict(dedup=True, qsort_skip=True)}
 
 
-def k1_with(params, limits, options, **kw):
+def k1_with(params, limits, options, max_iter=CAP, **kw):
     """K1 at the headline's sizes with ``options``."""
     from ilqr_iterative_tasks_torch.ops.i2lqr_step import (
         build_fused_i2lqr_step)
     return build_fused_i2lqr_step(params, limits, 1.0, num_horizon=N,
                                   max_steps=MAX_STEPS, max_laps=MAX_LAPS,
-                                  max_iter=CAP, **options, **kw)
+                                  max_iter=max_iter, **options, **kw)
 
 
 def check_k1_options(captured, k1, params, limits, host_params, host_limits):
@@ -901,6 +925,382 @@ def check_k2_counts(tag, k2s, captured, lp, limits):
         print(f"[{tag} lap {lap} step {step}] counts the plain step's: "
               f"useful {useful / n_act:.2f}, executed {executed / n_act:.2f}"
               f" a live lane, waste {1 - useful / executed:.4f}", flush=True)
+
+
+# The options of the TPU step kernels ported last (phases 4d, 6d, 8e, 10d,
+# 10e, 13b, 15c, 16b, 19c, 21d). K1's kernel variants at k = 8 by name: the
+# options, and the build the option off runs ("plain": K1 without options;
+# "pair": the dedup + qsort_skip pair the simulator ships)
+K1_VARIANTS = {
+    "reuse_extract": (dict(reuse_extract=True), "plain"),
+    "pair_reuse_extract": (dict(dedup=True, qsort_skip=True,
+                                reuse_extract=True), "pair"),
+    "dom_skip": (dict(dom_skip=True), "plain"),
+    "group2_dedup": (dict(group=2, dedup=True), "plain"),
+    "group4": (dict(group=4), "plain"),
+    "group8": (dict(group=8), "plain"),
+}
+# the variants whose plain version runs with the option at the lap-2
+# capture (its time, the solves it runs); group 4 and 8 solve every
+# candidate as the plain order does, so they take its time and bound
+K1_MEASURED = ("reuse_extract", "pair_reuse_extract", "dom_skip",
+               "group2_dedup")
+VARIANT_LAPS = (1, 2)  # the captures the variants run on
+# K2's by name, per mode: its options, and the build the option off runs
+# ("plain": the plain order; "qsort": the shipped qsort_skip)
+K2_VARIANTS = {
+    "spaceVarying": {
+        "prox_skip": (dict(prox_skip=True), "plain"),
+        "zeros_skip": (dict(zeros_skip=True), "plain"),
+        "qsort_zeros_skip": (dict(qsort_skip=True, zeros_skip=True),
+                             "qsort"),
+        "prox_zeros_skip": (dict(prox_skip=True, zeros_skip=True), "plain")},
+    "timeVarying": {
+        "prox_skip": (dict(prox_skip=True), "plain"),
+        "qsort_zeros_skip": (dict(qsort_skip=True, zeros_skip=True),
+                             "qsort")},
+}
+F64_SUBSET = 4096  # live lanes of a capture held in f64 (phases 4d, 8e, 13b)
+
+
+def lanes_on(args, idx, b):
+    """The lanes ``idx`` of every tensor whose last axis is the batch b,
+    on the card, contiguous."""
+    return [t[..., idx].contiguous() if t.dim() and t.shape[-1] == b else t
+            for t in args]
+
+
+def in_turns(fns, reps=5) -> dict:
+    """ms a call of each of ``fns`` (name -> fn), timed in turns, there and
+    back (a b b a): the least of each's turns."""
+    names = list(fns)
+    ms = {name: [] for name in names}
+    for name in names + names[::-1]:
+        ms[name].append(cuda_ms(fns[name], reps))
+    return {name: min(v) for name, v in ms.items()}
+
+
+def k1_variant_events(kernel, fn, counting):
+    """K1's events in ``fn()`` on the counting build: (lane-passes 1-2
+    under reuse_extract, of them those whose kNN was kept, slots dom_skip
+    passed over)."""
+    if kernel.k == 32:
+        return kernel_events(counting, "i2lqr_step_block_events", 2,
+                             fn) + [0]
+    if kernel.group > 1:
+        return kernel_events(counting, "i2lqr_step_group_events", 2,
+                             fn) + [0]
+    return kernel_events(counting, "i2lqr_step_opts_events", 3, fn)
+
+
+def variant_bound(trips, active, n_cands, plain_ops, cap_kw, sample_lanes,
+                  bytes_moved, solved=None, starts=1):
+    """A variant's bound over the solves its schedule runs: the plain
+    version's trips with the option (each batched solve's (C, B)), of the
+    candidates ``solved`` marks (default: those with a trip), in
+    solve_ops' units over the ``n_cands`` candidate solves a lane-step of
+    the plain order runs (``starts``: the LM starts a trip count sums,
+    whose iterations solve_ops counts together). Returns bound() and the
+    solves a live lane."""
+    t = torch.cat(trips).double()
+    s = t.gt(0) if solved is None else torch.cat(solved)
+    t, s = (t * s)[:, active], s[:, active].double()
+    n_lanes = int(active.sum())
+    st = bound(solve_ops(plain_ops, cap_kw, sample_lanes, n_lanes,
+                         float(t.sum()) / (n_cands * starts),
+                         float(s.sum()) / (n_lanes * n_cands)), bytes_moved)
+    st["solves_a_lane"] = float(s.sum()) / n_lanes
+    return st
+
+
+def check_k1_variants(tag, captured, variants, off, params, limits,
+                      host_params, host_limits, counting, cap=CAP,
+                      measured=K1_MEASURED, plain_bound=None):
+    """K1's reuse_extract, dom_skip and group on captured inputs (phase 4d
+    on phase 4's, 19c on phase 19's at k = 32): each variant of
+    ``variants`` (name -> (options, the name of its option-off kernel in
+    ``off``)) bit for bit the kernel without the option and its plain
+    version (f32 as captured: every output, k1_gate), and in f64 on the
+    first F64_SUBSET live lanes against the plain step at phase 4's gates
+    (the counting build where only it runs the lane queue on so few
+    lanes); ms a step of each beside its option-off kernel's, in turns; at
+    the lap-2 capture the plain version with the option (its time, the
+    solves it runs: the bound) for the variants ``measured`` (the others
+    take the plain order's time and ``plain_bound``), the fire share of
+    reuse_extract (passes 1 and 2 whose guess did not move, the plain
+    version's) and the counting build's events on the card. Captures:
+    VARIANT_LAPS. Returns each variant's lap-2 figures."""
+    from ilqr_iterative_tasks_torch.ops.i2lqr_step import (
+        i2lqr_step_reference)
+    kern = {name: k1_with(params, limits, o, max_iter=cap)
+            for name, (o, _) in variants.items()}
+    queue = {name: k1_with(params, limits, o, with_stats=True, max_iter=cap)
+             for name, (o, _) in variants.items()
+             if o.get("qsort_skip") or (o.get("dom_skip")
+                                        and o.get("group", 1) == 1)}
+    stats = {}
+    for lap, (step, args) in sorted(captured.items()):
+        if lap not in VARIANT_LAPS:
+            continue
+        a = cast(args, torch.float32, keep=(8,))
+        b = a[0].shape[-1]
+        active = a[8] < 0.5
+        n_act = int(active.sum())
+        ref, ref_ms = timed_call(lambda: i2lqr_step_reference(
+            params, limits, 1.0, *a, max_iter=cap))
+        base = {name: k(*a) for name, k in off.items()}
+        idx = torch.nonzero(active).flatten()[:F64_SUBSET]
+        sub = cast(lanes_on(a, idx, b), torch.float64, keep=(8,))
+        ref64 = i2lqr_step_reference(params, limits, 1.0, *sub, max_iter=cap)
+        for name, (o, off_name) in variants.items():
+            kv = kern[name]
+            out = kv(*a)
+            require(all(torch.equal(g, w) for g, w in zip(out,
+                                                          base[off_name])),
+                    f"{tag} {name} lap {lap}: not bitwise K1 without it")
+            gate, _ = k1_gate(f"{tag} {name} lap {lap}", out, ref, active,
+                              torch.float32)
+            gate64, _ = k1_gate(f"{tag} {name} lap {lap}",
+                                queue.get(name, kv)(*sub)[:4], ref64,
+                                sub[8] < 0.5, torch.float64)
+            ms = in_turns({"on": lambda: kv(*a),
+                           "off": lambda: off[off_name](*a)})
+            line = (f"[{tag} K1 {name} lap {lap} step {step}] active "
+                    f"{n_act}: bitwise K1 without it ({off_name}); f32 "
+                    f"against the plain step {gate}; f64 on "
+                    f"{len(idx)} live lanes {gate64}; {ms['on']:.3f} ms a "
+                    f"step against {ms['off']:.3f} without, in turns")
+            if lap == 2:
+                trips, reused, cands = [], [], []
+                if name in measured:
+                    ref_o, plain_ms = timed_call(
+                        lambda: i2lqr_step_reference(
+                            params, limits, 1.0, *a, max_iter=cap,
+                            trips=trips, reused=reused, cands=cands, **o))
+                    require(all(torch.equal(g, w)
+                                for g, w in zip(ref_o, ref)),
+                            f"{tag} {name}: the plain version with the "
+                            f"option changed its outputs")
+                    sidx = idx[:SAMPLE_LANES].cpu()
+                    sample = lanes_of(a, sidx, b)
+                    st = variant_bound(
+                        trips, active, 3 * kv.nsi * kv.k,
+                        lambda max_iter: i2lqr_step_reference(
+                            host_params, host_limits, 1.0, *sample,
+                            max_iter=max_iter), "max_iter", len(sidx),
+                        step_bytes(a, out, (2, 3), kv.nsi),
+                        # at k = 32 the distinct solves, each once
+                        solved=None if kv.k == 8 else k32_distinct(
+                            a[5], a[6], cands))
+                else:
+                    plain_ms, st = ref_ms, dict(plain_bound)
+                ev = k1_variant_events(kv, lambda: kv(*a), counting)
+                st.update(ms=ms["on"], off_ms=ms["off"], plain_ms=plain_ms,
+                          max_abs_err=max_abs_err(out, ref), events=ev)
+                if o.get("reuse_extract"):
+                    st["fire_share_plain"] = float(
+                        sum(r.double().sum() for r in reused)
+                        / (len(reused) * n_act))
+                    st["fire_share_card"] = ev[1] / max(ev[0], 1)
+                    require(ev[1] > 0, f"{tag} {name}: reuse_extract kept "
+                            f"no kNN on the card")
+                if o.get("dom_skip") and o.get("group", 1) == 1:
+                    st["dominated_a_lane"] = ev[2] / n_act
+                    require(ev[2] > 0, f"{tag} {name}: dom_skip skipped no "
+                            f"slot on the card")
+                stats[name] = st
+                line += (f"; plain {plain_ms:.3f} ms; bound "
+                         f"{st['bound_ms']:.4f} ms by {st['bound_by']}; "
+                         f"events on the card {ev}")
+                if "fire_share_plain" in st:
+                    line += (f"; kNN kept on {st['fire_share_card']:.4f} of "
+                             f"the live lane-passes 1-2 (plain version "
+                             f"{st['fire_share_plain']:.4f})")
+            print(line, flush=True)
+    return stats
+
+
+def check_k2_variants(tag, mode, captured, off, lp, limits, host_limits,
+                      counting):
+    """K2's prox_skip and zeros_skip on captured inputs (phases 8e, 13b):
+    each variant of K2_VARIANTS[mode] against its plain version with the
+    same options at phase 8's gates (k2_gate; f32 as captured, and f64 on
+    the first F64_SUBSET live lanes) and, where the option is neutral
+    (prox_skip), bit for bit the kernel without it (``off``: "plain" the
+    plain order, "qsort" the shipped qsort_skip); ms a step beside it, in
+    turns; at the lap-2 capture the plain version's time with the option
+    and the solves it runs (the bound), the lanes zeros_skip changes and
+    the counting build's events. Returns each variant's lap-2 figures."""
+    from ilqr_iterative_tasks_torch.ops.nlmpc_step import (
+        build_fused_nlmpc_step, nlmpc_step_reference)
+    from ilqr_iterative_tasks_torch.utils.params import LmpcParams
+    sizes = dict(num_horizon=N, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+                 max_iters=NL_CAP)
+    variants = K2_VARIANTS[mode]
+    kern = {name: build_fused_nlmpc_step(lp, limits, 1.0, **sizes, **o)
+            for name, (o, _) in variants.items()}
+    host_lp = LmpcParams.make(device="cpu", ss_option=mode)
+    stats = {}
+    for lap, (step, args) in sorted(captured.items()):
+        if lap not in VARIANT_LAPS:
+            continue
+        a = cast(args, torch.float32, keep=(9,))
+        b = a[0].shape[-1]
+        active = a[9] < 0.5
+        n_act = int(active.sum())
+        base = {name: k(*a) for name, k in off.items()}
+        idx = torch.nonzero(active).flatten()[:F64_SUBSET]
+        sub = cast(lanes_on(a, idx, b), torch.float64, keep=(9,))
+        # the plain step without and with zeros_skip, f32 and f64 subset
+        refs = {zs: (nlmpc_step_reference(lp, limits, 1.0, *a,
+                                          max_iters=NL_CAP, zeros_skip=zs),
+                     nlmpc_step_reference(lp, limits, 1.0, *sub,
+                                          max_iters=NL_CAP, zeros_skip=zs))
+                for zs in (False, True)}
+        for name, (o, off_name) in variants.items():
+            kv = kern[name]
+            out = kv(*a)
+            plain_o = dict(zeros_skip=o.get("zeros_skip", False))
+            ref, ref64 = refs[plain_o["zeros_skip"]]
+            gate, maxd = k2_gate(f"{tag} {name} lap {lap}", out, ref,
+                                 active, torch.float32)
+            gate64, _ = k2_gate(f"{tag} {name} lap {lap}", kv(*sub), ref64,
+                                sub[9] < 0.5, torch.float64)
+            neutral = not o.get("zeros_skip")
+            same = all(torch.equal(g, w) for g, w in zip(out,
+                                                         base[off_name]))
+            changed = int((active & torch.stack(
+                [(g != w).reshape(-1, b).any(dim=0)
+                 for g, w in zip(out, base[off_name])]).any(dim=0)).sum())
+            if neutral:
+                require(same, f"{tag} {name} lap {lap}: not bitwise K2 "
+                        f"without it")
+            ms = in_turns({"on": lambda: kv(*a),
+                           "off": lambda: off[off_name](*a)})
+            line = (f"[{tag} K2 {name} lap {lap} step {step}] active "
+                    f"{n_act}: against the plain step {gate}; f64 on "
+                    f"{len(idx)} live lanes {gate64}; "
+                    + (f"bitwise K2 without it ({off_name})" if neutral
+                       else f"{changed} live lanes changed against K2 "
+                            f"without it ({off_name})")
+                    + f"; {ms['on']:.3f} ms a step against {ms['off']:.3f} "
+                      f"without, in turns")
+            if lap == 2:
+                trips, cands = [], []
+                ref_o, plain_ms = timed_call(lambda: nlmpc_step_reference(
+                    lp, limits, 1.0, *a, max_iters=NL_CAP, trips=trips,
+                    cands=cands, prox_skip=o.get("prox_skip", False),
+                    **plain_o))
+                require(all(torch.equal(g, w) for g, w in zip(ref_o, ref)),
+                        f"{tag} {name}: prox_skip changed the plain step's "
+                        f"outputs")
+                sidx = idx[:SAMPLE_LANES].cpu()
+                sample = lanes_of(a, sidx, b)
+                st = variant_bound(
+                    trips, active, kv.nsi * kv.k,
+                    lambda max_iters: nlmpc_step_reference(
+                        host_lp, host_limits, 1.0, *sample,
+                        max_iters=max_iters, **plain_o), "max_iters",
+                    len(sidx),
+                    step_bytes(a, out, (3, 4), k2_rows_read(kv, a)),
+                    solved=(solved_by(kv, a, cands, ref_o)
+                            if o.get("qsort_skip") else None), starts=2)
+                ev = kernel_events(counting, "nlmpc_step_events", 3,
+                                   lambda: kv(*a))
+                st.update(ms=ms["on"], off_ms=ms["off"], plain_ms=plain_ms,
+                          max_abs_err=maxd, events=ev, lanes_changed=changed)
+                if o.get("prox_skip"):
+                    st["skipped_a_lane"] = ev[0] / n_act
+                    st["stopped_share"] = ev[1] / n_act
+                if o.get("zeros_skip"):
+                    st["zeros_starts_skipped_a_lane"] = ev[2] / n_act
+                    require(ev[2] > 0, f"{tag} {name}: zeros_skip skipped "
+                            f"no zeros start on the card")
+                stats[name] = st
+                line += (f"; plain with it {plain_ms:.3f} ms; solves a "
+                         f"live lane {st['solves_a_lane']:.2f}; bound "
+                         f"{st['bound_ms']:.4f} ms by {st['bound_by']}; "
+                         f"events on the card (slots prox_skip passed over, "
+                         f"lanes it stopped early, zeros starts skipped) "
+                         f"{ev}")
+            print(line, flush=True)
+    if mode == "spaceVarying":
+        require(stats["prox_skip"]["events"][0] > 0,
+                f"{tag} prox_skip skipped no slot on the card")
+    return stats
+
+
+def check_k2_all_zskip(tag, kernels, captured, lp, limits, counting):
+    """K2 all's zeros_skip builds (``kernels``: name -> K2) on the lap-2
+    capture (phase 16b) against the plain step with zeros_skip at phase 8's
+    gates, f32 as captured; ms a step and the counting build's zeros
+    starts skipped. Returns each build's figures."""
+    from ilqr_iterative_tasks_torch.ops.nlmpc_step import (
+        nlmpc_step_reference)
+    stats = {}
+    for lap, (step, args) in sorted(captured.items()):
+        if lap != 2:
+            continue
+        a = cast(args, torch.float32, keep=(9,))
+        active = a[9] < 0.5
+        ref, plain_ms = timed_call(lambda: nlmpc_step_reference(
+            lp, limits, 1.0, *a, max_iters=NL_CAP, zeros_skip=True))
+        for name, kern in kernels.items():
+            out = kern(*a)
+            gate, maxd = k2_gate(f"{tag} {name} lap {lap}", out, ref, active,
+                                 torch.float32)
+            line = (f"[{tag} K2 {name} lap {lap} step {step}] active "
+                    f"{int(active.sum())}: against the plain step with "
+                    f"zeros_skip {gate}")
+            if lap == 2:
+                ms = cuda_ms(lambda: kern(*a), 3)
+                ev = kernel_events(counting, "nlmpc_step_all_events", 1,
+                                   lambda: kern(*a))
+                require(ev[0] > 0, f"{tag} {name}: no zeros start skipped")
+                stats[name] = dict(ms=ms, plain_ms=plain_ms,
+                                   max_abs_err=maxd,
+                                   zeros_starts_skipped=ev[0])
+                line += (f"; {ms:.3f} ms a step, plain {plain_ms:.3f}; "
+                         f"zeros starts skipped on the card {ev[0]}")
+            print(line, flush=True)
+    return stats
+
+
+def k2_rows_read(k2, a) -> float:
+    """The stored laps' worth of safe-set rows a K2 step reads (the
+    timeVarying window k of each stored lap's T)."""
+    stored = [lap for lap, ok in zip(a[6].tolist(), a[7].tolist()) if ok]
+    return max(1, len(stored)) * (k2.k / a[3].shape[1]
+                                  if k2.mode == "timeVarying" else 1.0)
+
+
+def variant_turns(tag, run, arms, card, back=True):
+    """Headline runs of kernel variants and the kernel without them, one
+    seed, in turns there and back (a b c c b a; with ``back`` False once
+    each): each run's seconds; the lap-record hashes all equal. ``arms``:
+    name -> (the step solver, the kernel whose launches count). Returns
+    name -> dict(run_s, launches, hash)."""
+    names = list(arms)
+    out, hashes = {name: dict(run_s=[]) for name in names}, []
+    for name in names + (names[::-1] if back else []):
+        solver, counted = arms[name]
+        counted.launches = 0
+        t0 = time.perf_counter()
+        res = run(solver)
+        out[name]["run_s"].append(time.perf_counter() - t0)
+        out[name]["launches"] = counted.launches
+        out[name]["hash"] = lap_records_hash(res)
+        hashes.append(out[name]["hash"])
+        del res
+    require(len(set(hashes)) == 1, f"{tag}: lap records differ {hashes}")
+    for name in names:
+        require(out[name]["launches"] > 0, f"{tag} {name}: not launched")
+    print(f"[{tag}] " + "; ".join(
+        f"{name} {min(v['run_s']):.3f} s a run (runs "
+        f"{[round(t, 3) for t in v['run_s']]}), launches {v['launches']}"
+        for name, v in out.items())
+        + f"; lap records {hashes[0]} in every run; card {card}", flush=True)
+    return out
 
 
 def cast(args, dtype, keep=()):
@@ -1844,7 +2244,7 @@ def main():
     from ilqr_iterative_tasks_torch.utils.checkpoint import (
         load_soa_run, save_soa_run)
     from ilqr_iterative_tasks_torch.utils.envelope import (
-        assert_behavior_envelope)
+        assert_behavior_envelope, compare_runs)
     from ilqr_iterative_tasks_torch.utils.params import (
         IlqrParams, LmpcParams, SystemLimits)
 
@@ -1861,21 +2261,24 @@ def main():
     # of each (model, horizon) of phases 11, 11b and 12, nvcc's at once
     k5_builds = [(K5_MODELS[name], nh) for name, nh in K5_BUILDS]
     with concurrent.futures.ThreadPoolExecutor(3) as ex:
-        counting = ex.submit(_build.build, _build.CSRC_DIR, K1_COUNT)
+        counting = ex.submit(_build.build, _build.CSRC_DIR, K1_COUNT,
+                             K1_COUNT_SOURCES)
         generic = ex.submit(_build.build_generic,
                             [k5_source(m, nh) for m, nh in k5_builds])
         path, build_s = _build.build()
-        counting = _build.load(counting.result()[0])
+        counting_path = counting.result()[0]
+        counting = _build.load(counting_path)
         generic = generic.result()
     k5_build_s = max(sec for _, sec in generic)
     print(f"[2 build] {build_s:.1f} s nvcc {' '.join(_build.NVCC_FLAGS)} "
           f"(and {' '.join(K1_COUNT)}); K5's {len(generic)} libraries "
           f"{K5_BUILDS} {k5_build_s:.1f} s wall, one nvcc each", flush=True)
-    for log in [path] + [p for p, _ in generic]:
+    for log in [path, counting_path] + [p for p, _ in generic]:
         with open(log[:-3] + ".log") as f:
             for line in f:
                 if ("registers" in line or "spill" in line
-                        or "Compiling entry" in line):
+                        or "Compiling entry" in line
+                        or line.startswith("nvcc seconds")):
                     print("   ", line.strip())
     lib = _build.library()
     # the loaded f32 K1 (k 8 / nsi 1 and k 32 / nsi 4; its lane queue in
@@ -1904,7 +2307,29 @@ def main():
         k5=_build.attributes(k5_library(double_integrator, N),
                              "k5_attributes", 0),
         k5_bicycle=_build.attributes(k5_library(kinetic_bicycle, N),
-                                     "k5_attributes", 0))
+                                     "k5_attributes", 0),
+        # the variants of the options ported last (phases 4d-21d): the
+        # options tile and the lane queue with reuse_extract, the queue
+        # with dom_skip, the group kernel, the k = 32 block kernel with
+        # reuse_extract, K2's prox_skip walker and zeros_skip builds
+        **{f"k1_{key}": _build.attributes(
+            lib, "i2lqr_step_opts_variant_attributes", code, N, 8, 1, opts)
+           for key, code, opts in (("tile_reuse", 0, 8),
+                                   ("lanes_reuse", 0, 12),
+                                   ("lanes_dom", 0, 16),
+                                   ("lanes_dom_f64", 1, 16))},
+        **{f"k1_group{m}{'_nsi2' if nsi == 2 else ''}": _build.attributes(
+            lib, "i2lqr_step_group_attributes", 0, N, 8, nsi, m)
+           for nsi, m in ((1, 2), (1, 4), (1, 8), (2, 16))},
+        k1_k32_reuse=_build.attributes(
+            lib, "i2lqr_step_block_reuse_attributes", 0, N, 4),
+        **{f"k2_{key}": _build.attributes(
+            lib, "nlmpc_step_attributes", 0, N, 8, 1, tv, opts)
+           for key, tv, opts in (("prox", 0, 2), ("prox_tv", 1, 2),
+                                 ("zskip", 0, 4), ("qsort_zskip", 0, 5),
+                                 ("tv_qsort_zskip", 1, 5))},
+        k2_all_zskip=_build.attributes(
+            lib, "nlmpc_step_all_zskip_attributes", 0, N))
     for key, occ in occupancy.items():
         print(f"[2 {key.removesuffix('_f64')} "
               f"{'f64' if key.endswith('_f64') else 'f32'}] "
@@ -2118,6 +2543,14 @@ def main():
             tile=check_prefix(f"4c K1 lap {lap}", k1, a, 8),
             lane_queue=check_prefix(f"4c K1 lane queue lap {lap}", k1_lq, a,
                                     8, skip_outputs=(5,)))
+    # ---- 4d. K1's reuse_extract, dom_skip and group on the same
+    # captures ----
+    k1_var_stats = check_k1_variants(
+        "4d", cap.captured, K1_VARIANTS,
+        {"plain": k1, "pair": k1_with(params, limits,
+                                      K1_OPTION_SETS["dedup_qsort"])},
+        params, limits, host_params, host_limits, counting,
+        plain_bound=k1_bound)
     del cap
     print(f"[4 K1] lap-2 capture {k1_ms:.3f} ms a step (f32), "
           f"{occupancy['k1']['registers']} registers, "
@@ -2223,6 +2656,30 @@ def main():
               f"{c['waste']:.4f}; queue floor (32 lanes) {c['queue_floor']}"
               f", / executed {c['floor_over_executed']:.4f}", flush=True)
         del res
+
+    # ---- 6d. the i2LQR headline through K1's variants and the
+    # simulator's own K1, in turns: the lap records phase 6b's; then K1's
+    # device seconds a run with and without reuse_extract (the pair's
+    # lane queue), in turns, from profiler traces ----
+    k1_var = {name: k1_with(params, limits, o)
+              for name, (o, _) in K1_VARIANTS.items()}
+    k1_var_runs = variant_turns(
+        "6d i2LQR headline", lambda solver: headline(1, solver),
+        {"pair": (k1_pair, k1_pair),
+         "pair_reuse_extract": (k1_var["pair_reuse_extract"],) * 2}, card)
+    k1_var_runs.update(variant_turns(
+        "6d i2LQR headline", lambda solver: headline(1, solver),
+        {n: (k, k) for n, k in k1_var.items() if n != "pair_reuse_extract"},
+        card, back=False))
+    require(all(r["hash"] == seed_hash[1] for r in k1_var_runs.values()),
+            "6d: the lap records are not phase 6b's")
+    reuse_prof = dict(zip(("k1_device_s", "busy_s", "host_s"),
+                          device_seconds(lambda: headline(
+                              1, k1_var["pair_reuse_extract"]),
+                              "i2lqr_step_lanes_kernel")))
+    print(f"[6d headline profiled] the lane queue with reuse_extract "
+          f"{reuse_prof['k1_device_s']:.4f} s of the card a run (6b's "
+          f"profiled run follows, without it); card {card}", flush=True)
 
     # K1's device seconds over a headline run through the simulator's own
     # K1 (the lane queue), from a profiler trace
@@ -2452,6 +2909,10 @@ def main():
             plain=check_prefix(f"8d K2 lap {lap}", k2, a, 9),
             with_stats=check_prefix(f"8d K2 with_stats lap {lap}", k2qs, a,
                                     9))
+    # ---- 8e. K2's prox_skip and zeros_skip on the same captures ----
+    k2_var_stats = check_k2_variants("8e", "spaceVarying", cap2.captured,
+                                     {"plain": k2, "qsort": k2q}, nl_params,
+                                     nl_limits, host_nl_limits, counting)
     del cap2
     print(f"[8 K2] lap-2 capture {k2_stats['ms']:.3f} ms a step with "
           f"qsort_skip, {k2_stats['no_qsort_skip_ms']:.3f} ms without (f32), "
@@ -2550,6 +3011,57 @@ def main():
         9, {"none": {}, "retile": dict(retile_frac=0.25),
             **{f"tail_{p}": dict(tail_shrink=p) for p in TAIL_PREFIXES}},
         card)
+
+    # ---- 10d. the NLMPC headline through K2 with prox_skip in turns with
+    # the simulator's own K2 (qsort_skip): the same lap records, K2's
+    # device seconds by CUDA events ----
+    k2_prox = build_fused_nlmpc_step(nl_params, nl_limits, 1.0,
+                                     prox_skip=True, **nl_sizes)
+    timed_q, timed_p = EventTimed(k2q), EventTimed(k2_prox)
+    prox10 = variant_turns(
+        "10d NLMPC headline", lambda solver: nl_headline(1, solver),
+        {"qsort_skip": (timed_q, k2q), "prox_skip": (timed_p, k2_prox)},
+        card)
+    prox10["qsort_skip"]["k2_device_s"] = timed_q.seconds() / 2
+    prox10["prox_skip"]["k2_device_s"] = timed_p.seconds() / 2
+    print(f"[10d K2 device seconds a run] qsort_skip "
+          f"{prox10['qsort_skip']['k2_device_s']:.4f}, prox_skip "
+          f"{prox10['prox_skip']['k2_device_s']:.4f} (CUDA events, the mean "
+          f"of two runs each)", flush=True)
+
+    # ---- 10e. zeros_skip at the JAX package's envelope gate
+    # (tests/test_behavior_envelope.py:38-70: spaceVarying, f32, B = 128,
+    # 2 laps, budget 70, LM cap 12), through K2 on the card with and
+    # without it on the same scenarios and draws: the flag changes lanes
+    # and utils/envelope.py rejects it ----
+    gate_scen = SoaScenarios.broadcast(
+        np.zeros(4), xcl[-1], Obstacle.make(31.0, -2.0, 8.0, 6.0,
+                                            device=dev), 128, noise_on=True,
+        dtype=torch.float32, device=dev)
+    gate_runs, zskip_k2 = [], None
+    for zs in (False, True):
+        kz = build_fused_nlmpc_step(nl_params, nl_limits, 1.0, num_horizon=N,
+                                    max_steps=MAX_STEPS, max_laps=8,
+                                    max_iters=12, zeros_skip=zs)
+        gate_runs.append(simulate_nlmpc_runs_soa(
+            nl_params, nl_limits, gate_scen, seed_xs, seed_us, 121, 1.0,
+            step_solver=kz, num_laps=2, max_steps=MAX_STEPS, max_laps=8,
+            max_lm_iters=12, sim_step_budget=70,
+            generator=torch.Generator(device=dev).manual_seed(5)))
+        zskip_k2 = kz
+    require(zskip_k2.launches > 0, "10e: K2 with zeros_skip not launched")
+    zskip_gate = compare_runs(*gate_runs)
+    try:
+        assert_behavior_envelope(*gate_runs)
+        rejected = False
+    except AssertionError:
+        rejected = True
+    zskip_gate.update(rejected=rejected, launches=zskip_k2.launches)
+    print(f"[10e zeros_skip envelope gate] {json.dumps(zskip_gate)}; card "
+          f"{card}", flush=True)
+    require(zskip_gate["frac_lanes_changed"] > 0,
+            "10e: zeros_skip changed no lane")
+    require(rejected, "10e: the envelope does not reject zeros_skip")
 
     # ---- 23. the NLMPC headline through K4, the per-candidate path ----
     def nl_path_run(tag, lp, sc, solver, counted, want, all_iter=False):
@@ -2691,6 +3203,12 @@ def main():
         f"13 K2 timeVarying lap {lap}", k2_tv,
         cast(args, torch.float32, keep=(9,)), 9)
         for lap, (step, args) in sorted(cap_tv.captured.items())}
+    # ---- 13b. timeVarying K2's prox_skip and zeros_skip on the same
+    # captures ----
+    tv_var_stats = check_k2_variants(
+        "13b", "timeVarying", cap_tv.captured,
+        {"plain": k2_tv_plain, "qsort": k2_tv}, tv_params, nl_limits,
+        host_nl_limits, counting)
     del cap_tv
     print(f"[13 K2 timeVarying] lap-2 capture {tv_stats['ms']:.3f} ms a step "
           f"with qsort_skip, {tv_stats['no_qsort_skip_ms']:.3f} ms without "
@@ -2708,6 +3226,22 @@ def main():
     tv_rate, tv_rates = timed("15 timeVarying headline", tv_params, scen,
                               k2_tv, BATCH, tv_completion, tv_steps,
                               tv_launches, seeds=(1, 2, 3, 4, 5))
+    # ---- 15c. the timeVarying headline through K2 with prox_skip in turns
+    # with the simulator's own K2 (qsort_skip), as phase 10d ----
+    k2_prox_tv = build_fused_nlmpc_step(tv_params, nl_limits, 1.0,
+                                        prox_skip=True, **nl_sizes)
+    timed_q, timed_p = EventTimed(k2_tv), EventTimed(k2_prox_tv)
+    prox15 = variant_turns(
+        "15c timeVarying headline",
+        lambda solver: nl_headline(1, solver, tv_params),
+        {"qsort_skip": (timed_q, k2_tv), "prox_skip": (timed_p, k2_prox_tv)},
+        card)
+    prox15["qsort_skip"]["k2_device_s"] = timed_q.seconds() / 2
+    prox15["prox_skip"]["k2_device_s"] = timed_p.seconds() / 2
+    print(f"[15c K2 device seconds a run] qsort_skip "
+          f"{prox15['qsort_skip']['k2_device_s']:.4f}, prox_skip "
+          f"{prox15['prox_skip']['k2_device_s']:.4f} (CUDA events, the mean "
+          f"of two runs each)", flush=True)
 
     # ---- 18a. all headline warm run through K2 (captures phase 16) ----
     all_params = LmpcParams.make(all_ss_point=True)
@@ -2742,6 +3276,14 @@ def main():
         f"16 K2 all lap {lap}", k2_all,
         cast(args, torch.float32, keep=(9,)), 9)
         for lap, (step, args) in sorted(cap_all.captured.items())}
+    # ---- 16b. K2 all's zeros_skip builds (with all_rev_skip and the
+    # forward scan) on the same captures ----
+    all_zskip = check_k2_all_zskip("16b", {
+        name: build_fused_nlmpc_step(all_params, nl_limits, 1.0,
+                                     zeros_skip=True, **o, **nl_sizes)
+        for name, o in (("all_rev_skip", dict(all_rev_skip=True)),
+                        ("forward", {}))}, cap_all.captured, all_params,
+        nl_limits, counting)
     del cap_all
     print(f"[16 K2 all] lap-2 capture {all_stats['ms']:.3f} ms a step with "
           f"all_rev_skip, {all_stats['forward_scan_ms']:.3f} ms forward "
@@ -2766,6 +3308,10 @@ def main():
             f"captured {sorted(cap_iter.captured)}")
     iter_stats = check_k2("16 K2 all_iter", k2_iter, {}, cap_iter.captured,
                           *plain_of(iter_params))
+    all_zskip.update(check_k2_all_zskip("16b", {
+        "all_iter": build_fused_nlmpc_step(iter_params, nl_limits, 1.0,
+                                           zeros_skip=True, **nl_sizes)},
+        cap_iter.captured, iter_params, nl_limits, counting))
     del cap_iter
 
     # ---- 17. zero-noise all + all_iter closed loop through K2 ----
@@ -3112,6 +3658,32 @@ def main():
               f"(useful / executed {useful / executed:.4f}); {ms:.3f} ms a "
               f"step (plain build {cuda_ms(lambda: k32(*a), 10):.3f}, plain "
               f"step {plain_ms:.3f})", flush=True)
+    # ---- 19c. K1 at k = 32 with reuse_extract (its REUSE instantiation)
+    # on the same captures; 21d. the k32_nsi4 sweep run through it: the
+    # lap records phase 21a's ----
+    k32_var_stats = check_k1_variants(
+        "19c", captured, {"reuse_extract": (dict(reuse_extract=True),
+                                            "plain")}, {"plain": k32}, p32,
+        limits, host_p32, host_limits, counting, cap=SWEEP_CAP)
+    k32_reuse = k1_with(p32, limits, dict(reuse_extract=True),
+                        max_iter=SWEEP_CAP)
+    with sweep_step_solver(32, 4, lambda kk: k32_reuse, device=dev):
+        k32_reuse.launches = 0
+        runs = []
+        rep_k32 = run_sweep(SWEEP_BATCH, SWEEP_LAPS, moving=True,
+                            num_ss_points=32, num_ss_iter=4, quiet=True,
+                            device=dev, result=runs)
+    k32_reuse_run = dict(launches=k32_reuse.launches,
+                         wall_s=rep_k32["wall_s"],
+                         hash=lap_records_hash(runs[0]))
+    del runs
+    require(k32_reuse_run["hash"] == sweep["k32_nsi4"]["hash"],
+            "21d: reuse_extract changed the k32_nsi4 run")
+    require(k32_reuse.launches > 0, "21d: K1 k32 with reuse_extract was not "
+            "launched")
+    print(f"[21d sweep k32_nsi4 with reuse_extract] "
+          f"{json.dumps(k32_reuse_run)} (phase 21a's {sweep['k32_nsi4']['wall_s']} s, lap records "
+          f"{sweep['k32_nsi4']['hash']}); card {card}", flush=True)
     del captured
     print(f"[19 K1 k32] lap-2 capture {k32_stats['ms']:.3f} ms a step at nsi "
           f"4, {k32_stats['nsi2_ms']:.3f} at nsi 2 (f32), "
@@ -3499,6 +4071,32 @@ def main():
              bound_ms=k32_stats["bound_ms"], bound_by=k32_stats["bound_by"],
              library_ms=None, **occupancy["k1_k32_stats"],
              sweep_counted=k32_counted, prefix=k32_prefix),
+        # the variants of the options ported last: ms, bound and the
+        # counting build's events at the lap-2 capture (phases 4d, 19c),
+        # launches in the headline run through each (6d, 21d)
+        *[dict(name=f"i2lqr_step (K1, {name})", route="cuda",
+               source=csrc + ("i2lqr_step_group.cu" if name.startswith(
+                   "group") else "i2lqr_step_opts.cu"),
+               replaces=tpu + "pallas_i2lqr_step.py:221",
+               launches=k1_var_runs[name]["launches"],
+               **k1_var_stats[name], headline=k1_var_runs[name],
+               **occupancy[res_key], **extra)
+          for name, res_key, extra in (
+              ("reuse_extract", "k1_tile_reuse", {}),
+              ("pair_reuse_extract", "k1_lanes_reuse",
+               dict(profiled_runs=reuse_prof)),
+              ("dom_skip", "k1_lanes_dom",
+               dict(resources_f64=occupancy["k1_lanes_dom_f64"])),
+              ("group2_dedup", "k1_group2", {}),
+              ("group4", "k1_group4", {}),
+              ("group8", "k1_group8",
+               dict(resources_group16_nsi2=occupancy["k1_group16_nsi2"])))],
+        dict(name="i2lqr_step (K1, k32 nsi4, reuse_extract)", route="cuda",
+             source=csrc + "i2lqr_step.cu",
+             replaces=tpu + "pallas_i2lqr_step.py:221",
+             launches=k32_reuse_run["launches"],
+             **k32_var_stats["reuse_extract"], sweep=k32_reuse_run,
+             **occupancy["k1_k32_reuse"]),
         dict(name="nlmpc_step (K2)", route="cuda",
              source=csrc + "nlmpc_step.cu",
              replaces=tpu + "pallas_nlmpc_step.py:245",
@@ -3517,6 +4115,32 @@ def main():
              ms=k2_stats["with_stats_ms"], plain_ms=k2_stats["plain_ms"],
              bound_ms=k2_stats["bound_ms"], bound_by=k2_stats["bound_by"],
              library_ms=None, headline=k2_counted),
+        # K2's prox_skip walker (phases 8e / 10d, 13b / 15c) and zeros_skip
+        # (8e, 13b; launches in phase 10e's gate run), its other builds'
+        # capture figures beside it
+        dict(name="nlmpc_step (K2, prox_skip)", route="cuda",
+             source=csrc + "nlmpc_step.cu",
+             replaces=tpu + "pallas_nlmpc_step.py:245",
+             launches=prox10["prox_skip"]["launches"],
+             **k2_var_stats["prox_skip"], headline=prox10,
+             **occupancy["k2_prox"]),
+        dict(name="nlmpc_step (K2, timeVarying, prox_skip)", route="cuda",
+             source=csrc + "nlmpc_step.cu",
+             replaces=tpu + "pallas_nlmpc_step.py:245",
+             launches=prox15["prox_skip"]["launches"],
+             **tv_var_stats["prox_skip"], headline=prox15,
+             **occupancy["k2_prox_tv"]),
+        dict(name="nlmpc_step (K2, zeros_skip)", route="cuda",
+             source=csrc + "nlmpc_step.cu",
+             replaces=tpu + "pallas_nlmpc_step.py:245",
+             launches=zskip_gate["launches"], **k2_var_stats["zeros_skip"],
+             envelope_gate=zskip_gate, **occupancy["k2_zskip"],
+             with_qsort_skip=k2_var_stats["qsort_zeros_skip"],
+             with_prox_skip=k2_var_stats["prox_zeros_skip"],
+             time_varying_qsort_skip=tv_var_stats["qsort_zeros_skip"],
+             resources_qsort=occupancy["k2_qsort_zskip"],
+             resources_time_varying=occupancy["k2_tv_qsort_zskip"],
+             resources_all=occupancy["k2_all_zskip"], mode_all=all_zskip),
         dict(name="nlmpc_step (K2, timeVarying)", route="cuda",
              source=csrc + "nlmpc_step.cu",
              replaces=tpu + "pallas_nlmpc_step.py:245",

@@ -18,11 +18,12 @@
 // For a lap that is not yet stored (lap_ok = 0) the kNN runs on the clipped
 // lap id, as there, and its costs are masked. Of the TPU kernel's options
 // this file takes none at k = 8, and at k = 32 dedup is in effect whatever
-// the factory says (below). At k = 8, with_stats, dedup and qsort_skip run
-// in i2lqr_step_opts.cu, which computes this kernel's outputs bit for bit
-// (the options are bitwise-neutral), so this kernel computes what the
-// bench's does; dom_skip, group, stream_safe_set, store_solutions and
-// reuse_extract are not ported (ops/i2lqr_step.py, _UNPORTED).
+// the factory says (below), and reuse_extract is an instantiation of its
+// own. At k = 8, with_stats, dedup, qsort_skip, reuse_extract and dom_skip
+// run in i2lqr_step_opts.cu and group in i2lqr_step_group.cu, which compute
+// this kernel's outputs bit for bit (the options are bitwise-neutral), so
+// this kernel computes what the bench's does; stream_safe_set and
+// store_solutions are not ported (ops/i2lqr_step.py, _UNPORTED).
 //
 // Design: a tile of G = nsi * k threads per lane, one thread per
 // candidate (Tile, lm_core.cuh); blocks of 128 threads hold 128 / G lanes,
@@ -68,7 +69,11 @@
 // one solve a thread (zeros-initialised lm_solve; entry j on thread
 // (the block's solves so far + j) % 128), keeping each solve's
 // distance and, for a lane's first K1_BLOCK_XL solves, terminal state in
-// the lane's cache, indexed by (lap, row). Each thread of a lane's warp
+// the lane's cache, indexed by (lap, row). reuse_extract (a REUSE
+// instantiation): a lane whose guess did not move since the last pass
+// (float == on every component) keeps its table's kNN rows and runs no
+// kNN; its queue is then empty (every row it names is solved). Each thread
+// of a lane's warp
 // reads its slot of every row, takes the reach cost from the cache with
 // this pass's unit and cutoff, and the warp selects by ballots and
 // shuffles what lex_select does (the first differing slot decides a row
@@ -225,8 +230,11 @@ constexpr int K1_BLOCK_LANES = 4;
 
 #ifdef K1_COUNT_SOLVES
 // A counting build (nvcc -DK1_COUNT_SOLVES): the k = 32 kernel adds each
-// solve it runs to k1_solves, which i2lqr_step_solves reads and zeroes.
+// solve it runs to k1_solves, which i2lqr_step_solves reads and zeroes,
+// and its REUSE instantiations their events (tile.cuh): lane-passes 1-2,
+// and of them those whose kNN was kept.
 __device__ unsigned long long k1_solves;
+__device__ unsigned long long k1_block_events[2];
 #define K1_ON_SOLVE(lane) atomicAdd(&k1_solves, 1ull)
 #endif
 
@@ -307,7 +315,7 @@ __device__ __forceinline__ void k1_write(const K1Lane<T, NSI>& L,
 // the block, and is counted; a warp past the launch's last lane is not).
 // So a block's useful trips may exceed its executed thread-trips: that
 // excess is what pooling saves.
-template <typename T, int N, int NSI, bool STATS = false>
+template <typename T, int N, int NSI, bool STATS = false, bool REUSE = false>
 __global__ void __launch_bounds__(K1_BLOCK_LANES * 32,
                                   K1_BLOCK_MIN_WARPS / K1_BLOCK_LANES)
     i2lqr_step_block_kernel(
@@ -344,6 +352,7 @@ __global__ void __launch_bounds__(K1_BLOCK_LANES * 32,
   const Tile<32> warp;
   const T inf = (T)INFINITY;
   T xg[4];
+  [[maybe_unused]] T xp[4];  // reuse_extract: the last kNN's guess
   if (own) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) xg[q] = g0[q * B + b];
@@ -394,11 +403,21 @@ __global__ void __launch_bounds__(K1_BLOCK_LANES * 32,
   for (;;) {
     if (queue == PASS) {
       __syncthreads();  // the last pass's tables are read
+      bool same = false;  // reuse_extract: the table's rows stand
+      if constexpr (REUSE) {
+        same = own && pass > 0 && same_guess(xg, xp);
+        if (own && pass > 0 && s == 0) ILQR_EVENT(k1_block_events, 0);
+        if (same && s == 0) ILQR_EVENT(k1_block_events, 1);
+        if (own) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) xp[q] = xg[q];
+        }
+      }
       if (own) {
         // ---- the kNN of each distinct lap ----
 #pragma unroll
         for (int u = 0; u < NSI; ++u) {
-          if (first(u) != u) continue;
+          if (same || first(u) != u) continue;
           const int len = lap_len[(size_t)lap_ids[u] * B + b];
           const int rows = len < T_rows ? len : T_rows;
           T dk;
@@ -646,7 +665,8 @@ __global__ void __launch_bounds__(K1_BLOCK_LANES * 32,
   }
 }
 
-template <typename T, int N, int NSI, bool STATS = false>
+template <typename T, int N, int NSI, bool STATS = false,
+          bool REUSE = false>
 int launch_i2lqr_step_block(const double* consts, int max_iter, int B,
                             int nb, int T_rows, const void* x,
                             const void* g0, const void* states,
@@ -660,7 +680,7 @@ int launch_i2lqr_step_block(const double* consts, int max_iter, int B,
   if (T_rows > K1_BLOCK_ROWS) return -1;  // a thread would drop rows
   const Consts<T> C = make_consts<T>(consts, max_iter);
   constexpr int lanes = K1_BLOCK_LANES;
-  i2lqr_step_block_kernel<T, N, NSI, STATS>
+  i2lqr_step_block_kernel<T, N, NSI, STATS, REUSE>
       <<<(nb + lanes - 1) / lanes, lanes * 32, 0, stream>>>(
       C, B, nb, T_rows, (const T*)x, (const T*)g0, (const T*)states,
       (const T*)qfun, (const int*)lap_len, (const int*)lap_ids,
@@ -738,15 +758,21 @@ extern "C" int i2lqr_step_launch(int dtype, int n, int k, int nsi,
 
 #define I2LQR_BLOCK_STATS_CASE(TYPE, CODE, N_, NSI_)                        \
   if (dtype == CODE && n == N_ && nsi == NSI_)                               \
-    return ilqr::launch_i2lqr_step_block<TYPE, N_, NSI_, true>(              \
-        consts, max_iter, B, lanes, T_rows, x, g0, states, qfun, lap_len,    \
-        lap_ids, lap_ok, obs, skip, us, shrink, idx, row, s, opts, useful,   \
-        exec, upass);
+    return opts & 8 ? ilqr::launch_i2lqr_step_block<TYPE, N_, NSI_, true,    \
+                                                    true>(                   \
+                          consts, max_iter, B, lanes, T_rows, x, g0, states, \
+                          qfun, lap_len, lap_ids, lap_ok, obs, skip, us,     \
+                          shrink, idx, row, s, opts, useful, exec, upass)    \
+                    : ilqr::launch_i2lqr_step_block<TYPE, N_, NSI_, true>(   \
+                          consts, max_iter, B, lanes, T_rows, x, g0, states, \
+                          qfun, lap_len, lap_ids, lap_ok, obs, skip, us,     \
+                          shrink, idx, row, s, opts, useful, exec, upass);
 
 // K1 at k = 32 with with_stats: its STATS instantiation (the kernel's
 // header), arguments as i2lqr_step_launch's without k, opts (2: dedup,
-// which changes the counts only) after nsi, and the counts (int32:
-// useful (B,), executed (B,), upass (3, B)) before the stream.
+// which changes the counts only; 8: reuse_extract, its REUSE
+// instantiation) after nsi, and the counts (int32: useful (B,), executed
+// (B,), upass (3, B)) before the stream.
 extern "C" int i2lqr_step_block_stats_launch(
     int dtype, int n, int nsi, int opts, const double* consts, int max_iter,
     int B, int T_rows, int max_laps, const void* x, const void* g0,
@@ -765,15 +791,41 @@ extern "C" int i2lqr_step_block_stats_launch(
   return -1;
 }
 
+#define I2LQR_BLOCK_REUSE_CASE(TYPE, CODE, N_, NSI_)                        \
+  if (dtype == CODE && n == N_ && nsi == NSI_)                               \
+    return ilqr::launch_i2lqr_step_block<TYPE, N_, NSI_, false, true>(       \
+        consts, max_iter, B, lanes, T_rows, x, g0, states, qfun, lap_len,    \
+        lap_ids, lap_ok, obs, skip, us, shrink, idx, row, s);
+
+// K1 at k = 32 with reuse_extract: the block kernel's REUSE instantiation,
+// arguments as i2lqr_step_launch's without k.
+extern "C" int i2lqr_step_block_reuse_launch(
+    int dtype, int n, int nsi, const double* consts, int max_iter, int B,
+    int T_rows, int max_laps, const void* x, const void* g0,
+    const void* states, const void* qfun, const void* lap_len,
+    const void* lap_ids, const void* lap_ok, const void* obs,
+    const void* skip, void* us, void* shrink, void* idx, void* row,
+    void* stream, int lanes) {
+  (void)max_laps;
+  if (lanes < 0 || lanes > B) return (int)cudaErrorInvalidValue;
+  if (lanes == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  I2LQR_BLOCK_REUSE_CASE(float, 0, 6, 2)
+  I2LQR_BLOCK_REUSE_CASE(double, 1, 6, 2)
+  I2LQR_BLOCK_REUSE_CASE(float, 0, 6, 4)
+  I2LQR_BLOCK_REUSE_CASE(double, 1, 6, 4)
+  return -1;
+}
+
 #define I2LQR_ATTRIBUTES(TYPE, CODE, N_, K_, NSI_)                           \
   if (dtype == CODE && n == N_ && k == K_ && nsi == NSI_)                    \
     return ilqr::kernel_attributes(                                          \
         ilqr::i2lqr_step_kernel<TYPE, N_, K_, NSI_>, 128, out);
 
-#define I2LQR_BLOCK_ATTRIBUTES(TYPE, CODE, N_, NSI_, STATS_)                \
+#define I2LQR_BLOCK_ATTRIBUTES(TYPE, CODE, N_, NSI_, ...)                   \
   if (dtype == CODE && n == N_ && k == 32 && nsi == NSI_)                    \
     return ilqr::kernel_attributes(                                          \
-        ilqr::i2lqr_step_block_kernel<TYPE, N_, NSI_, STATS_>,               \
+        ilqr::i2lqr_step_block_kernel<TYPE, N_, NSI_, __VA_ARGS__>,          \
         ilqr::K1_BLOCK_LANES * 32, out);
 
 // The loaded kernel's resources for (dtype, n, k, nsi), as the runtime
@@ -803,6 +855,17 @@ extern "C" int i2lqr_step_block_stats_attributes(int dtype, int n, int nsi,
   return -1;
 }
 
+// The REUSE instantiation's resources at k = 32 (as above).
+extern "C" int i2lqr_step_block_reuse_attributes(int dtype, int n, int nsi,
+                                                 int* out) {
+  const int k = 32;
+  I2LQR_BLOCK_ATTRIBUTES(float, 0, 6, 2, false, true)
+  I2LQR_BLOCK_ATTRIBUTES(double, 1, 6, 2, false, true)
+  I2LQR_BLOCK_ATTRIBUTES(float, 0, 6, 4, false, true)
+  I2LQR_BLOCK_ATTRIBUTES(double, 1, 6, 4, false, true)
+  return -1;
+}
+
 #ifdef K1_COUNT_SOLVES
 // A counting build's solves of the k = 32 kernel since the last call, into
 // *out; zeroes the count. Waits for the device. Returns the cudaError_t.
@@ -812,5 +875,10 @@ extern "C" int i2lqr_step_solves(unsigned long long* out) {
   if (rc == 0)
     rc = (int)cudaMemcpyToSymbol(ilqr::k1_solves, &zero, sizeof zero);
   return rc;
+}
+
+// The REUSE instantiations' events (above) into out[0..1]; zeroes them.
+extern "C" int i2lqr_step_block_events(unsigned long long* out) {
+  return ilqr::read_events(ilqr::k1_block_events, out);
 }
 #endif

@@ -1,10 +1,21 @@
-// K1 at k = 8 with the TPU kernel's options: with_stats, dedup and
-// qsort_skip (ilqr_iterative_tasks_tpu/ops/pallas_i2lqr_step.py, factory
-// docstring :82-181, kernel :240-292, :541-720). It computes what
-// i2lqr_step_kernel (i2lqr_step.cu) computes, bit for bit: the options
-// change which candidate solves run, never the outputs. The kernel without
-// options stays i2lqr_step_kernel, whose registers these options would
-// change.
+// K1 at k = 8 with the TPU kernel's options: with_stats, dedup,
+// qsort_skip, reuse_extract and dom_skip
+// (ilqr_iterative_tasks_tpu/ops/pallas_i2lqr_step.py, factory docstring
+// :82-190, kernel :240-292, :355-367, :380-391, :485-508, :541-720). It
+// computes what i2lqr_step_kernel (i2lqr_step.cu) computes, bit for bit:
+// the options change which candidate solves run, never the outputs. The
+// kernel without options stays i2lqr_step_kernel, whose registers these
+// options would change, and so each option added later is a template
+// flag of its own (the instantiations without it keep their registers).
+// group, the last option, is i2lqr_step_group.cu.
+//
+// reuse_extract (the REUSE flag of both kernels below): in passes 1 and 2
+// a lane whose guess equals the previous pass's on every component (float
+// ==, the TPU kernel's != test) keeps that pass's kNN rows and candidates
+// and runs no kNN. The TPU kernel gates a whole tile of lanes on it; here
+// the gate is a lane's (a tile's threads, or the lane queue's thread):
+// the kNN is a pure function of the guess and the safe set, so either
+// gives the same bits.
 //
 // The plain order (with_stats, dedup; nsi 1 and 2), i2lqr_step_opts_kernel:
 // as i2lqr_step_kernel, a tile of G = nsi * k threads a lane, one thread a
@@ -20,7 +31,8 @@
 // same pure solve, bitwise).
 //
 // qsort_skip (nsi = 1), i2lqr_step_lanes_kernel: a lane queue, one thread
-// a lane, warps fed 32 live lanes at a time (below). A tile of 8 threads
+// a lane, warps fed 32 live lanes at a time (below). dom_skip (nsi = 1) is
+// the same queue (its DOM flag) in slot order. A tile of 8 threads
 // that solved one position a lane a round measured 7.70 ms at the i2LQR
 // headline's lap-2 capture against the first lane queue's 2.39 (PERF.md):
 // at the headline a lane solves about one position a pass, which left 7
@@ -48,7 +60,18 @@
 
 namespace ilqr {
 
-constexpr int K1_OPT_STATS = 1, K1_OPT_DEDUP = 2, K1_OPT_QSORT = 4;
+constexpr int K1_OPT_STATS = 1, K1_OPT_DEDUP = 2, K1_OPT_QSORT = 4,
+              K1_OPT_REUSE = 8, K1_OPT_DOM = 16;
+// the lane queue's compile-time flags
+constexpr int K1_LQ_REUSE = 1, K1_LQ_DOM = 2;
+
+#ifdef K1_COUNT_SOLVES
+// a counting build's events (tile.cuh): lane-passes 1-2 of a REUSE
+// instantiation, of them those whose kNN was kept, and slots dom_skip
+// passed over
+__device__ unsigned long long k1_opts_events[3];
+#endif
+
 
 // v summed over the tile's threads, in every thread
 template <int G>
@@ -58,7 +81,7 @@ __device__ __forceinline__ int tile_sum(const Tile<G>& tl, int v) {
   return v;
 }
 
-template <typename T, int N, int K, int NSI>
+template <typename T, int N, int K, int NSI, bool REUSE = false>
 __global__ void __launch_bounds__(128, 4) i2lqr_step_opts_kernel(
     const Consts<T> C, int B, int nb, int T_rows, int opts,
     const T* __restrict__ x, const T* __restrict__ g0,
@@ -126,6 +149,11 @@ __global__ void __launch_bounds__(128, 4) i2lqr_step_opts_kernel(
   int solved_pass = -1;   // the pass of this thread's last solve (its us)
   int useful = 0, executed = 0, up2 = 0, fin_tr = 0;
   T xt[4] = {};
+  // reuse_extract: the last kNN's guess, row, validity and Qfun
+  [[maybe_unused]] T xp[4] = {};
+  [[maybe_unused]] int ik_kept = 0;
+  [[maybe_unused]] bool cok_kept = false;
+  [[maybe_unused]] T cq_kept = (T)0;
   // passes 0-2, then (where a lane's final winner was taken from the
   // cache) a round that solves it again: the kernel's one lm_solve
   for (int pass = 0; pass < 4; ++pass) {
@@ -136,13 +164,32 @@ __global__ void __launch_bounds__(128, 4) i2lqr_step_opts_kernel(
     bool cok = false, hit = false;
     T cq = (T)0, hd = (T)0, hxl[4] = {};
     if (!fin && live) {
-      T dk;
-      knn_rows_group<T, K, G>(tl, s, st, row_stride, B, rows, xg, dk, ik);
-      cok = dk < inf && lap_stored;
-      const T* p = st + ik * row_stride;
+      bool same = false;  // the guess did not move: the last kNN's rows
+      if constexpr (REUSE) {
+        same = pass > 0 && same_guess(xg, xp);
+        if (pass > 0 && c == 0) ILQR_EVENT(k1_opts_events, 0);
+        if (same && c == 0) ILQR_EVENT(k1_opts_events, 1);
+      }
+      if (same) {
+        ik = ik_kept;
+        cok = cok_kept;
+        cq = cq_kept;
+      } else {
+        T dk;
+        knn_rows_group<T, K, G>(tl, s, st, row_stride, B, rows, xg, dk, ik);
+        cok = dk < inf && lap_stored;
+        const T* p = st + ik * row_stride;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) xt[q] = p[q * B];
-      cq = qfun[((size_t)lap * T_rows + ik) * B + b];
+        for (int q = 0; q < 4; ++q) xt[q] = p[q * B];
+        cq = qfun[((size_t)lap * T_rows + ik) * B + b];
+      }
+      if constexpr (REUSE) {
+        ik_kept = ik;
+        cok_kept = cok;
+        cq_kept = cq;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) xp[q] = xg[q];
+      }
       if (dedup) {
 #pragma unroll
         for (int pp = 0; pp < 2; ++pp) {
@@ -358,7 +405,16 @@ struct LaneSlots {
 
 // One live lane b of the lane queue: the kernel's parameters as
 // i2lqr_step_lanes_kernel's, its slice sl.
-template <typename T, int N, int K>
+//
+// dom_skip (X & K1_LQ_DOM): the slots in their own order under JAX's
+// non-strict predicate: slot p > 0 is skipped when it is invalid or
+// q + n + 100 >= the best cost so far (its cost +inf, no solve, no cache
+// entry, one arrival counted); q is not monotone in slot order, so a skip
+// does not end the pass. A tie keeps the earlier slot, so the best is the
+// plain order's first-min argmin (pallas_i2lqr_step.py:133-147).
+// reuse_extract (X & K1_LQ_REUSE): a pass whose guess did not move keeps
+// the slice's kNN rows and the rank order.
+template <typename T, int N, int K, int X>
 __device__ __forceinline__ void lane_step(
     const Consts<T>& C, int B, int T_rows, bool stats, bool dedup, int lap,
     bool lap_stored, int b, LaneSlots<T, N, K>& sl, const T* __restrict__ x,
@@ -384,9 +440,17 @@ __device__ __forceinline__ void lane_step(
   const T* qf = qfun + (size_t)lap * T_rows * B + b;  // row t at t * B
   int n_cache = 0, useful = 0, executed = 0, win_row = 0;
   bool held = false;  // the slice's us hold the final winner's solution
+  unsigned order = 0;  // position p's slot in bits 4p..4p+3
+  [[maybe_unused]] T xp[4];  // reuse_extract: the last kNN's guess
   for (int pass = 0; pass < 3; ++pass) {
-    unsigned order = 0;  // position p's slot in bits 4p..4p+3
-    {
+    bool same = false;
+    if constexpr ((X & K1_LQ_REUSE) != 0) {
+      same = pass > 0 && same_guess(xg, xp);
+      if (pass > 0) ILQR_EVENT(k1_opts_events, 0);
+      if (same) ILQR_EVENT(k1_opts_events, 1);
+    }
+    if (!same) {
+      order = 0;
       T dk[K], qe[K];
       int ik[K];
       knn_rows<T, K, K1_KNN_ROWS>(st, row_stride, B, rows, xg, dk, ik);
@@ -398,33 +462,48 @@ __device__ __forceinline__ void lane_step(
       }
 #pragma unroll
       for (int s = 0; s < K; ++s) {
-        int rank = 0;
+        int rank = s;  // dom_skip: the slot order
+        if constexpr ((X & K1_LQ_DOM) == 0) {
+          rank = 0;
 #pragma unroll
-        for (int j = 0; j < K; ++j)
-          rank += qe[j] < qe[s] || (qe[j] == qe[s] && j < s);
+          for (int j = 0; j < K; ++j)
+            rank += qe[j] < qe[s] || (qe[j] == qe[s] && j < s);
+        }
         order |= (unsigned)s << (4 * rank);
       }
+    }
+    if constexpr ((X & K1_LQ_REUSE) != 0) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) xp[c] = xg[c];
     }
     const T unit = C.unit[pass], cutoff = C.cutoff[pass];
     const int n_prev = n_cache;  // this pass matches earlier passes only
     T best = inf, xl_win[4] = {};
     int best_slot = 0, up = 0;
-    // positions in rank order (the lane stops at the first it skips),
-    // then, after pass 2, the final winner again where the cache gave it:
-    // the kernel's one lm_solve
+    // positions in rank order (the lane stops at the first it skips; under
+    // dom_skip it goes on), then, after pass 2, the final winner again
+    // where the cache gave it: the kernel's one lm_solve
     for (int p = 0; p <= K; ++p) {
       int s = K, row = 0;
       T q = inf;
-      bool stop = p == K;
+      bool stop = p == K, dom = false;
       if (!stop) {
         s = (int)((order >> (4 * p)) & 15u);
         const int e = sl.ik(s);
         row = e & (Slots::INVALID - 1);
         if (!(e & Slots::INVALID)) q = qf[(size_t)row * B];
-        stop = p > 0 && (!(q < inf) || q + (T)N + (T)100.0 > best);
+        if constexpr ((X & K1_LQ_DOM) != 0)
+          dom = p > 0 && (!(q < inf) || q + (T)N + (T)100.0 >= best);
+        else
+          stop = p > 0 && (!(q < inf) || q + (T)N + (T)100.0 > best);
       }
       const bool again = stop && pass == 2 && !held;
       if (stop && !again) break;
+      if (dom) {  // a dominated slot: its arrival only
+        ILQR_EVENT(k1_opts_events, 2);
+        up += 1;
+        continue;
+      }
       if (again) row = win_row;
       const bool ok = !again && q < inf;
       int hit = -1;
@@ -504,7 +583,7 @@ __device__ __forceinline__ void lane_step(
   }
 }
 
-template <typename T, int N, int K>
+template <typename T, int N, int K, int X = 0>
 __global__ void __launch_bounds__(K1_LQ_THREADS,
                       sizeof(T) == 4 ? K1_LQ_F32_BLOCKS : 1)
     i2lqr_step_lanes_kernel(
@@ -539,7 +618,7 @@ __global__ void __launch_bounds__(K1_LQ_THREADS,
       head = (head + 32) % K1_LQ_RING;
       queued = queued > 32 ? queued - 32 : 0;
       if (b >= 0)
-        lane_step<T, N, K>(C, B, T_rows, stats, dedup, lap, lap_stored, b,
+        lane_step<T, N, K, X>(C, B, T_rows, stats, dedup, lap, lap_stored, b,
                            sl, x, g0, states, qfun, lap_len, obs, us_out,
                            shrink_out, idx_out, row_out, useful_out,
                            exec_out, upass_out);
@@ -573,6 +652,25 @@ __global__ void __launch_bounds__(K1_LQ_THREADS,
   }
 }
 
+// The lane queue with the compile-time flags X.
+template <typename T, int N, int K, int X>
+int launch_i2lqr_step_lanes(const Consts<T>& C, int opts, int B, int nb,
+                            int T_rows, const void* x, const void* g0,
+                            const void* states, const void* qfun,
+                            const void* lap_len, const void* lap_ids,
+                            const void* lap_ok, const void* obs,
+                            const void* skip, void* us, void* shrink,
+                            void* idx, void* row, void* useful, void* exec,
+                            void* upass, void* counter, cudaStream_t stream) {
+  return launch_lanes<i2lqr_step_lanes_kernel<T, N, K, X>,
+                      LaneSlots<T, N, K>::BYTES>(
+      nb, (int*)counter, stream, C, B, nb, T_rows, opts, (const T*)x,
+      (const T*)g0, (const T*)states, (const T*)qfun, (const int*)lap_len,
+      (const int*)lap_ids, (const int*)lap_ok, (const T*)obs,
+      (const float*)skip, (T*)us, (T*)shrink, (int*)idx, (int*)row,
+      (int*)useful, (int*)exec, (int*)upass);
+}
+
 template <typename T, int N, int K, int NSI>
 int launch_i2lqr_step_opts(int opts, const double* consts, int max_iter,
                            int B, int nb, int T_rows, const void* x,
@@ -584,19 +682,28 @@ int launch_i2lqr_step_opts(int opts, const double* consts, int max_iter,
                            void* idx, void* row, void* useful, void* exec,
                            void* upass, void* counter, cudaStream_t stream) {
   const Consts<T> C = make_consts<T>(consts, max_iter);
+  const bool reuse = opts & K1_OPT_REUSE;
   if constexpr (NSI == 1) {
-    if (opts & K1_OPT_QSORT)
-      return launch_lanes<i2lqr_step_lanes_kernel<T, N, K>,
-                          LaneSlots<T, N, K>::BYTES>(
-          nb, (int*)counter, stream, C, B, nb, T_rows, opts, (const T*)x,
-          (const T*)g0, (const T*)states, (const T*)qfun,
-          (const int*)lap_len, (const int*)lap_ids, (const int*)lap_ok,
-          (const T*)obs, (const float*)skip, (T*)us, (T*)shrink, (int*)idx,
-          (int*)row, (int*)useful, (int*)exec, (int*)upass);
+    if (opts & (K1_OPT_QSORT | K1_OPT_DOM)) {
+      const int x_flags = (reuse ? K1_LQ_REUSE : 0) |
+                          (opts & K1_OPT_DOM ? K1_LQ_DOM : 0);
+#define K1_LANES_CASE(X_)                                                   \
+  if (x_flags == X_)                                                         \
+    return launch_i2lqr_step_lanes<T, N, K, X_>(                             \
+        C, opts, B, nb, T_rows, x, g0, states, qfun, lap_len, lap_ids,       \
+        lap_ok, obs, skip, us, shrink, idx, row, useful, exec, upass,        \
+        counter, stream);
+      K1_LANES_CASE(0)
+      K1_LANES_CASE(K1_LQ_REUSE)
+      K1_LANES_CASE(K1_LQ_DOM)
+      K1_LANES_CASE(K1_LQ_REUSE | K1_LQ_DOM)
+#undef K1_LANES_CASE
+    }
   }
   constexpr int lanes_per_block = 128 / (NSI * K);
-  i2lqr_step_opts_kernel<T, N, K, NSI>
-      <<<(nb + lanes_per_block - 1) / lanes_per_block, 128, 0, stream>>>(
+  const auto kernel = reuse ? i2lqr_step_opts_kernel<T, N, K, NSI, true>
+                            : i2lqr_step_opts_kernel<T, N, K, NSI>;
+  kernel<<<(nb + lanes_per_block - 1) / lanes_per_block, 128, 0, stream>>>(
       C, B, nb, T_rows, opts, (const T*)x, (const T*)g0, (const T*)states,
       (const T*)qfun, (const int*)lap_len, (const int*)lap_ids,
       (const int*)lap_ok, (const T*)obs, (const float*)skip, (T*)us,
@@ -615,8 +722,9 @@ int launch_i2lqr_step_opts(int opts, const double* consts, int max_iter,
         lap_ids, lap_ok, obs, skip, us, shrink, idx, row, useful, exec,      \
         upass, counter, s);
 
-// K1 at k = 8 with options: opts ORs 1 (with_stats), 2 (dedup) and 4
-// (qsort_skip, nsi = 1 only: the lane queue). Arguments as
+// K1 at k = 8 with options: opts ORs 1 (with_stats), 2 (dedup), 4
+// (qsort_skip, nsi = 1 only: the lane queue), 8 (reuse_extract) and 16
+// (dom_skip, nsi = 1 only: the lane queue in slot order). Arguments as
 // i2lqr_step_launch's, then the stats (int32: useful (B,), executed (B,),
 // upass (3, B); read only with with_stats, else may be null), the lane
 // queue's counter (one int32 of device memory), the stream and the lanes
@@ -635,7 +743,8 @@ extern "C" int i2lqr_step_opts_launch(
   (void)max_laps;
   if (lanes < 0 || lanes > B) return (int)cudaErrorInvalidValue;
   if (lanes == 0) return 0;
-  if ((opts & ilqr::K1_OPT_QSORT) && nsi != 1) return -1;
+  if ((opts & (ilqr::K1_OPT_QSORT | ilqr::K1_OPT_DOM)) && nsi != 1) return -1;
+  if (opts & ~(2 * ilqr::K1_OPT_DOM - 1)) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   I2LQR_OPTS_CASE(float, 0, 6, 8, 1)
   I2LQR_OPTS_CASE(double, 1, 6, 8, 1)
@@ -666,5 +775,59 @@ extern "C" int i2lqr_step_opts_attributes(int dtype, int n, int k, int nsi,
   I2LQR_OPTS_ATTRIBUTES(double, 1, 6, 8, 1)
   I2LQR_OPTS_ATTRIBUTES(float, 0, 6, 8, 2)
   I2LQR_OPTS_ATTRIBUTES(double, 1, 6, 8, 2)
+  return -1;
+}
+
+#ifdef K1_COUNT_SOLVES
+// A counting build's events of this file since the last call (lane-passes
+// 1-2 under reuse_extract, those whose kNN was kept, slots dom_skip passed
+// over) into out[0..2]; zeroes them. Waits for the device.
+extern "C" int i2lqr_step_opts_events(unsigned long long* out) {
+  return ilqr::read_events(ilqr::k1_opts_events, out);
+}
+#endif
+
+#define I2LQR_VARIANT_ATTRIBUTES(TYPE, CODE, NSI_)                            \
+  if (dtype == CODE && nsi == NSI_) {                                        \
+    if (NSI_ == 1 && (opts & (ilqr::K1_OPT_QSORT | ilqr::K1_OPT_DOM))) {     \
+      const int x = (reuse ? ilqr::K1_LQ_REUSE : 0) |                        \
+                    (opts & ilqr::K1_OPT_DOM ? ilqr::K1_LQ_DOM : 0);         \
+      const int bytes = ilqr::LaneSlots<TYPE, 6, 8>::BYTES;                  \
+      if (x == 0)                                                            \
+        return ilqr::kernel_attributes(                                      \
+            ilqr::i2lqr_step_lanes_kernel<TYPE, 6, 8, 0>, 128, out, bytes);  \
+      if (x == ilqr::K1_LQ_REUSE)                                            \
+        return ilqr::kernel_attributes(                                      \
+            ilqr::i2lqr_step_lanes_kernel<TYPE, 6, 8, ilqr::K1_LQ_REUSE>,    \
+            128, out, bytes);                                                \
+      if (x == ilqr::K1_LQ_DOM)                                              \
+        return ilqr::kernel_attributes(                                      \
+            ilqr::i2lqr_step_lanes_kernel<TYPE, 6, 8, ilqr::K1_LQ_DOM>, 128, \
+            out, bytes);                                                     \
+      return ilqr::kernel_attributes(                                        \
+          ilqr::i2lqr_step_lanes_kernel<TYPE, 6, 8,                          \
+                                        ilqr::K1_LQ_REUSE | ilqr::K1_LQ_DOM>, \
+          128, out, bytes);                                                  \
+    }                                                                        \
+    return reuse ? ilqr::kernel_attributes(                                  \
+                       ilqr::i2lqr_step_opts_kernel<TYPE, 6, 8, NSI_, true>, \
+                       128, out)                                             \
+                 : ilqr::kernel_attributes(                                  \
+                       ilqr::i2lqr_step_opts_kernel<TYPE, 6, 8, NSI_>, 128,  \
+                       out);                                                 \
+  }
+
+// The resources of the kernel i2lqr_step_opts_launch runs for (dtype, n,
+// k, nsi, opts), as i2lqr_step_opts_attributes reports them; -1 when none
+// is instantiated.
+extern "C" int i2lqr_step_opts_variant_attributes(int dtype, int n, int k,
+                                                  int nsi, int opts,
+                                                  int* out) {
+  if (n != 6 || k != 8) return -1;
+  const bool reuse = opts & ilqr::K1_OPT_REUSE;
+  I2LQR_VARIANT_ATTRIBUTES(float, 0, 1)
+  I2LQR_VARIANT_ATTRIBUTES(double, 1, 1)
+  I2LQR_VARIANT_ATTRIBUTES(float, 0, 2)
+  I2LQR_VARIANT_ATTRIBUTES(double, 1, 2)
   return -1;
 }

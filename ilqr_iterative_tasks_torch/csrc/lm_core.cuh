@@ -403,31 +403,43 @@ struct Solve {
     T xs[N + 1][4];
     T lamb = C.lamb0;
     int it = 0;
-    for (; it < C.max_iter && !done; ++it) {
+    for (; it < C.max_iter && !done; ++it) done = lm_iter(us, lamb, xs);
+    if constexpr (COUNT) *trips = it;
+    lm_finish(us, xs, x_last, cost_out, dist_out);
+  }
+
+  // One LM iteration from `us` (updated where it accepts) with damping
+  // `lamb` (updated); xs: scratch. Returns whether the solve is done.
+  __device__ __forceinline__ bool lm_iter(T (&us)[N][2], T& lamb,
+                                          T (&xs)[N + 1][4]) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      us[i][0] = clip(us[i][0], C.neg_a_max, C.a_max);
+      us[i][1] = clip(us[i][1], C.neg_d_max, C.d_max);
+    }
+    rollout(us, xs);
+    const T cost = cost_of(xs, us);
+    T ks[N][2], kk[N][2][4], us_new[N][2];
+    backward(xs, us, lamb, ks, kk);
+    const T cost_new = forward(xs, us, ks, kk, us_new);
+    const bool accept = cost_new < cost;
+    if (accept) {
 #pragma unroll
       for (int i = 0; i < N; ++i) {
-        us[i][0] = clip(us[i][0], C.neg_a_max, C.a_max);
-        us[i][1] = clip(us[i][1], C.neg_d_max, C.d_max);
+        us[i][0] = us_new[i][0];
+        us[i][1] = us_new[i][1];
       }
-      rollout(us, xs);
-      const T cost = cost_of(xs, us);
-      T ks[N][2], kk[N][2][4], us_new[N][2];
-      backward(xs, us, lamb, ks, kk);
-      const T cost_new = forward(xs, us, ks, kk, us_new);
-      const bool accept = cost_new < cost;
-      if (accept) {
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-          us[i][0] = us_new[i][0];
-          us[i][1] = us_new[i][1];
-        }
-      }
-      lamb = accept ? lamb / C.lamb_factor : lamb * C.lamb_factor;
-      const bool converged = accept && fabs((cost_new - cost) / cost) < C.eps;
-      const bool diverged = !accept && lamb > C.max_lamb;
-      done = converged || diverged;
     }
-    if constexpr (COUNT) *trips = it;
+    lamb = accept ? lamb / C.lamb_factor : lamb * C.lamb_factor;
+    const bool converged = accept && fabs((cost_new - cost) / cost) < C.eps;
+    const bool diverged = !accept && lamb > C.max_lamb;
+    return converged || diverged;
+  }
+
+  // The solution's clipped inputs, its terminal state, cost and distance.
+  __device__ __forceinline__ void lm_finish(T (&us)[N][2], T (&xs)[N + 1][4],
+                                            T* x_last, T& cost_out,
+                                            T& dist_out) const {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       us[i][0] = clip(us[i][0], C.neg_a_max, C.a_max);
@@ -444,6 +456,100 @@ struct Solve {
     dist_out = sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + d[3] * d[3]);
   }
 };
+
+// One LM iteration of one member of lm_solve_multi (us: its 2N inputs,
+// lamb: its damping, both updated), and a member's finish (its clipped
+// inputs, terminal state and distance): functions of their own, never
+// inlined, so that the LM body is compiled once a type whatever group
+// kernels are instantiated (a copy in each made their build ten minutes
+// long).
+template <typename T, int N>
+__device__ __noinline__ bool lm_member_iter(const Consts<T>& C, const T* x0,
+                                            const T* xt, const Obs<T>& o,
+                                            T* us, T* lamb) {
+  T u[N][2], xs[N + 1][4];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    u[i][0] = us[2 * i];
+    u[i][1] = us[2 * i + 1];
+  }
+  const Solve<T, N> S{C, x0, xt, o};
+  const bool done = S.lm_iter(u, *lamb, xs);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    us[2 * i] = u[i][0];
+    us[2 * i + 1] = u[i][1];
+  }
+  return done;
+}
+
+template <typename T, int N>
+__device__ __noinline__ void lm_member_finish(const Consts<T>& C,
+                                              const T* x0, const T* xt,
+                                              const Obs<T>& o, T* us,
+                                              T* x_last, T* dist) {
+  T u[N][2], xs[N + 1][4], xl[4], cost;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    u[i][0] = us[2 * i];
+    u[i][1] = us[2 * i + 1];
+  }
+  const Solve<T, N> S{C, x0, xt, o};
+  S.lm_finish(u, xs, xl, cost, *dist);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    us[2 * i] = u[i][0];
+    us[2 * i + 1] = u[i][1];
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) x_last[c] = xl[c];
+}
+
+// The zeros-initialised solves of M candidates of one lane (terminal
+// states xt, done0 as lm_solve's `done`) in one interleaved LM loop: the
+// counterpart of the TPU's lm_solve_multi (_pallas_lm_core.py:418). An
+// iteration steps every member not yet done, so the loop runs to the
+// longest member and a converged member stays frozen: each member's result
+// is lm_solve's bit for bit. Writes each member's us, terminal state and
+// distance.
+template <typename T, int N, int M>
+__device__ __forceinline__ void lm_solve_multi(
+    const Consts<T>& C, const T* x0, const T (&xt)[M][4], const Obs<T>& o,
+    const bool (&done0)[M], T (&us)[M][N][2], T (&x_last)[M][4],
+    T (&dist)[M]) {
+  T lamb[M];
+  bool done[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    lamb[m] = C.lamb0;
+    done[m] = done0[m];
+#pragma unroll
+    for (int i = 0; i < N; ++i) us[m][i][0] = us[m][i][1] = (T)0;
+  }
+  for (int it = 0; it < C.max_iter; ++it) {
+    bool any = false;
+#pragma unroll 1
+    for (int m = 0; m < M; ++m) {
+      if (done[m]) continue;
+      done[m] = lm_member_iter<T, N>(C, x0, xt[m], o, &us[m][0][0],
+                                     &lamb[m]);
+      any = true;
+    }
+    if (!any) break;
+  }
+#pragma unroll 1
+  for (int m = 0; m < M; ++m)
+    lm_member_finish<T, N>(C, x0, xt[m], o, &us[m][0][0], x_last[m],
+                           &dist[m]);
+}
+
+// Whether the guess xg equals the previous pass's xp on every component
+// (float ==: K1's reuse_extract test).
+template <typename T>
+__device__ __forceinline__ bool same_guess(const T* xg, const T* xp) {
+  return xg[0] == xp[0] && xg[1] == xp[1] && xg[2] == xp[2] &&
+         xg[3] == xp[3];
+}
 
 // Lane b's obstacle from the (6, B) packed rows.
 template <typename T>

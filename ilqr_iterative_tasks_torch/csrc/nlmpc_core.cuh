@@ -340,7 +340,12 @@ struct Shoot {
   // Both starts and the verdict. warm: the clipped warm start. Writes the
   // clipped solution, x_m of its rollout and term_err; returns feasible. A
   // counting instantiation (COUNT) writes both starts' trips into *trips.
-  template <bool COUNT = false>
+  // zeros_skip (ZSKIP; the TPU kernels' skip_converged_starts,
+  // _pallas_nlmpc_core.py:306-345): the zeros start enters done where the
+  // warm start's residual is < 1e-14, so the warm start keeps winning the
+  // strict f_z < f_w. It changes results: a zeros start solved in full may
+  // land on a smaller residual.
+  template <bool COUNT = false, bool ZSKIP = false>
   __device__ bool feasibility_solve(const T (&warm)[NV], bool done0,
                                     T (&us)[N][2], T (&x_m)[4],
                                     T& term_err, int* trips = nullptr) const {
@@ -352,7 +357,11 @@ struct Shoot {
     }
     if constexpr (COUNT) *trips = 0;
     const T f_w = solve_from<COUNT>(uf, done0, trips);
-    const T f_z = solve_from<COUNT>(uz, done0, trips);
+    const bool zskip = ZSKIP && f_w < (T)1e-14;
+#ifdef K2_ON_ZSKIP
+    if (zskip && !done0) K2_ON_ZSKIP();  // a counting build's event
+#endif
+    const T f_z = solve_from<COUNT>(uz, done0 || zskip, trips);
     if (f_z < f_w) {  // strict: the warm start wins ties
 #pragma unroll
       for (int i = 0; i < NV; ++i) uf[i] = uz[i];
@@ -383,6 +392,33 @@ struct Shoot {
     return term_err <= C.term_tol && viol <= C.viol_tol;
   }
 };
+
+// One candidate's feasibility solve (Shoot::feasibility_solve; us: its 2N
+// clipped inputs, x_m and term_err written, trips counted where COUNT) as a
+// function of its own, never inlined: the kernels that options added (the
+// ZSKIP instantiations, prox_skip's walker) call it, so that each adds its
+// own glue and not another copy of the solve to the build; the kernels
+// before them keep the solve inline, and their registers.
+template <typename T, int N, bool COUNT, bool ZSKIP>
+__device__ __noinline__ bool feasibility_call(
+    const NlmpcConsts<T>& C, const T* x0, const T* xt, const Obs7<T>& o,
+    int mm, const T* warm, bool done0, T* us, T* x_m, T* term_err,
+    int* trips) {
+  T w[2 * N], u[N][2], xm[4];
+#pragma unroll
+  for (int i = 0; i < 2 * N; ++i) w[i] = warm[i];
+  const Shoot<T, N> S{C, x0, xt, o, mm};
+  const bool feasible = S.template feasibility_solve<COUNT, ZSKIP>(
+      w, done0, u, xm, *term_err, trips);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    us[2 * j] = u[j][0];
+    us[2 * j + 1] = u[j][1];
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) x_m[c] = xm[c];
+  return feasible;
+}
 
 // Lane b's clipped warm start from the (N, 2, B) inputs.
 template <typename T, int N>

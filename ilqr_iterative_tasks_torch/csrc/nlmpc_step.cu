@@ -37,6 +37,20 @@
 // With nothing feasible every rank with a finite key is solved and slot 0
 // is the fallback, as in the plain order.
 //
+// prox_skip (nsi = 1; the TPU kernel's :137-151, :681-741): the slots in
+// extraction order (the kNN's, nearest first, or the window's), one at a
+// time, on one thread a lane (nlmpc_step_prox_kernel: the serial walker of
+// timeVarying's qsort_skip, with the kNN of spaceVarying brought into it).
+// Slot p > 0 is skipped when it is invalid or hzn + q >= the best cost so
+// far (non-strict: a tie cannot displace the earlier slot), and the lane
+// stops once hzn + min(q of the slots after p) >= its best (q is not
+// monotone in extraction order). Slot 0 is always solved, so the
+// all-infeasible fallback is the plain order's; the outputs are its bits.
+//
+// zeros_skip: an instantiation of each kernel of its own (ZSKIP: every
+// feasibility solve skips its zeros start where its warm start converged,
+// nlmpc_core.cuh), which changes results.
+//
 // Design: a tile of G threads per lane (Tile, lm_core.cuh); blocks of 128
 // threads hold 128 / G lanes, the ragged edge is masked and skip lanes
 // write zeros and exit, each a whole tile.
@@ -74,6 +88,17 @@
 // registers, and its kNN on one thread. The enumeration reads one stored
 // lap, T x 4 states (kNN) or k rows (window), and k Qfun values per lane
 // per step.
+#include <cuda_runtime.h>
+
+#ifdef K1_COUNT_SOLVES
+// a counting build's events (tile.cuh): slots prox_skip passed over, lanes
+// it stopped before their last slot, zeros starts zeros_skip skipped
+namespace ilqr {
+__device__ unsigned long long k2_events[3];
+}
+#define K2_ON_ZSKIP() ILQR_EVENT(k2_events, 2)
+#endif
+
 #include "nlmpc_core.cuh"
 
 namespace ilqr {
@@ -125,7 +150,7 @@ __device__ __forceinline__ bool window_any(int start, int len) {
 // or one past B, reads lane 0 and takes part in the warp's collectives
 // but solves and writes nothing. Skipped lanes write 0.
 template <typename T, int N, int K, int NSI, int G, bool QSORT,
-          bool STATS = false>
+          bool STATS = false, bool ZSKIP = false>
 __global__ void __launch_bounds__(128, QSORT ? K2_TV_MIN_BLOCKS : 1)
     nlmpc_step_kernel(
     const NlmpcConsts<T> C, int B, int nb, int T_rows, bool time_varying,
@@ -289,7 +314,11 @@ __global__ void __launch_bounds__(128, QSORT ? K2_TV_MIN_BLOCKS : 1)
     bool feasible = false;
     if (go) {
       const Shoot<T, N> S{C, x0, xt, o, mm};
-      if constexpr (STATS)
+      if constexpr (ZSKIP)
+        feasible = feasibility_call<T, N, STATS, true>(
+            C, x0, xt, o, mm, warm, h1 || (!fin && !okc), &us[0][0], xm,
+            &te, STATS ? &tr : nullptr);
+      else if constexpr (STATS)
         feasible = S.template feasibility_solve<true>(
             warm, h1 || (!fin && !okc), us, xm, te, &tr);
       else
@@ -356,29 +385,161 @@ __global__ void __launch_bounds__(128, QSORT ? K2_TV_MIN_BLOCKS : 1)
   }
 }
 
-// The kernel for (dtype, sizes, mode, qsort, stats) and its threads a
-// lane: timeVarying's qsort_skip at K2_TV_G threads, else the plain order
-// at one thread a candidate.
-template <typename T, int N, int K, int NSI>
+// prox_skip (nsi = 1): one thread a lane walks the k slots of its one lap
+// row in extraction order (header). Arguments as nlmpc_step_kernel's.
+template <typename T, int N, int K, bool ZSKIP = false>
+__global__ void __launch_bounds__(128, K2_TV_MIN_BLOCKS)
+    nlmpc_step_prox_kernel(
+    const NlmpcConsts<T> C, int B, int nb, int T_rows, bool time_varying,
+    const T* __restrict__ x, const T* __restrict__ guess,
+    const T* __restrict__ uw, const T* __restrict__ states,
+    const T* __restrict__ qfun, const int* __restrict__ lap_len,
+    const int* __restrict__ lap_ids, const int* __restrict__ lap_ok,
+    const T* __restrict__ obs, const float* __restrict__ skip,
+    const int* __restrict__ hzn, const int* __restrict__ t_in,
+    const int* __restrict__ mc_in, const StepOut<T, N> out) {
+  static_assert(K <= 32, "the slots' validity: one bit a slot");
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= nb) return;
+  if (skip[b] > 0.5f) {
+    out.skip_lane(B, b);
+    return;
+  }
+  const T inf = (T)INFINITY;
+  T x0[4], xg[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    x0[c] = x[c * B + b];
+    xg[c] = guess[c * B + b];
+  }
+  const Obs7<T> o = load_obs7(C, obs, B, b);
+  const int h = hzn[b];
+  const int mm = h < 2 ? 2 : (h > N ? N : h);
+  const bool h1 = h <= 1;
+  const T hf = (T)h;
+  T warm[2 * N];
+  load_warm<T, N>(C, uw, B, b, warm);
+  T x1[4];  // horizon-1 reach state: one step of the raw first warm input
+  step_dt(C.dt, x0, uw[b], uw[B + b], x1);
+  const bool lok = lap_ok[0] != 0;
+  const int lap = lap_ids[0];
+  const int len = lap_len[(size_t)lap * B + b];
+  const size_t row_stride = (size_t)4 * B;  // one safe-set row (4, B)
+  const T* st = states + (size_t)lap * T_rows * row_stride + b;
+  const T* qf = qfun + (size_t)lap * T_rows * B + b;
+  // ---- the slots in extraction order: row, validity (a stored row backs
+  // it) and key (Qfun where valid and the lap stored, else +inf) ----
+  int ci[K];
+  T qk[K];
+  unsigned vmask = 0;
+  if (time_varying) {
+    const int start = (len - 1) - mc_in[b] + N + t_in[b];
+    const bool any = window_any<K>(start, len);
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      bool v;
+      ci[s] = window_row(start, s, len, any, T_rows, v);
+      vmask |= (unsigned)v << s;
+    }
+  } else {
+    T dk[K];
+    knn_rows<T, K, 4>(st, row_stride, B, len < T_rows ? len : T_rows, xg,
+                      dk, ci);
+#pragma unroll
+    for (int s = 0; s < K; ++s) vmask |= (unsigned)(dk[s] < inf) << s;
+  }
+#pragma unroll
+  for (int s = 0; s < K; ++s)
+    qk[s] = ((vmask >> s) & 1u) && lok ? qf[(size_t)ci[s] * B] : inf;
+  // ---- the walk: one solve site; the winner's outputs are written when
+  // it is found (slot 0 first, the fallback), so none is kept ----
+  T best = inf;
+  bool held = false;  // slot 0's write holds the solve the fallback needs
+#pragma unroll 1
+  for (int p = 0; p < K; ++p) {
+    int row = 0;
+    T q = inf, suf = inf;  // the key of p; the least key after p
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      if (s == p) {
+        row = ci[s];
+        q = qk[s];
+      }
+      if (s > p) suf = fmin(suf, qk[s]);
+    }
+    if (p > 0 && hf + q >= best) ILQR_EVENT(k2_events, 0);
+    if (p == 0 || !(hf + q >= best)) {
+      const bool cval = (vmask >> p) & 1u;
+      const bool okc = cval && lok;
+      T xt[4], us[N][2], xm[4], te;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        xt[c] = cval || !time_varying ? st[(size_t)row * row_stride + c * B]
+                                      : (T)0;
+      const bool feasible = feasibility_call<T, N, false, ZSKIP>(
+          C, x0, xt, o, mm, warm, h1 || !okc, &us[0][0], xm, &te, nullptr);
+      const bool feas = h1 ? reaches(x1, xt) : feasible;
+      const T cost = feas && okc ? hf + q : inf;
+      if (cost < best || p == 0) {
+        if (p == 0) held = h1 || okc;
+        const bool succ = row + 1 <= len - 1;
+        out.write(B, b, us, xm, xt,
+                  st + (size_t)(succ ? row + 1 : row) * row_stride, h1,
+                  cost < inf, row, 0, succ);
+        best = cost < best ? cost : best;
+      }
+    }
+    if (!(hf + suf < best)) {  // no later slot can win
+      if (p < K - 1) ILQR_EVENT(k2_events, 1);
+      break;
+    }
+  }
+  if (!(best < inf) && !held) {
+    // nothing feasible: slot 0, its own solve having started done (a slot
+    // no stored row backs, or a lap not yet stored), solved again with
+    // done0 = h1 as the plain order's solve of it
+    const int row = ci[0];
+    const bool cval = vmask & 1u;
+    T xt[4], us[N][2], xm[4], te;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      xt[c] = cval || !time_varying ? st[(size_t)row * row_stride + c * B]
+                                    : (T)0;
+    feasibility_call<T, N, false, ZSKIP>(C, x0, xt, o, mm, warm, h1,
+                                         &us[0][0], xm, &te, nullptr);
+    const bool succ = row + 1 <= len - 1;
+    out.write(B, b, us, xm, xt,
+              st + (size_t)(succ ? row + 1 : row) * row_stride, h1, false,
+              row, 0, succ);
+  }
+}
+
+// The kernel for (dtype, sizes, mode, qsort, stats, zeros_skip) and its
+// threads a lane: timeVarying's qsort_skip at K2_TV_G threads, else the
+// plain order at one thread a candidate (prox_skip's walker, one thread a
+// lane, is launched apart).
+template <typename T, int N, int K, int NSI, bool Z>
 struct StepKernel {
   using F = decltype(&nlmpc_step_kernel<T, N, K, NSI, NSI * K, false>);
-  F f = &nlmpc_step_kernel<T, N, K, NSI, NSI * K, false>;
+  F f = &nlmpc_step_kernel<T, N, K, NSI, NSI * K, false, false, Z>;
   int g = NSI * K;
-  StepKernel(bool time_varying, bool qsort, bool stats) {
-    if (stats) f = &nlmpc_step_kernel<T, N, K, NSI, NSI * K, false, true>;
+  StepKernel(bool time_varying, bool qsort, bool stats, bool prox = false) {
+    if (stats) f = &nlmpc_step_kernel<T, N, K, NSI, NSI * K, false, true, Z>;
     if constexpr (NSI == 1) {
       if (qsort && time_varying) {
-        f = stats ? &nlmpc_step_kernel<T, N, K, 1, K2_TV_G, true, true>
-                  : &nlmpc_step_kernel<T, N, K, 1, K2_TV_G, true>;
+        f = stats ? &nlmpc_step_kernel<T, N, K, 1, K2_TV_G, true, true, Z>
+                  : &nlmpc_step_kernel<T, N, K, 1, K2_TV_G, true, false, Z>;
         g = K2_TV_G;
       }
     }
+    if (prox) g = 1;
   }
 };
 
-template <typename T, int N, int K, int NSI>
+template <typename T, int N, int K, int NSI, bool Z>
 int launch_nlmpc_step(const double* consts, int max_iters, int B, int nb,
-                      int T_rows, bool time_varying, bool qsort, const void* x,
+                      int T_rows, bool time_varying, bool qsort, bool prox,
+                      const void* x,
                       const void* guess, const void* uw, const void* states,
                       const void* qfun, const void* lap_len,
                       const void* lap_ids, const void* lap_ok,
@@ -389,10 +550,22 @@ int launch_nlmpc_step(const double* consts, int max_iters, int B, int nb,
   const NlmpcConsts<T> C = make_nlmpc_consts<T>(consts, max_iters);
   const StepOut<T, N> out{(T*)us, (T*)fe, (T*)ng, (int*)idx, (int*)row,
                           (T*)succ};
-  const StepKernel<T, N, K, NSI> kern(time_varying, qsort, useful != nullptr);
-  const auto f = kern.f;
+  const StepKernel<T, N, K, NSI, Z> kern(time_varying, qsort,
+                                         useful != nullptr, prox);
   const int lanes_per_block = 128 / kern.g;
-  f<<<(nb + lanes_per_block - 1) / lanes_per_block, 128, 0, stream>>>(
+  const int blocks = (nb + lanes_per_block - 1) / lanes_per_block;
+  if (prox) {
+    if constexpr (NSI == 1)
+      nlmpc_step_prox_kernel<T, N, K, Z><<<blocks, 128, 0, stream>>>(
+          C, B, nb, T_rows, time_varying, (const T*)x, (const T*)guess,
+          (const T*)uw, (const T*)states, (const T*)qfun,
+          (const int*)lap_len, (const int*)lap_ids, (const int*)lap_ok,
+          (const T*)obs, (const float*)skip, (const int*)hzn, (const int*)t,
+          (const int*)mc, out);
+    return (int)cudaGetLastError();
+  }
+  const auto f = kern.f;
+  f<<<blocks, 128, 0, stream>>>(
       C, B, nb, T_rows, time_varying, (const T*)x, (const T*)guess,
       (const T*)uw, (const T*)states, (const T*)qfun, (const int*)lap_len,
       (const int*)lap_ids, (const int*)lap_ok, (const T*)obs,
@@ -405,14 +578,22 @@ int launch_nlmpc_step(const double* consts, int max_iters, int B, int nb,
 
 #define NLMPC_STEP_CASE(TYPE, CODE, N_, K_, NSI_)                            \
   if (dtype == CODE && n == N_ && k == K_ && nsi == NSI_)                    \
-    return ilqr::launch_nlmpc_step<TYPE, N_, K_, NSI_>(                      \
-        consts, max_iters, B, lanes, T_rows, tv, qs, x, guess, uw, states,   \
-        qfun,                                                                \
-        lap_len, lap_ids, lap_ok, obs, skip, hzn, t, mc, us, fe, ng, idx,    \
-        row, succ, useful, exec, s);
+    return zs ? ilqr::launch_nlmpc_step<TYPE, N_, K_, NSI_, true>(           \
+                    consts, max_iters, B, lanes, T_rows, tv, qs, px, x,      \
+                    guess, uw, states, qfun, lap_len, lap_ids, lap_ok, obs,  \
+                    skip, hzn, t, mc, us, fe, ng, idx, row, succ, useful,    \
+                    exec, s)                                                 \
+              : ilqr::launch_nlmpc_step<TYPE, N_, K_, NSI_, false>(          \
+                    consts, max_iters, B, lanes, T_rows, tv, qs, px, x,      \
+                    guess, uw, states, qfun, lap_len, lap_ids, lap_ok, obs,  \
+                    skip, hzn, t, mc, us, fe, ng, idx, row, succ, useful,    \
+                    exec, s);
+
+// The option bits of nlmpc_step_launch's opts
+constexpr int K2_OPT_QSORT = 1, K2_OPT_PROX = 2, K2_OPT_ZSKIP = 4;
 
 static int nlmpc_step_any(int dtype, int n, int k, int nsi, int time_varying,
-                          int qsort, const double* consts, int max_iters,
+                          int opts, const double* consts, int max_iters,
                           int B, int T_rows, const void* x,
                           const void* guess, const void* uw,
                           const void* states, const void* qfun,
@@ -424,9 +605,11 @@ static int nlmpc_step_any(int dtype, int n, int k, int nsi, int time_varying,
                           void* exec, void* stream, int lanes) {
   if (lanes < 0 || lanes > B) return (int)cudaErrorInvalidValue;
   if (lanes == 0) return 0;
-  if (qsort && nsi != 1) return -1;
+  const bool tv = time_varying != 0, qs = opts & K2_OPT_QSORT,
+             px = opts & K2_OPT_PROX, zs = opts & K2_OPT_ZSKIP;
+  if ((qs || px) && nsi != 1) return -1;
+  if (px && (qs || useful != nullptr)) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  const bool tv = time_varying != 0, qs = qsort != 0;
   NLMPC_STEP_CASE(float, 0, 6, 8, 1)
   NLMPC_STEP_CASE(double, 1, 6, 8, 1)
   NLMPC_STEP_CASE(float, 0, 6, 8, 2)
@@ -435,15 +618,16 @@ static int nlmpc_step_any(int dtype, int n, int k, int nsi, int time_varying,
 }
 
 // dtype: 0 float32, 1 float64; time_varying: 0 spaceVarying (t, mc unused,
-// may be null), 1 timeVarying (t, min_cost (B,) i32); qsort: 1 for
-// qsort_skip (nsi = 1 only). The kernel reads only the laps named by
+// may be null), 1 timeVarying (t, min_cost (B,) i32); opts ORs 1
+// (qsort_skip, nsi = 1 only), 2 (prox_skip, nsi = 1, not with qsort_skip
+// or counts) and 4 (zeros_skip). The kernel reads only the laps named by
 // lap_ids. B is the lane stride; the kernel runs the first `lanes` lanes,
 // as i2lqr_step_launch's (last, so that an earlier checkout's launcher
 // runs every lane). Returns the cudaError_t of the launch, or -1 when no
-// kernel is instantiated for (dtype, n, k, nsi) or qsort is asked with
-// nsi != 1.
+// kernel is instantiated for (dtype, n, k, nsi) or the options are not
+// taken together.
 extern "C" int nlmpc_step_launch(int dtype, int n, int k, int nsi,
-                                 int time_varying, int qsort,
+                                 int time_varying, int opts,
                                  const double* consts, int max_iters, int B,
                                  int T_rows, const void* x, const void* guess,
                                  const void* uw, const void* states,
@@ -454,7 +638,7 @@ extern "C" int nlmpc_step_launch(int dtype, int n, int k, int nsi,
                                  const void* mc, void* us, void* fe,
                                  void* ng, void* idx, void* row, void* succ,
                                  void* stream, int lanes) {
-  return nlmpc_step_any(dtype, n, k, nsi, time_varying, qsort, consts,
+  return nlmpc_step_any(dtype, n, k, nsi, time_varying, opts, consts,
                         max_iters, B, T_rows, x, guess, uw, states, qfun,
                         lap_len, lap_ids, lap_ok, obs, skip, hzn, t, mc, us,
                         fe, ng, idx, row, succ, nullptr, nullptr, stream,
@@ -465,7 +649,7 @@ extern "C" int nlmpc_step_launch(int dtype, int n, int k, int nsi,
 // writes iters_useful and iters_executed, int32 (B,) each (the kernel's
 // header), into useful and exec.
 extern "C" int nlmpc_step_stats_launch(
-    int dtype, int n, int k, int nsi, int time_varying, int qsort,
+    int dtype, int n, int k, int nsi, int time_varying, int opts,
     const double* consts, int max_iters, int B, int T_rows, const void* x,
     const void* guess, const void* uw, const void* states, const void* qfun,
     const void* lap_len, const void* lap_ids, const void* lap_ok,
@@ -473,24 +657,49 @@ extern "C" int nlmpc_step_stats_launch(
     const void* mc, void* us, void* fe, void* ng, void* idx, void* row,
     void* succ, void* useful, void* exec, void* stream, int lanes) {
   if (useful == nullptr || exec == nullptr) return -1;
-  return nlmpc_step_any(dtype, n, k, nsi, time_varying, qsort, consts,
+  return nlmpc_step_any(dtype, n, k, nsi, time_varying, opts, consts,
                         max_iters, B, T_rows, x, guess, uw, states, qfun,
                         lap_len, lap_ids, lap_ok, obs, skip, hzn, t, mc, us,
                         fe, ng, idx, row, succ, useful, exec, stream, lanes);
 }
 
+#ifdef K1_COUNT_SOLVES
+// A counting build's events of this file (above) into out[0..2]; zeroes
+// them. Waits for the device.
+extern "C" int nlmpc_step_events(unsigned long long* out) {
+  return ilqr::read_events(ilqr::k2_events, out);
+}
+#endif
+
 #define NLMPC_STEP_ATTRIBUTES(TYPE, CODE, N_, K_, NSI_)                      \
-  if (dtype == CODE && n == N_ && k == K_ && nsi == NSI_)                    \
-    return ilqr::kernel_attributes(                                          \
-        ilqr::StepKernel<TYPE, N_, K_, NSI_>(tv, qs, false).f, 128, out);
+  if (dtype == CODE && n == N_ && k == K_ && nsi == NSI_) {                  \
+    if (NSI_ == 1 && px)                                                     \
+      return zs ? ilqr::kernel_attributes(                                   \
+                      ilqr::nlmpc_step_prox_kernel<TYPE, N_, K_, true>, 128, \
+                      out)                                                   \
+                : ilqr::kernel_attributes(                                   \
+                      ilqr::nlmpc_step_prox_kernel<TYPE, N_, K_, false>,     \
+                      128, out);                                             \
+    return zs ? ilqr::kernel_attributes(                                     \
+                    ilqr::StepKernel<TYPE, N_, K_, NSI_, true>(tv, qs,       \
+                                                               false)        \
+                        .f,                                                  \
+                    128, out)                                                \
+              : ilqr::kernel_attributes(                                     \
+                    ilqr::StepKernel<TYPE, N_, K_, NSI_, false>(tv, qs,      \
+                                                                false)       \
+                        .f,                                                  \
+                    128, out);                                               \
+  }
 
 // The resources of the kernel that nlmpc_step_launch runs for the same
-// (dtype, n, k, nsi, time_varying, qsort), as the runtime reports them
+// (dtype, n, k, nsi, time_varying, opts), as the runtime reports them
 // (kernel_attributes, lm_core.cuh); -1 when none is instantiated.
 extern "C" int nlmpc_step_attributes(int dtype, int n, int k, int nsi,
-                                     int time_varying, int qsort, int* out) {
-  if (qsort && nsi != 1) return -1;
-  const bool tv = time_varying != 0, qs = qsort != 0;
+                                     int time_varying, int opts, int* out) {
+  const bool tv = time_varying != 0, qs = opts & K2_OPT_QSORT,
+             px = opts & K2_OPT_PROX, zs = opts & K2_OPT_ZSKIP;
+  if ((qs || px) && nsi != 1) return -1;
   NLMPC_STEP_ATTRIBUTES(float, 0, 6, 8, 1)
   NLMPC_STEP_ATTRIBUTES(double, 1, 6, 8, 1)
   NLMPC_STEP_ATTRIBUTES(float, 0, 6, 8, 2)

@@ -59,6 +59,9 @@
 //   discarded. After the last row every thread solves the winner again
 //   and thread 0 writes the outputs.
 // A lane with nothing feasible keeps position 0, solved in a last round.
+// zeros_skip is an instantiation of its own (ZSKIP: every feasibility
+// solve skips its zeros start where its warm start converged,
+// nlmpc_core.cuh), which changes results.
 // Every position's solve is a pure function of (x0, warm, x_term, obs,
 // hzn), and each variant decides in the serial scan's order, so the
 // outputs are bitwise those of the one-thread-a-lane scan; the solves past
@@ -70,6 +73,16 @@
 // The earlier one-thread-a-lane design ran every position of a lane in
 // series, with B / 128 blocks (64 at the all headline's B = 8 192, on 132
 // SMs).
+#include <cuda_runtime.h>
+
+#ifdef K1_COUNT_SOLVES
+// a counting build's events (tile.cuh): zeros starts zeros_skip skipped
+namespace ilqr {
+__device__ unsigned long long k2_all_events[1];
+}
+#define K2_ON_ZSKIP() ILQR_EVENT(k2_all_events, 0)
+#endif
+
 #include "nlmpc_core.cuh"
 
 namespace ilqr {
@@ -85,7 +98,7 @@ __device__ __forceinline__ int nth_set_bit(unsigned m, int n) {
   return __ffs(m) - 1;
 }
 
-template <typename T, int N, int G>
+template <typename T, int N, int G, bool ZSKIP = false>
 __global__ void __launch_bounds__(128) nlmpc_step_all_kernel(
     const NlmpcConsts<T> C, T rb_v, T rb_c, int B, int nb, int T_rows,
     int n_rows, bool rev, const T* __restrict__ x, const T* __restrict__ uw,
@@ -219,8 +232,13 @@ __global__ void __launch_bounds__(128) nlmpc_step_all_kernel(
     if (fin || pos >= 0) {
 #pragma unroll
       for (int q = 0; q < 4; ++q) xt[q] = p[q * B];
-      const Shoot<T, N> S{C, x0, xt, o, mm};
-      feasible = S.feasibility_solve(warm, h1, us, xm, te);
+      if constexpr (ZSKIP) {
+        feasible = feasibility_call<T, N, false, true>(
+            C, x0, xt, o, mm, warm, h1, &us[0][0], xm, &te, nullptr);
+      } else {
+        const Shoot<T, N> S{C, x0, xt, o, mm};
+        feasible = S.feasibility_solve(warm, h1, us, xm, te);
+      }
     }
     T cost = inf;
     if (!fin && pos >= 0) {
@@ -276,7 +294,7 @@ __global__ void __launch_bounds__(128) nlmpc_step_all_kernel(
   }
 }
 
-template <typename T, int N>
+template <typename T, int N, bool ZSKIP>
 int launch_nlmpc_step_all(const double* consts, int max_iters, int B,
                           int nb, int T_rows, int n_rows, bool rev,
                           const void* x,
@@ -294,7 +312,7 @@ int launch_nlmpc_step_all(const double* consts, int max_iters, int B,
   const StepOut<T, N> out{(T*)us, (T*)fe, (T*)ng, (int*)idx, (int*)row,
                           (T*)succ};
   constexpr int G = K2_ALL_G;
-  nlmpc_step_all_kernel<T, N, G>
+  nlmpc_step_all_kernel<T, N, G, ZSKIP>
       <<<(nb + 128 / G - 1) / (128 / G), 128, 0, stream>>>(
       C, rb_v, rb_c, B, nb, T_rows, n_rows, rev, (const T*)x, (const T*)uw,
       (const T*)states, (const T*)qfun, (const int*)lap_len,
@@ -306,12 +324,13 @@ int launch_nlmpc_step_all(const double* consts, int max_iters, int B,
 }  // namespace ilqr
 
 // dtype: 0 float32, 1 float64; n_rows: the lap rows of lap_ids / lap_ok
-// (nsi, or max_laps with all_iter); rev: 1 for all_rev_skip (n_rows = 1
-// only); scratch: (T_rows, B) of the dtype when n_rows > 1, else unused.
-// B is the lane stride; the kernel runs the first `lanes` lanes, as
-// i2lqr_step_launch's (last, so that an earlier checkout's launcher runs
-// every lane). Returns the cudaError_t of the launch, or -1 when no
-// kernel is instantiated for (dtype, n) or rev is asked with n_rows != 1.
+// (nsi, or max_laps with all_iter); rev ORs 1 for all_rev_skip (n_rows = 1
+// only) and 4 for zeros_skip (its ZSKIP instantiation); scratch: (T_rows,
+// B) of the dtype when n_rows > 1, else unused. B is the lane stride; the
+// kernel runs the first `lanes` lanes, as i2lqr_step_launch's (last, so
+// that an earlier checkout's launcher runs every lane). Returns the
+// cudaError_t of the launch, or -1 when no kernel is instantiated for
+// (dtype, n) or rev is asked with n_rows != 1.
 extern "C" int nlmpc_step_all_launch(int dtype, int n, int n_rows, int rev,
                                      const double* consts, int max_iters,
                                      int B, int T_rows, const void* x,
@@ -324,19 +343,43 @@ extern "C" int nlmpc_step_all_launch(int dtype, int n, int n_rows, int rev,
                                      void* succ, void* stream, int lanes) {
   if (lanes < 0 || lanes > B) return (int)cudaErrorInvalidValue;
   if (lanes == 0) return 0;
+  const bool zskip = rev & 4;
+  rev &= 1;
   if ((rev && n_rows != 1) || n_rows < 1 || (n_rows > 1 && !scratch))
     return -1;
   cudaStream_t s = (cudaStream_t)stream;
+#define NLMPC_ALL_CASE(TYPE, CODE, ZSKIP_)                                   \
+  if (n == 6 && dtype == CODE && zskip == ZSKIP_)                            \
+    return ilqr::launch_nlmpc_step_all<TYPE, 6, ZSKIP_>(                     \
+        consts, max_iters, B, lanes, T_rows, n_rows, rev != 0, x, uw, states, \
+        qfun, lap_len, lap_ids, lap_ok, obs, skip, hzn, scratch, us, fe, ng,  \
+        idx, row, succ, s);
+  NLMPC_ALL_CASE(float, 0, false)
+  NLMPC_ALL_CASE(double, 1, false)
+  NLMPC_ALL_CASE(float, 0, true)
+  NLMPC_ALL_CASE(double, 1, true)
+#undef NLMPC_ALL_CASE
+  return -1;
+}
+
+#ifdef K1_COUNT_SOLVES
+// A counting build's events of this file (above) into out[0]; zeroes it.
+// Waits for the device.
+extern "C" int nlmpc_step_all_events(unsigned long long* out) {
+  return ilqr::read_events(ilqr::k2_all_events, out);
+}
+#endif
+
+// The zeros_skip instantiation's resources (as below).
+extern "C" int nlmpc_step_all_zskip_attributes(int dtype, int n, int* out) {
   if (n == 6 && dtype == 0)
-    return ilqr::launch_nlmpc_step_all<float, 6>(
-        consts, max_iters, B, lanes, T_rows, n_rows, rev != 0, x, uw, states,
-        qfun, lap_len, lap_ids, lap_ok, obs, skip, hzn, scratch, us, fe, ng,
-        idx, row, succ, s);
+    return ilqr::kernel_attributes(
+        ilqr::nlmpc_step_all_kernel<float, 6, ilqr::K2_ALL_G, true>, 128,
+        out);
   if (n == 6 && dtype == 1)
-    return ilqr::launch_nlmpc_step_all<double, 6>(
-        consts, max_iters, B, lanes, T_rows, n_rows, rev != 0, x, uw, states,
-        qfun, lap_len, lap_ids, lap_ok, obs, skip, hzn, scratch, us, fe, ng,
-        idx, row, succ, s);
+    return ilqr::kernel_attributes(
+        ilqr::nlmpc_step_all_kernel<double, 6, ilqr::K2_ALL_G, true>, 128,
+        out);
   return -1;
 }
 

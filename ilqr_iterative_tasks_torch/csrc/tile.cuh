@@ -77,6 +77,24 @@ struct Tile {
   }
 };
 
+// A counting build (nvcc -DK1_COUNT_SOLVES) also counts events of the
+// kernels' schedules into device counters of their source file (a kNN kept
+// by reuse_extract, a slot a skip rule passes over, a zeros start skipped),
+// which the file's *_events function reads and zeroes: the evidence that a
+// schedule fires on the card. Other builds compile the counts away.
+#ifdef K1_COUNT_SOLVES
+#define ILQR_EVENT(counters, i) atomicAdd(&(counters)[i], 1ull)
+template <int E>
+int read_events(unsigned long long (&counters)[E], unsigned long long* out) {
+  static const unsigned long long zero[E] = {};
+  int rc = (int)cudaMemcpyFromSymbol(out, counters, sizeof zero);
+  if (rc == 0) rc = (int)cudaMemcpyToSymbol(counters, zero, sizeof zero);
+  return rc;
+}
+#else
+#define ILQR_EVENT(counters, i) ((void)0)
+#endif
+
 // The lane a thread takes when its lane is done: the grid's n_threads
 // threads start at lanes 0 .. n_threads - 1 by their index, and the counter
 // hands out the rest in order.

@@ -373,6 +373,12 @@ def k32_distinct(lap_ids, lap_ok, cands):
 # _build.build's defines of a counting library (K1_COUNT_SOLVES,
 # csrc/i2lqr_step.cu): K1 at k = 32 counts the solves it runs
 K1_COUNT = ("-DK1_COUNT_SOLVES",)
+# the sources a counting library needs (the step kernels', whose counts it
+# keeps, and their headers): _build.build's ``sources``
+K1_COUNT_SOURCES = ("tile.cuh", "lm_core.cuh", "nlmpc_core.cuh",
+                    "i2lqr_step.cu", "i2lqr_step_opts.cu",
+                    "i2lqr_step_group.cu", "nlmpc_step.cu",
+                    "nlmpc_step_all.cu")
 
 
 @contextlib.contextmanager
@@ -403,6 +409,23 @@ def counted_solves(lib, fn) -> int:
     torch.cuda.synchronize()
     require(count(ctypes.byref(n)) == 0, "i2lqr_step_solves failed")
     return n.value
+
+
+def kernel_events(lib, entry: str, n: int, fn) -> list:
+    """The events that the ``entry`` function of ``lib``, a library built
+    with ``K1_COUNT``, reads (``*_events``: its source file's n counters,
+    csrc/tile.cuh ILQR_EVENT) over ``fn()``, whose wrappers launch from
+    ``lib``."""
+    read = getattr(lib, entry)
+    read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_ulonglong * n)()
+    torch.cuda.synchronize()
+    require(read(out) == 0, f"{entry} failed")
+    with launching(lib):
+        fn()
+    torch.cuda.synchronize()
+    require(read(out) == 0, f"{entry} failed")
+    return list(out)
 
 
 class Capture:

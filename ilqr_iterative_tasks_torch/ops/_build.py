@@ -14,6 +14,7 @@ Nothing is built at import time.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -31,7 +32,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 # still builds and times; this one the later files), and they are skipped.
 SOURCES = ("tile.cuh", "lm_core.cuh", "nlmpc_core.cuh", "dual.cuh",
            "fused_ilqr.cu", "i2lqr_step.cu", "i2lqr_step_opts.cu",
-           "fused_lm_shooting.cu",
+           "i2lqr_step_group.cu", "fused_lm_shooting.cu",
            "nlmpc_step.cu", "nlmpc_step_all.cu", "generic_ilqr.cu")
 # what a generated K5 translation unit includes
 GENERIC_HEADERS = ("generic_ilqr.cuh", "dual.cuh", "tile.cuh")
@@ -64,11 +65,18 @@ _ARGTYPES = {
     # skip, us, shrink, idx, row, useful, executed, upass, stream, lanes
     "i2lqr_step_block_stats_launch": ([_I] * 4 + [_P] + [_I] * 4 + [_P] * 17
                                       + [_I]),
+    # K1 at k = 32 with reuse_extract: as i2lqr_step_launch without k
+    "i2lqr_step_block_reuse_launch": [_I] * 3 + [_P] + [_I] * 4 + [_P] * 14
+                                     + [_I],
+    # K1 at k = 8 with group > 1: dtype, n, k, nsi, group, opts, then as
+    # i2lqr_step_launch from consts on
+    "i2lqr_step_group_launch": [_I] * 6 + [_P] + [_I] * 4 + [_P] * 14 + [_I],
     # dtype, n, consts, max_iters, B, x0, x_term, u_warm, obs, skip, hzn,
     # us, x_last, term_err, feasible, stream, counter (one int32 the launch
     # takes its chunks of lanes from)
     "fused_lm_shooting_launch": [_I, _I, _P, _I, _I] + [_P] * 12,
-    # dtype, n, k, nsi, time_varying, qsort, consts, max_iters, B, T, x,
+    # dtype, n, k, nsi, time_varying, opts (1 qsort_skip, 2 prox_skip, 4
+    # zeros_skip), consts, max_iters, B, T, x,
     # guess, u_warm, states, qfun, lap_len, lap_ids, lap_ok, obs, skip, hzn,
     # t, min_cost, us, feasible_any, new_guess, idx, row, succ, stream,
     # lanes
@@ -76,7 +84,8 @@ _ARGTYPES = {
     # as nlmpc_step_launch, with useful and executed (B,) i32 before the
     # stream
     "nlmpc_step_stats_launch": [_I] * 6 + [_P] + [_I] * 3 + [_P] * 22 + [_I],
-    # dtype, n, rows, rev, consts, max_iters, B, T, x, u_warm, states, qfun,
+    # dtype, n, rows, opts (1 all_rev_skip, 4 zeros_skip), consts,
+    # max_iters, B, T, x, u_warm, states, qfun,
     # lap_len, lap_ids, lap_ok, obs, skip, hzn, scratch, us, feasible_any,
     # new_guess, idx, row, succ, stream, lanes
     "nlmpc_step_all_launch": [_I] * 4 + [_P] + [_I] * 3 + [_P] * 18 + [_I],
@@ -99,9 +108,10 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path(csrc_dir: str = CSRC_DIR, defines=()) -> str:
+def library_path(csrc_dir: str = CSRC_DIR, defines=(),
+                 sources=SOURCES) -> str:
     h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
-    for name in SOURCES:
+    for name in sources:
         if not os.path.exists(os.path.join(csrc_dir, name)):
             continue  # a header an earlier checkout does not have
         with open(os.path.join(csrc_dir, name), "rb") as f:
@@ -110,12 +120,14 @@ def library_path(csrc_dir: str = CSRC_DIR, defines=()) -> str:
                         f"libilqr_torch_kernels_{h.hexdigest()[:16]}.so")
 
 
-def build(csrc_dir: str = CSRC_DIR, defines=()) -> tuple[str, float]:
+def build(csrc_dir: str = CSRC_DIR, defines=(),
+          sources=SOURCES) -> tuple[str, float]:
     """Compile the library unless it exists. Returns (path, seconds spent).
     The package's kernels by default; a measurement may build another
-    checkout's ``csrc_dir``, or the sources with the nvcc ``defines`` of a
-    counting build, into a library of its own."""
-    path = library_path(csrc_dir, defines)
+    checkout's ``csrc_dir``, or ``sources`` (a part of SOURCES, headers
+    included) with the nvcc ``defines`` of a counting build, into a library
+    of its own."""
+    path = library_path(csrc_dir, defines, sources)
     if os.path.exists(path):
         return path, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -124,12 +136,16 @@ def build(csrc_dir: str = CSRC_DIR, defines=()) -> tuple[str, float]:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         cmds = [[nvcc, *NVCC_FLAGS, *defines, "-c", "-o",
                  os.path.join(tmp, s + ".o"), os.path.join(csrc_dir, s)]
-                for s in SOURCES if s.endswith(".cu")
+                for s in sources if s.endswith(".cu")
                 and os.path.exists(os.path.join(csrc_dir, s))]
         procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for c in cmds]  # one nvcc per source, all at once
-        outs = [p.communicate()[0] for p in procs]
+        # each source's output and the seconds until its nvcc ended
+        with concurrent.futures.ThreadPoolExecutor(max(1, len(procs))) as ex:
+            done = list(ex.map(lambda p: (p.communicate()[0],
+                                          time.perf_counter() - t0), procs))
+        outs = [out for out, _ in done]
         lib = os.path.join(tmp, "lib.so")
         link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib,
                 *(c[c.index("-o") + 1] for c in cmds)]
@@ -138,8 +154,10 @@ def build(csrc_dir: str = CSRC_DIR, defines=()) -> tuple[str, float]:
                                        stderr=subprocess.STDOUT,
                                        text=True).stdout)
         with open(path[:-3] + ".log", "w") as f:
-            for c, o in zip(cmds + [link], outs):
-                f.write(" ".join(c) + "\n" + o)
+            for c, (o, sec) in zip(cmds, done):
+                f.write(" ".join(c) + f"\nnvcc seconds {sec:.1f}\n" + o)
+            if len(outs) > len(cmds):
+                f.write(" ".join(link) + "\n" + outs[-1])
         if not os.path.exists(lib):
             raise RuntimeError("nvcc failed:\n" + "\n".join(outs)[-8000:])
         os.replace(lib, path)  # atomic: a concurrent build never sees a partial .so

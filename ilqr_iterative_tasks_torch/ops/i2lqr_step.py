@@ -30,11 +30,13 @@ candidate sets, max_steps <= 128: a lane a warp, four to a block of 128
 threads that solves each distinct (lap, row) candidate of a lane's step
 once, pooled over the block), in f32 and f64; any other size raises on a
 CUDA tensor. Both compute the plain version bit for bit. At k = 8 the TPU
-kernel's ``dedup``, ``qsort_skip`` and ``with_stats`` run in a kernel of
-their own (csrc/i2lqr_step_opts.cu), whose outputs are the same bits and
+kernel's ``dedup``, ``qsort_skip``, ``with_stats``, ``reuse_extract`` and
+``dom_skip`` run in kernels of their own (csrc/i2lqr_step_opts.cu) and
+``group`` in csrc/i2lqr_step_group.cu, whose outputs are the same bits and
 whose counts are the plain version's (``i2lqr_step_reference``). At
 k = 32 a counting instantiation of the block kernel counts ``with_stats``;
-its ``iters_executed`` the host replays (``block_executed``).
+its ``iters_executed`` the host replays (``block_executed``);
+``reuse_extract`` is an instantiation of its own.
 """
 
 from __future__ import annotations
@@ -212,7 +214,9 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
                          max_iter: int, trips: list | None = None,
                          cands: list | None = None, candidate_solver=None,
                          dedup: bool = False, qsort_skip: bool = False,
-                         with_stats: bool = False, floor_width: int = 32):
+                         with_stats: bool = False, floor_width: int = 32,
+                         reuse_extract: bool = False, dom_skip: bool = False,
+                         group: int = 1, reused: list | None = None):
     """Plain version of K1 (module docstring). The candidate solves of all
     nsi laps run as one batched ``ilqr_solve_soa`` per pass (per-lane
     results do not depend on the batching: done lanes freeze). If
@@ -235,6 +239,17 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
     one at a time under the strict skip q + n + 100 > the best cost so far
     (position 0 always solves), the best kept as the lexicographic (cost,
     slot) minimum, which is the plain order's first-min argmin.
+    ``dom_skip`` (nsi = 1; :133-147, :380-391, :485-508): the slots in
+    their own order, a slot p > 0 skipped (not solved, cost +inf, no cache
+    entry) when it is invalid or q + n + 100 >= the best cost so far;
+    a skip does not end the pass (q is not monotone in slot order).
+    ``group`` (:149-155, :511-537): the slots solved ``group`` at a time
+    (JAX's ``lm_solve_multi``), the dominance test of a group reading the
+    best cost from before it. ``reuse_extract`` (:182-190, :355-367): in
+    passes 1 and 2 a lane whose guess equals the previous pass's (float
+    ``==`` on every component) keeps that pass's kNN rows and is not
+    scanned again; if ``reused`` is a list, each of those passes appends
+    its (B,) bool mask of live lanes so kept.
 
     ``with_stats`` appends three (B,) i32 counts summed over the step:
     ``iters_useful``, each solve's trips until its lane froze
@@ -242,17 +257,18 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
     cache); ``iters_executed``, the thread-trips the lane pays in the K1
     tile kernel's layout (nsi*k threads a lane, 32 / (nsi*k) lanes a warp:
     every solve round its warp runs, its threads times the warp's longest
-    solve of the round; 0 on skipped lanes), under ``qsort_skip`` in a lane
-    queue's taken in lane order (one thread a lane, 32 lanes a warp, a
-    round a position; the card's queue takes its lanes from a counter, so
-    its count is its own), at k = 32 the block kernel's, a lane's warp's
+    solve of the round; 0 on skipped lanes), under ``qsort_skip`` or
+    ``dom_skip`` in a lane queue's taken in lane order (one thread a lane,
+    32 lanes a warp, a round a position; the card's queue takes its lanes
+    from a counter, so its count is its own), at k = 32 the block kernel's,
+    a lane's warp's
     thread-trips over the pooled solves it runs, a skipped lane's too
     (``block_executed``); and ``queue_floor``, JAX's
     (``queue_floor`` above at ``floor_width`` lanes) over the per-pass
     counts: the useful trips plus one arrival at each position a lane
-    visits (every candidate in the plain order; under ``qsort_skip`` the
-    positions not skipped), and the final winner's solve again where it
-    happens.
+    visits (every candidate in the plain order and under ``dom_skip``;
+    under ``qsort_skip`` the positions not skipped), and the final winner's
+    solve again where it happens.
 
     ``candidate_solver``: a K3 built for the same constants and cap
     (``build_fused_ilqr``), called once a pass on the pass's nsi*k*B
@@ -264,16 +280,16 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
     headline run on the card, 64 ms of a 2.2-3.0 s run before the gathers
     it adds (PERF.md). It takes none of the options (JAX's per-candidate
     path has none). The trip counts are the plain solve's only."""
-    if candidate_solver is not None and (trips is not None or dedup
-                                         or qsort_skip or with_stats):
+    if candidate_solver is not None and (
+            trips is not None or dedup or qsort_skip or with_stats
+            or reuse_extract or dom_skip or group != 1):
         raise ValueError("the candidate solver's path counts no trips and "
                          "takes no schedule option")
     n = params.num_horizon
     k = params.num_ss_points
     nsi = params.num_ss_iter
-    if qsort_skip and nsi != 1:
-        raise ValueError("qsort_skip requires num_ss_iter == 1")
     nc = nsi * k
+    check_options(nsi, k, qsort_skip, dom_skip, group, with_stats)
     t_rows = states.shape[1]
     b = x.shape[-1]
     dtype, dev = x.dtype, x.device
@@ -333,32 +349,53 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
         return torch.where(d <= unit * params.max_relax_iter,
                            q + float(n) + 100.0 * i_rel, inf)
 
-    def one_pass(outer, xg):
-        idx_rows, q_rows, ok_rows, xt_rows, fin_rows = [], [], [], [], []
+    def extract(xg, cols):
+        """The kNN of each lap row at the guesses xg of the lanes ``cols``
+        (all: None): (x_terms (4, nc, C), whether each slot holds a row
+        (nc, C), rows (nc, C), Qfun (nc, C))."""
+        at = (lambda t: t) if cols is None else (lambda t: t[..., cols])
+        idx_rows, q_rows, xt_rows, fin_rows = [], [], [], []
         for off in range(nsi):
-            st = states[laps[off]]  # (T, 4, B)
+            st = at(states[laps[off]])  # (T, 4, C)
             dist = (torch.abs(st[:, 0] - xg[0][None])
                     + torch.abs(st[:, 1] - xg[1][None])
                     + torch.abs(st[:, 2] - xg[2][None])
                     + torch.abs(st[:, 3] - xg[3][None]))
-            dist = torch.where(t_idx < lap_len[laps[off]][None], dist, inf)
+            dist = torch.where(t_idx < at(lap_len[laps[off]])[None], dist,
+                               inf)
             idx, dval, (x0s, x1s, x2s, x3s, q) = _topk_select(
                 dist, k, [st[:, 0], st[:, 1], st[:, 2], st[:, 3],
-                          qfun[laps[off]]])
+                          at(qfun[laps[off]])])
             idx_rows.append(idx)
             q_rows.append(q)
             fin_rows.append(torch.isfinite(dval))
-            ok_rows.append(fin_rows[-1] & oks[off])
             xt_rows.append(torch.stack([x0s, x1s, x2s, x3s]))
-        x_terms = torch.cat(xt_rows, dim=1)  # (4, nc, B)
-        cand_ok = torch.cat(ok_rows)  # (nc, B): valid row of a stored lap
-        cand_idx = torch.cat(idx_rows)
-        cand_q = torch.cat(q_rows)
+        return (torch.cat(xt_rows, dim=1), torch.cat(fin_rows),
+                torch.cat(idx_rows), torch.cat(q_rows))
+
+    lap_ok_kb = torch.tensor(oks, device=dev).repeat_interleave(k)[:, None]
+
+    def one_pass(outer, xg, prev):
+        if prev is None:  # pass 0, or reuse_extract off
+            ext = extract(xg, None)
+        else:  # keep the kNN of the lanes whose guess did not move
+            xg_prev, ext = prev
+            same = (xg == xg_prev).all(dim=0)
+            if reused is not None:
+                reused.append(same & active)
+            moved = torch.nonzero(~same).flatten()
+            if moved.numel():
+                ext = [t.clone() for t in ext]
+                for t, v in zip(ext, extract(xg[:, moved], moved)):
+                    t[..., moved] = v
+        x_terms, fin, cand_idx, cand_q = ext
+        cand_ok = fin & lap_ok_kb  # (nc, B): valid row of a stored lap
         unit = 80.0 / (10 ** outer)
         if dedup:
             hit, d_hit, xl_hit = cached(cand_idx, cand_ok)
         else:
             hit = torch.zeros((nc, b), dtype=torch.bool, device=dev)
+        arrive = None  # the slots a lane pays an arrival at: those visited
         if candidate_solver is not None:
             x0_l, u0_l, obs_l, skip_l = cand_args
             us_l, xl_l, _, d_l = candidate_solver(
@@ -368,6 +405,32 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
             d = d_l.reshape(nc, b)
             ran = torch.zeros((nc, b), dtype=torch.int32, device=dev)
             visit = torch.ones((nc, b), dtype=torch.bool, device=dev)
+        elif dom_skip or group > 1:
+            # the slots in their order, ``group`` at a time, under dom_skip
+            # a slot p > 0 skipped when invalid or q + n + 100 >= the best
+            # cost of the groups before
+            sol_us = torch.zeros((n, 2, nc, b), dtype=dtype, device=dev)
+            x_last = torch.zeros((4, nc, b), dtype=dtype, device=dev)
+            d = torch.zeros((nc, b), dtype=dtype, device=dev)
+            ran = torch.zeros((nc, b), dtype=torch.int32, device=dev)
+            visit = torch.ones((nc, b), dtype=torch.bool, device=dev)
+            arrive = visit.clone()
+            best = torch.full((b,), inf, dtype=dtype, device=dev)
+            for g in range(0, nc, group):
+                sl = slice(g, g + group)
+                slots = torch.arange(g, g + group, device=dev)[:, None]
+                dom = ((((cand_q[sl] + float(n) + 100.0) >= best)
+                        | ~cand_ok[sl]) & (slots > 0) & dom_skip)
+                (sol_us[:, :, sl], x_last[:, sl], d[sl],
+                 ran[sl]) = solve(x_terms[:, sl], frozen[sl] | hit[sl] | dom)
+                visit[sl] = ~dom
+                if dom_skip:
+                    d_g = torch.where(hit[sl], d_hit[sl], d[sl]) if dedup \
+                        else d[sl]
+                    cost = torch.where(cand_ok[sl] & ~dom,
+                                       reach_cost(d_g, cand_q[sl], unit), inf)
+                    best = torch.minimum(best, cost.amin(dim=0))
+                rounds.append(ran[sl].amax(dim=0))
         elif not qsort_skip:  # the plain order: one round of every slot
             sol_us, x_last, d, ran = solve(x_terms, frozen | hit)
             visit = torch.ones((nc, b), dtype=torch.bool, device=dev)
@@ -420,7 +483,6 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
         # ragged Python-list comparison: a row shorter than k (k exceeds the
         # stored lap's length) ranks its absent tail slots -inf; rows of
         # laps not yet stored rank above everything (batched_soa.py:656-668)
-        lap_ok_kb = torch.tensor(oks, device=dev).repeat_interleave(k)[:, None]
         cmp = torch.where(lap_ok_kb, torch.where(cand_ok, cost, -inf), inf)
         best_row = _lex_argmin_rows(cmp.reshape(nsi, k, b))
         row_cost = cost.reshape(nsi, k, b).gather(
@@ -433,22 +495,23 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
             cache.append((cand_idx, cand_ok & visit, d, x_last))
         if trips is not None:
             trips.append(ran)
+        arrive = visit if arrive is None else arrive
         upass.append((ran.to(torch.int64)
-                      + (visit & active).to(torch.int64)).sum(0))
+                      + (arrive & active).to(torch.int64)).sum(0))
         if cands is not None:
-            cands.append((cand_idx, torch.cat(fin_rows), win))
+            cands.append((cand_idx, fin, win))
         if block is not None:
-            block.append((cand_idx, torch.cat(fin_rows), ran, hit, win))
+            block.append((cand_idx, fin, ran, hit, win))
         again = active & hit.gather(0, win[None])[0]  # a winner not solved
         xt_sel = x_terms.gather(1, win[None, None].expand(4, 1, b))
         return (xl_sel, us_sel[:, :, 0], idx_sel, best_row, ran, again,
-                xt_sel)
+                xt_sel, (xg, ext) if reuse_extract else None)
 
-    xg = g0
+    xg, prev = g0, None
     useful = torch.zeros(b, dtype=torch.int64, device=dev)
     for outer in range(3):
-        xg, us_sel, idx_sel, best_row, ran, again, xt_sel = one_pass(outer,
-                                                                     xg)
+        (xg, us_sel, idx_sel, best_row, ran, again, xt_sel,
+         prev) = one_pass(outer, xg, prev)
         useful += ran.to(torch.int64).sum(0)
     if dedup and bool(again.any()):  # the final winner solved again
         us_w, _, _, ran_w = solve(xt_sel, ~again[None])
@@ -469,17 +532,37 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
         return outs
     executed = (block_executed(block, laps, oks, active, t_rows)
                 if block is not None
-                else warp_executed(rounds, active, 1 if qsort_skip else nc))
+                else warp_executed(rounds, active,
+                                   1 if qsort_skip or dom_skip else nc))
     return outs + (torch.where(active, useful, 0).to(torch.int32), executed,
                    queue_floor(torch.stack(upass), floor_width))
 
 
-# Kernel options of the TPU factory that the port does not take, and why.
+def check_options(nsi, k, qsort_skip, dom_skip, group, with_stats):
+    """The JAX factory's guards of K1's options (pallas_i2lqr_step.py:
+    192-208)."""
+    if dom_skip and nsi != 1:
+        raise ValueError("dom_skip requires num_ss_iter == 1 (the "
+                         "lexicographic row-min over laps needs exact "
+                         "per-candidate costs, base.py:462)")
+    if qsort_skip:
+        if nsi != 1:
+            raise ValueError("qsort_skip requires num_ss_iter == 1 (the "
+                             "lexicographic row-min over laps needs exact "
+                             "per-candidate costs, base.py:462)")
+        if dom_skip:
+            raise ValueError("qsort_skip supersedes dom_skip: enable one")
+        if group > 1:
+            raise ValueError("qsort_skip supports group=1 only")
+    if group < 1 or (nsi * k) % group:
+        raise ValueError(f"group={group} must divide nsi*k")
+    if group > 1 and with_stats:
+        raise ValueError("with_stats is only instrumented for group=1")
+
+
+# Kernel options of the TPU factory that the port does not take, and why:
+# VMEM space trades of the TPU kernel, with no computation to port.
 _UNPORTED = {
-    "dom_skip": "superseded by qsort_skip (pallas_i2lqr_step.py:133-147)",
-    "group": "interleaves a TPU tile's solves; a thread runs one chain "
-             "(pallas_i2lqr_step.py:149-155)",
-    "reuse_extract": "off in every bench config",
     "stream_safe_set": "the port's K1 always reads the safe set from "
                        "global memory",
     "store_solutions": "the port's K1 keeps no candidate's solution but "
@@ -505,17 +588,23 @@ _UNPORTED = {
 LANE_QUEUE_FROM = 40960
 
 
+# The option bits of i2lqr_step_opts_launch (csrc/i2lqr_step_opts.cu)
+OPT_STATS, OPT_DEDUP, OPT_QSORT, OPT_REUSE, OPT_DOM = 1, 2, 4, 8, 16
+
+
 class FusedI2lqrStep:
     """K1: one whole i2LQR control step per lane. Attributes k, nsi,
     num_horizon, max_steps, max_laps, max_iter, dedup, qsort_skip,
-    with_stats and floor_width describe what it was built for;
-    ``launches`` counts kernel launches. Use ``build_fused_i2lqr_step``."""
+    with_stats, floor_width, reuse_extract, dom_skip and group describe
+    what it was built for; ``launches`` counts kernel launches. Use
+    ``build_fused_i2lqr_step``."""
 
     def __init__(self, params: IlqrParams, limits: SystemLimits, dt, *,
                  num_horizon: int, max_steps: int, max_laps: int,
                  max_iter: int = 150, dedup: bool = False,
                  qsort_skip: bool = False, with_stats: bool = False,
-                 floor_width: int = 32):
+                 floor_width: int = 32, reuse_extract: bool = False,
+                 dom_skip: bool = False, group: int = 1):
         self.params, self.limits, self.dt = params, limits, float(dt)
         self.k = params.num_ss_points
         self.nsi = params.num_ss_iter
@@ -525,23 +614,31 @@ class FusedI2lqrStep:
         self.max_iter = max_iter
         self.dedup, self.qsort_skip = dedup, qsort_skip
         self.with_stats, self.floor_width = with_stats, floor_width
+        self.reuse_extract, self.dom_skip = reuse_extract, dom_skip
+        self.group = group
         if num_horizon != params.num_horizon:
             raise ValueError(f"num_horizon={num_horizon} differs from "
                              f"params.num_horizon={params.num_horizon}")
         self._consts = _build.consts_array(solver_consts(params, limits, dt))
-        # the options kernel runs at k = 8 only; k = 32 pools its distinct
-        # solves whatever dedup says
-        self._opts = ((1 if with_stats else 0) | (2 if dedup else 0)
-                      | (4 if qsort_skip else 0)) if self.k == 8 else 0
+        # the options at k = 8; k = 32 pools its distinct solves whatever
+        # dedup says, and reuse_extract is its one option
+        self._opts = ((OPT_STATS if with_stats else 0)
+                      | (OPT_DEDUP if dedup else 0)
+                      | (OPT_QSORT if qsort_skip else 0)
+                      | (OPT_REUSE if reuse_extract else 0)
+                      | (OPT_DOM if dom_skip else 0))
+        if self.k != 8:
+            self._opts &= OPT_REUSE
         self.launches = 0
 
     def lane_queue_runs(self, b) -> bool:
-        """Whether a launch of ``b`` lanes runs qsort_skip's lane queue
-        (one thread a lane): always with counts, else from
-        ``LANE_QUEUE_FROM`` lanes (measured); below it the step runs the
-        plain order, the same bits. The same ``b`` always runs the same
-        kernel."""
-        return bool(self.qsort_skip and self.k == 8
+        """Whether a launch of ``b`` lanes runs the lane queue (one thread
+        a lane) of qsort_skip or dom_skip: always with counts, else from
+        ``LANE_QUEUE_FROM`` lanes (measured for qsort_skip); below it the
+        step runs the plain order, the same bits. The same ``b`` always
+        runs the same kernel."""
+        return bool((self.qsort_skip or (self.dom_skip and self.group == 1))
+                    and self.k == 8
                     and (self.with_stats or b >= LANE_QUEUE_FROM))
 
     def __call__(self, x, g0, states, qfun, lap_len, lap_ids, lap_ok, obs,
@@ -557,7 +654,9 @@ class FusedI2lqrStep:
             return on_prefix(lambda *a: i2lqr_step_reference(
                 self.params, self.limits, self.dt, *a, max_iter=self.max_iter,
                 dedup=self.dedup, qsort_skip=self.qsort_skip,
-                with_stats=self.with_stats, floor_width=self.floor_width),
+                with_stats=self.with_stats, floor_width=self.floor_width,
+                reuse_extract=self.reuse_extract, dom_skip=self.dom_skip,
+                group=self.group),
                 lanes,
                 (x, g0, states, qfun, lap_len), (lap_ids, lap_ok),
                 (obs, skip))
@@ -593,18 +692,33 @@ class FusedI2lqrStep:
                 stats = stats[0]
                 counts = (stats[0].data_ptr(), stats[1].data_ptr(),
                           stats[2].data_ptr())
-            if self.with_stats and self.k == 32:
+            opts = self._opts
+            if not self.lane_queue_runs(lanes):  # the plain order
+                opts &= ~(OPT_QSORT | OPT_DOM)
+                if opts & OPT_REUSE == 0 and (self.qsort_skip
+                                              or self.dom_skip):
+                    opts = 0  # the tile kernel without options
+            if self.group > 1:
+                rc = lib.i2lqr_step_group_launch(
+                    DTYPE_CODES[dtype], n, self.k, nsi, self.group,
+                    opts & (OPT_DEDUP | OPT_REUSE), self._consts,
+                    self.max_iter, b, t_rows, ml, *ins, stream, lanes)
+            elif self.with_stats and self.k == 32:
                 rc = lib.i2lqr_step_block_stats_launch(
-                    DTYPE_CODES[dtype], n, nsi, 2 if self.dedup else 0,
-                    self._consts, self.max_iter, b, t_rows, ml, *ins,
-                    *counts, stream, lanes)
-            elif self._opts and (not self.qsort_skip
-                                 or self.lane_queue_runs(lanes)):
+                    DTYPE_CODES[dtype], n, nsi,
+                    (OPT_DEDUP if self.dedup else 0) | opts, self._consts,
+                    self.max_iter, b, t_rows, ml, *ins, *counts, stream,
+                    lanes)
+            elif opts and self.k == 32:  # reuse_extract
+                rc = lib.i2lqr_step_block_reuse_launch(
+                    DTYPE_CODES[dtype], n, nsi, self._consts, self.max_iter,
+                    b, t_rows, ml, *ins, stream, lanes)
+            elif opts:
                 if not self.with_stats:
                     counts = (None,) * 3
                 counter = torch.empty(1, dtype=torch.int32, device=dev)
                 rc = lib.i2lqr_step_opts_launch(
-                    DTYPE_CODES[dtype], n, self.k, nsi, self._opts,
+                    DTYPE_CODES[dtype], n, self.k, nsi, opts,
                     self._consts, self.max_iter, b, t_rows, ml, *ins,
                     *counts, counter.data_ptr(), stream, lanes)
             else:
@@ -640,38 +754,44 @@ def build_fused_i2lqr_step(params: IlqrParams, limits: SystemLimits, dt, *,
                            max_iter: int = 150, dedup: bool = False,
                            qsort_skip: bool = False,
                            with_stats: bool = False, floor_width: int = 32,
+                           reuse_extract: bool = False,
+                           dom_skip: bool = False, group: int = 1,
                            **unported) -> FusedI2lqrStep:
     """Factory mirroring the JAX package's ``build_fused_i2lqr_step``
-    (pallas_i2lqr_step.py:47), with its guards (:196-204). At k = 8 it
-    takes the options the JAX main path and sweep ship, run by
-    csrc/i2lqr_step_opts.cu: ``dedup`` and ``qsort_skip`` (nsi = 1, a lane
-    queue of one thread a lane), the bitwise-neutral schedules of
-    ``i2lqr_step_reference``, and
-    ``with_stats``, whose three (B,) i32 counts (``iters_useful``,
-    ``iters_executed``, ``queue_floor`` at ``floor_width`` lanes: 32, a
-    warp of one thread a lane, unless a caller asks for JAX's 128) follow
-    the four outputs. Without options the k = 8 step runs
-    csrc/i2lqr_step.cu's tile kernel, the plain order, and so does a
-    ``qsort_skip`` K1 without counts on fewer than ``LANE_QUEUE_FROM``
-    lanes (``FusedI2lqrStep.lane_queue_runs``, a measured switch). At k = 32
-    the kernel pools each step's distinct candidate solves, which is
-    ``dedup`` in effect (the JAX sweep's ``dedup=True,
-    store_solutions=False`` build), so ``dedup`` is taken there and
-    changes only the counts; ``with_stats`` runs a counting instantiation
-    of it (``iters_executed`` a lane's warp's, ``block_executed``), and
-    ``qsort_skip`` raises (nsi >= 2). The TPU options in ``_UNPORTED``
-    raise."""
+    (pallas_i2lqr_step.py:47), with its guards (:192-208,
+    ``check_options``). Every option is a bitwise-neutral schedule of
+    ``i2lqr_step_reference``. At k = 8, csrc/i2lqr_step_opts.cu runs
+    ``dedup``, ``reuse_extract`` and ``with_stats`` on a tile of nsi*k
+    threads a lane, and ``qsort_skip`` or ``dom_skip`` (nsi = 1) as a lane
+    queue of one thread a lane; ``with_stats`` appends three (B,) i32
+    counts (``iters_useful``, ``iters_executed``, ``queue_floor`` at
+    ``floor_width`` lanes: 32, a warp of one thread a lane, unless a
+    caller asks for JAX's 128) to the four outputs.
+    csrc/i2lqr_step_group.cu runs ``group`` > 1 (with ``dedup``,
+    ``reuse_extract`` and ``dom_skip``): nsi*k / group threads a lane, each
+    solving its group's members in one interleaved LM loop. Without
+    options the k = 8 step runs csrc/i2lqr_step.cu's tile kernel, the
+    plain order, and so does a ``qsort_skip`` or ``dom_skip`` K1 without
+    counts on fewer than ``LANE_QUEUE_FROM`` lanes
+    (``FusedI2lqrStep.lane_queue_runs``, a measured switch). At k = 32 the
+    kernel pools each step's distinct candidate solves, which is ``dedup``
+    in effect (the JAX sweep's ``dedup=True, store_solutions=False``
+    build), so ``dedup`` is taken there and changes only the counts;
+    ``reuse_extract`` and ``with_stats`` run instantiations of it of their
+    own (``iters_executed`` a lane's warp's, ``block_executed``), and
+    ``qsort_skip``, ``dom_skip`` (nsi >= 2) and ``group`` raise on the
+    card. The TPU options in ``_UNPORTED`` raise."""
     for name in unported:
         if name not in _UNPORTED:
             raise TypeError(f"unexpected keyword argument {name!r}")
         raise ValueError(f"{name} is not taken by the port: "
                          f"{_UNPORTED[name]}")
-    if qsort_skip and params.num_ss_iter != 1:
-        raise ValueError("qsort_skip requires num_ss_iter == 1 (the "
-                         "lexicographic row-min over laps needs exact "
-                         "per-candidate costs, base.py:462)")
+    check_options(params.num_ss_iter, params.num_ss_points, qsort_skip,
+                  dom_skip, group, with_stats)
     return FusedI2lqrStep(params, limits, dt, num_horizon=num_horizon,
                           max_steps=max_steps, max_laps=max_laps,
                           max_iter=max_iter, dedup=dedup,
                           qsort_skip=qsort_skip, with_stats=with_stats,
-                          floor_width=floor_width)
+                          floor_width=floor_width,
+                          reuse_extract=reuse_extract, dom_skip=dom_skip,
+                          group=int(group))

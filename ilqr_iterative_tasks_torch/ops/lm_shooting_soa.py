@@ -80,7 +80,8 @@ def _at(stacked, idx):
 
 def lm_feasibility_solve_soa(limits: SystemLimits, obs, x0, x_terminal,
                              u_init, dt, *, num_horizon: int, max_iters: int,
-                             m_lanes, done0) -> LmSoaSolution:
+                             m_lanes, done0,
+                             zeros_skip: bool = False) -> LmSoaSolution:
     """Batched candidate-feasibility solve, batch-trailing layout.
 
     obs: (7, *S) obstacle lanes; x0: (4, *S); x_terminal: (4, *S);
@@ -89,6 +90,11 @@ def lm_feasibility_solve_soa(limits: SystemLimits, obs, x0, x_terminal,
     m_lanes: (*S) integer effective horizon in [2, N] (terminal rows read
     x_m, obstacle rows k >= m and input columns j >= m drop out);
     done0: (*S) bool lanes that run no iteration.
+    ``zeros_skip`` (the JAX kernels' ``skip_converged_starts``,
+    _pallas_nlmpc_core.py:306-345): the warm start is solved first, and a
+    lane whose warm residual is < 1e-14 enters the zeros start done (its
+    unsolved zeros residual then loses the strict f_z < f_w). It changes
+    results: the zeros start may land on a smaller residual.
     """
     n = num_horizon
     if n < 2:
@@ -240,37 +246,51 @@ def lm_feasibility_solve_soa(limits: SystemLimits, obs, x0, x_terminal,
         torch.clamp(u_init[j // 2, j % 2], -a_max, a_max) if j % 2 == 0
         else torch.clamp(u_init[j // 2, j % 2], -d_max, d_max)
         for j in range(nvar)])
+
+    def lm(uf, done):
+        """The LM loop of starts uf (nvar, 1, S, *S) from done (1, S, *S):
+        (the iterates, their trips (1, S, *S) i32)."""
+        lam = torch.full(done.shape, 1e-3, dtype=dtype, device=dev)
+        it_lane = torch.zeros(done.shape, dtype=torch.int32, device=dev)
+        for _ in range(max_iters):
+            if bool(done.all()):
+                break
+            f0, rows, xs = residual(uf)
+            du = lm_step(uf, rows, xs, lam)
+            cand = uf + alphas * du  # (nvar, 5, S, *S)
+            fc, _, _ = residual(cand)
+            best_f, best_uf = fc[0:1], cand[:, 0:1]
+            for i in range(1, len(ALPHAS)):
+                better = fc[i:i + 1] < best_f
+                best_f = torch.where(better, fc[i:i + 1], best_f)
+                best_uf = torch.where(better[None], cand[:, i:i + 1],
+                                      best_uf)
+            accept = best_f < f0
+            upd = accept & ~done
+            uf = torch.where(upd[None], best_uf, uf)
+            lam_next = torch.where(
+                done, lam, torch.where(accept,
+                                       torch.clamp_min(lam * 0.33, 1e-12),
+                                       lam * 4.0))
+            f_new = torch.where(accept, best_f, f0)
+            stop = (f_new < 1e-14) | (~accept & (lam_next > 1e10))
+            it_lane = it_lane + (~done).to(torch.int32)
+            lam = lam_next
+            done = done | stop
+        return uf, it_lane
+
     # the two starts: clipped warm, zeros (ops/lm_shooting.py:120-123)
-    uf = torch.stack([warm, torch.zeros_like(warm)], dim=1)[:, None]
-    uf = uf.contiguous()  # (nvar, 1, 2, *S)
-    st_shape = (1, 2) + s_shape
-    lam = torch.full(st_shape, 1e-3, dtype=dtype, device=dev)
     done = (torch.as_tensor(done0, device=dev).to(torch.bool).expand(s_shape)
-            .reshape((1, 1) + s_shape).expand(st_shape))
-    it_lane = torch.zeros(st_shape, dtype=torch.int32, device=dev)
-    for _ in range(max_iters):
-        if bool(done.all()):
-            break
-        f0, rows, xs = residual(uf)
-        du = lm_step(uf, rows, xs, lam)
-        cand = uf + alphas * du  # (nvar, 5, S, *S)
-        fc, _, _ = residual(cand)
-        best_f, best_uf = fc[0:1], cand[:, 0:1]
-        for i in range(1, len(ALPHAS)):
-            better = fc[i:i + 1] < best_f
-            best_f = torch.where(better, fc[i:i + 1], best_f)
-            best_uf = torch.where(better[None], cand[:, i:i + 1], best_uf)
-        accept = best_f < f0
-        upd = accept & ~done
-        uf = torch.where(upd[None], best_uf, uf)
-        lam_next = torch.where(
-            done, lam, torch.where(accept, torch.clamp_min(lam * 0.33, 1e-12),
-                                   lam * 4.0))
-        f_new = torch.where(accept, best_f, f0)
-        stop = (f_new < 1e-14) | (~accept & (lam_next > 1e10))
-        it_lane = it_lane + (~done).to(torch.int32)
-        lam = lam_next
-        done = done | stop
+            .reshape((1, 1) + s_shape))
+    if not zeros_skip:  # both starts in one loop
+        uf = torch.stack([warm, torch.zeros_like(warm)], dim=1)[:, None]
+        uf, it_lane = lm(uf.contiguous(), done.expand((1, 2) + s_shape))
+    else:  # the warm start, then zeros where the warm one did not converge
+        uf_w, it_w = lm(warm[:, None, None].contiguous(), done)
+        zdone = done | (residual(uf_w)[0] < 1e-14)
+        uf_z, it_z = lm(torch.zeros_like(uf_w), zdone)
+        uf, it_lane = (torch.cat([uf_w, uf_z], dim=2),
+                       torch.cat([it_w, it_z], dim=1))
 
     f_fin, _, _ = residual(uf)
     better = f_fin[0, 1] < f_fin[0, 0]  # strict: the warm start wins ties

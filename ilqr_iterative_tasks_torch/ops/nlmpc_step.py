@@ -76,7 +76,8 @@ def nlmpc_step_reference(params: LmpcParams, limits: SystemLimits, dt, x,
                          lap_ok, obs, skip, hzn, t=None, min_cost=None, *,
                          max_iters: int, trips: list | None = None,
                          cands: list | None = None, candidate_solver=None,
-                         qsort_skip: bool = False, with_stats: bool = False):
+                         qsort_skip: bool = False, with_stats: bool = False,
+                         prox_skip: bool = False, zeros_skip: bool = False):
     """Plain version of K2 (module docstring). spaceVarying and
     timeVarying: the candidate solves of all rows run as one batched solve
     and the winner's solution is read from it (a candidate solve is a pure
@@ -85,7 +86,8 @@ def nlmpc_step_reference(params: LmpcParams, limits: SystemLimits, dt, x,
     laps not yet stored are not solved), then the winner is solved again.
     Candidates that no stored point backs (timeVarying, all) enter their
     solves done. If ``trips`` is a list, each candidate solve's trip counts
-    are appended to it: (rows*k, B) or, for all, (T, B) a solved row, i32,
+    are appended to it: (rows*k, B) (under ``prox_skip`` (1, B) each slot
+    it reaches) or, for all, (T, B) a solved row, i32,
     summed over the two starts, 0 on skipped and horizon-1 lanes. If
     ``cands`` is a list, each candidate solve's candidates are appended to
     it as (Qfun, +inf where no stored point backs the candidate; whether
@@ -101,6 +103,17 @@ def nlmpc_step_reference(params: LmpcParams, limits: SystemLimits, dt, x,
     In spaceVarying and timeVarying the winner's solution is read from the
     candidates' solve, as without it. The trip counts are the plain
     solve's only.
+
+    ``prox_skip`` (spaceVarying / timeVarying, nsi = 1; the TPU kernel's
+    :137-151, :681-741): the slots in extraction order (the kNN's or the
+    window's), one at a time; a slot p > 0 is skipped (not solved, cost
+    +inf) when it is invalid or hzn + q >= the best cost so far, and a lane
+    stops once hzn + min(q of the slots after p) >= its best. Slot 0 is
+    always solved, so the all-infeasible fallback is unchanged; ties keep
+    the earlier slot, so the outputs are the plain order's. ``zeros_skip``
+    (the TPU kernel's :113-117): each solve's zeros start enters done where
+    its warm start converged (``lm_feasibility_solve_soa``); it changes
+    results.
 
     ``with_stats`` (spaceVarying and timeVarying) appends K2's two (B,)
     i32 counts, summed over the step, for the schedule the kernel runs
@@ -120,12 +133,14 @@ def nlmpc_step_reference(params: LmpcParams, limits: SystemLimits, dt, x,
     rows of laps not yet stored (a suffix: lap_ok is a prefix) are not
     solved at all: their costs are +inf and they rank above every stored
     row, so they never win and drop out with no change to the result."""
-    if candidate_solver is not None and (trips is not None or with_stats):
-        raise ValueError("trips counts the plain solve's iterations")
+    if candidate_solver is not None and (trips is not None or with_stats
+                                         or prox_skip or zeros_skip):
+        raise ValueError("trips counts the plain solve's iterations, and "
+                         "the candidate solver takes no schedule option")
     mode = params.ss_mode
-    if with_stats and mode == "all":
-        raise ValueError("with_stats is instrumented for the block modes "
-                         "(spaceVarying/timeVarying) only")
+    # (the plain step also runs all_ss_iter outside mode all)
+    check_options(mode, params.num_ss_iter, False, qsort_skip, False,
+                  prox_skip, with_stats)
     n, k = params.num_horizon, params.num_ss_points
     if mode == "timeVarying" and (t is None or min_cost is None):
         raise ValueError("the timeVarying step needs t and min_cost")
@@ -158,7 +173,8 @@ def nlmpc_step_reference(params: LmpcParams, limits: SystemLimits, dt, x,
         if candidate_solver is None:
             sol = lm_feasibility_solve_soa(
                 limits, obs, x, x_terms, u_warm, dt, num_horizon=n,
-                max_iters=max_iters, m_lanes=m2, done0=done0)
+                max_iters=max_iters, m_lanes=m2, done0=done0,
+                zeros_skip=zeros_skip)
             x_m = sol.xs.gather(0, m2[None, None, None].expand(1, 4, c, b))
             return sol.us, x_m[0], sol.feasible, sol.n_iters
         flat = lambda t: t[..., None, :].expand(*t.shape[:-1], c, b).reshape(
@@ -182,6 +198,34 @@ def nlmpc_step_reference(params: LmpcParams, limits: SystemLimits, dt, x,
         reach = torch.sqrt(dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2]
                            + dr[3] * dr[3]) <= 1e-3
         return us, x_m, torch.where(h1, reach, feasible)
+
+    def prox_solves(x_terms, done0, okc, q):
+        """prox_skip's solves of the k slots of one row in their order, one
+        ``solve`` a slot: (us, x_m, feasible), feasible False where a slot
+        is skipped or never reached."""
+        hf = hzn.to(dtype)
+        q_eff = torch.where(okc, q, inf)
+        # the least key after each slot: sufmin[p] = min over j > p
+        sufmin = torch.full_like(q_eff, inf)
+        for p in range(k - 2, -1, -1):
+            sufmin[p] = torch.minimum(q_eff[p + 1], sufmin[p + 1])
+        us = torch.zeros((n, 2, k, b), dtype=dtype, device=dev)
+        xm = torch.zeros((4, k, b), dtype=dtype, device=dev)
+        feas = torch.zeros((k, b), dtype=torch.bool, device=dev)
+        best = torch.full((b,), inf, dtype=dtype, device=dev)
+        alive = active.clone()
+        for p in range(k):
+            skip_p = ~alive | ((hf + q_eff[p] >= best) & (p > 0))
+            us_p, xm_p, feas_p = solve(x_terms[:, p:p + 1],
+                                       (done0[p] | skip_p)[None])
+            us[:, :, p], xm[:, p] = us_p[:, :, 0], xm_p[:, 0]
+            feas[p] = feas_p[0] & ~skip_p
+            best = torch.minimum(best, torch.where(feas[p] & okc[p],
+                                                   hf + q[p], inf))
+            alive = alive & (hf + sufmin[p] < best)
+            if not bool(alive.any()):
+                break
+        return us, xm, feas
 
     if mode == "all":
         cost_rows, cmp_rows = [], []
@@ -240,8 +284,13 @@ def nlmpc_step_reference(params: LmpcParams, limits: SystemLimits, dt, x,
         done0 = ~active | h1
         if mode == "timeVarying":
             done0 = done0 | ~struct
-        sol_us, sol_xm, feas = solve(x_terms, done0)
         lap_ok_kb = torch.tensor(oks, device=dev).repeat_interleave(k)[:, None]
+        if prox_skip:
+            sol_us, sol_xm, feas = prox_solves(
+                x_terms, done0.expand(k, b), struct & lap_ok_kb,
+                torch.cat(q_rows))
+        else:
+            sol_us, sol_xm, feas = solve(x_terms, done0)
         cost = torch.where(feas & struct & lap_ok_kb,
                            hzn.to(dtype)[None] + torch.cat(q_rows), inf)
         if cands is not None:
@@ -344,10 +393,53 @@ def _k2_counts(n_iters, okc, q, cost, win, active, h1, ranked, solve_win,
             warp_executed(rounds, active, threads))
 
 
-# Kernel options of the TPU factory that the port does not take, and why.
+def check_options(mode, nsi, all_iter, qsort_skip, all_rev_skip, prox_skip,
+                  with_stats):
+    """The JAX factory's guards of K2's options (pallas_nlmpc_step.py:
+    172-231) that the port's options meet."""
+    if all_iter and mode != "all":
+        raise ValueError("all_iter widens the lap window of mode='all' (the "
+                         "kNN or window over every stored lap runs through "
+                         "the plain step's glue and a candidate solver)")
+    if mode == "all" and with_stats:
+        raise ValueError("with_stats is instrumented for the block modes "
+                         "(spaceVarying/timeVarying) only")
+    if mode == "all" and qsort_skip:
+        raise ValueError("qsort_skip is not defined for mode='all' (the "
+                         "lexicographic row comparison needs every "
+                         "position's cost)")
+    if prox_skip:
+        if qsort_skip:
+            raise ValueError("prox_skip and qsort_skip are alternative "
+                             "candidate orderings: enable one")
+        if mode == "all":
+            raise ValueError("prox_skip orders the extracted candidate "
+                             "block; mode='all' has its own dominance scan "
+                             "(all_rev_skip)")
+        if nsi != 1:
+            raise ValueError("prox_skip requires nsi=1 (the lexicographic "
+                             "row comparison needs every candidate's cost)")
+        if with_stats:
+            raise ValueError("with_stats is not instrumented for prox_skip")
+    if all_rev_skip:
+        if mode != "all":
+            raise ValueError("all_rev_skip is the mode='all' dominance scan")
+        if all_iter or nsi != 1:
+            raise ValueError("all_rev_skip requires a single lap row (nsi=1, "
+                             "no all_iter)")
+    if qsort_skip and nsi != 1:
+        raise ValueError("qsort_skip reorders candidates within the single "
+                         "safe-set lap; with nsi > 1 the lexicographic row "
+                         "comparison depends on every candidate's cost")
+
+
+# The option bits of nlmpc_step_launch's ``opts`` (csrc/nlmpc_step.cu) and,
+# of them, ZSKIP beside nlmpc_step_all_launch's all_rev_skip (1)
+K2_QSORT, K2_PROX, K2_ZSKIP = 1, 2, 4
+
+# Kernel options of the TPU factory that the port does not take, and why:
+# VMEM space trades of the TPU kernel, with no computation to port.
 _UNPORTED = {
-    "zeros_skip": "retired from the bench (bench.py:140-144)",
-    "prox_skip": "on the roadmap's not-to-port list",
     "store_solutions": "the port's K2 keeps no candidate's solution but "
                        "the winner's (held by its thread, or solved again)",
     "stream_safe_set": "the port's K2 always reads the safe set from "
@@ -358,15 +450,16 @@ _UNPORTED = {
 class FusedNlmpcStep:
     """K2: one whole NLMPC control step per lane. Attributes k, nsi,
     num_horizon, max_steps, max_laps, max_iters, mode, all_iter,
-    qsort_skip, all_rev_skip and with_stats describe what it was built
-    for; ``launches`` counts kernel launches. Use
+    qsort_skip, all_rev_skip, with_stats, prox_skip and zeros_skip
+    describe what it was built for; ``launches`` counts kernel launches. Use
     ``build_fused_nlmpc_step``."""
 
     def __init__(self, params: LmpcParams, limits: SystemLimits, dt, *,
                  num_horizon: int, max_steps: int, max_laps: int,
                  max_iters: int, mode: str, all_iter: bool,
                  qsort_skip: bool, all_rev_skip: bool,
-                 with_stats: bool = False):
+                 with_stats: bool = False, prox_skip: bool = False,
+                 zeros_skip: bool = False):
         self.params, self.limits, self.dt = params, limits, float(dt)
         self.k = params.num_ss_points
         self.nsi = params.num_ss_iter
@@ -377,6 +470,7 @@ class FusedNlmpcStep:
         self.mode, self.all_iter = mode, all_iter
         self.qsort_skip, self.all_rev_skip = qsort_skip, all_rev_skip
         self.with_stats = with_stats
+        self.prox_skip, self.zeros_skip = prox_skip, zeros_skip
         self.rows = max_laps if all_iter else self.nsi  # lap rows a step
         self._consts = _build.nlmpc_consts_array(nlmpc_consts(limits, dt))
         self.launches = 0
@@ -397,7 +491,8 @@ class FusedNlmpcStep:
             return on_prefix(lambda *a: nlmpc_step_reference(
                 self.params, self.limits, self.dt, *a,
                 max_iters=self.max_iters, qsort_skip=self.qsort_skip,
-                with_stats=self.with_stats), lanes,
+                with_stats=self.with_stats, prox_skip=self.prox_skip,
+                zeros_skip=self.zeros_skip), lanes,
                 (x, guess, u_warm, states, qfun, lap_len), (lap_ids, lap_ok),
                 (obs, skip, hzn, t, min_cost))
         if x.device.type != "cuda":
@@ -432,12 +527,14 @@ class FusedNlmpcStep:
         lib = _build.library()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
+            zskip = K2_ZSKIP if self.zeros_skip else 0
             if self.mode == "all":
                 # the best lap row's compare list, one value a position
                 scratch = (torch.empty((t_rows, b), dtype=dtype, device=dev)
                            if rows > 1 else None)
                 rc = lib.nlmpc_step_all_launch(
-                    DTYPE_CODES[dtype], n, rows, int(self.all_rev_skip),
+                    DTYPE_CODES[dtype], n, rows,
+                    int(self.all_rev_skip) | zskip,
                     self._consts, self.max_iters, b, t_rows, x.data_ptr(),
                     u_warm.data_ptr(), states.data_ptr(), qfun.data_ptr(),
                     lap_len.data_ptr(), lap_ids.data_ptr(),
@@ -447,7 +544,10 @@ class FusedNlmpcStep:
                     stream, lanes)
             else:
                 args = (DTYPE_CODES[dtype], n, self.k, self.nsi,
-                        int(time_varying), int(self.qsort_skip), self._consts,
+                        int(time_varying),
+                        (K2_QSORT if self.qsort_skip else 0)
+                        | (K2_PROX if self.prox_skip else 0) | zskip,
+                        self._consts,
                         self.max_iters, b, t_rows, x.data_ptr(),
                         guess.data_ptr(), u_warm.data_ptr(),
                         states.data_ptr(), qfun.data_ptr(),
@@ -473,17 +573,21 @@ def build_fused_nlmpc_step(params: LmpcParams, limits: SystemLimits, dt, *,
                            num_horizon: int, max_steps: int, max_laps: int,
                            max_iters: int = 60, qsort_skip: bool = False,
                            all_rev_skip: bool = False,
-                           with_stats: bool = False,
+                           with_stats: bool = False, prox_skip: bool = False,
+                           zeros_skip: bool = False,
                            **unported) -> FusedNlmpcStep:
     """Factory mirroring the JAX package's ``build_fused_nlmpc_step``
-    (pallas_nlmpc_step.py:54), with its guards (:172-231). The mode and
-    the lap window are the params' (``ss_mode``, ``all_ss_iter``), which the
-    plain step on CPU tensors reads too. ``qsort_skip`` (spaceVarying /
-    timeVarying, nsi = 1) and ``all_rev_skip`` (all, nsi = 1, no all_iter)
-    are bitwise-neutral schedules. ``with_stats`` (spaceVarying /
-    timeVarying) appends two (B,) i32 counts to the outputs,
-    ``iters_useful`` and ``iters_executed`` (``nlmpc_step_reference``).
-    The TPU options in ``_UNPORTED`` raise."""
+    (pallas_nlmpc_step.py:54), with its guards (:172-231,
+    ``check_options``). The mode and the lap window are the params'
+    (``ss_mode``, ``all_ss_iter``), which the plain step on CPU tensors
+    reads too. ``qsort_skip`` (spaceVarying / timeVarying, nsi = 1),
+    ``prox_skip`` (the same; a serial walker of the slots in extraction
+    order) and ``all_rev_skip`` (all, nsi = 1, no all_iter) are
+    bitwise-neutral schedules. ``zeros_skip`` (every mode) skips a solve's
+    zeros start where its warm start converged, which changes results.
+    ``with_stats`` (spaceVarying / timeVarying) appends two (B,) i32
+    counts to the outputs, ``iters_useful`` and ``iters_executed``
+    (``nlmpc_step_reference``). The TPU options in ``_UNPORTED`` raise."""
     for name in unported:
         if name not in _UNPORTED:
             raise TypeError(f"unexpected keyword argument {name!r}")
@@ -497,30 +601,13 @@ def build_fused_nlmpc_step(params: LmpcParams, limits: SystemLimits, dt, *,
         raise ValueError("horizon-1 is a pure reach check handled by the "
                          "controller (nonlinear_lmpc.py:199-213)")
     mode, all_iter = params.ss_mode, bool(params.all_ss_iter)
-    if all_iter and mode != "all":
-        raise ValueError("all_iter widens the lap window of mode='all' (the "
-                         "kNN or window over every stored lap runs through "
-                         "the plain step's glue and a candidate solver)")
-    if mode == "all" and with_stats:
-        raise ValueError("with_stats is instrumented for the block modes "
-                         "(spaceVarying/timeVarying) only")
-    if mode == "all" and qsort_skip:
-        raise ValueError("qsort_skip is not defined for mode='all' (the "
-                         "lexicographic row comparison needs every "
-                         "position's cost)")
-    if all_rev_skip:
-        if mode != "all":
-            raise ValueError("all_rev_skip is the mode='all' dominance scan")
-        if all_iter or nsi != 1:
-            raise ValueError("all_rev_skip requires a single lap row (nsi=1, "
-                             "no all_iter)")
-    if qsort_skip and nsi != 1:
-        raise ValueError("qsort_skip reorders candidates within the single "
-                         "safe-set lap; with nsi > 1 the lexicographic row "
-                         "comparison depends on every candidate's cost")
+    check_options(mode, nsi, all_iter, qsort_skip, all_rev_skip, prox_skip,
+                  with_stats)
     return FusedNlmpcStep(params, limits, dt, num_horizon=n,
                           max_steps=max_steps, max_laps=max_laps,
                           max_iters=max_iters, mode=mode, all_iter=all_iter,
                           qsort_skip=bool(qsort_skip),
                           all_rev_skip=bool(all_rev_skip),
-                          with_stats=bool(with_stats))
+                          with_stats=bool(with_stats),
+                          prox_skip=bool(prox_skip),
+                          zeros_skip=bool(zeros_skip))

@@ -5,16 +5,19 @@ inputs: K1 on those of tests/test_pallas_i2lqr_step.py:171-215
 in a fresh process: the JAX package's own tests run these compiles
 in a process of their own (tests/test_isolated_kernel_modules.py).
 
-    python tests/_jax_step_stats.py k1|k32|k2|sim OUT.npz
+    python tests/_jax_step_stats.py k1|k32|k2|sim|k1opts|k2opts OUT.npz
 
 k1: K1 in the plain order and with ``qsort_skip`` (its obstacle lanes
 saved too); k32: K1 at k = 32, nsi 2, in the plain order, on the same
 lanes with a second stored lap (``k32_lanes``); sim: the JAX i2LQR
 simulator through K1 with ``with_stats`` over one learning lap, with and
 without ``retile_frac`` (``sim``); k2: K2 spaceVarying in the plain order
-and timeVarying with ``qsort_skip`` (nsi 1, two stored laps). Each run's
-outputs are saved under its name and the output's index (``plain_4``:
-plain order, iters_useful).
+and timeVarying with ``qsort_skip`` (nsi 1, two stored laps); k1opts: K1
+on the k1 lanes with ``reuse_extract``, ``dom_skip`` and ``group=2``
+(without counts); k2opts: K2 on the k2 lanes with ``prox_skip`` in both
+modes and spaceVarying with ``zeros_skip``. Each run's outputs are saved
+under its name and the output's index (``plain_4``: plain order,
+iters_useful).
 """
 
 import os
@@ -43,6 +46,11 @@ B, K1_CAP, K2_CAP = 128, 8, 12
 K1_RUNS = {"plain": {}, "qsort": dict(qsort_skip=True)}
 K2_RUNS = {"space": ("spaceVarying", {}),
            "time_qsort": ("timeVarying", dict(qsort_skip=True))}
+K1_OPT_RUNS = {"reuse": dict(reuse_extract=True), "dom": dict(dom_skip=True),
+               "group2": dict(group=2)}
+K2_OPT_RUNS = {"prox_space": ("spaceVarying", dict(prox_skip=True)),
+               "prox_time": ("timeVarying", dict(prox_skip=True)),
+               "zskip_space": ("spaceVarying", dict(zeros_skip=True))}
 
 
 def k1_lanes():
@@ -143,7 +151,7 @@ def sim():
     return out
 
 
-def k1():
+def k1(runs=K1_RUNS, with_stats=True):
     from ilqr_iterative_tasks_tpu.models.obstacle import Obstacle
     from ilqr_iterative_tasks_tpu.ops.pallas_i2lqr_step import (
         build_fused_i2lqr_step)
@@ -158,17 +166,17 @@ def k1():
     p = IlqrParams.make(dtype=jnp.float32)
     lim = SystemLimits.make(dtype=jnp.float32)
     out = {"obs": np.asarray(obs)}
-    for name, opts in K1_RUNS.items():
+    for name, opts in runs.items():
         f = build_fused_i2lqr_step(
             p, lim, 1.0, num_horizon=6, max_steps=states.shape[1],
             max_laps=states.shape[0], max_iter=K1_CAP, tile_rows=1,
-            interpret=True, with_stats=True, **opts)
+            interpret=True, with_stats=with_stats, **opts)
         for i, v in enumerate(f(*ja)):
             out[f"{name}_{i}"] = np.asarray(v)
     return out
 
 
-def k2():
+def k2(runs=K2_RUNS, with_stats=True):
     from ilqr_iterative_tasks_tpu.ops.pallas_nlmpc_step import (
         build_fused_nlmpc_step)
     from ilqr_iterative_tasks_tpu.utils.params import (
@@ -177,12 +185,12 @@ def k2():
     ja = [jnp.asarray(t.numpy()) for t in a]
     lim = SystemLimits.make(dtype=jnp.float32)
     out = {}
-    for name, (mode, opts) in K2_RUNS.items():
+    for name, (mode, opts) in runs.items():
         p = LmpcParams.make(dtype=jnp.float32, ss_option=mode)
         f = build_fused_nlmpc_step(
             p, lim, 1.0, num_horizon=6, max_steps=a[3].shape[1],
             max_laps=a[3].shape[0], max_iters=K2_CAP, tile_rows=1,
-            interpret=True, mode=mode, with_stats=True, **opts)
+            interpret=True, mode=mode, with_stats=with_stats, **opts)
         args = ja if mode == "timeVarying" else ja[:11]
         for i, v in enumerate(f(*args)):
             out[f"{name}_{i}"] = np.asarray(v)
@@ -191,4 +199,7 @@ def k2():
 
 if __name__ == "__main__":
     which, path = sys.argv[1], sys.argv[2]
-    np.savez(path, **{"k1": k1, "k32": k32, "k2": k2, "sim": sim}[which]())
+    np.savez(path, **{
+        "k1": k1, "k32": k32, "k2": k2, "sim": sim,
+        "k1opts": lambda: k1(K1_OPT_RUNS, with_stats=False),
+        "k2opts": lambda: k2(K2_OPT_RUNS, with_stats=False)}[which]())

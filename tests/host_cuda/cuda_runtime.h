@@ -34,6 +34,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
 #ifdef EMU_SHARED
 #define __shared__ static

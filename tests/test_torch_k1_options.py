@@ -1,7 +1,14 @@
-"""K1's options at k = 8 on the CPU: ``dedup``, ``qsort_skip`` and
-``with_stats`` of the plain step (``i2lqr_step_reference``) and the K1
-factory.
+"""K1's options at k = 8 on the CPU: ``dedup``, ``qsort_skip``,
+``with_stats``, ``reuse_extract``, ``dom_skip`` and ``group`` of the plain
+step (``i2lqr_step_reference``) and the K1 factory.
 
+- ``reuse_extract``, ``dom_skip`` and ``group`` (with ``dedup`` too) give
+  the plain order's outputs bit for bit in f64 and f32 on the same
+  inputs; reuse_extract keeps the kNN of the lanes whose guess did not
+  move (it fires), dom_skip solves fewer candidates.
+- The factory takes every option but the TPU kernel's two VMEM trades,
+  with the JAX factory's guards (pallas_i2lqr_step.py:192-208): the same
+  combinations raise in both.
 - The schedules change which candidate solves run, never the outputs: on
   ``headlines.k1_option_lanes`` (ties in distance and in Qfun, lanes far
   from every stored point that fall back to slot 0, skipped lanes, laps
@@ -122,21 +129,36 @@ def test_count_helpers():
     assert warp_executed(rounds, active, 16).tolist() == [48, 48, 96, 0, 80]
 
 
-def test_factory_takes_the_shipped_options_and_refuses_the_rest():
+# the options the factory takes beside the shipped ones, and the TPU
+# kernel's VMEM trades it refuses
+TAKEN = {"dom_skip": True, "group": 2, "reuse_extract": True}
+REFUSED = {"stream_safe_set": True, "store_solutions": False}
+
+
+@pytest.mark.parametrize("option", ["shipped", *TAKEN, *REFUSED])
+def test_factory_takes_the_shipped_options_and_refuses_the_rest(option):
     cpu = "cpu"
     lim = SystemLimits.make(device=cpu)
     sizes = dict(num_horizon=6, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
                  max_iter=CAP)
     p1 = IlqrParams.make(device=cpu)
+    if option in REFUSED:
+        with pytest.raises(ValueError, match=option):
+            build_fused_i2lqr_step(p1, lim, 1.0, **sizes,
+                                   **{option: REFUSED[option]})
+        return
+    if option in TAKEN:  # taken, and its CPU route is the plain step's
+        k1 = build_fused_i2lqr_step(p1, lim, 1.0, **sizes,
+                                    **{option: TAKEN[option]})
+        assert getattr(k1, option) == TAKEN[option]
+        a = k1_option_lanes(1, 3, cpu, b=32)
+        want = i2lqr_step_reference(p1, lim, 1.0, *a, max_iter=CAP)
+        assert all(torch.equal(g, w) for g, w in zip(k1(*a), want))
+        return
     k1 = build_fused_i2lqr_step(p1, lim, 1.0, dedup=True, qsort_skip=True,
                                 with_stats=True, floor_width=128, **sizes)
     assert (k1.dedup, k1.qsort_skip, k1.with_stats, k1.floor_width) == (
         True, True, True, 128)
-    for name, value in (("dom_skip", True), ("group", 2),
-                        ("reuse_extract", True), ("stream_safe_set", True),
-                        ("store_solutions", False)):
-        with pytest.raises(ValueError, match=name):
-            build_fused_i2lqr_step(p1, lim, 1.0, **sizes, **{name: value})
     with pytest.raises(TypeError):
         build_fused_i2lqr_step(p1, lim, 1.0, tile_rows=8, **sizes)
     p2 = IlqrParams.make(num_ss_iter=2, device=cpu)
@@ -307,3 +329,83 @@ def test_closed_loop_with_a_counting_k1_keeps_the_records():
     assert 0.0 <= summary["waste"] < 1.0 and summary["queue_floor"] > 0
     shares = k1.shares()
     assert shares["launches"] == 32 and 0.0 < shares["min"] <= 1.0
+
+
+# (params, options) that the JAX factory refuses (pallas_i2lqr_step.py
+# :192-208), and so does the port's
+GUARDED = [
+    (dict(num_ss_iter=2), dict(dom_skip=True)),
+    ({}, dict(qsort_skip=True, dom_skip=True)),
+    ({}, dict(qsort_skip=True, group=2)),
+    ({}, dict(group=3)),
+    ({}, dict(group=2, with_stats=True)),
+    (dict(num_ss_iter=2), dict(qsort_skip=True)),
+]
+
+
+@pytest.mark.parametrize("pkw,kw", GUARDED)
+def test_factory_guards_are_the_tpu_factory_s(pkw, kw):
+    from ilqr_iterative_tasks_tpu.ops.pallas_i2lqr_step import (
+        build_fused_i2lqr_step as j_build)
+    from ilqr_iterative_tasks_tpu.utils.params import (
+        IlqrParams as JParams, SystemLimits as JLimits)
+    sizes = dict(num_horizon=6, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+                 max_iter=CAP)
+    with pytest.raises(ValueError):
+        j_build(JParams.make(**pkw), JLimits.make(), 1.0, interpret=True,
+                **sizes, **kw)
+    with pytest.raises(ValueError):
+        build_fused_i2lqr_step(IlqrParams.make(device="cpu", **pkw),
+                               SystemLimits.make(device="cpu"), 1.0,
+                               **sizes, **kw)
+    with pytest.raises(ValueError):  # and the plain version
+        i2lqr_step_reference(IlqrParams.make(device="cpu", **pkw),
+                             SystemLimits.make(device="cpu"), 1.0,
+                             *k1_option_lanes(pkw.get("num_ss_iter", 1), 3,
+                                              "cpu", b=8),
+                             max_iter=CAP, **kw)
+
+
+# the options ported last, alone and together (with dedup, qsort_skip)
+NEW_OPTIONS = {"reuse": dict(reuse_extract=True),
+               "reuse_dedup_qsort": dict(reuse_extract=True, dedup=True,
+                                         qsort_skip=True),
+               "dom": dict(dom_skip=True),
+               "dom_dedup": dict(dom_skip=True, dedup=True),
+               "group2_dedup": dict(group=2, dedup=True),
+               "group8": dict(group=8),
+               "dom_group2_dedup": dict(dom_skip=True, group=2, dedup=True),
+               "group16_dedup_reuse": dict(group=16, dedup=True,
+                                           reuse_extract=True)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("nsi,lap_count,option", [
+    (1, 3, "reuse"), (2, 3, "reuse"), (1, 1, "reuse_dedup_qsort"),
+    (1, 3, "dom"), (1, 3, "dom_dedup"), (1, 1, "dom_dedup"),
+    (1, 3, "group2_dedup"), (1, 3, "group8"), (1, 3, "dom_group2_dedup"),
+    (2, 3, "group16_dedup_reuse")])
+def test_new_options_keep_the_plain_order_s_outputs(nsi, lap_count, option,
+                                                    dtype):
+    """reuse_extract, dom_skip and group against the options off, bit for
+    bit, on k1_option_lanes (B = 128, cap 8); with counts where the option
+    takes them: reuse_extract keeps the counts, dom_skip solves fewer
+    candidates. reuse_extract fires: in pass 2 some live lane keeps its
+    kNN."""
+    p, lim, a, plain = _case(nsi, lap_count, dtype)
+    o = NEW_OPTIONS[option]
+    counted = o.get("group", 1) == 1
+    reused = []
+    got = i2lqr_step_reference(p, lim, 1.0, *a, max_iter=CAP,
+                               with_stats=counted, reused=reused, **o)
+    for g, w in zip(got[:4], plain[:4]):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if o.get("reuse_extract"):
+        assert len(reused) == 2 and bool(reused[1].any())
+        assert not bool(reused[1][a[8] > 0.5].any())
+    if o == dict(reuse_extract=True):  # the counts of the plain order
+        assert all(torch.equal(g, w) for g, w in zip(got[4:], plain[4:]))
+    if o.get("dom_skip") and counted:
+        assert int(got[4].sum()) < int(plain[4].sum())
+        assert bool((got[4] <= got[5]).all())

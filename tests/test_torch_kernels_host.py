@@ -17,7 +17,11 @@ against a second build of the same sources on a card of 33 SMs, whose grid
 takes every lane of these tests by its index (K4: every chunk of 32
 lanes), which shares the host's libm, and K4 against its plain version
 where no LM trip runs (a skipped lane's solution is its clipped warm start
-or zeros) and by its verdicts.
+or zeros) and by its verdicts. The options ported last (K1
+reuse_extract, dom_skip and group, K2 prox_skip and zeros_skip) run each
+of their instantiations here too: against their plain versions in f64,
+and bit for bit against the same build without the option where the
+option is neutral.
 """
 
 import ctypes
@@ -75,15 +79,17 @@ def _k5_model(name):
 MANY_SMS = 33  # 4 224 threads: every lane of these tests by its index
 # K1, its blocks one at a time (shared memory), counting each lane's solves
 K1_SOURCES = ("i2lqr_step.cu",)
-K1_LAUNCHERS = (("i2lqr_step_launch", "i2lqr_step_block_stats_launch"),)
+K1_LAUNCHERS = (("i2lqr_step_launch", "i2lqr_step_block_stats_launch",
+                 "i2lqr_step_block_reuse_launch"),)
 K1_FLAGS = ("-DEMU_SHARED", "-DK1_ON_SOLVE(lane)=emu::count(lane)")
 K1_LANES = 33  # lanes of the K1 tests: blocks of 4 or 2, a ragged edge
 # K1 at k = 8 with its options and K2 with its counts (with_stats), a
 # build of their own
-OPT_SOURCES = ("i2lqr_step_opts.cu", "nlmpc_step.cu", "nlmpc_step_all.cu")
+OPT_SOURCES = ("i2lqr_step_opts.cu", "nlmpc_step.cu", "nlmpc_step_all.cu",
+               "i2lqr_step_group.cu")
 OPT_LAUNCHERS = ("i2lqr_step_opts_launch",
                  ("nlmpc_step_stats_launch", "nlmpc_step_launch"),
-                 "nlmpc_step_all_launch")
+                 "nlmpc_step_all_launch", "i2lqr_step_group_launch")
 OPT_LANES = 40  # 10 warps of K1 at k = 8, 3 blocks, a ragged edge
 
 
@@ -694,3 +700,210 @@ def test_prefix_launch_is_the_full_launch_s_first_lanes(libs, kernel):
             f, g = f[[0, 2, 3, 4]], g[[0, 2, 3, 4]]
         assert torch.equal(f[head].nan_to_num(-7), g[head].nan_to_num(-7))
         assert bool((g[rest].nan_to_num(-7) == -7).all())
+
+
+# K1's options of the TPU kernel ported last, each kernel variant on
+# headlines.k1_option_lanes: (nsi, lap_count, the opts bits of
+# i2lqr_step_opts_launch, group)
+K1_VARIANTS = {
+    "reuse_tile": (1, 3, 8, 1), "reuse_dedup_stats_tile": (2, 3, 11, 1),
+    "reuse_queue": (1, 3, 15, 1), "dom_queue": (1, 3, 17, 1),
+    "dom_dedup_reuse_queue": (1, 3, 27, 1), "dom_dedup_one_lap": (1, 1, 19, 1),
+    "group2_dedup": (1, 3, 2, 2), "group4": (1, 3, 0, 4),
+    "group8_dedup_reuse": (1, 3, 10, 8), "group2_nsi2": (2, 3, 0, 2),
+    "group8_nsi2_reuse": (2, 3, 8, 8), "group16_nsi2_dedup": (2, 1, 2, 16)}
+
+
+def _k1_variant(libs, a, nsi, opts, group, b, dt):
+    """One launch of a K1 variant (the group kernel where group > 1, else
+    the options launcher) on the host: (us, shrink, idx, row, counts)."""
+    p = IlqrParams.make(num_ss_iter=nsi, device="cpu", dtype=dt)
+    lim = SystemLimits.make(device="cpu", dtype=dt)
+    k1 = build_fused_i2lqr_step(p, lim, 1.0, num_horizon=6,
+                                max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+                                max_iter=8)
+    out = _nan_outs([((6, 2, b), None), ((b,), None), ((b,), torch.int32),
+                     ((b,), torch.int32), ((5, b), torch.int32)], dt)
+    tail = (k1._consts, 8, b, MAX_STEPS, MAX_LAPS,
+            *map(_ptr, (*a, *out[:4])))
+    if group > 1:
+        rc = libs[3].i2lqr_step_group_launch(DTYPE_CODES[dt], 6, 8, nsi,
+                                             group, opts, *tail, None, b)
+    else:
+        counter = torch.empty(1, dtype=torch.int32)
+        rc = libs[3].i2lqr_step_opts_launch(
+            DTYPE_CODES[dt], 6, 8, nsi, opts, *tail,
+            *map(_ptr, out[4][:3]), counter.data_ptr(), None, b)
+    assert rc == 0
+    return out
+
+
+@pytest.mark.parametrize("case", list(K1_VARIANTS))
+def test_k1_variants_match_plain(libs, case):
+    """K1's reuse_extract (opts 8; the tile and the lane queue), dom_skip
+    (16, the lane queue in slot order) and group (the group kernel), alone
+    and with dedup (2), with_stats (1) and qsort_skip (4), f64, 40 lanes:
+    the outputs are the plain version's with the same options (us to the
+    host libm's last bits) and the counts integer for integer (the lane
+    queue's iters_executed by its invariants); and every output is, bit
+    for bit, what the same build gives without the new option: the options
+    tile or the lane queue without reuse_extract, the options tile without
+    dom_skip's queue, and the tile kernel of i2lqr_step.cu for group."""
+    nsi, lap_count, opts, group = K1_VARIANTS[case]
+    b, dt = OPT_LANES, torch.float64
+    p = IlqrParams.make(num_ss_iter=nsi, device="cpu", dtype=dt)
+    lim = SystemLimits.make(device="cpu", dtype=dt)
+    a = k1_option_lanes(nsi, lap_count, "cpu", b=b, dtype=dt)
+    out = _k1_variant(libs, a, nsi, opts, group, b, dt)
+    kw = dict(dedup=bool(opts & 2), qsort_skip=bool(opts & 4),
+              reuse_extract=bool(opts & 8), dom_skip=bool(opts & 16),
+              group=group)
+    want = i2lqr_step_reference(p, lim, 1.0, *a, max_iter=8,
+                                with_stats=group == 1, **kw)
+    for g, w in zip(out[1:4], want[1:4]):
+        assert torch.equal(g, w)
+    torch.testing.assert_close(out[0], want[0], rtol=0, atol=1e-9)
+    if opts & 1:
+        assert torch.equal(out[4][0], want[4])
+        assert torch.equal(queue_floor(out[4][2:], 32), want[6])
+        if opts & 20:  # the lane queue's executed: its own invariants
+            live = a[8] < 0.5
+            assert bool((out[4][1] >= out[4][0]).all())
+            assert int(out[4][1][~live].abs().sum()) == 0
+        else:
+            assert torch.equal(out[4][1], want[5])
+    if group > 1:  # the tile kernel without options
+        off = _nan_outs([((6, 2, b), None), ((b,), None),
+                         ((b,), torch.int32), ((b,), torch.int32)], dt)
+        k1 = build_fused_i2lqr_step(p, lim, 1.0, num_horizon=6,
+                                    max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+                                    max_iter=8)
+        assert libs[2].i2lqr_step_launch(
+            DTYPE_CODES[dt], 6, 8, nsi, k1._consts, 8, b, MAX_STEPS,
+            MAX_LAPS, *map(_ptr, (*a, *off)), None, b) == 0
+        _equal(out[:4], off)
+    else:  # the option off: reuse_extract's bit cleared, dom_skip's queue
+        # the options tile (the same bits, other counts)
+        off = _k1_variant(libs, a, nsi, opts & ~8 if opts & 8 else
+                          opts & ~16, 1, b, dt)
+        _equal(out[:4], off[:4])
+        if opts & 8 and opts & 1:  # reuse_extract keeps the counts
+            assert torch.equal(out[4][0], off[4][0])
+            assert torch.equal(out[4][2:], off[4][2:])
+
+
+@pytest.mark.parametrize("nsi,lap_count", [(4, 4), (2, 1)])
+def test_k1_at_32_reuse_matches_plain(libs, nsi, lap_count):
+    """The k = 32 block kernel's reuse_extract instantiations (f64, 33
+    lanes), with and without counts: every output bit for bit the kernel's
+    without it, the counts integer for integer, and the decisions the
+    plain version's."""
+    k1_lib, dt, b = libs[2], torch.float64, K1_LANES
+    p = IlqrParams.make(num_ss_points=32, num_ss_iter=nsi, device="cpu")
+    lim = SystemLimits.make(device="cpu")
+    k1 = build_fused_i2lqr_step(p, lim, 1.0, num_horizon=6,
+                                max_steps=MAX_STEPS, max_laps=MAX_LAPS,
+                                max_iter=16)
+    a = k1_block_lanes(nsi, lap_count, "cpu", b=b)
+    shapes = [((6, 2, b), None), ((b,), None), ((b,), torch.int32),
+              ((b,), torch.int32)]
+    runs = []
+    for launch in (k1_lib.i2lqr_step_launch,
+                   k1_lib.i2lqr_step_block_reuse_launch):
+        out = _nan_outs(shapes, dt)
+        head = (DTYPE_CODES[dt], 6, 32, nsi)
+        if launch is k1_lib.i2lqr_step_block_reuse_launch:
+            head = (DTYPE_CODES[dt], 6, nsi)
+        assert launch(*head, k1._consts, 16, b, MAX_STEPS, MAX_LAPS,
+                      *map(_ptr, (*a, *out)), None, b) == 0
+        runs.append(out)
+    _equal(runs[1], runs[0])
+    counted = []
+    for opts in (2, 10):
+        out = _nan_outs(shapes + [((5, b), torch.int32)], dt)
+        assert k1_lib.i2lqr_step_block_stats_launch(
+            DTYPE_CODES[dt], 6, nsi, opts, k1._consts, 16, b, MAX_STEPS,
+            MAX_LAPS, *map(_ptr, (*a, *out[:4])), *map(_ptr, out[4][:3]),
+            None, b) == 0
+        counted.append(out)
+    _equal(counted[1], counted[0])
+    _equal(counted[1][:4], runs[0])
+    want = i2lqr_step_reference(p, lim, 1.0, *a, max_iter=16,
+                                reuse_extract=True)
+    for g, w in zip(runs[1][1:], want[1:]):
+        assert torch.equal(g, w)
+
+
+# K2's options of the TPU kernel ported last, each kernel variant on
+# headlines.k2_option_lanes: (mode, lap_count, the opts bits of
+# nlmpc_step_launch: 1 qsort_skip, 2 prox_skip, 4 zeros_skip; with_stats)
+K2_VARIANTS = {
+    "prox_space": ("spaceVarying", 2, 2, False),
+    "prox_time": ("timeVarying", 2, 2, False),
+    "prox_space_one_lap": ("spaceVarying", 1, 2, False),
+    "zskip_space": ("spaceVarying", 2, 4, False),
+    "zskip_time_qsort_stats": ("timeVarying", 2, 5, True),
+    "zskip_prox_space": ("spaceVarying", 2, 6, False),
+    "zskip_all_rev": ("all", 2, 4 | 1, False)}
+
+
+def _k2_variant(libs, mode, a, opts, stats, b, dt):
+    """One launch of a K2 variant on the host: its outputs (and counts)."""
+    tv = int(mode == "timeVarying")
+    p = LmpcParams.make(ss_option=mode, all_ss_point=mode == "all",
+                        device="cpu", dtype=dt)
+    lim = SystemLimits.make(device="cpu", dtype=torch.float64)
+    k2 = build_fused_nlmpc_step(p, lim, 1.0, num_horizon=6,
+                                max_steps=a[3].shape[1],
+                                max_laps=a[3].shape[0], max_iters=12)
+    shapes = [((6, 2, b), None), ((b,), None), ((4, b), None),
+              ((b,), torch.int32), ((b,), torch.int32), ((b,), None)]
+    out = _nan_outs(shapes + ([((b,), torch.int32)] * 2 if stats else []),
+                    dt)
+    if mode == "all":
+        x, _, uw, st, qf, ll, ids, ok, obs, skip, hzn = a[:11]
+        assert libs[3].nlmpc_step_all_launch(
+            DTYPE_CODES[dt], 6, 1, opts, k2._consts, 12, b, a[3].shape[1],
+            *map(_ptr, (x, uw, st, qf, ll, ids, ok, obs, skip, hzn)), None,
+            *map(_ptr, out), None, b) == 0
+        return out
+    head = (DTYPE_CODES[dt], 6, 8, 1, tv, opts, k2._consts, 12, b,
+            a[3].shape[1], *map(_ptr, a[:11]), _ptr(a[11]) if tv else None,
+            _ptr(a[12]) if tv else None)
+    launch = (libs[3].nlmpc_step_stats_launch if stats
+              else libs[3].nlmpc_step_launch)
+    assert launch(*head, *map(_ptr, out), None, b) == 0
+    return out
+
+
+@pytest.mark.parametrize("case", list(K2_VARIANTS))
+def test_k2_variants_match_plain(libs, case):
+    """K2's prox_skip (its one-thread walker, spaceVarying and
+    timeVarying) and zeros_skip (the ZSKIP instantiations: the plain
+    order, timeVarying's qsort_skip with counts, the walker, mode all's
+    all_rev_skip) on headlines.k2_option_lanes, f64, 40 lanes: the
+    decisions (feasible_any, idx_sel, row_sel, succ) are the plain step's
+    with the same options, the counts integer for integer, and prox_skip's
+    every output bit for bit the same build's without it (the host libm
+    stands in for CUDA's, so the solutions are held against the kernel
+    itself)."""
+    mode, lap_count, opts, stats = K2_VARIANTS[case]
+    b, dt = OPT_LANES, torch.float64
+    a = k2_option_lanes(1, lap_count, "cpu", b=b, dtype=dt)
+    out = _k2_variant(libs, mode, a, opts, stats, b, dt)
+    p = LmpcParams.make(ss_option=mode, all_ss_point=mode == "all",
+                        device="cpu", dtype=dt)
+    lim = SystemLimits.make(device="cpu", dtype=torch.float64)
+    tv = mode == "timeVarying"
+    want = nlmpc_step_reference(
+        p, lim, 1.0, *a[:11], *(a[11:] if tv else (None, None)),
+        max_iters=12, qsort_skip=bool(opts & 1) and mode != "all",
+        prox_skip=bool(opts & 2), zeros_skip=bool(opts & 4),
+        with_stats=stats)
+    for i in (1, 3, 4, 5):
+        assert torch.equal(out[i], want[i])
+    if stats:
+        assert torch.equal(out[6], want[6])
+        assert torch.equal(out[7], want[7])
+    if opts & 2:  # prox_skip against the option off: every bit
+        _equal(out, _k2_variant(libs, mode, a, opts & ~2, stats, b, dt))

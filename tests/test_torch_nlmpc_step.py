@@ -370,6 +370,10 @@ REFUSED = [
     (dict(all_ss_point=True, all_ss_iter=True), dict(all_rev_skip=True)),
     (dict(all_ss_point=True, num_ss_iter=2), dict(all_rev_skip=True)),
     (dict(all_ss_point=True), dict(qsort_skip=True)),
+    ({}, dict(prox_skip=True, qsort_skip=True)),
+    (dict(all_ss_point=True), dict(prox_skip=True)),
+    (dict(num_ss_iter=2), dict(prox_skip=True)),
+    ({}, dict(prox_skip=True, with_stats=True)),
 ]
 
 
@@ -389,14 +393,34 @@ def test_factory_refuses_what_the_tpu_factory_refuses(pkw, kw):
                                **sizes, **kw)
 
 
-def test_factory_refuses_options_it_does_not_take():
+# the options the factory takes beside the shipped ones (in each mode that
+# has them), and the TPU kernel's VMEM trades it refuses
+TAKEN = {"prox_skip": ("spaceVarying", "timeVarying"),
+         "zeros_skip": ("spaceVarying", "timeVarying", "all")}
+NOT_TAKEN = {"stream_safe_set": True, "store_solutions": False}
+
+
+@pytest.mark.parametrize("option", ["shipped", *TAKEN, *NOT_TAKEN])
+def test_factory_refuses_options_it_does_not_take(option):
     tp = convert.lmpc_params(JParams.make(dtype=jnp.float64), device="cpu")
     tl = convert.system_limits(JLimits.make(dtype=jnp.float64), device="cpu")
     sizes = dict(num_horizon=N, max_steps=T_ROWS, max_laps=MAX_LAPS)
-    for name, value in (("stream_safe_set", True), ("store_solutions", False),
-                        ("prox_skip", True), ("zeros_skip", True)):
-        with pytest.raises(ValueError, match=name):
-            build_fused_nlmpc_step(tp, tl, 1.0, **sizes, **{name: value})
+    if option in NOT_TAKEN:
+        with pytest.raises(ValueError, match=option):
+            build_fused_nlmpc_step(tp, tl, 1.0, **sizes,
+                                   **{option: NOT_TAKEN[option]})
+        return
+    if option in TAKEN:  # taken, and its CPU route is the plain step's
+        for mode in TAKEN[option]:
+            tpm, _, a, extra = _route_inputs(mode)
+            k2 = build_fused_nlmpc_step(tpm, tl, 1.0, max_iters=2,
+                                        **{option: True}, **sizes)
+            assert getattr(k2, option) and k2.mode == mode
+            want = nlmpc_step_reference(tpm, tl, 1.0, *a, *extra,
+                                        max_iters=2, **{option: True})
+            assert all(torch.equal(g, w) for g, w in zip(k2(*a, *extra),
+                                                          want))
+        return
     with pytest.raises(TypeError):
         build_fused_nlmpc_step(tp, tl, 1.0, **sizes, tile_rows=8)
     k2 = build_fused_nlmpc_step(tp, tl, 1.0, qsort_skip=True, **sizes)
