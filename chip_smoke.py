@@ -273,6 +273,38 @@ Phases:
    lanes; each run's wall seconds, the gather's ms, and phase 30's
    device-count rates (its batched run now spawned as one NCCL rank a
    card). Two ranks on one card measure contention, not scaling.
+33. the vmap i2LQR tier (control/batched.py) through K3: zero noise, 1 024
+   identical lanes, f64 laps exactly the JAX tier's [55, 28, 23] and f32
+   within 2 of its [55, 28, 25]; then the full width (B = 49 152, f32,
+   plant noise on, seed lap + 3 laps, k 8, max_laps 16, K3 over 393 216
+   lanes a pass at the tier's LM cap 150): a warm run (K3's device
+   seconds by CUDA events, its launches against 3 a solving step, each
+   launch's live share, and ``torch.profiler`` over a window of 20
+   solving steps of lap 2: K3's and the card's busy seconds) and a timed
+   run of the same seed, hashes equal, lap-sims/s and completion (gated 3
+   standard errors under the card's seed-0 figure); 8 sampled lanes rerun as a batch of 8 equal their full-width
+   records bit for bit; K3 against its plain solve on the lap-2 capture
+   (learning lap 2, solving step 14, pass 0), its ms, the plain ms and
+   the bound;
+34. the same for the vmap NLMPC tier (control/batched_nlmpc.py) through
+   K4 (cap 60, two starts, one launch a solving step): f64 [33, 24, 24]
+   exactly, f32 within 2 of [34, 23, 22] (the JAX tier's, with its f32
+   limits);
+35. the dry run (parallel/sharded.py ``dryrun``) with the candidate sweep
+   at C = 16 384: ``dryrun(1)`` on one NCCL rank and ``dryrun(2)`` on 2
+   gloo ranks sharing the card, each rank's parts checked in the rank
+   (the sharded vmap run bit for bit the unsharded one, the sharded sweep
+   the sweep on one rank); here each rank's sweep bit for bit the one of
+   this process, K3 on the sweep's 16 384 lanes against its plain solve,
+   and the sweep's ms;
+36. phase 22's headline through K3 with and without ``dedup_passes`` in
+   turns (off, on, on, off): hashes equal, the solves skipped and K3's
+   event-timed device seconds for each arm; K3 on the lap-2 capture's
+   pass-1 lanes of each arm (the dedup arm's skip mask), ms and bound;
+37. ``experiments/batch_probe.py`` at batches 16 384 and 49 152 (i2LQR
+   through K1, and through K3 with ``dedup_passes`` at 16 384; NLMPC
+   through K2 at 16 384), and ``precision_islands`` refused on CUDA
+   scenarios.
 
 The step kernels' last options (K1 reuse_extract, dom_skip, group; K2
 prox_skip, zeros_skip), each a template flag of its own: phase 2 prints
@@ -340,6 +372,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
@@ -2208,6 +2241,693 @@ def scale_out(card, scaling):
     return out["i2lqr"], out["nlmpc"], meshed
 
 
+# ---- phases 33-37: the vmap tiers, the candidate-sharded sweep and its
+# dry run, dedup_passes on the per-candidate path, batch_probe ----
+# the JAX tiers' zero-noise laps on XLA:CPU (f64, f32) with x64 on, as
+# tests/test_torch_batched_vmap.py's slow tests run and hold them: f64
+# exactly, f32 within VMAP_F32_SPREAD. f32 laps follow each platform's
+# and each compilation's arithmetic (docs/PARITY.md: the LM accept /
+# reject cascade moves a lap by 1-2 steps from lap 2 on): with x64 off,
+# which changes no f32 operation of the tiers, XLA:CPU gives [55, 28, 25]
+# and [34, 23, 22]. The port's own f32 laps on the CPU are [55, 28, 22]
+# and [32, 23, 23] (the tests pin them), on the H100 [55, 28, 22] and
+# [36, 27, 22] (PERF.md section 6). Each tier's f32 band has a witness:
+# the i2LQR tier's laps equal the SoA per-candidate path's on the card;
+# the NLMPC tier's card run replays every solving step of the CPU run
+# (JAX's laps) through K4 in lockstep (``nlmpc_f32_lockstep``)
+VMAP_LAPS = {"i2lqr": ([55, 28, 23], [55, 28, 24]),
+             "nlmpc": ([33, 24, 24], [32, 23, 23])}
+VMAP_F32_SPREAD = {"i2lqr": 2, "nlmpc": 4}
+VMAP_MAX_LAPS = 16  # the tiers' full width: max_laps 16, B = BATCH
+VMAP_ZERO_B = 1024
+VMAP_NL_CAP = 60  # the NLMPC tier's max_lm_iters (JAX's default)
+VMAP_SAMPLE = 8  # lanes rerun as a batch of their own
+VMAP_CAPTURE = (2, 14)  # (learning lap, solving step) of the capture
+# the profiled window (a short steady window): these
+# solving steps of learning lap 2; a whole run's ~10^5 small launches take
+# the profiler minutes to process, the window's seconds
+VMAP_WINDOW = (2, 5, 25)
+# lap completion bounds of the tiers' full-width runs (B = 49 152, seed 0,
+# 3 laps): 3 standard errors under the card's seed-0 figures, i2LQR 0.9970
+# (standard error 0.00014) and NLMPC 1.0000 (every lane-lap; the bound
+# that of one failed lane-lap, 1 - 4 / 147 456), PERF.md section 6
+VMAP_COMPLETION_MIN = {"i2lqr": 0.9966, "nlmpc": 0.99997}
+SWEEP_C = 16384  # the candidate-sharded sweep's regime (JAX sharded.py:9-15)
+PROBE_BATCHES = (16384, 49152)
+
+
+class TierTap:
+    """K3 or K4 as a vmap tier launches it (every attribute passed
+    through): each launch's live lanes (skip < 0.5) kept on the card and
+    read after the run and a pair of CUDA events around it, the tier's
+    solving steps a lap counted through its ``_solve_step`` (``tapped``),
+    the inputs of the first launch of the solving step ``want`` =
+    (learning lap, step), and, given ``window`` = (lap, first, end), the
+    card's activity over those solving steps under ``torch.profiler``
+    (``profiled``: the kernel's, every kernel's and copy's and the host's
+    seconds of the window, ``key`` the kernel's name)."""
+
+    def __init__(self, kernel, module, want=VMAP_CAPTURE, window=None,
+                 key=""):
+        self.kernel, self.module, self.want = kernel, module, want
+        self.live, self.steps, self.arm, self.captured = [], {}, False, None
+        self.events, self.window, self.key = [], window, key
+        self.prof, self.profiled = None, None
+
+    def __getattr__(self, name):
+        return getattr(self.kernel, name)
+
+    def __call__(self, *args):
+        self.live.append((args[4] < 0.5).sum())
+        if self.arm:
+            self.captured, self.arm = [a.clone() for a in args], False
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = self.kernel(*args)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def profile_at(self, lap, i):
+        """Start or stop the window's profile at solving step i of lap."""
+        w_lap, first, end = self.window
+        if (lap, i) not in ((w_lap, first), (w_lap, end)):
+            return
+        torch.cuda.synchronize()
+        if i == first:
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t0 = time.perf_counter()
+            return
+        host = time.perf_counter() - self.t0
+        self.prof.__exit__(None, None, None)
+        dev = [(e.key, getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0)))
+               for e in self.prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        self.profiled = dict(
+            steps=end - first, kernel_s=sum(
+                t for k, t in dev if self.key in k) / 1e6,
+            busy_s=sum(t for _, t in dev) / 1e6, host_s=host)
+        self.prof = None
+
+    def seconds(self) -> float:
+        """The summed CUDA-event spans of the launches."""
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events) / 1e3
+
+    def tapped(self):
+        tap, step = self, self.module._solve_step
+
+        class Ctx:
+            def __enter__(self):
+                def counted(params, kernel, ss, lap, *a, **kw):
+                    i = tap.steps.get(lap, 0)
+                    tap.steps[lap] = i + 1
+                    tap.arm = (lap, i) == tap.want
+                    if tap.window is not None:
+                        tap.profile_at(lap, i)
+                    return step(params, kernel, ss, lap, *a, **kw)
+                tap.module._solve_step = counted
+
+            def __exit__(self, *exc):
+                tap.module._solve_step = step
+        return Ctx()
+
+    def shares(self, lanes) -> dict:
+        s = torch.stack(self.live).double().cpu() / lanes
+        return dict(min=float(s.min()), median=float(s.median()),
+                    mean=float(s.mean()), launches=len(self.live))
+
+
+def tier_hash(res) -> str:
+    """lap_records_hash of a vmap tier's result (the NLMPC one has no
+    final states)."""
+    return lap_records_hash(SimpleNamespace(
+        lap_steps=res.lap_steps, lap_done=res.lap_done,
+        final_x=getattr(res, "final_x", res.lap_steps[:0]),
+        safe_set=tuple(res.safe_set)))
+
+
+def k3_row(k3, a, params, limits, host_params, host_limits, cap) -> dict:
+    """K3 on the lanes ``a`` against its plain solve: bitwise, the ms of
+    both, the live lanes' LM iterations and the bound."""
+    from ilqr_iterative_tasks_torch.ops.fused_ilqr import (
+        fused_ilqr_reference)
+    skip = a[4] if len(a) > 4 else None
+    out = k3(*a)
+    trips = []
+    ref, plain_ms = timed_call(lambda: fused_ilqr_reference(
+        params, limits, 1.0, *a, num_horizon=N, max_iter=cap, trips=trips))
+    require(all(torch.equal(g, w) for g, w in zip(out, ref)),
+            "K3: not bitwise equal to the plain solve")
+    b = a[1].shape[-1]
+    live = (torch.ones(b, dtype=torch.bool, device=a[1].device)
+            if skip is None else skip < 0.5)
+    trips = trips[0]
+    idx = torch.nonzero(live).flatten()[:SAMPLE_LANES]
+    sample = lanes_of(a, idx.cpu(), b)
+    return dict(
+        ms=cuda_ms(lambda: k3(*a), 5), plain_ms=plain_ms,
+        max_abs_err=float((out[0] - ref[0]).abs().max()), lanes=b,
+        live_lanes=int(live.sum()),
+        mean_iters=float(trips[live].double().mean()),
+        **bound(solve_ops(lambda max_iter: fused_ilqr_reference(
+            host_params, host_limits, 1.0, *sample, num_horizon=N,
+            max_iter=max_iter), "max_iter", len(idx), int(live.sum()),
+            float(trips[live].double().sum())), nbytes(a) + nbytes(out)))
+
+
+def k4_row(k4, a, limits, host_limits, cap) -> dict:
+    """K4 on the lanes ``a`` against its plain solve, as ``k3_row``."""
+    from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
+        fused_lm_shooting_reference)
+    out = k4(*a)
+    trips = []
+    ref, plain_ms = timed_call(lambda: fused_lm_shooting_reference(
+        limits, 1.0, *a, num_horizon=N, max_iters=cap, trips=trips))
+    require(all(torch.equal(g, w) for g, w in zip(out, ref)),
+            "K4: not bitwise equal to the plain solve")
+    live = a[4] < 0.5
+    trips = trips[0]
+    idx = torch.nonzero(live).flatten()[:SAMPLE_LANES]
+    b = a[1].shape[-1]
+    sample = lanes_of(a, idx.cpu(), b)
+    return dict(
+        ms=cuda_ms(lambda: k4(*a), 5), plain_ms=plain_ms,
+        max_abs_err=float((out[0] - ref[0]).abs().max()), lanes=b,
+        live_lanes=int(live.sum()),
+        mean_iters=float(trips[live].double().mean()),
+        **bound(solve_ops(lambda max_iters: fused_lm_shooting_reference(
+            host_limits, 1.0, *sample, num_horizon=N, max_iters=max_iters),
+            "max_iters", len(idx), int(live.sum()),
+            float(trips[live].double().sum()) / 2), nbytes(a) + nbytes(out)))
+
+
+def nlmpc_f32_cpu_run():
+    """The NLMPC tier's zero-noise f32 run of one scenario on the host's
+    CPU (K4's plain version: the run tests/test_torch_batched_vmap.py
+    holds to JAX's f32 tier on XLA:CPU), each solving step's inputs and
+    outputs recorded: (its laps, the steps). ``main`` runs it beside the
+    build; phase 34 replays it on the card (``nlmpc_f32_lockstep``)."""
+    from ilqr_iterative_tasks_torch.control import batched, batched_nlmpc
+    from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
+    from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
+        build_fused_lm_shooting)
+    from ilqr_iterative_tasks_torch.sim.seed import seed_trajectory
+    from ilqr_iterative_tasks_torch.utils.params import (
+        LmpcParams, SystemLimits)
+
+    f32, cpu = torch.float32, torch.device("cpu")
+    xcl, ucl = seed_trajectory(1.0)
+    seed_xs, seed_us = np.zeros((MAX_STEPS, 4)), np.zeros((MAX_STEPS, 2))
+    seed_xs[:121], seed_us[:120] = xcl, ucl
+    lim = SystemLimits.make(dtype=f32, device=cpu)
+    scen = batched.make_batch_scenarios(
+        np.zeros(4), xcl[-1], Obstacle.make(31.0, -2.0, 8.0, 6.0, dtype=f32,
+                                            device=cpu),
+        1, key=0, noise_on=False, dtype=f32, device=cpu)
+    calls, step = [], batched_nlmpc._solve_step
+
+    def recorded(params, solver, ss, lap_count, *rest):
+        out = step(params, solver, ss, lap_count, *rest)
+        calls.append((ss.map(torch.clone), lap_count, rest, out))
+        return out
+
+    batched_nlmpc._solve_step = recorded
+    try:
+        res = batched_nlmpc.simulate_nlmpc_batch(
+            LmpcParams.make(dtype=f32, device=cpu), lim, scen, seed_xs,
+            seed_us, 121, 1.0, num_laps=LAPS, max_steps=MAX_STEPS,
+            max_laps=VMAP_MAX_LAPS, max_lm_iters=VMAP_NL_CAP,
+            candidate_solver=build_fused_lm_shooting(
+                lim, 1.0, num_horizon=N, max_iters=VMAP_NL_CAP))
+    finally:
+        batched_nlmpc._solve_step = step
+    return res.lap_steps[0].tolist(), calls
+
+
+def nlmpc_f32_lockstep(dev, k4, calls):
+    """Phase 34's witness of the NLMPC tier's f32 laps: each solving step
+    of ``nlmpc_f32_cpu_run`` replayed on ``dev`` through ``k4`` from that
+    run's state (its safe set, state, terminal guess and warm start), the
+    plain solve refused there. A step's decision is its feasibility and
+    its chosen point (the new terminal guess, bit for bit). Returns the
+    steps (lap, step) whose decision differs, and (lap, step, |u - the
+    CPU's u|) of each of the others."""
+    from ilqr_iterative_tasks_torch.control import batched_nlmpc
+    from ilqr_iterative_tasks_torch.utils.params import LmpcParams
+
+    to = lambda t: t.to(dev) if isinstance(t, torch.Tensor) else t
+    p = LmpcParams.make(dtype=torch.float32, device=dev)
+    flips, gaps, at = [], [], {}
+    with no_plain_solve_on_card():
+        for ss, lap_count, rest, want in calls:
+            n = at[lap_count] = at.get(lap_count, -1) + 1
+            got = [t.cpu() for t in batched_nlmpc._solve_step(
+                p, k4, ss.map(to), lap_count, *map(to, rest))]
+            if torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]):
+                gaps.append((lap_count, n,
+                             float((got[0] - want[0]).abs().max())))
+            else:
+                flips.append((lap_count, n))
+    return flips, gaps
+
+
+def vmap_tier(card, which, cpu_run=None):
+    """Phase 33 (``which`` "i2lqr": the vmap i2LQR tier through K3) or 34
+    ("nlmpc": the vmap NLMPC tier through K4; ``cpu_run`` a future of
+    ``nlmpc_f32_cpu_run``, else it runs here). Returns the kernels line's
+    row of the tier's kernel."""
+    from ilqr_iterative_tasks_torch.control import (
+        batched, batched_nlmpc, batched_soa)
+    from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
+    from ilqr_iterative_tasks_torch.ops.fused_ilqr import build_fused_ilqr
+    from ilqr_iterative_tasks_torch.ops.fused_lm_shooting import (
+        build_fused_lm_shooting)
+    from ilqr_iterative_tasks_torch.sim.seed import seed_trajectory
+    from ilqr_iterative_tasks_torch.utils.params import (
+        IlqrParams, LmpcParams, SystemLimits)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    i2 = which == "i2lqr"
+    tag, kname = ("33", "K3") if i2 else ("34", "K4")
+    module = batched if i2 else batched_nlmpc
+    xcl, ucl = seed_trajectory(1.0)
+    seed_xs, seed_us = np.zeros((MAX_STEPS, 4)), np.zeros((MAX_STEPS, 2))
+    seed_xs[:121], seed_us[:120] = xcl, ucl
+    passes = 3 if i2 else 1  # kernel launches a solving step
+    if not i2:  # before any tap of the module's _solve_step
+        cpu_laps, cpu_calls = (nlmpc_f32_cpu_run() if cpu_run is None
+                               else cpu_run.result())
+
+    def setup(dtype):
+        """(params, limits, the kernel, the simulator) in ``dtype``; the
+        NLMPC tier's limits in its dtype, as JAX's tier takes them."""
+        lim = SystemLimits.make(dtype=dtype, device=dev)
+        if i2:
+            p = IlqrParams.make(dtype=dtype, device=dev)
+            return p, lim, build_fused_ilqr(
+                p, lim, 1.0, num_horizon=N, max_iter=p.max_ilqr_iter), \
+                batched.simulate_learning_batch
+        return (LmpcParams.make(dtype=dtype, device=dev), lim,
+                build_fused_lm_shooting(lim, 1.0, num_horizon=N,
+                                        max_iters=VMAP_NL_CAP),
+                batched_nlmpc.simulate_nlmpc_batch)
+
+    def scenarios(b, dtype, noise):
+        return batched.make_batch_scenarios(
+            np.zeros(4), xcl[-1], Obstacle.make(31.0, -2.0, 8.0, 6.0,
+                                                dtype=dtype, device=dev),
+            b, key=0, noise_on=noise, dtype=dtype, device=dev)
+
+    def run(p, lim, sim, scen, solver):
+        kw = {} if i2 else dict(max_lm_iters=VMAP_NL_CAP)
+        with no_plain_solve_on_card():
+            res = sim(p, lim, scen, seed_xs, seed_us, 121, 1.0,
+                      num_laps=LAPS, max_steps=MAX_STEPS,
+                      max_laps=VMAP_MAX_LAPS, candidate_solver=solver, **kw)
+        torch.cuda.synchronize(dev)
+        return res
+
+    row, marks = {}, {}
+    mark = lambda name: marks.__setitem__(
+        name, round(time.perf_counter() - t_phase - sum(marks.values()), 2))
+    for dtype, want in zip((torch.float64, torch.float32), VMAP_LAPS[which]):
+        p, lim, k, sim = setup(dtype)
+        tap = TierTap(k, module)
+        t0 = time.perf_counter()
+        with tap.tapped():
+            res = run(p, lim, sim, scenarios(VMAP_ZERO_B, dtype, False), tap)
+        secs = time.perf_counter() - t0
+        laps = res.lap_steps[0].tolist()
+        steps = sum(tap.steps.values())
+        print(f"[{tag} {which} vmap tier zero noise {str(dtype)[6:]}] "
+              f"{VMAP_ZERO_B} identical lanes: laps {laps} (JAX's {want}), "
+              f"{kname} launches {k.launches} over {steps} solving steps, "
+              f"{secs:.2f} s; card {card}", flush=True)
+        require(bool((res.lap_steps == res.lap_steps[0]).all())
+                and bool(res.lap_done.all()),
+                f"{tag} zero noise {dtype}: lanes differ or a lap failed")
+        require(k.launches == passes * steps > 0,
+                f"{tag}: {kname} launches {k.launches} != {passes} x "
+                f"{steps} solving steps")
+        if dtype == torch.float64:
+            require(laps == want, f"{tag} f64 laps {laps} != {want}")
+        else:
+            require(all(abs(g - w) <= VMAP_F32_SPREAD[which]
+                        for g, w in zip(laps, want)),
+                    f"{tag} f32 laps {laps} not within "
+                    f"{VMAP_F32_SPREAD[which]} of {want}")
+        row[f"zero_noise_{str(dtype)[6:]}"] = dict(
+            laps=laps, wall_s=secs, launches=k.launches)
+        if i2 and dtype == torch.float32:
+            # the same solves, kNN and selection as the SoA simulator's
+            # per-candidate path at the same cap: the same laps
+            soa = batched_soa.SoaScenarios.broadcast(
+                np.zeros(4), xcl[-1], Obstacle.make(31.0, -2.0, 8.0, 6.0,
+                                                    device=dev),
+                VMAP_ZERO_B, device=dev)
+            with no_plain_solve_on_card():
+                ref = batched_soa.simulate_learning_runs_soa(
+                    p, lim, soa, seed_xs, None, 121, 1.0,
+                    candidate_solver=k, num_laps=LAPS, max_steps=MAX_STEPS,
+                    max_laps=MAX_LAPS, solver_max_iter=p.max_ilqr_iter)
+            soa_laps = ref.lap_steps[:, 0].tolist()
+            same_states = bool(torch.equal(
+                ref.safe_set[0][1:LAPS + 1, :, :, 0],
+                res.safe_set.states[0, 1:LAPS + 1]))
+            print(f"[{tag} f32 against the SoA per-candidate path] its laps "
+                  f"{soa_laps}, stored states bit for bit {same_states}",
+                  flush=True)
+            require(soa_laps == laps, f"{tag} f32 laps {laps} != the SoA "
+                    f"per-candidate path's {soa_laps}")
+            row["zero_noise_float32"]["soa_candidate_path"] = dict(
+                laps=soa_laps, states_bitwise=same_states)
+        if not i2 and dtype == torch.float32:
+            t_lock = time.perf_counter()
+            flips, gaps = nlmpc_f32_lockstep(dev, k, cpu_calls)
+            worst = max(gaps, key=lambda g: g[2])
+            over = [g for g in gaps if g[2] > 1e-3]
+            print(f"[{tag} f32 in lockstep with the CPU run] the CPU run's "
+                  f"laps {cpu_laps} (JAX's {want}); the card's K4 on its "
+                  f"{len(flips) + len(gaps)} solving steps: decisions "
+                  f"differ at (lap, step) {flips}; |u - the CPU's u| "
+                  f"<= 1e-5 on {sum(g[2] <= 1e-5 for g in gaps)}, <= 1e-3 "
+                  f"on {len(gaps) - len(over)}, largest {worst[2]:.3e} at "
+                  f"{worst[:2]}, first over 1e-3 "
+                  f"{over[0] if over else None}, the steps over 1e-3 "
+                  f"{[g[:2] for g in over]}; "
+                  f"{time.perf_counter() - t_lock:.1f} s", flush=True)
+            require(not flips, f"{tag} f32: the card's decisions differ "
+                    f"from the CPU run's at {flips}")
+            row["zero_noise_float32"]["cpu_lockstep"] = dict(
+                cpu_laps=cpu_laps, flips=flips, u_gaps=gaps)
+        del res
+    mark("zero_noise")
+
+    # the full width, f32, plant noise on
+    p, lim, k, sim = setup(torch.float32)
+    scen = scenarios(BATCH, torch.float32, True)
+    lanes = BATCH * p.num_ss_iter * p.num_ss_points
+    tap = TierTap(k, module, window=VMAP_WINDOW, key="fused_ilqr_kernel"
+                  if i2 else "fused_lm_shooting_kernel")
+    k.launches = 0
+    with tap.tapped():
+        res = run(p, lim, sim, scen, tap)
+    event_s, prof = tap.seconds(), tap.profiled
+    require(prof is not None and prof["kernel_s"] > 0,
+            f"{tag}: the profiled window saw no {kname}")
+    mark("warm_run")
+    launches, steps = k.launches, sum(tap.steps.values())
+    require(launches == passes * steps > 0,
+            f"{tag}: {kname} launches {launches} != {passes} x {steps} "
+            f"solving steps")
+    share = tap.shares(lanes)
+    done = float(res.lap_done.float().mean())
+    se = (done * (1 - done) / res.lap_done.numel()) ** 0.5
+    warm_hash = tier_hash(res)
+    require(bool(torch.isfinite(res.safe_set.states).all()),
+            f"{tag}: non-finite safe set")
+    k.launches = 0
+    t0 = time.perf_counter()
+    res2 = run(p, lim, sim, scen, k)
+    secs = time.perf_counter() - t0
+    timed_hash = tier_hash(res2)
+    del res2
+    mark("timed_run")
+    rate = BATCH * LAPS / secs
+    print(f"[{tag} {which} vmap tier] B={BATCH} f32 noise on, max_laps "
+          f"{VMAP_MAX_LAPS}: {rate:.1f} lap-sims/s ({secs:.3f} s), "
+          f"completion {done:.4f} (standard error {se:.5f}, required >= "
+          f"{VMAP_COMPLETION_MIN[which]}), mean lap steps "
+          f"{[round(float(v), 2) for v in res.lap_steps.float().mean(0)]}, "
+          f"lap records {warm_hash} (timed run {timed_hash}); {kname} "
+          f"launches {launches} over {steps} solving steps, {lanes} lanes "
+          f"a launch, live share {json.dumps(share)}; warm run: {kname} "
+          f"{event_s:.4f} s by CUDA events; profiled window (lap "
+          f"{VMAP_WINDOW[0]}, solving steps {VMAP_WINDOW[1]}-"
+          f"{VMAP_WINDOW[2] - 1}): {kname} {prof['kernel_s']:.4f} s of the "
+          f"card, busy {prof['busy_s']:.4f} s of {prof['host_s']:.4f} s; "
+          f"card {card}", flush=True)
+    require(timed_hash == warm_hash, f"{tag}: the timed run's records differ")
+    require(done >= VMAP_COMPLETION_MIN[which],
+            f"{tag}: completion {done} < {VMAP_COMPLETION_MIN[which]}")
+    # 8 sampled lanes as a batch of their own: their records bit for bit
+    rows = torch.randperm(BATCH, generator=torch.Generator().manual_seed(0))[
+        :VMAP_SAMPLE].sort().values.to(dev)
+    few = run(p, lim, sim, scen.map(lambda t: t[rows].contiguous()), k)
+    full = [res.lap_steps, res.lap_done, *res.safe_set] + (
+        [res.final_x] if i2 else [])
+    part = [few.lap_steps, few.lap_done, *few.safe_set] + (
+        [few.final_x] if i2 else [])
+    require(all(torch.equal(a[rows], b) for a, b in zip(full, part)),
+            f"{tag}: {VMAP_SAMPLE} lanes rerun alone differ from their "
+            f"full-width records")
+    print(f"[{tag} {VMAP_SAMPLE} lanes alone] lanes {rows.tolist()}: lap "
+          f"steps {few.lap_steps.tolist()}, bit for bit their full-width "
+          f"records", flush=True)
+    del res, few
+    mark("sample")
+    a = tap.captured
+    require(a is not None, f"{tag}: no capture at {VMAP_CAPTURE}")
+    host_lim = SystemLimits.make(device="cpu")
+    if i2:
+        kr = k3_row(k, a, p, lim, IlqrParams.make(device="cpu"), host_lim,
+                    p.max_ilqr_iter)
+    else:
+        kr = k4_row(k, a, lim, host_lim, VMAP_NL_CAP)
+    mark("capture_check")
+    print(f"[{tag} {kname} at the lap-2 capture] {kr['ms']:.3f} ms a call "
+          f"of {kr['lanes']} lanes ({kr['live_lanes']} live, "
+          f"{kr['mean_iters']:.2f} LM iterations a live lane), plain "
+          f"{kr['plain_ms']:.3f} ms, bound {kr['bound_ms']:.4f} ms by "
+          f"{kr['bound_by']}, bitwise; card {card}", flush=True)
+    row.update(kr, launches=launches, solving_steps=steps,
+               lap_sims_per_s=rate, wall_s=secs, completion=done,
+               completion_se=se, hash=warm_hash, live_share=share,
+               device_s=event_s, profiled_window=prof,
+               phase_s=time.perf_counter() - t_phase, phase_parts_s=marks)
+    print(f"[{tag} phase] {row['phase_s']:.1f} s ({json.dumps(marks)})",
+          flush=True)
+    return row
+
+
+def dryrun_rank(n, candidates):
+    """The dry run on one rank of phase 35 (parallel/launch.py's target),
+    every plain candidate solve on the card refused."""
+    from ilqr_iterative_tasks_torch.parallel import sharded
+    with no_plain_solve_on_card():
+        return sharded.dryrun_rank(n, candidates=candidates)
+
+
+def sweep_phase(card):
+    """Phase 35: the dry run on one NCCL rank and on 2 gloo ranks that
+    share the card, the sweep at C = SWEEP_C; returns the kernels line's
+    row of K3 on the sweep."""
+    from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
+    from ilqr_iterative_tasks_torch.ops.fused_ilqr import (
+        build_fused_ilqr, obstacle_to_lanes)
+    from ilqr_iterative_tasks_torch.parallel import sharded
+    from ilqr_iterative_tasks_torch.parallel.launch import Ranks
+    from ilqr_iterative_tasks_torch.utils.params import (
+        IlqrParams, SystemLimits)
+
+    t35 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    target = f"{os.path.join(HERE, 'chip_smoke.py')}:dryrun_rank"
+    # both worlds at once, each its own group on its own port
+    started = {"nccl 1": Ranks(target, 1, 1, SWEEP_C, backend="nccl",
+                               timeout=600),
+               "gloo 2": Ranks(target, 2, 2, SWEEP_C, backend="gloo",
+                               timeout=600)}
+    try:
+        runs = {name: r.wait() for name, r in started.items()}
+    finally:
+        for r in started.values():
+            r.close()
+    params = IlqrParams.make(num_ss_points=sharded.DRY_K, device=dev)
+    limits = SystemLimits.make(device=dev)
+    obstacle = Obstacle.make(5.0, -2.0, 1.0, 1.0, device=dev)
+    cands, qs = (t.to(dev) for t in runs["nccl 1"][0]["sweep_inputs"])
+    k3 = build_fused_ilqr(params, limits, 1.0, num_horizon=N,
+                          max_iter=params.max_ilqr_iter)
+    x0, u0 = torch.zeros(4, device=dev), torch.zeros((N, 2), device=dev)
+    local = lambda: sharded.sharded_candidate_sweep(
+        params, limits, obstacle, x0, cands, qs, u0, 1.0, 1.0,
+        num_horizon=N, mesh=sharded.local_mesh("candidate", dev),
+        candidate_solver=k3)
+    with no_plain_solve_on_card():
+        here = [t.cpu() for t in local()]
+        sweep_ms = cuda_ms(local, 5)
+    out = {}
+    for name, ranks in runs.items():
+        for r in ranks:
+            require(all(torch.equal(g, w) for g, w in zip(r["sweep"], here)),
+                    f"35 {name} rank {r['rank']}: its sweep is not this "
+                    f"process's")
+            require(r["launches"]["sweep_sharded"] == 1
+                    and r["launches"]["vmap_sharded"] > 0
+                    and r["launches"]["k1_shardmap"] > 0,
+                    f"35 {name} rank {r['rank']}: launches {r['launches']}")
+            print(f"[35 dryrun {name} rank {r['rank']}] {r['backend']}: "
+                  f"vmap lap steps "
+                  f"{r['vmap_lap_steps'].flatten().tolist()}, sweep index "
+                  f"{int(r['sweep'][3])} of {SWEEP_C}, launches "
+                  f"{json.dumps(r['launches'])}, seconds "
+                  f"{json.dumps({k: round(v, 4) for k, v in r['seconds'].items()})}"
+                  f"; card {card}", flush=True)
+        out[name] = dict(seconds=[r["seconds"] for r in ranks],
+                         launches=[r["launches"] for r in ranks])
+    # K3 on the sweep's lanes (the local sweep's one launch)
+    a = (x0[:, None].expand(4, SWEEP_C).contiguous(), cands.T.contiguous(),
+         u0[..., None].expand(N, 2, SWEEP_C).contiguous(),
+         obstacle_to_lanes(obstacle, SWEEP_C).contiguous())
+    kr = k3_row(k3, a, params, limits, IlqrParams.make(
+        num_ss_points=sharded.DRY_K, device="cpu"),
+        SystemLimits.make(device="cpu"), params.max_ilqr_iter)
+    print(f"[35 sweep] C={SWEEP_C}: index {int(here[3])}, cost "
+          f"{float(here[2])}, the sweep on one rank {sweep_ms:.3f} ms; K3 "
+          f"on its lanes {kr['ms']:.3f} ms, plain {kr['plain_ms']:.3f} ms, "
+          f"bound {kr['bound_ms']:.4f} ms by {kr['bound_by']} "
+          f"({kr['mean_iters']:.2f} LM iterations a lane), bitwise; "
+          f"{time.perf_counter() - t35:.1f} s; card {card}", flush=True)
+    launches = sum(sum(x["sweep_sharded"] for x in v["launches"])
+                   for v in out.values())
+    return dict(kr, launches=launches, sweep_ms=sweep_ms,
+                index=int(here[3]), dryrun=out)
+
+
+def dedup_phase(card):
+    """Phase 36: phase 22's headline through K3 with and without
+    dedup_passes in turns; returns the kernels line's row of K3 under
+    dedup_passes (the dedup arm's lap-2 pass-1 capture)."""
+    from ilqr_iterative_tasks_torch.control import batched_soa
+    from ilqr_iterative_tasks_torch.experiments.nlmpc_profile import (
+        EventTimed)
+    from ilqr_iterative_tasks_torch.ops.fused_ilqr import build_fused_ilqr
+    from ilqr_iterative_tasks_torch.utils.params import (
+        IlqrParams, SystemLimits)
+
+    t36 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    hl = Headlines(dev)
+    k3 = build_fused_ilqr(hl.params, hl.limits, 1.0, num_horizon=N,
+                          max_iter=CAP)
+
+    class PassTap(EventTimed):
+        """K3 timed by CUDA events, keeping the inputs of the second call
+        (pass 1) of the step it is armed at."""
+        arm, captured = -1, None
+
+        def __call__(self, *args, **kw):
+            if self.arm == 0:
+                self.captured = [t.clone() for t in args]
+            self.arm -= 1
+            return super().__call__(*args, **kw)
+
+    arms, seen = {}, {}
+    for dedup in (False, True, True, False):
+        timed = PassTap(k3, K3_ATTRS)
+        log = [] if dedup else None
+
+        def want(lap, i, _args):
+            if (lap, i) == (2, CAPTURES[2]):
+                timed.arm = 1
+            return False
+
+        k3.launches = 0
+        with tap_step(batched_soa, "i2lqr_step_reference", 5, want) as tap:
+            t0 = time.perf_counter()
+            res = hl.i2lqr(1, None, timed, dedup_passes=dedup,
+                           dedup_log=log)
+            secs = time.perf_counter() - t0
+        steps = sum(tap.calls.values())
+        require(k3.launches == 3 * steps > 0,
+                f"36: K3 launches {k3.launches} != 3 x {steps} steps")
+        h = lap_records_hash(res)
+        skipped = int(sum(int(c) for c in log)) if dedup else 0
+        arm = arms.setdefault(dedup, dict(wall_s=[], device_s=[], hash=[]))
+        arm["wall_s"].append(secs)
+        arm["device_s"].append(timed.seconds())
+        arm["hash"].append(h)
+        arm.update(launches=k3.launches, skipped_solves=skipped,
+                   completion=float(res.lap_done.float().mean()))
+        seen[dedup] = timed.captured
+        print(f"[36 i2LQR through K3, dedup_passes {dedup}] {secs:.3f} s, "
+              f"K3 {arm['device_s'][-1]:.4f} s by CUDA events, launches "
+              f"{k3.launches} ({steps} steps), solves skipped {skipped}, "
+              f"lap records {h}; card {card}", flush=True)
+        del res
+    hashes = {h for a in arms.values() for h in a["hash"]}
+    require(len(hashes) == 1, f"36: dedup_passes changed the records "
+            f"{hashes}")
+    require(arms[True]["skipped_solves"] > 0, "36: no solve was skipped")
+    host = (IlqrParams.make(device="cpu"), SystemLimits.make(device="cpu"))
+    rows = {}
+    for dedup, a in seen.items():
+        require(a is not None, f"36: no lap-2 pass-1 capture ({dedup})")
+        rows[dedup] = k3_row(k3, a, hl.params, hl.limits, *host, CAP)
+        print(f"[36 K3 at the lap-2 pass-1 capture, dedup_passes {dedup}] "
+              f"{rows[dedup]['ms']:.3f} ms ({rows[dedup]['live_lanes']} live "
+              f"lanes of {rows[dedup]['lanes']}), plain "
+              f"{rows[dedup]['plain_ms']:.3f} ms, bound "
+              f"{rows[dedup]['bound_ms']:.4f} ms by "
+              f"{rows[dedup]['bound_by']}, bitwise; card {card}", flush=True)
+    print(f"[36 phase] {time.perf_counter() - t36:.1f} s", flush=True)
+    return dict(rows[True], launches=arms[True]["launches"],
+                arms={str(d): a for d, a in arms.items()},
+                without_capture=rows[False], hash=hashes.pop())
+
+
+def probe_phase(card):
+    """Phase 37: batch_probe on the card, and precision_islands refused
+    on CUDA scenarios."""
+    from ilqr_iterative_tasks_torch.control.batched_soa import (
+        SoaScenarios, simulate_learning_runs_soa)
+    from ilqr_iterative_tasks_torch.experiments import batch_probe
+    from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
+    from ilqr_iterative_tasks_torch.utils.params import (
+        IlqrParams, SystemLimits)
+
+    t37 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    recs = []
+    with no_plain_solve_on_card():
+        for kw in ([dict(batch=b) for b in PROBE_BATCHES]
+                   + [dict(batch=PROBE_BATCHES[0], dedup=True),
+                      dict(batch=PROBE_BATCHES[0], nlmpc=True)]):
+            rec = batch_probe.run(device=dev, **kw)
+            require(rec["launches"] > 0 and rec["completion"] > 0.5,
+                    f"37 batch_probe {kw}: {rec}")
+            print(f"[37 batch_probe] {json.dumps(rec)}; card {card}",
+                  flush=True)
+            recs.append(rec)
+    xcl = np.zeros(4)
+    scen = SoaScenarios.broadcast(xcl, xcl, Obstacle.make(device=dev), 8,
+                                  device=dev)
+    try:
+        simulate_learning_runs_soa(
+            IlqrParams.make(device=dev), SystemLimits.make(device=dev), scen,
+            np.zeros((MAX_STEPS, 4)), None, 2, 1.0, num_laps=1,
+            max_steps=MAX_STEPS, max_laps=4, precision_islands=("trig",))
+        raise AssertionError("37: precision_islands ran on CUDA scenarios")
+    except ValueError as err:
+        require("precision_islands" in str(err), f"37: {err}")
+    print(f"[37 precision_islands on CUDA scenarios] refused; "
+          f"{time.perf_counter() - t37:.1f} s", flush=True)
+    return recs
+
+
+def new_paths(card, cpu_run) -> dict:
+    """Phases 33-37; returns their rows for the kernels line."""
+    return dict(vmap_k3=vmap_tier(card, "i2lqr"),
+                vmap_k4=vmap_tier(card, "nlmpc", cpu_run),
+                sweep=sweep_phase(card),
+                dedup=dedup_phase(card), probe=probe_phase(card))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -2255,6 +2975,10 @@ def main():
     kind = torch.cuda.get_device_name(0)
     print(f"[1 device] {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
+
+    # phase 34's CPU run (nlmpc_f32_cpu_run) on the host beside the build
+    witness = concurrent.futures.ThreadPoolExecutor(1)
+    cpu_run = witness.submit(nlmpc_f32_cpu_run)
 
     # ---- 2. build ----
     # with the counting build of K1 at k = 32 (phase 19) and K5's library
@@ -4020,6 +4744,8 @@ def main():
         bench_k1, bench_k3, bench_k4 = host_bench(card, tmp)
     sharded_k1, sharded_k2, meshed_k4 = scale_out(
         card, bench_k1["latency_bench_scaling"]["lap_sims_per_s"])
+    new = new_paths(card, cpu_run)
+    witness.shutdown()
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
 
     csrc, tpu = "ilqr_iterative_tasks_torch/csrc/", "ilqr_iterative_tasks_tpu/ops/"
@@ -4175,6 +4901,21 @@ def main():
              random_lanes=k4_stats, every_stored_lap=every,
              host_path=host_k4, scenarios=scen_k4, latency_bench=bench_k4,
              meshed_controller=meshed_k4),
+        # K3 / K4 on the vmap tiers (phases 33-34), the candidate-sharded
+        # sweep (35) and under dedup_passes (36)
+        dict(name="fused_ilqr (K3, vmap i2LQR tier)", route="cuda",
+             source=csrc + "fused_ilqr.cu",
+             replaces=tpu + "pallas_ilqr.py:87", **new["vmap_k3"]),
+        dict(name="fused_lm_shooting (K4, vmap NLMPC tier)", route="cuda",
+             source=csrc + "fused_lm_shooting.cu",
+             replaces=tpu + "pallas_lm_shooting.py:97", **new["vmap_k4"]),
+        dict(name="fused_ilqr (K3, candidate-sharded sweep)", route="cuda",
+             source=csrc + "fused_ilqr.cu",
+             replaces=tpu + "pallas_ilqr.py:87", **new["sweep"]),
+        dict(name="fused_ilqr (K3, dedup_passes)", route="cuda",
+             source=csrc + "fused_ilqr.cu",
+             replaces=tpu + "pallas_ilqr.py:87", **new["dedup"],
+             batch_probe=new["probe"]),
         dict(name="generic_ilqr (K5)", route="cuda",
              source=csrc + "generic_ilqr.cuh",
              replaces=tpu + "pallas_generic_ilqr.py:64",

@@ -3,7 +3,8 @@
 Port of the base path of ilqr_iterative_tasks_tpu/control/batched_soa.py
 (``SoaScenarios.randomized`` :56, ``simulate_learning_runs_soa`` :237 with
 its ``stall_reseed`` guard, ``resume_from``, ``pallas_solver``,
-``retile_frac`` and ``tail_shrink``, ``run_lap`` :717, ``lap_loop`` :924).
+``dedup_passes``, ``retile_frac``, ``tail_shrink`` and
+``precision_islands``, ``run_lap`` :717, ``lap_loop`` :924).
 The scenario batch B is the trailing axis of every tensor. All B lanes run in
 lockstep; a lane that finishes its lap freezes until every lane finishes or
 the step budget runs out. Each control step's ``calc_input`` is one call of
@@ -203,6 +204,15 @@ def plant_step(x, u, dt, z, noise_on, done, obstacle: Obstacle, goal):
     return x_next, obstacle_next, reach
 
 
+def check_budget(max_steps, sim_step_budget, goal_append):
+    """Raise unless the records hold a lap: the record write reaches row
+    sim_step_budget, goal_append one more."""
+    if max_steps < sim_step_budget + (2 if goal_append else 1):
+        raise ValueError(
+            f"max_steps={max_steps} too small for sim_step_budget="
+            f"{sim_step_budget} (+{2 if goal_append else 1} recorded rows)")
+
+
 def add_lap(ss, slot, xs_rec, n_valid):
     """Store a lap in slot ``slot`` of the safe set, in place.
     xs_rec: (T, 4, B); n_valid: (B,) recorded rows."""
@@ -255,9 +265,6 @@ def default_step_solver(params: IlqrParams, limits: SystemLimits, dt, *,
             max_steps=max_steps, max_laps=max_laps, max_iter=max_iter,
             dedup=pair, qsort_skip=pair)
     return _K1_CACHE[key]
-
-
-_UNSUPPORTED = ("dedup_passes", "precision_islands")
 
 
 class LaneOrder:
@@ -429,6 +436,9 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
                                retile_frac: float | None = None,
                                tail_shrink: int | None = None,
                                perm_log: list | None = None,
+                               dedup_passes: bool = False,
+                               dedup_log: list | None = None,
+                               precision_islands: tuple = (),
                                **unsupported) -> SoaRunResult:
     """Seed lap + ``num_laps`` learning laps for B scenarios.
 
@@ -482,8 +492,29 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
     kernels run any lane count, so P need be no tile multiple; it must be
     below B, and does not combine with ``stall_reseed``. ``perm_log``
     receives ``LaneOrder``'s record of the permutations a lap.
+
+    ``dedup_passes`` (with a ``candidate_solver`` only, as JAX's with a
+    ``pallas_solver``): a relaxation pass-1 or pass-2 candidate that an
+    earlier pass of the step solved is not solved again; it takes the
+    cached result and enters K3 pre-done (``i2lqr_step_reference``).
+    Bitwise-neutral. ``dedup_log``, a list, receives each such pass's
+    count of live lanes' solves skipped (a 0-d tensor).
+
+    ``precision_islands`` (JAX :646): the plain route's f64 islands inside
+    an f32 solve (ops/ilqr_soa.py); where a kernel would solve (a step or
+    candidate solver, or CUDA scenarios) a non-empty tuple raises: no
+    kernel computes an island.
     """
-    refuse(unsupported, _UNSUPPORTED)
+    refuse(unsupported, ())
+    if dedup_passes and candidate_solver is None:
+        raise ValueError("dedup_passes requires a candidate_solver (built "
+                         "with skip as an input)")
+    if precision_islands and (
+            step_solver is not None or candidate_solver is not None
+            or scenarios.x0.device.type != "cpu"):
+        raise ValueError("precision_islands run on the plain route only "
+                         "(CPU scenarios, no step or candidate solver): no "
+                         "kernel computes an island")
     if tail_shrink is not None and stall_reseed is not None:
         raise ValueError("tail_shrink with stall_reseed is not supported "
                          "(the stall count reads every lane's step)")
@@ -512,13 +543,12 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
         def solver(*args):
             return i2lqr_step_reference(params, limits, dt, *args,
                                         max_iter=cap,
-                                        candidate_solver=candidate_solver)
+                                        candidate_solver=candidate_solver,
+                                        dedup_passes=dedup_passes,
+                                        dedup_log=dedup_log,
+                                        precision_islands=precision_islands)
     stats_on = bool(getattr(step_solver, "with_stats", False))
-    # the record write reaches row sim_step_budget, goal_append one more
-    if max_steps < sim_step_budget + (2 if goal_append else 1):
-        raise ValueError(
-            f"max_steps={max_steps} too small for sim_step_budget="
-            f"{sim_step_budget} (+{2 if goal_append else 1} recorded rows)")
+    check_budget(max_steps, sim_step_budget, goal_append)
     x0 = scenarios.x0
     dtype, dev = x0.dtype, x0.device
     b = x0.shape[-1]

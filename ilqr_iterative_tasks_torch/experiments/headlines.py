@@ -110,9 +110,11 @@ def cuda_ms(fn, reps):
 def device_seconds(fn, key: str) -> tuple[float, float, float]:
     """(seconds the card spent in kernels whose name holds ``key``, in
     every kernel and copy, host seconds) of one call of ``fn`` under
-    ``torch.profiler``, from its trace."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    ``torch.profiler``, from its trace of the card's activity (the host's
+    ops, which these sums do not read, would double the trace's
+    processing: a run of ~10^5 launches took 51 s with them off, 103 s
+    on, on an H100, PERF.md section 6)."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         host = time.perf_counter() - t0

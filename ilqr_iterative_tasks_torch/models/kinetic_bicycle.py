@@ -37,13 +37,19 @@ struct Bicycle {
 """
 
 
-def step_comps(x, u, dt):
-    """x: tuple of 4 (*S) tensors, u: tuple of 2 -> tuple of 4."""
+def _sincos(th):
+    return torch.sin(th), torch.cos(th)
+
+
+def step_comps(x, u, dt, sincos=_sincos):
+    """x: tuple of 4 (*S) tensors, u: tuple of 2 -> tuple of 4.
+    ``sincos(th)`` -> (sin, cos) (ops/ilqr_soa.py's "trig" island passes
+    an f64 one)."""
     px, py, v, th = x
     ua, ud = u
     arc = v * dt + 0.5 * ua * dt * dt
-    return (px + torch.cos(th) * arc, py + torch.sin(th) * arc,
-            v + ua * dt, th + ud * dt)
+    sin_t, cos_t = sincos(th)
+    return (px + cos_t * arc, py + sin_t * arc, v + ua * dt, th + ud * dt)
 
 
 def step(x: torch.Tensor, u: torch.Tensor, dt) -> torch.Tensor:

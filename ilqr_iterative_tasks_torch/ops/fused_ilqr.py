@@ -39,12 +39,16 @@ def obstacle_to_lanes(obstacle: Obstacle, batch: int) -> torch.Tensor:
 
 
 def fused_ilqr_reference(params, limits, dt, x0, x_term, u_init, obs,
-                         skip=None, *, num_horizon: int, max_iter: int):
-    """Plain version of the K3 kernel (same signature and outputs)."""
+                         skip=None, *, num_horizon: int, max_iter: int,
+                         trips: list | None = None):
+    """Plain version of the K3 kernel (same signature and outputs). If
+    ``trips`` is a list, it receives each lane's LM iterations (B,) i32."""
     sol = ilqr_solve_soa(params, limits, obs, x0, x_term, u_init,
                          float(params.lamb), dt, num_horizon=num_horizon,
                          max_iter=max_iter,
                          done0=None if skip is None else skip > 0.5)
+    if trips is not None:
+        trips.append(sol.lane_iters)
     x_last = sol.xs[-1]
     d = [x_last[i] - x_term[i] for i in range(4)]
     dist = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + d[3] * d[3])

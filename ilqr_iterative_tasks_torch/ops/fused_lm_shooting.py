@@ -42,14 +42,19 @@ def obstacle_to_lanes_nlmpc(obstacle: Obstacle, batch: int) -> torch.Tensor:
 
 
 def fused_lm_shooting_reference(limits, dt, x0, x_term, u_warm, obs, skip,
-                                hzn, *, num_horizon: int, max_iters: int):
-    """Plain version of the K4 kernel (same signature and outputs)."""
+                                hzn, *, num_horizon: int, max_iters: int,
+                                trips: list | None = None):
+    """Plain version of the K4 kernel (same signature and outputs). If
+    ``trips`` is a list, it receives each lane's LM iterations of both
+    starts (B,)."""
     n = num_horizon
     mm = torch.clamp(hzn.to(torch.int64), 2, n)
     sol = lm_feasibility_solve_soa(
         limits, obs, x0, x_term, u_warm, dt, num_horizon=n,
         max_iters=max_iters, m_lanes=mm,
         done0=skip > 0.5)
+    if trips is not None:
+        trips.append(sol.n_iters)
     x_last = sol.xs.gather(0, mm[None, None].expand(1, 4, -1))[0]
     return (sol.us, x_last, sol.term_err,
             sol.feasible.to(x_term.dtype))

@@ -216,7 +216,10 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
                          dedup: bool = False, qsort_skip: bool = False,
                          with_stats: bool = False, floor_width: int = 32,
                          reuse_extract: bool = False, dom_skip: bool = False,
-                         group: int = 1, reused: list | None = None):
+                         group: int = 1, reused: list | None = None,
+                         dedup_passes: bool = False,
+                         dedup_log: list | None = None,
+                         precision_islands: tuple = ()):
     """Plain version of K1 (module docstring). The candidate solves of all
     nsi laps run as one batched ``ilqr_solve_soa`` per pass (per-lane
     results do not depend on the batching: done lanes freeze). If
@@ -279,12 +282,32 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
     as it goes, and compaction saved 10 % of K3's time over an i2LQR
     headline run on the card, 64 ms of a 2.2-3.0 s run before the gathers
     it adds (PERF.md). It takes none of the options (JAX's per-candidate
-    path has none). The trip counts are the plain solve's only."""
+    path has none). The trip counts are the plain solve's only.
+
+    ``dedup_passes`` (the candidate solver's path only; JAX
+    batched_soa.py:268-282, :553-632): a pass-1 or pass-2 candidate of a
+    valid row that a valid candidate of the same lap row solved in an
+    earlier pass of the step is the same pure solve (x0, x_N target, zeros
+    u_init, lamb and obstacle do not change within a step): it takes that
+    solve's (us, x_last, d) and enters K3 pre-done through ``skip``. The
+    TPU path compacts such lanes to whole tiles first, a Mosaic trade; K3's
+    threads take their lanes from a counter, so the flag is all it needs.
+    If ``dedup_log`` is a list, each of those passes appends its count of
+    live lanes' solves so skipped (a 0-d tensor).
+
+    ``precision_islands`` (the plain solve only): ops/ilqr_soa.py's f64
+    islands inside an f32 solve."""
     if candidate_solver is not None and (
             trips is not None or dedup or qsort_skip or with_stats
             or reuse_extract or dom_skip or group != 1):
         raise ValueError("the candidate solver's path counts no trips and "
                          "takes no schedule option")
+    if dedup_passes and candidate_solver is None:
+        raise ValueError("dedup_passes requires a candidate_solver (K3, "
+                         "built with skip as an input)")
+    if precision_islands and candidate_solver is not None:
+        raise ValueError("precision_islands: the candidate solver (K3) "
+                         "computes no island")
     n = params.num_horizon
     k = params.num_ss_points
     nsi = params.num_ss_iter
@@ -309,6 +332,29 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
         cand_args = (flat(x[:, None]), zeros_ws.reshape(n, 2, lanes),
                      flat(obs_kb), flat(skip[None, None])[0])
     cache = []  # passes 0 and 1: (idx, ok, d, x_last) of each slot
+    solved = []  # dedup_passes, passes 0 and 1: (idx, ok, us, x_last, d)
+
+    def found_in(cand_idx, cand_ok):
+        """dedup_passes: (found (nc, B), us, x_last, d) of each slot from
+        the first earlier solve of its lap row's row."""
+        found = torch.zeros((nc, b), dtype=torch.bool, device=dev)
+        us_c = torch.zeros((n, 2, nc, b), dtype=dtype, device=dev)
+        xl_c = torch.zeros((4, nc, b), dtype=dtype, device=dev)
+        d_c = torch.zeros((nc, b), dtype=dtype, device=dev)
+        for r in range(nsi):
+            sl = slice(r * k, (r + 1) * k)
+            e_idx, e_ok, e_us, e_xl, e_d = (
+                torch.cat([e[i][..., sl, :] for e in solved], dim=-2)
+                for i in range(5))
+            match = ((cand_idx[sl][:, None] == e_idx[None]) & e_ok[None]
+                     & cand_ok[sl][:, None])  # (k, entries, B)
+            src = torch.argmax(match.to(torch.int8), dim=1)  # the first
+            found[sl] = match.any(dim=1)
+            us_c[:, :, sl] = e_us.gather(2, src[None, None].expand(
+                n, 2, k, b))
+            xl_c[:, sl] = e_xl.gather(1, src[None].expand(4, k, b))
+            d_c[sl] = e_d.gather(0, src)
+        return found, us_c, xl_c, d_c
     rounds, upass = [], []  # with_stats: a round's (B,) trips, a pass's
     # with_stats at k = 32: each pass's slots, for block_executed
     block = [] if with_stats and k == 32 else None
@@ -320,7 +366,8 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
         sol = ilqr_solve_soa(params, limits, obs_kb, x0b[:, :c],
                              x_terms, zeros_ws[:, :, :c],
                              float(params.lamb), dt, num_horizon=n,
-                             max_iter=max_iter, done0=done0)
+                             max_iter=max_iter, done0=done0,
+                             precision_islands=precision_islands)
         x_last = sol.xs[-1]
         dd = [x_last[i] - x_terms[i] for i in range(4)]
         d = torch.sqrt(dd[0] * dd[0] + dd[1] * dd[1] + dd[2] * dd[2]
@@ -398,11 +445,23 @@ def i2lqr_step_reference(params: IlqrParams, limits: SystemLimits, dt, x, g0,
         arrive = None  # the slots a lane pays an arrival at: those visited
         if candidate_solver is not None:
             x0_l, u0_l, obs_l, skip_l = cand_args
+            if solved:  # dedup_passes, passes 1 and 2
+                found, us_c, xl_c, d_c = found_in(cand_idx, cand_ok)
+                skip_l = torch.maximum(skip_l, found.reshape(lanes).to(
+                    torch.float32))
+                if dedup_log is not None:
+                    dedup_log.append((found & active[None]).sum())
             us_l, xl_l, _, d_l = candidate_solver(
                 x0_l, x_terms.reshape(4, lanes), u0_l, obs_l, skip_l)
             sol_us = us_l.reshape(n, 2, nc, b)
             x_last = xl_l.reshape(4, nc, b)
             d = d_l.reshape(nc, b)
+            if solved:
+                sol_us = torch.where(found, us_c, sol_us)
+                x_last = torch.where(found, xl_c, x_last)
+                d = torch.where(found, d_c, d)
+            if dedup_passes and outer < 2:
+                solved.append((cand_idx, cand_ok, sol_us, x_last, d))
             ran = torch.zeros((nc, b), dtype=torch.int32, device=dev)
             visit = torch.ones((nc, b), dtype=torch.bool, device=dev)
         elif dom_skip or group > 1:

@@ -16,8 +16,14 @@ kernel (ops/i2lqr_step.py) and of the per-candidate kernel
   ``present/w^2 > 0``;
 - ``done0`` lets lanes start frozen (the per-candidate kernel's ``skip``);
 - the lockstep LM loop stops as soon as every lane is done, as JAX's
-  ``any(~done)`` condition does;
-- ``precision_islands`` is not ported.
+  ``any(~done)`` condition does.
+
+``precision_islands`` (JAX :83-133, the bisect tool of the TPU-f32
+decision gap, docs/PARITY.md) evaluates parts of an f32 solve in f64:
+"trig" the dynamics' and Jacobians' sin / cos, "exp" the barrier
+exponentials, "cost" the cost sums (and with them the LM accept and
+convergence tests). No kernel computes an island: only this plain solve
+takes them.
 """
 
 from __future__ import annotations
@@ -81,17 +87,26 @@ def _lin(m, row, d):
     return acc
 
 
+PRECISION_ISLANDS = ("trig", "exp", "cost")
+
+
 def ilqr_solve_soa(params: IlqrParams, limits: SystemLimits, obs, x0,
                    x_terminal, u_init, lamb0, dt, *, num_horizon: int,
                    max_iter: int | None = None,
-                   done0: torch.Tensor | None = None) -> IlqrSoaSolution:
+                   done0: torch.Tensor | None = None,
+                   precision_islands: tuple = ()) -> IlqrSoaSolution:
     """Batched LM-iLQR solve, batch-trailing layout.
 
     obs: (6, *S) or (6,) obstacle lanes; x0: (4, *S) or (4,);
     x_terminal: (4, *S); u_init: (N, 2, *S); lamb0: scalar or (*S);
     done0: optional (*S) bool, lanes that start (and stay) frozen.
-    ``max_iter`` caps params.max_ilqr_iter.
+    ``max_iter`` caps params.max_ilqr_iter. ``precision_islands``: a
+    subset of PRECISION_ISLANDS computed in f64 (module docstring).
     """
+    unknown = set(precision_islands) - set(PRECISION_ISLANDS)
+    if unknown:
+        raise ValueError(f"precision_islands {sorted(unknown)}: not among "
+                         f"{PRECISION_ISLANDS}")
     C = solver_consts(params, limits, dt)
     n = num_horizon
     dtype = x_terminal.dtype
@@ -109,6 +124,23 @@ def ilqr_solve_soa(params: IlqrParams, limits: SystemLimits, obs, x0,
     q_m, r_m, qt_m = C.q_m, C.r_m, C.qt_m
     q1c, q2c, q1o, q2o = C.q1c, C.q2c, C.q1o, C.q2o
     zeros = torch.zeros(bshape, dtype=dtype, device=dev)
+    hi = lambda t: t.to(torch.float64)
+    if "trig" in precision_islands:
+        sincos = lambda th: (torch.sin(hi(th)).to(dtype),
+                             torch.cos(hi(th)).to(dtype))
+    else:
+        sincos = lambda th: (torch.sin(th), torch.cos(th))
+    if "exp" in precision_islands:
+        exp = lambda z: torch.exp(hi(z)).to(dtype)
+    else:
+        exp = torch.exp
+    if "cost" in precision_islands:  # the sums, and the LM's tests, in f64
+        zeros_c = hi(zeros)
+        quad = lambda m, d: _quad(m, [hi(v) for v in d])
+    else:
+        zeros_c, quad = zeros, _quad
+
+    step = lambda x, u: step_soa(x, u, dt, sincos)
 
     def clip_u(u):
         return (torch.clamp(u[0], -C.a_max, C.a_max),
@@ -117,22 +149,22 @@ def ilqr_solve_soa(params: IlqrParams, limits: SystemLimits, obs, x0,
     def rollout(us):
         xs = [x0c]
         for i in range(n):
-            xs.append(step_soa(xs[-1], us[i], dt))
+            xs.append(step(xs[-1], us[i]))
         return xs
 
     def loop_cost(xs, us):
-        cost = zeros
+        cost = zeros_c
         for i in range(n):
-            cost = cost + _quad(q_m, xs[i]) + _quad(r_m, us[i])
+            cost = cost + quad(q_m, xs[i]) + quad(r_m, us[i])
         dterm = tuple(xs[n][i] - xt[i] for i in range(4))
-        return cost + _quad(qt_m, dterm)
+        return cost + quad(qt_m, dterm)
 
     def obs_terms(px, py, off):
         """(e_scaled_grad, e_scaled_hess, hd0, hd1) at extrapolation ``off``."""
         dz = px - (ox - spd_left * off)
         dy = py - (oy + spd_up * off)
         hval = 1.0 + C.margin - (dz * dz * inv_a2 + dy * dy * inv_b2)
-        e = present * torch.exp(q2o * hval)
+        e = present * exp(q2o * hval)
         hd0 = -2.0 * inv_a2 * dz
         hd1 = -2.0 * inv_b2 * dy
         return q1o * q2o * e, q1o * q2o * q2o * e, hd0, hd1
@@ -164,17 +196,17 @@ def ilqr_solve_soa(params: IlqrParams, limits: SystemLimits, obs, x0,
             th_n = xs[i + 1][3]
             ua, ud = us[i]
             arc = v_nx * dt + 0.5 * ua * dt * dt
-            sin_t, cos_t = torch.sin(th_n), torch.cos(th_n)
+            sin_t, cos_t = sincos(th_n)
             a02 = cos_t * dt
             a03 = -arc * sin_t
             a12 = sin_t * dt
             a13 = arc * cos_t
             b00 = 0.5 * dt * dt * cos_t
             b10 = 0.5 * dt * dt * sin_t
-            ea_hi = torch.exp(q2c * (ua - C.a_max))
-            ea_lo = torch.exp(q2c * (-C.a_max - ua))
-            ed_hi = torch.exp(q2c * (ud - C.d_max))
-            ed_lo = torch.exp(q2c * (-C.d_max - ud))
+            ea_hi = exp(q2c * (ua - C.a_max))
+            ea_lo = exp(q2c * (-C.a_max - ua))
+            ed_hi = exp(q2c * (ud - C.d_max))
+            ed_lo = exp(q2c * (-C.d_max - ud))
             lu0 = (2.0 * (r_m[0, 0] * ua + r_m[0, 1] * ud)
                    + q1c * q2c * (ea_hi - ea_lo))
             lu1 = (2.0 * (r_m[1, 0] * ua + r_m[1, 1] * ud)
@@ -274,7 +306,7 @@ def ilqr_solve_soa(params: IlqrParams, limits: SystemLimits, obs, x0,
     def forward(xs, us, ks, big_ks):
         x_new = xs[0]
         us_new = []
-        cost = zeros
+        cost = zeros_c
         for i in range(n):
             dx = tuple(x_new[j] - xs[i][j] for j in range(4))
             kr0, kr1 = big_ks[i]
@@ -284,11 +316,11 @@ def ilqr_solve_soa(params: IlqrParams, limits: SystemLimits, obs, x0,
                   + kr1[2] * dx[2] + kr1[3] * dx[3])
             u_new = clip_u((u0, u1))
             dxt = tuple(x_new[j] - xt[j] for j in range(4))
-            cost = cost + _quad(q_m, dxt) + _quad(r_m, u_new)
-            x_new = step_soa(x_new, u_new, dt)
+            cost = cost + quad(q_m, dxt) + quad(r_m, u_new)
+            x_new = step(x_new, u_new)
             us_new.append(u_new)
         dterm = tuple(x_new[j] - xt[j] for j in range(4))
-        return us_new, cost + _quad(qt_m, dterm)
+        return us_new, cost + quad(qt_m, dterm)
 
     us_arr = u_init
     lamb = torch.as_tensor(lamb0, dtype=dtype, device=dev).expand(
@@ -323,4 +355,4 @@ def ilqr_solve_soa(params: IlqrParams, limits: SystemLimits, obs, x0,
     return IlqrSoaSolution(
         us=torch.stack([torch.stack(u) for u in us]),
         xs=torch.stack([torch.stack(x) for x in xs]),
-        lamb=lamb, n_iters=it, cost=cost, lane_iters=lane_iters)
+        lamb=lamb, n_iters=it, cost=cost.to(dtype), lane_iters=lane_iters)

@@ -14,7 +14,9 @@ from dataclasses import fields
 import numpy as np
 import torch
 
+from ilqr_iterative_tasks_torch.control.batched import ScenarioSpec
 from ilqr_iterative_tasks_torch.control.batched_soa import SoaScenarios
+from ilqr_iterative_tasks_torch.control.safe_set import DeviceSafeSet
 from ilqr_iterative_tasks_torch.models.obstacle import Obstacle
 from ilqr_iterative_tasks_torch.ops.generic_ilqr import GenericIlqrConfig
 from ilqr_iterative_tasks_torch.utils.device import resolve
@@ -80,3 +82,31 @@ def safe_set(src, *, dtype=torch.float64, device=None) -> tuple:
     return (*(tensor(a, dtype=dtype, device=device) for a in real),
             tensor(valid, dtype=torch.bool, device=device),
             tensor(lap_len, dtype=torch.int32, device=device))
+
+
+def scenario_spec(src, *, dtype=torch.float64, device=None) -> ScenarioSpec:
+    """The JAX package's vmap-tier ``ScenarioSpec`` (batch leading) as the
+    port's. A JAX key (..., 2) uint32 becomes the int64 noise seed
+    (high word << 32 | low word, its top bit cleared): the port's own
+    stream, not JAX's (inject JAX's draws to run on them)."""
+    f = lambda a: tensor(a, dtype=dtype, device=device)
+    key = np.asarray(src.noise_key)
+    if key.ndim and key.shape[-1] == 2 and key.dtype == np.uint32:
+        key = ((key[..., 0].astype(np.int64) & 0x7FFFFFFF) << 32) | key[
+            ..., 1].astype(np.int64)
+    return ScenarioSpec(x0=f(src.x0), obstacle=obstacle(
+        src.obstacle, dtype=dtype, device=device), goal=f(src.goal),
+        noise_key=tensor(key, dtype=torch.int64, device=device),
+        noise_on=f(src.noise_on))
+
+
+def device_safe_set(src, *, dtype=torch.float64,
+                    device=None) -> DeviceSafeSet:
+    """The JAX package's ``DeviceSafeSet`` (a vmapped one, batch leading,
+    or one scenario's) as the port's."""
+    f = lambda a: tensor(a, dtype=dtype, device=device)
+    return DeviceSafeSet(
+        states=f(src.states), inputs=f(src.inputs), qfun=f(src.qfun),
+        valid=tensor(src.valid, dtype=torch.bool, device=device),
+        lap_len=tensor(src.lap_len, dtype=torch.int32, device=device),
+        num_laps=tensor(src.num_laps, dtype=torch.int32, device=device))

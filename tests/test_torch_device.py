@@ -6,7 +6,9 @@ import numpy as np
 import pytest
 import torch
 
+from ilqr_iterative_tasks_torch.control.batched import make_batch_scenarios
 from ilqr_iterative_tasks_torch.control.batched_soa import SoaScenarios
+from ilqr_iterative_tasks_torch.control.safe_set import DeviceSafeSet
 from ilqr_iterative_tasks_torch.control.i2lqr import I2LqrController
 from ilqr_iterative_tasks_torch.control.nlmpc import NlmpcController
 from ilqr_iterative_tasks_torch.experiments import latency_bench
@@ -25,6 +27,9 @@ ENTRY_POINTS = {
     "Obstacle.absent": lambda: Obstacle.absent().present,
     "SoaScenarios.broadcast": lambda: SoaScenarios.broadcast(
         np.zeros(4), np.ones(4), Obstacle.absent(device="cpu"), 3).obstacle.y,
+    "make_batch_scenarios": lambda: make_batch_scenarios(
+        np.zeros(4), np.ones(4), Obstacle.absent(device="cpu"), 3).noise_key,
+    "DeviceSafeSet.empty": lambda: DeviceSafeSet.empty(2, 3, 4).states,
     "convert.tensor": lambda: convert.tensor(np.ones(3)),
     "GenericIlqrConfig.make": lambda: GenericIlqrConfig.make(
         np.zeros((2, 2)), np.eye(1), np.eye(2), [-1.0], [1.0]).u_upper,

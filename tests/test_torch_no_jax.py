@@ -2,8 +2,10 @@
 interpreter, import every module of the port (the scale-out package
 ``parallel`` among them), run a tiny i2LQR and a tiny NLMPC learning run,
 two steps of each host controller, tiny generic-system solves (the two
-3-input tasks of generic_bench.k5_task among them) and the sharded kNN and
-a sharded NLMPC run on a one-rank mesh on the CPU, and check that no module
+3-input tasks of generic_bench.k5_task among them), the sharded kNN and
+a sharded NLMPC run on a one-rank mesh, both vmap tiers (the i2LQR one
+sharded on that mesh) and the candidate sweep on one rank on the CPU
+(experiments/batch_probe.py imported), and check that no module
 of jax or of ``ilqr_iterative_tasks_tpu`` was loaded. A source scan holds
 the same rule for every file of the port, for chip_smoke.py and for the
 multi-process tests' rank functions (tests/_torch_distributed_worker.py),
@@ -117,6 +119,31 @@ res = sharded_soa.simulate_nlmpc_runs_soa_sharded(
     seed_u, 121, 1.0, one, num_laps=1, max_laps=4, sim_step_budget=3,
     max_lm_iters=12, generator=torch.Generator().manual_seed(0))
 assert res.lap_steps.tolist() == [[3, 3]], res.lap_steps
+from ilqr_iterative_tasks_torch.control import batched, batched_nlmpc
+from ilqr_iterative_tasks_torch.experiments import batch_probe
+from ilqr_iterative_tasks_torch.parallel import sharded
+vs = batched.make_batch_scenarios(
+    np.zeros(4), xcl[-1], Obstacle.make(31.0, -2.0, 8.0, 6.0, device=cpu), 2,
+    key=1, noise_on=True, device=cpu)
+seed_l = (seed, seed_u, 121, 1.0)
+vkw = dict(num_laps=1, max_laps=4, sim_step_budget=3)
+r1 = sharded.simulate_learning_batch_sharded(
+    IlqrParams.make(max_ilqr_iter=16, device=cpu), SystemLimits.make(
+        device=cpu), vs, *seed_l, one, **vkw)
+assert r1.lap_steps.tolist() == [[3], [3]], r1.lap_steps
+r2 = batched_nlmpc.simulate_nlmpc_batch(
+    LmpcParams.make(device=cpu), SystemLimits.make(device=cpu), vs, *seed_l,
+    max_lm_iters=12, **vkw)
+assert r2.lap_steps.tolist() == [[3], [3]], r2.lap_steps
+assert torch.isfinite(r2.safe_set.states[:, 1]).all()
+us, xs, cost, idx = sharded.sharded_candidate_sweep(
+    IlqrParams.make(max_ilqr_iter=16, device=cpu), SystemLimits.make(
+        device=cpu), Obstacle.make(device=cpu), torch.zeros(4),
+    torch.tensor(xcl[5:9], dtype=torch.float32), torch.arange(4.0),
+    torch.zeros(6, 2), 1.0, 1.0, num_horizon=6,
+    mesh=sharded.local_mesh("candidate", cpu))
+assert us.shape == (6, 2) and xs.shape == (7, 4) and int(idx) == 0
+assert callable(batch_probe.run)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in {FORBIDDEN})
 assert not loaded, loaded
@@ -150,9 +177,13 @@ def test_port_sources_import_no_jax_package():
     files += [root / "chip_smoke.py",
               root / "tests" / "_torch_distributed_worker.py"]
     assert len(files) > 20
-    assert {"distributed.py", "launch.py", "mesh.py", "sharded_safe_set.py",
-            "sharded_soa.py"} <= {f.name for f in files
-                                  if f.parent.name == "parallel"}
+    assert {"distributed.py", "launch.py", "mesh.py", "sharded.py",
+            "sharded_safe_set.py", "sharded_soa.py"} <= {
+        f.name for f in files if f.parent.name == "parallel"}
+    assert {"batched.py", "batched_nlmpc.py", "safe_set.py"} <= {
+        f.name for f in files if f.parent.name == "control"}
+    assert "batch_probe.py" in {f.name for f in files
+                                if f.parent.name == "experiments"}
     bad = {str(f.relative_to(root)): sorted(set(_imports(f)) & set(FORBIDDEN))
            for f in files}
     bad = {f: names for f, names in bad.items() if names}
