@@ -272,7 +272,12 @@ Phases:
    solving step over its half of the candidates, are reported with their
    lanes; each run's wall seconds, the gather's ms, and phase 30's
    device-count rates (its batched run now spawned as one NCCL rank a
-   card). Two ranks on one card measure contention, not scaling.
+   card). Two ranks on one card measure contention, not scaling. Then
+   the i2LQR headline at B = 4 096 over 2 laps with ``tail_shrink`` alone
+   (1 024, under a rank's 2 048 lanes, and 3 072, over them): each rank
+   keeps the whole run's lane order (the compaction on the whole run's
+   not-done count, each lane its column of the whole draw), so its
+   gathered lap records must hash as the unsharded run's.
 33. the vmap i2LQR tier (control/batched.py) through K3: zero noise, 1 024
    identical lanes, f64 laps exactly the JAX tier's [55, 28, 23] and f32
    within 2 of its [55, 28, 25]; then the full width (B = 49 152, f32,
@@ -304,7 +309,13 @@ Phases:
 37. ``experiments/batch_probe.py`` at batches 16 384 and 49 152 (i2LQR
    through K1, and through K3 with ``dedup_passes`` at 16 384; NLMPC
    through K2 at 16 384), and ``precision_islands`` refused on CUDA
-   scenarios.
+   scenarios;
+38. every subcommand of ``experiments/round4_probe.py`` and
+   ``round5_probe.py`` (the ports of the JAX package's round-4 and
+   round-5 probes) at 1 024 lanes and one learning lap (``all_mc`` one
+   seed and lap, ``f32_bisect``'s card rows at 8 lanes; its island rows
+   are refused on the card), a warm and a timed run each, every K1 / K2 /
+   K4 launch count positive, each JSON line printed.
 
 The step kernels' last options (K1 reuse_extract, dom_skip, group; K2
 prox_skip, zeros_skip), each a template flag of its own: phase 2 prints
@@ -2160,10 +2171,17 @@ def scale_out(card, scaling):
         small[which] = so.headline(which, so.SMALL_BATCH, dev)["hash"]
         print(f"[32 {which} unsharded] B={BATCH} {json.dumps(want[which])}",
               flush=True)
+    for tail in so.TAILS:
+        want[tail] = so.headline("i2lqr", so.TAIL_BATCH, dev,
+                                 num_laps=so.TAIL_LAPS, tail_shrink=tail)
+        print(f"[32 i2lqr tail_shrink={tail} unsharded] B={so.TAIL_BATCH}, "
+              f"{so.TAIL_LAPS} laps {json.dumps(want[tail])}", flush=True)
+        require(any(want[tail]["compacted"]),
+                f"32 tail_shrink={tail}: no lap compacted")
     # two ranks on the one card: NCCL refuses that, gloo stages the
     # gathers through the host; their times are contention, not scaling
-    ranks = spawn(target, 2, BATCH, tuple(so.MESHED_LAPS), backend="gloo",
-                  timeout=600)
+    ranks = spawn(target, 2, BATCH, tuple(so.MESHED_LAPS), so.TAILS,
+                  backend="gloo", timeout=600)
     out = {}
     for which, kernel in (("i2lqr", "K1"), ("nlmpc", "K2")):
         for r in ranks:
@@ -2188,6 +2206,31 @@ def scale_out(card, scaling):
             unsharded_wall_s=want[which]["wall_s"],
             unsharded_launches=want[which]["launches"],
             hash=want[which]["hash"])
+    # tail_shrink alone: each rank's lanes in the whole run's order (the
+    # global compaction), so every rank's gathered run is the unsharded one
+    tails = {}
+    for tail in so.TAILS:
+        for r in ranks:
+            g = r[f"i2lqr_tail{tail}"]
+            print(f"[32 i2lqr tail_shrink={tail} sharded rank {r['rank']}/2"
+                  f"] B={so.TAIL_BATCH} ({so.TAIL_BATCH // 2} lanes a rank), "
+                  f"{so.TAIL_LAPS} laps, compacted {g['compacted']}, wall "
+                  f"{g['wall_s']:.3f} s, simulator {g['run_s']:.3f} s, K1 "
+                  f"launches {g['launches']}, lap records {g['hash']} "
+                  f"(unsharded {want[tail]['hash']}); card {card}",
+                  flush=True)
+            require(g["hash"] == want[tail]["hash"],
+                    f"sharded tail_shrink={tail} on rank {r['rank']}: lap "
+                    f"records {g['hash']} != unsharded {want[tail]['hash']}")
+            require(g["launches"] > 0,
+                    f"K1 was not launched on rank {r['rank']}")
+        tails[tail] = dict(
+            batch=so.TAIL_BATCH, laps=so.TAIL_LAPS,
+            launches_per_rank=[r[f"i2lqr_tail{tail}"]["launches"]
+                               for r in ranks],
+            wall_s=max(r[f"i2lqr_tail{tail}"]["wall_s"] for r in ranks),
+            unsharded_wall_s=want[tail]["wall_s"], hash=want[tail]["hash"])
+    out["i2lqr"]["tail_shrink"] = tails
     meshed = {}
     for mode, laps in so.MESHED_LAPS.items():
         for r in ranks:
@@ -2918,6 +2961,62 @@ def probe_phase(card):
     print(f"[37 precision_islands on CUDA scenarios] refused; "
           f"{time.perf_counter() - t37:.1f} s", flush=True)
     return recs
+
+
+# ---- phase 38: the round-4 and round-5 probes at a small width ----
+ROUND_PROBE_B = 1024
+ROUND_PROBES = (("round4", ["stats"]), ("round4", ["reuse"]),
+                ("round4", ["cap"]), ("round4", ["stall"]),
+                ("round4", ["canary"]), ("round4", ["nlmpc_modes"]),
+                ("round5", ["permute"]), ("round5", ["retile"]),
+                ("round5", ["retile_nlmpc"]), ("round5", ["prox"]),
+                ("round5", ["tail"]), ("round5", ["all_rev"]),
+                ("round5", ["all_mc", "1", "1"]), ("round5", ["f32_bisect"]))
+
+
+def _launch_counts(rec):
+    """Every ``launches`` / ``k4_launches`` figure of a probe's record."""
+    for key, value in rec.items():
+        if isinstance(value, dict):
+            yield from _launch_counts(value)
+        elif key in ("launches", "k4_launches"):
+            yield key, value
+
+
+def round_probes(card) -> dict:
+    """Phase 38: every subcommand of experiments/round4_probe.py and
+    round5_probe.py on the card at ROUND_PROBE_B lanes and one learning
+    lap (``all_mc``: 1 seed, 1 lap; ``f32_bisect``'s card rows at B = 8),
+    a warm run and one timed run, through the kernels under the guard
+    (the probes run inside ``no_plain_solve_on_card``): each prints its
+    JSON lines; every kernel launch count must be positive and every
+    completion a share. Returns each subcommand's seconds."""
+    from ilqr_iterative_tasks_torch.experiments import (
+        round4_probe, round5_probe)
+    mods = dict(round4=round4_probe, round5=round5_probe)
+    t38, out = time.perf_counter(), {}
+    for mod, argv in ROUND_PROBES:
+        size = ["--batch", "8" if argv[0] == "f32_bisect"
+                else str(ROUND_PROBE_B)]
+        if argv[0] != "all_mc":
+            size += ["--laps", "1"]
+        t0 = time.perf_counter()
+        last = mods[mod].main([*argv, *size, "--reps", "1"]).lines[-1]
+        secs = time.perf_counter() - t0
+        counts = list(_launch_counts(last))
+        require(last["device"].startswith("cuda"),
+                f"38 {argv[0]} ran on {last['device']}")
+        require(all(n > 0 for _, n in counts),
+                f"38 {argv[0]}: a kernel was not launched {counts}")
+        shares = [v["completion"] for v in last.values()
+                  if isinstance(v, dict) and "completion" in v]
+        require(all(0.0 <= c <= 1.0 for c in shares),
+                f"38 {argv[0]}: completion {shares}")
+        print(f"[38 {mod} {' '.join(argv)}] {secs:.1f} s, launches "
+              f"{[n for _, n in counts]}; card {card}", flush=True)
+        out[argv[0]] = round(secs, 2)
+    print(f"[38 probes] {time.perf_counter() - t38:.1f} s", flush=True)
+    return out
 
 
 def new_paths(card, cpu_run) -> dict:
@@ -4745,6 +4844,7 @@ def main():
     sharded_k1, sharded_k2, meshed_k4 = scale_out(
         card, bench_k1["latency_bench_scaling"]["lap_sims_per_s"])
     new = new_paths(card, cpu_run)
+    probes38 = round_probes(card)
     witness.shutdown()
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -4756,7 +4856,7 @@ def main():
              launches=k1_launches, max_abs_err=k1_err, ms=k1_ms,
              plain_ms=k1_plain_ms, **k1_bound, **occupancy["k1"],
              latency_bench=bench_k1, sharded=sharded_k1, prefix=k1_prefix,
-             tail_shrink=tail6),
+             tail_shrink=tail6, round_probes_s=probes38),
         # K1 at k = 8 with its options (csrc/i2lqr_step_opts.cu): ms,
         # bound and counts at phase 4b's lap-2 capture, launches in the runs
         # that went through it (phase 6b's counted run in the plain order;

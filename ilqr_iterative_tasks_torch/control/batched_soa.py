@@ -275,12 +275,23 @@ class LaneOrder:
     host read a step makes (``read``); ``log``, a list, receives a dict a
     lap: the permutations (``perms``), whether the lap compacted
     (``compacted``) and each permutation's ms (``perm_ms``: CUDA events on
-    the card, the host clock on the CPU; read after the run)."""
+    the card, the host clock on the CPU; read after the run).
 
-    def __init__(self, b, retile_frac, tail_shrink, device, log=None):
-        if tail_shrink is not None and not 0 < tail_shrink < b:
-            raise ValueError(f"tail_shrink={tail_shrink} must be < batch {b}")
+    ``spread``: on a rank of a ``_sharded`` run, the whole run's lane
+    order (parallel/sharded_soa.py ``SpreadLanes``): the counts a step
+    reads are the whole run's (every rank steps until no lane of any rank
+    runs), the compaction fires on the whole run's not-done count, gives
+    each lane its position in the whole run's order, and the prefix this
+    rank's kernel runs holds at most its own lanes."""
+
+    def __init__(self, b, retile_frac, tail_shrink, device, log=None,
+                 spread=None):
+        whole = b if spread is None else spread.b
+        if tail_shrink is not None and not 0 < tail_shrink < whole:
+            raise ValueError(f"tail_shrink={tail_shrink} must be < batch "
+                             f"{whole}")
         self.b, self.tail, self.log = b, tail_shrink, log
+        self.spread = spread
         self.block = (None if retile_frac is None
                       else max(1, int(round(retile_frac * b))))
         self.orig_id = torch.arange(b, device=device)
@@ -293,12 +304,15 @@ class LaneOrder:
         if self.log is not None:
             self.log.append(dict(perms=0, compacted=False, perm_ms=[]))
 
-    @staticmethod
-    def read(running, skipf, done):
+    def read(self, running, skipf, done):
         """(any lane running, solver-skip lanes, not-done lanes) in one
-        host read."""
-        return torch.stack([running.sum(), skipf.sum(),
-                            (~done).sum()]).tolist()
+        host read; under ``spread`` the running and not-done lanes of the
+        whole run."""
+        counts = torch.stack([running.sum(), skipf.sum(), (~done).sum()])
+        if self.spread is None:
+            return counts.tolist()
+        _, n_skip, _, running, _, n_notdone = self.spread.counts(counts)
+        return running, n_skip, n_notdone
 
     def fires(self, n_skip, n_notdone) -> bool:
         """Whether this step permutes: the skip count grew by the retile
@@ -319,7 +333,7 @@ class LaneOrder:
         """The lanes a step kernel runs and a step's records are written
         for: the tail_shrink prefix once the lap compacted (every lane
         past it is done), else all B."""
-        return self.tail if self.compacted else self.b
+        return min(self.tail, self.b) if self.compacted else self.b
 
     def source(self, skipf, done):
         """The stable order of the permutation: solver-active lanes
@@ -329,6 +343,8 @@ class LaneOrder:
         key = skipf.to(torch.int8)
         if self.tail is not None:
             key = key + done.to(torch.int8)
+        if self.spread is not None:
+            self.spread.reorder(key)
         return torch.argsort(key, stable=True)
 
     def permute(self, src, lanes, safe_set, stored):
@@ -348,6 +364,8 @@ class LaneOrder:
         for a in safe_set:
             a[:stored] = a[:stored].index_select(-1, src)
         self.orig_id = self.orig_id[src]
+        if self.spread is not None:
+            self.spread.pos = self.spread.pos[src]
         if self.log is not None:
             entry = self.log[-1]
             entry["perms"] += 1
@@ -439,6 +457,7 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
                                dedup_passes: bool = False,
                                dedup_log: list | None = None,
                                precision_islands: tuple = (),
+                               _spread=None,
                                **unsupported) -> SoaRunResult:
     """Seed lap + ``num_laps`` learning laps for B scenarios.
 
@@ -492,6 +511,10 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
     kernels run any lane count, so P need be no tile multiple; it must be
     below B, and does not combine with ``stall_reseed``. ``perm_log``
     receives ``LaneOrder``'s record of the permutations a lap.
+    ``_spread`` is internal: the ``_sharded`` wrapper's record of the whole
+    run's lane order on one rank (``LaneOrder``), through which a rank's
+    ``tail_shrink`` run is its columns of the unsharded run; its
+    ``noise`` then holds the whole run's (2, B) rows.
 
     ``dedup_passes`` (with a ``candidate_solver`` only, as JAX's with a
     ``pallas_solver``): a relaxation pass-1 or pass-2 candidate that an
@@ -588,7 +611,8 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
     stat_acc = (tuple(torch.zeros((b,), dtype=torch.int64, device=dev)
                       for _ in range(3)) if stats_on else ())
     order = (None if retile_frac is None and tail_shrink is None
-             else LaneOrder(b, retile_frac, tail_shrink, dev, perm_log))
+             else LaneOrder(b, retile_frac, tail_shrink, dev, perm_log,
+                            _spread))
     scen_obs = scenarios.obstacle
     # sim_step: executed steps over the run (and the run it resumes), the
     # noise row
@@ -677,6 +701,8 @@ def simulate_learning_runs_soa(params: IlqrParams, limits: SystemLimits,
                 # as JAX routes them (batched_soa.py:838-843): under
                 # tail_shrink alone the lane at position p takes draw p
                 z = order.route(z)
+            elif _spread is not None and noise is not None:
+                z = _spread.draw(z)  # of the whole run's row
             sim_step += 1
             x_next, obstacle, reach = plant_step(x, u, dt, z, noise_on, done,
                                                  obstacle, goal)

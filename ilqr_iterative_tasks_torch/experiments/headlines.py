@@ -678,11 +678,12 @@ def sweep_step_solver(k, nsi, wrap, device=None, stall_reseed=None):
 
 class Headlines:
     """The headline runs on ``dev``: the seed lap, one static obstacle at
-    (31, -2, 8, 6), plant noise on; ``scen`` holds BATCH lanes and
-    ``scen_all`` ALL_BATCH. Each run ends in a synchronize."""
+    (31, -2, 8, 6), plant noise on; ``scen`` holds ``batch`` lanes
+    (BATCH) and ``scen_all`` ``all_batch`` (ALL_BATCH). Each run ends in
+    a synchronize of the card (none on the CPU)."""
 
-    def __init__(self, dev):
-        self.dev = dev
+    def __init__(self, dev, batch=BATCH, all_batch=ALL_BATCH):
+        self.dev = torch.device(dev)
         self.xcl, ucl = seed_trajectory(1.0)
         self.seed_xs = np.zeros((MAX_STEPS, 4))
         self.seed_xs[:121] = self.xcl
@@ -697,37 +698,45 @@ class Headlines:
                                    Obstacle.make(31.0, -2.0, 8.0, 6.0,
                                                  device=dev),
                                    b, noise_on=True, device=dev)
-            for b in (BATCH, ALL_BATCH))
+            for b in (batch, all_batch))
 
-    def i2lqr(self, seed, solver, candidate_solver=None, **opts):
+    def sync(self):
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+
+    def i2lqr(self, seed, solver, candidate_solver=None, *, num_laps=LAPS,
+              cap=CAP, **opts):
         """The i2LQR headline through ``solver`` (K1 or one wrapping it) or,
-        with ``candidate_solver`` (K3 built with max_iter CAP) and no
-        solver, through the per-candidate path; ``opts``: more of the
-        simulator's options (``retile_frac``, ``tail_shrink``,
-        ``perm_log``)."""
+        with ``candidate_solver`` (K3 built with max_iter ``cap``) and no
+        solver, through the per-candidate path; with neither, through the
+        simulator's default backend; ``opts``: more of the simulator's
+        options (``retile_frac``, ``tail_shrink``, ``perm_log``,
+        ``stall_reseed``, ``sim_step_budget``)."""
         g = torch.Generator(device=self.dev).manual_seed(seed)
         with no_plain_solve_on_card():
             res = simulate_learning_runs_soa(
                 self.params, self.limits, self.scen, self.seed_xs, None, 121,
                 1.0, step_solver=solver, candidate_solver=candidate_solver,
-                generator=g, num_laps=LAPS, max_steps=MAX_STEPS,
-                max_laps=MAX_LAPS, solver_max_iter=CAP, **opts)
-        torch.cuda.synchronize(self.dev)
+                generator=g, num_laps=num_laps, max_steps=MAX_STEPS,
+                max_laps=MAX_LAPS, solver_max_iter=cap, **opts)
+        self.sync()
         return res
 
-    def nlmpc(self, seed, lp, sc, solver, candidate_solver=None, **opts):
+    def nlmpc(self, seed, lp, sc, solver, candidate_solver=None, *,
+              num_laps=LAPS, cap=NL_CAP, retire=NL_RETIRE, **opts):
         """An NLMPC headline of the parameters ``lp`` on the scenarios
         ``sc`` through ``solver`` (K2 or one wrapping it) or, with
-        ``candidate_solver`` (K4 built with max_iters NL_CAP) and no solver,
-        through the per-candidate path; with neither, through the
-        simulator's default backend; ``opts`` as ``i2lqr``'s."""
+        ``candidate_solver`` (K4 built with max_iters ``cap``) and no
+        solver, through the per-candidate path; with neither, through the
+        simulator's default backend; ``retire``: its
+        ``infeasible_retire``; ``opts`` as ``i2lqr``'s."""
         g = torch.Generator(device=self.dev).manual_seed(seed)
         with no_plain_solve_on_card():
             res = simulate_nlmpc_runs_soa(
                 lp, self.nl_limits, sc, self.seed_xs, self.seed_us, 121, 1.0,
                 step_solver=solver, candidate_solver=candidate_solver,
-                generator=g, num_laps=LAPS, max_steps=MAX_STEPS,
-                max_laps=MAX_LAPS, max_lm_iters=NL_CAP,
-                infeasible_retire=NL_RETIRE, **opts)
-        torch.cuda.synchronize(self.dev)
+                generator=g, num_laps=num_laps, max_steps=MAX_STEPS,
+                max_laps=MAX_LAPS, max_lm_iters=cap,
+                infeasible_retire=retire, **opts)
+        self.sync()
         return res

@@ -3,7 +3,9 @@ headlines (experiments/headlines.py's configurations: B lanes, seed lap +
 3 learning laps, f32, plant noise on; i2LQR through K1 at LM cap 16, NLMPC
 spaceVarying through K2 with qsort_skip at cap 12 and infeasible_retire 8)
 on injected noise, unsharded or through the ``_sharded`` wrappers
-(parallel/sharded_soa.py) over a mesh of ranks, and the meshed NLMPC host
+(parallel/sharded_soa.py) over a mesh of ranks, the i2LQR headline at
+TAIL_BATCH lanes over TAIL_LAPS laps with ``tail_shrink`` alone (each
+rank's lanes in the whole run's order), and the meshed NLMPC host
 controller through K4 (f64, zero noise, 2 learning laps).
 
 ``scale_out_rank`` is what each rank of a group started by
@@ -38,6 +40,9 @@ SMALL_BATCH = 2048  # the one-rank NCCL check's batch
 # the JAX package's pinned meshed laps, seed lap first
 # (tests/test_nlmpc.py:153-173)
 MESHED_LAPS = {"space": [120.0, 32.0, 23.0], "all": [120.0, 26.0, 22.0]}
+# the i2LQR ``tail_shrink`` runs: B, learning laps, and the prefixes (one
+# below and one above the 2 048 lanes a rank of 2 holds)
+TAIL_BATCH, TAIL_LAPS, TAILS = 4096, 2, (1024, 3072)
 
 
 def headline_noise(batch: int, dev) -> torch.Tensor:
@@ -83,13 +88,19 @@ def headline_args(which: str, batch: int, dev):
             kernel)
 
 
-def headline(which: str, batch: int, dev, mesh=None) -> dict:
+def headline(which: str, batch: int, dev, mesh=None, **opts) -> dict:
     """The headline ``which`` at ``batch`` lanes, unsharded or (``mesh``)
     through its ``_sharded`` wrapper: the lap-records hash, the completion,
     this process's launches of the kernel (K1 or K2), the wall seconds
     (between barriers of the mesh, the card synchronized) and, sharded,
-    the rank's simulator seconds and the gather's ms."""
+    the rank's simulator seconds and the gather's ms. ``opts``: the
+    simulator's (``num_laps``, ``tail_shrink``); with ``tail_shrink``,
+    whether each lap compacted (``compacted``, this rank's)."""
     sim, sharded, args, kw, kernel = headline_args(which, batch, dev)
+    log = []
+    kw.update(opts)
+    if "tail_shrink" in opts:
+        kw["perm_log"] = log
     stats = {}
     kernel.launches = 0
     sync = torch.cuda.synchronize if dev.type == "cuda" else lambda d: None
@@ -106,6 +117,8 @@ def headline(which: str, batch: int, dev, mesh=None) -> dict:
     out = dict(wall_s=time.perf_counter() - t0, launches=kernel.launches,
                hash=lap_records_hash(res),
                completion=float(res.lap_done.float().mean()), **stats)
+    if log:
+        out["compacted"] = [e["compacted"] for e in log]
     del res
     return out
 
@@ -158,11 +171,13 @@ def gather_probe(mesh, reps: int = 50) -> dict:
     return out
 
 
-def scale_out_rank(batch: int, modes=()) -> dict:
+def scale_out_rank(batch: int, modes=(), tails=()) -> dict:
     """One rank of phase 32: the i2LQR and NLMPC headlines at ``batch``
     lanes through the ``_sharded`` wrappers over the global scenario mesh,
-    then the meshed controller in each of ``modes`` over a mesh of every
-    rank (axis "history") and ``gather_probe``; every rank returns its
+    the i2LQR headline at TAIL_BATCH lanes over TAIL_LAPS laps with
+    ``tail_shrink`` alone at each of ``tails`` (``i2lqr_tail{P}``), then
+    the meshed controller in each of ``modes`` over a mesh of every rank
+    (axis "history") and ``gather_probe``; every rank returns its
     figures."""
     from ilqr_iterative_tasks_torch.parallel.distributed import (
         global_scenario_mesh)
@@ -174,6 +189,10 @@ def scale_out_rank(batch: int, modes=()) -> dict:
                backend=torch.distributed.get_backend())
     for which in ("i2lqr", "nlmpc"):
         out[which] = headline(which, batch, dev, mesh)
+    for tail in tails:
+        out[f"i2lqr_tail{tail}"] = headline(
+            "i2lqr", TAIL_BATCH, dev, mesh, num_laps=TAIL_LAPS,
+            tail_shrink=tail)
     history = make_mesh(axis_name="history")
     for mode in modes:
         out[f"controller_{mode}"] = meshed_controller(mode, history, dev)

@@ -42,12 +42,14 @@ def run_sweep(batch: int, num_laps: int, moving: bool = False,
               seed: int = 0, solver_max_iter: int = 16,
               num_ss_iter: int = 1, num_ss_points: int = 8,
               quiet: bool = False, stall_reseed: int | None = None, *,
-              device=None, draws=None, noise=None, result: list | None = None):
+              device=None, draws=None, noise=None, result: list | None = None,
+              sim_step_budget: int = 121):
     """The sweep's report (the JAX sweep's keys; ``backend`` is the
     device's type). ``draws``: the scenarios' injected jitter draws
     (``SoaScenarios.randomized``), ``noise``: the injected plant-noise
     draws (steps, 2, B). If ``result`` is a list, the run's
-    ``SoaRunResult`` is appended to it."""
+    ``SoaRunResult`` is appended to it. ``sim_step_budget``: a lap's
+    step budget (the simulator's; small runs cut it)."""
     dev = resolve(device)
     dtype = torch.float32
     params = IlqrParams.make(num_ss_iter=num_ss_iter,
@@ -78,7 +80,7 @@ def run_sweep(batch: int, num_laps: int, moving: bool = False,
         params, limits, scenarios, seed_xs, None, 121, 1.0,
         num_laps=num_laps, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
         solver_max_iter=solver_max_iter, stall_reseed=stall_reseed,
-        noise=noise, generator=noise_gen)
+        noise=noise, generator=noise_gen, sim_step_budget=sim_step_budget)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.time() - t0

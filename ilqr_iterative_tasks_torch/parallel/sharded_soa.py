@@ -37,16 +37,23 @@ The two noise semantics differ, as in the JAX package:
 
 The simulators' options pass through in ``kw``, ``retile_frac`` and
 ``tail_shrink`` included (as JAX's wrappers pass them,
-ilqr_iterative_tasks_tpu/parallel/sharded_soa.py:39-54): each rank
-permutes its own columns (its retile block ``retile_frac`` x its lanes;
-``tail_shrink`` a prefix of its lanes, below their count) and, where the
-simulator routes the draws (the NLMPC one under either option, the i2LQR
-one under ``retile_frac``), routes its own columns' draws by its own lane
-ids, so the ``_sharded`` result stays the unsharded run's bit for bit (of
-``iter_stats`` the useful trips). The i2LQR simulator with ``tail_shrink``
-alone gives the lane at position p of a compacted lap draw p, as JAX's
-does, so there each rank's compaction of its own columns makes the
-``_sharded`` run another than the unsharded one, as it is in JAX.
+ilqr_iterative_tasks_tpu/parallel/sharded_soa.py:39-54), and with every
+option the ``_sharded`` result is the unsharded run's bit for bit (of
+``iter_stats`` the useful trips); ``tail_shrink`` P need only be below
+the whole batch B. Where the simulator routes the draws (the NLMPC one
+under either option, the i2LQR one under ``retile_frac``), a lane's draw
+does not depend on its position: each rank permutes its own columns (its
+retile block ``retile_frac`` x its lanes; ``tail_shrink`` a prefix of its
+lanes, none where P holds them all) and routes its own columns' draws by
+its own lane ids. The i2LQR simulator with ``tail_shrink`` alone gives the
+lane at position p of the lap's order draw p, and carries that order from
+one lap into the next, so there the ranks keep the whole run's order
+(``SpreadLanes``): every rank steps until no lane of any rank runs (one
+gather of three counts a step), the compaction fires on the whole run's
+not-done count, a gather of each lane's class and position gives each
+lane its place in the whole run's stable order, each lane takes its
+column of the whole (2, B) draw, and the ranks run all laps in one call;
+each rank's kernel runs over its own lanes' prefix, min(P, B/n).
 
 ``stats`` (a dict, optional) receives ``run_s`` (the rank's seconds in its
 simulator calls) and ``gather_ms`` (the gather of the result).
@@ -121,6 +128,43 @@ class ColumnDraws:
         return self.last[:, self.cols]
 
 
+class SpreadLanes:
+    """The unsharded run's lane order on one rank of a ``_sharded`` i2LQR
+    run with ``tail_shrink`` alone (the simulator's ``_spread``, read by
+    ``batched_soa.LaneOrder``). ``pos`` holds, for each of this rank's
+    lanes in the rank's own order (permuted with them), its position in
+    the whole run's order. ``counts`` adds a step's counts of every rank;
+    ``reorder`` gathers each lane's class at the compaction (active,
+    skipped but not done, done) with its position and moves every lane
+    to its place in the whole run's stable order by class, as the
+    unsharded run's argsort does; ``draw`` takes each lane's column of a
+    whole (2, B) noise row, so the lane at position p takes draw p."""
+
+    def __init__(self, mesh: Mesh, axis: str, b: int, cols: slice, device):
+        self.mesh, self.axis, self.b = mesh, axis, b
+        self.pos = torch.arange(cols.start, cols.stop, device=device)
+
+    def counts(self, local: torch.Tensor) -> list:
+        """This rank's counts (a 1-d int64 tensor) and every rank's sums,
+        in one host read."""
+        whole = torch.stack(self.mesh.all_gather(local, self.axis)).sum(0)
+        return torch.cat([local, whole]).tolist()
+
+    def reorder(self, key: torch.Tensor) -> None:
+        """Every lane's position after the compaction by class ``key``."""
+        mine = torch.stack([key.to(self.pos.dtype), self.pos])
+        keys, pos = torch.cat(self.mesh.all_gather(mine, self.axis), dim=1)
+        by_pos = torch.empty_like(keys)
+        by_pos[pos] = keys
+        src = torch.argsort(by_pos, stable=True)
+        to = torch.empty_like(src)
+        to[src] = torch.arange(self.b, device=src.device)
+        self.pos = to[self.pos]
+
+    def draw(self, z: torch.Tensor) -> torch.Tensor:
+        return z[:, self.pos]
+
+
 def gather_result(res, mesh: Mesh, axis: str = "scenario", stats=None):
     """The global result on every rank: every per-lane field of this
     rank's ``res`` gathered along the trailing axis in mesh order;
@@ -152,7 +196,7 @@ def _max_rows(rows, mesh, axis, device):
 
 
 def _sharded(sim, params, limits, scenarios, seed_xs, seed_us, seed_len, dt,
-             mesh, axis, stats, kw):
+             mesh, axis, stats, kw, spread=False):
     local = shard_soa_scenarios(scenarios, mesh, axis)
     dev, dtype = local.x0.device, local.x0.dtype
     if dev.type == "cuda":
@@ -161,10 +205,22 @@ def _sharded(sim, params, limits, scenarios, seed_xs, seed_us, seed_len, dt,
     cols = shard_columns(b, mesh, axis)
     noise, generator = kw.pop("noise", None), kw.pop("generator", None)
     resume, num_laps = kw.pop("resume_from", None), kw.pop("num_laps")
+    tail = kw.get("tail_shrink")
+    if tail is not None and not 0 < tail < b:
+        raise ValueError(f"tail_shrink={tail} must be < batch {b} (the "
+                         f"whole run's, over {mesh.axis_size(axis)} ranks)")
+    spread = spread and tail is not None and kw.get("retile_frac") is None
+    if spread:  # the whole run's order: whole noise rows, one call
+        kw["_spread"] = SpreadLanes(mesh, axis, b, cols, dev)
+        cols_drawn = slice(0, b)
+    else:  # draws routed by lane id: a rank's own prefix, if any
+        cols_drawn = cols
+        if tail is not None and tail >= cols.stop - cols.start:
+            kw["tail_shrink"] = None
     if noise is not None:
-        source = noise[..., cols].contiguous()
+        source = noise if spread else noise[..., cols].contiguous()
     elif generator is not None:
-        source = ColumnDraws(generator, b, cols, dtype, dev)
+        source = ColumnDraws(generator, b, cols_drawn, dtype, dev)
     else:
         source = None
     state = None
@@ -175,10 +231,12 @@ def _sharded(sim, params, limits, scenarios, seed_xs, seed_us, seed_len, dt,
                  row if source is not None else None)
     t0 = time.perf_counter()
     laps = []
-    for _ in range(max(num_laps, 1)):
+    # lap by lap (the ranks agree on each lap's noise rows in between),
+    # but a spread run in one call: its ranks step together
+    for _ in range(1 if spread else max(num_laps, 1)):
         res = sim(params, limits, local, seed_xs, seed_us, seed_len, dt,
-                  num_laps=min(num_laps, 1), noise=source,
-                  resume_from=state, **kw)
+                  num_laps=num_laps if spread else min(num_laps, 1),
+                  noise=source, resume_from=state, **kw)
         rows = res.final_key
         if rows is not None:
             rows = _max_rows(rows, mesh, axis, dev)
@@ -235,11 +293,11 @@ def simulate_learning_runs_soa_sharded(params, limits, scenarios, seed_xs,
                                        axis: str = "scenario", stats=None,
                                        **kw):
     """Scenario-sharded i2LQR learning runs, bit for bit the unsharded run
-    (``batched_soa.simulate_learning_runs_soa``; its options in ``kw``)
-    but where ``tail_shrink`` alone compacts a lap (module docstring)."""
+    (``batched_soa.simulate_learning_runs_soa``; its options in ``kw``,
+    ``tail_shrink`` alone included: module docstring)."""
     return _sharded(lambda *a, **k: batched_soa.simulate_learning_runs_soa(
         *a, **k), params, limits, scenarios, seed_xs, seed_us, seed_len, dt,
-        mesh, axis, stats, kw)
+        mesh, axis, stats, kw, spread=True)
 
 
 def simulate_nlmpc_runs_soa_sharded(params, limits, scenarios, seed_xs,

@@ -7,6 +7,8 @@ Each runs on every rank of the group and returns CPU tensors and numbers.
 Imports only the port (tests/test_torch_no_jax.py scans this file).
 """
 
+from dataclasses import replace
+
 import numpy as np
 import torch
 
@@ -38,6 +40,11 @@ STATS_KW = dict(I2LQR_KW, num_laps=2, sim_step_budget=20)
 STATS_WIDTH = 8
 # the lane permutations of the options runs (each rank its own 8 lanes)
 OPTIONS = dict(retile_frac=0.25, tail_shrink=4)
+# ``tail_shrink`` alone over two laps of at most 25 steps on the
+# staggered scenarios (``tail_setup``): a prefix below a rank's share of
+# SHARDED_B and one at or above it
+TAIL_KW = dict(num_laps=2, max_steps=128, max_laps=4, sim_step_budget=25)
+TAILS = (4, 12)
 
 
 def stats_solver(ip, lim):
@@ -66,6 +73,36 @@ def setup(b):
             SystemLimits.make(dtype=F64, device=CPU), seed_xs, seed_us, scen)
 
 
+def tail_setup(b, nlmpc=False):
+    """(params, limits, seed_xs, seed_us, scenarios, the LM cap keyword):
+    ``setup(b)``, i2LQR's or (``nlmpc``) NLMPC's, with each lane starting
+    at another state of the seed lap (rows 80-118, in an order drawn from
+    numpy's seed 0), so that the lanes end each lap at different steps and
+    a ``tail_shrink`` lap compacts in the first learning lap already."""
+    ip, lp, lim, seed_xs, seed_us, scen = setup(b)
+    rows = np.random.default_rng(0).permutation(
+        np.linspace(80, 118, b).round().astype(int))
+    x0 = torch.tensor(seed_xs[rows].T.copy())
+    return (lp if nlmpc else ip, lim, seed_xs, seed_us,
+            replace(scen, x0=x0),
+            dict(max_lm_iters=CAP) if nlmpc else dict(solver_max_iter=CAP))
+
+
+def tail_run(params, lim, sx, su, scen, cap_kw, tail, sim, *args, **kw):
+    """The run ``sim`` (unsharded, or a ``_sharded`` wrapper with its mesh
+    in ``args``) with ``tail_shrink=tail`` alone over TAIL_KW's laps on
+    the injected ``global_noise``, beside its permutation log; a run that
+    raises gives the error's text instead."""
+    log = []
+    try:
+        res = sim(params, lim, scen, sx, su, 121, 1.0, *args,
+                  noise=global_noise(SHARDED_B), tail_shrink=tail,
+                  perm_log=log, **cap_kw, **kw, **TAIL_KW)
+    except ValueError as err:
+        return f"{type(err).__name__}: {err}"
+    return res, log
+
+
 def global_noise(b, seed=5):
     """Injected standard-normal draws (NOISE_ROWS, 2, b) from numpy."""
     return torch.tensor(np.random.default_rng(seed).normal(
@@ -90,7 +127,9 @@ def sharded_runs():
     counts (``stats_solver``), ranks 2-3 NLMPC on that noise (with its
     streak statistics) and then NLMPC over 3 laps on a generator of seed
     7; the first i2LQR run and the last NLMPC run again with OPTIONS,
-    each beside its permutation log."""
+    each beside its permutation log; ranks 0-1 then i2LQR with
+    ``tail_shrink`` alone at each of TAILS (``tail_run``), ranks 2-3 NLMPC
+    at the last, a prefix above a rank's lanes."""
     mesh = pair_mesh()
     ip, lp, lim, sx, su, scen = setup(SHARDED_B)
     noise = global_noise(SHARDED_B)
@@ -106,6 +145,10 @@ def sharded_runs():
         out["i2lqr_options"] = (simulate_learning_runs_soa_sharded(
             ip, lim, scen, sx, su, 121, 1.0, mesh, noise=noise,
             perm_log=log, **OPTIONS, **I2LQR_KW), log)
+        for tail in TAILS:
+            out[f"i2lqr_tail{tail}"] = tail_run(
+                *tail_setup(SHARDED_B), tail,
+                simulate_learning_runs_soa_sharded, mesh)
     else:
         out["nlmpc"] = simulate_nlmpc_runs_soa_sharded(
             lp, lim, scen, sx, su, 121, 1.0, mesh, noise=noise,
@@ -119,6 +162,9 @@ def sharded_runs():
             lp, lim, scen, sx, su, 121, 1.0, mesh,
             generator=torch.Generator().manual_seed(7), perm_log=log,
             **OPTIONS, **dict(NLMPC_KW, num_laps=3)), log)
+        out[f"nlmpc_tail{TAILS[-1]}"] = tail_run(
+            *tail_setup(SHARDED_B, nlmpc=True), TAILS[-1],
+            simulate_nlmpc_runs_soa_sharded, mesh)
     return out
 
 
@@ -196,3 +242,14 @@ def fail_on_rank_1():
     if dist.get_rank() == 1:
         raise RuntimeError("rank 1 fails on purpose")
     dist.barrier()
+
+
+def sharded_i2lqr(args, kw):
+    """The i2LQR ``_sharded`` run of ``args`` (params, limits, scenarios,
+    seed_xs, seed_us, seed_len, dt: the port's objects) and keywords
+    ``kw`` over every rank (tests/test_torch_retile_jax.py: JAX's run on
+    JAX's draws); rank 0's gathered result and its permutation log."""
+    log = []
+    res = simulate_learning_runs_soa_sharded(*args, global_scenario_mesh(),
+                                             perm_log=log, **kw)
+    return (res, log) if torch.distributed.get_rank() == 0 else None

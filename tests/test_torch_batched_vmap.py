@@ -47,19 +47,19 @@ START, JITTER = 108, 0.1
 SEED_LEN = 121
 
 
-def seed_lap():
-    """The nominal seed lap: (seed_xs, seed_us, x0 at row START, goal)
+def seed_lap(start=START):
+    """The nominal seed lap: (seed_xs, seed_us, x0 at row ``start``, goal)
     numpy, padded to MAX_STEPS rows."""
     xcl, ucl = j_seed(1.0)
     seed_xs, seed_us = np.zeros((MAX_STEPS, 4)), np.zeros((MAX_STEPS, 2))
     seed_xs[:SEED_LEN], seed_us[:SEED_LEN - 1] = xcl, ucl
-    return seed_xs, seed_us, xcl[START], xcl[-1]
+    return seed_xs, seed_us, xcl[start], xcl[-1]
 
 
-def jax_scenarios(key=3, dtype=jnp.float64, batch=B):
+def jax_scenarios(key=3, dtype=jnp.float64, batch=B, start=START):
     """JAX's scenario batch (x0 jittered, noise on) and the jitter draws
     it took (keys[0], control/batched.py:266-271)."""
-    _, _, x0, goal = seed_lap()
+    _, _, x0, goal = seed_lap(start)
     obstacle = JObstacle.make(31.0, -2.0, 8.0, 6.0, dtype=dtype)
     k = jax.random.PRNGKey(key)
     sc = j_scenarios(x0, goal, obstacle, batch, k, x0_jitter=JITTER,
@@ -93,10 +93,10 @@ KW = dict(num_laps=LAPS, max_steps=MAX_STEPS, max_laps=MAX_LAPS,
           sim_step_budget=BUDGET)
 
 
-def _inputs():
-    sc, z = jax_scenarios()
+def _inputs(start=START, laps=LAPS):
+    sc, z = jax_scenarios(start=start)
     seed_xs, seed_us, _, _ = seed_lap()
-    draws = lane_draws(sc.noise_key, LAPS * BUDGET)
+    draws = lane_draws(sc.noise_key, laps * BUDGET)
     return (sc, z, seed_xs, seed_us,
             convert.scenario_spec(sc, dtype=F64, device="cpu"),
             torch.from_numpy(draws.copy()))
@@ -161,6 +161,68 @@ def test_nlmpc_tier_matches_jax_on_its_draws():
                                **KW)
     _held(got, want)
     assert got.lap_done.any() and not got.lap_done.all()
+
+
+# the repair pass over the cross-lap code at nsi 2 and k 8 (lap_rows,
+# knn_candidates, select_candidate against JAX batched.py:124-165 and
+# batched_nlmpc.py:86-91): three learning laps from seed row 116, whose
+# laps are shorter than k, so that each tier meets the first learning
+# lap's clipped, invalid lap id -1, a stored lap shorter than k (overflow
+# Qfun +inf) and an exact tie between the two laps' least costs
+NSI2, K8, START_SHORT, LAPS_SHORT = 2, 8, 116, 3
+
+
+@pytest.mark.parametrize("tier", ["i2lqr", "nlmpc"])
+def test_tiers_at_nsi_2_and_k_8_match_jax(tier, monkeypatch):
+    from ilqr_iterative_tasks_torch.control import batched, batched_nlmpc
+    sc, _, seed_xs, seed_us, tsc, draws = _inputs(START_SHORT, LAPS_SHORT)
+    kw = dict(KW, num_laps=LAPS_SHORT)
+    jl = JLimits.make(dtype=jnp.float64)
+    tl = convert.system_limits(jl, device="cpu")
+    seen = []
+    select = batched.select_candidate
+
+    def tapped(cost, q, idx, rows):
+        seen.append((cost, q, rows.valid))
+        return select(cost, q, idx, rows)
+
+    monkeypatch.setattr(batched, "select_candidate", tapped)
+    monkeypatch.setattr(batched_nlmpc, "select_candidate", tapped)
+    if tier == "i2lqr":
+        jp = JParams.make(num_ss_points=K8, num_ss_iter=NSI2,
+                          max_ilqr_iter=CAP, dtype=jnp.float64)
+        want = j_i2lqr(jp, jl, sc, jnp.asarray(seed_xs),
+                       jnp.asarray(seed_us), SEED_LEN, 1.0, **kw)
+        tp = convert.ilqr_params(jp, device="cpu")
+        k3 = build_fused_ilqr(tp, tl, 1.0, num_horizon=tp.num_horizon,
+                              max_iter=tp.max_ilqr_iter)
+        got = simulate_learning_batch(tp, tl, tsc, seed_xs, seed_us,
+                                      SEED_LEN, 1.0, candidate_solver=k3,
+                                      noise=draws, **kw)
+        np.testing.assert_allclose(got.final_x.numpy(),
+                                   np.asarray(want.final_x), atol=TOL, rtol=0)
+    else:
+        jp = JLmpc.make(num_ss_points=K8, num_ss_iter=NSI2)
+        want = j_nlmpc(jp, jl, sc, jnp.asarray(seed_xs),
+                       jnp.asarray(seed_us), SEED_LEN, 1.0, **kw)
+        got = simulate_nlmpc_batch(convert.lmpc_params(jp, device="cpu"), tl,
+                                   tsc, seed_xs, seed_us, SEED_LEN, 1.0,
+                                   noise=draws, **kw)
+    _held(got, want)
+    first = sum(int((~valid).any()) for _, _, valid in seen)
+    short = sum(int((~torch.isfinite(q[:, valid])).any())
+                for _, q, valid in seen)
+    ties = 0
+    for cost, _, valid in seen:
+        least = cost.amin(dim=2)
+        if valid.all():
+            ties += int(((least[:, 0] == least[:, 1])
+                         & torch.isfinite(least[:, 0])).sum())
+    print(f"{tier}: laps {got.lap_steps.tolist()}, selections "
+          f"{len(seen)}: first lap {first}, a lap shorter than k {short}, "
+          f"lane ties between the laps {ties}")
+    assert first > 0 and short > 0 and ties > 0
+    assert (got.safe_set.lap_len[:, 1:] < K8).any()
 
 
 def test_lane_noise_is_each_scenario_s_own():

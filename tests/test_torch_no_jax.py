@@ -5,7 +5,8 @@ two steps of each host controller, tiny generic-system solves (the two
 3-input tasks of generic_bench.k5_task among them), the sharded kNN and
 a sharded NLMPC run on a one-rank mesh, both vmap tiers (the i2LQR one
 sharded on that mesh) and the candidate sweep on one rank on the CPU
-(experiments/batch_probe.py imported), and check that no module
+(experiments/batch_probe.py imported), the round-4 and round-5 probes
+(one's ``permute`` at 8 lanes), and check that no module
 of jax or of ``ilqr_iterative_tasks_tpu`` was loaded. A source scan holds
 the same rule for every file of the port, for chip_smoke.py and for the
 multi-process tests' rank functions (tests/_torch_distributed_worker.py),
@@ -144,6 +145,11 @@ us, xs, cost, idx = sharded.sharded_candidate_sweep(
     mesh=sharded.local_mesh("candidate", cpu))
 assert us.shape == (6, 2) and xs.shape == (7, 4) and int(idx) == 0
 assert callable(batch_probe.run)
+from ilqr_iterative_tasks_torch.experiments import round4_probe, round5_probe
+assert len(round4_probe.COMMANDS) + len(round5_probe.COMMANDS) == 14
+p = round5_probe.main(["permute", "--device", "cpu", "--batch", "8",
+                       "--reps", "0"])
+assert p.lines[-1]["probe"] == "lane_permute_cost", p.lines
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in {FORBIDDEN})
 assert not loaded, loaded
@@ -182,8 +188,8 @@ def test_port_sources_import_no_jax_package():
         f.name for f in files if f.parent.name == "parallel"}
     assert {"batched.py", "batched_nlmpc.py", "safe_set.py"} <= {
         f.name for f in files if f.parent.name == "control"}
-    assert "batch_probe.py" in {f.name for f in files
-                                if f.parent.name == "experiments"}
+    assert {"batch_probe.py", "round4_probe.py", "round5_probe.py"} <= {
+        f.name for f in files if f.parent.name == "experiments"}
     bad = {str(f.relative_to(root)): sorted(set(_imports(f)) & set(FORBIDDEN))
            for f in files}
     bad = {f: names for f, names in bad.items() if names}

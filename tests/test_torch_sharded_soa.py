@@ -10,10 +10,12 @@ lap on the same injected noise, and NLMPC over three laps on a generator
 keeping its columns, the ranks agreeing on each lap's rows). Every rank's
 gathered result must equal the unsharded run bit for bit: lap steps, done
 flags, final states, the safe set, ``streaks``, the lap count and the
-noise position; and an i2LQR run over two short laps through a K1 that
-counts
-(``with_stats``) gathers the unsharded run's ``iter_stats``. Meanwhile
-this process computes the unsharded runs.
+noise position; an i2LQR run over two short laps through a K1 that
+counts (``with_stats``) gathers the unsharded run's ``iter_stats``; and
+i2LQR with ``tail_shrink`` alone over two laps (staggered starts, so that
+both laps compact), at a prefix below a rank's share and at one above it,
+is the unsharded run too. Meanwhile this process computes the unsharded
+runs.
 One-rank meshes (no group) and the column bookkeeping run in process.
 """
 
@@ -32,8 +34,8 @@ from ilqr_iterative_tasks_torch.parallel.launch import Ranks
 from ilqr_iterative_tasks_torch.parallel.mesh import Mesh, make_mesh
 from ilqr_iterative_tasks_torch.parallel.sharded_soa import (
     ColumnDraws, shard_seed, shard_soa_scenarios,
-    simulate_learning_runs_soa_shardmap, simulate_nlmpc_runs_soa_shardmap,
-    simulate_nlmpc_runs_soa_sharded)
+    simulate_learning_runs_soa_shardmap, simulate_learning_runs_soa_sharded,
+    simulate_nlmpc_runs_soa_shardmap, simulate_nlmpc_runs_soa_sharded)
 
 torch.set_num_threads(1)
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -57,7 +59,13 @@ def _unsharded():
         i2lqr_stats=simulate_learning_runs_soa(
             ip, lim, scen, sx, su, 121, 1.0, noise=noise,
             step_solver=w.stats_solver(ip, lim),
-            **w.STATS_KW))
+            **w.STATS_KW),
+        **{f"i2lqr_tail{tail}": w.tail_run(*w.tail_setup(w.SHARDED_B), tail,
+                                            simulate_learning_runs_soa)
+           for tail in w.TAILS},
+        **{f"nlmpc_tail{w.TAILS[-1]}": w.tail_run(
+            *w.tail_setup(w.SHARDED_B, nlmpc=True), w.TAILS[-1],
+            simulate_nlmpc_runs_soa)})
 
 
 @pytest.fixture(scope="module")
@@ -142,6 +150,43 @@ def test_sharded_run_with_lane_permutations_is_the_unsharded_run(
     assert run == "i2lqr" or any(e["compacted"] for e in log)
 
 
+@pytest.mark.parametrize("index", [0, 1])
+@pytest.mark.parametrize("tail", w.TAILS)
+def test_sharded_tail_shrink_alone_is_the_unsharded_run(runs, tail, index):
+    """``tail_shrink`` alone through the i2LQR ``_sharded`` wrapper over two
+    laps, at a prefix below a rank's 8 lanes and at one above: the
+    compaction is the unsharded run's (its trigger on the global not-done
+    count, each lane at its global position, the lane at position p taking
+    column p of the global draw, the lane order carried into the next
+    lap), so every rank's gathered run equals the unsharded run bit for
+    bit, the noise position included."""
+    got, want = runs
+    g = got[index][f"i2lqr_tail{tail}"]
+    assert not isinstance(g, str), g
+    (g, log), (v, want_log) = g, want[f"i2lqr_tail{tail}"]
+    assert_same_run(g, v)
+    assert g.final_key == v.final_key and isinstance(g.final_key, int)
+    assert [e["compacted"] for e in want_log] == [True, True]
+    assert any(e["compacted"] for e in log)
+
+
+@pytest.mark.parametrize("index", [0, 1])
+def test_sharded_nlmpc_takes_a_prefix_above_a_rank_s_lanes(runs, index):
+    """The NLMPC ``_sharded`` wrapper with ``tail_shrink`` 12 over 8 lanes
+    a rank (JAX's wrapper takes any P below B): the NLMPC simulator routes
+    its draws by lane id, so a rank whose lanes all fit the prefix runs
+    them without one, and the gathered run is the unsharded run with the
+    option, bit for bit."""
+    got, want = runs
+    tail = w.TAILS[-1]
+    g = got[2 + index][f"nlmpc_tail{tail}"]
+    assert not isinstance(g, str), g
+    (g, log), (v, want_log) = g, want[f"nlmpc_tail{tail}"]
+    assert_same_run(g, v)
+    assert g.final_key == v.final_key
+    assert any(e["compacted"] for e in want_log) and not log
+
+
 def test_the_runs_exercise_what_they_check(runs):
     """In a lap before the last, the two ranks' lanes end at different
     steps (so the next lap's noise rows must be agreed), and the streaks
@@ -174,11 +219,19 @@ def test_shard_soa_scenarios_takes_the_rank_s_columns():
         shard_soa_scenarios(w.setup(10)[-1], _mesh(0, 4))
 
 
-def test_one_rank_mesh_needs_no_group_and_is_the_unsharded_run():
+def test_one_rank_mesh_needs_no_group_and_is_the_unsharded_run(runs):
     """Without a process group, make_mesh() is one rank: the ``_sharded``
-    NLMPC run over 2 laps on a generator equals the unsharded run, and the
-    ``_shardmap`` run is the unsharded run on shard 0's seed."""
+    NLMPC run over 2 laps on a generator equals the unsharded run, so does
+    the ``_sharded`` i2LQR run with ``tail_shrink`` alone over 2 laps (its
+    lane order carried from one lap into the next), and the ``_shardmap``
+    run is the unsharded run on shard 0's seed."""
     mesh = make_mesh()
+    tail = w.TAILS[0]
+    got = w.tail_run(*w.tail_setup(w.SHARDED_B), tail,
+                     simulate_learning_runs_soa_sharded, mesh)
+    (got, _), (want, _) = got, runs[1][f"i2lqr_tail{tail}"]
+    assert_same_run(got, want)
+    assert got.final_key == want.final_key
     assert (mesh.size, mesh.axis_index(), mesh.device.type) == (1, 0, "cpu")
     _, lp, lim, sx, su, scen = w.setup(4)
     kw = dict(w.NLMPC_KW, num_laps=2, sim_step_budget=30)
